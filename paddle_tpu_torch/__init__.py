@@ -1,0 +1,16 @@
+"""paddle_tpu_torch: the PyTorch / CUDA port of ``paddle_tpu`` for NVIDIA
+Hopper (H100).
+
+The JAX package ``paddle_tpu`` stays the reference; this package mirrors
+its module paths (``paddle_tpu_torch/ops/flash_attention.py`` is the
+counterpart of ``paddle_tpu/ops/flash_attention.py``, and so on) and
+imports neither JAX nor anything of ``paddle_tpu``.  Every Pallas TPU
+kernel on a ported path is a hand-written CUDA kernel under ``csrc/``,
+built with ``nvcc`` on first use.
+
+Ported so far (the serving slice): GPT causal LM inference, the paged KV
+cache and the continuous-batching :class:`~.serving.ServingEngine`.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,5 @@
+"""paddle_tpu_torch.nn.functional (counterpart of
+``paddle_tpu/nn/functional``)."""
+
+from .activation import gelu  # noqa: F401
+from .attention import scaled_dot_product_attention  # noqa: F401

@@ -1,0 +1,62 @@
+"""Attention functionals (counterpart of
+``paddle_tpu/nn/functional/attention.py``).
+
+``scaled_dot_product_attention`` takes the paddle layout
+``[batch, seq, heads, head_dim]``.  A CUDA call with no mask, no dropout,
+4-D inputs and as many kv heads as query heads goes to the hand-written
+flash kernel (``ops/flash_attention``) at every sequence length; any other
+CUDA call raises ``NotImplementedError`` rather than run a plain path on
+the card.  CPU tensors take :func:`_sdpa_ref`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...ops.flash_attention import flash_attention_bshd, supported
+
+
+def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale, training):
+    """Plain attention, ``[B, S, H, D]`` in and out: logits in q's dtype,
+    softmax in f32, bottom-right causal mask, bool (keep) or additive
+    mask, inverted dropout on the probabilities when training."""
+    d = q.shape[-1]
+    s = scale if scale is not None else 1.0 / (d ** 0.5)
+    qT, kT, vT = (x.transpose(1, 2) for x in (q, k, v))     # [B, H, S, D]
+    logits = torch.einsum("bhqd,bhkd->bhqk", qT, kT) * s
+    if causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        cm = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+        logits = logits.masked_fill(~cm, -1e30)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, -1e30)
+        else:
+            logits = logits + mask
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if dropout_p and training:
+        keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
+        probs = torch.where(keep, probs / (1 - dropout_p),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device))
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vT)
+    return out.transpose(1, 2)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None):
+    """paddle layout: (batch, seq, num_heads, head_dim)."""
+    if query.device.type == "cpu":
+        return _sdpa_ref(query, key, value, attn_mask, dropout_p, is_causal,
+                         scale, training)
+    if (attn_mask is None and dropout_p == 0.0 and query.ndim == 4
+            and supported(query.shape, key.shape, is_causal)):
+        return flash_attention_bshd(query, key, value, causal=is_causal,
+                                    scale=scale)
+    raise NotImplementedError(
+        f"scaled_dot_product_attention on {query.device}: the flash kernel "
+        f"takes no mask and no dropout, 4-D [B, S, H, D] inputs with equal "
+        f"q/kv head counts and head_dim <= 256 (got q {tuple(query.shape)}, "
+        f"k {tuple(key.shape)}, mask={attn_mask is not None}, "
+        f"dropout_p={dropout_p})")

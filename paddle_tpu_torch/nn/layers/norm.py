@@ -1,0 +1,27 @@
+"""Normalisation layers (counterpart of ``paddle_tpu/nn/layers/norm.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+class LayerNorm(torch.nn.Module):
+    """Layer norm over the last dims with the TPU package's numerics:
+    statistics in f32, the normalised value cast back to the input dtype
+    before the affine, which runs in the input dtype."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = torch.nn.Parameter(torch.ones(self.normalized_shape))
+        self.bias = torch.nn.Parameter(torch.zeros(self.normalized_shape))
+
+    def forward(self, x):
+        dims = tuple(range(x.ndim - len(self.normalized_shape), x.ndim))
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
+        out = ((xf - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)
+        return out * self.weight.to(x.dtype) + self.bias.to(x.dtype)

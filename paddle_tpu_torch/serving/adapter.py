@@ -1,0 +1,90 @@
+"""Model adapter: what the serving engine runs (counterpart of
+``paddle_tpu/serving/adapter.py``).
+
+:class:`GPTAdapter` reduces a causal LM to two calls over explicit KV
+state — the pool tuple ``(kp, vp)``, each ``[L, P, ps, h, d]``:
+
+- ``prefill(ids, kp, vp, table, lens)`` runs the (right-padded) prompts
+  ``ids [B, S]``, writes their K/V into the pools through ``table [B, NP]``
+  and returns the next-token logits at each row's true last position
+  ``lens[b] - 1``;
+- ``step(last, kp, vp, table, lens)`` runs one decode token per slot at
+  each slot's OWN position ``lens[b]`` (iteration-level batching),
+  attention through the paged kernel.
+
+Both return ``(logits [B, V] f32, kp, vp)``.  The TPU package donated the
+pools into each compiled call and got new arrays back; here the layers
+write the per-layer views ``kp[i]`` IN PLACE, so the returned pools are
+the same tensors (there is no re-stacking step).  Both run under
+``torch.inference_mode``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class GPTAdapter:
+    """Adapter for :class:`paddle_tpu_torch.text.models.GPTForCausalLM`
+    (any model with the same ``.gpt`` decoder and the "served" cache)."""
+
+    #: GPTDecoderLayer cache-variant tag this adapter drives
+    tag = "served"
+
+    def __init__(self, model, page_size=16):
+        self.model = model
+        self.gpt = model.gpt
+        blk = self.gpt.layers[0]
+        self.num_layers = len(self.gpt.layers)
+        self.head_dim = blk.head_dim
+        self.num_kv_heads = blk.qkv.weight.shape[0] // (3 * blk.head_dim)
+        wte = self.gpt.word_embeddings.weight
+        self.dtype = wte.dtype
+        self.device = wte.device
+        self.max_model_len = self.gpt.position_embeddings.weight.shape[0]
+        self.page_size = int(page_size)
+
+    # ----------------------------------------------------------- pool hooks
+    def init_pools(self, num_pages):
+        """Zeroed per-layer K/V pools ``(kp, vp)``, each [L, P, ps, h, d]."""
+        shape = (self.num_layers, int(num_pages), self.page_size,
+                 self.num_kv_heads, self.head_dim)
+        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    def page_bytes(self):
+        """Device bytes ONE page costs across all layers, K and V."""
+        return (2 * self.num_layers * self.page_size * self.num_kv_heads
+                * self.head_dim * torch.empty((), dtype=self.dtype).element_size())
+
+    def _layer_caches(self, pools, table, lens):
+        """Per-layer GPTDecoderLayer cache tuples: views into the pools."""
+        kp, vp = pools
+        return [(self.tag, kp[i], vp[i], table, lens)
+                for i in range(self.num_layers)]
+
+    def _run(self, ids, pools, table, lens, pos_ids):
+        """Hidden states ``[B, S, H]`` and the tied LM-head weights; the
+        pools are written in place."""
+        x, _ = self.gpt(ids, position_ids=pos_ids,
+                        cache=self._layer_caches(pools, table, lens))
+        return x, self.gpt.word_embeddings.weight
+
+    # ------------------------------------------------------------- closures
+    @torch.inference_mode()
+    def prefill(self, ids, kp, vp, table, lens):
+        S = ids.shape[1]
+        pos_ids = torch.arange(S, dtype=torch.int64, device=ids.device)[None, :]
+        x, w = self._run(ids, (kp, vp), table, lens, pos_ids)
+        # logits at each row's LAST REAL position (rows are right-padded)
+        idx = (lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+        h = torch.gather(x, 1, idx)[:, 0]
+        logits = h.float() @ w.float().T
+        return logits, kp, vp
+
+    @torch.inference_mode()
+    def step(self, last, kp, vp, table, lens):
+        pos_ids = lens[:, None].long()
+        x, w = self._run(last, (kp, vp), table, lens, pos_ids)
+        logits = x[:, -1].float() @ w.float().T
+        return logits, kp, vp

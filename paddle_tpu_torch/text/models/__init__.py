@@ -1,0 +1,4 @@
+"""paddle_tpu_torch.text.models (counterpart of ``paddle_tpu/text/models``)."""
+
+from .convert import load_paddle_tpu_state_dict  # noqa: F401
+from .gpt import GPTDecoderLayer, GPTForCausalLM, GPTModel  # noqa: F401

@@ -1,0 +1,152 @@
+"""PyTorch port on the card: each hand-written CUDA kernel held against its
+plain PyTorch version on CUDA tensors, and the tiny-GPT serving engine on
+the card against the same engine on the CPU.  Marked ``cuda``; every test
+skips (from the ``cuda`` fixture) where no card is present.  Run on a
+machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
+JAX, and that machine may have none):
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.text.models import GPTForCausalLM
+
+pytestmark = pytest.mark.cuda
+
+ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (17, 17, 64, True), (300, 300, 64, True), (64, 320, 64, True),
+    (300, 300, 64, False), (256, 256, 128, True), (33, 33, 256, False)])
+def test_flash_kernel_matches_plain(cuda, dtype, sq, sk, d, causal):
+    q = torch.randn(2, sq, 3, d, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(2, sk, 3, d, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(2, sk, 3, d, generator=cuda, device="cuda").to(dtype)
+    n0 = fa.LAUNCHES
+    o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
+    assert fa.LAUNCHES == n0 + 1
+    ref = fa.flash_attention_ref(q, k, v, causal=causal)
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), ref.float(), atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k, causal=causal),
+                               atol=1e-3, rtol=0)
+
+
+def test_flash_kernel_reads_strided_qkv(cuda):
+    """The model's head-major qkv split hands the kernel strided views."""
+    qkv = torch.randn(1, 77, 4, 3, 64, generator=cuda, device="cuda")
+    q, k, v = qkv.unbind(3)
+    o = fa.flash_attention_fn(q, k, v, causal=True)
+    ref = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(o, ref, atol=2e-4, rtol=0)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn(1, 8, 4, 64, device="cuda")
+    kv = torch.randn(1, 8, 2, 64, device="cuda")
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_fn(q, kv, kv, causal=True)          # GQA
+    long_q = torch.randn(1, 16, 4, 64, device="cuda")
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_fn(long_q, q, q, causal=True)       # sq > sk
+
+
+def test_kernels_refuse_calls_that_need_a_gradient(cuda):
+    """No backward yet: a call autograd would differentiate raises instead
+    of returning an output without a gradient; under no_grad it runs."""
+    q = torch.randn(1, 8, 2, 64, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        fa.flash_attention_fn(q, q, q, causal=True)
+    pool = torch.randn(4, 8, 2, 64, device="cuda")
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
+    ln = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    qd = q[0, :2]                                  # [B=2, H=2, D=64]
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        pa.paged_attention(qd, pool, pool, table, ln)
+    with torch.no_grad():
+        fa.flash_attention_fn(q, q, q, causal=True)
+        pa.paged_attention(qd, pool, pool, table, ln)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,hkv,ps", [(12, 12, 16), (12, 4, 16), (8, 1, 8),
+                                      (4, 2, 32)])
+def test_paged_kernel_matches_plain(cuda, dtype, h, hkv, ps):
+    NP, d = 12, 64
+    lens = [0, 1, ps - 1, ps, ps + 1, NP * ps, 5 * ps + 3, NP * ps + 9]
+    B = len(lens)
+    table = torch.randperm(B * NP, generator=cuda, device="cuda")
+    table = table.to(torch.int32).reshape(B, NP)
+    kp = torch.randn(B * NP, ps, hkv, d, generator=cuda, device="cuda").to(dtype)
+    vp = torch.randn(B * NP, ps, hkv, d, generator=cuda, device="cuda").to(dtype)
+    q = torch.randn(B, h, d, generator=cuda, device="cuda").to(dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n0 = pa.LAUNCHES
+    o = pa.paged_attention(q, kp, vp, table, ln)
+    assert pa.LAUNCHES == n0 + 1
+    ref = pa.paged_attention_ref(q, kp, vp, table, ln)
+    torch.testing.assert_close(o.float(), ref.float(), atol=ATOL[dtype], rtol=0)
+    assert bool((o[0] == 0).all())
+    # NaN in every dead page: never read, so the output is unchanged
+    for b, n in enumerate(lens):
+        dead = table[b, -(-n // ps):].long()
+        kp[dead] = float("nan")
+        vp[dead] = float("nan")
+    o2 = pa.paged_attention(q, kp, vp, table, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o)
+
+
+def test_paged_kernel_reads_strided_q(cuda):
+    qkv = torch.randn(4, 6, 3, 32, generator=cuda, device="cuda")
+    q = qkv[:, :, 0]
+    kp = torch.randn(9, 8, 6, 32, generator=cuda, device="cuda")
+    vp = torch.randn(9, 8, 6, 32, generator=cuda, device="cuda")
+    table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(4, 2)
+    ln = torch.tensor([3, 16, 9, 1], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(pa.paged_attention(q, kp, vp, table, ln),
+                               pa.paged_attention_ref(q, kp, vp, table, ln),
+                               atol=2e-4, rtol=0)
+
+
+def test_engine_on_card_matches_cpu_engine(cuda):
+    """Tiny random GPT, float32: the card engine's greedy ids equal the CPU
+    engine's, and every prefill / decode step went through the kernels."""
+    cfg = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+               num_attention_heads=2, max_position_embeddings=64)
+    torch.manual_seed(0)
+    cpu = GPTForCausalLM(device="cpu", **cfg)
+    card = GPTForCausalLM(device="cpu", **cfg)
+    card.load_state_dict(cpu.state_dict())
+    prompts = [np.random.RandomState(i).randint(1, 96, n).tolist()
+               for i, n in enumerate((3, 8, 13, 16, 40))]
+
+    def serve(model, device):
+        with ServingEngine(model, device=device, num_slots=3, page_size=8,
+                           max_model_len=64) as eng:
+            hs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+            return [h.result(timeout=120) for h in hs], eng.stats()
+
+    want, _ = serve(cpu, "cpu")
+    k1, k3 = fa.LAUNCHES, pa.LAUNCHES
+    got, st = serve(card, "cuda")
+    assert got == want
+    assert fa.LAUNCHES - k1 == 2 * st["prefills"] > 0
+    assert pa.LAUNCHES - k3 == 2 * st["iteration"] > 0
