@@ -1,26 +1,35 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                  # every phase, as the check runs it
+    python3 chip_smoke.py                  # build,kernels,slice,train
     python3 chip_smoke.py --phases build,kernels
-    python3 chip_smoke.py --phases build,kernels,slice,profile
+    python3 chip_smoke.py --phases build,kernels,slice,train,profile
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line and then its seconds:
 
 1. ``build``   — compile every CUDA kernel from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once), with ptxas's register / shared
    memory / spill report, the card's name and its power limit.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
-   card at the served model's shapes, in bf16 (atol 2e-2) and f32
-   (atol 2e-4, TF32 off); the paged decode kernel also with NaN in every
-   dead page; then time kernel, plain version and (K1) PyTorch's own
-   ``scaled_dot_product_attention`` with CUDA events.
+   card, in bf16 and f32 (TF32 off): K1 and K3 at the served model's
+   shapes (atol 2e-2 / 2e-4), the paged decode kernel also with NaN in
+   every dead page; the flash backward K2a / K2b over lengths 17-1024,
+   causal and full, sq < sk, head_dim 64 / 128, with and without a g_lse
+   term (max error over max |ref| <= 2e-2 / 1e-4), and gradients through
+   K1 + K2 against torch autograd through the plain forward.  Then time
+   kernel, plain version and PyTorch's own call with CUDA events: K1 at
+   the longest prefill, K3 at a decode step, K2 at the training shape.
 3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
    ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
    of 17-900 tokens, 32 new tokens each.  float32 on the card must give
    the CPU engine's greedy ids; bf16 on the card is timed.  The kernels'
    launch counters are zeroed before each run and checked after it.
-4. ``profile`` (only when asked for) — the bf16 slice again under
-   ``torch.profiler``: device time by kernel and the device's idle share.
+4. ``train``   — train GPT-base with ``jit.TrainStep`` (AdamW, global-norm
+   clip 1.0): 3 steps in f32 on the card must give the CPU's losses; then
+   12 bf16 O2 steps at B=8, S=1024 are timed, with K1 = K2a = K2b =
+   12 launches per step checked.
+5. ``profile`` (only when asked for) — the bf16 slice and bf16 training
+   steps under ``torch.profiler``: device time by kernel and the device's
+   idle share.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name / power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -43,10 +52,16 @@ import torch
 PEAK_FLOPS = 989e12        # H100 SXM dense bf16 / fp16 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # max err / max |ref|
 
 # the served model (GPT-base, the JAX package's GPTForCausalLM defaults)
 LAYERS, HEADS, HEAD_DIM, PAGE, MAXLEN, SLOTS = 12, 12, 64, 16, 1024, 8
 NP = MAXLEN // PAGE
+VOCAB, HIDDEN = 50304, 768
+# the training run: batch x sequence of the timed bf16 steps, and of the
+# f32 steps held against the CPU
+TRAIN_B, TRAIN_S, PARITY_B, PARITY_S = 8, 1024, 2, 256
+WARMUP_STEPS, TIMED_STEPS, PARITY_STEPS = 2, 10, 3
 
 
 def emit(obj):
@@ -85,7 +100,8 @@ def phase_build():
     from paddle_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build("flash_attention_fwd", "paged_flash_decode")
+    paths = _build.build("flash_attention_fwd", "flash_attention_bwd",
+                         "paged_flash_decode")
     secs = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in _build.BUILD_LOGS[n].splitlines()
                  if "ptxas" in ln and ("registers" in ln or "spill" in ln
@@ -116,6 +132,106 @@ def _k1_case(gen, dtype, sq, sk, d, causal, heads=HEADS):
     return {"sq": sq, "sk": sk, "d": d, "causal": causal,
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
             "lse_max_abs_err": lse_err, "ok": ok}
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b|, in f32."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse):
+    """q, k, v, g ``[b, S, HEADS, d]`` and the kernel forward's lse with
+    the row correction r = delta (- g_lse)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    def t(s):
+        return torch.randn(b, s, HEADS, d, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, g = t(sq), t(sk), t(sk), t(sq)
+    o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
+    r = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(-1, sq)
+    if g_lse:
+        r = r - torch.randn(r.shape, generator=gen, device="cuda")
+    return q, k, v, g, lse, r.contiguous()
+
+
+def _k2_case(gen, dtype, sq, sk, d, causal, g_lse):
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, lse, r = _k2_inputs(gen, dtype, 1, sq, sk, d, causal, g_lse)
+    scale = d ** -0.5
+    dk, dv = fa._bwd_dkdv_kernel(q, k, v, g, lse, r, scale, causal)
+    dq = fa._bwd_dq_kernel(q, k, v, g, lse, r, scale, causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, causal)
+    errs = {n: _rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                  (dq, dk, dv), ref)}
+    finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    return {"sq": sq, "sk": sk, "d": d, "causal": causal, "g_lse": g_lse,
+            "dtype": str(dtype).split(".")[-1], "rel_err": errs,
+            "ok": finite and max(errs.values()) <= BWD_TOL[dtype]}
+
+
+def _k2_autograd_case(gen):
+    """Gradients through K1 + K2 (the autograd Function), from the model's
+    strided head-major qkv split, against torch autograd through the plain
+    forward; f32."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.randn(2, 300, HEADS, 3, HEAD_DIM, generator=gen, device="cuda")
+    g = torch.randn(2, 300, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    a = qkv.clone().requires_grad_()
+    b = qkv.clone().requires_grad_()
+    fa.flash_attention_fn(*a.unbind(3), causal=True).backward(g)
+    fa.flash_attention_ref(*b.unbind(3), causal=True).backward(g)
+    err = _rel_err(a.grad, b.grad)
+    return {"shape": [2, 300, HEADS, HEAD_DIM], "causal": True,
+            "dtype": "float32", "rel_err": err, "ok": err <= BWD_TOL[torch.float32]}
+
+
+def _library_bwd(q, k, v, g):
+    """One PyTorch call computing dq, dk, dv: the flash-attention backward
+    ATen op on the outputs of its own forward (``[B, H, S, D]`` views)."""
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True, False)
+    out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        gt, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+
+def _k2_timed(gen):
+    """K2a, K2b, the plain backward and the library backward at the
+    training shape (B=8, S=1024, 12 heads, D=64, causal, bf16)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v, g, lse, r = _k2_inputs(gen, torch.bfloat16, B, S, S, HEAD_DIM,
+                                    True, False)
+    scale = HEAD_DIM ** -0.5
+    dk, dv = fa._bwd_dkdv_kernel(q, k, v, g, lse, r, scale, True)
+    dq = fa._bwd_dq_kernel(q, k, v, g, lse, r, scale, True)
+    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, True)
+    pairs = B * HEADS * S * (S + 1) // 2
+    elems = q.numel()                                   # B*S*H*D, bf16
+    reads = 4 * elems * 2 + 2 * B * HEADS * S * 4       # q,k,v,g + lse,r
+    a_bound, a_by = bound(8 * HEAD_DIM * pairs, reads + 2 * elems * 2)
+    b_bound, b_by = bound(6 * HEAD_DIM * pairs, reads + elems * 2)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, g, lse, r,
+                                                          scale, True), iters=5)
+    library_ms = cuda_ms(_library_bwd(q, k, v, g))
+    return {
+        "k2a": {"kernel_ms": cuda_ms(lambda: fa._bwd_dkdv_kernel(
+                    q, k, v, g, lse, r, scale, True)),
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": a_bound, "bound_by": a_by,
+                "max_abs_err": max((dk.float() - rk.float()).abs().max().item(),
+                                   (dv.float() - rv.float()).abs().max().item())},
+        "k2b": {"kernel_ms": cuda_ms(lambda: fa._bwd_dq_kernel(
+                    q, k, v, g, lse, r, scale, True)),
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": b_bound, "bound_by": b_by,
+                "max_abs_err": (dq.float() - rq.float()).abs().max().item()}}
 
 
 def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM):
@@ -180,6 +296,14 @@ def phase_kernels():
     lens = [0, 1, 15, 16, 17, 500, 1024, 777]
     k3 = [_k3_case(gen, dt, lens, HEADS, kvh)
           for dt in (torch.bfloat16, torch.float32) for kvh in (HEADS, 4)]
+    k2_shapes = [(s, s, 64, c, gl) for s in (17, 256, 300, 1024)
+                 for c in (True, False) for gl in (False, True)]
+    k2_shapes += [(64, 320, 64, True, False), (200, 512, 64, True, True),
+                  (256, 256, 128, True, False), (300, 300, 128, False, True),
+                  (1024, 1024, 128, True, True)]
+    k2 = [_k2_case(gen, dt, *sh) for dt in (torch.bfloat16, torch.float32)
+          for sh in k2_shapes]
+    k2.append(_k2_autograd_case(gen))
 
     # times at the served shapes, bf16: K1 at the longest prefill bucket,
     # K3 at a decode step of the slice's first 8 requests
@@ -215,18 +339,24 @@ def phase_kernels():
         "plain_ms": cuda_ms(lambda: pa.paged_attention_ref(qd, kp, vp, table, ln)),
         "library_ms": None, "bound_ms": k3_bound, "bound_by": k3_by,
         "max_abs_err": k3_err, "lens": dlens}
-    ok = all(c["ok"] for c in k1 + k3)
-    emit({"phase": "kernels", "ok": ok, "k1_cases": k1, "k3_cases": k3,
+    k2_time = _k2_timed(gen)
+    ok = all(c["ok"] for c in k1 + k2 + k3)
+    emit({"phase": "kernels", "ok": ok, "k1_cases": k1, "k2_cases": k2,
+          "k3_cases": k3,
           "k1_timed": {"shape": [1, S, HEADS, HEAD_DIM], "causal": True,
                        "dtype": "bfloat16", **k1_time},
+          "k2_timed": {"shape": [TRAIN_B, TRAIN_S, HEADS, HEAD_DIM],
+                       "causal": True, "dtype": "bfloat16",
+                       "plain_and_library_ms_are_for_the_pair": True,
+                       **k2_time},
           "k3_timed": {"B": SLOTS, "heads": HEADS, "page_size": PAGE,
                        "table_width": NP, "dtype": "bfloat16", **k3_time},
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "nvidia_smi": smi_line()})
     if not ok:
         raise SystemExit("kernels phase: a kernel disagrees with its plain "
-                         "version (see the k1_cases / k3_cases above)")
-    return {"k1": k1_time, "k3": k3_time}
+                         "version (see the k1 / k2 / k3 cases above)")
+    return {"k1": k1_time, "k3": k3_time, **k2_time}
 
 
 # ------------------------------------------------------------------- slice
@@ -313,23 +443,131 @@ def phase_slice():
     return counts16
 
 
-def phase_profile():
-    """Where the bf16 slice's time goes: the same 12 requests under
-    ``torch.profiler``, device time by kernel name and the device's idle
-    share of the wall (not part of the default run)."""
-    from torch.profiler import ProfilerActivity, profile
+# ------------------------------------------------------------------- train
+def _trainer(model, amp_level=None):
+    from paddle_tpu_torch import jit, optimizer
 
+    opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=model.parameters(),
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+    return jit.TrainStep(model, opt, loss_fn=None, amp_level=amp_level)
+
+
+def _train_flops_per_token(model):
+    """6 N + 6 L S d: N counts the decoder layers, the final norm and the
+    LM-head matmul (vocab x hidden, tied to the embedding); the second term
+    is the causal attention products (QK^T and PV, forward and backward,
+    half of the S x S square)."""
+    n = sum(p.numel() for p in model.gpt.layers.parameters())
+    n += sum(p.numel() for p in model.gpt.final_ln.parameters())
+    n += VOCAB * HIDDEN
+    return 6 * n + 6 * LAYERS * TRAIN_S * HIDDEN
+
+
+def phase_train():
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
-    prompts, temps = slice_requests()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(0)
+
+    # parity: f32 on the card against a CPU copy of the same model
+    ids = torch.from_numpy(rs.randint(0, VOCAB, (PARITY_B, PARITY_S)))
     torch.manual_seed(0)
-    model = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
-    _serve(model, "cuda", prompts, temps)                 # warm-up
+    cpu_model = GPTForCausalLM(device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    losses = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        step, x = _trainer(model), ids.to(dev)
+        losses[dev] = [step({"input_ids": x, "labels": x}).item()
+                       for _ in range(PARITY_STEPS)]
+    del cpu_model, card_model
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    parity_ok = rel <= 1e-4
+
+    # timed: bf16 O2 at the full training shape, one fixed batch
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda")              # f32 masters
+    step = _trainer(model, amp_level="O2")
+    x = torch.from_numpy(rs.randint(0, VOCAB, (TRAIN_B, TRAIN_S))).to("cuda")
+    batch = {"input_ids": x, "labels": x}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    out = [step(batch) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out += [step(batch) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention_fwd": fa.LAUNCHES,
+              "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+              "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    if counts != dict.fromkeys(counts, LAYERS * steps):
+        raise SystemExit(f"launch counts {counts} != {LAYERS} x {steps} steps: "
+                         f"the training path did not run through the kernels")
+    bf16_losses = [l.item() for l in out]
+    tokens = TRAIN_B * TRAIN_S
+    flops = _train_flops_per_token(model) * tokens
+    step_s = wall / TIMED_STEPS
+    ok = (parity_ok and bf16_losses[-1] < bf16_losses[0]
+          and all(np.isfinite(bf16_losses)))
+    emit({"phase": "train", "ok": ok, "model": "GPT-base 12x768 vocab 50304",
+          "optimizer": "AdamW lr 1e-4 wd 0.01, ClipGradByGlobalNorm(1.0)",
+          "f32_parity": {"B": PARITY_B, "S": PARITY_S, "steps": PARITY_STEPS,
+                         "cpu_losses": losses["cpu"],
+                         "cuda_losses": losses["cuda"],
+                         "max_rel_diff": rel, "rtol": 1e-4, "ok": parity_ok},
+          "bf16_O2": {"B": TRAIN_B, "S": TRAIN_S, "warmup_steps": WARMUP_STEPS,
+                      "timed_steps": TIMED_STEPS, "step_ms": step_s * 1e3,
+                      "tokens_per_s": tokens / step_s,
+                      "flops_per_step": flops,
+                      "flops_formula": "(6 N + 6 L S d) per token, N = layer "
+                                       "+ final-norm params + vocab x hidden",
+                      "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS,
+                      "peak_memory_allocated_bytes":
+                          torch.cuda.max_memory_allocated(),
+                      "first_loss": bf16_losses[0], "last_loss": bf16_losses[-1],
+                      "losses": bf16_losses, "launches": counts},
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("train phase failed: f32 losses differ from the CPU "
+                         "run beyond rtol 1e-4, or the bf16 loss did not fall")
+    return counts
+
+
+# ----------------------------------------------------------------- profile
+PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
+    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K2a flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
+    ("K2b flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K3 paged_flash_decode", ("paged_flash_decode_kernel",)),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("softmax", ("SoftMax",)),
+    ("copies and casts", ("copy_kernel", "direct_copy")),
+)
+
+
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler``: wall, device busy time and idle
+    share, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall, stats = _serve(model, "cuda", prompts, temps)
+        t0 = time.perf_counter()
+        extra = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
+        # device-side events only: a CPU op's row repeats the device time
+        # of the kernels it launched
+        if "CUDA" not in str(e.device_type):
+            continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = e.self_cuda_time_total
@@ -337,18 +575,68 @@ def phase_profile():
             rows.append((t, e.count, e.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
-          "device_idle_share": 1 - busy_us / 1e6 / wall,
-          "decode_steps": stats["iteration"], "prefills": stats["prefills"],
-          "top_device_kernels": [{"name": k[:90], "calls": c,
-                                  "device_ms": t / 1e3}
-                                 for t, c, k in rows[:15]],
-          "nvidia_smi": smi_line()})
+    by_category = {}
+    for t, _, k in rows:
+        cat = next((c for c, keys in PROFILE_CATEGORIES if any(x in k for x in keys)),
+                   "other")
+        by_category[cat] = by_category.get(cat, 0.0) + t / 1e3
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1 - busy_us / 1e6 / wall, **extra,
+            "device_ms_by_category": by_category,
+            "top_device_kernels": [{"name": k[:90], "calls": c,
+                                    "device_ms": t / 1e3}
+                                   for t, c, k in rows[:20]]}
+
+
+def phase_profile():
+    """Where the time goes (not part of the default run): the bf16 slice's
+    12 requests, and 3 bf16 O2 training steps at B=8, S=1024, each under
+    ``torch.profiler`` after a warm-up."""
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    prompts, temps = slice_requests()
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
+    _serve(model, "cuda", prompts, temps)                 # warm-up
+
+    def serve():
+        _, _, stats = _serve(model, "cuda", prompts, temps)
+        return {"decode_steps": stats["iteration"], "prefills": stats["prefills"]}
+
+    serving = _profiled(serve)
+    del model
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda")
+    step = _trainer(model, amp_level="O2")
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, VOCAB, (TRAIN_B, TRAIN_S))).to("cuda")
+    for _ in range(WARMUP_STEPS):
+        step({"input_ids": x, "labels": x})
+
+    def train():
+        for _ in range(3):
+            step({"input_ids": x, "labels": x})
+        return {"steps": 3, "B": TRAIN_B, "S": TRAIN_S}
+
+    emit({"phase": "profile", "serving_bf16": serving,
+          "train_bf16_O2": _profiled(train), "nvidia_smi": smi_line()})
+
+
+KERNELS = (  # key, name, source, TPU kernel it replaces
+    ("k1", "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+     "paddle_tpu/ops/flash_attention.py:112"),
+    ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/flash_attention.py:276"),
+    ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/flash_attention.py:307"),
+    ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
+     "paddle_tpu/ops/paged_attention.py:371"),
+)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice")
+    ap.add_argument("--phases", default="build,kernels,slice,train")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -356,28 +644,27 @@ def main():
         sys.exit(2)
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    times = launches = None
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        times = phase_kernels()
-    if "slice" in phases:
-        launches = phase_slice()
-    if "profile" in phases:
-        phase_profile()
+    results = {}
+    for name, fn in (("build", phase_build), ("kernels", phase_kernels),
+                     ("slice", phase_slice), ("train", phase_train),
+                     ("profile", phase_profile)):
+        if name in phases:
+            t0 = time.perf_counter()
+            results[name] = fn()
+            emit({"phase_seconds": {name: time.perf_counter() - t0}})
+    times = results.get("kernels")
     if times is not None:
+        # launches: each counted run of the path that uses the kernel (the
+        # bf16 slice for K1 and K3, the bf16 training steps for K1 and K2)
+        launches = {}
+        for counts in (results.get("slice"), results.get("train")):
+            for k, n in (counts or {}).items():
+                launches[k] = launches.get(k, 0) + n
         rows = []
-        for key, name, src, tpu in (
-                ("k1", "flash_attention_fwd",
-                 "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                 "paddle_tpu/ops/flash_attention.py:112"),
-                ("k3", "paged_flash_decode",
-                 "paddle_tpu_torch/csrc/paged_flash_decode.cu",
-                 "paddle_tpu/ops/paged_attention.py:371")):
+        for key, name, src, tpu in KERNELS:
             t = times[key]
             rows.append({"name": name, "route": "cuda", "source": src,
-                         "replaces": tpu,
-                         "launches": launches[name] if launches else 0,
+                         "replaces": tpu, "launches": launches.get(name, 0),
                          "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
                          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"],

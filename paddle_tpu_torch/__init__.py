@@ -8,9 +8,12 @@ imports neither JAX nor anything of ``paddle_tpu``.  Every Pallas TPU
 kernel on a ported path is a hand-written CUDA kernel under ``csrc/``,
 built with ``nvcc`` on first use.
 
-Ported so far (the serving slice): GPT causal LM inference, the paged KV
-cache and the continuous-batching :class:`~.serving.ServingEngine`.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Ported so far: the serving slice (GPT causal LM inference, the paged KV
+cache and the continuous-batching :class:`~.serving.ServingEngine`) and
+the training slice (the flash-attention backward, ``cross_entropy``, the
+SGD / Momentum / Adam / AdamW optimizers with clipping and LR schedulers,
+AMP and :class:`~.jit.TrainStep`).  Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -3,3 +3,4 @@
 
 from .activation import gelu  # noqa: F401
 from .attention import scaled_dot_product_attention  # noqa: F401
+from .loss import cross_entropy  # noqa: F401

@@ -4,15 +4,20 @@
 ``scaled_dot_product_attention`` takes the paddle layout
 ``[batch, seq, heads, head_dim]``.  A CUDA call with no mask, no dropout,
 4-D inputs and as many kv heads as query heads goes to the hand-written
-flash kernel (``ops/flash_attention``) at every sequence length; any other
-CUDA call raises ``NotImplementedError`` rather than run a plain path on
-the card.  CPU tensors take :func:`_sdpa_ref`.
+flash kernels (``ops/flash_attention``) at every sequence length — when it
+needs a gradient, through their autograd ``Function`` (K1 forward, K2
+backward; head_dim <= 128).  Any other CUDA call raises
+``NotImplementedError`` rather than run a plain path on the card.  CPU
+tensors take :func:`_sdpa_ref`.  Under ``amp.auto_cast`` the inputs are
+cast to the amp dtype (white list).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import amp
+from ...ops import _build
 from ...ops.flash_attention import flash_attention_bshd, supported
 
 
@@ -47,16 +52,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None):
     """paddle layout: (batch, seq, num_heads, head_dim)."""
+    query, key, value, attn_mask = amp.cast(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     if query.device.type == "cpu":
         return _sdpa_ref(query, key, value, attn_mask, dropout_p, is_causal,
                          scale, training)
+    grad = _build.needs_grad(query, key, value)
     if (attn_mask is None and dropout_p == 0.0 and query.ndim == 4
-            and supported(query.shape, key.shape, is_causal)):
+            and supported(query.shape, key.shape, is_causal, grad)):
         return flash_attention_bshd(query, key, value, causal=is_causal,
                                     scale=scale)
     raise NotImplementedError(
         f"scaled_dot_product_attention on {query.device}: the flash kernel "
         f"takes no mask and no dropout, 4-D [B, S, H, D] inputs with equal "
-        f"q/kv head counts and head_dim <= 256 (got q {tuple(query.shape)}, "
-        f"k {tuple(key.shape)}, mask={attn_mask is not None}, "
-        f"dropout_p={dropout_p})")
+        f"q/kv head counts and head_dim <= 256 (<= 128 with a gradient) "
+        f"(got q {tuple(query.shape)}, k {tuple(key.shape)}, "
+        f"mask={attn_mask is not None}, dropout_p={dropout_p}, "
+        f"needs_grad={grad})")

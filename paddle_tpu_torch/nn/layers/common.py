@@ -9,10 +9,17 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
+
 
 class Linear(torch.nn.Linear):
     """``y = x W^T + b``; weights Xavier-uniform and bias zero, as paddle's
-    defaults."""
+    defaults.  Under ``amp.auto_cast`` it runs in the amp dtype (white
+    list)."""
+
+    def forward(self, x):
+        return torch.nn.functional.linear(*amp.cast("linear", x, self.weight,
+                                                    self.bias))
 
     def reset_parameters(self):
         torch.nn.init.xavier_uniform_(self.weight)

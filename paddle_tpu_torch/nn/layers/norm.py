@@ -4,11 +4,14 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
+
 
 class LayerNorm(torch.nn.Module):
     """Layer norm over the last dims with the TPU package's numerics:
     statistics in f32, the normalised value cast back to the input dtype
-    before the affine, which runs in the input dtype."""
+    before the affine, which runs in the input dtype.  Under
+    ``amp.auto_cast`` at O2 it runs in the amp dtype (O1 leaves it)."""
 
     def __init__(self, normalized_shape, epsilon=1e-5):
         super().__init__()
@@ -20,8 +23,9 @@ class LayerNorm(torch.nn.Module):
         self.bias = torch.nn.Parameter(torch.zeros(self.normalized_shape))
 
     def forward(self, x):
+        x, weight, bias = amp.cast("layer_norm", x, self.weight, self.bias)
         dims = tuple(range(x.ndim - len(self.normalized_shape), x.ndim))
         xf = x.float()
         var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
         out = ((xf - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)
-        return out * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        return out * weight.to(x.dtype) + bias.to(x.dtype)

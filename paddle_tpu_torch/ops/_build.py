@@ -136,11 +136,16 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would differentiate a call on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def check_no_grad(*tensors) -> None:
-    """The kernels have no backward yet (it comes with the training
-    slice): refuse a call that autograd would need to differentiate,
+    """Paged decode (K3) has no backward: it is inference-only, as in the
+    TPU package.  Refuse a call that autograd would need to differentiate,
     rather than return an output that silently has no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            "the CUDA attention kernels are inference-only for now: call "
-            "them under torch.no_grad() / torch.inference_mode()")
+            "paged flash decode is inference-only (it has no backward): "
+            "call it under torch.no_grad() / torch.inference_mode()")

@@ -1,20 +1,30 @@
-"""Flash attention forward on Hopper (counterpart of
+"""Flash attention on Hopper, forward and backward (counterpart of
 ``paddle_tpu/ops/flash_attention.py``).
 
-The TPU package runs a Pallas kernel (``_flash_fwd`` -> ``_fa_kernel``);
-here the same function is the hand-written CUDA kernel
-``csrc/flash_attention_fwd.cu`` (its header says what bounds it on the card
-and how it is laid out).  :func:`flash_attention_fn` is the public entry in
-the paddle ``[B, S, H, D]`` layout:
+The TPU package runs three Pallas kernels: ``_fa_kernel`` (forward, K1)
+and the two backward kernels ``_fa_bwd_dkdv_kernel`` (K2a) and
+``_fa_bwd_dq_kernel`` (K2b) behind a ``jax.custom_vjp``.  Here they are
+the hand-written CUDA kernels ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu`` (their headers say what bounds them on the
+card and how they are laid out), behind the ``torch.autograd.Function``
+:class:`_FlashAttention`.  :func:`flash_attention_fn` is the public entry
+in the paddle ``[B, S, H, D]`` layout:
 
-- a CPU tensor takes the plain PyTorch version :func:`_ref_attention`;
-- a CUDA tensor launches the kernel, or raises for what the kernel does
-  not take (GQA, D > 256, a causal call with more queries than keys).
-  There is no quiet fallback.
+- a CPU tensor takes the plain PyTorch versions (:func:`flash_attention_ref`
+  forward, :func:`flash_attention_bwd_ref` backward);
+- a CUDA tensor launches the kernels, or raises for what they do not take
+  (GQA, head_dim > 256 — > 128 when a gradient is needed —, a causal call
+  with more queries than keys).  A call that needs a gradient is checked
+  against the backward's rule in the forward, before any compute.  There
+  is no quiet fallback.
 
-``LAUNCHES`` counts kernel launches, so a run can show that its prefills
-went through the kernel.  The backward kernels (K2) come with the
-training slice.
+The backward takes, as the TPU package's ``_bwd_dispatch`` does,
+``delta = sum(g * o)`` (one torch reduction, outside the kernels) and the
+row correction ``r = delta - g_lse``, so :func:`flash_attention_with_lse`
+is differentiable in both of its outputs at no extra cost.
+
+``LAUNCHES``, ``BWD_DKDV_LAUNCHES`` and ``BWD_DQ_LAUNCHES`` count kernel
+launches, so a run can show that its attention went through the kernels.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ from . import _build
 
 NEG_INF = -1e30
 
-#: number of times the CUDA kernel was launched in this process
-LAUNCHES = 0
+#: number of times each CUDA kernel was launched in this process
+LAUNCHES = 0                # K1, forward
+BWD_DKDV_LAUNCHES = 0       # K2a, dk / dv
+BWD_DQ_LAUNCHES = 0         # K2b, dq
 
 
 def _scores(q, k, scale, causal):
@@ -55,13 +67,18 @@ def _to_bh(x):
     return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
 
 
+def _from_bh(x, b, h):
+    bh, s, d = x.shape
+    return x.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
 def flash_attention_ref(q, k, v, scale=None, causal=False):
     """Plain version of :func:`flash_attention_fn` on ``[B, S, H, D]``, on
     any device: the yardstick the kernel is held to."""
     b, sq, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = _ref_attention(_to_bh(q), _to_bh(k), _to_bh(v), scale, causal)
-    return o.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+    return _from_bh(_ref_attention(_to_bh(q), _to_bh(k), _to_bh(v), scale,
+                                   causal), b, h)
 
 
 def flash_attention_lse_ref(q, k, scale=None, causal=False):
@@ -71,18 +88,39 @@ def flash_attention_lse_ref(q, k, scale=None, causal=False):
     return torch.logsumexp(_scores(_to_bh(q), _to_bh(k), scale, causal), dim=-1)
 
 
-def supported(q_shape, k_shape, causal=False) -> bool:
-    """Whether the CUDA kernel takes these ``[B, S, H, D]`` shapes: 4-D,
-    as many kv heads as query heads, head_dim <= 256, and for a causal call
-    no more queries than keys.  Unlike the TPU kernel there is no sequence
-    floor: the ragged tile is masked in the kernel, so it serves every
-    prompt length."""
+def flash_attention_bwd_ref(q, k, v, g, lse, r, scale, causal):
+    """Plain version of the backward kernels K2a + K2b, on any device.
+
+    ``q, g``: ``[B, Sq, H, D]``; ``k, v``: ``[B, Sk, H, D]``; ``lse`` and the
+    row correction ``r = delta - g_lse``: ``[B * H, Sq]`` f32.  Does the
+    kernels' math from the saved lse, in f32: ``p = exp(s * scale - lse)``,
+    masked; ``ds = p * (g.v^T - r) * scale``; returns ``(dq, dk, dv)`` in
+    the inputs' layout and dtypes."""
+    b, _, h, _ = q.shape
+    qf, kf, vf, gf = (_to_bh(x).float() for x in (q, k, v, g))
+    p = torch.exp(_scores(qf, kf, scale, causal) - lse[..., None])
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    dp = torch.einsum("bqd,bkd->bqk", gf, vf)
+    ds = p * (dp - r[..., None]) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    return (_from_bh(dq, b, h).to(q.dtype), _from_bh(dk, b, h).to(k.dtype),
+            _from_bh(dv, b, h).to(v.dtype))
+
+
+def supported(q_shape, k_shape, causal=False, needs_grad=False) -> bool:
+    """Whether the CUDA kernels take these ``[B, S, H, D]`` shapes: 4-D,
+    as many kv heads as query heads, head_dim <= 256 (<= 128 when the call
+    needs a gradient: the backward kernels stage five f32 tiles in shared
+    memory), and for a causal call no more queries than keys.  Unlike the
+    TPU kernels there is no sequence floor: the ragged tile is masked in
+    the kernels, so they take every length."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return False
     b, sq, h, d = q_shape
     if k_shape[0] != b or k_shape[2] != h or k_shape[3] != d:
         return False
-    if d > 256:
+    if d > (128 if needs_grad else 256):
         return False
     return not (causal and sq > k_shape[1])
 
@@ -97,65 +135,178 @@ def flash_attention_fn(q, k, v, scale=None, causal=False, return_lse=False):
     """Attention in the paddle ``[B, S, H, D]`` layout.
 
     ``return_lse=True`` also returns the per-row logsumexp ``[B * H, Sq]``
-    in f32 (what ring attention merges blocks with).  The output has q's
-    dtype; the softmax runs in f32 either way."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    in f32.  The output has q's dtype; the softmax runs in f32 either way.
+    A call that needs a gradient goes through :class:`_FlashAttention`
+    (differentiable in both outputs)."""
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    grad = _build.needs_grad(q, k, v)
+    if q.device.type != "cpu":
+        _check_cuda_args(q, k, v, causal, grad)
+    if grad:
+        o, lse = _FlashAttention.apply(q, k, v, scale, causal)
+        return (o, lse) if return_lse else o
     if q.device.type == "cpu":
         o = flash_attention_ref(q, k, v, scale, causal)
         if not return_lse:
             return o
         return o, flash_attention_lse_ref(q, k, scale, causal)
-    _check_cuda_args(q, k, v, causal)
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device) \
-        if return_lse else None
-    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v)
-                                        for i in range(3)))
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        err = lib.ptt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            _build.dtype_code(q), b, h, sq, sk, d, strides, scale,
-            int(bool(causal)), _build.stream_handle(q))
-    _build.check(err, "flash_attention_fwd")
-    global LAUNCHES
-    LAUNCHES += 1
+    o, lse = _fwd_kernel(q, k, v, scale, causal, return_lse)
     return (o, lse) if return_lse else o
 
 
-def _check_cuda_args(q, k, v, causal):
+def flash_attention_with_lse(q, k, v, scale, causal, block_q=None,
+                             block_k=None):
+    """``[BH, S, D]`` block attention returning ``(o, lse [BH, S, 1] f32)``,
+    differentiable in both outputs (the ring-attention primitive).
+    ``block_q`` / ``block_k`` are accepted for the TPU signature; the CUDA
+    kernels use their own 64-row tiles and take any length."""
+    o, lse = flash_attention_fn(q[:, :, None], k[:, :, None], v[:, :, None],
+                                scale=scale, causal=causal, return_lse=True)
+    return o[:, :, 0], lse[..., None]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``(o, lse) = attention(q, k, v)`` with K1 forward and K2a + K2b
+    backward on the card (the TPU package's ``_flash_lse`` custom vjp);
+    the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        if q.device.type == "cpu":
+            o = flash_attention_ref(q, k, v, scale, causal)
+            lse = flash_attention_lse_ref(q, k, scale, causal)
+        else:
+            o, lse = _fwd_kernel(q, k, v, scale, causal, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        b, sq, h, _ = q.shape
+        g = torch.zeros_like(o) if g is None else g.to(q.dtype).contiguous()
+        delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+        r = delta if g_lse is None else delta - g_lse.float()
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, g, lse, r,
+                                                 ctx.scale, ctx.causal)
+        else:
+            dq, dk, dv = _bwd_kernels(q, k, v, g, lse, r.contiguous(),
+                                      ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _check_cuda_args(q, k, v, causal, grad):
+    """Raise, before any compute, for a call the kernels do not take."""
+    if not supported(q.shape, k.shape, causal, grad):
+        raise NotImplementedError(
+            f"the flash attention kernels do not take q {tuple(q.shape)} / "
+            f"k {tuple(k.shape)} (causal={causal}, needs_grad={grad}): they "
+            f"need equal head counts (GQA comes with the Llama slice), "
+            f"head_dim <= 256 (<= 128 with a gradient) and, when causal, no "
+            f"more queries than keys")
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"flash attention runs on cuda or cpu tensors, got {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    _build.check_no_grad(q, k, v)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"expected [B, S, H, D] q and equal k/v shapes, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not supported(q.shape, k.shape, causal):
-        raise NotImplementedError(
-            f"the flash attention kernel does not take q {tuple(q.shape)} / "
-            f"k {tuple(k.shape)} (causal={causal}): it needs equal head "
-            f"counts (GQA comes with the Llama slice), head_dim <= 256 and, "
-            f"when causal, no more queries than keys")
+    if k.shape != v.shape:
+        raise ValueError(f"k and v shapes differ: {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name} must be unit-stride in head_dim")
 
 
-def _lib():
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.ptt_flash_attention_fwd
-    if fn.argtypes is None:
-        P = ctypes.c_void_p
-        I = ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, I, P]
-        fn.restype = I
+def _strides(*xs):
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *(x.stride(i) for x in xs for i in range(3)))
+
+
+def _fwd_kernel(q, k, v, scale, causal, return_lse):
+    """Launch K1: ``o`` ``[B, Sq, H, D]`` and, when asked, ``lse``."""
+    b, sq, h, d = q.shape
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    lib = _lib("flash_attention_fwd")
+    with torch.cuda.device(q.device):
+        err = lib.ptt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            _build.dtype_code(q), b, h, sq, k.shape[1], d, _strides(q, k, v),
+            scale, int(bool(causal)), _build.stream_handle(q))
+    _build.check(err, "flash_attention_fwd")
+    global LAUNCHES
+    LAUNCHES += 1
+    return o, lse
+
+
+def _bwd_kernels(q, k, v, g, lse, r, scale, causal):
+    """Launch K2a then K2b: ``(dq, dk, dv)``, contiguous, in q's dtype."""
+    dk, dv = _bwd_dkdv_kernel(q, k, v, g, lse, r, scale, causal)
+    return _bwd_dq_kernel(q, k, v, g, lse, r, scale, causal), dk, dv
+
+
+def _bwd_args(q, k, v, g, scale, causal):
+    b, sq, h, d = q.shape
+    return (_build.dtype_code(q), b, h, sq, k.shape[1], d, _strides(q, k, v, g),
+            scale, int(bool(causal)), _build.stream_handle(q))
+
+
+def _bwd_dkdv_kernel(q, k, v, g, lse, r, scale, causal):
+    """Launch K2a: ``(dk, dv)`` ``[B, Sk, H, D]``."""
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    lib = _lib("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.ptt_flash_attention_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), r.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, k, v, g, scale, causal))
+    _build.check(err, "flash_attention_bwd_dkdv")
+    global BWD_DKDV_LAUNCHES
+    BWD_DKDV_LAUNCHES += 1
+    return dk, dv
+
+
+def _bwd_dq_kernel(q, k, v, g, lse, r, scale, causal):
+    """Launch K2b: ``dq`` ``[B, Sq, H, D]``."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _lib("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.ptt_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), r.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, k, v, g, scale, causal))
+    _build.check(err, "flash_attention_bwd_dq")
+    global BWD_DQ_LAUNCHES
+    BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+_ARGTYPES = {
+    # q, k, v, o, lse | dtype, B, H, Sq, Sk, D | strides, scale, causal, stream
+    "ptt_flash_attention_fwd": 5,
+    # q, k, v, g, lse, r, dk, dv | ...
+    "ptt_flash_attention_bwd_dkdv": 8,
+    # q, k, v, g, lse, r, dq | ...
+    "ptt_flash_attention_bwd_dq": 7,
+}
+
+
+def _lib(name):
+    lib = _build.load(name)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn_name, n_ptrs in _ARGTYPES.items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = [P] * n_ptrs + [I] * 6 + [
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, I, P]
+            fn.restype = I
     return lib

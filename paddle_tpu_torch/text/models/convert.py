@@ -1,4 +1,4 @@
-"""Weights carried across from the TPU package.
+"""Weights carried across from and back to the TPU package.
 
 :func:`load_paddle_tpu_state_dict` takes ``paddle_tpu``'s
 ``model.state_dict()`` as numpy arrays under paddle's names
@@ -6,7 +6,9 @@
 caller converts them, so this module never imports the JAX package — and
 loads them into the port's model of the same structure.  Paddle's
 ``Linear`` stores ``[in, out]``; torch's ``[out, in]``, so those weights
-are transposed.  Every key and shape is checked both ways.
+are transposed.  :func:`export_paddle_tpu_state_dict` is the inverse, so
+trained weights can be held against the JAX model's.  Every key and shape
+is checked both ways.
 """
 
 from __future__ import annotations
@@ -20,13 +22,8 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state: dict) -> None:
     to each parameter's dtype and device.  Raises ``KeyError`` on a missing
     or extra key and ``ValueError`` on a shape mismatch."""
     own = model.state_dict()
-    missing = sorted(set(own) - set(state))
-    extra = sorted(set(state) - set(own))
-    if missing or extra:
-        raise KeyError(f"state dict keys differ: missing {missing}, "
-                       f"unexpected {extra}")
-    linear_weights = {f"{name}.weight" for name, m in model.named_modules()
-                      if isinstance(m, torch.nn.Linear)}
+    _check_keys(own, state)
+    linear_weights = _linear_weights(model)
     with torch.no_grad():
         for key, dst in own.items():
             arr = np.asarray(state[key])
@@ -36,3 +33,37 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state: dict) -> None:
                 raise ValueError(f"{key}: shape {tuple(arr.shape)} (after "
                                  f"layout conversion) != {tuple(dst.shape)}")
             dst.copy_(torch.tensor(arr))
+
+
+def export_paddle_tpu_state_dict(model: torch.nn.Module, expected=None) -> dict:
+    """``model``'s weights as ``{paddle name: numpy array}`` in paddle's
+    layout (``Linear`` weights ``[in, out]``), float32 for floating ones.
+    With ``expected`` (name -> array, e.g. the JAX model's state) the keys
+    and shapes must match: ``KeyError`` / ``ValueError`` otherwise."""
+    linear_weights = _linear_weights(model)
+    out = {}
+    for key, t in model.state_dict().items():
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.is_floating_point() else arr).numpy()
+        out[key] = arr.T if key in linear_weights else arr
+    if expected is not None:
+        _check_keys(out, expected)
+        for key, arr in out.items():
+            want = tuple(np.shape(expected[key]))
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{key}: exported shape {tuple(arr.shape)} "
+                                 f"!= expected {want}")
+    return out
+
+
+def _check_keys(own, other):
+    missing = sorted(set(own) - set(other))
+    extra = sorted(set(other) - set(own))
+    if missing or extra:
+        raise KeyError(f"state dict keys differ: missing {missing}, "
+                       f"unexpected {extra}")
+
+
+def _linear_weights(model):
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, torch.nn.Linear)}

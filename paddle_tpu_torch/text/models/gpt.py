@@ -1,7 +1,9 @@
 """GPT decoder LM (counterpart of ``paddle_tpu/text/models/gpt.py``).
 
-Ported for the serving slice: the pre-LN decoder block with its no-cache
-path (full causal attention) and its ``"served"`` cache variant — ONE
+Ported for the serving and training slices: the pre-LN decoder block with
+its no-cache path (full causal attention, which training takes; on the
+card it runs the flash kernels forward and backward) and its ``"served"``
+cache variant — ONE
 global page pool per layer for K and V, shared by every slot through a
 page table, with per-slot lengths.  Prefill (S > 1) attends the prompt
 with the flash kernel and writes its K/V into the pool; decode (S == 1)
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
 from ...device import resolve_device
 from ...nn import functional as F
 from ...nn.layers.common import Linear
@@ -109,8 +112,10 @@ class GPTModel(torch.nn.Module):
         if position_ids is None:
             S = input_ids.shape[1]
             position_ids = torch.arange(S, device=input_ids.device)[None, :]
-        return self.drop(self.word_embeddings(input_ids)
-                         + self.position_embeddings(position_ids))
+        wte, wpe = amp.cast("embedding", self.word_embeddings.weight,
+                            self.position_embeddings.weight)
+        return self.drop(torch.nn.functional.embedding(input_ids, wte)
+                         + torch.nn.functional.embedding(position_ids, wpe))
 
     def forward(self, input_ids, position_ids=None, cache=None):
         """``cache``: None, or one served cache tuple per layer; returns
@@ -141,6 +146,16 @@ class GPTForCausalLM(torch.nn.Module):
         self.gpt = gpt if gpt is not None else GPTModel(**kwargs)
         self.to(device=target, dtype=dtype)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                labels=None):
+        """Logits ``[B, S, vocab]``; with ``labels`` the mean next-token
+        cross-entropy of ``logits[:, :-1]`` against ``labels[:, 1:]``
+        instead.  ``attention_mask`` is accepted for the TPU package's
+        signature and, as there, not read: attention is causal."""
         hidden = self.gpt(input_ids, position_ids)
-        return hidden @ self.gpt.word_embeddings.weight.T
+        h, w = amp.cast("matmul", hidden, self.gpt.word_embeddings.weight)
+        logits = h @ w.T
+        if labels is None:
+            return logits
+        return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               labels[:, 1:].reshape(-1), reduction="mean")

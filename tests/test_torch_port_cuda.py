@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel held against its
-plain PyTorch version on CUDA tensors, and the tiny-GPT serving engine on
-the card against the same engine on the CPU.  Marked ``cuda``; every test
+plain PyTorch version on CUDA tensors, the tiny-GPT serving engine on the
+card against the same engine on the CPU, and tiny-GPT training through the
+flash kernels forward and backward.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import jit, optimizer
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.serving import ServingEngine
@@ -69,11 +71,16 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def test_kernels_refuse_calls_that_need_a_gradient(cuda):
-    """No backward yet: a call autograd would differentiate raises instead
-    of returning an output without a gradient; under no_grad it runs."""
+    """Paged decode has no backward: a call autograd would differentiate
+    raises instead of returning an output without a gradient.  Flash
+    attention has one (K2), but refuses in the forward, before any launch,
+    a gradient it cannot take (head_dim > 128).  Under no_grad both run."""
     q = torch.randn(1, 8, 2, 64, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="inference-only"):
-        fa.flash_attention_fn(q, q, q, causal=True)
+    wide = torch.randn(1, 8, 2, 256, device="cuda", requires_grad=True)
+    n0 = fa.LAUNCHES
+    with pytest.raises(NotImplementedError, match="needs_grad=True"):
+        fa.flash_attention_fn(wide, wide, wide, causal=True)
+    assert fa.LAUNCHES == n0
     pool = torch.randn(4, 8, 2, 64, device="cuda")
     table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
     ln = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
@@ -81,8 +88,85 @@ def test_kernels_refuse_calls_that_need_a_gradient(cuda):
     with pytest.raises(NotImplementedError, match="inference-only"):
         pa.paged_attention(qd, pool, pool, table, ln)
     with torch.no_grad():
-        fa.flash_attention_fn(q, q, q, causal=True)
+        fa.flash_attention_fn(wide, wide, wide, causal=True)
         pa.paged_attention(qd, pool, pool, table, ln)
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b|, in f32."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,d,causal,g_lse", [
+    (17, 17, 64, True, False), (300, 300, 64, True, False),
+    (64, 320, 64, True, True), (300, 300, 64, False, True),
+    (256, 256, 128, True, False), (33, 70, 128, False, False)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, sq, sk, d, causal, g_lse):
+    """K2a (dk, dv) and K2b (dq) against flash_attention_bwd_ref on the
+    same inputs and the kernel forward's lse; error over max |ref|."""
+    def t(s):
+        return torch.randn(2, s, 3, d, generator=cuda, device="cuda").to(dtype)
+
+    q, k, v, g = t(sq), t(sk), t(sk), t(sq)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
+    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(-1, sq)
+    r = delta - (torch.randn(delta.shape, generator=cuda, device="cuda")
+                 if g_lse else 0.0)
+    n = fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
+    got = fa._bwd_kernels(q, k, v, g, lse, r.contiguous(), scale, causal)
+    assert (fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == (n[0] + 1, n[1] + 1)
+    want = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape and a.is_contiguous()
+        assert _rel_err(a, b) <= BWD_TOL[dtype]
+
+
+def test_flash_autograd_matches_torch_autograd(cuda):
+    """Gradients through K1 + K2 (the autograd Function) against torch
+    autograd through flash_attention_ref, f32, from the model's strided
+    head-major qkv split; error over max |ref| <= 1e-4."""
+    qkv = torch.randn(2, 200, 4, 3, 64, generator=cuda, device="cuda")
+    g = torch.randn(2, 200, 4, 64, generator=cuda, device="cuda")
+    a = qkv.clone().requires_grad_()
+    b = qkv.clone().requires_grad_()
+    n = fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
+    fa.flash_attention_fn(*a.unbind(3), causal=True).backward(g)
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1)
+    fa.flash_attention_ref(*b.unbind(3), causal=True).backward(g)
+    assert _rel_err(a.grad, b.grad) <= 1e-4
+
+
+def test_gpt_tiny_trains_on_card_through_the_kernels(cuda):
+    """Tiny GPT, f32: 3 TrainSteps on the card give the CPU's losses
+    (rtol 1e-4), and every step ran K1, K2a and K2b once per layer."""
+    cfg = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+               num_attention_heads=2, max_position_embeddings=64)
+    torch.manual_seed(0)
+    cpu = GPTForCausalLM(device="cpu", **cfg)
+    card = GPTForCausalLM(device="cpu", **cfg)
+    card.load_state_dict(cpu.state_dict())
+    card.to("cuda")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 96, (2, 48)))
+
+    def train(model, device):
+        o = optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                            grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+        step = jit.TrainStep(model, o)
+        x = ids.to(device)
+        return [step({"input_ids": x, "labels": x}).item() for _ in range(3)]
+
+    want = train(cpu, "cpu")
+    n = fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
+    got = train(card, "cuda")
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert (fa.LAUNCHES - n[0], fa.BWD_DKDV_LAUNCHES - n[1],
+            fa.BWD_DQ_LAUNCHES - n[2]) == (2 * 3,) * 3
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
