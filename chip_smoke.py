@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                  # build,kernels,slice,train
+    python3 chip_smoke.py                  # build,kernels,slice,train,quant
     python3 chip_smoke.py --phases build,kernels
-    python3 chip_smoke.py --phases build,kernels,slice,train,profile
+    python3 chip_smoke.py --phases build,kernels,slice,train,quant,profile
 
 Phases, each printing one JSON line and then its seconds:
 
@@ -15,9 +15,12 @@ Phases, each printing one JSON line and then its seconds:
    every dead page; the flash backward K2a / K2b over lengths 17-1024,
    causal and full, sq < sk, head_dim 64 / 128, with and without a g_lse
    term (max error over max |ref| <= 2e-2 / 1e-4), and gradients through
-   K1 + K2 against torch autograd through the plain forward.  Then time
-   kernel, plain version and PyTorch's own call with CUDA events: K1 at
-   the longest prefill, K3 at a decode step, K2 at the training shape.
+   K1 + K2 against torch autograd through the plain forward; K4 (paged
+   decode over int8 pools) against its plain version, also with NaN in
+   every dead page's scale rows, and the full-sweep twins K5a / K5b bit
+   for bit against K3 / K4.  Then time kernel, plain version and
+   PyTorch's own call with CUDA events: K1 at the longest prefill, K3, K4
+   and K5a / K5b at a decode step, K2 at the training shape.
 3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
    ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
    of 17-900 tokens, 32 new tokens each.  float32 on the card must give
@@ -27,9 +30,15 @@ Phases, each printing one JSON line and then its seconds:
    clip 1.0): 3 steps in f32 on the card must give the CPU's losses; then
    12 bf16 O2 steps at B=8, S=1024 are timed, with K1 = K2a = K2b =
    12 launches per step checked.
-5. ``profile`` (only when asked for) — the bf16 slice and bf16 training
-   steps under ``torch.profiler``: device time by kernel and the device's
-   idle share.
+5. ``quant``   — the slice's requests through
+   ``ServingEngine(kv_dtype="int8")``: float32 on the card against the
+   CPU int8 engine (the first 6 requests; greedy top-1 agreement >= 0.8,
+   first tokens equal), then bf16 timed beside the native bf16 slice and
+   beside ``weight_dtype="int8"``, with the pool bytes of both layouts and
+   the launch counts (K4 = 12 x decode steps, K1 = 12 x prefills, K3 = 0).
+6. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+   and bf16 training steps under ``torch.profiler``: device time by kernel
+   and the device's idle share.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name / power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -101,7 +110,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     paths = _build.build("flash_attention_fwd", "flash_attention_bwd",
-                         "paged_flash_decode")
+                         "paged_flash_decode", "paged_flash_decode_q")
     secs = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in _build.BUILD_LOGS[n].splitlines()
                  if "ptxas" in ln and ("registers" in ln or "spill" in ln
@@ -260,14 +269,66 @@ def _k3_case(gen, dtype, lens, heads, kv_heads):
         kpn[dead] = float("nan")
         vpn[dead] = float("nan")
     o_p = pa.paged_attention(q, kpn, vpn, table, ln)
+    # K5a, the full sweep: stages the poisoned dead pages, uses none
+    o5 = pa._paged_full_sweep(q, kp, vp, table, ln)
+    o5_p = pa._paged_full_sweep(q, kpn, vpn, table, ln)
     torch.cuda.synchronize()
     poison_ok = bool(torch.isfinite(o_p).all()) and torch.equal(o_p, o)
     zero_ok = all(bool((o[b] == 0).all()) for b, n in enumerate(lens) if n == 0)
-    ok = err <= ATOL[dtype] and poison_ok and zero_ok
+    k5a_ok = torch.equal(o5, o) and torch.equal(o5_p, o)
+    ok = err <= ATOL[dtype] and poison_ok and zero_ok and k5a_ok
     return {"B": len(lens), "heads": heads, "kv_heads": kv_heads,
             "lens": lens, "dtype": str(dtype).split(".")[-1],
             "max_abs_err": err, "dead_pages_poisoned_ok": poison_ok,
-            "empty_rows_zero": zero_ok, "ok": ok}
+            "empty_rows_zero": zero_ok, "k5a_bit_equal_k3": k5a_ok, "ok": ok}
+
+
+def _k4_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM):
+    """q in ``dtype`` and int8 pools with their float32 scale pools,
+    quantized from normal K / V on the pool grid."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    B = len(lens)
+    pages = B * NP
+    perm = torch.randperm(pages, generator=gen, device="cuda").to(torch.int32)
+    table = perm.reshape(B, NP).contiguous()
+    kq, ks = pa.quantize_kv(torch.randn(pages, PAGE, kv_heads, d,
+                                        generator=gen, device="cuda"))
+    vq, vs = pa.quantize_kv(torch.randn(pages, PAGE, kv_heads, d,
+                                        generator=gen, device="cuda"))
+    q = torch.randn(B, heads, d, generator=gen, device="cuda").to(dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kq, vq, ks.contiguous(), vs.contiguous(), table, ln
+
+
+def _k4_case(gen, dtype, lens, heads, kv_heads):
+    """K4 against its plain version; K4 and K5b with NaN in every dead
+    page's scale rows (an int8 payload cannot hold NaN): K4 never reads
+    them and K5b stages them, and neither may let them reach the output;
+    K5b bit-equal to K4."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    q, kq, vq, ks, vs, table, ln = _k4_inputs(gen, dtype, lens, heads, kv_heads)
+    o = pa.paged_attention_quantized(q, kq, vq, ks, vs, table, ln)
+    ref = pa.paged_attention_quantized_ref(q, kq, vq, ks, vs, table, ln)
+    err = (o.float() - ref.float()).abs().max().item()
+    ksn, vsn = ks.clone(), vs.clone()
+    for b, n in enumerate(lens):
+        dead = table[b, -(-n // PAGE):].long()
+        ksn[dead] = float("nan")
+        vsn[dead] = float("nan")
+    o_p = pa.paged_attention_quantized(q, kq, vq, ksn, vsn, table, ln)
+    o5 = pa._paged_q_full_sweep(q, kq, vq, ks, vs, table, ln)
+    o5_p = pa._paged_q_full_sweep(q, kq, vq, ksn, vsn, table, ln)
+    torch.cuda.synchronize()
+    poison_ok = bool(torch.isfinite(o_p).all()) and torch.equal(o_p, o)
+    zero_ok = all(bool((o[b] == 0).all()) for b, n in enumerate(lens) if n == 0)
+    k5b_ok = torch.equal(o5, o) and torch.equal(o5_p, o)
+    ok = err <= ATOL[dtype] and poison_ok and zero_ok and k5b_ok
+    return {"B": len(lens), "heads": heads, "kv_heads": kv_heads,
+            "lens": lens, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": err, "dead_scale_rows_poisoned_ok": poison_ok,
+            "empty_rows_zero": zero_ok, "k5b_bit_equal_k4": k5b_ok, "ok": ok}
 
 
 def slice_requests():
@@ -294,8 +355,15 @@ def phase_kernels():
     k1 = [_k1_case(gen, dt, *sh) for dt in (torch.bfloat16, torch.float32)
           for sh in k1_shapes]
     lens = [0, 1, 15, 16, 17, 500, 1024, 777]
+    pa.FULL_SWEEP_LAUNCHES = pa.QUANT_FULL_SWEEP_LAUNCHES = 0
     k3 = [_k3_case(gen, dt, lens, HEADS, kvh)
           for dt in (torch.bfloat16, torch.float32) for kvh in (HEADS, 4)]
+    k4 = [_k4_case(gen, dt, lens, HEADS, kvh)
+          for dt in (torch.bfloat16, torch.float32) for kvh in (HEADS, 4)]
+    # K5a / K5b have no path (only tests call them in the TPU package too):
+    # their launches are these checks'
+    k5_launches = {"k5a": pa.FULL_SWEEP_LAUNCHES,
+                   "k5b": pa.QUANT_FULL_SWEEP_LAUNCHES}
     k2_shapes = [(s, s, 64, c, gl) for s in (17, 256, 300, 1024)
                  for c in (True, False) for gl in (False, True)]
     k2_shapes += [(64, 320, 64, True, False), (200, 512, 64, True, True),
@@ -339,10 +407,22 @@ def phase_kernels():
         "plain_ms": cuda_ms(lambda: pa.paged_attention_ref(qd, kp, vp, table, ln)),
         "library_ms": None, "bound_ms": k3_bound, "bound_by": k3_by,
         "max_abs_err": k3_err, "lens": dlens}
+    # K5a: K3's function over the same rows, every table page staged
+    o5a = pa._paged_full_sweep(qd, kp, vp, table, ln)
+    k5a_time = {
+        "kernel_ms": cuda_ms(lambda: pa._paged_full_sweep(qd, kp, vp, table, ln)),
+        "plain_ms": k3_time["plain_ms"], "library_ms": None,
+        "bound_ms": k3_bound, "bound_by": k3_by,
+        "max_abs_err": (o5a.float() - pa.paged_attention_ref(
+            qd, kp, vp, table, ln).float()).abs().max().item(),
+        "bit_equal_k3": torch.equal(o5a, od),
+        "launches": k5_launches["k5a"], "lens": dlens}
+    k4_time, k5b_time = _k4_timed(gen, dlens, k3_time["kernel_ms"],
+                                  k5_launches["k5b"])
     k2_time = _k2_timed(gen)
-    ok = all(c["ok"] for c in k1 + k2 + k3)
+    ok = all(c["ok"] for c in k1 + k2 + k3 + k4)
     emit({"phase": "kernels", "ok": ok, "k1_cases": k1, "k2_cases": k2,
-          "k3_cases": k3,
+          "k3_cases": k3, "k4_cases": k4,
           "k1_timed": {"shape": [1, S, HEADS, HEAD_DIM], "causal": True,
                        "dtype": "bfloat16", **k1_time},
           "k2_timed": {"shape": [TRAIN_B, TRAIN_S, HEADS, HEAD_DIM],
@@ -351,20 +431,62 @@ def phase_kernels():
                        **k2_time},
           "k3_timed": {"B": SLOTS, "heads": HEADS, "page_size": PAGE,
                        "table_width": NP, "dtype": "bfloat16", **k3_time},
+          "k4_timed": {"B": SLOTS, "heads": HEADS, "page_size": PAGE,
+                       "table_width": NP, "q_dtype": "bfloat16",
+                       "pools": "int8 + float32 scales", **k4_time},
+          "k5a_timed": {"dtype": "bfloat16", **k5a_time},
+          "k5b_timed": {"q_dtype": "bfloat16", **k5b_time},
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "nvidia_smi": smi_line()})
     if not ok:
         raise SystemExit("kernels phase: a kernel disagrees with its plain "
-                         "version (see the k1 / k2 / k3 cases above)")
-    return {"k1": k1_time, "k3": k3_time, **k2_time}
+                         "version (see the k1 / k2 / k3 / k4 cases above)")
+    return {"k1": k1_time, "k3": k3_time, "k4": k4_time, "k5a": k5a_time,
+            "k5b": k5b_time, **k2_time}
+
+
+def _k4_timed(gen, dlens, k3_ms, k5b_launches):
+    """K4, its plain version and K5b at the slice's decode rows (bf16 q,
+    int8 pools, 12 heads), with K3's time on the same rows over bf16
+    pools beside it.  Bound: the valid pages' int8 K and V with their
+    float32 scales, q and o; 4 D operations per valid key per head."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    q, kq, vq, ks, vs, table, ln = _k4_inputs(gen, torch.bfloat16, dlens,
+                                              HEADS, HEADS)
+    args = (q, kq, vq, ks, vs, table, ln)
+    o = pa.paged_attention_quantized(*args)
+    ref = pa.paged_attention_quantized_ref(*args)
+    err = (o.float() - ref.float()).abs().max().item()
+    o5 = pa._paged_q_full_sweep(*args)
+    valid_pages = sum(-(-n // PAGE) for n in dlens)
+    nbytes = (2 * valid_pages * PAGE * HEADS * (HEAD_DIM + 4)
+              + 2 * q.numel() * 2 + table.numel() * 4 + ln.numel() * 4)
+    k4_bound, k4_by = bound(4 * sum(dlens) * HEADS * HEAD_DIM, nbytes)
+    plain_ms = cuda_ms(lambda: pa.paged_attention_quantized_ref(*args))
+    k4 = {"kernel_ms": cuda_ms(lambda: pa.paged_attention_quantized(*args)),
+          "plain_ms": plain_ms, "library_ms": None,
+          "library_note": "no single PyTorch call dequantizes paged pools",
+          "bound_ms": k4_bound, "bound_by": k4_by, "max_abs_err": err,
+          "k3_same_rows_bf16_pools_ms": k3_ms, "lens": dlens}
+    k5b = {"kernel_ms": cuda_ms(lambda: pa._paged_q_full_sweep(*args)),
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": k4_bound,
+           "bound_by": k4_by,
+           "max_abs_err": (o5.float() - ref.float()).abs().max().item(),
+           "bit_equal_k4": torch.equal(o5, o),
+           "launches": k5b_launches, "lens": dlens}
+    return k4, k5b
 
 
 # ------------------------------------------------------------------- slice
-def _serve(model, device, prompts, temps):
+def _serve(model, device, prompts, temps, **engine_kw):
+    """Serve ``prompts`` (32 new tokens each) through a fresh engine;
+    returns the ids, the wall seconds and the engine's stats, with the
+    bytes of its page pools (scale pools included) as ``pool_bytes``."""
     from paddle_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(model, device=device, num_slots=SLOTS, page_size=PAGE,
-                        max_model_len=MAXLEN)
+                        max_model_len=MAXLEN, **engine_kw)
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -375,21 +497,31 @@ def _serve(model, device, prompts, temps):
         stats = eng.stats()
     if device != "cpu":
         torch.cuda.synchronize()
-    return outs, time.perf_counter() - t0, stats
+    wall = time.perf_counter() - t0
+    stats["pool_bytes"] = sum(p.numel() * p.element_size() for p in eng._pools)
+    return outs, wall, stats
 
 
-def _counted_run(model, prompts, temps):
+def _counted_run(model, prompts, temps, **engine_kw):
+    """``_serve`` on the card with every kernel counter zeroed just before
+    and read just after: K1 must run once per layer per prefill, and the
+    paged decode kernel of the pool layout (K3 native, K4 int8) once per
+    layer per decode step, the other one never."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
     fa.LAUNCHES = 0
-    pa.LAUNCHES = 0
-    outs, wall, stats = _serve(model, "cuda", prompts, temps)
+    pa.LAUNCHES = pa.QUANT_LAUNCHES = 0
+    outs, wall, stats = _serve(model, "cuda", prompts, temps, **engine_kw)
     counts = {"flash_attention_fwd": fa.LAUNCHES,
-              "paged_flash_decode": pa.LAUNCHES}
-    want = {"flash_attention_fwd": LAYERS * stats["prefills"],
-            "paged_flash_decode": LAYERS * stats["iteration"]}
-    if counts != want or not all(counts.values()):
+              "paged_flash_decode": pa.LAUNCHES,
+              "paged_flash_decode_q": pa.QUANT_LAUNCHES}
+    decode = "paged_flash_decode_q" if stats["kv_dtype"] == "int8" \
+        else "paged_flash_decode"
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention_fwd"] = LAYERS * stats["prefills"]
+    want[decode] = LAYERS * stats["iteration"]
+    if counts != want or not (counts["flash_attention_fwd"] and counts[decode]):
         raise SystemExit(f"launch counts {counts} != expected {want}: the "
                          f"main path did not run through the kernels")
     return outs, wall, stats, counts
@@ -441,6 +573,117 @@ def phase_slice():
         raise SystemExit("slice phase failed: greedy ids differ from the CPU "
                          "engine or a request did not complete")
     return counts16
+
+
+# ------------------------------------------------------------------- quant
+def _first_divergence(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_quant():
+    """The int8 serving slice: ``ServingEngine(kv_dtype="int8")`` on the
+    slice's requests.  f32 on the card against the CPU int8 engine on the
+    first 6 requests (the CPU run of GPT-base bounds the count): int8
+    rounding ties flip on last-bit differences between cuBLAS and the CPU,
+    so the gate is equal first tokens (prefill is full precision) and
+    greedy top-1 agreement >= 0.8.  Then bf16, after one untimed warm-up
+    of each configuration: timed in turns with the native bf16 slice
+    (int8, native, native, int8), and once more with
+    ``weight_dtype="int8"``."""
+    from paddle_tpu_torch.serving.quant import top1_agreement
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts, temps = slice_requests()
+    n_par = 6
+    greedy = [i for i, t in enumerate(temps[:n_par]) if t == 0.0]
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
+    ref, cpu_wall, _ = _serve(cpu_model, "cpu", prompts[:n_par],
+                              temps[:n_par], kv_dtype="int8")
+    model = copy.deepcopy(cpu_model).to("cuda")
+    del cpu_model
+    outs32, wall32, st32, counts32 = _counted_run(
+        model, prompts[:n_par], temps[:n_par], kv_dtype="int8")
+    divergence = {i: _first_divergence(outs32[i], ref[i]) for i in greedy}
+    first_ok = all(outs32[i][0] == ref[i][0] for i in greedy)
+    agree32 = top1_agreement([ref[i] for i in greedy],
+                             [outs32[i] for i in greedy])
+
+    model = model.to(torch.bfloat16)
+    # one untimed warm-up of each configuration (first-launch costs)
+    for kv in ("int8", "native"):
+        _serve(model, "cuda", prompts[:2], temps[:2], kv_dtype=kv)
+    runs = {}
+    for kv in ("int8", "native", "native", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        outs, wall, st, counts = _counted_run(model, prompts, temps,
+                                              kv_dtype=kv)
+        runs.setdefault(kv, []).append({
+            "wall_s": wall, "tokens": sum(len(o) for o in outs),
+            "tokens_per_s": sum(len(o) for o in outs) / wall,
+            "prefills": st["prefills"], "decode_steps": st["iteration"],
+            "launches": counts, "all_complete": all(len(o) == 32 for o in outs),
+            "pool_bytes": st["pool_bytes"],
+            "bytes_per_page": st["bytes_per_page"],
+            "kv_bytes_per_token": st["kv_bytes_per_token"],
+            "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "outs": outs})
+    w8_model = copy.deepcopy(model)          # converted in place below
+    del model
+    w8 = {"kv_dtype": "int8", "weight_dtype": "int8"}
+    _serve(w8_model, "cuda", prompts[:2], temps[:2], **w8)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    outs_w8, wall_w8, st_w8, counts_w8 = _counted_run(w8_model, prompts,
+                                                      temps, **w8)
+    peak_w8 = torch.cuda.max_memory_allocated()
+    del w8_model
+    q_outs = runs["int8"][0]["outs"]
+    bf16_greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    agree_w8 = top1_agreement([q_outs[i] for i in bf16_greedy],
+                              [outs_w8[i] for i in bf16_greedy])
+    pool_q, pool_n = runs["int8"][0]["pool_bytes"], runs["native"][0]["pool_bytes"]
+    ratio_ok = pool_q * 2 * HEAD_DIM == pool_n * (HEAD_DIM + 4)
+    complete = all(r["all_complete"] for rs in runs.values() for r in rs) \
+        and all(len(o) == 32 for o in outs_w8 + outs32)
+    for rs in runs.values():
+        for r in rs:
+            del r["outs"]
+    ok = first_ok and agree32 >= 0.8 and ratio_ok and complete
+    emit({"phase": "quant", "ok": ok, "model": "GPT-base 12x768 vocab 50304",
+          "engine": {"kv_dtype": "int8", "num_slots": SLOTS,
+                     "page_size": PAGE, "max_model_len": MAXLEN},
+          "requests": len(prompts), "max_new_tokens": 32,
+          "f32_vs_cpu_int8": {
+              "requests": n_par, "why_6": "the first 6 of the slice's 12 "
+              "requests: the CPU engine's GPT-base run bounds the count",
+              "greedy_requests": greedy,
+              "first_divergent_position": divergence,
+              "first_tokens_equal": first_ok, "top1_agreement": agree32,
+              "gate": "first tokens equal and top-1 agreement >= 0.8",
+              "cpu_reference_wall_s": cpu_wall, "card_wall_s": wall32,
+              "prefills": st32["prefills"], "decode_steps": st32["iteration"],
+              "launches": counts32},
+          "bf16_int8_kv": runs["int8"], "bf16_native": runs["native"],
+          "bf16_order": "int8, native, native, int8",
+          "pool_bytes_int8_over_native": pool_q / pool_n,
+          "pool_bytes_ratio_exact_68_over_128": ratio_ok,
+          "bf16_int8_kv_int8_weights": {
+              "wall_s": wall_w8, "tokens": sum(len(o) for o in outs_w8),
+              "tokens_per_s": sum(len(o) for o in outs_w8) / wall_w8,
+              "all_complete": all(len(o) == 32 for o in outs_w8),
+              "prefills": st_w8["prefills"], "decode_steps": st_w8["iteration"],
+              "launches": counts_w8, "peak_memory_allocated_bytes": peak_w8,
+              "top1_agreement_with_int8_kv_run": agree_w8,
+              "agreement_gated": False},
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("quant phase failed: first tokens differ from the "
+                         "CPU int8 engine, agreement < 0.8, the pool bytes "
+                         "ratio is not 68/128, or a request did not complete")
+    return runs["int8"][0]["launches"]
 
 
 # ------------------------------------------------------------------- train
@@ -543,6 +786,9 @@ PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2a flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
     ("K2b flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K4 paged_flash_decode_q", tuple(f"paged_flash_decode_kernel<{t}, signed char"
+                                      for t in ("float", "__half",
+                                                "__nv_bfloat16"))),
     ("K3 paged_flash_decode", ("paged_flash_decode_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
     ("softmax", ("SoftMax",)),
@@ -590,20 +836,23 @@ def _profiled(fn):
 
 def phase_profile():
     """Where the time goes (not part of the default run): the bf16 slice's
-    12 requests, and 3 bf16 O2 training steps at B=8, S=1024, each under
-    ``torch.profiler`` after a warm-up."""
+    12 requests with native and with int8 pools, and 3 bf16 O2 training
+    steps at B=8, S=1024, each under ``torch.profiler`` after a warm-up."""
     from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     prompts, temps = slice_requests()
     torch.manual_seed(0)
     model = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
-    _serve(model, "cuda", prompts, temps)                 # warm-up
+    serving = {}
+    for kv in ("native", "int8"):
+        _serve(model, "cuda", prompts, temps, kv_dtype=kv)          # warm-up
 
-    def serve():
-        _, _, stats = _serve(model, "cuda", prompts, temps)
-        return {"decode_steps": stats["iteration"], "prefills": stats["prefills"]}
+        def serve():
+            _, _, stats = _serve(model, "cuda", prompts, temps, kv_dtype=kv)
+            return {"decode_steps": stats["iteration"],
+                    "prefills": stats["prefills"]}
 
-    serving = _profiled(serve)
+        serving[kv] = _profiled(serve)
     del model
     torch.manual_seed(0)
     model = GPTForCausalLM(device="cuda")
@@ -618,25 +867,33 @@ def phase_profile():
             step({"input_ids": x, "labels": x})
         return {"steps": 3, "B": TRAIN_B, "S": TRAIN_S}
 
-    emit({"phase": "profile", "serving_bf16": serving,
+    emit({"phase": "profile", "serving_bf16": serving["native"],
+          "serving_bf16_int8_kv": serving["int8"],
           "train_bf16_O2": _profiled(train), "nvidia_smi": smi_line()})
 
 
-KERNELS = (  # key, name, source, TPU kernel it replaces
+KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
     ("k1", "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-     "paddle_tpu/ops/flash_attention.py:112"),
+     "paddle_tpu/ops/flash_attention.py:112", "serving prefill, training"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-     "paddle_tpu/ops/flash_attention.py:276"),
+     "paddle_tpu/ops/flash_attention.py:276", "training"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-     "paddle_tpu/ops/flash_attention.py:307"),
+     "paddle_tpu/ops/flash_attention.py:307", "training"),
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
-     "paddle_tpu/ops/paged_attention.py:371"),
+     "paddle_tpu/ops/paged_attention.py:371", "serving decode"),
+    ("k4", "paged_flash_decode_q", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
+     "paddle_tpu/ops/paged_attention.py:870", "int8 serving decode"),
+    # the full-sweep twins have no path, in the TPU package either
+    ("k5a", "paged_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
+     "paddle_tpu/ops/paged_attention.py:128", None),
+    ("k5b", "paged_q_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
+     "paddle_tpu/ops/paged_attention.py:782", None),
 )
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice,train")
+    ap.add_argument("--phases", default="build,kernels,slice,train,quant")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -647,7 +904,7 @@ def main():
     results = {}
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("slice", phase_slice), ("train", phase_train),
-                     ("profile", phase_profile)):
+                     ("quant", phase_quant), ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
@@ -655,16 +912,20 @@ def main():
     times = results.get("kernels")
     if times is not None:
         # launches: each counted run of the path that uses the kernel (the
-        # bf16 slice for K1 and K3, the bf16 training steps for K1 and K2)
+        # bf16 slice for K1 and K3, the bf16 training steps for K1 and K2,
+        # the first bf16 int8 slice for K1 and K4); K5a / K5b: the kernels
+        # phase's checks
         launches = {}
-        for counts in (results.get("slice"), results.get("train")):
+        for counts in (results.get("slice"), results.get("train"),
+                       results.get("quant")):
             for k, n in (counts or {}).items():
                 launches[k] = launches.get(k, 0) + n
         rows = []
-        for key, name, src, tpu in KERNELS:
+        for key, name, src, tpu, path in KERNELS:
             t = times[key]
             rows.append({"name": name, "route": "cuda", "source": src,
-                         "replaces": tpu, "launches": launches.get(name, 0),
+                         "replaces": tpu, "path": path,
+                         "launches": t.get("launches", launches.get(name, 0)),
                          "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
                          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"],

@@ -9,10 +9,12 @@ kernel on a ported path is a hand-written CUDA kernel under ``csrc/``,
 built with ``nvcc`` on first use.
 
 Ported so far: the serving slice (GPT causal LM inference, the paged KV
-cache and the continuous-batching :class:`~.serving.ServingEngine`) and
-the training slice (the flash-attention backward, ``cross_entropy``, the
+cache and the continuous-batching :class:`~.serving.ServingEngine`), the
+training slice (the flash-attention backward, ``cross_entropy``, the
 SGD / Momentum / Adam / AdamW optimizers with clipping and LR schedulers,
-AMP and :class:`~.jit.TrainStep`).  Entry points run on ``cuda`` unless
+AMP and :class:`~.jit.TrainStep`) and the int8 serving slice (int8 KV
+page pools with the dequantizing decode kernel, ``Int8Linear`` and
+``serving.quant``).  Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``.
 """
 

@@ -1,5 +1,6 @@
 """Paged KV-cache attention for the serving engine (counterpart of
-``paddle_tpu/ops/paged_attention.py``, its table-addressed serving part).
+``paddle_tpu/ops/paged_attention.py``, its table-addressed serving part and
+its int8 section).
 
 The engine keeps ONE global page pool ``[P, ps, HKV, D]`` per layer for K
 and one for V, shared by every slot through a page table ``[B, NP]``
@@ -8,14 +9,24 @@ and one for V, shared by every slot through a page table ``[B, NP]``
 - :func:`paged_attention` — one decode token per row against the pools.
   A CPU tensor takes the plain version :func:`paged_attention_ref`; a CUDA
   tensor launches the hand-written kernel ``csrc/paged_flash_decode.cu``
-  (the port of the TPU's ``_paged_flash_kernel``: the sweep stops at each
-  row's last valid page, GQA grouped in the kernel), or raises.
-- :func:`paged_table_prefill_write` / :func:`paged_table_token_write` —
-  the pool writes, plain in-place torch indexing.  JAX donated the pools
-  and rebuilt them with scatters; here the pools are updated IN PLACE and
-  returned for the caller's convenience.
+  (K3, the port of the TPU's ``_paged_flash_kernel``: the sweep stops at
+  each row's last valid page, GQA grouped in the kernel), or raises.
+- :func:`paged_attention_quantized` — the same over int8 pools with
+  parallel float32 scale pools ``[P, ps, HKV]``: the plain version
+  :func:`paged_attention_quantized_ref` on the CPU, the hand-written K4
+  (``csrc/paged_flash_decode_q.cu``, dequantization fused into the page
+  loads) on the card.
+- :func:`_paged_full_sweep` / :func:`_paged_q_full_sweep` — K5a / K5b, the
+  full-sweep twins of K3 / K4 (the TPU package's ``_paged_pallas`` /
+  ``_paged_q_pallas``): same function, every table page staged.  Only
+  tests call them.
+- :func:`paged_table_prefill_write` / :func:`paged_table_token_write` and
+  their quantizing twins — the pool writes, plain in-place torch indexing.
+  JAX donated the pools and rebuilt them with scatters; here the pools
+  are updated IN PLACE and returned for the caller's convenience.
 
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` (K3), ``QUANT_LAUNCHES`` (K4), ``FULL_SWEEP_LAUNCHES`` (K5a)
+and ``QUANT_FULL_SWEEP_LAUNCHES`` (K5b) count kernel launches.
 """
 
 from __future__ import annotations
@@ -26,11 +37,15 @@ import math
 import torch
 
 from . import _build
+from .quant import quantize_absmax
 
 NEG_INF = -1e30
 
-#: number of times the CUDA kernel was launched in this process
+#: launches of each CUDA kernel in this process: K3, K4, K5a, K5b
 LAUNCHES = 0
+QUANT_LAUNCHES = 0
+FULL_SWEEP_LAUNCHES = 0
+QUANT_FULL_SWEEP_LAUNCHES = 0
 
 
 def _last_page(seq_len, page_size):
@@ -42,7 +57,9 @@ def _last_page(seq_len, page_size):
 def _gathered_attend(q, k, v, seq_lens, scale):
     """q ``[B, H, D]`` against gathered k/v ``[B, T, HKV, D]`` masked by
     ``seq_lens``.  GQA as a grouped einsum over ``[HKV, g]``: query head
-    ``k * g + j`` attends kv head ``k`` (the ``repeat`` convention)."""
+    ``k * g + j`` attends kv head ``k`` (the ``repeat`` convention).  Rows
+    with ``seq_lens == 0`` give zeros, as every kernel does (the TPU
+    package's oracles give the mean of V, an all-masked softmax)."""
     B, H, D = q.shape
     T, HKV = k.shape[1], k.shape[2]
     g = H // HKV
@@ -53,16 +70,16 @@ def _gathered_attend(q, k, v, seq_lens, scale):
                       NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    empty = (seq_lens.to(q.device) <= 0)[:, None, None]
+    return out.reshape(B, H, D).to(q.dtype).masked_fill(empty, 0.0)
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     """Dense-gather plain version of :func:`paged_attention`, on any device.
 
     It follows the kernel where the TPU package's oracle of the same name
-    differs: a row with ``seq_lens == 0`` gives zeros (the oracle gives the
-    mean of V, an all-masked softmax; every paged kernel writes zeros).
-    Lengths past ``NP * ps`` clamp to the table."""
+    differs: a row with ``seq_lens == 0`` gives zeros.  Lengths past
+    ``NP * ps`` clamp to the table."""
     B, H, D = q.shape
     HKV, ps = k_pages.shape[2], k_pages.shape[1]
     NP = page_table.shape[1]
@@ -70,9 +87,7 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     idx = page_table.long()
     k = k_pages[idx].reshape(B, NP * ps, HKV, D)
     v = v_pages[idx].reshape(B, NP * ps, HKV, D)
-    out = _gathered_attend(q, k, v, seq_lens, scale)
-    empty = (seq_lens.to(q.device) <= 0)[:, None, None]
-    return out.masked_fill(empty, 0.0)
+    return _gathered_attend(q, k, v, seq_lens, scale)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
@@ -83,49 +98,99 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     int32; output ``[B, H, D]`` in q's dtype.  Every table entry a row's
     sweep reaches must index a valid page; slots past the row's length are
     never read."""
-    B, H, D = q.shape
-    if H % k_pages.shape[2]:
-        raise ValueError(f"q heads {H} not a multiple of kv heads "
-                         f"{k_pages.shape[2]}")
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    scale = _check_heads(q, k_pages, scale)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
                                    scale)
-    _check_cuda_args(q, k_pages, v_pages, page_table, seq_lens)
-    P, ps, HKV, _ = k_pages.shape
-    NP = page_table.shape[1]
-    o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        err = lib.ptt_paged_flash_decode(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
-            _build.dtype_code(q), B, H, HKV, D, ps, NP, q.stride(0),
-            q.stride(1), scale, _build.stream_handle(q))
-    _build.check(err, "paged_flash_decode")
     global LAUNCHES
+    o = _launch(q, k_pages, v_pages, None, None, page_table, seq_lens, scale,
+                bounded=True)
     LAUNCHES += 1
     return o
 
 
-def _check_cuda_args(q, k_pages, v_pages, page_table, seq_lens):
+def _paged_full_sweep(q, k_pages, v_pages, page_table, seq_lens, scale=None):
+    """K5a: :func:`paged_attention`'s function with the legacy full sweep
+    (the TPU package's ``_paged_pallas``): every one of a row's table pages
+    is staged, compute stops at its length.  Only tests call it; its plain
+    version is :func:`paged_attention_ref`."""
+    scale = _check_heads(q, k_pages, scale)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
+                                   scale)
+    global FULL_SWEEP_LAUNCHES
+    o = _launch(q, k_pages, v_pages, None, None, page_table, seq_lens, scale,
+                bounded=False)
+    FULL_SWEEP_LAUNCHES += 1
+    return o
+
+
+def _check_heads(q, k_pages, scale):
+    """The GQA rule every entry shares; returns the softmax scale."""
+    H, D = q.shape[1], q.shape[2]
+    if H % k_pages.shape[2]:
+        raise ValueError(f"q heads {H} not a multiple of kv heads "
+                         f"{k_pages.shape[2]}")
+    return float(scale) if scale is not None else 1.0 / math.sqrt(D)
+
+
+def _launch(q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
+            scale, bounded):
+    """Check the arguments and launch K3 / K5a (no scales) or K4 / K5b
+    (int8 pools with their scale pools) on q's stream."""
+    _check_cuda_args(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                     seq_lens)
+    B, H, D = q.shape
+    P, ps, HKV, _ = k_pages.shape
+    NP = page_table.shape[1]
+    o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    if k_scales is None:
+        name, scales = "paged_flash_decode", ()
+    else:
+        name, scales = "paged_flash_decode_q", (k_scales.data_ptr(),
+                                                v_scales.data_ptr())
+    fn = getattr(_lib(name), "ptt_" + name)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+                 page_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
+                 _build.dtype_code(q), B, H, HKV, D, ps, NP, q.stride(0),
+                 q.stride(1), scale, int(bounded), _build.stream_handle(q))
+    _build.check(err, name)
+    return o
+
+
+def _check_cuda_args(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                     seq_lens):
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"paged attention runs on cuda or cpu tensors, got {q.device}")
     _build.check_no_grad(q, k_pages, v_pages)
-    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("seq_lens", seq_lens)):
+    quant = k_scales is not None
+    named = [("k_pages", k_pages), ("v_pages", v_pages),
+             ("page_table", page_table), ("seq_lens", seq_lens)]
+    if quant:
+        named += [("k_scales", k_scales), ("v_scales", v_scales)]
+    for name, x in named:
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype} differ "
-                        f"from q's {q.dtype}")
+    want = torch.int8 if quant else q.dtype
+    if k_pages.dtype != want or v_pages.dtype != want:
+        raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype}: "
+                        f"this kernel takes {want}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != q.shape[2]:
         raise ValueError(f"pools {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    if quant:
+        if k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
+            raise TypeError("k_scales and v_scales must be float32")
+        if k_scales.shape != k_pages.shape[:3] \
+                or v_scales.shape != k_pages.shape[:3]:
+            raise ValueError(f"scale pools {tuple(k_scales.shape)} / "
+                             f"{tuple(v_scales.shape)} do not match the pools' "
+                             f"{tuple(k_pages.shape[:3])}")
     if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("page_table and seq_lens must be int32")
     if page_table.shape[0] != q.shape[0] or seq_lens.shape != (q.shape[0],):
@@ -133,19 +198,25 @@ def _check_cuda_args(q, k_pages, v_pages, page_table, seq_lens):
     if q.stride(2) != 1:
         raise ValueError("q must be unit-stride in head_dim")
     if q.shape[1] // k_pages.shape[2] > 32 or q.shape[2] > 256:
-        raise NotImplementedError("the paged decode kernel takes at most 32 "
+        raise NotImplementedError("the paged decode kernels take at most 32 "
                                   "query heads per kv head and head_dim <= 256")
 
 
-def _lib():
-    lib = _build.load("paged_flash_decode")
-    fn = lib.ptt_paged_flash_decode
+# leading pointer arguments of each entry; then both take
+# dtype, B, H, HKV, D, ps, NP | qsb, qsh | scale | bounded | stream
+_N_PTRS = {
+    "paged_flash_decode": 6,        # q, k, v, table, lens, o
+    "paged_flash_decode_q": 8,      # q, k, v, k_scales, v_scales, table, lens, o
+}
+
+
+def _lib(name):
+    lib = _build.load(name)
+    fn = getattr(lib, "ptt_" + name)
     if fn.argtypes is None:
-        P = ctypes.c_void_p
-        I = ctypes.c_int
-        L = ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, L, L,
-                       ctypes.c_float, P]
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P] * _N_PTRS[name] + [I] * 7 + [L, L, ctypes.c_float,
+                                                       I, P]
         fn.restype = I
     return lib
 
@@ -186,3 +257,102 @@ def paged_table_token_write(pool, tok, table, lens):
     pages = table[rows, col].long()
     pool[pages, lens % ps] = tok.to(pool.dtype)
     return pool
+
+
+# --------------------------------------------------- int8 quantized pools
+# The quantized serving path (paddle_tpu_torch.serving.quant): K/V page
+# pools stored as int8 with a PARALLEL SCALE POOL — one float32 scale per
+# (page slot, kv head), i.e. each page carries a [ps, h] scale tile next to
+# its [ps, h, d] int8 payload, addressed by the SAME page table.  Per-slot
+# scales make every write self-contained (a token write never requantizes
+# a page it shares with older tokens).  Quantization is fused into the
+# pool writes and dequantization into the attention: K4 multiplies each
+# int8 element by its scale while staging the page in shared memory, so no
+# full-precision copy of the cache exists in device memory.  (The plain
+# version dequantizes the GATHERED pages, a transient [B, T] working set.)
+
+
+def quantize_kv(kv, bits=8):
+    """Quantize K or V activations onto the pool grid: ``[..., h, d]`` ->
+    ``(int8 [..., h, d], float32 scales [..., h])`` — absmax over d per
+    position per head."""
+    qv, scale = quantize_absmax(kv, axis=-1, bits=bits)
+    return qv, scale.squeeze(-1)
+
+
+def paged_table_prefill_write_quant(pool, spool, kv, table):
+    """Quantizing twin of :func:`paged_table_prefill_write`: rounds the
+    prompt's K or V into the int8 pool and writes the per-(slot, head)
+    scales into the parallel scale pool, both in place.  pool
+    ``[P, ps, h, d]`` int8; spool ``[P, ps, h]`` float32; kv
+    ``[B, S, h, d]``; returns ``(pool, spool)``."""
+    qv, sc = quantize_kv(kv)
+    return (paged_table_prefill_write(pool, qv, table),
+            paged_table_prefill_write(spool, sc, table))
+
+
+def paged_table_token_write_quant(pool, spool, tok, table, lens):
+    """Quantizing twin of :func:`paged_table_token_write` (one token per
+    slot at its own position, in place).  tok ``[B, h, d]``; returns
+    ``(pool, spool)``."""
+    qv, sc = quantize_kv(tok)
+    return (paged_table_token_write(pool, qv, table, lens),
+            paged_table_token_write(spool, sc, table, lens))
+
+
+def paged_attention_quantized_ref(q, k_pages, v_pages, k_scales, v_scales,
+                                  page_table, seq_lens, scale=None):
+    """Plain version of :func:`paged_attention_quantized` (K4) and of K5b,
+    on any device: gather the int8 pages and their scale tiles, dequantize
+    the gathered working set, then :func:`paged_attention_ref`'s math.
+    Rows with ``seq_lens == 0`` give zeros, as every kernel does (the TPU
+    package's oracle gives the mean of V)."""
+    B, H, D = q.shape
+    HKV, ps = k_pages.shape[2], k_pages.shape[1]
+    NP = page_table.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    idx = page_table.long()
+    k = k_pages[idx].float() * k_scales[idx].float()[..., None]
+    v = v_pages[idx].float() * v_scales[idx].float()[..., None]
+    return _gathered_attend(q, k.reshape(B, NP * ps, HKV, D),
+                            v.reshape(B, NP * ps, HKV, D), seq_lens, scale)
+
+
+def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
+                              page_table, seq_lens, scale=None):
+    """Decode attention over int8 paged pools with the dequantization
+    fused into the kernel (K4).
+
+    q ``[B, H, D]`` (f32 / f16 / bf16); k_pages / v_pages
+    ``[P, ps, HKV, D]`` int8; k_scales / v_scales ``[P, ps, HKV]``
+    float32; page_table ``[B, NP]`` int32; seq_lens ``[B]`` int32; output
+    in q's dtype.  Same table / masking / GQA contract as
+    :func:`paged_attention`.  A CPU tensor takes the plain version; a CUDA
+    tensor launches K4 or raises."""
+    scale = _check_heads(q, k_pages, scale)
+    if q.device.type == "cpu":
+        return paged_attention_quantized_ref(q, k_pages, v_pages, k_scales,
+                                             v_scales, page_table, seq_lens,
+                                             scale)
+    global QUANT_LAUNCHES
+    o = _launch(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                seq_lens, scale, bounded=True)
+    QUANT_LAUNCHES += 1
+    return o
+
+
+def _paged_q_full_sweep(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                        seq_lens, scale=None):
+    """K5b: :func:`paged_attention_quantized`'s function with the legacy
+    full sweep (the TPU package's ``_paged_q_pallas``).  Only tests call
+    it; its plain version is :func:`paged_attention_quantized_ref`."""
+    scale = _check_heads(q, k_pages, scale)
+    if q.device.type == "cpu":
+        return paged_attention_quantized_ref(q, k_pages, v_pages, k_scales,
+                                             v_scales, page_table, seq_lens,
+                                             scale)
+    global QUANT_FULL_SWEEP_LAUNCHES
+    o = _launch(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                seq_lens, scale, bounded=False)
+    QUANT_FULL_SWEEP_LAUNCHES += 1
+    return o

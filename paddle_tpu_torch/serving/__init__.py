@@ -8,6 +8,9 @@ paged KV cache (counterpart of ``paddle_tpu/serving``; its core path).
 - :mod:`.adapter` — :class:`GPTAdapter`: the prefill / step calls.
 - :mod:`.api` — :class:`ContinuousBatchingPredictor`, the
   ``paddle.inference``-shaped facade.
+- :mod:`.quant` — int8 serving: ``ServingEngine(kv_dtype="int8",
+  weight_dtype="int8")``'s adapter, weight conversion and the calibration
+  harness.
 """
 
 from ..resilience.retry import EngineStoppedError  # noqa: F401

@@ -2,17 +2,18 @@
 ``paddle_tpu/serving/adapter.py``).
 
 :class:`GPTAdapter` reduces a causal LM to two calls over explicit KV
-state — the pool tuple ``(kp, vp)``, each ``[L, P, ps, h, d]``:
+state — the pool tuple, ``(kp, vp)`` each ``[L, P, ps, h, d]`` here
+(:class:`~.quant.QuantizedGPTAdapter` adds two scale pools):
 
-- ``prefill(ids, kp, vp, table, lens)`` runs the (right-padded) prompts
+- ``prefill(ids, *pools, table, lens)`` runs the (right-padded) prompts
   ``ids [B, S]``, writes their K/V into the pools through ``table [B, NP]``
   and returns the next-token logits at each row's true last position
   ``lens[b] - 1``;
-- ``step(last, kp, vp, table, lens)`` runs one decode token per slot at
+- ``step(last, *pools, table, lens)`` runs one decode token per slot at
   each slot's OWN position ``lens[b]`` (iteration-level batching),
   attention through the paged kernel.
 
-Both return ``(logits [B, V] f32, kp, vp)``.  The TPU package donated the
+Both return ``(logits [B, V] f32, *pools)``.  The TPU package donated the
 pools into each compiled call and got new arrays back; here the layers
 write the per-layer views ``kp[i]`` IN PLACE, so the returned pools are
 the same tensors (there is no re-stacking step).  Both run under
@@ -37,7 +38,11 @@ class GPTAdapter:
         blk = self.gpt.layers[0]
         self.num_layers = len(self.gpt.layers)
         self.head_dim = blk.head_dim
-        self.num_kv_heads = blk.qkv.weight.shape[0] // (3 * blk.head_dim)
+        # an Int8Linear (weight_dtype="int8") keeps its weight as weight_int8
+        qkv_w = getattr(blk.qkv, "weight", None)
+        if qkv_w is None:
+            qkv_w = blk.qkv.weight_int8
+        self.num_kv_heads = qkv_w.shape[0] // (3 * blk.head_dim)
         wte = self.gpt.word_embeddings.weight
         self.dtype = wte.dtype
         self.device = wte.device
@@ -72,19 +77,21 @@ class GPTAdapter:
 
     # ------------------------------------------------------------- closures
     @torch.inference_mode()
-    def prefill(self, ids, kp, vp, table, lens):
+    def prefill(self, ids, *pools_table_lens):
+        *pools, table, lens = pools_table_lens
         S = ids.shape[1]
         pos_ids = torch.arange(S, dtype=torch.int64, device=ids.device)[None, :]
-        x, w = self._run(ids, (kp, vp), table, lens, pos_ids)
+        x, w = self._run(ids, pools, table, lens, pos_ids)
         # logits at each row's LAST REAL position (rows are right-padded)
         idx = (lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
         h = torch.gather(x, 1, idx)[:, 0]
         logits = h.float() @ w.float().T
-        return logits, kp, vp
+        return (logits, *pools)
 
     @torch.inference_mode()
-    def step(self, last, kp, vp, table, lens):
+    def step(self, last, *pools_table_lens):
+        *pools, table, lens = pools_table_lens
         pos_ids = lens[:, None].long()
-        x, w = self._run(last, (kp, vp), table, lens, pos_ids)
+        x, w = self._run(last, pools, table, lens, pos_ids)
         logits = x[:, -1].float() @ w.float().T
-        return logits, kp, vp
+        return (logits, *pools)

@@ -50,7 +50,7 @@ class PageAllocation:
 
 class BlockManager:
     def __init__(self, num_pages, page_size, prefix_sharing=False,
-                 bytes_per_page=None):
+                 bytes_per_page=None, pool_dtype=None):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         if page_size < 1:
@@ -58,8 +58,12 @@ class BlockManager:
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.prefix_sharing = bool(prefix_sharing)
+        # device accounting: what one page costs across all layers, K and
+        # V, scale pools included, and what the pool rows are made of —
+        # the engine fills these in so capacity math talks in bytes
         self.bytes_per_page = int(bytes_per_page) \
             if bytes_per_page is not None else None
+        self.pool_dtype = str(pool_dtype) if pool_dtype is not None else None
         self._free = collections.deque(range(self.num_pages))
         self._active = {}                       # prefix key -> [page, refs]
         self._idle = collections.OrderedDict()  # prefix key -> page (refs 0)
@@ -87,15 +91,35 @@ class BlockManager:
         return self.used_pages / self.num_pages
 
     def stats(self):
+        """Allocator snapshot, in bytes too when the engine supplied
+        ``bytes_per_page`` (an int8 pool's page costs about half a bf16
+        one: the resident-sequence win)."""
         st = {"num_pages": self.num_pages, "page_size": self.page_size,
               "used_pages": self.used_pages, "free_pages": self.free_pages,
               "utilization": self.utilization(),
               "prefix_sharing": self.prefix_sharing,
-              "bytes_per_page": self.bytes_per_page}
+              "bytes_per_page": self.bytes_per_page,
+              "pool_dtype": self.pool_dtype}
+        if self.bytes_per_page is not None:
+            st["pool_bytes"] = self.num_pages * self.bytes_per_page
+            st["used_bytes"] = self.used_pages * self.bytes_per_page
+            st["kv_bytes_per_token"] = self.bytes_per_page / self.page_size
         if self.prefix_sharing:
             st["prefix_cache"] = {"hits": self.hits, "misses": self.misses,
                                   "evictions": self.evictions}
         return st
+
+    def max_resident_sequences(self, tokens_per_seq, budget_bytes=None):
+        """How many sequences of ``tokens_per_seq`` worst case fit — in this
+        pool, or in a pool of ``budget_bytes`` device memory at this
+        manager's ``bytes_per_page``."""
+        per_seq = self.pages_for(tokens_per_seq)
+        pages = self.num_pages
+        if budget_bytes is not None:
+            if self.bytes_per_page is None:
+                raise ValueError("budget_bytes needs bytes_per_page")
+            pages = int(budget_bytes) // self.bytes_per_page
+        return pages // per_seq
 
     # ------------------------------------------------------------ allocation
     def _pop_free(self):

@@ -26,6 +26,13 @@ transient-restart path waits for a later slice.
 
 The engine runs on the card unless ``device="cpu"``; it moves the model
 to its device (``nn.Module.to`` moves in place).
+
+Quantized serving: ``kv_dtype="int8"`` stores the page pools as int8 with
+parallel float32 scale pools (:class:`~.quant.QuantizedGPTAdapter`; the
+writes quantize and decode runs the dequantizing kernel K4), about 1.9x
+the resident sequences per pool byte at head_dim 64;
+``weight_dtype="int8"`` converts the model's Linears to ``Int8Linear`` in
+place (:func:`~.quant.quantize_model_weights`, idempotent).
 """
 
 from __future__ import annotations
@@ -180,10 +187,31 @@ class ServingEngine:
 
     def __init__(self, model, num_slots=4, page_size=16, max_model_len=None,
                  num_pages=None, top_k=0, top_p=1.0, prefix_sharing=False,
-                 seed=0, device=None):
+                 seed=0, device=None, kv_dtype=None, weight_dtype=None):
+        kv_dtype = str(kv_dtype).lower() if kv_dtype is not None else "native"
+        if kv_dtype in ("native", "bf16", "bfloat16", "float32", "fp32"):
+            kv_dtype = "native"
+        elif kv_dtype != "int8":
+            raise ValueError(f"kv_dtype must be None/'native' or 'int8', "
+                             f"got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = str(weight_dtype).lower() \
+            if weight_dtype is not None else "native"
+        if self.weight_dtype not in ("native", "int8"):
+            raise ValueError(f"weight_dtype must be None/'native' or "
+                             f"'int8', got {weight_dtype!r}")
         self.device = resolve_device(device)
         self._model = model.to(self.device)
-        self._adapter = GPTAdapter(model, page_size)
+        if self.weight_dtype == "int8":
+            from .quant.weights import quantize_model_weights
+
+            quantize_model_weights(model)
+        if kv_dtype == "int8":
+            from .quant.adapter import QuantizedGPTAdapter
+
+            self._adapter = QuantizedGPTAdapter(model, page_size)
+        else:
+            self._adapter = GPTAdapter(model, page_size)
         self.page_size = int(page_size)
         self.num_slots = int(num_slots)
         cap = self._adapter.max_model_len
@@ -194,9 +222,12 @@ class ServingEngine:
             num_pages = self.num_slots * self.table_width  # full residency
         self._num_pages = int(num_pages)
         self._bytes_per_page = int(self._adapter.page_bytes())
+        self._pool_dtype = "int8" if kv_dtype == "int8" \
+            else str(self._adapter.dtype).removeprefix("torch.")
         self._bm = BlockManager(self._num_pages, self.page_size,
                                 prefix_sharing=prefix_sharing,
-                                bytes_per_page=self._bytes_per_page)
+                                bytes_per_page=self._bytes_per_page,
+                                pool_dtype=self._pool_dtype)
         # pool row num_pages is the SCRATCH page: inactive decode slots and
         # padded table tails point at it (every table entry must be a valid
         # pool row; junk written there is never attended)
@@ -575,5 +606,11 @@ class ServingEngine:
             "num_pages": self._bm.num_pages,
             "page_utilization": self._bm.utilization(),
             "bytes_per_page": self._bytes_per_page,
+            # what the pools are made of and what a token costs in them
+            # (scale pools included)
+            "kv_dtype": self.kv_dtype,
+            "weight_dtype": self.weight_dtype,
+            "pool_dtype": self._pool_dtype,
+            "kv_bytes_per_token": self._bytes_per_page / self.page_size,
             "error": repr(self._error) if self._error is not None else None,
         }

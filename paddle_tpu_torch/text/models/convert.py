@@ -6,7 +6,10 @@
 caller converts them, so this module never imports the JAX package — and
 loads them into the port's model of the same structure.  Paddle's
 ``Linear`` stores ``[in, out]``; torch's ``[out, in]``, so those weights
-are transposed.  :func:`export_paddle_tpu_state_dict` is the inverse, so
+are transposed, and so are ``Int8Linear``'s ``weight_int8`` buffers.
+(``Int8Linear.w_scale`` is an attribute, not state: a converted model is
+made by converting the float model with
+``serving.quant.quantize_model_weights``.)  :func:`export_paddle_tpu_state_dict` is the inverse, so
 trained weights can be held against the JAX model's.  Every key and shape
 is checked both ways.
 """
@@ -65,5 +68,13 @@ def _check_keys(own, other):
 
 
 def _linear_weights(model):
-    return {f"{name}.weight" for name, m in model.named_modules()
-            if isinstance(m, torch.nn.Linear)}
+    """State-dict keys kept ``[out, in]`` here and ``[in, out]`` in paddle."""
+    from ...quantization import Int8Linear
+
+    keys = set()
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.Linear):
+            keys.add(f"{name}.weight")
+        elif isinstance(m, Int8Linear):
+            keys.add(f"{name}.weight_int8")
+    return keys

@@ -8,7 +8,9 @@ global page pool per layer for K and V, shared by every slot through a
 page table, with per-slot lengths.  Prefill (S > 1) attends the prompt
 with the flash kernel and writes its K/V into the pool; decode (S == 1)
 writes the token first, then attends with the paged flash-decode kernel
-over ``lens + 1`` positions.  The pools are updated in place.
+over ``lens + 1`` positions.  The ``"served_q"`` variant does the same
+over int8 pools with parallel float32 scale pools: the writes quantize,
+decode runs the dequantizing kernel.  The pools are updated in place.
 
 The qkv projection's output is HEAD-MAJOR, ``[B, S, heads, 3, head_dim]``,
 as in the TPU package (a column split over heads hands each shard whole
@@ -24,8 +26,11 @@ from ...device import resolve_device
 from ...nn import functional as F
 from ...nn.layers.common import Linear
 from ...nn.layers.norm import LayerNorm
-from ...ops.paged_attention import (paged_attention, paged_table_prefill_write,
-                                    paged_table_token_write)
+from ...ops.paged_attention import (paged_attention, paged_attention_quantized,
+                                    paged_table_prefill_write,
+                                    paged_table_prefill_write_quant,
+                                    paged_table_token_write,
+                                    paged_table_token_write_quant)
 
 
 class GPTDecoderLayer(torch.nn.Module):
@@ -48,10 +53,12 @@ class GPTDecoderLayer(torch.nn.Module):
         self.act = getattr(F, act)
 
     def forward(self, x, cache=None):
-        """``cache`` is None (full causal attention over ``x``) or the
-        served tuple ``("served", kp, vp, table, lens)``: this layer's pools
-        ``[P, ps, heads, head_dim]``, the page table ``[B, NP]`` int32 and
-        the per-slot lengths ``[B]`` int32.  Returns ``x``, or ``(x,
+        """``cache`` is None (full causal attention over ``x``), the
+        served tuple ``("served", kp, vp, table, lens)`` — this layer's
+        pools ``[P, ps, heads, head_dim]``, the page table ``[B, NP]``
+        int32 and the per-slot lengths ``[B]`` int32 — or the quantized
+        ``("served_q", kp, vp, ks, vs, table, lens)`` with int8 pools and
+        float32 scale pools ``[P, ps, heads]``.  Returns ``x``, or ``(x,
         cache)`` with the same (updated in place) pools."""
         residual = x
         h = self.ln1(x)
@@ -77,10 +84,25 @@ class GPTDecoderLayer(torch.nn.Module):
                 paged_table_token_write(kp, k[:, 0], table, lens)
                 paged_table_token_write(vp, v[:, 0], table, lens)
                 attn = paged_attention(q[:, 0], kp, vp, table, lens + 1)[:, None]
+        elif cache[0] == "served_q":
+            # quantized pools: prefill attends the full-precision prompt
+            # (only the cache is quantized); the writes round K/V onto the
+            # int8 grid; decode dequantizes inside the kernel
+            _, kp, vp, ks, vs, table, lens = cache
+            if S > 1:
+                attn = F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, dropout_p=0.0, training=False)
+                paged_table_prefill_write_quant(kp, ks, k, table)
+                paged_table_prefill_write_quant(vp, vs, v, table)
+            else:
+                paged_table_token_write_quant(kp, ks, k[:, 0], table, lens)
+                paged_table_token_write_quant(vp, vs, v[:, 0], table, lens)
+                attn = paged_attention_quantized(q[:, 0], kp, vp, ks, vs,
+                                                 table, lens + 1)[:, None]
         else:
             raise NotImplementedError(
                 f"cache variant {cache[0]!r} is not ported yet (only "
-                f"'served')")
+                f"'served' and 'served_q')")
         attn = attn.reshape(B, S, heads * self.head_dim)
         x = residual + self.dropout(self.out_proj(attn))
         residual = x

@@ -1,13 +1,17 @@
 """PyTorch port on the card: each hand-written CUDA kernel held against its
-plain PyTorch version on CUDA tensors, the tiny-GPT serving engine on the
-card against the same engine on the CPU, and tiny-GPT training through the
-flash kernels forward and backward.  Marked ``cuda``; every test
+plain PyTorch version on CUDA tensors (the full-sweep K5a / K5b also bit
+for bit against K3 / K4), Int8Linear's torch._int_mm against the CPU, the
+tiny-GPT serving engine on the card (native and int8 pools) against the
+same engine on the CPU, and tiny-GPT training through the flash kernels
+forward and backward.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -234,3 +238,160 @@ def test_engine_on_card_matches_cpu_engine(cuda):
     assert got == want
     assert fa.LAUNCHES - k1 == 2 * st["prefills"] > 0
     assert pa.LAUNCHES - k3 == 2 * st["iteration"] > 0
+
+
+# --------------------------------------------------------- int8 serving
+def _quant_pools(gen, pages, ps, hkv, d):
+    kq, ks = pa.quantize_kv(torch.randn(pages, ps, hkv, d, generator=gen,
+                                        device="cuda"))
+    vq, vs = pa.quantize_kv(torch.randn(pages, ps, hkv, d, generator=gen,
+                                        device="cuda"))
+    return kq, vq, ks.contiguous(), vs.contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,hkv,ps", [(12, 12, 16), (12, 4, 16), (8, 1, 8),
+                                      (4, 2, 32)])
+def test_quant_paged_kernel_matches_plain(cuda, dtype, h, hkv, ps):
+    """K4 against paged_attention_quantized_ref; K5b bit-equal to K4; NaN
+    in every dead page's scale rows changes neither (K4 never reads them,
+    K5b stages them and must not use them); empty rows are zeros."""
+    NP, d = 12, 64
+    lens = [0, 1, ps - 1, ps, ps + 1, NP * ps, 5 * ps + 3, NP * ps + 9]
+    B = len(lens)
+    table = torch.randperm(B * NP, generator=cuda, device="cuda")
+    table = table.to(torch.int32).reshape(B, NP)
+    kq, vq, ks, vs = _quant_pools(cuda, B * NP, ps, hkv, d)
+    q = torch.randn(B, h, d, generator=cuda, device="cuda").to(dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n = pa.QUANT_LAUNCHES, pa.QUANT_FULL_SWEEP_LAUNCHES
+    o = pa.paged_attention_quantized(q, kq, vq, ks, vs, table, ln)
+    o5 = pa._paged_q_full_sweep(q, kq, vq, ks, vs, table, ln)
+    assert (pa.QUANT_LAUNCHES, pa.QUANT_FULL_SWEEP_LAUNCHES) == \
+        (n[0] + 1, n[1] + 1)
+    ref = pa.paged_attention_quantized_ref(q, kq, vq, ks, vs, table, ln)
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.float(), ref.float(), atol=ATOL[dtype], rtol=0)
+    assert bool((o[0] == 0).all())
+    assert torch.equal(o5, o)
+    for b, n_ in enumerate(lens):
+        dead = table[b, -(-n_ // ps):].long()
+        ks[dead] = float("nan")
+        vs[dead] = float("nan")
+    o_p = pa.paged_attention_quantized(q, kq, vq, ks, vs, table, ln)
+    o5_p = pa._paged_q_full_sweep(q, kq, vq, ks, vs, table, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(o_p, o) and torch.equal(o5_p, o)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,hkv,ps", [(12, 12, 16), (12, 4, 16), (4, 2, 32)])
+def test_full_sweep_kernel_equals_k3(cuda, dtype, h, hkv, ps):
+    """K5a stages every table page, NaN-poisoned dead pages included, and
+    still gives K3's output bit for bit (and the plain version's)."""
+    NP, d = 12, 64
+    lens = [0, 1, ps - 1, ps + 1, NP * ps, 5 * ps + 3]
+    B = len(lens)
+    table = torch.randperm(B * NP, generator=cuda, device="cuda")
+    table = table.to(torch.int32).reshape(B, NP)
+    kp = torch.randn(B * NP, ps, hkv, d, generator=cuda, device="cuda").to(dtype)
+    vp = torch.randn(B * NP, ps, hkv, d, generator=cuda, device="cuda").to(dtype)
+    q = torch.randn(B, h, d, generator=cuda, device="cuda").to(dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o = pa.paged_attention(q, kp, vp, table, ln)
+    n0 = pa.FULL_SWEEP_LAUNCHES
+    o5 = pa._paged_full_sweep(q, kp, vp, table, ln)
+    assert pa.FULL_SWEEP_LAUNCHES == n0 + 1
+    assert torch.equal(o5, o)
+    ref = pa.paged_attention_ref(q, kp, vp, table, ln)
+    torch.testing.assert_close(o5.float(), ref.float(), atol=ATOL[dtype], rtol=0)
+    for b, n in enumerate(lens):
+        dead = table[b, -(-n // ps):].long()
+        kp[dead] = float("nan")
+        vp[dead] = float("nan")
+    o5_p = pa._paged_full_sweep(q, kp, vp, table, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(o5_p, o)
+
+
+def test_quant_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn(2, 4, 64, device="cuda")
+    kq = torch.zeros(4, 8, 2, 64, dtype=torch.int8, device="cuda")
+    sc = torch.ones(4, 8, 2, device="cuda")
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
+    ln = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):                       # f32 pools
+        pa.paged_attention_quantized(q, kq.float(), kq.float(), sc, sc, table, ln)
+    with pytest.raises(TypeError):                       # f16 scales
+        pa.paged_attention_quantized(q, kq, kq, sc.half(), sc.half(), table, ln)
+    with pytest.raises(ValueError):                      # scale shape
+        pa.paged_attention_quantized(q, kq, kq, sc[:, :4], sc[:, :4], table, ln)
+    with pytest.raises(ValueError):                      # not contiguous
+        pa.paged_attention_quantized(q, kq, kq, sc.transpose(0, 1),
+                                     sc.transpose(0, 1), table, ln)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_grid_on_card_equals_cpu(cuda, dtype):
+    """quantize_kv on the card gives the CPU's int8 bytes and float32
+    scales exactly: every division is a true float32 division there too."""
+    x = (torch.randn(64, 16, 12, 64, generator=cuda, device="cuda") * 3).to(dtype)
+    qc, sc = pa.quantize_kv(x)
+    qh, sh = pa.quantize_kv(x.cpu())
+    assert torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 8, 16, 17, 33])
+def test_int8_linear_on_card_equals_cpu(cuda, rows):
+    """torch._int_mm on the card (rows padded to what it takes) gives the
+    CPU's exact int32 product: the outputs agree to float rounding."""
+    from paddle_tpu_torch.nn.layers.common import Linear
+    from paddle_tpu_torch.quantization import Int8Linear
+
+    torch.manual_seed(rows)
+    lin = Linear(768, 2304)
+    cpu = Int8Linear(lin, float(lin.weight.detach().abs().max()) / 127)
+    card = Int8Linear(copy.deepcopy(lin).to("cuda"), cpu.w_scale)
+    assert torch.equal(card.weight_int8.cpu(), cpu.weight_int8)
+    x = torch.randn(2, rows, 768)
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to("cuda"))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-6)
+
+
+def _top1(ref, got):
+    match = sum(sum(a == b for a, b in zip(r, g)) for r, g in zip(ref, got))
+    return match / sum(max(len(r), len(g)) for r, g in zip(ref, got))
+
+
+def test_int8_engine_on_card_matches_cpu_engine(cuda):
+    """Tiny random GPT, float32, kv_dtype="int8": the card engine against
+    the CPU engine (first tokens equal: prefill is full precision; greedy
+    agreement >= 0.8: int8 rounding ties may flip on last-bit differences),
+    K4 once per layer per decode step and K3 never; then with
+    weight_dtype="int8" too (torch._int_mm in every Linear)."""
+    cfg = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+               num_attention_heads=2, max_position_embeddings=64)
+    torch.manual_seed(0)
+    base = GPTForCausalLM(device="cpu", **cfg)
+    prompts = [np.random.RandomState(i).randint(1, 96, n).tolist()
+               for i, n in enumerate((3, 8, 13, 16, 40))]
+
+    def serve(device, **kw):
+        model = GPTForCausalLM(device="cpu", **cfg)
+        model.load_state_dict(base.state_dict())
+        with ServingEngine(model, device=device, num_slots=3, page_size=8,
+                           max_model_len=64, kv_dtype="int8", **kw) as eng:
+            hs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+            return [h.result(timeout=120) for h in hs], eng.stats()
+
+    for kw in ({}, {"weight_dtype": "int8"}):
+        want, _ = serve("cpu", **kw)
+        k1, k3, k4 = fa.LAUNCHES, pa.LAUNCHES, pa.QUANT_LAUNCHES
+        got, st = serve("cuda", **kw)
+        assert [g[0] for g in got] == [w[0] for w in want], kw
+        assert _top1(want, got) >= 0.8, kw
+        assert fa.LAUNCHES - k1 == 2 * st["prefills"] > 0
+        assert pa.QUANT_LAUNCHES - k4 == 2 * st["iteration"] > 0
+        assert pa.LAUNCHES == k3
