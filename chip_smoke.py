@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                  # build,kernels,slice,train,quant
+    python3 chip_smoke.py                  # build,kernels,slice,train,quant,custom_op,qat
     python3 chip_smoke.py --phases build,kernels
-    python3 chip_smoke.py --phases build,kernels,slice,train,quant,profile
+    python3 chip_smoke.py --phases build,kernels,slice,train,quant,custom_op,qat,profile
 
 Phases, each printing one JSON line and then its seconds:
 
@@ -18,9 +18,12 @@ Phases, each printing one JSON line and then its seconds:
    K1 + K2 against torch autograd through the plain forward; K4 (paged
    decode over int8 pools) against its plain version, also with NaN in
    every dead page's scale rows, and the full-sweep twins K5a / K5b bit
-   for bit against K3 / K4.  Then time kernel, plain version and
-   PyTorch's own call with CUDA events: K1 at the longest prefill, K3, K4
-   and K5a / K5b at a decode step, K2 at the training shape.
+   for bit against K3 / K4; the fused bias + GELU K6 in f32 / f16 / bf16
+   (bf16 x with a float32 bias too) at the example's shape, GPT-base's MLP
+   activation, an odd width and a non-contiguous x.  Then time kernel,
+   plain version and PyTorch's own call with CUDA events: K1 at the
+   longest prefill, K3, K4 and K5a / K5b at a decode step, K2 at the
+   training shape, K6 at ``[8192, 3072]`` beside ``F.gelu(x + b)``.
 3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
    ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
    of 17-900 tokens, 32 new tokens each.  float32 on the card must give
@@ -36,12 +39,28 @@ Phases, each printing one JSON line and then its seconds:
    first tokens equal), then bf16 timed beside the native bf16 slice and
    beside ``weight_dtype="int8"``, with the pool bytes of both layouts and
    the launch counts (K4 = 12 x decode steps, K1 = 12 x prefills, K3 = 0).
-6. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
-   and bf16 training steps under ``torch.profiler``: device time by kernel
-   and the device's idle share.
+6. ``custom_op`` — the custom-op + QAT example
+   (``paddle_tpu_torch.examples.custom_op_and_quant``) on the card and on
+   the CPU from the same seeded weights, float32: losses and scales rtol
+   1e-4, and K6 launched exactly once per step (30).
+7. ``qat``     — GPT-base wrapped by ``QAT(QuantConfig())``: 3 f32
+   ``TrainStep``s on the card against the CPU (losses rtol 1e-3, the same
+   scale keys; a CPU control run shows the fake-quant rounding's own
+   spread); ``convert_to_int8`` into 48 ``Int8Linear``s with static
+   activation scales, served with ``kv_dtype="int8"`` in f32 against the
+   CPU (first 6 requests, top-1 agreement >= 0.8, K1 / K4 counts); the
+   converted model in bf16 timed on the 12 requests in turns with the
+   quant phase's dynamic-scale ``weight_dtype="int8"`` run (static,
+   dynamic, dynamic, static); 12 bf16 O2 QAT training steps timed beside
+   the ``train`` phase's plain step.
+8. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+   (native, dynamic and static int8 weights) and bf16 training steps
+   (plain and QAT) under ``torch.profiler``: device time by kernel and the
+   device's idle share.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name / power-limit
-line, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
+line, and as the last line ``{"ok": true, "device": {...}}``.  Each phase
+prints its wall seconds on a line of its own.  Any failure
 raises, so the exit code is non-zero.  Without a card the script exits 2
 and prints no result.
 """
@@ -59,8 +78,9 @@ import numpy as np
 import torch
 
 PEAK_FLOPS = 989e12        # H100 SXM dense bf16 / fp16 tensor-core rate
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
-ATOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # max err / max |ref|
 
 # the served model (GPT-base, the JAX package's GPTForCausalLM defaults)
@@ -71,6 +91,11 @@ VOCAB, HIDDEN = 50304, 768
 # f32 steps held against the CPU
 TRAIN_B, TRAIN_S, PARITY_B, PARITY_S = 8, 1024, 2, 256
 WARMUP_STEPS, TIMED_STEPS, PARITY_STEPS = 2, 10, 3
+# f32 QAT losses, card against CPU: fake-quant turns last-bit differences
+# of the GEMMs into whole grid steps at rounding ties, so the losses move
+# by ~1e-4 where a plain run agrees to ~1e-7 (the phase's control run
+# measures this on the CPU alone)
+QAT_RTOL = 1e-3
 
 
 def emit(obj):
@@ -99,8 +124,8 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -110,7 +135,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     paths = _build.build("flash_attention_fwd", "flash_attention_bwd",
-                         "paged_flash_decode", "paged_flash_decode_q")
+                         "paged_flash_decode", "paged_flash_decode_q",
+                         "bias_gelu")
     secs = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in _build.BUILD_LOGS[n].splitlines()
                  if "ptxas" in ln and ("registers" in ln or "spill" in ln
@@ -420,9 +446,11 @@ def phase_kernels():
     k4_time, k5b_time = _k4_timed(gen, dlens, k3_time["kernel_ms"],
                                   k5_launches["k5b"])
     k2_time = _k2_timed(gen)
-    ok = all(c["ok"] for c in k1 + k2 + k3 + k4)
+    k6 = _k6_cases(gen)
+    k6_time = _k6_timed(gen)
+    ok = all(c["ok"] for c in k1 + k2 + k3 + k4 + k6)
     emit({"phase": "kernels", "ok": ok, "k1_cases": k1, "k2_cases": k2,
-          "k3_cases": k3, "k4_cases": k4,
+          "k3_cases": k3, "k4_cases": k4, "k6_cases": k6,
           "k1_timed": {"shape": [1, S, HEADS, HEAD_DIM], "causal": True,
                        "dtype": "bfloat16", **k1_time},
           "k2_timed": {"shape": [TRAIN_B, TRAIN_S, HEADS, HEAD_DIM],
@@ -436,13 +464,71 @@ def phase_kernels():
                        "pools": "int8 + float32 scales", **k4_time},
           "k5a_timed": {"dtype": "bfloat16", **k5a_time},
           "k5b_timed": {"q_dtype": "bfloat16", **k5b_time},
+          "k6_timed": k6_time,
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "nvidia_smi": smi_line()})
     if not ok:
         raise SystemExit("kernels phase: a kernel disagrees with its plain "
-                         "version (see the k1 / k2 / k3 / k4 cases above)")
+                         "version (see the k1 / k2 / k3 / k4 / k6 cases above)")
     return {"k1": k1_time, "k3": k3_time, "k4": k4_time, "k5a": k5a_time,
-            "k5b": k5b_time, **k2_time}
+            "k5b": k5b_time, "k6": k6_time["bfloat16"], **k2_time}
+
+
+def _k6_cases(gen):
+    """K6 against its plain version: f32 / f16 / bf16, a bf16 x with a
+    float32 bias (an f32 bias parameter under AMP), at the example's shape
+    ``[128, 64]``, GPT-base's MLP activation at B=8, S=1024
+    ``[8192, 3072]``, an odd width ``[37, 1001]`` and a non-contiguous x."""
+    from paddle_tpu_torch.ops import bias_gelu as bg
+
+    cases = []
+    for xd, bd in ((torch.float32, torch.float32), (torch.float16, torch.float16),
+                   (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)):
+        for shape, strided in (((128, 64), False), ((TRAIN_B * TRAIN_S, 3072), False),
+                               ((37, 1001), False), ((64, 128), True)):
+            x = torch.randn(shape[::-1] if strided else shape, generator=gen,
+                            device="cuda").mul_(3).to(xd)
+            x = x.t() if strided else x
+            b = torch.randn(x.shape[-1], generator=gen, device="cuda").to(bd)
+            y = bg.bias_gelu(x, b)
+            torch.cuda.synchronize()
+            err = (y.float() - bg.bias_gelu_ref(x, b).float()).abs().max().item()
+            cases.append({"shape": list(x.shape), "contiguous": x.is_contiguous(),
+                          "x_dtype": str(xd).split(".")[-1],
+                          "b_dtype": str(bd).split(".")[-1], "max_abs_err": err,
+                          "ok": err <= ATOL[xd] and y.dtype == xd
+                          and bool(torch.isfinite(y).all())})
+    return cases
+
+
+def _k6_timed(gen):
+    """K6, its plain version and ``F.gelu(x + b)`` (two PyTorch calls; no
+    single call adds a bias inside the GELU) at ``[8192, 3072]``, bf16 x
+    with a float32 bias and float32 throughout.  Bound: x and b read once,
+    y written once; 6 operations per element (erf counted as one) at the
+    float32 rate, far below the bytes' time."""
+    from paddle_tpu_torch.ops import bias_gelu as bg
+
+    out = {}
+    for xd in (torch.bfloat16, torch.float32):
+        x = torch.randn(TRAIN_B * TRAIN_S, 3072, generator=gen, device="cuda").to(xd)
+        b = torch.randn(3072, generator=gen, device="cuda")
+        y = bg.bias_gelu(x, b)
+        err = (y.float() - bg.bias_gelu_ref(x, b).float()).abs().max().item()
+        nbytes = 2 * x.numel() * x.element_size() + b.numel() * 4
+        k6_bound, k6_by = bound(6 * x.numel(), nbytes, PEAK_F32_FLOPS)
+        bx = b.to(xd)
+        out[str(xd).split(".")[-1]] = {
+            "shape": list(x.shape), "b_dtype": "float32",
+            "kernel_ms": cuda_ms(lambda: bg.bias_gelu(x, b)),
+            "plain_ms": cuda_ms(lambda: bg.bias_gelu_ref(x, b)),
+            "library_ms": None,
+            "library_note": "no single PyTorch call adds a bias inside the GELU",
+            "two_call_ms": cuda_ms(lambda: torch.nn.functional.gelu(x + bx)),
+            "two_call": "torch.nn.functional.gelu(x + b), b in x's dtype",
+            "bound_ms": k6_bound, "bound_by": k6_by, "bytes": nbytes,
+            "max_abs_err": err}
+    return out
 
 
 def _k4_timed(gen, dlens, k3_ms, k5b_launches):
@@ -572,7 +658,7 @@ def phase_slice():
     if not ok:
         raise SystemExit("slice phase failed: greedy ids differ from the CPU "
                          "engine or a request did not complete")
-    return counts16
+    return {"launches": counts16}
 
 
 # ------------------------------------------------------------------- quant
@@ -683,7 +769,7 @@ def phase_quant():
         raise SystemExit("quant phase failed: first tokens differ from the "
                          "CPU int8 engine, agreement < 0.8, the pool bytes "
                          "ratio is not 68/128, or a request did not complete")
-    return runs["int8"][0]["launches"]
+    return {"launches": runs["int8"][0]["launches"]}
 
 
 # ------------------------------------------------------------------- train
@@ -778,7 +864,226 @@ def phase_train():
     if not ok:
         raise SystemExit("train phase failed: f32 losses differ from the CPU "
                          "run beyond rtol 1e-4, or the bf16 loss did not fall")
-    return counts
+    return {"launches": counts, "step_ms": step_s * 1e3}
+
+
+# --------------------------------------------------------------- custom_op
+def phase_custom_op():
+    """The custom-op + QAT example: ``main`` on the card and on the CPU,
+    both from the seeded init (drawn on the CPU), float32.  K6's counter
+    is zeroed just before the card run and read just after: one launch per
+    step."""
+    from paddle_tpu_torch.examples import custom_op_and_quant as example
+    from paddle_tpu_torch.ops import bias_gelu as bg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps = 30
+    cpu_losses, cpu_scales = example.main("cpu", steps=steps)
+    bg.LAUNCHES = 0
+    t0 = time.perf_counter()
+    losses, scales = example.main("cuda", steps=steps)
+    wall = time.perf_counter() - t0
+    launches = bg.LAUNCHES
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    keys_ok = set(scales) == set(cpu_scales)
+    scale_rel = max(abs(scales[k] - v) / abs(v) for k, v in cpu_scales.items()) \
+        if keys_ok else float("inf")
+    ok = (launches == steps and loss_rel <= 1e-4 and scale_rel <= 1e-4
+          and keys_ok and losses[-1] < losses[0])
+    emit({"phase": "custom_op", "ok": ok,
+          "example": "paddle_tpu_torch.examples.custom_op_and_quant",
+          "steps": steps, "cuda_losses": losses, "cpu_losses": cpu_losses,
+          "loss_max_rel_diff": loss_rel, "scales": scales,
+          "scale_max_rel_diff": scale_rel, "rtol": 1e-4,
+          "bias_gelu_launches": launches, "expected_launches": steps,
+          "cuda_wall_s": wall, "nvidia_smi": smi_line()})
+    if launches != steps:
+        raise SystemExit(f"custom_op phase: K6 launched {launches} times in "
+                         f"{steps} steps: the example did not run through it")
+    if not ok:
+        raise SystemExit("custom_op phase failed: card losses or scales differ "
+                         "from the CPU run beyond rtol 1e-4")
+    return {"launches": {"bias_gelu": launches}}
+
+
+# --------------------------------------------------------------------- qat
+def _qat_gpt(device):
+    """GPT-base from ``torch.manual_seed(0)``, wrapped by ``QAT``."""
+    from paddle_tpu_torch.quantization import QAT, QuantConfig
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.manual_seed(0)
+    return QAT(QuantConfig()).quantize(GPTForCausalLM(device=device))
+
+
+def phase_qat(train_step_ms=None):
+    """GPT-base through quantization-aware training into int8 serving:
+
+    1. parity: 3 f32 QAT ``TrainStep``s on the card and on a CPU copy
+       (the ``train`` phase's optimizer and shape), losses rtol
+       ``QAT_RTOL`` and the same ``extract_scales`` keys, beside a CPU
+       control run from a rounding-sized perturbation of the init;
+    2. deploy: ``convert_to_int8`` both (48 ``Int8Linear``s with static
+       activation scales) and serve the slice's first 6 requests in f32
+       with ``kv_dtype="int8"``: greedy top-1 agreement >= 0.8 against the
+       CPU, first tokens equal, K1 once per layer per prefill, K4 per
+       layer per decode step, K3 never;
+    3. timed serving: the converted card model in bf16 on the 12 requests,
+       in turns with the quant phase's dynamic-scale
+       ``weight_dtype="int8"`` run of the seeded GPT-base (static, dynamic,
+       dynamic, static), after one warm-up of each;
+    4. timed training: 2 warm-up and 10 timed bf16 O2 QAT steps at
+       B=8, S=1024, beside the ``train`` phase's plain step."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.quantization import (Int8Linear, convert_to_int8,
+                                               extract_scales)
+    from paddle_tpu_torch.serving.quant import top1_agreement
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(0)
+
+    # 1. parity, with a control: the CPU run again from the init perturbed
+    # by 1e-7 relative (rounding-sized noise), which shows how far the
+    # fake-quant rounding ties alone move the losses
+    ids = torch.from_numpy(rs.randint(0, VOCAB, (PARITY_B, PARITY_S)))
+    cpu_model = _qat_gpt("cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    control = copy.deepcopy(cpu_model)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in control.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+    losses = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model),
+                       ("cpu_control", control)):
+        step, x = _trainer(model), ids.to(model.gpt.word_embeddings.weight.device)
+        losses[dev] = [step({"input_ids": x, "labels": x}).item()
+                       for _ in range(PARITY_STEPS)]
+    del control
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    rel_control = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses["cpu_control"], losses["cpu"]))
+    scales = {d: extract_scales(m) for d, m in (("cpu", cpu_model),
+                                                ("cuda", card_model))}
+    keys_ok = (set(scales["cpu"]) == set(scales["cuda"])
+               and len(scales["cpu"]) == 8 * LAYERS)
+    scale_rel = max(abs(scales["cuda"][k] - v) / abs(v)
+                    for k, v in scales["cpu"].items()) if keys_ok else float("inf")
+    parity_ok = rel <= QAT_RTOL and keys_ok
+
+    # 2. deploy: static-scale int8 in f32, card against the CPU
+    for m in (cpu_model, card_model):
+        convert_to_int8(m.eval())
+    n_int8 = sum(isinstance(m, Int8Linear) for m in card_model.modules())
+    prompts, temps = slice_requests()
+    n_par = 6
+    greedy = [i for i, t in enumerate(temps[:n_par]) if t == 0.0]
+    ref, cpu_wall, _ = _serve(cpu_model, "cpu", prompts[:n_par], temps[:n_par],
+                              kv_dtype="int8")
+    del cpu_model
+    outs32, wall32, st32, counts32 = _counted_run(
+        card_model, prompts[:n_par], temps[:n_par], kv_dtype="int8")
+    divergence = {i: _first_divergence(outs32[i], ref[i]) for i in greedy}
+    first_ok = all(outs32[i][0] == ref[i][0] for i in greedy)
+    agree32 = top1_agreement([ref[i] for i in greedy], [outs32[i] for i in greedy])
+
+    # 3. timed serving: static scales (the converted model) against the
+    # dynamic-scale int8 weights of the quant phase, bf16, in turns
+    static = card_model.to(torch.bfloat16)
+    torch.manual_seed(0)
+    dynamic = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
+    runs_of = {"static": (static, {"kv_dtype": "int8"}),
+               "dynamic": (dynamic, {"kv_dtype": "int8", "weight_dtype": "int8"})}
+    for name, (m, kw) in runs_of.items():            # warm-up (and convert)
+        _serve(m, "cuda", prompts[:2], temps[:2], **kw)
+    runs = {}
+    for name in ("static", "dynamic", "dynamic", "static"):
+        m, kw = runs_of[name]
+        torch.cuda.reset_peak_memory_stats()
+        outs, wall, st, counts = _counted_run(m, prompts, temps, **kw)
+        tokens = sum(len(o) for o in outs)
+        runs.setdefault(name, []).append({
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefills": st["prefills"], "decode_steps": st["iteration"],
+            "launches": counts, "all_complete": all(len(o) == 32 for o in outs),
+            "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del static, dynamic, runs_of, card_model
+    tps = {k: [r["tokens_per_s"] for r in v] for k, v in runs.items()}
+    ratio = sum(tps["static"]) / sum(tps["dynamic"])
+
+    # 4. timed training: bf16 O2 QAT steps at the training shape
+    model = _qat_gpt("cuda")
+    step = _trainer(model, amp_level="O2")
+    x = torch.from_numpy(rs.randint(0, VOCAB, (TRAIN_B, TRAIN_S))).to("cuda")
+    batch = {"input_ids": x, "labels": x}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    out = [step(batch) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out += [step(batch) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = {"flash_attention_fwd": fa.LAUNCHES,
+                    "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+                    "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    if train_counts != dict.fromkeys(train_counts, LAYERS * steps):
+        raise SystemExit(f"launch counts {train_counts} != {LAYERS} x {steps} "
+                         f"steps: the QAT training path missed the kernels")
+    qat_losses = [l.item() for l in out]
+    step_ms = wall / TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    bf16_scales_f32 = {str(b.dtype) for b in model.buffers()} == {"torch.float32"}
+    del model, step
+
+    complete = all(r["all_complete"] for rs_ in runs.values() for r in rs_) \
+        and all(len(o) == 32 for o in outs32)
+    ok = (parity_ok and n_int8 == 4 * LAYERS and first_ok and agree32 >= 0.8
+          and complete and bf16_scales_f32 and all(np.isfinite(qat_losses))
+          and qat_losses[-1] < qat_losses[0])
+    emit({"phase": "qat", "ok": ok, "model": "GPT-base 12x768 vocab 50304, "
+          "QAT(QuantConfig()): 48 wrapped Linears",
+          "optimizer": "AdamW lr 1e-4 wd 0.01, ClipGradByGlobalNorm(1.0)",
+          "f32_parity": {"B": PARITY_B, "S": PARITY_S, "steps": PARITY_STEPS,
+                         "cpu_losses": losses["cpu"], "cuda_losses": losses["cuda"],
+                         "max_rel_diff": rel, "rtol": QAT_RTOL,
+                         "cpu_control_losses": losses["cpu_control"],
+                         "control_max_rel_diff": rel_control,
+                         "control": "the CPU run from the init x (1 + 1e-7 N(0, 1))",
+                         "scale_keys": len(scales["cpu"]), "scale_keys_equal": keys_ok,
+                         "scale_max_rel_diff": scale_rel, "ok": parity_ok},
+          "f32_int8_static_vs_cpu": {
+              "int8_linears": n_int8, "requests": n_par, "greedy_requests": greedy,
+              "first_divergent_position": divergence,
+              "first_tokens_equal": first_ok, "top1_agreement": agree32,
+              "gate": "first tokens equal and top-1 agreement >= 0.8",
+              "cpu_reference_wall_s": cpu_wall, "card_wall_s": wall32,
+              "prefills": st32["prefills"], "decode_steps": st32["iteration"],
+              "launches": counts32},
+          "bf16_static_int8": runs["static"], "bf16_dynamic_int8": runs["dynamic"],
+          "bf16_order": "static, dynamic, dynamic, static",
+          "static_over_dynamic_tokens_per_s": ratio,
+          "bf16_O2_qat_train": {
+              "B": TRAIN_B, "S": TRAIN_S, "warmup_steps": WARMUP_STEPS,
+              "timed_steps": TIMED_STEPS, "step_ms": step_ms,
+              "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+              "plain_train_step_ms_same_call": train_step_ms,
+              "qat_over_plain_step": (step_ms / train_step_ms
+                                      if train_step_ms else None),
+              "peak_memory_allocated_bytes": peak,
+              "scale_buffers_float32": bf16_scales_f32,
+              "first_loss": qat_losses[0], "last_loss": qat_losses[-1],
+              "launches": train_counts},
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit(f"qat phase failed: f32 QAT losses differ from the CPU "
+                         f"beyond rtol {QAT_RTOL}, the conversion or the int8 "
+                         f"serving check failed, or the QAT loss did not fall")
+    return {"launches": counts32}
 
 
 # ----------------------------------------------------------------- profile
@@ -790,6 +1095,7 @@ PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
                                       for t in ("float", "__half",
                                                 "__nv_bfloat16"))),
     ("K3 paged_flash_decode", ("paged_flash_decode_kernel",)),
+    ("K6 bias_gelu", ("bias_gelu_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
     ("softmax", ("SoftMax",)),
     ("copies and casts", ("copy_kernel", "direct_copy")),
@@ -834,28 +1140,9 @@ def _profiled(fn):
                                    for t, c, k in rows[:20]]}
 
 
-def phase_profile():
-    """Where the time goes (not part of the default run): the bf16 slice's
-    12 requests with native and with int8 pools, and 3 bf16 O2 training
-    steps at B=8, S=1024, each under ``torch.profiler`` after a warm-up."""
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
-
-    prompts, temps = slice_requests()
-    torch.manual_seed(0)
-    model = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
-    serving = {}
-    for kv in ("native", "int8"):
-        _serve(model, "cuda", prompts, temps, kv_dtype=kv)          # warm-up
-
-        def serve():
-            _, _, stats = _serve(model, "cuda", prompts, temps, kv_dtype=kv)
-            return {"decode_steps": stats["iteration"],
-                    "prefills": stats["prefills"]}
-
-        serving[kv] = _profiled(serve)
-    del model
-    torch.manual_seed(0)
-    model = GPTForCausalLM(device="cuda")
+def _profiled_train(model):
+    """3 bf16 O2 ``TrainStep``s of ``model`` at B=8, S=1024 under the
+    profiler, after the warm-up steps."""
     step = _trainer(model, amp_level="O2")
     x = torch.from_numpy(np.random.RandomState(0).randint(
         0, VOCAB, (TRAIN_B, TRAIN_S))).to("cuda")
@@ -867,9 +1154,49 @@ def phase_profile():
             step({"input_ids": x, "labels": x})
         return {"steps": 3, "B": TRAIN_B, "S": TRAIN_S}
 
-    emit({"phase": "profile", "serving_bf16": serving["native"],
-          "serving_bf16_int8_kv": serving["int8"],
-          "train_bf16_O2": _profiled(train), "nvidia_smi": smi_line()})
+    return _profiled(train)
+
+
+def _profiled_serve(model, **engine_kw):
+    """The bf16 slice's 12 requests under the profiler, after a warm-up."""
+    prompts, temps = slice_requests()
+    _serve(model, "cuda", prompts, temps, **engine_kw)
+
+    def serve():
+        _, _, stats = _serve(model, "cuda", prompts, temps, **engine_kw)
+        return {"decode_steps": stats["iteration"], "prefills": stats["prefills"]}
+
+    return _profiled(serve)
+
+
+def phase_profile():
+    """Where the time goes (not part of the default run), each under
+    ``torch.profiler`` after a warm-up: the bf16 slice's 12 requests with
+    native and with int8 pools, 3 bf16 O2 training steps at B=8, S=1024,
+    the same steps of the QAT-wrapped model, and that model converted by
+    ``convert_to_int8`` (static scales, bf16) serving the 12 requests with
+    int8 pools, beside the dynamic-scale ``weight_dtype="int8"`` run."""
+    from paddle_tpu_torch.quantization import convert_to_int8
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
+    native = _profiled_serve(model, kv_dtype="native")
+    int8_kv = _profiled_serve(model, kv_dtype="int8")
+    int8_dynamic = _profiled_serve(model, kv_dtype="int8", weight_dtype="int8")
+    del model
+    torch.manual_seed(0)
+    train = _profiled_train(GPTForCausalLM(device="cuda"))
+    qat_model = _qat_gpt("cuda")
+    qat_train = _profiled_train(qat_model)
+    convert_to_int8(qat_model.eval())
+    int8_static = _profiled_serve(qat_model.to(torch.bfloat16), kv_dtype="int8")
+    emit({"phase": "profile", "serving_bf16": native,
+          "serving_bf16_int8_kv": int8_kv,
+          "serving_bf16_int8_kv_dynamic_int8_weights": int8_dynamic,
+          "serving_bf16_int8_kv_static_int8_weights": int8_static,
+          "train_bf16_O2": train, "train_bf16_O2_qat": qat_train,
+          "nvidia_smi": smi_line()})
 
 
 KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
@@ -888,12 +1215,15 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
      "paddle_tpu/ops/paged_attention.py:128", None),
     ("k5b", "paged_q_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
      "paddle_tpu/ops/paged_attention.py:782", None),
+    ("k6", "bias_gelu", "paddle_tpu_torch/csrc/bias_gelu.cu",
+     "examples/custom_op_and_quant.py:37", "custom-op + QAT example"),
 )
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice,train,quant")
+    ap.add_argument("--phases",
+                    default="build,kernels,slice,train,quant,custom_op,qat")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -904,7 +1234,10 @@ def main():
     results = {}
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("slice", phase_slice), ("train", phase_train),
-                     ("quant", phase_quant), ("profile", phase_profile)):
+                     ("quant", phase_quant), ("custom_op", phase_custom_op),
+                     ("qat", lambda: phase_qat(
+                         (results.get("train") or {}).get("step_ms"))),
+                     ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
@@ -913,12 +1246,12 @@ def main():
     if times is not None:
         # launches: each counted run of the path that uses the kernel (the
         # bf16 slice for K1 and K3, the bf16 training steps for K1 and K2,
-        # the first bf16 int8 slice for K1 and K4); K5a / K5b: the kernels
-        # phase's checks
+        # the first bf16 int8 slice for K1 and K4, the example's card run
+        # for K6, the f32 static-scale int8 run for K1 and K4); K5a / K5b:
+        # the kernels phase's checks
         launches = {}
-        for counts in (results.get("slice"), results.get("train"),
-                       results.get("quant")):
-            for k, n in (counts or {}).items():
+        for name in ("slice", "train", "quant", "custom_op", "qat"):
+            for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         rows = []
         for key, name, src, tpu, path in KERNELS:

@@ -12,10 +12,21 @@ Ported so far: the serving slice (GPT causal LM inference, the paged KV
 cache and the continuous-batching :class:`~.serving.ServingEngine`), the
 training slice (the flash-attention backward, ``cross_entropy``, the
 SGD / Momentum / Adam / AdamW optimizers with clipping and LR schedulers,
-AMP and :class:`~.jit.TrainStep`) and the int8 serving slice (int8 KV
+AMP and :class:`~.jit.TrainStep`), the int8 serving slice (int8 KV
 page pools with the dequantizing decode kernel, ``Int8Linear`` and
-``serving.quant``).  Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+``serving.quant``) and the custom-op / quantization slice
+(:func:`register_op` and :func:`load_op_library` over the fused
+bias + GELU kernel, QAT, PTQ and ``quantization.convert_to_int8``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the custom-op plugin surface, as ``paddle_tpu.register_op``
+    if name in ("register_op", "load_op_library"):
+        from .framework import custom_op
+
+        return getattr(custom_op, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

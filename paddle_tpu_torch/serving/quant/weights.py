@@ -30,14 +30,6 @@ from __future__ import annotations
 import torch
 
 
-def _resolve_parent(model, name):
-    parent = model
-    parts = name.split(".")
-    for p in parts[:-1]:
-        parent = getattr(parent, p)
-    return parent, parts[-1]
-
-
 def _linears(model):
     """``(name, module)`` for every not-yet-converted Linear."""
     return [(n, m) for n, m in model.named_modules()
@@ -48,7 +40,7 @@ def quantize_model_weights(model, scales=None, bits=8):
     """Convert the model's ``nn.Linear`` sublayers to int8 (see module
     docstring).  Returns the number converted by this call (0 when the
     model was already converted)."""
-    from ...quantization import Int8Linear, absmax_scale
+    from ...quantization import Int8Linear, _resolve_parent, absmax_scale
 
     scales = scales or {}
     converted = 0

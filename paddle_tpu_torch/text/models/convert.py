@@ -12,6 +12,12 @@ made by converting the float model with
 ``serving.quant.quantize_model_weights``.)  :func:`export_paddle_tpu_state_dict` is the inverse, so
 trained weights can be held against the JAX model's.  Every key and shape
 is checked both ways.
+
+A model wrapped by ``quantization.QAT`` / ``PTQ`` carries the TPU
+package's names: ``<layer>.inner.weight`` is a Linear weight like any
+other (transposed), and the quanters' 0-d float32 buffers
+(``<layer>.act_quanter.scale``, ``.weight_quanter.scale``, an observer's
+``.absmax``) pass as scalars.
 """
 
 from __future__ import annotations

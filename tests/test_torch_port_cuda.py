@@ -2,8 +2,9 @@
 plain PyTorch version on CUDA tensors (the full-sweep K5a / K5b also bit
 for bit against K3 / K4), Int8Linear's torch._int_mm against the CPU, the
 tiny-GPT serving engine on the card (native and int8 pools) against the
-same engine on the CPU, and tiny-GPT training through the flash kernels
-forward and backward.  Marked ``cuda``; every test
+same engine on the CPU, tiny-GPT training through the flash kernels
+forward and backward, the fused bias + GELU kernel (K6) and fake-quant on
+the card against the CPU.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -18,6 +19,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch import jit, optimizer
+from paddle_tpu_torch import quantization as quant
+from paddle_tpu_torch.ops import bias_gelu as bg
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.serving import ServingEngine
@@ -395,3 +398,123 @@ def test_int8_engine_on_card_matches_cpu_engine(cuda):
         assert fa.LAUNCHES - k1 == 2 * st["prefills"] > 0
         assert pa.QUANT_LAUNCHES - k4 == 2 * st["iteration"] > 0
         assert pa.LAUNCHES == k3
+
+
+# ------------------------------------------------------------ K6 bias_gelu
+K6_SHAPES = [(128, 64), (8192, 3072), (37, 1001), (3, 5, 7), (1, 3), (6,)]
+
+
+@pytest.mark.parametrize("x_dtype,b_dtype", [
+    (torch.float32, torch.float32), (torch.float16, torch.float16),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_bias_gelu_kernel_matches_plain(cuda, x_dtype, b_dtype, shape):
+    """K6 against its plain version: the chip_smoke shapes (the example's,
+    GPT-base's MLP activation at B=8, S=1024, an odd N) and small ragged
+    ones that take the scalar tail; both round once from float32."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 3).to(x_dtype)
+    b = torch.randn(shape[-1], generator=cuda, device="cuda").to(b_dtype)
+    n0 = bg.LAUNCHES
+    y = bg.bias_gelu(x, b)
+    assert bg.LAUNCHES == n0 + 1
+    assert y.dtype == x_dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), bg.bias_gelu_ref(x, b).float(),
+                               atol=ATOL[x_dtype], rtol=0)
+
+
+def test_bias_gelu_kernel_on_strided_and_unaligned_x(cuda):
+    """A non-contiguous x is made contiguous; an x 2 elements into its
+    storage is not 16-byte aligned and takes the scalar loop."""
+    base = torch.randn(64, 130, generator=cuda, device="cuda")
+    b = torch.randn(64, generator=cuda, device="cuda")
+    for x in (base[:, :128].t(), base.reshape(-1)[2:2 + 64 * 100].reshape(100, 64)):
+        torch.testing.assert_close(bg.bias_gelu(x, b), bg.bias_gelu_ref(x, b),
+                                   atol=2e-4, rtol=0)
+
+
+def test_bias_gelu_autograd_on_card_matches_cpu(cuda):
+    x = torch.randn(33, 64, generator=cuda, device="cuda", requires_grad=True)
+    b = torch.randn(64, generator=cuda, device="cuda", requires_grad=True)
+    g = torch.randn(33, 64, generator=cuda, device="cuda")
+    bg.bias_gelu(x, b).backward(g)
+    xc = x.detach().cpu().requires_grad_()
+    bc = b.detach().cpu().requires_grad_()
+    bg.bias_gelu(xc, bc).backward(g.cpu())
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(b.grad.cpu(), bc.grad, atol=1e-4, rtol=1e-5)
+
+
+def test_bias_gelu_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(4, 8, device="cuda")
+    with pytest.raises(TypeError):
+        bg.bias_gelu(x.double(), torch.randn(8, device="cuda").double())
+    with pytest.raises(ValueError):
+        bg.bias_gelu(x, torch.randn(8))            # bias on the CPU
+    with pytest.raises(ValueError):
+        bg.bias_gelu(x, torch.randn(7, device="cuda"))
+
+
+# ------------------------------------------------------------- fake quant
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fake_quant_on_card_equals_cpu(cuda, dtype):
+    """Fake-quant and the moving-average quanter give the CPU's bytes on
+    the card (every division is by a tensor; the moving-average constants
+    are cast to the operand's dtype first), outputs and stored scales, in
+    train and eval mode; the STE gradient too."""
+    x = (torch.randn(4, 1000, generator=cuda, device="cuda") * 3).to(dtype)
+    x[0, :4] = torch.tensor([0.5, -1.5, 2.5, 1000.0])
+    s = torch.tensor(0.0371, device="cuda")
+    got = quant._fake_quant(x, s, -127.0, 127.0)
+    want = quant._fake_quant(x.cpu(), s.cpu(), -127.0, 127.0)
+    assert torch.equal(got.cpu(), want)
+    qc, qg = quant.FakeQuanterWithAbsMaxObserver(), \
+        quant.FakeQuanterWithAbsMaxObserver().cuda()
+    for i, amp in enumerate((0.2, 0.5, 4.0, 6.0, 5.0)):
+        xi = (torch.randn(64, 96, generator=cuda, device="cuda") * amp).to(dtype)
+        if i == 4:
+            qc.eval()
+            qg.eval()
+        xg = xi.clone().requires_grad_()
+        xc = xi.cpu().requires_grad_()
+        yg, yc = qg(xg), qc(xc)
+        assert torch.equal(yg.detach().cpu(), yc.detach())
+        assert torch.equal(qg.scale.cpu(), qc.scale)
+        yg.sum().backward()
+        yc.sum().backward()
+        assert torch.equal(xg.grad.cpu(), xc.grad)
+
+
+def test_qat_tiny_gpt_trains_on_card_like_cpu(cuda):
+    """QAT-wrapped tiny GPT: 3 f32 TrainSteps on the card against the CPU,
+    then convert_to_int8 and serve with int8 pools: first tokens equal,
+    greedy agreement >= 0.8.  The first loss (one forward) rtol 1e-5; all
+    three rtol 1e-3, since fake-quant turns last-bit GEMM differences into
+    whole grid steps (the sensitivity measured in test_torch_port_qat.py)."""
+    from paddle_tpu_torch.serving.quant import top1_agreement
+
+    torch.manual_seed(0)
+    cpu = quant.QAT(quant.QuantConfig()).quantize(GPTForCausalLM(
+        device="cpu", vocab_size=96, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, max_position_embeddings=128))
+    card = copy.deepcopy(cpu).to("cuda")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(1, 96, (4, 64)))
+    losses = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        opt = optimizer.AdamW(learning_rate=1e-3, parameters=m.parameters())
+        step = jit.TrainStep(m, opt, loss_fn=None)
+        x = ids.to(dev)
+        losses[dev] = [float(step({"input_ids": x, "labels": x})) for _ in range(3)]
+    np.testing.assert_allclose(losses["cuda"][0], losses["cpu"][0], rtol=1e-5)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    outs = {}
+    prompts = [np.random.RandomState(i).randint(1, 96, (n,)).tolist()
+               for i, n in enumerate((5, 17, 40))]
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        quant.convert_to_int8(m.eval())
+        with ServingEngine(m, device=dev, num_slots=2, page_size=16,
+                           max_model_len=128, kv_dtype="int8") as eng:
+            hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            outs[dev] = [h.result(timeout=300) for h in hs]
+    assert [o[0] for o in outs["cuda"]] == [o[0] for o in outs["cpu"]]
+    assert top1_agreement(outs["cpu"], outs["cuda"]) >= 0.8
