@@ -12,18 +12,21 @@ Phases, each printing one JSON line and then its seconds:
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card, in bf16 and f32 (TF32 off): K1 and K3 at the served model's
    shapes (atol 2e-2 / 2e-4), the paged decode kernel also with NaN in
-   every dead page; the flash backward K2a / K2b over lengths 17-1024,
-   causal and full, sq < sk, head_dim 64 / 128, with and without a g_lse
-   term (max error over max |ref| <= 2e-2 / 1e-4), and gradients through
-   K1 + K2 against torch autograd through the plain forward; K4 (paged
-   decode over int8 pools) against its plain version, also with NaN in
-   every dead page's scale rows, and the full-sweep twins K5a / K5b bit
-   for bit against K3 / K4; the fused bias + GELU K6 in f32 / f16 / bf16
-   (bf16 x with a float32 bias too) at the example's shape, GPT-base's MLP
-   activation, an odd width and a non-contiguous x.  Then time kernel,
-   plain version and PyTorch's own call with CUDA events: K1 at the
-   longest prefill, K3, K4 and K5a / K5b at a decode step, K2 at the
-   training shape, K6 at ``[8192, 3072]`` beside ``F.gelu(x + b)``.
+   every dead page; the flash backward K2a / K2b in bf16, f16 and f32
+   over lengths 17-1024, causal and full, sq < sk, head_dim 17 / 32 / 40
+   / 64 / 96 / 128, with and without a g_lse term, a misaligned layout
+   (scalar staging), the model's strided qkv split and the training shape
+   (max error over max |ref| <= 2e-2 / 5e-3 / 1e-4; a second launch
+   bit-equal to the first), and gradients through K1 + K2 against torch
+   autograd through the plain forward; K4 (paged decode over int8 pools)
+   against its plain version, also with NaN in every dead page's scale
+   rows, and the full-sweep twins K5a / K5b bit for bit against K3 / K4;
+   the fused bias + GELU K6 in f32 / f16 / bf16 (bf16 x with a float32
+   bias too) at the example's shape, GPT-base's MLP activation, an odd
+   width and a non-contiguous x.  Then time kernel, plain version and
+   PyTorch's own call with CUDA events: K1 at the longest prefill, K3, K4
+   and K5a / K5b at a decode step, K2 at the training shape (bf16, and
+   the f32 body), K6 at ``[8192, 3072]`` beside ``F.gelu(x + b)``.
 3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
    ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
    of 17-900 tokens, 32 new tokens each.  float32 on the card must give
@@ -81,7 +84,8 @@ PEAK_FLOPS = 989e12        # H100 SXM dense bf16 / fp16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
-BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # max err / max |ref|
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3,      # max err / max |ref|
+           torch.float32: 1e-4}
 
 # the served model (GPT-base, the JAX package's GPTForCausalLM defaults)
 LAYERS, HEADS, HEAD_DIM, PAGE, MAXLEN, SLOTS = 12, 12, 64, 16, 1024, 8
@@ -138,9 +142,11 @@ def phase_build():
                          "paged_flash_decode", "paged_flash_decode_q",
                          "bias_gelu")
     secs = time.perf_counter() - t0
+    # per kernel: its entry, registers, and stack / spill bytes (the
+    # spill line carries no "ptxas" prefix)
     ptxas = {n: [ln.strip() for ln in _build.BUILD_LOGS[n].splitlines()
-                 if "ptxas" in ln and ("registers" in ln or "spill" in ln
-                                       or "Compiling entry" in ln)]
+                 if "spill" in ln or ("ptxas" in ln and (
+                     "registers" in ln or "Compiling entry" in ln))]
              for n in paths}
     emit({"phase": "build", "seconds": secs,
           "libraries": {n: str(p) for n, p in paths.items()},
@@ -174,15 +180,26 @@ def _rel_err(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
-def _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse):
+def _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse, layout="contiguous"):
     """q, k, v, g ``[b, S, HEADS, d]`` and the kernel forward's lse with
-    the row correction r = delta (- g_lse)."""
+    the row correction r = delta (- g_lse).  ``layout``: "contiguous";
+    "unaligned", each tensor a view one element into rows of d + 1 (no
+    16-byte copies: the kernels' scalar staging); "qkv", q / k / v the
+    model's head-major split of one ``[b, S, HEADS, 3, d]`` tensor."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    def t(s):
-        return torch.randn(b, s, HEADS, d, generator=gen, device="cuda").to(dtype)
+    def t(s, width=d):
+        return torch.randn(b, s, HEADS, width, generator=gen,
+                           device="cuda").to(dtype)
 
-    q, k, v, g = t(sq), t(sk), t(sk), t(sq)
+    if layout == "qkv":
+        q, k, v = torch.randn(b, sq, HEADS, 3, d, generator=gen,
+                              device="cuda").to(dtype).unbind(3)
+        g = t(sq)
+    elif layout == "unaligned":
+        q, k, v, g = (t(s, d + 1)[..., 1:] for s in (sq, sk, sk, sq))
+    else:
+        q, k, v, g = t(sq), t(sk), t(sk), t(sq)
     o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
     r = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(-1, sq)
     if g_lse:
@@ -190,21 +207,26 @@ def _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse):
     return q, k, v, g, lse, r.contiguous()
 
 
-def _k2_case(gen, dtype, sq, sk, d, causal, g_lse):
+def _k2_case(gen, dtype, sq, sk, d, causal, g_lse, b=1, layout="contiguous"):
+    """K2a + K2b against the plain backward (max error over max |ref|),
+    and a second launch on the same inputs bit-equal to the first."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, g, lse, r = _k2_inputs(gen, dtype, 1, sq, sk, d, causal, g_lse)
+    q, k, v, g, lse, r = _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse,
+                                    layout)
     scale = d ** -0.5
-    dk, dv = fa._bwd_dkdv_kernel(q, k, v, g, lse, r, scale, causal)
-    dq = fa._bwd_dq_kernel(q, k, v, g, lse, r, scale, causal)
+    got = fa._bwd_kernels(q, k, v, g, lse, r, scale, causal)
+    again = fa._bwd_kernels(q, k, v, g, lse, r, scale, causal)
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, causal)
-    errs = {n: _rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
-                                                  (dq, dk, dv), ref)}
-    finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
-    return {"sq": sq, "sk": sk, "d": d, "causal": causal, "g_lse": g_lse,
+    errs = {n: _rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    return {"b": b, "sq": sq, "sk": sk, "d": d, "causal": causal,
+            "g_lse": g_lse, "layout": layout,
             "dtype": str(dtype).split(".")[-1], "rel_err": errs,
-            "ok": finite and max(errs.values()) <= BWD_TOL[dtype]}
+            "bit_equal_relaunch": same,
+            "ok": finite and same and max(errs.values()) <= BWD_TOL[dtype]}
 
 
 def _k2_autograd_case(gen):
@@ -237,36 +259,45 @@ def _library_bwd(q, k, v, g):
 
 def _k2_timed(gen):
     """K2a, K2b, the plain backward and the library backward at the
-    training shape (B=8, S=1024, 12 heads, D=64, causal, bf16)."""
+    training shape (B=8, S=1024, 12 heads, D=64, causal, bf16), and the
+    kernels' f32 body at the same shape (bound at the f32 rate)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, S = TRAIN_B, TRAIN_S
-    q, k, v, g, lse, r = _k2_inputs(gen, torch.bfloat16, B, S, S, HEAD_DIM,
-                                    True, False)
     scale = HEAD_DIM ** -0.5
-    dk, dv = fa._bwd_dkdv_kernel(q, k, v, g, lse, r, scale, True)
-    dq = fa._bwd_dq_kernel(q, k, v, g, lse, r, scale, True)
-    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, True)
     pairs = B * HEADS * S * (S + 1) // 2
-    elems = q.numel()                                   # B*S*H*D, bf16
-    reads = 4 * elems * 2 + 2 * B * HEADS * S * 4       # q,k,v,g + lse,r
-    a_bound, a_by = bound(8 * HEAD_DIM * pairs, reads + 2 * elems * 2)
-    b_bound, b_by = bound(6 * HEAD_DIM * pairs, reads + elems * 2)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, g, lse, r,
-                                                          scale, True), iters=5)
-    library_ms = cuda_ms(_library_bwd(q, k, v, g))
-    return {
-        "k2a": {"kernel_ms": cuda_ms(lambda: fa._bwd_dkdv_kernel(
-                    q, k, v, g, lse, r, scale, True)),
-                "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": a_bound, "bound_by": a_by,
-                "max_abs_err": max((dk.float() - rk.float()).abs().max().item(),
-                                   (dv.float() - rv.float()).abs().max().item())},
-        "k2b": {"kernel_ms": cuda_ms(lambda: fa._bwd_dq_kernel(
-                    q, k, v, g, lse, r, scale, True)),
-                "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": b_bound, "bound_by": b_by,
-                "max_abs_err": (dq.float() - rq.float()).abs().max().item()}}
+    out = {}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        q, k, v, g, lse, r = _k2_inputs(gen, dtype, B, S, S, HEAD_DIM, True,
+                                        False)
+        dk, dv = fa._bwd_dkdv_kernel(q, k, v, g, lse, r, scale, True)
+        dq = fa._bwd_dq_kernel(q, k, v, g, lse, r, scale, True)
+        rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, True)
+        es = q.element_size()
+        elems = q.numel()                               # B*S*H*D
+        reads = 4 * elems * es + 2 * B * HEADS * S * 4  # q,k,v,g + lse,r
+        peak = PEAK_FLOPS if es == 2 else PEAK_F32_FLOPS
+        a_bound, a_by = bound(8 * HEAD_DIM * pairs, reads + 2 * elems * es, peak)
+        b_bound, b_by = bound(6 * HEAD_DIM * pairs, reads + elems * es, peak)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, g, lse, r, scale, True), iters=5)
+        # PyTorch's flash backward takes 16-bit inputs only
+        library_ms = cuda_ms(_library_bwd(q, k, v, g)) if es == 2 else None
+        out["k2a" + tag] = {
+            "kernel_ms": cuda_ms(lambda: fa._bwd_dkdv_kernel(
+                q, k, v, g, lse, r, scale, True)),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": a_bound, "bound_by": a_by,
+            "max_abs_err": max((dk.float() - rk.float()).abs().max().item(),
+                               (dv.float() - rv.float()).abs().max().item())}
+        out["k2b" + tag] = {
+            "kernel_ms": cuda_ms(lambda: fa._bwd_dq_kernel(
+                q, k, v, g, lse, r, scale, True)),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_bound, "bound_by": b_by,
+            "max_abs_err": (dq.float() - rq.float()).abs().max().item()}
+        del q, k, v, g, lse, r, dk, dv, dq, rq, rk, rv
+    return out
 
 
 def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM):
@@ -395,7 +426,16 @@ def phase_kernels():
     k2_shapes += [(64, 320, 64, True, False), (200, 512, 64, True, True),
                   (256, 256, 128, True, False), (300, 300, 128, False, True),
                   (1024, 1024, 128, True, True)]
-    k2 = [_k2_case(gen, dt, *sh) for dt in (torch.bfloat16, torch.float32)
+    # the tensor-core body's reach: head_dim 32 / 40 / 96 (zero-padded in
+    # shared memory), rows that take no 16-byte copies (head_dim 17, a
+    # misaligned base), the model's strided qkv split, the training shape
+    k2_shapes += [(300, 300, 32, True, False), (200, 256, 40, True, True),
+                  (129, 129, 96, False, True), (100, 100, 17, True, False),
+                  (300, 300, 64, True, False, 1, "unaligned"),
+                  (1024, 1024, 64, True, False, 2, "qkv"),
+                  (TRAIN_S, TRAIN_S, HEAD_DIM, True, False, TRAIN_B)]
+    k2 = [_k2_case(gen, dt, *sh)
+          for dt in (torch.bfloat16, torch.float16, torch.float32)
           for sh in k2_shapes]
     k2.append(_k2_autograd_case(gen))
 
@@ -454,7 +494,8 @@ def phase_kernels():
           "k1_timed": {"shape": [1, S, HEADS, HEAD_DIM], "causal": True,
                        "dtype": "bfloat16", **k1_time},
           "k2_timed": {"shape": [TRAIN_B, TRAIN_S, HEADS, HEAD_DIM],
-                       "causal": True, "dtype": "bfloat16",
+                       "causal": True,
+                       "dtype": "bfloat16 (k2a, k2b), float32 (*_f32)",
                        "plain_and_library_ms_are_for_the_pair": True,
                        **k2_time},
           "k3_timed": {"B": SLOTS, "heads": HEADS, "page_size": PAGE,
@@ -1089,8 +1130,8 @@ def phase_qat(train_step_ms=None):
 # ----------------------------------------------------------------- profile
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
-    ("K2a flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
-    ("K2b flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K2a flash_bwd_dkdv", ("flash_bwd_dkdv_",)),
+    ("K2b flash_bwd_dq", ("flash_bwd_dq_",)),
     ("K4 paged_flash_decode_q", tuple(f"paged_flash_decode_kernel<{t}, signed char"
                                       for t in ("float", "__half",
                                                 "__nv_bfloat16"))),

@@ -12,42 +12,70 @@
 //   dv = p^T.g,  dk = ds^T.q  (K2a),  dq = ds.k  (K2b),
 // all accumulated in f32 and written once, in the input dtype, as
 // contiguous [B, S, H, D].  No atomics: every output element has one
-// owner, so the result is deterministic.
+// owner and every sum runs in a fixed order, so two launches on the same
+// inputs give the same bits.
 //
 // What bounds it on this card: per visible (query, key) pair K2a does four
-// D-long products (s, dp, dv, dk: 8*D operations) and K2b three (6*D)
-// against a few bytes per row, so at the training shape (S = 1024, D = 64)
-// both are far above the H100's ~295 operations per byte and a good kernel
-// is bound by arithmetic.  These do the products with plain f32 FMAs out
-// of shared memory (no tensor cores), so they reach a fraction of the
-// 67 TFLOP/s f32 rate, not of the 989 TFLOP/s tensor-core rate: right and
-// simple first; mma/wgmma and a fused single-pass backward are later work.
+// D-long products (s, dp, dv, dk: 8*D operations) and K2b three (s, dp,
+// dq: 6*D) against a few bytes per row, so at the training shape (S =
+// 1024, D = 64) both are far above the H100's ~295 operations per byte: a
+// good kernel is bound by operations, at the 989 TFLOP/s bf16 / f16
+// tensor-core rate.
 //
-// Design.  The TPU grid's sequential sweep with scratch accumulators
-// (init at the first step, write-out at the last) becomes a loop inside
-// one block of 256 threads:
-//   K2a: one block per (64-key tile, batch * head).  K and V stay staged in
-//        shared memory; the loop walks the 64-query tiles the causal mask
-//        leaves visible, staging q, g, lse and r.  Four threads own one key
-//        row: each computes 16 of the tile's 64 (s, dp) pairs, writes p and
-//        ds transposed to shared memory, and accumulates D/4 columns of dk
-//        and dv in registers.
-//   K2b: one block per (64-query tile, batch * head).  q, g, lse and r stay;
-//        the loop walks 64-key tiles up to the causal bound.  Four threads
-//        own one query row and accumulate D/4 columns of dq.
-// Tiles are staged as f32 with a +1 row pad (no bank conflicts on the
-// row-strided reads), which passes the 48 KB default, so each launch opts
-// in to the dynamic shared memory it needs (100 / 166 KB for K2a and 83 /
-// 149 KB for K2b at head_dim 64 / 128).  head_dim <= 128.  q/k/v/g are read
-// in the public [B, S, H, D] layout straight from their strides (unit
-// stride in head_dim), so the model's head-major qkv split needs no copy;
-// the ragged last tiles are masked here, where the TPU path padded.
+// bf16 / f16 design (the training path's bf16 under AMP O2), after
+// FlashAttention-2's backward.  Every product runs on the tensor cores as
+// mma.sync.m16n8k16 (16-bit inputs, f32 accumulators) fed by ldmatrix out
+// of shared memory.  A block is 4 warps; each warp owns 16 rows of the
+// block's resident 64-row tile and sweeps the streamed tiles:
+//   K2a: grid (batch * head, 64-key tile).  K and V stay in shared
+//        memory; the loop streams the visible query tiles (q, g, lse, r).
+//        With keys as the M dimension the warp computes S^T = K.Q^T and
+//        dP^T = V.G^T, so the P^T and dS^T accumulator fragments convert
+//        to 16-bit in registers and serve directly as the A operand of
+//        dV += P^T.G and dK += dS^T.Q (G and Q read by ldmatrix.trans):
+//        no score round-trips through shared memory.
+//   K2b: grid (batch * head, 64-query tile).  Q, G, and the warp's lse /
+//        r rows stay resident; the loop streams 64-key tiles of K and V
+//        up to the causal bound.  dS goes from registers into
+//        dQ += dS.K, with K read by ldmatrix.trans.
+// p and ds are rounded to the input dtype before their second product, as
+// PyTorch's flash backward does.  Tiles are staged in the input dtype with
+// 16-byte cp.async.cg into a double-buffered ring (the next streamed tile
+// loads while the current one is computed); each row is padded by 16
+// bytes so ldmatrix's eight row reads hit distinct banks, and head_dim is
+// zero-padded to 64 or 128.  Rows that cannot take 16-byte copies (D*2 not
+// a multiple of 16, or a misaligned base or stride) are staged by a
+// scalar loop inside the same kernel.  q/k/v/g are read in the public
+// [B, S, H, D] layout from their strides (unit stride in head_dim), so the
+// model's head-major qkv split needs no copy; ragged tiles are zero-filled
+// and masked, and the element mask runs only on tiles that the causal
+// diagonal or a ragged edge crosses (tiles wholly above the diagonal are
+// never visited).  The tile with the most work goes out first: the first
+// key tile in K2a, the last query tile in K2b, with batch * head as the
+// fast grid axis so each wave takes the heaviest tiles of every head.
+// head_dim <= 128.
+//
+// f32 design: the exact SIMT body (plain f32 FMAs out of shared memory).
+// f32 callers (the f32 card-vs-CPU training parity, rtol 1e-4) need full
+// f32 products, which TF32 tensor cores would not give, so f32 stays
+// bounded by the 67 TFLOP/s f32 rate.  One block of 256 threads per
+// (64-row tile, batch * head); four threads own one key (K2a) or query
+// (K2b) row and accumulate D/4 output columns in registers; tiles are
+// staged as f32 with a +1 row pad (100 / 166 KB of shared memory for K2a
+// and 83 / 149 KB for K2b at head_dim 64 / 128, opted in per launch).
 #include "common.cuh"
 
 #include <math.h>
+#include <string.h>
+#include <type_traits>
 
 namespace {
 
+struct Ptrs {
+  long long sb, ss, sh;                 // element strides: batch, seq, head
+};
+
+// ------------------------------------------------------- f32: SIMT body
 constexpr int kB = 64;                  // rows (queries or keys) per tile
 constexpr int kThreads = 256;
 constexpr int kTPR = kThreads / kB;     // threads per owned row (4)
@@ -65,10 +93,6 @@ constexpr size_t dq_smem_bytes() {
   // Q, G, K, V [kB][DP+1]; dS [kB][kB+1]
   return sizeof(float) * (4 * kB * (DP + 1) + kB * kPS);
 }
-
-struct Ptrs {
-  long long sb, ss, sh;                 // element strides: batch, seq, head
-};
 
 // Stage rows [row0, row0 + kB) of one (batch, head) slice as f32 into a
 // [kB][DP+1] tile; rows past n and columns past D are zero.
@@ -298,8 +322,479 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------- bf16 / f16: tensor-core body
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcM = 16 * kTcWarps;     // resident rows per block (64)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy global -> shared; src_bytes 0 writes zeros (ragged rows,
+// padded columns) without reading src
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 16-bit matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] . b[16x8], 16-bit inputs, f32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// two f32 rounded to T, the lower column in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  uint32_t u;
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    memcpy(&u, &v, 4);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    memcpy(&u, &v, 4);
+  }
+  return u;
+}
+
+// The A operand of the next product from two adjacent accumulator tiles
+// (columns 16 kq .. 16 kq + 15 of a 16-row score tile), rounded to T.
+template <typename T>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
+}
+
+// Stage rows [row0, row0 + R) of one (batch, head) slice into an
+// [R][DP + 8] tile in T; rows past n and columns past D are zero.  `vec`:
+// 16-byte cp.async (D % 8 == 0, base and strides 16-byte aligned), else a
+// scalar loop.
+template <typename T, int R, int DP>
+__device__ __forceinline__ void stage_tc(T* dst, const T* src, long long ss,
+                                         int row0, int n, int D, bool vec) {
+  constexpr int RS = DP + 8;
+  if (vec) {
+    constexpr int CH = DP / 8;          // 16-byte chunks per row
+    for (int idx = threadIdx.x; idx < R * CH; idx += kTcThreads) {
+      const int rr = idx / CH;
+      const int c = idx % CH;
+      const int row = row0 + rr;
+      const bool ok = row < n && c * 8 < D;
+      cp_async16(dst + rr * RS + c * 8, ok ? src + row * ss + c * 8 : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < R * DP; idx += kTcThreads) {
+      const int rr = idx / DP;
+      const int d = idx % DP;
+      const int row = row0 + rr;
+      dst[rr * RS + d] =
+          (row < n && d < D) ? src[row * ss + d] : ptt::from_f32<T>(0.f);
+    }
+  }
+}
+
+template <int DP, int NS>
+constexpr size_t tc_smem_bytes(size_t elem, int row_vecs) {
+  // resident [64][DP+8] x 2, streamed [2][NS][DP+8] x 2, row_vecs f32 [2][NS]
+  return elem * (2 * kTcM + 4 * NS) * (DP + 8) + sizeof(float) * row_vecs * 2 * NS;
+}
+
+// K2a.  NQ: queries per streamed tile.  vec: bit i set when tensor i of
+// (q, k, v, g) takes 16-byte copies.
+template <typename T, int DP, int NQ>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ rc, T* __restrict__ dk,
+                         T* __restrict__ dv, int H, int Sq, int Sk, int D,
+                         Ptrs qs, Ptrs ks, Ptrs vs, Ptrs gs, float scale,
+                         int causal, int vec) {
+  constexpr int RS = DP + 8;
+  constexpr int NT = NQ / 8;            // 8-query column tiles of S^T
+  constexpr int DT = DP / 8;            // 8-wide column tiles of dk / dv
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kTcM * RS;
+  T* Qs = Vs + kTcM * RS;               // [2][NQ][RS]
+  T* Gs = Qs + 2 * NQ * RS;             // [2][NQ][RS]
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * NQ * RS);   // [2][NQ]
+  float* Rs = Ls + 2 * NQ;              // [2][NQ]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;              // accumulator row in the warp's 16
+  const int gc = 2 * (lane % 4);        // accumulator column in an 8-tile
+  const int lm = lane / 8;              // ldmatrix: which 8x8 matrix
+  const int lr = lane % 8;              // ldmatrix: which row of it
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  // key tile 0 sees the most queries: it goes out first
+  const int k0 = static_cast<int>(blockIdx.y) * kTcM;
+  const int offset = Sk - Sq;
+
+  const T* qb = q + b * qs.sb + h * qs.sh;
+  const T* kb = k + b * ks.sb + h * ks.sh;
+  const T* vb = v + b * vs.sb + h * vs.sh;
+  const T* gb = g + b * gs.sb + h * gs.sh;
+  const float* lb = lse + static_cast<long long>(bh) * Sq;
+  const float* rb = rc + static_cast<long long>(bh) * Sq;
+
+  // causal: query i sees this tile's first key k0 once i >= k0 - offset
+  const int qstart = causal ? (max(0, k0 - offset) / NQ) * NQ : 0;
+  const int ntiles = (Sq - qstart + NQ - 1) / NQ;
+
+  auto load_tile = [&](int it) {
+    const int q0 = qstart + it * NQ;
+    const int buf = it & 1;
+    stage_tc<T, NQ, DP>(Qs + buf * NQ * RS, qb, qs.ss, q0, Sq, D, vec & 1);
+    stage_tc<T, NQ, DP>(Gs + buf * NQ * RS, gb, gs.ss, q0, Sq, D, vec & 8);
+    for (int i = threadIdx.x; i < NQ; i += kTcThreads) {
+      const bool ok = q0 + i < Sq;
+      cp_async4(Ls + buf * NQ + i, ok ? lb + q0 + i : lb, ok);
+      cp_async4(Rs + buf * NQ + i, ok ? rb + q0 + i : rb, ok);
+    }
+  };
+  stage_tc<T, kTcM, DP>(Ks, kb, ks.ss, k0, Sk, D, vec & 2);
+  stage_tc<T, kTcM, DP>(Vs, vb, vs.ss, k0, Sk, D, vec & 4);
+  load_tile(0);
+  cp_async_commit();
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  // this lane's ldmatrix rows: A over the warp's 16 keys, B over 16 queries
+  const T* ka = Ks + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
+  const T* va = Vs + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
+  const int b_off = ((lm >> 1) * 8 + lr) * RS + (lm & 1) * 8;   // [n][k]
+  const int bt_off = ((lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;  // [k][n]
+  const int kj0 = k0 + warp * 16 + gr;  // this lane's two keys: kj0, kj0 + 8
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qstart + it * NQ;
+    const T* Qc = Qs + (it & 1) * NQ * RS;
+    const T* Gc = Gs + (it & 1) * NQ * RS;
+    const float* Lc = Ls + (it & 1) * NQ;
+    const float* Rc = Rs + (it & 1) * NQ;
+
+    // S^T = K.Q^T and dP^T = V.G^T over the warp's 16 keys x NQ queries
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, ka + kk * 16);
+      ldsm_x4(av, va + kk * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bq[4], bg[4];
+        ldsm_x4(bq, Qc + np * 16 * RS + kk * 16 + b_off);
+        ldsm_x4(bg, Gc + np * 16 * RS + kk * 16 + b_off);
+        mma16816<T>(s[2 * np], ak, bq[0], bq[1]);
+        mma16816<T>(s[2 * np + 1], ak, bq[2], bq[3]);
+        mma16816<T>(dp[2 * np], av, bg[0], bg[1]);
+        mma16816<T>(dp[2 * np + 1], av, bg[2], bg[3]);
+      }
+    }
+
+    // P^T and dS^T in place; the element mask only where the diagonal or
+    // a ragged edge crosses the tile
+    const bool full = !(causal && k0 + kTcM - 1 > q0 + offset) &&
+                      q0 + NQ <= Sq && k0 + kTcM <= Sk;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = n * 8 + gc + (e & 1);
+        float p = exp2f((s[n][e] * scale - Lc[ci]) * kLog2e);
+        if (!full) {
+          const int qi = q0 + ci;
+          const int kj = kj0 + (e >> 1) * 8;
+          if (!(qi < Sq && kj < Sk && (!causal || kj <= qi + offset))) p = 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - Rc[ci]) * scale;
+      }
+    }
+
+    // dV += P^T.G and dK += dS^T.Q, P^T / dS^T straight from registers
+#pragma unroll
+    for (int kq = 0; kq < NQ / 16; ++kq) {
+      uint32_t ap[4], ads[4];
+      acc_to_a<T>(ap, s[2 * kq], s[2 * kq + 1]);
+      acc_to_a<T>(ads, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t bg[4], bq[4];
+        ldsm_x4_t(bg, Gc + kq * 16 * RS + np * 16 + bt_off);
+        ldsm_x4_t(bq, Qc + kq * 16 * RS + np * 16 + bt_off);
+        mma16816<T>(dv_acc[2 * np], ap, bg[0], bg[1]);
+        mma16816<T>(dv_acc[2 * np + 1], ap, bg[2], bg[3]);
+        mma16816<T>(dk_acc[2 * np], ads, bq[0], bq[1]);
+        mma16816<T>(dk_acc[2 * np + 1], ads, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();                    // this buffer is free to refill
+  }
+
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kj = kj0 + (e >> 1) * 8;
+      const int d = n * 8 + gc + (e & 1);
+      if (kj < Sk && d < D) {
+        const long long o = (static_cast<long long>(b) * Sk + kj) * H * D +
+                            static_cast<long long>(h) * D + d;
+        dk[o] = ptt::from_f32<T>(dk_acc[n][e]);
+        dv[o] = ptt::from_f32<T>(dv_acc[n][e]);
+      }
+    }
+  }
+}
+
+// K2b.  NK: keys per streamed tile.
+template <typename T, int DP, int NK>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ g,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ rc, T* __restrict__ dq,
+                       int H, int Sq, int Sk, int D, Ptrs qs, Ptrs ks,
+                       Ptrs vs, Ptrs gs, float scale, int causal, int vec) {
+  constexpr int RS = DP + 8;
+  constexpr int NT = NK / 8;            // 8-key column tiles of S
+  constexpr int DT = DP / 8;            // 8-wide column tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Gs = Qs + kTcM * RS;
+  T* Ks = Gs + kTcM * RS;               // [2][NK][RS]
+  T* Vs = Ks + 2 * NK * RS;             // [2][NK][RS]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;
+  const int gc = 2 * (lane % 4);
+  const int lm = lane / 8;
+  const int lr = lane % 8;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  // the last query tile sees the most keys: it goes out first
+  const int q0 =
+      ((Sq + kTcM - 1) / kTcM - 1 - static_cast<int>(blockIdx.y)) * kTcM;
+  const int offset = Sk - Sq;
+
+  const T* qb = q + b * qs.sb + h * qs.sh;
+  const T* kb = k + b * ks.sb + h * ks.sh;
+  const T* vb = v + b * vs.sb + h * vs.sh;
+  const T* gb = g + b * gs.sb + h * gs.sh;
+
+  // causal: the tile's last valid query sees keys up to q_last + offset
+  const int kend = causal ? min(Sk, min(q0 + kTcM, Sq) + offset) : Sk;
+  const int ntiles = (kend + NK - 1) / NK;
+
+  auto load_tile = [&](int it) {
+    const int buf = it & 1;
+    stage_tc<T, NK, DP>(Ks + buf * NK * RS, kb, ks.ss, it * NK, Sk, D, vec & 2);
+    stage_tc<T, NK, DP>(Vs + buf * NK * RS, vb, vs.ss, it * NK, Sk, D, vec & 4);
+  };
+  stage_tc<T, kTcM, DP>(Qs, qb, qs.ss, q0, Sq, D, vec & 1);
+  stage_tc<T, kTcM, DP>(Gs, gb, gs.ss, q0, Sq, D, vec & 8);
+  load_tile(0);
+  cp_async_commit();
+
+  // this lane's two query rows
+  const int qi0 = q0 + warp * 16 + gr;
+  float lrow[2], rrow[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int qi = qi0 + x * 8;
+    const long long o = static_cast<long long>(bh) * Sq + qi;
+    lrow[x] = qi < Sq ? lse[o] * kLog2e : 0.f;
+    rrow[x] = qi < Sq ? rc[o] : 0.f;
+  }
+
+  float dq_acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  const T* qa = Qs + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
+  const T* ga = Gs + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
+  const int b_off = ((lm >> 1) * 8 + lr) * RS + (lm & 1) * 8;   // [n][k]
+  const int bt_off = ((lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;  // [k][n]
+  const float scale_log2 = scale * kLog2e;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = it * NK;
+    const T* Kc = Ks + (it & 1) * NK * RS;
+    const T* Vc = Vs + (it & 1) * NK * RS;
+
+    // S = Q.K^T and dP = G.V^T over the warp's 16 queries x NK keys
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[4], ag[4];
+      ldsm_x4(aq, qa + kk * 16);
+      ldsm_x4(ag, ga + kk * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, Kc + np * 16 * RS + kk * 16 + b_off);
+        ldsm_x4(bv, Vc + np * 16 * RS + kk * 16 + b_off);
+        mma16816<T>(s[2 * np], aq, bk[0], bk[1]);
+        mma16816<T>(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma16816<T>(dp[2 * np], ag, bv[0], bv[1]);
+        mma16816<T>(dp[2 * np + 1], ag, bv[2], bv[3]);
+      }
+    }
+
+    // dS in place of dP
+    const bool full = !(causal && k0 + NK - 1 > q0 + offset) &&
+                      q0 + kTcM <= Sq && k0 + NK <= Sk;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = e >> 1;
+        float p = exp2f(s[n][e] * scale_log2 - lrow[x]);
+        if (!full) {
+          const int qi = qi0 + x * 8;
+          const int kj = k0 + n * 8 + gc + (e & 1);
+          if (!(qi < Sq && kj < Sk && (!causal || kj <= qi + offset))) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - rrow[x]) * scale;
+      }
+    }
+
+    // dQ += dS.K, dS straight from registers, K by ldmatrix.trans
+#pragma unroll
+    for (int kq = 0; kq < NK / 16; ++kq) {
+      uint32_t ads[4];
+      acc_to_a<T>(ads, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, Kc + kq * 16 * RS + np * 16 + bt_off);
+        mma16816<T>(dq_acc[2 * np], ads, bk[0], bk[1]);
+        mma16816<T>(dq_acc[2 * np + 1], ads, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();                    // this buffer is free to refill
+  }
+
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qi0 + (e >> 1) * 8;
+      const int d = n * 8 + gc + (e & 1);
+      if (qi < Sq && d < D) {
+        const long long o = (static_cast<long long>(b) * Sq + qi) * H * D +
+                            static_cast<long long>(h) * D + d;
+        dq[o] = ptt::from_f32<T>(dq_acc[n][e]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- launches
 Ptrs ptrs(const long long* st, int which) {
   return Ptrs{st[3 * which], st[3 * which + 1], st[3 * which + 2]};
+}
+
+// Bit i set when tensor i of (q, k, v, g) can be staged by 16-byte copies:
+// whole 16-byte chunks per row, a 16-byte aligned base and strides.
+int vec_mask(const void* q, const void* k, const void* v, const void* g,
+             const long long* st, int D, int elem) {
+  const void* x[4] = {q, k, v, g};
+  int mask = 0;
+  for (int i = 0; i < 4; ++i) {
+    bool ok = (D * elem) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(x[i]) % 16 == 0;
+    for (int j = 0; j < 3; ++j) ok = ok && (st[3 * i + j] * elem) % 16 == 0;
+    if (ok) mask |= 1 << i;
+  }
+  return mask;
 }
 
 template <typename T, int DP>
@@ -340,8 +835,89 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, int DP>
+cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v,
+                           const void* g, const float* lse, const float* r,
+                           void* dk, void* dv, int B, int H, int Sq, int Sk,
+                           int D, const long long* st, float scale,
+                           int causal, cudaStream_t stream) {
+  // at head_dim 128 the streamed query tile is 32 rows, which keeps dk,
+  // dv, S^T and dP^T in registers without spilling
+  constexpr int NQ = DP == 64 ? 64 : 32;
+  auto kernel = flash_bwd_dkdv_tc_kernel<T, DP, NQ>;
+  const size_t smem = tc_smem_bytes<DP, NQ>(sizeof(T), 2);
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = vec_mask(q, k, v, g, st, D, sizeof(T));
+  dim3 grid(B * H, (Sk + kTcM - 1) / kTcM);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, D, ptrs(st, 0),
+      ptrs(st, 1), ptrs(st, 2), ptrs(st, 3), scale, causal, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* g, const float* lse, const float* r,
+                         void* dq, int B, int H, int Sq, int Sk, int D,
+                         const long long* st, float scale, int causal,
+                         cudaStream_t stream) {
+  constexpr int NK = 64;
+  auto kernel = flash_bwd_dq_tc_kernel<T, DP, NK>;
+  const size_t smem = tc_smem_bytes<DP, NK>(sizeof(T), 0);
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = vec_mask(q, k, v, g, st, D, sizeof(T));
+  dim3 grid(B * H, (Sq + kTcM - 1) / kTcM);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
+      static_cast<T*>(dq), H, Sq, Sk, D, ptrs(st, 0), ptrs(st, 1),
+      ptrs(st, 2), ptrs(st, 3), scale, causal, vec);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int B, int H, int Sq, int Sk, int D) {
   return D < 1 || D > 128 || B < 1 || H < 1 || Sq < 1 || Sk < 1;
+}
+
+// f32 takes the SIMT body, bf16 / f16 the tensor cores; head_dim padded
+// to 64 or 128
+template <typename T>
+cudaError_t run_dkdv(const void* q, const void* k, const void* v,
+                     const void* g, const float* lse, const float* r,
+                     void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
+                     const long long* st, float scale, int causal,
+                     cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return D <= 64 ? launch_dkdv<T, 64>(q, k, v, g, lse, r, dk, dv, B, H, Sq,
+                                        Sk, D, st, scale, causal, s)
+                   : launch_dkdv<T, 128>(q, k, v, g, lse, r, dk, dv, B, H,
+                                         Sq, Sk, D, st, scale, causal, s);
+  else
+    return D <= 64 ? launch_dkdv_tc<T, 64>(q, k, v, g, lse, r, dk, dv, B, H,
+                                           Sq, Sk, D, st, scale, causal, s)
+                   : launch_dkdv_tc<T, 128>(q, k, v, g, lse, r, dk, dv, B, H,
+                                            Sq, Sk, D, st, scale, causal, s);
+}
+
+template <typename T>
+cudaError_t run_dq(const void* q, const void* k, const void* v,
+                   const void* g, const float* lse, const float* r, void* dq,
+                   int B, int H, int Sq, int Sk, int D, const long long* st,
+                   float scale, int causal, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return D <= 64 ? launch_dq<T, 64>(q, k, v, g, lse, r, dq, B, H, Sq, Sk,
+                                      D, st, scale, causal, s)
+                   : launch_dq<T, 128>(q, k, v, g, lse, r, dq, B, H, Sq, Sk,
+                                       D, st, scale, causal, s);
+  else
+    return D <= 64 ? launch_dq_tc<T, 64>(q, k, v, g, lse, r, dq, B, H, Sq,
+                                         Sk, D, st, scale, causal, s)
+                   : launch_dq_tc<T, 128>(q, k, v, g, lse, r, dq, B, H, Sq,
+                                          Sk, D, st, scale, causal, s);
 }
 
 }  // namespace
@@ -361,12 +937,8 @@ extern "C" int ptt_flash_attention_bwd_dkdv(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    if (D <= 64)
-      err = launch_dkdv<scalar_t, 64>(q, k, v, g, l, rr, dk, dv, B, H, Sq, Sk,
-                                      D, strides, scale, causal, s);
-    else
-      err = launch_dkdv<scalar_t, 128>(q, k, v, g, l, rr, dk, dv, B, H, Sq,
-                                       Sk, D, strides, scale, causal, s);
+    err = run_dkdv<scalar_t>(q, k, v, g, l, rr, dk, dv, B, H, Sq, Sk, D,
+                             strides, scale, causal, s);
   });
   return static_cast<int>(err);
 }
@@ -383,12 +955,8 @@ extern "C" int ptt_flash_attention_bwd_dq(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    if (D <= 64)
-      err = launch_dq<scalar_t, 64>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
-                                    strides, scale, causal, s);
-    else
-      err = launch_dq<scalar_t, 128>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
-                                     strides, scale, causal, s);
+    err = run_dq<scalar_t>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D, strides,
+                           scale, causal, s);
   });
   return static_cast<int>(err);
 }

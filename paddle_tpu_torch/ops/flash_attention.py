@@ -111,8 +111,8 @@ def flash_attention_bwd_ref(q, k, v, g, lse, r, scale, causal):
 def supported(q_shape, k_shape, causal=False, needs_grad=False) -> bool:
     """Whether the CUDA kernels take these ``[B, S, H, D]`` shapes: 4-D,
     as many kv heads as query heads, head_dim <= 256 (<= 128 when the call
-    needs a gradient: the backward kernels stage five f32 tiles in shared
-    memory), and for a causal call no more queries than keys.  Unlike the
+    needs a gradient: the backward kernels pad head_dim to 64 or 128 in
+    shared memory), and for a causal call no more queries than keys.  Unlike the
     TPU kernels there is no sequence floor: the ragged tile is masked in
     the kernels, so they take every length."""
     if len(q_shape) != 4 or len(k_shape) != 4:

@@ -107,30 +107,74 @@ def _rel_err(a, b):
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("sq,sk,d,causal,g_lse", [
-    (17, 17, 64, True, False), (300, 300, 64, True, False),
-    (64, 320, 64, True, True), (300, 300, 64, False, True),
-    (256, 256, 128, True, False), (33, 70, 128, False, False)])
-def test_flash_bwd_kernels_match_plain(cuda, dtype, sq, sk, d, causal, g_lse):
-    """K2a (dk, dv) and K2b (dq) against flash_attention_bwd_ref on the
-    same inputs and the kernel forward's lse; error over max |ref|."""
-    def t(s):
-        return torch.randn(2, s, 3, d, generator=cuda, device="cuda").to(dtype)
+def _bwd_inputs(gen, dtype, b, h, sq, sk, d, causal, g_lse, layout):
+    """q, k, v, g ``[b, S, h, d]``, the kernel forward's lse and the row
+    correction r.  ``layout``: "contiguous"; "unaligned", each tensor a
+    view one element into rows of d + 1 (the kernels' scalar staging);
+    "qkv", q / k / v the model's head-major split of ``[b, S, h, 3, d]``."""
+    def t(s, width=d):
+        return torch.randn(b, s, h, width, generator=gen, device="cuda").to(dtype)
 
-    q, k, v, g = t(sq), t(sk), t(sk), t(sq)
-    scale = d ** -0.5
+    if layout == "qkv":
+        q, k, v = torch.randn(b, sq, h, 3, d, generator=gen,
+                              device="cuda").to(dtype).unbind(3)
+        g = t(sq)
+    elif layout == "unaligned":
+        q, k, v, g = (t(s, d + 1)[..., 1:] for s in (sq, sk, sk, sq))
+    else:
+        q, k, v, g = t(sq), t(sk), t(sk), t(sq)
     o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
     delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(-1, sq)
-    r = delta - (torch.randn(delta.shape, generator=cuda, device="cuda")
+    r = delta - (torch.randn(delta.shape, generator=gen, device="cuda")
                  if g_lse else 0.0)
+    return q, k, v, g, lse, r.contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,g_lse,layout", [
+    (2, 3, 17, 17, 64, True, False, "contiguous"),
+    (2, 3, 300, 300, 64, True, False, "contiguous"),
+    (2, 3, 64, 320, 64, True, True, "contiguous"),
+    (2, 3, 300, 300, 64, False, True, "contiguous"),
+    (2, 3, 256, 256, 128, True, False, "contiguous"),
+    (2, 3, 33, 70, 128, False, False, "contiguous"),
+    # the training shape
+    (8, 12, 1024, 1024, 64, True, False, "contiguous"),
+    # head_dim zero-padded to 64 / 128 in shared memory
+    (2, 3, 300, 300, 32, True, False, "contiguous"),
+    (2, 3, 200, 256, 40, True, True, "contiguous"),
+    (2, 3, 129, 129, 96, False, True, "contiguous"),
+    # rows that take no 16-byte copies: head_dim 17, a misaligned base
+    (2, 3, 100, 100, 17, True, False, "contiguous"),
+    (2, 3, 300, 300, 64, True, False, "unaligned"),
+    # the model's strided head-major qkv split, read in place
+    (2, 12, 512, 512, 64, True, False, "qkv")])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, b, h, sq, sk, d, causal,
+                                       g_lse, layout):
+    """K2a (dk, dv) and K2b (dq) against flash_attention_bwd_ref on the
+    same inputs and the kernel forward's lse; error over max |ref|."""
+    q, k, v, g, lse, r = _bwd_inputs(cuda, dtype, b, h, sq, sk, d, causal,
+                                     g_lse, layout)
+    scale = d ** -0.5
     n = fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
-    got = fa._bwd_kernels(q, k, v, g, lse, r.contiguous(), scale, causal)
+    got = fa._bwd_kernels(q, k, v, g, lse, r, scale, causal)
     assert (fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == (n[0] + 1, n[1] + 1)
     want = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, causal)
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape and a.is_contiguous()
         assert _rel_err(a, b) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
+def test_flash_bwd_kernels_are_deterministic(cuda, dtype, layout):
+    """Two launches of K2a + K2b on the same inputs give bit-equal dq, dk
+    and dv: no atomics, every sum in a fixed order."""
+    args = _bwd_inputs(cuda, dtype, 2, 4, 700, 700, 64, True, True, layout)
+    first = fa._bwd_kernels(*args, 0.125, True)
+    second = fa._bwd_kernels(*args, 0.125, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_matches_torch_autograd(cuda):
