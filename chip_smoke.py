@@ -10,23 +10,31 @@ Phases, each printing one JSON line and then its seconds:
    (one ``nvcc`` per source, all at once), with ptxas's register / shared
    memory / spill report, the card's name and its power limit.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
-   card, in bf16 and f32 (TF32 off): K1 and K3 at the served model's
-   shapes (atol 2e-2 / 2e-4), the paged decode kernel also with NaN in
-   every dead page; the flash backward K2a / K2b in bf16, f16 and f32
-   over lengths 17-1024, causal and full, sq < sk, head_dim 17 / 32 / 40
-   / 64 / 96 / 128, with and without a g_lse term, a misaligned layout
-   (scalar staging), the model's strided qkv split and the training shape
-   (max error over max |ref| <= 2e-2 / 5e-3 / 1e-4; a second launch
-   bit-equal to the first), and gradients through K1 + K2 against torch
-   autograd through the plain forward; K4 (paged decode over int8 pools)
-   against its plain version, also with NaN in every dead page's scale
-   rows, and the full-sweep twins K5a / K5b bit for bit against K3 / K4;
-   the fused bias + GELU K6 in f32 / f16 / bf16 (bf16 x with a float32
+   card (TF32 off; max abs error within 2e-2 / 5e-3 / 2e-4 for bf16 / f16
+   / f32, lse within 1e-3; the backward's max error over max |ref| within
+   2e-2 / 5e-3 / 1e-4), the K1, K2 and paged-decode cases also bit-equal
+   on a second launch: K1
+   in bf16, f16 and f32 (the tensor-core body and the SIMT body) over
+   lengths 17-1024, causal and full, sq < sk, head_dim 17 / 32 / 40 / 64
+   / 96 / 128 / 256, a misaligned layout (scalar staging), the model's
+   strided qkv split and the training shape; the flash backward K2a /
+   K2b over the same reach (head_dim <= 128), with and without a g_lse
+   term, and gradients through K1 + K2 against torch autograd through the
+   plain forward; the split-K paged decode K3 (and K4 over int8 pools)
+   at the slot-boundary lengths, one 1024-token row alone and a 256-slot
+   table, also with NaN in every dead page (K3) or dead page's scale
+   rows (K4), and the full-sweep twins K5a / K5b bit for bit against K3 /
+   K4; the fused bias + GELU K6 in f32 / f16 / bf16 (bf16 x with a float32
    bias too) at the example's shape, GPT-base's MLP activation, an odd
    width and a non-contiguous x.  Then time kernel, plain version and
-   PyTorch's own call with CUDA events: K1 at the longest prefill, K3, K4
-   and K5a / K5b at a decode step, K2 at the training shape (bf16, and
-   the f32 body), K6 at ``[8192, 3072]`` beside ``F.gelu(x + b)``.
+   PyTorch's own call with CUDA events: K1 at the longest prefill (B=1)
+   and at the training shape (B=8) beside
+   ``F.scaled_dot_product_attention``, K3, K4 and K5a / K5b at a decode
+   step (K1, K3-K5b and the library call by CUDA-graph replay, with the
+   eager time beside K1, K3 and K4: eagerly a launch can take longer on
+   the host than the kernel on the card), K2 at the training shape
+   (bf16, and the f32 body), K6 at ``[8192, 3072]`` beside
+   ``F.gelu(x + b)``.
 3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
    ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
    of 17-900 tokens, 32 new tokens each.  float32 on the card must give
@@ -112,18 +120,32 @@ def smi_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def cuda_ms(fn, iters=20, warmup=3, graph=False):
     """Mean time of one ``fn()`` on the card, by CUDA events over ``iters``
-    launches after ``warmup``."""
+    launches after ``warmup``.  ``graph=True`` captures the ``iters`` calls
+    in one CUDA graph and times its replay: the device's time for a call
+    whose host-side launch would take longer than the kernel (what a
+    captured decode step pays)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -156,23 +178,66 @@ def phase_build():
 
 
 # ----------------------------------------------------------------- kernels
-def _k1_case(gen, dtype, sq, sk, d, causal, heads=HEADS):
+def _k1_case(gen, dtype, sq, sk, d, causal, b=1, layout="contiguous"):
+    """K1 against its plain version (o within ATOL, lse within 1e-3) and a
+    second launch bit-equal to the first.  ``layout``: "contiguous";
+    "unaligned", each tensor a view one element into rows of d + 1 (the
+    scalar staging); "qkv", the model's head-major split of one
+    ``[b, S, HEADS, 3, d]`` tensor."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    def t(s):
-        return torch.randn(1, s, heads, d, generator=gen, device="cuda").to(dtype)
-
-    q, k, v = t(sq), t(sk), t(sk)
+    if layout == "qkv":
+        q, k, v = torch.randn(b, sq, HEADS, 3, d, generator=gen,
+                              device="cuda").to(dtype).unbind(3)
+    else:
+        w = d + 1 if layout == "unaligned" else d
+        q, k, v = (torch.randn(b, s, HEADS, w, generator=gen, device="cuda")
+                   .to(dtype)[..., w - d:] for s in (sq, sk, sk))
     o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
+    o2, lse2 = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
     err = (o.float() - ref.float()).abs().max().item()
     lse_ref = fa.flash_attention_lse_ref(q, k, causal=causal)
     lse_err = (lse - lse_ref).abs().max().item()
-    ok = err <= ATOL[dtype] and lse_err <= 1e-3 and bool(torch.isfinite(o).all())
-    return {"sq": sq, "sk": sk, "d": d, "causal": causal,
-            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-            "lse_max_abs_err": lse_err, "ok": ok}
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    ok = (err <= ATOL[dtype] and lse_err <= 1e-3 and same
+          and bool(torch.isfinite(o).all()))
+    return {"b": b, "sq": sq, "sk": sk, "d": d, "causal": causal,
+            "layout": layout, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "bit_equal_relaunch": same, "ok": ok}
+
+
+def _k1_timed(gen, b, S=1024):
+    """K1, its plain version and ``F.scaled_dot_product_attention`` at
+    ``[b, S, HEADS, HEAD_DIM]``, causal, bf16.  Bound: 4 D operations per
+    visible (query, key) pair at the bf16 rate against q, k, v read and o
+    written once."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (torch.randn(b, S, HEADS, HEAD_DIM, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o = fa.flash_attention_fn(q, k, v, causal=True)
+    err = (o.float() - fa.flash_attention_ref(q, k, v, causal=True).float()
+           ).abs().max().item()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = b * S * (S + 1) // 2
+    k1_bound, k1_by = bound(4 * HEADS * HEAD_DIM * pairs, 4 * q.numel() * 2)
+    return {"shape": [b, S, HEADS, HEAD_DIM], "causal": True,
+            "dtype": "bfloat16",
+            "kernel_ms": cuda_ms(lambda: fa.flash_attention_fn(q, k, v,
+                                                               causal=True),
+                                 graph=True),
+            "eager_ms": cuda_ms(lambda: fa.flash_attention_fn(q, k, v,
+                                                              causal=True)),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                               causal=True),
+                                iters=5),
+            "library_ms": cuda_ms(lambda: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True), graph=True),
+            "bound_ms": k1_bound, "bound_by": k1_by, "max_abs_err": err}
 
 
 def _rel_err(a, b):
@@ -300,11 +365,11 @@ def _k2_timed(gen):
     return out
 
 
-def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM):
+def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP):
     B = len(lens)
-    pages = B * NP
+    pages = B * np_
     perm = torch.randperm(pages, generator=gen, device="cuda").to(torch.int32)
-    table = perm.reshape(B, NP).contiguous()
+    table = perm.reshape(B, np_).contiguous()
     kp = torch.randn(pages, PAGE, kv_heads, d, generator=gen, device="cuda").to(dtype)
     vp = torch.randn(pages, PAGE, kv_heads, d, generator=gen, device="cuda").to(dtype)
     q = torch.randn(B, heads, d, generator=gen, device="cuda").to(dtype)
@@ -312,11 +377,15 @@ def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM):
     return q, kp, vp, table, ln
 
 
-def _k3_case(gen, dtype, lens, heads, kv_heads):
+def _k3_case(gen, dtype, lens, heads, kv_heads, np_=NP):
+    """K3 against its plain version, a second launch bit-equal to the
+    first, NaN in every dead page changing no bit, K5a bit-equal to K3."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    q, kp, vp, table, ln = _k3_inputs(gen, dtype, lens, heads, kv_heads)
+    q, kp, vp, table, ln = _k3_inputs(gen, dtype, lens, heads, kv_heads,
+                                      np_=np_)
     o = pa.paged_attention(q, kp, vp, table, ln)
+    relaunch_ok = torch.equal(pa.paged_attention(q, kp, vp, table, ln), o)
     ref = pa.paged_attention_ref(q, kp, vp, table, ln)
     err = (o.float() - ref.float()).abs().max().item()
     # poison: NaN in every page past each row's length must never be read
@@ -333,22 +402,25 @@ def _k3_case(gen, dtype, lens, heads, kv_heads):
     poison_ok = bool(torch.isfinite(o_p).all()) and torch.equal(o_p, o)
     zero_ok = all(bool((o[b] == 0).all()) for b, n in enumerate(lens) if n == 0)
     k5a_ok = torch.equal(o5, o) and torch.equal(o5_p, o)
-    ok = err <= ATOL[dtype] and poison_ok and zero_ok and k5a_ok
+    ok = (err <= ATOL[dtype] and poison_ok and zero_ok and k5a_ok
+          and relaunch_ok)
     return {"B": len(lens), "heads": heads, "kv_heads": kv_heads,
-            "lens": lens, "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err, "dead_pages_poisoned_ok": poison_ok,
+            "lens": lens, "table_width": np_,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+            "bit_equal_relaunch": relaunch_ok,
+            "dead_pages_poisoned_ok": poison_ok,
             "empty_rows_zero": zero_ok, "k5a_bit_equal_k3": k5a_ok, "ok": ok}
 
 
-def _k4_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM):
+def _k4_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP):
     """q in ``dtype`` and int8 pools with their float32 scale pools,
     quantized from normal K / V on the pool grid."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
     B = len(lens)
-    pages = B * NP
+    pages = B * np_
     perm = torch.randperm(pages, generator=gen, device="cuda").to(torch.int32)
-    table = perm.reshape(B, NP).contiguous()
+    table = perm.reshape(B, np_).contiguous()
     kq, ks = pa.quantize_kv(torch.randn(pages, PAGE, kv_heads, d,
                                         generator=gen, device="cuda"))
     vq, vs = pa.quantize_kv(torch.randn(pages, PAGE, kv_heads, d,
@@ -358,15 +430,18 @@ def _k4_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM):
     return q, kq, vq, ks.contiguous(), vs.contiguous(), table, ln
 
 
-def _k4_case(gen, dtype, lens, heads, kv_heads):
-    """K4 against its plain version; K4 and K5b with NaN in every dead
-    page's scale rows (an int8 payload cannot hold NaN): K4 never reads
-    them and K5b stages them, and neither may let them reach the output;
-    K5b bit-equal to K4."""
+def _k4_case(gen, dtype, lens, heads, kv_heads, np_=NP):
+    """K4 against its plain version and a second launch bit-equal to the
+    first; K4 and K5b with NaN in every dead page's scale rows (an int8
+    payload cannot hold NaN): K4 never reads them and K5b stages them, and
+    neither may let them reach the output; K5b bit-equal to K4."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    q, kq, vq, ks, vs, table, ln = _k4_inputs(gen, dtype, lens, heads, kv_heads)
+    q, kq, vq, ks, vs, table, ln = _k4_inputs(gen, dtype, lens, heads,
+                                              kv_heads, np_=np_)
     o = pa.paged_attention_quantized(q, kq, vq, ks, vs, table, ln)
+    relaunch_ok = torch.equal(
+        pa.paged_attention_quantized(q, kq, vq, ks, vs, table, ln), o)
     ref = pa.paged_attention_quantized_ref(q, kq, vq, ks, vs, table, ln)
     err = (o.float() - ref.float()).abs().max().item()
     ksn, vsn = ks.clone(), vs.clone()
@@ -381,10 +456,13 @@ def _k4_case(gen, dtype, lens, heads, kv_heads):
     poison_ok = bool(torch.isfinite(o_p).all()) and torch.equal(o_p, o)
     zero_ok = all(bool((o[b] == 0).all()) for b, n in enumerate(lens) if n == 0)
     k5b_ok = torch.equal(o5, o) and torch.equal(o5_p, o)
-    ok = err <= ATOL[dtype] and poison_ok and zero_ok and k5b_ok
+    ok = (err <= ATOL[dtype] and poison_ok and zero_ok and k5b_ok
+          and relaunch_ok)
     return {"B": len(lens), "heads": heads, "kv_heads": kv_heads,
-            "lens": lens, "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err, "dead_scale_rows_poisoned_ok": poison_ok,
+            "lens": lens, "table_width": np_,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+            "bit_equal_relaunch": relaunch_ok,
+            "dead_scale_rows_poisoned_ok": poison_ok,
             "empty_rows_zero": zero_ok, "k5b_bit_equal_k4": k5b_ok, "ok": ok}
 
 
@@ -406,17 +484,32 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # K1 on both bodies: head_dim 17-128 on the tensor cores in bf16 / f16
+    # (zero-padded to 64 / 128; 17 and a misaligned base take the scalar
+    # staging), 256 and f32 on the SIMT body
     k1_shapes = [(s, s, 64, True) for s in (17, 256, 300, 512, 1024)]
     k1_shapes += [(64, 320, 64, True), (300, 300, 64, False),
-                  (256, 256, 128, True)]
-    k1 = [_k1_case(gen, dt, *sh) for dt in (torch.bfloat16, torch.float32)
+                  (1024, 1024, 64, False), (256, 256, 128, True),
+                  (300, 300, 32, True), (200, 256, 40, True),
+                  (129, 129, 96, False), (100, 100, 17, True),
+                  (70, 70, 256, True), (1, 513, 128, True),
+                  (300, 300, 64, True, 1, "unaligned"),
+                  (1024, 1024, 64, True, 2, "qkv"),
+                  (TRAIN_S, TRAIN_S, HEAD_DIM, True, TRAIN_B)]
+    k1 = [_k1_case(gen, dt, *sh)
+          for dt in (torch.bfloat16, torch.float16, torch.float32)
           for sh in k1_shapes]
     lens = [0, 1, 15, 16, 17, 500, 1024, 777]
+    # the split-K decode: the slot-boundary lengths above (table of 64),
+    # one row of 1024 tokens alone (the most splits), a table of 256 slots
+    k3_rows = [(lens, NP), ([1024], NP), ([4096, 1, 2000, 0], 4 * NP)]
     pa.FULL_SWEEP_LAUNCHES = pa.QUANT_FULL_SWEEP_LAUNCHES = 0
-    k3 = [_k3_case(gen, dt, lens, HEADS, kvh)
-          for dt in (torch.bfloat16, torch.float32) for kvh in (HEADS, 4)]
-    k4 = [_k4_case(gen, dt, lens, HEADS, kvh)
-          for dt in (torch.bfloat16, torch.float32) for kvh in (HEADS, 4)]
+    k3 = [_k3_case(gen, dt, ln_, HEADS, kvh, np_)
+          for dt in (torch.bfloat16, torch.float32) for kvh in (HEADS, 4)
+          for ln_, np_ in k3_rows]
+    k4 = [_k4_case(gen, dt, ln_, HEADS, kvh, np_)
+          for dt in (torch.bfloat16, torch.float32) for kvh in (HEADS, 4)
+          for ln_, np_ in k3_rows]
     # K5a / K5b have no path (only tests call them in the TPU package too):
     # their launches are these checks'
     k5_launches = {"k5a": pa.FULL_SWEEP_LAUNCHES,
@@ -439,24 +532,11 @@ def phase_kernels():
           for sh in k2_shapes]
     k2.append(_k2_autograd_case(gen))
 
-    # times at the served shapes, bf16: K1 at the longest prefill bucket,
-    # K3 at a decode step of the slice's first 8 requests
-    S = 1024
-    q, k, v = (torch.randn(1, S, HEADS, HEAD_DIM, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    o = fa.flash_attention_fn(q, k, v, causal=True)
-    k1_err = (o.float() - fa.flash_attention_ref(q, k, v, causal=True).float()
-              ).abs().max().item()
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = S * (S + 1) // 2
-    k1_bound, k1_by = bound(4 * HEADS * HEAD_DIM * pairs, 4 * q.numel() * 2)
-    k1_time = {
-        "kernel_ms": cuda_ms(lambda: fa.flash_attention_fn(q, k, v, causal=True)),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True)),
-        "library_ms": cuda_ms(lambda: torch.nn.functional
-                              .scaled_dot_product_attention(qt, kt, vt,
-                                                            is_causal=True)),
-        "bound_ms": k1_bound, "bound_by": k1_by, "max_abs_err": k1_err}
+    # times at the served shapes, bf16: K1 at the longest prefill bucket
+    # (B=1) and at the training shape (B=8), K3 at a decode step of the
+    # slice's first 8 requests
+    k1_time = _k1_timed(gen, 1)
+    k1_train_time = _k1_timed(gen, TRAIN_B)
 
     prompts, _ = slice_requests()
     dlens = [len(p) + 16 for p in prompts[:SLOTS]]
@@ -469,14 +549,17 @@ def phase_kernels():
                 + 2 * qd.numel() * 2 + table.numel() * 4 + ln.numel() * 4)
     k3_bound, k3_by = bound(4 * sum(dlens) * HEADS * HEAD_DIM, k3_bytes)
     k3_time = {
-        "kernel_ms": cuda_ms(lambda: pa.paged_attention(qd, kp, vp, table, ln)),
+        "kernel_ms": cuda_ms(lambda: pa.paged_attention(qd, kp, vp, table, ln),
+                             graph=True),
+        "eager_ms": cuda_ms(lambda: pa.paged_attention(qd, kp, vp, table, ln)),
         "plain_ms": cuda_ms(lambda: pa.paged_attention_ref(qd, kp, vp, table, ln)),
         "library_ms": None, "bound_ms": k3_bound, "bound_by": k3_by,
         "max_abs_err": k3_err, "lens": dlens}
     # K5a: K3's function over the same rows, every table page staged
     o5a = pa._paged_full_sweep(qd, kp, vp, table, ln)
     k5a_time = {
-        "kernel_ms": cuda_ms(lambda: pa._paged_full_sweep(qd, kp, vp, table, ln)),
+        "kernel_ms": cuda_ms(lambda: pa._paged_full_sweep(qd, kp, vp, table, ln),
+                             graph=True),
         "plain_ms": k3_time["plain_ms"], "library_ms": None,
         "bound_ms": k3_bound, "bound_by": k3_by,
         "max_abs_err": (o5a.float() - pa.paged_attention_ref(
@@ -491,8 +574,7 @@ def phase_kernels():
     ok = all(c["ok"] for c in k1 + k2 + k3 + k4 + k6)
     emit({"phase": "kernels", "ok": ok, "k1_cases": k1, "k2_cases": k2,
           "k3_cases": k3, "k4_cases": k4, "k6_cases": k6,
-          "k1_timed": {"shape": [1, S, HEADS, HEAD_DIM], "causal": True,
-                       "dtype": "bfloat16", **k1_time},
+          "k1_timed": k1_time, "k1_timed_train_shape": k1_train_time,
           "k2_timed": {"shape": [TRAIN_B, TRAIN_S, HEADS, HEAD_DIM],
                        "causal": True,
                        "dtype": "bfloat16 (k2a, k2b), float32 (*_f32)",
@@ -511,8 +593,9 @@ def phase_kernels():
     if not ok:
         raise SystemExit("kernels phase: a kernel disagrees with its plain "
                          "version (see the k1 / k2 / k3 / k4 / k6 cases above)")
-    return {"k1": k1_time, "k3": k3_time, "k4": k4_time, "k5a": k5a_time,
-            "k5b": k5b_time, "k6": k6_time["bfloat16"], **k2_time}
+    return {"k1": k1_time, "k1_train": k1_train_time, "k3": k3_time,
+            "k4": k4_time, "k5a": k5a_time, "k5b": k5b_time,
+            "k6": k6_time["bfloat16"], **k2_time}
 
 
 def _k6_cases(gen):
@@ -591,12 +674,15 @@ def _k4_timed(gen, dlens, k3_ms, k5b_launches):
               + 2 * q.numel() * 2 + table.numel() * 4 + ln.numel() * 4)
     k4_bound, k4_by = bound(4 * sum(dlens) * HEADS * HEAD_DIM, nbytes)
     plain_ms = cuda_ms(lambda: pa.paged_attention_quantized_ref(*args))
-    k4 = {"kernel_ms": cuda_ms(lambda: pa.paged_attention_quantized(*args)),
+    k4 = {"kernel_ms": cuda_ms(lambda: pa.paged_attention_quantized(*args),
+                               graph=True),
+          "eager_ms": cuda_ms(lambda: pa.paged_attention_quantized(*args)),
           "plain_ms": plain_ms, "library_ms": None,
           "library_note": "no single PyTorch call dequantizes paged pools",
           "bound_ms": k4_bound, "bound_by": k4_by, "max_abs_err": err,
           "k3_same_rows_bf16_pools_ms": k3_ms, "lens": dlens}
-    k5b = {"kernel_ms": cuda_ms(lambda: pa._paged_q_full_sweep(*args)),
+    k5b = {"kernel_ms": cuda_ms(lambda: pa._paged_q_full_sweep(*args),
+                                graph=True),
            "plain_ms": plain_ms, "library_ms": None, "bound_ms": k4_bound,
            "bound_by": k4_by,
            "max_abs_err": (o5.float() - ref.float()).abs().max().item(),
@@ -1129,13 +1215,19 @@ def phase_qat(train_step_ms=None):
 
 # ----------------------------------------------------------------- profile
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
-    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    # K1: the tensor-core body (flash_fwd_tc_kernel) and the SIMT body
+    ("K1 flash_fwd", ("flash_fwd_",)),
     ("K2a flash_bwd_dkdv", ("flash_bwd_dkdv_",)),
     ("K2b flash_bwd_dq", ("flash_bwd_dq_",)),
-    ("K4 paged_flash_decode_q", tuple(f"paged_flash_decode_kernel<{t}, signed char"
+    # K3 / K4: the split kernel and its merge, told apart by the pools'
+    # type (int8_t is "signed char")
+    ("K4 paged_flash_decode_q", tuple(f"{k}<{t}, signed char"
+                                      for k in ("paged_flash_decode_kernel",
+                                                "paged_decode_merge_kernel")
                                       for t in ("float", "__half",
                                                 "__nv_bfloat16"))),
-    ("K3 paged_flash_decode", ("paged_flash_decode_kernel",)),
+    ("K3 paged_flash_decode", ("paged_flash_decode_kernel",
+                               "paged_decode_merge_kernel")),
     ("K6 bias_gelu", ("bias_gelu_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
     ("softmax", ("SoftMax",)),
@@ -1172,6 +1264,12 @@ def _profiled(fn):
     for t, _, k in rows:
         cat = next((c for c, keys in PROFILE_CATEGORIES if any(x in k for x in keys)),
                    "other")
+        # a kernel of the port's own that no row claims would hide in
+        # "other": a renamed kernel must be given its row
+        if cat == "other" and any(x in k for x in ("flash_", "paged_",
+                                                   "bias_gelu")):
+            raise SystemExit(f"profile: the port's kernel {k[:120]!r} matches "
+                             f"no row of PROFILE_CATEGORIES")
         by_category[cat] = by_category.get(cat, 0.0) + t / 1e3
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall, **extra,

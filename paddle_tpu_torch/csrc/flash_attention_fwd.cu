@@ -1,35 +1,64 @@
 // K1: flash attention forward, written by hand for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel paddle_tpu/ops/flash_attention.py
-// (_flash_fwd -> _fa_kernel).  Same function: blocked attention with the
-// online softmax (running max m, denominator l, accumulator acc) kept in
-// f32, the causal mask aligned bottom-right (key j is visible to query i
-// when j <= i + (Sk - Sq)), key tiles wholly above the diagonal skipped,
-// o written in the input dtype and the per-row logsumexp written in f32.
+// (_flash_fwd -> _fa_kernel, pallas_call at :112).  Same function: blocked
+// attention with the online softmax (running max m, denominator l,
+// accumulator acc) kept in f32, the causal mask aligned bottom-right (key
+// j is visible to query i when j <= i + (Sk - Sq)), key tiles wholly above
+// the diagonal skipped, o written in the input dtype as contiguous
+// [B, Sq, H, D] and the per-row natural-log logsumexp written in f32 as
+// [B * H, Sq] (K2 reads it).
 //
-// What bounds it on this card: at the prefill shapes of the served model
-// (S up to 1024, D = 64) the work is about 4 * S^2 * D / 2 operations per
-// (batch, head) against 4 * S * D * 2 bytes, far above the H100's ~295
-// operations per byte, so a good kernel is bound by arithmetic.  This one
-// does the two products with plain f32 FMAs out of shared memory (no
-// tensor cores), so it reaches a fraction of the 67 TFLOP/s f32 rate,
-// not of the 989 TFLOP/s tensor-core rate: simple and right first;
-// mma/wgmma, TMA and warp specialisation are later work.
+// What bounds it on this card: at the prefill and training shapes of the
+// served model (S up to 1024, D = 64) the work is about 4 * S^2 * D / 2
+// operations per (batch, head) against 4 * S * D * 2 bytes, far above the
+// H100's ~295 operations per byte, so a good kernel is bound by
+// operations, at the 989 TFLOP/s bf16 / f16 tensor-core rate.
 //
-// Design: one block of 256 threads per (64-row query tile, batch * head).
-// The TPU kernel's sequential key-block grid axis becomes a loop inside
-// the block over 64-key tiles staged in shared memory (as f32), stopping
-// at the causal bound.  Four threads own one query row: each computes 16
-// of the tile's 64 scores and D/4 output columns; row max and row sum are
-// reduced with two warp shuffles.  q/k/v are read in the public
-// [B, S, H, D] layout straight from their strides (the head dim must be
-// unit-stride), so the qkv split of the model needs no copy; the ragged
-// last query and key tiles are masked here, where the TPU path padded.
+// bf16 / f16 design, head_dim <= 128 (the served and trained paths), after
+// FlashAttention-2's forward and built from K2b's parts (mma.cuh): one
+// block of 4 warps per (64-query tile, batch * head); each warp owns 16
+// query rows.  Q is staged once in shared memory in the input dtype and
+// held as mma A fragments in registers; 64-key tiles of K and V stream
+// through a double-buffered ring by 16-byte cp.async.cg (the next tile
+// loads while the current one is computed) up to the causal bound.
+// S = Q.K^T is mma.sync.m16n8k16 fed by ldmatrix; the running max, the
+// rescale and the row sum work on the accumulator fragment in registers
+// (base-2 exponent, reduced over the four lanes of a row by two shuffles);
+// P is rounded to the input dtype in registers and is the A operand of
+// O += P.V, with V read by ldmatrix.trans: no score goes through shared
+// memory.  Rows are padded by 16 bytes so ldmatrix hits distinct banks;
+// head_dim is zero-padded to 64 or 128.  The element mask runs only on
+// tiles that the diagonal or the ragged key edge crosses.  The last query
+// tile, which sees the most keys, goes out first, with batch * head as the
+// fast grid axis.  Tensors that cannot take 16-byte copies (D * 2 not a
+// multiple of 16, a misaligned base or stride) are staged by a scalar loop
+// in the same kernel, chosen per tensor by vec_mask.
+//
+// f32 design, and bf16 / f16 with 128 < head_dim <= 256 (no path of the
+// repository runs those: GPT-base has D = 64): the SIMT body.  f32 callers
+// (the f32 card-vs-CPU serving and training parity) need full f32
+// products, which TF32 tensor cores would not give.  One block of 256
+// threads per (64-row query tile, batch * head); the key tiles are staged
+// as f32 in shared memory; four threads own one query row, each computing
+// 16 of the tile's 64 scores with plain f32 FMAs and D/4 output columns;
+// row max and row sum are reduced with two warp shuffles.
+//
+// q/k/v are read in the public [B, S, H, D] layout straight from their
+// strides (the head dim must be unit-stride), so the qkv split of the
+// model needs no copy; the ragged last query and key tiles are masked
+// here, where the TPU path padded.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <math.h>
+#include <type_traits>
 
 namespace {
+
+using namespace ptt::tc;
+
+// ------------------------------------------------------------ SIMT body
 
 constexpr int kBQ = 64;                 // query rows per block
 constexpr int kBK = 64;                 // keys per staged tile
@@ -174,6 +203,209 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------- bf16 / f16: tensor cores
+constexpr int kNK = 64;                 // keys per streamed tile
+
+template <int DP>
+constexpr size_t tc_smem_bytes(size_t elem) {
+  // Q [64][DP+8], K and V [2][kNK][DP+8]
+  return elem * (kTcM + 4 * kNK) * (DP + 8);
+}
+
+// vec: bit i set when tensor i of (q, k, v) takes 16-byte copies.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int H, int Sq, int Sk, int D,
+                    long long qsb, long long qss, long long qsh,
+                    long long ksb, long long kss, long long ksh,
+                    long long vsb, long long vss, long long vsh,
+                    float scale, int causal, int vec) {
+  constexpr int RS = DP + 8;
+  constexpr int NT = kNK / 8;           // 8-key column tiles of S
+  constexpr int DT = DP / 8;            // 8-wide column tiles of o
+  constexpr int KQ = DP / 16;           // 16-deep slices of head_dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + kTcM * RS;               // [2][kNK][RS]
+  T* Vs = Ks + 2 * kNK * RS;            // [2][kNK][RS]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;              // accumulator row in the warp's 16
+  const int gc = 2 * (lane % 4);        // accumulator column in an 8-tile
+  const int lm = lane / 8;              // ldmatrix: which 8x8 matrix
+  const int lr = lane % 8;              // ldmatrix: which row of it
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  // the last query tile sees the most keys: it goes out first
+  const int q0 =
+      ((Sq + kTcM - 1) / kTcM - 1 - static_cast<int>(blockIdx.y)) * kTcM;
+  const int offset = Sk - Sq;
+
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + h * ksh;
+  const T* vb = v + b * vsb + h * vsh;
+
+  // causal: the tile's last valid query sees keys up to q_last + offset
+  const int kend = causal ? min(Sk, min(q0 + kTcM, Sq) + offset) : Sk;
+  const int ntiles = (kend + kNK - 1) / kNK;
+
+  auto load_tile = [&](int it) {
+    const int buf = it & 1;
+    stage_tc<T, kNK, DP>(Ks + buf * kNK * RS, kb, kss, it * kNK, Sk, D, vec & 2);
+    stage_tc<T, kNK, DP>(Vs + buf * kNK * RS, vb, vss, it * kNK, Sk, D, vec & 4);
+  };
+  stage_tc<T, kTcM, DP>(Qs, qb, qss, q0, Sq, D, vec & 1);
+  load_tile(0);
+  cp_async_commit();
+
+  // this lane's two query rows, and the first row of the warp's 16
+  const int qi0 = q0 + warp * 16 + gr;
+  const int wq0 = q0 + warp * 16;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const T* qa = Qs + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
+  const int b_off = ((lm >> 1) * 8 + lr) * RS + (lm & 1) * 8;   // [n][k]
+  const int bt_off = ((lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;  // [k][n]
+  const float scale_log2 = scale * kLog2e;
+  uint32_t aq[KQ][4];                   // the warp's Q rows as A fragments
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) ldsm_x4(aq[kk], qa + kk * 16);
+    }
+    const int k0 = it * kNK;
+    const T* Kc = Ks + (it & 1) * kNK * RS;
+    const T* Vc = Vs + (it & 1) * kNK * RS;
+
+    // S = Q.K^T over the warp's 16 queries x kNK keys
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, Kc + np * 16 * RS + kk * 16 + b_off);
+        mma16816<T>(s[2 * np], aq[kk], bk[0], bk[1]);
+        mma16816<T>(s[2 * np + 1], aq[kk], bk[2], bk[3]);
+      }
+    }
+
+    // online softmax on the fragment: scores in base-2 units, the element
+    // mask only where the diagonal or the ragged key edge crosses the tile
+    const bool full = !(causal && k0 + kNK - 1 > wq0 + offset) && k0 + kNK <= Sk;
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (!full) {
+          const int qi = qi0 + (e >> 1) * 8;
+          const int kj = k0 + n * 8 + gc + (e & 1);
+          if (!(kj < Sk && (!causal || kj <= qi + offset))) x = -INFINITY;
+        }
+        s[n][e] = x;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+      }
+    }
+    float alpha[2], base[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], 1));
+      tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], 2));
+      const float m_new = fmaxf(m[x], tmax[x]);
+      // a row that has seen no visible key keeps m = -inf; subtracting 0
+      // then gives exp2(-inf) = 0 instead of exp2(nan)
+      base[x] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[x] = exp2f(m[x] - base[x]);
+      m[x] = m_new;
+      l[x] *= alpha[x];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - base[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // O += P.V, P straight from registers, V by ldmatrix.trans
+#pragma unroll
+    for (int kq = 0; kq < kNK / 16; ++kq) {
+      uint32_t ap[4];
+      acc_to_a<T>(ap, s[2 * kq], s[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, Vc + kq * 16 * RS + np * 16 + bt_off);
+        mma16816<T>(acc[2 * np], ap, bv[0], bv[1]);
+        mma16816<T>(acc[2 * np + 1], ap, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                    // this buffer is free to refill
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+  }
+  const bool pairs = D % 2 == 0;        // two adjacent columns per store
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int qi = qi0 + x * 8;
+    if (qi >= Sq) continue;
+    const float inv = l[x] > 0.f ? 1.f / l[x] : 0.f;
+    T* orow = o + (static_cast<long long>(b) * Sq + qi) * H * D +
+              static_cast<long long>(h) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int d = n * 8 + gc;
+      const float lo = acc[n][2 * x] * inv;
+      const float hi = acc[n][2 * x + 1] * inv;
+      if (pairs && d + 1 < D) {
+        *reinterpret_cast<uint32_t*>(orow + d) = pack2<T>(lo, hi);
+      } else {
+        if (d < D) orow[d] = ptt::from_f32<T>(lo);
+        if (d + 1 < D) orow[d + 1] = ptt::from_f32<T>(hi);
+      }
+    }
+    // natural-log logsumexp, as the SIMT body and K2 have it
+    if (lse != nullptr && lane % 4 == 0)
+      lse[static_cast<long long>(bh) * Sq + qi] =
+          l[x] > 0.f ? (m[x] + log2f(l[x])) / kLog2e : -INFINITY;
+  }
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int Sq, int Sk, int D,
@@ -190,6 +422,50 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int H, int Sq, int Sk, int D,
+                      const long long* st, float scale, int causal,
+                      cudaStream_t stream) {
+  auto kernel = flash_fwd_tc_kernel<T, DP>;
+  const size_t smem = tc_smem_bytes<DP>(sizeof(T));
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const void* x[3] = {q, k, v};
+  const int vec = vec_mask(x, 3, st, D, sizeof(T));
+  dim3 grid(B * H, (Sq + kTcM - 1) / kTcM);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale, causal, vec);
+  return cudaGetLastError();
+}
+
+// bf16 / f16 with head_dim <= 128 take the tensor cores (head_dim padded
+// to 64 or 128), the rest the SIMT body (padded to 64, 128 or 256)
+template <typename T>
+cudaError_t run(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int Sq, int Sk, int D,
+                const long long* st, float scale, int causal, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (D <= 64)
+      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
+                           causal, s);
+    if (D <= 128)
+      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
+                            causal, s);
+  } else {
+    if (D <= 64)
+      return launch_tc<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
+                              causal, s);
+    if (D <= 128)
+      return launch_tc<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
+                               causal, s);
+  }
+  return launch<T, 256>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, s);
 }
 
 }  // namespace
@@ -209,15 +485,8 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    if (D <= 64)
-      err = launch<scalar_t, 64>(q, k, v, o, lse_f, B, H, Sq, Sk, D, strides,
-                                 scale, causal, s);
-    else if (D <= 128)
-      err = launch<scalar_t, 128>(q, k, v, o, lse_f, B, H, Sq, Sk, D, strides,
-                                  scale, causal, s);
-    else
-      err = launch<scalar_t, 256>(q, k, v, o, lse_f, B, H, Sq, Sk, D, strides,
-                                  scale, causal, s);
+    err = run<scalar_t>(q, k, v, o, lse_f, B, H, Sq, Sk, D, strides, scale,
+                        causal, s);
   });
   return static_cast<int>(err);
 }

@@ -1,5 +1,5 @@
-// K3: length-bounded paged flash decode, written by hand for Hopper
-// (sm_90a), and K5a, its full-sweep twin (bounded = 0).
+// K3: length-bounded split-K paged flash decode, written by hand for
+// Hopper (sm_90a), and K5a, its full-sweep twin (bounded = 0).
 //
 // K3 replaces the Pallas TPU kernel paddle_tpu/ops/paged_attention.py
 // (_paged_flash_pallas -> _paged_flash_kernel, with _accum_page and the
@@ -13,20 +13,23 @@
 // q: [B, H, D] with element strides (qsb, qsh), head dim unit-stride.
 // k_pages / v_pages: contiguous [P, ps, HKV, D] in q's dtype; table:
 // contiguous int32 [B, NP]; lens: int32 [B]; o: contiguous [B, H, D] in
-// q's dtype.  bounded: 1 for K3 (the sweep stops at ceil(len / ps)), 0 for
-// K5a (every table page is staged).  Returns the cudaError_t of the launch
-// (0 on success).
+// q's dtype; workspace: float32, B * H * nsplit * (D + 2) elements, for
+// the nsplit splits' partials.  bounded: 1 for K3 (a split loads only the
+// pages below ceil(len / ps)), 0 for K5a (every table page is staged).
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int ptt_paged_flash_decode(const void* q, const void* k_pages,
                                       const void* v_pages, const void* table,
-                                      const void* lens, void* o, int dtype,
-                                      int B, int H, int HKV, int D, int ps,
-                                      int NP, long long qsb, long long qsh,
-                                      float scale, int bounded, void* stream) {
+                                      const void* lens, void* o,
+                                      void* workspace, int dtype, int B,
+                                      int H, int HKV, int D, int ps, int NP,
+                                      int nsplit, long long qsb,
+                                      long long qsh, float scale, int bounded,
+                                      void* stream) {
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
     err = ptt::paged::dispatch<scalar_t, scalar_t>(
-        q, k_pages, v_pages, nullptr, nullptr, table, lens, o, B, H, HKV, D,
-        ps, NP, qsb, qsh, scale, bounded, stream);
+        q, k_pages, v_pages, nullptr, nullptr, table, lens, o, workspace, B,
+        H, HKV, D, ps, NP, nsplit, qsb, qsh, scale, bounded, stream);
   });
   return static_cast<int>(err);
 }

@@ -9,8 +9,10 @@ and one for V, shared by every slot through a page table ``[B, NP]``
 - :func:`paged_attention` — one decode token per row against the pools.
   A CPU tensor takes the plain version :func:`paged_attention_ref`; a CUDA
   tensor launches the hand-written kernel ``csrc/paged_flash_decode.cu``
-  (K3, the port of the TPU's ``_paged_flash_kernel``: the sweep stops at
-  each row's last valid page, GQA grouped in the kernel), or raises.
+  (K3, the port of the TPU's ``_paged_flash_kernel``: each row's table
+  slots split over :func:`_splits` blocks, each stopping at the row's last
+  valid page, merged by a second kernel; GQA grouped in the kernel), or
+  raises.
 - :func:`paged_attention_quantized` — the same over int8 pools with
   parallel float32 scale pools ``[P, ps, HKV]``: the plain version
   :func:`paged_attention_quantized_ref` on the CPU, the hand-written K4
@@ -26,7 +28,8 @@ and one for V, shared by every slot through a page table ``[B, NP]``
   are updated IN PLACE and returned for the caller's convenience.
 
 ``LAUNCHES`` (K3), ``QUANT_LAUNCHES`` (K4), ``FULL_SWEEP_LAUNCHES`` (K5a)
-and ``QUANT_FULL_SWEEP_LAUNCHES`` (K5b) count kernel launches.
+and ``QUANT_FULL_SWEEP_LAUNCHES`` (K5b) count kernel launches, one per
+call (a call launches the split kernel and its merge).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from . import _build
 from .quant import quantize_absmax
 
 NEG_INF = -1e30
+#: blocks the split-K decode aims for: four per SM of the H100's 132
+_TARGET_BLOCKS = 4 * 132
 
 #: launches of each CUDA kernel in this process: K3, K4, K5a, K5b
 LAUNCHES = 0
@@ -125,6 +130,17 @@ def _paged_full_sweep(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     return o
 
 
+def _splits(B, HKV, NP):
+    """Splits of a row's ``NP`` table slots for the decode kernels: enough
+    blocks of (row, kv head, split) to reach ``_TARGET_BLOCKS``, each
+    split a whole number of slots and none empty of slots.  The lengths
+    play no part (they stay on the device), so a decode step keeps one
+    grid whatever its rows hold."""
+    want = min(NP, max(1, -(-_TARGET_BLOCKS // (B * HKV))))
+    chunk = NP // want                  # at least `want` splits
+    return -(-NP // chunk)
+
+
 def _check_heads(q, k_pages, scale):
     """The GQA rule every entry shares; returns the softmax scale."""
     H, D = q.shape[1], q.shape[2]
@@ -137,13 +153,17 @@ def _check_heads(q, k_pages, scale):
 def _launch(q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
             scale, bounded):
     """Check the arguments and launch K3 / K5a (no scales) or K4 / K5b
-    (int8 pools with their scale pools) on q's stream."""
+    (int8 pools with their scale pools) on q's stream, with the f32
+    workspace of the splits' partials."""
     _check_cuda_args(q, k_pages, v_pages, k_scales, v_scales, page_table,
                      seq_lens)
     B, H, D = q.shape
     P, ps, HKV, _ = k_pages.shape
     NP = page_table.shape[1]
+    nsplit = _splits(B, HKV, NP)
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    work = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                       device=q.device)
     if k_scales is None:
         name, scales = "paged_flash_decode", ()
     else:
@@ -153,8 +173,9 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
                  page_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
-                 _build.dtype_code(q), B, H, HKV, D, ps, NP, q.stride(0),
-                 q.stride(1), scale, int(bounded), _build.stream_handle(q))
+                 work.data_ptr(), _build.dtype_code(q), B, H, HKV, D, ps, NP,
+                 nsplit, q.stride(0), q.stride(1), scale, int(bounded),
+                 _build.stream_handle(q))
     _build.check(err, name)
     return o
 
@@ -203,10 +224,11 @@ def _check_cuda_args(q, k_pages, v_pages, k_scales, v_scales, page_table,
 
 
 # leading pointer arguments of each entry; then both take
-# dtype, B, H, HKV, D, ps, NP | qsb, qsh | scale | bounded | stream
+# dtype, B, H, HKV, D, ps, NP, nsplit | qsb, qsh | scale | bounded | stream
 _N_PTRS = {
-    "paged_flash_decode": 6,        # q, k, v, table, lens, o
-    "paged_flash_decode_q": 8,      # q, k, v, k_scales, v_scales, table, lens, o
+    "paged_flash_decode": 7,        # q, k, v, table, lens, o, workspace
+    # q, k, v, k_scales, v_scales, table, lens, o, workspace
+    "paged_flash_decode_q": 9,
 }
 
 
@@ -215,7 +237,7 @@ def _lib(name):
     fn = getattr(lib, "ptt_" + name)
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * _N_PTRS[name] + [I] * 7 + [L, L, ctypes.c_float,
+        fn.argtypes = [P] * _N_PTRS[name] + [I] * 8 + [L, L, ctypes.c_float,
                                                        I, P]
         fn.restype = I
     return lib

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel held against its
-plain PyTorch version on CUDA tensors (the full-sweep K5a / K5b also bit
-for bit against K3 / K4), Int8Linear's torch._int_mm against the CPU, the
+plain PyTorch version on CUDA tensors (K1 over both of its bodies, the
+split-K decode also bit for bit against a second launch, and the
+full-sweep K5a / K5b bit for bit against K3 / K4), Int8Linear's torch._int_mm against the CPU, the
 tiny-GPT serving engine on the card (native and int8 pools) against the
 same engine on the CPU, tiny-GPT training through the flash kernels
 forward and backward, the fused bias + GELU kernel (K6) and fake-quant on
@@ -40,19 +41,61 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _fwd_inputs(gen, dtype, b, h, sq, sk, d, layout):
+    """q, k, v ``[b, S, h, d]``: "contiguous"; "unaligned", each a view
+    one element into rows of d + 1 (no 16-byte copies: the scalar
+    staging); "qkv", the model's head-major split of ``[b, S, h, 3, d]``
+    (sq == sk)."""
+    if layout == "qkv":
+        return torch.randn(b, sq, h, 3, d, generator=gen,
+                           device="cuda").to(dtype).unbind(3)
+
+    def t(s):
+        w = d + 1 if layout == "unaligned" else d
+        x = torch.randn(b, s, h, w, generator=gen, device="cuda").to(dtype)
+        return x[..., 1:] if layout == "unaligned" else x
+
+    return t(sq), t(sk), t(sk)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("sq,sk,d,causal", [
-    (17, 17, 64, True), (300, 300, 64, True), (64, 320, 64, True),
-    (300, 300, 64, False), (256, 256, 128, True), (33, 33, 256, False)])
-def test_flash_kernel_matches_plain(cuda, dtype, sq, sk, d, causal):
-    q = torch.randn(2, sq, 3, d, generator=cuda, device="cuda").to(dtype)
-    k = torch.randn(2, sk, 3, d, generator=cuda, device="cuda").to(dtype)
-    v = torch.randn(2, sk, 3, d, generator=cuda, device="cuda").to(dtype)
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,layout", [
+    (2, 3, 17, 17, 64, True, "contiguous"),
+    (2, 3, 300, 300, 64, True, "contiguous"),
+    (2, 3, 64, 320, 64, True, "contiguous"),
+    (2, 3, 300, 300, 64, False, "contiguous"),
+    (2, 3, 256, 256, 128, True, "contiguous"),
+    (2, 3, 33, 33, 256, False, "contiguous"),
+    # head_dim 17 / 32 / 40 / 96 (tensor cores in bf16 / f16, zero-padded
+    # to 64 or 128) and 256 (the SIMT body in every dtype)
+    (2, 3, 100, 100, 17, True, "contiguous"),
+    (2, 3, 300, 300, 32, True, "contiguous"),
+    (2, 3, 200, 256, 40, True, "contiguous"),
+    (2, 3, 129, 129, 96, False, "contiguous"),
+    (1, 2, 70, 70, 256, True, "contiguous"),
+    # lengths to 1024, causal and full, sq < sk
+    (1, 12, 17, 17, 64, False, "contiguous"),
+    (1, 12, 1024, 1024, 64, True, "contiguous"),
+    (1, 12, 1024, 1024, 64, False, "contiguous"),
+    (2, 3, 64, 1000, 64, True, "contiguous"),
+    (2, 3, 1, 513, 128, True, "contiguous"),
+    # a misaligned layout, the model's strided qkv split, the training shape
+    (2, 3, 300, 300, 64, True, "unaligned"),
+    (2, 12, 512, 512, 64, True, "qkv"),
+    (8, 12, 1024, 1024, 64, True, "contiguous")])
+def test_flash_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d, causal,
+                                    layout):
+    """K1 against its plain version (o within ATOL, lse within 1e-3) over
+    the reach of both of its bodies; a second launch is bit-equal to the
+    first."""
+    q, k, v = _fwd_inputs(cuda, dtype, b, h, sq, sk, d, layout)
     n0 = fa.LAUNCHES
     o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
-    assert fa.LAUNCHES == n0 + 1
+    o2, lse2 = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
+    assert fa.LAUNCHES == n0 + 2
+    assert o.dtype == dtype and o.shape == q.shape and o.is_contiguous()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
-    assert o.dtype == dtype and o.shape == q.shape
     torch.testing.assert_close(o.float(), ref.float(), atol=ATOL[dtype], rtol=0)
     torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k, causal=causal),
                                atol=1e-3, rtol=0)
@@ -247,6 +290,52 @@ def test_paged_kernel_matches_plain(cuda, dtype, h, hkv, ps):
     o2 = pa.paged_attention(q, kp, vp, table, ln)
     torch.cuda.synchronize()
     assert torch.equal(o2, o)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("lens,h,hkv,ps,NP", [
+    ([1024], 12, 12, 16, 64),                      # one long row: many splits
+    ([4096, 1, 2000, 0], 12, 4, 16, 256),          # a table of 256 slots
+    ([2048, 77, 1999], 8, 1, 8, 256),
+    ([514, 916, 354, 835, 193, 675, 113, 594], 12, 12, 16, 64),  # the slice's
+    ([31, 33, 95, 96], 4, 2, 32, 3)])              # ragged tiles, few slots
+def test_paged_split_kernels(cuda, dtype, quant, lens, h, hkv, ps, NP):
+    """The split-K decode (K3, or K4 with int8 pools) against its plain
+    version; a second launch bit-equal to the first; the full sweep (K5a /
+    K5b) bit-equal to it; NaN in every dead page (K3) or dead scale row
+    (K4) changes no bit of either."""
+    B, d = len(lens), 64
+    table = torch.randperm(B * NP, generator=cuda, device="cuda")
+    table = table.to(torch.int32).reshape(B, NP)
+    q = torch.randn(B, h, d, generator=cuda, device="cuda").to(dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if quant:
+        pools = _quant_pools(cuda, B * NP, ps, hkv, d)
+        fn, full, ref_fn = (pa.paged_attention_quantized,
+                            pa._paged_q_full_sweep,
+                            pa.paged_attention_quantized_ref)
+    else:
+        pools = tuple(torch.randn(B * NP, ps, hkv, d, generator=cuda,
+                                  device="cuda").to(dtype) for _ in range(2))
+        fn, full, ref_fn = (pa.paged_attention, pa._paged_full_sweep,
+                            pa.paged_attention_ref)
+    o = fn(q, *pools, table, ln)
+    again = fn(q, *pools, table, ln)
+    o5 = full(q, *pools, table, ln)
+    ref = ref_fn(q, *pools, table, ln)
+    torch.testing.assert_close(o.float(), ref.float(), atol=ATOL[dtype], rtol=0)
+    assert torch.equal(again, o) and torch.equal(o5, o)
+    assert all(bool((o[i] == 0).all()) for i, n in enumerate(lens) if n == 0)
+    poisoned = [x.clone() for x in pools]
+    for i, n in enumerate(lens):
+        dead = table[i, -(-n // ps):].long()
+        for x in (poisoned[2:] if quant else poisoned):
+            x[dead] = float("nan")
+    o_p = fn(q, *poisoned, table, ln)
+    o5_p = full(q, *poisoned, table, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(o_p, o) and torch.equal(o5_p, o)
 
 
 def test_paged_kernel_reads_strided_q(cuda):

@@ -246,6 +246,18 @@ def test_last_page():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("B,HKV,NP", [(8, 12, 64), (1, 12, 64), (1, 1, 1),
+                                      (3, 4, 256), (64, 12, 64), (2, 1, 7)])
+def test_decode_splits_cover_the_table(B, HKV, NP):
+    """The split-K decode's partition: every split owns at least one table
+    slot, the splits cover all NP slots, and the grid reaches the target
+    block count unless each split already holds one slot."""
+    n = tpa._splits(B, HKV, NP)
+    chunk = -(-NP // n)
+    assert 1 <= n <= NP and (n - 1) * chunk < NP <= n * chunk
+    assert B * HKV * n >= min(tpa._TARGET_BLOCKS, B * HKV * NP)
+
+
 # ------------------------------------------------------------ build / hygiene
 def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
     """The kernels build on first use; with no nvcc (as here) the build
