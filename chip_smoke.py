@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                  # build,kernels,slice,train,quant,custom_op,qat
-    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec
+    python3 chip_smoke.py --phases build,kernels,generate,spec
     python3 chip_smoke.py --phases build,kernels,slice,train,quant,custom_op,qat,profile
 
 Phases, each printing one JSON line and then its seconds:
@@ -34,7 +34,9 @@ Phases, each printing one JSON line and then its seconds:
    eager time beside K1, K3 and K4: eagerly a launch can take longer on
    the host than the kernel on the card), K2 at the training shape
    (bf16, and the f32 body), K6 at ``[8192, 3072]`` beside
-   ``F.gelu(x + b)``.
+   ``F.gelu(x + b)``; K3 / K4 through the chunk attend at the speculative
+   verify shape (8 slots x 5 positions) and K3 at one 128-token prefill
+   chunk, against the chunk attend's plain version.
 3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
    ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
    of 17-900 tokens, 32 new tokens each.  float32 on the card must give
@@ -64,7 +66,23 @@ Phases, each printing one JSON line and then its seconds:
    quant phase's dynamic-scale ``weight_dtype="int8"`` run (static,
    dynamic, dynamic, static); 12 bf16 O2 QAT training steps timed beside
    the ``train`` phase's plain step.
-8. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+8. ``generate`` — GPT-base through ``model.generate()``: float32 greedy
+   ids on the card equal the CPU's for the dense and paged caches (B=4,
+   prompts of 64 and 256 tokens, 32 new tokens; dense equal to paged),
+   ``use_cache=False`` and beam search, each call's launches checked (the
+   paged cache: K1 per layer once, K3 through ``paged_decode_attend`` per
+   layer per step; the dense cache: no kernel, its masked attention is the
+   plain one, as in the TPU package); bf16 at B=8, prompts of 512, 128
+   new tokens, dense and paged timed in turns.
+9. ``spec``    — GPT-base through ``ServingEngine(speculative_k=4)`` on six
+   motif-repeating prompts and ``ServingEngine(prefill_chunk_tokens=128)``
+   on six prompts of 17-900 tokens: float32 ids equal the plain card
+   engine's and the CPU engine's with native pools, and meet the int8
+   rule against the CPU int8 engine with ``kv_dtype="int8"``, K3 / K4
+   launched through ``paged_chunk_attend(_quant)``; bf16 tokens/s and
+   acceptance in turns with the plain engine; bf16 TTFT of seven short
+   requests behind a 900-token prompt, with and without chunking.
+10. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under ``torch.profiler``: device time by kernel and the
    device's idle share.
@@ -99,6 +117,12 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3,      # max err / max |ref|
 LAYERS, HEADS, HEAD_DIM, PAGE, MAXLEN, SLOTS = 12, 12, 64, 16, 1024, 8
 NP = MAXLEN // PAGE
 VOCAB, HIDDEN = 50304, 768
+# generate(): batch and new tokens of the f32 checks and of the timed bf16
+# runs (prompts of GEN_BF16_S); the speculative engine's draft length and
+# the chunked prefill's chunk
+GEN_B, GEN_NEW = 4, 32
+GEN_BF16_B, GEN_BF16_S, GEN_BF16_NEW = 8, 512, 128
+SPEC_K, CHUNK_TOKENS = 4, 128
 # the training run: batch x sequence of the timed bf16 steps, and of the
 # f32 steps held against the CPU
 TRAIN_B, TRAIN_S, PARITY_B, PARITY_S = 8, 1024, 2, 256
@@ -568,10 +592,12 @@ def phase_kernels():
         "launches": k5_launches["k5a"], "lens": dlens}
     k4_time, k5b_time = _k4_timed(gen, dlens, k3_time["kernel_ms"],
                                   k5_launches["k5b"])
+    chunk_time = _chunk_timed(gen, dlens)
     k2_time = _k2_timed(gen)
     k6 = _k6_cases(gen)
     k6_time = _k6_timed(gen)
-    ok = all(c["ok"] for c in k1 + k2 + k3 + k4 + k6)
+    ok = all(c["ok"] for c in k1 + k2 + k3 + k4 + k6
+             + list(chunk_time.values()))
     emit({"phase": "kernels", "ok": ok, "k1_cases": k1, "k2_cases": k2,
           "k3_cases": k3, "k4_cases": k4, "k6_cases": k6,
           "k1_timed": k1_time, "k1_timed_train_shape": k1_train_time,
@@ -587,12 +613,16 @@ def phase_kernels():
                        "pools": "int8 + float32 scales", **k4_time},
           "k5a_timed": {"dtype": "bfloat16", **k5a_time},
           "k5b_timed": {"q_dtype": "bfloat16", **k5b_time},
+          "chunk_timed": chunk_time,
           "k6_timed": k6_time,
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "nvidia_smi": smi_line()})
     if not ok:
         raise SystemExit("kernels phase: a kernel disagrees with its plain "
                          "version (see the k1 / k2 / k3 / k4 / k6 cases above)")
+    k3_time["other_shapes"] = {k: v for k, v in chunk_time.items()
+                               if k.startswith("k3")}
+    k4_time["other_shapes"] = {"k4_verify": chunk_time["k4_verify"]}
     return {"k1": k1_time, "k1_train": k1_train_time, "k3": k3_time,
             "k4": k4_time, "k5a": k5a_time, "k5b": k5b_time,
             "k6": k6_time["bfloat16"], **k2_time}
@@ -691,6 +721,55 @@ def _k4_timed(gen, dlens, k3_ms, k5b_launches):
     return k4, k5b
 
 
+def _chunk_timed(gen, dlens):
+    """K3 through ``paged_chunk_attend`` at the speculative verify shape
+    (the slice's 8 decode rows, k + 1 = 5 positions each: 40 rows) and at
+    one prefill chunk (one slot, 128 positions at 512-639: 128 rows), and
+    K4 through ``paged_chunk_attend_quant`` at the verify shape; bf16 q,
+    12 heads, against the plain version, by CUDA-graph replay (and
+    eagerly).  Bound: each slot's valid pages read once (K4: int8 with
+    float32 scales), q read and o written once; 4 D operations per
+    (position, visible key) per head.  The kernel re-reads a slot's pages
+    once per row of the expansion, as the TPU design does."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    out = {}
+    for name, lens, C, quant in (
+            ("k3_verify", dlens, SPEC_K + 1, False),
+            ("k3_chunk", [512], CHUNK_TOKENS, False),
+            ("k4_verify", dlens, SPEC_K + 1, True)):
+        B = len(lens)
+        if quant:
+            _, *pools, table, ln = _k4_inputs(gen, torch.bfloat16, lens,
+                                              HEADS, HEADS)
+            fn, ref_fn = pa.paged_chunk_attend_quant, pa.paged_chunk_attend_quant_ref
+            per_key = 2 * HEADS * (HEAD_DIM + 4)
+        else:
+            _, *pools, table, ln = _k3_inputs(gen, torch.bfloat16, lens,
+                                              HEADS, HEADS)
+            fn, ref_fn = pa.paged_chunk_attend, pa.paged_chunk_attend_ref
+            per_key = 2 * HEADS * HEAD_DIM * 2
+        q = torch.randn(B, C, HEADS, HEAD_DIM, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        args = (q, *pools, table, ln)
+        o = fn(*args)
+        err = (o.float() - ref_fn(*args).float()).abs().max().item()
+        seen = np.minimum(np.asarray(lens)[:, None] + 1 + np.arange(C), NP * PAGE)
+        pages = int(sum(-(-int(r.max()) // PAGE) for r in seen))
+        nbytes = (pages * PAGE * per_key + 2 * q.numel() * 2
+                  + table.numel() * 4 + ln.numel() * 4)
+        b_ms, b_by = bound(4 * int(seen.sum()) * HEADS * HEAD_DIM, nbytes)
+        out[name] = {
+            "slots": B, "positions": C, "rows": B * C, "lens": list(lens),
+            "splits": pa._splits(B * C, HEADS, NP),
+            "kernel_ms": cuda_ms(lambda: fn(*args), graph=True),
+            "eager_ms": cuda_ms(lambda: fn(*args)),
+            "plain_ms": cuda_ms(lambda: ref_fn(*args)), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "ok": err <= ATOL[torch.bfloat16]}
+    return out
+
+
 # ------------------------------------------------------------------- slice
 def _serve(model, device, prompts, temps, **engine_kw):
     """Serve ``prompts`` (32 new tokens each) through a fresh engine;
@@ -712,6 +791,7 @@ def _serve(model, device, prompts, temps, **engine_kw):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats["pool_bytes"] = sum(p.numel() * p.element_size() for p in eng._pools)
+    stats["ttft_s"] = [h.ttft for h in hs]
     return outs, wall, stats
 
 
@@ -1213,6 +1293,333 @@ def phase_qat(train_step_ms=None):
     return {"launches": counts32}
 
 
+# ---------------------------------------------------------------- generate
+KERNEL_COUNTERS = ("flash_attention_fwd", "paged_flash_decode",
+                   "paged_flash_decode_q")
+COUNTERS = KERNEL_COUNTERS + ("via_paged_decode_attend",
+                              "via_paged_chunk_attend",
+                              "via_paged_chunk_attend_quant")
+
+
+def _zero_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    fa.LAUNCHES = 0
+    pa.LAUNCHES = pa.QUANT_LAUNCHES = pa.DECODE_ATTEND_LAUNCHES = 0
+    pa.CHUNK_LAUNCHES = pa.QUANT_CHUNK_LAUNCHES = 0
+
+
+def _read_counts():
+    """K1, K3, K4 launches and the K3 / K3 / K4 launches made through
+    ``paged_decode_attend`` / ``paged_chunk_attend(_quant)``."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return dict(zip(COUNTERS, (fa.LAUNCHES, pa.LAUNCHES, pa.QUANT_LAUNCHES,
+                               pa.DECODE_ATTEND_LAUNCHES, pa.CHUNK_LAUNCHES,
+                               pa.QUANT_CHUNK_LAUNCHES)))
+
+
+def _gen_ids(b, s, seed):
+    return torch.from_numpy(np.random.RandomState(seed).randint(1, VOCAB,
+                                                                (b, s)))
+
+
+def _gen_want(kind, n):
+    """Launches a generate() call of ``n`` new tokens must make: the paged
+    cache runs K1 once per layer (prefill) and K3 through
+    ``paged_decode_attend`` once per layer per decode step; the dense cache
+    runs no kernel (masked plain attention, as in the TPU package); the
+    no-cache loop and beam search run K1 once per layer per forward."""
+    want = dict.fromkeys(COUNTERS, 0)
+    if kind == "paged":
+        want["flash_attention_fwd"] = LAYERS
+        want["paged_flash_decode"] = want["via_paged_decode_attend"] = \
+            LAYERS * (n - 1)
+    elif kind in ("no_cache", "beam"):
+        want["flash_attention_fwd"] = LAYERS * n
+    return want
+
+
+def phase_generate():
+    """GPT-base through ``model.generate()``: float32 on the card against
+    the same model on the CPU, greedy ids equal for the dense and paged
+    caches (B=4, prompts of 64 and 256 tokens, 32 new tokens; dense equal
+    to paged too), ``use_cache=False`` (B=1, 8 tokens) and beam search (B=1,
+    4 beams, a prompt of 32, 8 tokens), each call's launches checked; then
+    bf16 at B=8, prompts of 512, 128 new tokens, dense and paged in turns
+    (dense, paged, paged, dense) after an untimed warm-up: tokens/s, peak
+    memory and launches."""
+    from paddle_tpu_torch.serving.quant import top1_agreement
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
+    model = copy.deepcopy(cpu_model).to("cuda")
+    cases, outs = [], {}
+    for kind, S, B, n, kw in (
+            ("dense", 64, GEN_B, GEN_NEW, {}),
+            ("paged", 64, GEN_B, GEN_NEW, dict(cache_impl="paged",
+                                               page_size=PAGE)),
+            ("dense", 256, GEN_B, GEN_NEW, {}),
+            ("paged", 256, GEN_B, GEN_NEW, dict(cache_impl="paged",
+                                                page_size=PAGE)),
+            ("no_cache", 64, 1, 8, dict(use_cache=False)),
+            ("beam", 32, 1, 8, dict(decode_strategy="beam_search",
+                                    num_beams=4))):
+        ids = _gen_ids(B, S, S + B)
+        _zero_counts()
+        got = model.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        counts = _read_counts()
+        got = got.cpu()
+        t0 = time.perf_counter()
+        want = cpu_model.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        outs[(kind, S)] = got
+        cases.append({
+            "case": kind, "B": B, "prompt": S, "new_tokens": n,
+            "equal_cpu": torch.equal(got, want),
+            "first_divergence": [_first_divergence(a.tolist(), b.tolist())
+                                 for a, b in zip(got, want)],
+            "launches": counts, "launches_ok": counts == _gen_want(kind, n),
+            "cpu_s": time.perf_counter() - t0})
+    dense_eq_paged = all(torch.equal(outs[("dense", S)], outs[("paged", S)])
+                         for S in (64, 256))
+    del cpu_model
+
+    model = model.to(torch.bfloat16)
+    ids = _gen_ids(GEN_BF16_B, GEN_BF16_S, 7)
+    for impl in ("dense", "paged"):       # untimed warm-up
+        model.generate(ids[:, :64], max_new_tokens=4, temperature=0.0,
+                       cache_impl=impl, page_size=PAGE)
+    runs = {}
+    for impl in ("dense", "paged", "paged", "dense"):
+        _zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_BF16_NEW, temperature=0.0,
+                             cache_impl=impl, page_size=PAGE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        tokens = GEN_BF16_B * GEN_BF16_NEW
+        runs.setdefault(impl, []).append({
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counts,
+            "launches_ok": counts == _gen_want(impl, GEN_BF16_NEW),
+            "out": out[:, GEN_BF16_S:].cpu()})
+    agree = top1_agreement(runs["dense"][0]["out"].tolist(),
+                           runs["paged"][0]["out"].tolist())
+    for rs in runs.values():
+        for r in rs:
+            del r["out"]
+    ok = (all(c["equal_cpu"] and c["launches_ok"] for c in cases)
+          and dense_eq_paged
+          and all(r["launches_ok"] for rs in runs.values() for r in rs))
+    emit({"phase": "generate", "ok": ok, "model": "GPT-base 12x768 vocab 50304",
+          "f32_vs_cpu": cases, "f32_dense_equal_paged": dense_eq_paged,
+          "bf16": {"B": GEN_BF16_B, "prompt": GEN_BF16_S,
+                   "new_tokens": GEN_BF16_NEW, "order": "dense, paged, paged, "
+                   "dense", "dense": runs["dense"], "paged": runs["paged"],
+                   "top1_agreement_dense_paged": agree,
+                   "agreement_gated": False},
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("generate phase failed: greedy ids differ from the "
+                         "CPU, dense differs from paged, or the launch counts "
+                         "show a path that did not run through its kernels")
+    # the kernels line counts the first timed run of each cache
+    return {"launches": {k: runs["dense"][0]["launches"][k]
+                         + runs["paged"][0]["launches"][k]
+                         for k in KERNEL_COUNTERS}}
+
+
+# -------------------------------------------------------------------- spec
+def spec_requests():
+    """Six prompts of 64-384 tokens, each repeating its own 16-token motif
+    (random ids from a seed), so the drafter finds matches."""
+    rs = np.random.RandomState(1)
+    return [rs.randint(1, VOCAB, 16).tolist() * (n // 16)
+            for n in (64, 96, 128, 192, 256, 384)]
+
+
+def chunk_requests():
+    """Six prompts of 17-900 tokens (random ids from a seed); five are
+    longer than one chunk of ``CHUNK_TOKENS``."""
+    rs = np.random.RandomState(2)
+    return [rs.randint(1, VOCAB, size=n).tolist()
+            for n in np.linspace(17, 900, 6).astype(int)]
+
+
+def _counted_spec_run(model, prompts, **engine_kw):
+    """``_serve`` on the card (greedy) with every counter zeroed just
+    before and read just after: K1 once per layer per monolithic prefill;
+    the chunk attend (K3, or K4 over int8 pools) once per layer per verify
+    step and per prefill chunk; the decode kernel of the pool layout once
+    per layer per decode step (plain or verify) and per chunk; nothing
+    else."""
+    _zero_counts()
+    outs, wall, st = _serve(model, "cuda", prompts, [0.0] * len(prompts),
+                            **engine_kw)
+    counts = _read_counts()
+    chunk = engine_kw.get("prefill_chunk_tokens")
+    n_chunked = sum(1 for p in prompts if chunk and len(p) > chunk)
+    quant = st["kv_dtype"] == "int8"
+    decode = "paged_flash_decode_q" if quant else "paged_flash_decode"
+    via = "via_paged_chunk_attend_quant" if quant else "via_paged_chunk_attend"
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = LAYERS * (st["prefills"] - n_chunked)
+    want[via] = LAYERS * (st["verify_steps"] + st["prefill_chunks"])
+    want[decode] = LAYERS * (st["iteration"] + st["prefill_chunks"])
+    if counts != want or not counts[via]:
+        raise SystemExit(f"launch counts {counts} != expected {want}: the "
+                         f"speculative / chunked path did not run through "
+                         f"the chunk attend's kernel")
+    return outs, wall, st, counts
+
+
+def _ttft_summary(st):
+    """Time to first token of the first request (the long prompt) and of
+    the short ones queued behind it."""
+    t = st["ttft_s"]
+    return {"long_ttft_s": t[0], "short_ttft_mean_s": float(np.mean(t[1:])),
+            "short_ttft_max_s": max(t[1:])}
+
+
+def phase_spec():
+    """GPT-base through ``ServingEngine(num_slots=8, page_size=16,
+    max_model_len=1024)`` with ``speculative_k=4`` (six greedy requests
+    whose prompts repeat a 16-token motif) and, separately, with
+    ``prefill_chunk_tokens=128`` (six prompts of 17-900 tokens), 32 new
+    tokens each:
+
+    1. float32 on the card, native pools: the ids must equal the plain
+       card engine's and the CPU engine's with the same arguments; with
+       ``kv_dtype="int8"``, against the CPU int8 engine with the same
+       arguments: first tokens equal and greedy top-1 agreement >= 0.8.
+       Every run's launches checked (``_counted_spec_run``).
+    2. bf16, after an untimed warm-up, in turns (plain, spec, spec, plain)
+       on the speculative requests: tokens/s and the acceptance rate.
+    3. bf16 time to first token of seven short requests (17-120 tokens)
+       queued behind a 900-token prompt, without and with chunked prefill
+       in turns (plain, chunked, chunked, plain)."""
+    from paddle_tpu_torch.serving.quant import top1_agreement
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
+    model = copy.deepcopy(cpu_model).to("cuda")
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)   # the f32 card runs
+    f32, ok = {}, True
+    for label, prompts, kw in (
+            ("spec", spec_requests(), {"speculative_k": SPEC_K}),
+            ("chunk", chunk_requests(),
+             {"prefill_chunk_tokens": CHUNK_TOKENS})):
+        zeros = [0.0] * len(prompts)
+        plain, _, _ = _serve(model, "cuda", prompts, zeros)
+        for kv in ("native", "int8"):
+            got, wall, st, counts = _counted_spec_run(model, prompts,
+                                                      kv_dtype=kv, **kw)
+            for k in KERNEL_COUNTERS:
+                launches[k] += counts[k]
+            ref, cpu_wall, cpu_st = _serve(cpu_model, "cpu", prompts, zeros,
+                                           kv_dtype=kv, **kw)
+            agree = top1_agreement(ref, got)
+            case = {"prompt_lens": [len(p) for p in prompts],
+                    "card_wall_s": wall, "cpu_wall_s": cpu_wall,
+                    "equal_cpu": got == ref, "equal_plain_card": got == plain,
+                    "first_tokens_equal": [g[0] for g in got]
+                    == [r[0] for r in ref],
+                    "top1_agreement_cpu": agree,
+                    "first_divergence_cpu": [_first_divergence(g, r)
+                                             for g, r in zip(got, ref)],
+                    "decode_steps": st["iteration"],
+                    "verify_steps": st["verify_steps"],
+                    "prefill_chunks": st["prefill_chunks"],
+                    "spec_proposed": st["spec_proposed"],
+                    "spec_accepted": st["spec_accepted"],
+                    "cpu_spec_accepted": cpu_st["spec_accepted"],
+                    "launches": counts}
+            if kv == "native":
+                case["gate"] = "ids equal the CPU engine's and the plain card engine's"
+                case["ok"] = case["equal_cpu"] and case["equal_plain_card"]
+            else:
+                case["gate"] = "first tokens equal and top-1 agreement >= 0.8 (CPU int8)"
+                case["ok"] = case["first_tokens_equal"] and agree >= 0.8
+            ok = ok and case["ok"]
+            f32[f"{label}_{kv}"] = case
+    del cpu_model
+
+    model = model.to(torch.bfloat16)
+    prompts = spec_requests()
+    zeros = [0.0] * len(prompts)
+    for kw in ({}, {"speculative_k": SPEC_K}):      # untimed warm-up
+        _serve(model, "cuda", prompts[:2], zeros[:2], **kw)
+    timed = {}
+    for mode in ("plain", "spec", "spec", "plain"):
+        kw = {"speculative_k": SPEC_K} if mode == "spec" else {}
+        outs, wall, st = _serve(model, "cuda", prompts, zeros, **kw)
+        tokens = sum(len(o) for o in outs)
+        timed.setdefault(mode, []).append({
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "decode_steps": st["iteration"], "verify_steps": st["verify_steps"],
+            "spec_proposed": st["spec_proposed"],
+            "spec_accepted": st["spec_accepted"],
+            "acceptance_rate": (st["spec_accepted"] / st["spec_proposed"]
+                                if st["spec_proposed"] else None),
+            "outs": outs})
+    bf16_agree = top1_agreement(timed["plain"][0]["outs"],
+                                timed["spec"][0]["outs"])
+    bf16_equal = sum(a == b for a, b in zip(timed["plain"][0]["outs"],
+                                            timed["spec"][0]["outs"]))
+    for rs in timed.values():
+        for r in rs:
+            del r["outs"]
+
+    rs = np.random.RandomState(3)
+    ttft_prompts = [chunk_requests()[-1]] + [
+        rs.randint(1, VOCAB, size=n).tolist()
+        for n in np.linspace(17, 120, SLOTS - 1).astype(int)]
+    zeros = [0.0] * len(ttft_prompts)
+    _serve(model, "cuda", ttft_prompts[:2], zeros[:2],      # warm-up
+           prefill_chunk_tokens=CHUNK_TOKENS)
+    ttft = {}
+    for mode in ("plain", "chunked", "chunked", "plain"):
+        if mode == "chunked":
+            outs, wall, st, counts = _counted_spec_run(
+                model, ttft_prompts, prefill_chunk_tokens=CHUNK_TOKENS)
+        else:
+            outs, wall, st, counts = _counted_run(model, ttft_prompts, zeros)
+        ttft.setdefault(mode, []).append({
+            "wall_s": wall, **_ttft_summary(st),
+            "prefill_chunks": st["prefill_chunks"], "launches": counts})
+    ok = ok and all(len(o) == 32 for o in outs)
+    emit({"phase": "spec", "ok": ok, "model": "GPT-base 12x768 vocab 50304",
+          "engine": {"num_slots": SLOTS, "page_size": PAGE,
+                     "max_model_len": MAXLEN, "speculative_k": SPEC_K,
+                     "prefill_chunk_tokens": CHUNK_TOKENS},
+          "max_new_tokens": 32, "f32": f32,
+          "bf16_spec": {"order": "plain, spec, spec, plain", **timed,
+                        "top1_agreement_spec_vs_plain": bf16_agree,
+                        "requests_equal_spec_vs_plain": bf16_equal,
+                        "agreement_gated": False},
+          "bf16_ttft_behind_900_tokens": {
+              "prompt_lens": [len(p) for p in ttft_prompts],
+              "order": "plain, chunked, chunked, plain", **ttft},
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("spec phase failed: speculative or chunked ids differ "
+                         "from the CPU engine or the plain card engine "
+                         "(native), or miss the int8 rule")
+    return {"launches": launches}
+
+
 # ----------------------------------------------------------------- profile
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
     # K1: the tensor-core body (flash_fwd_tc_kernel) and the SIMT body
@@ -1308,13 +1715,47 @@ def _profiled_serve(model, **engine_kw):
     return _profiled(serve)
 
 
+def _profiled_generate(model, impl):
+    """The generate phase's timed bf16 call (B=8, prompts of 512, 128 new
+    tokens) under the profiler, after a short warm-up."""
+    ids = _gen_ids(GEN_BF16_B, GEN_BF16_S, 7)
+    model.generate(ids[:, :64], max_new_tokens=4, temperature=0.0,
+                   cache_impl=impl, page_size=PAGE)
+
+    def gen():
+        model.generate(ids, max_new_tokens=GEN_BF16_NEW, temperature=0.0,
+                       cache_impl=impl, page_size=PAGE)
+        return {"B": GEN_BF16_B, "prompt": GEN_BF16_S,
+                "new_tokens": GEN_BF16_NEW}
+
+    return _profiled(gen)
+
+
+def _profiled_engine(model, prompts, **engine_kw):
+    """Greedy ``prompts`` through an engine under the profiler, after a
+    warm-up on the first two."""
+    zeros = [0.0] * len(prompts)
+    _serve(model, "cuda", prompts[:2], zeros[:2], **engine_kw)
+
+    def serve():
+        _, _, st = _serve(model, "cuda", prompts, zeros, **engine_kw)
+        return {k: st[k] for k in ("iteration", "verify_steps", "prefills",
+                                   "prefill_chunks", "spec_proposed",
+                                   "spec_accepted")}
+
+    return _profiled(serve)
+
+
 def phase_profile():
     """Where the time goes (not part of the default run), each under
     ``torch.profiler`` after a warm-up: the bf16 slice's 12 requests with
-    native and with int8 pools, 3 bf16 O2 training steps at B=8, S=1024,
-    the same steps of the QAT-wrapped model, and that model converted by
-    ``convert_to_int8`` (static scales, bf16) serving the 12 requests with
-    int8 pools, beside the dynamic-scale ``weight_dtype="int8"`` run."""
+    native and with int8 pools, bf16 ``generate()`` with each cache, the
+    speculative engine on the spec phase's requests beside the plain
+    engine on them, the chunked engine on the chunk requests, 3 bf16 O2
+    training steps at B=8, S=1024, the same steps of the QAT-wrapped model,
+    and that model converted by ``convert_to_int8`` (static scales, bf16)
+    serving the 12 requests with int8 pools, beside the dynamic-scale
+    ``weight_dtype="int8"`` run."""
     from paddle_tpu_torch.quantization import convert_to_int8
     from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
@@ -1322,6 +1763,12 @@ def phase_profile():
     model = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
     native = _profiled_serve(model, kv_dtype="native")
     int8_kv = _profiled_serve(model, kv_dtype="int8")
+    gen_dense = _profiled_generate(model, "dense")
+    gen_paged = _profiled_generate(model, "paged")
+    spec_plain = _profiled_engine(model, spec_requests())
+    spec = _profiled_engine(model, spec_requests(), speculative_k=SPEC_K)
+    chunked = _profiled_engine(model, chunk_requests(),
+                               prefill_chunk_tokens=CHUNK_TOKENS)
     int8_dynamic = _profiled_serve(model, kv_dtype="int8", weight_dtype="int8")
     del model
     torch.manual_seed(0)
@@ -1334,21 +1781,29 @@ def phase_profile():
           "serving_bf16_int8_kv": int8_kv,
           "serving_bf16_int8_kv_dynamic_int8_weights": int8_dynamic,
           "serving_bf16_int8_kv_static_int8_weights": int8_static,
+          "generate_bf16_dense": gen_dense, "generate_bf16_paged": gen_paged,
+          "spec_requests_bf16_plain": spec_plain,
+          "spec_requests_bf16_speculative": spec,
+          "chunk_requests_bf16_chunked": chunked,
           "train_bf16_O2": train, "train_bf16_O2_qat": qat_train,
           "nvidia_smi": smi_line()})
 
 
 KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
     ("k1", "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-     "paddle_tpu/ops/flash_attention.py:112", "serving prefill, training"),
+     "paddle_tpu/ops/flash_attention.py:112",
+     "serving prefill, training, generate() (paged prefill, no cache, beam)"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:276", "training"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:307", "training"),
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
-     "paddle_tpu/ops/paged_attention.py:371", "serving decode"),
+     "paddle_tpu/ops/paged_attention.py:371",
+     "serving decode, generate() paged decode, speculative verify, chunked "
+     "prefill"),
     ("k4", "paged_flash_decode_q", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
-     "paddle_tpu/ops/paged_attention.py:870", "int8 serving decode"),
+     "paddle_tpu/ops/paged_attention.py:870",
+     "int8 serving decode, int8 speculative verify and chunked prefill"),
     # the full-sweep twins have no path, in the TPU package either
     ("k5a", "paged_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:128", None),
@@ -1361,8 +1816,8 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases",
-                    default="build,kernels,slice,train,quant,custom_op,qat")
+    ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
+                    "custom_op,qat,generate,spec")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1376,6 +1831,7 @@ def main():
                      ("quant", phase_quant), ("custom_op", phase_custom_op),
                      ("qat", lambda: phase_qat(
                          (results.get("train") or {}).get("step_ms"))),
+                     ("generate", phase_generate), ("spec", phase_spec),
                      ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
@@ -1386,10 +1842,13 @@ def main():
         # launches: each counted run of the path that uses the kernel (the
         # bf16 slice for K1 and K3, the bf16 training steps for K1 and K2,
         # the first bf16 int8 slice for K1 and K4, the example's card run
-        # for K6, the f32 static-scale int8 run for K1 and K4); K5a / K5b:
+        # for K6, the f32 static-scale int8 run for K1 and K4, the first
+        # timed bf16 dense and paged generate() for K1 and K3, the f32
+        # speculative and chunked card runs for K1, K3 and K4); K5a / K5b:
         # the kernels phase's checks
         launches = {}
-        for name in ("slice", "train", "quant", "custom_op", "qat"):
+        for name in ("slice", "train", "quant", "custom_op", "qat",
+                     "generate", "spec"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         rows = []
@@ -1402,6 +1861,12 @@ def main():
                          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"],
                          "library_ms": t["library_ms"]})
+            if "other_shapes" in t:     # the chunk attend's row expansion
+                rows[-1]["other_shapes"] = {
+                    k: {f: v[f] for f in ("rows", "kernel_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "max_abs_err")}
+                    for k, v in t["other_shapes"].items()}
         emit({"kernels": rows})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

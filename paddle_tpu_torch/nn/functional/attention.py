@@ -6,10 +6,13 @@
 4-D inputs and as many kv heads as query heads goes to the hand-written
 flash kernels (``ops/flash_attention``) at every sequence length — when it
 needs a gradient, through their autograd ``Function`` (K1 forward, K2
-backward; head_dim <= 128).  Any other CUDA call raises
-``NotImplementedError`` rather than run a plain path on the card.  CPU
-tensors take :func:`_sdpa_ref`.  Under ``amp.auto_cast`` the inputs are
-cast to the amp dtype (white list).
+backward; head_dim <= 128).  A CUDA call with a mask and no dropout runs
+:func:`_sdpa_ref` on the card, as the TPU package sends every masked call
+to its plain XLA attention (GPT's dense decode cache takes this path); an
+additive float32 mask promotes lower-precision logits to float32 there,
+as in JAX.  Any other CUDA call (dropout, GQA) raises
+``NotImplementedError``.  CPU tensors take :func:`_sdpa_ref`.  Under
+``amp.auto_cast`` the inputs are cast to the amp dtype (white list).
 """
 
 from __future__ import annotations
@@ -62,10 +65,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             and supported(query.shape, key.shape, is_causal, grad)):
         return flash_attention_bshd(query, key, value, causal=is_causal,
                                     scale=scale)
+    if attn_mask is not None and dropout_p == 0.0 \
+            and query.device.type == "cuda":
+        return _sdpa_ref(query, key, value, attn_mask, 0.0, is_causal, scale,
+                         training)
     raise NotImplementedError(
         f"scaled_dot_product_attention on {query.device}: the flash kernel "
-        f"takes no mask and no dropout, 4-D [B, S, H, D] inputs with equal "
-        f"q/kv head counts and head_dim <= 256 (<= 128 with a gradient) "
+        f"takes no mask and no dropout (a masked call without dropout runs "
+        f"the plain attention on a CUDA card), 4-D [B, S, H, D] inputs with "
+        f"equal q/kv head counts and head_dim <= 256 (<= 128 with a "
+        f"gradient) "
         f"(got q {tuple(query.shape)}, k {tuple(key.shape)}, "
         f"mask={attn_mask is not None}, dropout_p={dropout_p}, "
         f"needs_grad={grad})")

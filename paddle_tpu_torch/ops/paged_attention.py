@@ -22,14 +22,27 @@ and one for V, shared by every slot through a page table ``[B, NP]``
   full-sweep twins of K3 / K4 (the TPU package's ``_paged_pallas`` /
   ``_paged_q_pallas``): same function, every table page staged.  Only
   tests call them.
-- :func:`paged_table_prefill_write` / :func:`paged_table_token_write` and
-  their quantizing twins — the pool writes, plain in-place torch indexing.
-  JAX donated the pools and rebuilt them with scatters; here the pools
-  are updated IN PLACE and returned for the caller's convenience.
+- :func:`paged_table_prefill_write` / :func:`paged_table_token_write` /
+  :func:`paged_table_chunk_write` and their quantizing twins — the pool
+  writes, plain in-place torch indexing.  JAX donated the pools and
+  rebuilt them with scatters; here the pools are updated IN PLACE and
+  returned for the caller's convenience.
+- :func:`paged_chunk_attend` / :func:`paged_chunk_attend_quant` — C query
+  positions per slot (speculative verify, chunked prefill), each with its
+  own length: one K3 / K4 launch over a ``[B*C]``-row expansion on the
+  card, one gather per slot on the CPU.
+- The lock-step helpers of ``generate(cache_impl="paged")``:
+  :func:`paged_prefill_write`, :func:`paged_token_write`,
+  :func:`paged_decode_attend` (K3 over an identity table on the card) and
+  :class:`PagedKVCache`.
 
 ``LAUNCHES`` (K3), ``QUANT_LAUNCHES`` (K4), ``FULL_SWEEP_LAUNCHES`` (K5a)
 and ``QUANT_FULL_SWEEP_LAUNCHES`` (K5b) count kernel launches, one per
 call (a call launches the split kernel and its merge).
+``DECODE_ATTEND_LAUNCHES``, ``CHUNK_LAUNCHES`` and ``QUANT_CHUNK_LAUNCHES``
+count the K3 / K3 / K4 launches made through :func:`paged_decode_attend`,
+:func:`paged_chunk_attend` and :func:`paged_chunk_attend_quant` (each such
+launch is also in ``LAUNCHES`` / ``QUANT_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -51,6 +64,10 @@ LAUNCHES = 0
 QUANT_LAUNCHES = 0
 FULL_SWEEP_LAUNCHES = 0
 QUANT_FULL_SWEEP_LAUNCHES = 0
+#: the K3 / K4 launches above made through the lock-step and chunk paths
+DECODE_ATTEND_LAUNCHES = 0
+CHUNK_LAUNCHES = 0
+QUANT_CHUNK_LAUNCHES = 0
 
 
 def _last_page(seq_len, page_size):
@@ -77,6 +94,24 @@ def _gathered_attend(q, k, v, seq_lens, scale):
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     empty = (seq_lens.to(q.device) <= 0)[:, None, None]
     return out.reshape(B, H, D).to(q.dtype).masked_fill(empty, 0.0)
+
+
+def _gathered_chunk_attend(q, k, v, lens2, scale):
+    """Chunked twin of :func:`_gathered_attend`, the plain version of the
+    chunk paths: q ``[B, C, H, D]`` against gathered k/v ``[B, T, HKV,
+    D]``, position (b, t) masked to its own valid length ``lens2[b, t]``
+    (>= 1).  Each slot's pages are gathered once for all C positions."""
+    B, C, H, D = q.shape
+    T, HKV = k.shape[1], k.shape[2]
+    g = H // HKV
+    qg = q.reshape(B, C, HKV, g, D).float()
+    s = torch.einsum("bckgd,btkd->bckgt", qg, k.float()) * scale
+    pos = torch.arange(T, device=q.device)[None, None, None, None, :]
+    s = s.masked_fill(pos >= lens2.to(q.device)[:, :, None, None, None].long(),
+                      NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bckgt,btkd->bckgd", p, v.float())
+    return out.reshape(B, C, H, D).to(q.dtype)
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens, scale=None):
@@ -281,6 +316,156 @@ def paged_table_token_write(pool, tok, table, lens):
     return pool
 
 
+def paged_table_chunk_write(pool, kv, table, lens):
+    """Write a CHUNK of C tokens per slot at positions ``lens[b] ..
+    lens[b] + C - 1``, in place (speculative verify: the last sampled token
+    plus C - 1 drafts; chunked prefill: the next C prompt tokens).
+
+    pool ``[P, ps, *rest]``; kv ``[B, C, *rest]``; table ``[B, NP]``; lens
+    ``[B]``.  Lanes past the table's reach (``pos >= NP * ps``: pad lanes
+    of a slot near the model cap) are DROPPED, the contract of JAX's
+    ``mode="drop"`` scatter; a clamp would make them collide with the
+    chunk's own write of the last position, and a scatter with duplicate
+    indices has no defined winner.  (JAX marks them with page -1, which
+    its index normalization wraps to the pool's last row, the engine's
+    scratch page, before the drop applies.)  torch has no drop mode, and a boolean mask
+    would sync the host, so a dropped lane is sent where the clamp puts it
+    (the slot's last table position) carrying the bytes that position ends
+    up with anyway: those of the chunk's own lane for it, or, when the
+    whole chunk lies past the table, the pool's current bytes.  Every
+    writer of that position then writes the same bytes.  In-range junk
+    lanes (rejected drafts, prefill pad) need no undo: they sit past the
+    slot's valid length, and the next write at the rolled-back length
+    overwrites them."""
+    B, C = kv.shape[:2]
+    rest = kv.shape[2:]
+    ps = pool.shape[1]
+    cap = table.shape[1] * ps
+    lens = lens.long()
+    t = torch.arange(C, device=table.device)
+    pos_c = torch.clamp(lens[:, None] + t[None, :], max=cap - 1)   # [B, C]
+    pages = torch.gather(table, 1, pos_c // ps).long()
+    off = pos_c % ps
+    # the lane that writes position cap - 1 (every dropped lane's source)
+    last = torch.clamp(cap - 1 - lens, min=0)
+    src = torch.minimum(t[None, :], last[:, None])
+    bcast = (B, C) + (1,) * len(rest)
+    vals = torch.gather(kv, 1, src.reshape(bcast).expand(kv.shape))
+    dead = (lens >= cap).reshape((B,) + (1,) * (len(rest) + 1))
+    vals = torch.where(dead, pool[pages, off], vals.to(pool.dtype))
+    pool[pages.reshape(-1), off.reshape(-1)] = vals.reshape((B * C,) + rest)
+    return pool
+
+
+def _chunk_lens(lens, C, cap):
+    """``[B, C]`` valid lengths of a chunk's positions: position t of slot
+    b sees tokens ``0 .. lens[b] + t`` (its own K/V included), clamped at
+    the table's reach ``cap``."""
+    t = torch.arange(C, device=lens.device)
+    return torch.clamp(lens.long()[:, None] + 1 + t[None, :], max=cap)
+
+
+def _expand_rows(table, lens2):
+    """The ``[B*C]``-row expansion the kernels take: each chunk position a
+    row of its own, sharing its slot's page table (a contiguous int32
+    copy) with its own length."""
+    B, C = lens2.shape
+    table2 = table[:, None, :].expand(B, C, table.shape[1]) \
+        .reshape(B * C, -1).contiguous()
+    return table2, lens2.reshape(-1).to(torch.int32).contiguous()
+
+
+def paged_chunk_attend_ref(q, k_pages, v_pages, table, lens):
+    """Plain version of :func:`paged_chunk_attend`, on any device: each
+    slot's pages gathered once for all C positions."""
+    B, C, H, D = q.shape
+    NP, ps, HKV = table.shape[1], k_pages.shape[1], k_pages.shape[2]
+    idx = table.long()
+    k = k_pages[idx].reshape(B, NP * ps, HKV, D)
+    v = v_pages[idx].reshape(B, NP * ps, HKV, D)
+    return _gathered_chunk_attend(q, k, v, _chunk_lens(lens, C, NP * ps),
+                                  1.0 / math.sqrt(D))
+
+
+def paged_chunk_attend(q, k_pages, v_pages, table, lens):
+    """Attend C query positions per slot against the pools: position t of
+    slot b sees tokens ``0 .. lens[b] + t`` (the chunk is written before it
+    attends, so causality inside the chunk comes from the per-position
+    lengths).  q ``[B, C, H, D]`` -> ``[B, C, H, D]``.
+
+    A CPU tensor takes the plain version: each slot's pages gathered once
+    for all C positions.  A CUDA tensor launches K3 once over the
+    ``[B*C]``-row expansion, as the TPU package does; each row re-reads its
+    slot's pages."""
+    if q.device.type == "cpu":
+        return paged_chunk_attend_ref(q, k_pages, v_pages, table, lens)
+    global CHUNK_LAUNCHES
+    B, C, H, D = q.shape
+    lens2 = _chunk_lens(lens, C, table.shape[1] * k_pages.shape[1])
+    table2, rows = _expand_rows(table, lens2)
+    out = paged_attention(q.reshape(B * C, H, D), k_pages, v_pages, table2,
+                          rows)
+    CHUNK_LAUNCHES += 1
+    return out.reshape(B, C, H, D)
+
+
+# ----------------------------------------------- generate()'s lock-step pools
+# The pools of ``generate(cache_impl="paged")``: one pool per layer laid
+# out per sequence, ``[B, PP, ps, h, d]`` (page i of sequence b is row
+# ``b * PP + i`` of the flattened pool), and ONE position ``pos`` (a Python
+# int) shared by the whole batch.  Written in place.
+
+
+def paged_prefill_write(pages, kv):
+    """Write whole prompts' K or V at position 0, in place: pages
+    ``[B, PP, ps, h, d]``; kv ``[B, S, h, d]``.  The last page's tail past
+    S is zeroed, as JAX's padded slice-assign does."""
+    B, S, h, d = kv.shape
+    ps = pages.shape[2]
+    pad = (ps - S % ps) % ps
+    if pad:
+        kv = torch.cat([kv, kv.new_zeros((B, pad, h, d))], dim=1)
+    chunks = kv.reshape(B, -1, ps, h, d)
+    pages[:, :chunks.shape[1]] = chunks.to(pages.dtype)
+    return pages
+
+
+def paged_token_write(pages, tok, pos):
+    """Write one token per sequence at position ``pos``, in place: pages
+    ``[B, PP, ps, h, d]``; tok ``[B, h, d]``.  A page index past the pool
+    clamps to its last page, as JAX's ``dynamic_update_slice`` does."""
+    ps, PP = pages.shape[2], pages.shape[1]
+    pages[:, min(pos // ps, PP - 1), pos % ps] = tok.to(pages.dtype)
+    return pages
+
+
+def paged_decode_attend(q, k_pages, v_pages, pos, scale=None):
+    """One decode step of attention over per-sequence pools: q ``[B, hq,
+    d]``; pools ``[B, PP, ps, hkv, d]``; tokens ``0 .. pos`` are valid.
+
+    A CPU tensor attends the reshaped pools directly (the identity table
+    below makes the plain version's gathers pure copies).  A CUDA tensor
+    launches K3 on the pools viewed as ``[B*PP, ps, hkv, d]`` (a view, so
+    the token write and the attend see one storage) through the identity
+    table ``b * PP + i``, as the TPU branch does."""
+    B, PP, ps, hkv, d = k_pages.shape
+    if q.device.type == "cpu":
+        sc = scale if scale is not None else 1.0 / math.sqrt(d)
+        lens = torch.full((B,), pos + 1, dtype=torch.int32)
+        return _gathered_attend(q, k_pages.reshape(B, PP * ps, hkv, d),
+                                v_pages.reshape(B, PP * ps, hkv, d), lens, sc)
+    global DECODE_ATTEND_LAUNCHES
+    dev = q.device
+    table = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * PP
+             + torch.arange(PP, dtype=torch.int32, device=dev)[None, :])
+    lens = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
+    out = paged_attention(q, k_pages.view(B * PP, ps, hkv, d),
+                          v_pages.view(B * PP, ps, hkv, d), table, lens,
+                          scale)
+    DECODE_ATTEND_LAUNCHES += 1
+    return out
+
+
 # --------------------------------------------------- int8 quantized pools
 # The quantized serving path (paddle_tpu_torch.serving.quant): K/V page
 # pools stored as int8 with a PARALLEL SCALE POOL — one float32 scale per
@@ -320,6 +505,15 @@ def paged_table_token_write_quant(pool, spool, tok, table, lens):
     qv, sc = quantize_kv(tok)
     return (paged_table_token_write(pool, qv, table, lens),
             paged_table_token_write(spool, sc, table, lens))
+
+
+def paged_table_chunk_write_quant(pool, spool, kv, table, lens):
+    """Quantizing twin of :func:`paged_table_chunk_write` (C tokens per
+    slot, the same drop semantics), in place.  kv ``[B, C, h, d]``;
+    returns ``(pool, spool)``."""
+    qv, sc = quantize_kv(kv)
+    return (paged_table_chunk_write(pool, qv, table, lens),
+            paged_table_chunk_write(spool, sc, table, lens))
 
 
 def paged_attention_quantized_ref(q, k_pages, v_pages, k_scales, v_scales,
@@ -378,3 +572,84 @@ def _paged_q_full_sweep(q, k_pages, v_pages, k_scales, v_scales, page_table,
                 seq_lens, scale, bounded=False)
     QUANT_FULL_SWEEP_LAUNCHES += 1
     return o
+
+
+def paged_chunk_attend_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
+                                 table, lens):
+    """Plain version of :func:`paged_chunk_attend_quant`, on any device:
+    one gather and dequantization per slot for all C positions."""
+    B, C, H, D = q.shape
+    NP, ps, HKV = table.shape[1], k_pages.shape[1], k_pages.shape[2]
+    idx = table.long()
+    k = k_pages[idx].float() * k_scales[idx].float()[..., None]
+    v = v_pages[idx].float() * v_scales[idx].float()[..., None]
+    return _gathered_chunk_attend(q, k.reshape(B, NP * ps, HKV, D),
+                                  v.reshape(B, NP * ps, HKV, D),
+                                  _chunk_lens(lens, C, NP * ps),
+                                  1.0 / math.sqrt(D))
+
+
+def paged_chunk_attend_quant(q, k_pages, v_pages, k_scales, v_scales, table,
+                             lens):
+    """Quantized twin of :func:`paged_chunk_attend` over int8 pools with
+    their float32 scale pools: on the CPU one gather and dequantization
+    per slot for all C positions, on the card one K4 launch over the
+    ``[B*C]``-row expansion.  q ``[B, C, H, D]`` -> ``[B, C, H, D]``."""
+    if q.device.type == "cpu":
+        return paged_chunk_attend_quant_ref(q, k_pages, v_pages, k_scales,
+                                            v_scales, table, lens)
+    global QUANT_CHUNK_LAUNCHES
+    B, C, H, D = q.shape
+    lens2 = _chunk_lens(lens, C, table.shape[1] * k_pages.shape[1])
+    table2, rows = _expand_rows(table, lens2)
+    out = paged_attention_quantized(q.reshape(B * C, H, D), k_pages, v_pages,
+                                    k_scales, v_scales, table2, rows)
+    QUANT_CHUNK_LAUNCHES += 1
+    return out.reshape(B, C, H, D)
+
+
+class PagedKVCache:
+    """Block-paged KV cache (the allocator side of PagedAttention): pages
+    from one pool ``[num_seqs * max_pages_per_seq, ps, h, d]``, page i of
+    sequence b at row ``b * max_pages_per_seq + i`` (static round-robin
+    table), per-sequence lengths.  Updated in place.  ``device`` None
+    means the card."""
+
+    def __init__(self, num_seqs, max_pages_per_seq, page_size, num_heads,
+                 head_dim, dtype=torch.bfloat16, device=None):
+        from ..device import resolve_device
+
+        dev = resolve_device(device)
+        self.page_size = page_size
+        self.capacity = max_pages_per_seq * page_size
+        total = num_seqs * max_pages_per_seq
+        self.k_pages = torch.zeros((total, page_size, num_heads, head_dim),
+                                   dtype=dtype, device=dev)
+        self.v_pages = torch.zeros_like(self.k_pages)
+        self.page_table = (torch.arange(num_seqs)[:, None] * max_pages_per_seq
+                           + torch.arange(max_pages_per_seq)[None, :]) \
+            .to(device=dev, dtype=torch.int32)
+        self.seq_lens = torch.zeros((num_seqs,), dtype=torch.int32, device=dev)
+
+    def append(self, k_tok, v_tok):
+        """Write one token's K / V per sequence (``[B, H, D]``) at each
+        sequence's length; returns self.  Raises when a sequence is already
+        at capacity (an index past the table would otherwise overwrite the
+        last page): size ``max_pages_per_seq`` for the longest decode."""
+        if int(self.seq_lens.max()) >= self.capacity:
+            raise RuntimeError(
+                f"PagedKVCache overflow: a sequence is at capacity "
+                f"{self.capacity} tokens ({self.capacity // self.page_size}"
+                " pages); grow max_pages_per_seq")
+        lens = self.seq_lens.long()
+        rows = torch.arange(k_tok.shape[0], device=lens.device)
+        pages = self.page_table[rows, lens // self.page_size].long()
+        off = lens % self.page_size
+        self.k_pages[pages, off] = k_tok.to(self.k_pages.dtype)
+        self.v_pages[pages, off] = v_tok.to(self.v_pages.dtype)
+        self.seq_lens += 1
+        return self
+
+    def attend(self, q):
+        return paged_attention(q, self.k_pages, self.v_pages,
+                               self.page_table, self.seq_lens)

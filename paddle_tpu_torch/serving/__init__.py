@@ -8,6 +8,8 @@ paged KV cache (counterpart of ``paddle_tpu/serving``; its core path).
 - :mod:`.adapter` — :class:`GPTAdapter`: the prefill / step calls.
 - :mod:`.api` — :class:`ContinuousBatchingPredictor`, the
   ``paddle.inference``-shaped facade.
+- :mod:`.speculative` — :class:`NgramDrafter` and the verifier of
+  ``ServingEngine(speculative_k=...)``.
 - :mod:`.quant` — int8 serving: ``ServingEngine(kv_dtype="int8",
   weight_dtype="int8")``'s adapter, weight conversion and the calibration
   harness.
@@ -19,3 +21,4 @@ from .api import ContinuousBatchingPredictor  # noqa: F401
 from .block_manager import BlockManager, PageAllocation  # noqa: F401
 from .engine import (RequestHandle, RequestRejectedError,  # noqa: F401
                      SamplingParams, ServingEngine)
+from .speculative import NgramDrafter  # noqa: F401

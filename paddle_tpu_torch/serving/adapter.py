@@ -11,9 +11,17 @@ state — the pool tuple, ``(kp, vp)`` each ``[L, P, ps, h, d]`` here
   ``lens[b] - 1``;
 - ``step(last, *pools, table, lens)`` runs one decode token per slot at
   each slot's OWN position ``lens[b]`` (iteration-level batching),
-  attention through the paged kernel.
+  attention through the paged kernel;
+- ``verify(ids, *pools, table, lens)`` (speculative decoding) runs ``ids
+  [B, C]`` — each slot's last token and C - 1 drafts — at positions
+  ``lens[b] ..`` through the chunk cache variant and returns the logits
+  of every position, ``[B, C, V]``;
+- ``prefill_chunk(ids, nvalid, *pools, table, lens)`` (chunked prefill)
+  runs the next C prompt tokens per slot the same way and returns the
+  logits at each row's last real lane ``nvalid[b] - 1``.
 
-Both return ``(logits [B, V] f32, *pools)``.  The TPU package donated the
+All return ``(logits f32, *pools)``.  Chunk positions are clamped at
+``max_model_len - 1``: lanes past the cap are junk nobody reads.  The TPU package donated the
 pools into each compiled call and got new arrays back; here the layers
 write the per-layer views ``kp[i]`` IN PLACE, so the returned pools are
 the same tensors (there is no re-stacking step).  Both run under
@@ -29,8 +37,9 @@ class GPTAdapter:
     """Adapter for :class:`paddle_tpu_torch.text.models.GPTForCausalLM`
     (any model with the same ``.gpt`` decoder and the "served" cache)."""
 
-    #: GPTDecoderLayer cache-variant tag this adapter drives
+    #: GPTDecoderLayer cache-variant tags this adapter drives
     tag = "served"
+    chunk_tag = "served_chunk"
 
     def __init__(self, model, page_size=16):
         self.model = model
@@ -62,18 +71,22 @@ class GPTAdapter:
         return (2 * self.num_layers * self.page_size * self.num_kv_heads
                 * self.head_dim * torch.empty((), dtype=self.dtype).element_size())
 
-    def _layer_caches(self, pools, table, lens):
+    def _layer_caches(self, tag, pools, table, lens):
         """Per-layer GPTDecoderLayer cache tuples: views into the pools."""
         kp, vp = pools
-        return [(self.tag, kp[i], vp[i], table, lens)
+        return [(tag, kp[i], vp[i], table, lens)
                 for i in range(self.num_layers)]
 
-    def _run(self, ids, pools, table, lens, pos_ids):
+    def _run(self, ids, pools, table, lens, pos_ids, tag=None):
         """Hidden states ``[B, S, H]`` and the tied LM-head weights; the
         pools are written in place."""
-        x, _ = self.gpt(ids, position_ids=pos_ids,
-                        cache=self._layer_caches(pools, table, lens))
+        cache = self._layer_caches(tag or self.tag, pools, table, lens)
+        x, _ = self.gpt(ids, position_ids=pos_ids, cache=cache)
         return x, self.gpt.word_embeddings.weight
+
+    def _chunk_positions(self, lens, C):
+        pos = lens[:, None].long() + torch.arange(C, device=lens.device)[None]
+        return torch.clamp(pos, max=self.max_model_len - 1)
 
     # ------------------------------------------------------------- closures
     @torch.inference_mode()
@@ -94,4 +107,30 @@ class GPTAdapter:
         pos_ids = lens[:, None].long()
         x, w = self._run(last, pools, table, lens, pos_ids)
         logits = x[:, -1].float() @ w.float().T
+        return (logits, *pools)
+
+    @torch.inference_mode()
+    def verify(self, ids, *pools_table_lens):
+        """Speculative verify: ``logits[b, t]`` is the next-token
+        distribution after ``ids[b, :t + 1]``; all C K/V per slot land in
+        the pools in one chunk write."""
+        *pools, table, lens = pools_table_lens
+        pos_ids = self._chunk_positions(lens, ids.shape[1])
+        x, w = self._run(ids, pools, table, lens, pos_ids, self.chunk_tag)
+        logits = x.float() @ w.float().T
+        return (logits, *pools)
+
+    @torch.inference_mode()
+    def prefill_chunk(self, ids, nvalid, *pools_table_lens):
+        """One chunk of a long prompt (right-padded past ``nvalid[b]``) at
+        positions ``lens[b] ..``; only the final chunk's logits seed
+        decode.  Pad lanes write past the valid length (or are dropped
+        past the table), where the next write overwrites them."""
+        *pools, table, lens = pools_table_lens
+        pos_ids = self._chunk_positions(lens, ids.shape[1])
+        x, w = self._run(ids, pools, table, lens, pos_ids, self.chunk_tag)
+        idx = torch.clamp(nvalid.long() - 1, min=0)[:, None, None] \
+            .expand(-1, 1, x.shape[-1])
+        h = torch.gather(x, 1, idx)[:, 0]
+        logits = h.float() @ w.float().T
         return (logits, *pools)

@@ -27,6 +27,24 @@ transient-restart path waits for a later slice.
 The engine runs on the card unless ``device="cpu"``; it moves the model
 to its device (``nn.Module.to`` moves in place).
 
+Speculative decoding (``speculative_k > 0``, :mod:`.speculative`): each
+iteration drafts up to k tokens per slot by n-gram suffix match over the
+slot's own context and verifies them in ONE multi-token step (the
+adapter's ``verify``: the chunk cache variant, K3 / K4 over the
+``[B*(k+1)]``-row expansion); the scheduler consumes the longest accepted
+prefix plus the bonus token (1..k+1 tokens per slot per step), with the
+EOS / budget / deadline / cancel checks per emitted token.  Greedy rows
+accept by exact argmax match, so greedy output equals the plain engine's;
+temperature rows use rejection sampling.  An iteration that drafted
+nothing anywhere runs the plain step, as the TPU package schedules it.
+
+Chunked prefill (``prefill_chunk_tokens=N``): a prompt longer than N is
+admitted at once and ingested N tokens per scheduler iteration through
+the adapter's ``prefill_chunk`` (the same chunk variant), round-robin over
+the slots mid-prefill and interleaved with the decode step, so one long
+prompt no longer stalls the decode batch for its whole prefill; the final
+chunk's token seeds decode.
+
 Quantized serving: ``kv_dtype="int8"`` stores the page pools as int8 with
 parallel float32 scale pools (:class:`~.quant.QuantizedGPTAdapter`; the
 writes quantize and decode runs the dequantizing kernel K4), about 1.9x
@@ -159,13 +177,15 @@ class RequestHandle:
 
 
 class _Slot:
-    __slots__ = ("handle", "req", "alloc", "length", "last", "produced",
-                 "temp", "eos", "max_new", "deadline")
+    __slots__ = ("handle", "req", "alloc", "table_row", "length", "last",
+                 "produced", "temp", "eos", "max_new", "deadline",
+                 "prefilled")
 
-    def __init__(self, req, alloc):
+    def __init__(self, req, alloc, table_row):
         self.handle = req.handle
         self.req = req
         self.alloc = alloc
+        self.table_row = table_row          # np.int32 [<= NP] real pages
         self.length = len(req.prompt)       # tokens whose K/V are in pages
         self.last = 0                       # last sampled token id
         self.produced = 0
@@ -173,6 +193,11 @@ class _Slot:
         self.eos = req.eos_token_id
         self.max_new = req.max_new_tokens
         self.deadline = req.deadline
+        # chunked prefill: prompt tokens whose K/V have landed so far; None
+        # once ingestion is complete (or for a monolithic prefill).  While
+        # it is an int, the slot's host row stays inert (scratch table,
+        # length 0), so decode steps compute a junk lane for it
+        self.prefilled = None
 
 
 class ServingEngine:
@@ -187,7 +212,18 @@ class ServingEngine:
 
     def __init__(self, model, num_slots=4, page_size=16, max_model_len=None,
                  num_pages=None, top_k=0, top_p=1.0, prefix_sharing=False,
-                 seed=0, device=None, kv_dtype=None, weight_dtype=None):
+                 seed=0, device=None, kv_dtype=None, weight_dtype=None,
+                 speculative_k=0, draft_max_ngram=3, draft_min_ngram=1,
+                 prefill_chunk_tokens=None):
+        if prefill_chunk_tokens:
+            prefill_chunk_tokens = int(prefill_chunk_tokens)
+            if prefill_chunk_tokens < 1:
+                raise ValueError(f"prefill_chunk_tokens must be >= 1, "
+                                 f"got {prefill_chunk_tokens}")
+        else:
+            prefill_chunk_tokens = None
+        self._chunk_tokens = prefill_chunk_tokens
+        self._prefill_rr = 0    # round-robin cursor over prefilling slots
         kv_dtype = str(kv_dtype).lower() if kv_dtype is not None else "native"
         if kv_dtype in ("native", "bf16", "bfloat16", "float32", "fp32"):
             kv_dtype = "native"
@@ -234,6 +270,18 @@ class ServingEngine:
         self._scratch = int(num_pages)
         self._pools = tuple(self._adapter.init_pools(num_pages + 1))
         self._sampler = make_batched_sampler(top_k, top_p)
+        self._spec_k = int(speculative_k)
+        if self._spec_k < 0:
+            raise ValueError(f"speculative_k must be >= 0, got {speculative_k}")
+        self._drafter = self._verifier = None
+        if self._spec_k:
+            from .speculative import NgramDrafter, make_verifier
+
+            self._drafter = NgramDrafter(self._spec_k, draft_max_ngram,
+                                         draft_min_ngram)
+            self._verifier = make_verifier(top_k, top_p)
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self._rid = 0
@@ -249,13 +297,18 @@ class ServingEngine:
         self._h_temps = np.zeros((self.num_slots,), np.float32)
         self._h_table = np.full((self.num_slots, self.table_width),
                                 self._scratch, np.int32)
+        # speculative verify rows: the last token + k drafts, draft lengths
+        self._h_ids = np.zeros((self.num_slots, self._spec_k + 1), np.int64)
+        self._h_dlen = np.zeros((self.num_slots,), np.int32)
         self._stop_evt = threading.Event()
         self._thread = None
         self._started = False
         self._draining = False
         self._modes = None
         self._iteration = 0       # decode steps run
-        self._prefills = 0        # prefills run
+        self._prefills = 0        # prefills run (monolithic or chunked)
+        self._prefill_chunks = 0  # chunked-prefill dispatches
+        self._verify_steps = 0    # speculative verify steps (of _iteration)
         self._error = None
         self._admitting = None    # request popped but not yet slotted
 
@@ -404,12 +457,19 @@ class ServingEngine:
             while not self._stop_evt.is_set():
                 try:
                     self._admit()
-                    if not any(s is not None for s in self._slots):
+                    # chunked prefill rides the same iteration as the
+                    # decode step: one budget of chunk work, then one step
+                    # over the lanes that finished ingesting
+                    self._advance_prefills()
+                    if not any(s is not None and s.prefilled is None
+                               for s in self._slots):
+                        if any(s is not None for s in self._slots):
+                            continue    # chunked prefills still advancing
                         with self._cv:
                             if not self._queue and not self._stop_evt.is_set():
                                 self._cv.wait(timeout=0.02)
                         continue
-                    self._plain_step()
+                    self._step_once()
                 except Exception as e:
                     # the thread's boundary: fail every waiter, don't hang
                     _logger.exception("serving scheduler failed")
@@ -466,7 +526,10 @@ class ServingEngine:
                 # between dequeue and slot assignment the request lives in
                 # _admitting, so a failure mid-prefill still fails its handle
                 self._admitting = req
-            self._prefill(req, alloc, free_slot)
+            if self._chunk_tokens and len(req.prompt) > self._chunk_tokens:
+                self._admit_chunked(req, alloc, free_slot)
+            else:
+                self._prefill(req, alloc, free_slot)
 
     def _prefill_bucket(self, S0):
         """Padded prefill width for a prompt of ``S0`` tokens: multiples of
@@ -508,23 +571,110 @@ class ServingEngine:
         self._pools = tuple(pools)
         tok = int(self._sample(logits, temps)[0])
         self._prefills += 1
-        slot = _Slot(req, alloc)
-        slot.last = tok
-        slot.produced = 1
+        slot = _Slot(req, alloc, table_row)
         req.handle.status = "running"
         self._slots[slot_idx] = slot
         self._admitting = None
-        self._h_table[slot_idx, :len(table_row)] = table_row
-        self._h_lens[slot_idx] = slot.length
-        self._h_temps[slot_idx] = slot.temp
-        self._h_last[slot_idx, 0] = tok
-        self._emit_token(slot, tok)
-        self._retire_if_done(slot_idx)
+        self._go_live(slot_idx, slot, tok)
 
-    def _plain_step(self):
+    def _go_live(self, i, slot, tok):
+        """Slot ``i``'s prompt is in the pools and ``tok`` is its first
+        token: fill its host row for the decode steps, seed the drafter,
+        emit the token."""
+        slot.last = tok
+        slot.produced = 1
+        self._h_table[i, :len(slot.table_row)] = slot.table_row
+        self._h_lens[i] = slot.length
+        self._h_temps[i] = slot.temp
+        self._h_last[i, 0] = tok
+        if self._drafter is not None:
+            self._drafter.register(i, slot.req.prompt)
+            self._drafter.extend(i, [tok])
+        self._emit_token(slot, tok)
+        self._retire_if_done(i)
+
+    # ------------------------------------------------- chunked prefill
+    def _admit_chunked(self, req, alloc, slot_idx):
+        """Admit a long prompt without running its prefill: the slot goes
+        live at once with ``prefilled=0`` and ingests chunk by chunk in
+        :meth:`_advance_prefills`, interleaved with decode.  Its host row
+        stays inert until the final chunk seeds decode."""
+        slot = _Slot(req, alloc, np.asarray(alloc.pages, np.int32))
+        slot.prefilled = 0
+        req.handle.status = "running"
+        self._slots[slot_idx] = slot
+        self._admitting = None
+
+    def _advance_prefills(self):
+        """One iteration's chunked-prefill work: up to
+        ``prefill_chunk_tokens`` prompt tokens across the slots mid-prefill,
+        round-robin so concurrent long prompts share the budget.  Cancelled
+        and expired slots retire here: they never reach a decode lane."""
+        if not self._chunk_tokens:
+            return
+        prefilling = [i for i, s in enumerate(self._slots)
+                      if s is not None and s.prefilled is not None]
+        start = self._prefill_rr
+        budget = self._chunk_tokens
+        for i in sorted(prefilling, key=lambda i: (i - start) % self.num_slots):
+            if budget <= 0:
+                return
+            s = self._slots[i]
+            h = s.handle
+            if h.cancelled or (s.deadline is not None
+                               and time.time() > s.deadline):
+                self._bm.free(s.alloc)
+                self._slots[i] = None
+                self._clear_slot_row(i)
+                self._finish(h, "cancelled" if h.cancelled else "expired")
+                continue
+            budget -= self._prefill_chunk_step(i, s)
+            self._prefill_rr = (i + 1) % self.num_slots
+
+    def _prefill_chunk_step(self, i, slot):
+        """Run ONE chunk of slot ``i``'s prompt: tokens ``prefilled ..
+        prefilled + C - 1`` (right-padded on the last chunk) at those
+        positions.  Pad-lane K/V lands past the valid length (or is dropped
+        past the table) and the first decode write overwrites it.  The
+        final chunk's token (sampled only there) seeds decode.  Returns the
+        prompt tokens ingested (the budget unit)."""
+        req = slot.req
+        C = self._chunk_tokens
+        S0 = len(req.prompt)
+        c0 = slot.prefilled
+        nval = min(C, S0 - c0)
+        ids = np.zeros((1, C), np.int64)
+        ids[0, :nval] = req.prompt[c0:c0 + nval]
+        table = np.full((1, self.table_width), self._scratch, np.int32)
+        table[0, :len(slot.table_row)] = slot.table_row
+        logits, *pools = self._adapter.prefill_chunk(
+            self._to_device(ids), self._to_device(np.asarray([nval], np.int32)),
+            *self._pools, self._to_device(table),
+            self._to_device(np.asarray([c0], np.int32)))
+        self._pools = tuple(pools)
+        self._prefill_chunks += 1
+        slot.prefilled = c0 + nval
+        if slot.prefilled < S0:
+            return nval
+        tok = int(self._sample(logits, np.asarray([slot.temp], np.float32))[0])
+        self._prefills += 1
+        slot.prefilled = None
+        self._go_live(i, slot, tok)
+        return nval
+
+    # ------------------------------------------------------------ decode
+    def _step_once(self):
+        """One decode iteration over the lanes that finished ingesting
+        (mid-prefill lanes stay inert in the dispatch)."""
+        active = [i for i, s in enumerate(self._slots)
+                  if s is not None and s.prefilled is None]
+        if self._spec_k:
+            return self._verify_once(active)
+        return self._plain_step(active)
+
+    def _plain_step(self, active):
         """One decode step for every lane; inactive lanes (length 0,
         all-scratch table row) compute junk nobody reads."""
-        active = [i for i, s in enumerate(self._slots) if s is not None]
         logits, *pools = self._adapter.step(
             self._to_device(self._h_last), *self._pools,
             self._to_device(self._h_table), self._to_device(self._h_lens))
@@ -539,7 +689,79 @@ class ServingEngine:
             self._h_lens[i] = s.length
             self._h_last[i, 0] = s.last
             self._emit_token(s, s.last)
-            self._retire_if_done(i)
+            if not self._retire_if_done(i) and self._drafter is not None:
+                # a speculative engine steps plainly when nothing was
+                # drafted: the drafter's context must keep growing
+                self._drafter.extend(i, [s.last])
+
+    def _verify_once(self, active):
+        """One speculative iteration: draft up to k tokens per slot, verify
+        them with the pending last token in ONE multi-token step, then emit
+        the longest accepted prefix plus the bonus / resample token per
+        slot, with the retire checks after every emitted token.  When no
+        slot drafted anything, the plain step gives the same tokens for
+        less work."""
+        K = self._spec_k
+        drafts = {}
+        for i in active:
+            s = self._slots[i]
+            self._h_ids[i, 0] = s.last
+            self._h_ids[i, 1:] = 0
+            # never draft past the budget or the position cap: the bonus
+            # token always lands, so at most remaining - 1 drafts fit
+            cap = min(K, s.max_new - s.produced - 1,
+                      self.max_model_len - s.length - 1)
+            d = self._drafter.propose(i, cap) if cap > 0 else []
+            self._h_ids[i, 1:1 + len(d)] = d
+            self._h_dlen[i] = len(d)
+            drafts[i] = d
+        if not any(drafts.values()):
+            return self._plain_step(active)
+        ids = self._to_device(self._h_ids)
+        logits, *pools = self._adapter.verify(
+            ids, *self._pools, self._to_device(self._h_table),
+            self._to_device(self._h_lens))
+        self._pools = tuple(pools)
+        targets, accept = self._verifier(
+            logits, ids[:, 1:], self._to_device(self._h_dlen),
+            self._to_device(self._h_temps), self._gen)
+        # one transfer to the host: this is the step's device sync
+        out = torch.cat([targets, accept.long()], dim=1).cpu().numpy()
+        targets, accept = out[:, :K + 1], out[:, K + 1:].astype(bool)
+        self._iteration += 1
+        self._verify_steps += 1
+        proposed = accepted = 0
+        for i in active:
+            s = self._slots[i]
+            d = drafts[i]
+            a = 0
+            while a < len(d) and accept[i, a]:
+                a += 1
+            proposed += len(d)
+            emitted = [int(t) for t in d[:a]] + [int(targets[i, a])]
+            # positions length .. length + a now hold the old last token
+            # and the accepted drafts; the rejected tail sits past the new
+            # length (rollback = the length does not advance over it)
+            done = False
+            n = 0
+            for tok in emitted:
+                s.length += 1
+                s.produced += 1
+                s.last = tok
+                self._h_lens[i] = s.length
+                self._h_last[i, 0] = tok
+                self._emit_token(s, tok)
+                n += 1
+                if self._retire_if_done(i):
+                    done = True
+                    break
+            # accepted = drafts that became output tokens (an early
+            # retirement discards the rest)
+            accepted += min(n, a)
+            if not done:
+                self._drafter.extend(i, emitted)
+        self._spec_proposed_total += proposed
+        self._spec_accepted_total += accepted
 
     def _emit_token(self, slot, tok):
         h = slot.handle
@@ -575,12 +797,16 @@ class ServingEngine:
         self._h_lens[i] = 0
         self._h_temps[i] = 0.0
         self._h_last[i, 0] = 0
+        if self._drafter is not None:
+            self._drafter.release(i)
 
     def _reset_host_buffers(self):
         self._h_table[:] = self._scratch
         self._h_lens[:] = 0
         self._h_temps[:] = 0.0
         self._h_last[:] = 0
+        if self._drafter is not None:
+            self._drafter.reset()
 
     def _finish(self, handle, status):
         handle.status = status
@@ -598,6 +824,8 @@ class ServingEngine:
             "device": str(self.device),
             "iteration": self._iteration,
             "prefills": self._prefills,
+            "prefill_chunks": self._prefill_chunks,
+            "verify_steps": self._verify_steps,
             "queue_depth": len(self._queue),
             "active_slots": sum(1 for s in self._slots if s is not None),
             "num_slots": self.num_slots,
@@ -612,5 +840,9 @@ class ServingEngine:
             "weight_dtype": self.weight_dtype,
             "pool_dtype": self._pool_dtype,
             "kv_bytes_per_token": self._bytes_per_page / self.page_size,
+            # speculative decoding: drafts verified / drafts emitted
+            "spec_proposed": self._spec_proposed_total,
+            "spec_accepted": self._spec_accepted_total,
+            "prefill_chunk_tokens": self._chunk_tokens,
             "error": repr(self._error) if self._error is not None else None,
         }

@@ -9,11 +9,12 @@ but the KV state is four tensors instead of two:
 - ``k_scales, v_scales``: float32 scale pools ``[L, P, ps, h]`` — one
   absmax scale per (page slot, kv head), addressed by the SAME page table.
 
-The ``served_q`` cache variant of :class:`GPTDecoderLayer` rounds K/V onto
-the int8 grid on the way into every pool write
-(``ops.paged_attention.paged_table_*_write_quant``) and decodes through
-``paged_attention_quantized`` (K4 on the card), which dequantizes inside
-the kernel.  Prefill attends the full-precision prompt; only the cache is
+The ``served_q`` / ``served_chunk_q`` cache variants of
+:class:`GPTDecoderLayer` round K/V onto the int8 grid on the way into
+every pool write (``ops.paged_attention.paged_table_*_write_quant``) and
+attend through ``paged_attention_quantized`` / ``paged_chunk_attend_quant``
+(K4 on the card), which dequantize inside the kernel; speculative verify
+and chunked prefill ride the inherited ``verify`` / ``prefill_chunk``.  Prefill attends the full-precision prompt; only the cache is
 quantized.  The pools are written in place.
 """
 
@@ -28,6 +29,7 @@ class QuantizedGPTAdapter(GPTAdapter):
     """``ServingEngine(kv_dtype="int8")`` builds one of these."""
 
     tag = "served_q"
+    chunk_tag = "served_chunk_q"
 
     def init_pools(self, num_pages):
         """Zeroed ``(kp, vp, k_scales, v_scales)``: int8 payload pools
@@ -47,7 +49,7 @@ class QuantizedGPTAdapter(GPTAdapter):
         return (2 * self.num_layers * self.page_size * self.num_kv_heads
                 * (self.head_dim + 4))
 
-    def _layer_caches(self, pools, table, lens):
+    def _layer_caches(self, tag, pools, table, lens):
         kp, vp, ks, vs = pools
-        return [(self.tag, kp[i], vp[i], ks[i], vs[i], table, lens)
+        return [(tag, kp[i], vp[i], ks[i], vs[i], table, lens)
                 for i in range(self.num_layers)]

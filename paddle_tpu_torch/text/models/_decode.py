@@ -1,6 +1,12 @@
-"""Sampling shared by the serving engine (counterpart of
-``paddle_tpu/text/models/_decode.py``; the jitted generate() loop there
-waits for a later slice).
+"""The decode loop and the samplers (counterpart of
+``paddle_tpu/text/models/_decode.py``): ``generate()``'s prefill + one
+step per token over preallocated caches (:func:`decode_loop`,
+:func:`jitted_decode`), beam search, and the samplers the serving engine
+and the speculative verifier share.
+
+The TPU package compiles the prefill and a step with donated caches; here
+the "compiled step" is the eager step over caches preallocated once and
+updated in place, with the tokens kept on the device until the end.
 
 Randomness comes from an explicit ``torch.Generator`` on the logits'
 device.  It draws other numbers than ``jax.random`` from the same seed, so
@@ -13,6 +19,7 @@ failing the batch.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -42,6 +49,22 @@ def gumbel(shape, dtype, device, generator):
     return -torch.log(-torch.log(u))
 
 
+def make_sampler(temperature, top_k, top_p):
+    """``generate()``'s sampler: ``sample(logits [B, V], generator) ->
+    [B]``; argmax at ``temperature == 0``, else a Gumbel-max draw from
+    ``softmax(filter(logits / temperature))``."""
+
+    def sample(logits, generator):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1)
+        l = logits / max(temperature, 1e-6)
+        l = apply_top_k_top_p(l, top_k, top_p)
+        return torch.argmax(l + gumbel(l.shape, l.dtype, l.device, generator),
+                            dim=-1)
+
+    return sample
+
+
 def make_batched_sampler(top_k=0, top_p=1.0):
     """Per-slot sampler for the serving engine: ``sample(logits [B, V],
     temps [B], generator) -> [B] int64``.  Rows with ``temps <= 0`` take
@@ -57,3 +80,185 @@ def make_batched_sampler(top_k=0, top_p=1.0):
         return torch.where(temps <= 0.0, greedy, samp)
 
     return sample
+
+
+def host_ids(input_ids):
+    """``[B, S]`` prompt ids as an int64 numpy array (from a tensor on any
+    device, or an array)."""
+    if isinstance(input_ids, torch.Tensor):
+        input_ids = input_ids.detach().cpu().numpy()
+    return np.asarray(input_ids).astype(np.int64)
+
+
+def _model_device(model):
+    return next(model.parameters()).device
+
+
+def decode_loop(model, fwd, ids0, max_new_tokens, init_cache,
+                temperature=1.0, top_k=0, top_p=1.0, seed=None):
+    """Prefill + one step per new token over an arbitrary cache.
+
+    ``fwd(ids [B, S] int64, cache, pos: int) -> (last-token logits f32
+    [B, V], cache)``, the cache updated in place.  The model runs in eval
+    mode (restored after) under ``torch.inference_mode``; the sampled
+    tokens stay on the device, and one concatenation at the end gives the
+    id matrix ``[B, S0 + max_new_tokens]`` on the model's device."""
+    device = _model_device(model)
+    S0 = ids0.shape[1]
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    sample = make_sampler(temperature, top_k, top_p)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed if seed is not None else 0)
+    try:
+        with torch.inference_mode():
+            ids = torch.as_tensor(ids0, device=device)
+            cache = init_cache()
+            logits, cache = fwd(ids, cache, 0)
+            nxt = sample(logits, gen)
+            out = [ids, nxt[:, None]]
+            for t in range(1, max_new_tokens):
+                logits, cache = fwd(nxt[:, None], cache, S0 + t - 1)
+                nxt = sample(logits, gen)
+                out.append(nxt[:, None])
+            return torch.cat(out, dim=1)
+    finally:
+        for m, tr in modes:
+            m.training = tr
+
+
+def jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape, cache_dtype,
+                  temperature=1.0, top_k=0, top_p=1.0, seed=None):
+    """Dense-cache decode: zeroed K/V buffers ``cache_shape`` ``[L, B, T,
+    h, d]`` on the model's device; ``fwd(ids, ks, vs, pos) -> (logits, ks,
+    vs)``.  The name is the TPU package's; nothing is compiled here."""
+    device = _model_device(model)
+
+    def fwd_cache(ids, cache, pos):
+        ks, vs = cache
+        logits, ks, vs = fwd(ids, ks, vs, pos)
+        return logits, (ks, vs)
+
+    def init_cache():
+        ks = torch.zeros(tuple(cache_shape), dtype=cache_dtype, device=device)
+        return ks, torch.zeros_like(ks)
+
+    return decode_loop(model, fwd_cache, ids0, max_new_tokens, init_cache,
+                       temperature=temperature, top_k=top_k, top_p=top_p,
+                       seed=seed)
+
+
+def paged_pool_shape(batch, max_len, num_kv_heads, head_dim, page_size=16):
+    """``[B, PP, ps, h, d]`` pool shape covering ``max_len`` tokens."""
+    pp = -(-max_len // page_size)
+    return (batch, pp, page_size, num_kv_heads, head_dim)
+
+
+def beam_search(model, input_ids, max_new_tokens, num_beams=4,
+                length_penalty=0.0, eos_token_id=None):
+    """Beam search (PaddleNLP ``decode_strategy='beam_search'``):
+    ``num_beams`` hypotheses per batch item, expanded by log-prob, the
+    global top beams kept, each hypothesis penalized by its own finished
+    length at the end.  The bookkeeping is host numpy; scoring runs the
+    no-cache forward (K1 on the card) over prefixes right-padded to
+    ``S0 + max_new_tokens``, and takes the logits at ``pos - 1`` (causality
+    makes the padding invisible there), so every step has one shape.
+
+    model: a causal LM (``model(ids) -> [N, S, V]`` logits).  Returns
+    ``[B, S0 + max_new_tokens]`` int64 on the model's device (best beam
+    per item; an early EOS pads with EOS)."""
+    if max_new_tokens <= 0:
+        return input_ids
+    ids0 = host_ids(input_ids)
+    B, S0 = ids0.shape
+    device = _model_device(model)
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    S_max = S0 + max_new_tokens
+
+    def last_logits(arr, cur_len):
+        padded = np.zeros((arr.shape[0], S_max), np.int64)
+        padded[:, :cur_len] = arr
+        with torch.inference_mode():
+            out = model(torch.as_tensor(padded, device=device))
+            return out[:, cur_len - 1].double().cpu().numpy()
+
+    def log_softmax(l):
+        m = l.max(-1, keepdims=True)
+        return l - (np.log(np.exp(l - m).sum(-1, keepdims=True)) + m)
+
+    try:
+        # first expansion: top num_beams continuations of each prompt
+        logp = log_softmax(last_logits(ids0, S0))
+        V = logp.shape[-1]
+        top = np.argsort(-logp, axis=-1)[:, :num_beams]        # [B, beams]
+        scores = np.take_along_axis(logp, top, -1)             # [B, beams]
+        seqs = np.concatenate(
+            [np.repeat(ids0[:, None], num_beams, 1), top[..., None]], -1)
+        done = np.zeros((B, num_beams), bool)
+        # finished-hypothesis pool per item: a beam is recorded the moment
+        # it hits EOS, so later eviction from the live set cannot lose it
+        pool = [[] for _ in range(B)]  # (penalized score, seq)
+
+        def penalize(sc, ln):
+            return sc / (max(ln, 1) ** length_penalty) if length_penalty \
+                else sc
+
+        def record(b, k, t):
+            pool[b].append((penalize(scores[b, k], t), seqs[b, k].copy()))
+
+        if eos_token_id is not None:
+            done |= top == eos_token_id
+            for b, k in zip(*np.nonzero(done)):
+                record(b, k, 1)
+
+        for t in range(1, max_new_tokens):
+            if done.all():
+                break
+            logp = log_softmax(last_logits(seqs.reshape(B * num_beams, -1),
+                                           seqs.shape[-1]))
+            logp = logp.reshape(B, num_beams, V)
+            if eos_token_id is not None:
+                # finished beams only extend with EOS at no cost
+                frozen = np.full((V,), -np.inf)
+                frozen[eos_token_id] = 0.0
+                logp = np.where(done[..., None], frozen, logp)
+            cand = scores[..., None] + logp                    # [B, beams, V]
+            pick = np.argsort(-cand.reshape(B, num_beams * V),
+                              axis=-1)[:, :num_beams]
+            beam_idx, tok = pick // V, pick % V
+            scores = np.take_along_axis(cand.reshape(B, num_beams * V),
+                                        pick, -1)
+            seqs = np.concatenate(
+                [np.take_along_axis(seqs, beam_idx[..., None], 1),
+                 tok[..., None]], -1)
+            done = np.take_along_axis(done, beam_idx, 1)
+            if eos_token_id is not None:
+                just = (~done) & (tok == eos_token_id)
+                done |= just
+                for b, k in zip(*np.nonzero(just)):
+                    record(b, k, t + 1)
+    finally:
+        for m, tr in modes:
+            m.training = tr
+
+    # best hypothesis = max over the finished pool and the live beams.
+    # seqs is [B, beams, length]: the TPU package reads seqs.shape[1] (the
+    # beam count) here as the length, so a pooled EOS hypothesis is never
+    # padded (np.stack raises when rows differ) and live beams are
+    # penalized by max(beams - S0, 1); the port uses the length
+    out_rows = []
+    gen_total = seqs.shape[-1] - S0
+    padv = eos_token_id if eos_token_id is not None else 0
+    for b in range(B):
+        cands = list(pool[b])
+        for k in range(num_beams):
+            if not done[b, k]:  # live beam: penalized by its full length
+                cands.append((penalize(scores[b, k], gen_total), seqs[b, k]))
+        best_seq = max(cands, key=lambda x: x[0])[1]
+        if len(best_seq) < S_max:  # a pool snapshot from an early step
+            best_seq = np.concatenate(
+                [best_seq, np.full(S_max - len(best_seq), padv,
+                                   best_seq.dtype)])
+        out_rows.append(best_seq)
+    return torch.as_tensor(np.stack(out_rows), device=device)

@@ -1,16 +1,12 @@
 """GPT decoder LM (counterpart of ``paddle_tpu/text/models/gpt.py``).
 
-Ported for the serving and training slices: the pre-LN decoder block with
-its no-cache path (full causal attention, which training takes; on the
-card it runs the flash kernels forward and backward) and its ``"served"``
-cache variant — ONE
-global page pool per layer for K and V, shared by every slot through a
-page table, with per-slot lengths.  Prefill (S > 1) attends the prompt
-with the flash kernel and writes its K/V into the pool; decode (S == 1)
-writes the token first, then attends with the paged flash-decode kernel
-over ``lens + 1`` positions.  The ``"served_q"`` variant does the same
-over int8 pools with parallel float32 scale pools: the writes quantize,
-decode runs the dequantizing kernel.  The pools are updated in place.
+The pre-LN decoder block with its no-cache path (full causal attention,
+which training takes; on the card it runs the flash kernels forward and
+backward) and its cache variants (:meth:`GPTDecoderLayer.forward`): the
+static dense cache and the per-sequence ``"paged"`` pools of
+:meth:`GPTForCausalLM.generate`, and the serving engine's global-pool
+variants ``"served"`` / ``"served_chunk"`` and their int8 twins
+``"served_q"`` / ``"served_chunk_q"``.  Every cache is updated in place.
 
 The qkv projection's output is HEAD-MAJOR, ``[B, S, heads, 3, head_dim]``,
 as in the TPU package (a column split over heads hands each shard whole
@@ -19,6 +15,7 @@ as in the TPU package (a column split over heads hands each shard whole
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ... import amp
@@ -27,10 +24,16 @@ from ...nn import functional as F
 from ...nn.layers.common import Linear
 from ...nn.layers.norm import LayerNorm
 from ...ops.paged_attention import (paged_attention, paged_attention_quantized,
+                                    paged_chunk_attend,
+                                    paged_chunk_attend_quant,
+                                    paged_decode_attend, paged_prefill_write,
+                                    paged_table_chunk_write,
+                                    paged_table_chunk_write_quant,
                                     paged_table_prefill_write,
                                     paged_table_prefill_write_quant,
                                     paged_table_token_write,
-                                    paged_table_token_write_quant)
+                                    paged_table_token_write_quant,
+                                    paged_token_write)
 
 
 class GPTDecoderLayer(torch.nn.Module):
@@ -53,13 +56,31 @@ class GPTDecoderLayer(torch.nn.Module):
         self.act = getattr(F, act)
 
     def forward(self, x, cache=None):
-        """``cache`` is None (full causal attention over ``x``), the
-        served tuple ``("served", kp, vp, table, lens)`` — this layer's
-        pools ``[P, ps, heads, head_dim]``, the page table ``[B, NP]``
-        int32 and the per-slot lengths ``[B]`` int32 — or the quantized
-        ``("served_q", kp, vp, ks, vs, table, lens)`` with int8 pools and
-        float32 scale pools ``[P, ps, heads]``.  Returns ``x``, or ``(x,
-        cache)`` with the same (updated in place) pools."""
+        """``cache`` is None (full causal attention over ``x``) or one of
+        the cache tuples below; returns ``x``, or ``(x, cache)`` with the
+        same tuple (its buffers and pools updated in place):
+
+        - ``(k_buf, v_buf, pos)`` — the static dense cache of
+          ``generate()``: ``[B, T, heads, head_dim]`` buffers written at
+          ``pos`` (a Python int), attended under an additive float32 mask
+          (the plain attention, on the card too, as in the TPU package);
+        - ``("paged", kp, vp, pos)`` — ``generate(cache_impl="paged")``:
+          per-sequence pools ``[B, PP, ps, heads, head_dim]``; prefill
+          attends with the flash kernel, decode through
+          ``paged_decode_attend`` (K3);
+        - ``("served", kp, vp, table, lens)`` — the serving engine: this
+          layer's global pools ``[P, ps, heads, head_dim]``, the page table
+          ``[B, NP]`` int32 and the per-slot lengths ``[B]`` int32;
+          prefill (S > 1) attends with the flash kernel, decode (S == 1)
+          writes the token and attends with K3 over ``lens + 1``;
+        - ``("served_chunk", kp, vp, table, lens)`` — S tokens per slot at
+          positions ``lens[b] ..`` (speculative verify, chunked prefill):
+          one chunk write, then ``paged_chunk_attend`` (K3 over the
+          ``[B*S]``-row expansion);
+        - ``("served_q" | "served_chunk_q", kp, vp, ks, vs, table, lens)``
+          — the same over int8 pools with float32 scale pools
+          ``[P, ps, heads]``: the writes quantize, decode and chunks run
+          K4."""
         residual = x
         h = self.ln1(x)
         qkv = self.qkv(h)
@@ -70,45 +91,78 @@ class GPTDecoderLayer(torch.nn.Module):
             attn = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=self.attn_dropout,
                 training=self.training)
-        elif cache[0] == "served":
-            _, kp, vp, table, lens = cache
-            if S > 1:
-                # admit-time prefill over the right-padded prompt; pad
-                # positions write junk into pages that per-slot lengths
-                # (or the engine's scratch page) keep invisible
-                attn = F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, dropout_p=0.0, training=False)
-                paged_table_prefill_write(kp, k, table)
-                paged_table_prefill_write(vp, v, table)
-            else:
-                paged_table_token_write(kp, k[:, 0], table, lens)
-                paged_table_token_write(vp, v[:, 0], table, lens)
-                attn = paged_attention(q[:, 0], kp, vp, table, lens + 1)[:, None]
-        elif cache[0] == "served_q":
-            # quantized pools: prefill attends the full-precision prompt
-            # (only the cache is quantized); the writes round K/V onto the
-            # int8 grid; decode dequantizes inside the kernel
-            _, kp, vp, ks, vs, table, lens = cache
-            if S > 1:
-                attn = F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, dropout_p=0.0, training=False)
-                paged_table_prefill_write_quant(kp, ks, k, table)
-                paged_table_prefill_write_quant(vp, vs, v, table)
-            else:
-                paged_table_token_write_quant(kp, ks, k[:, 0], table, lens)
-                paged_table_token_write_quant(vp, vs, v[:, 0], table, lens)
-                attn = paged_attention_quantized(q[:, 0], kp, vp, ks, vs,
-                                                 table, lens + 1)[:, None]
         else:
-            raise NotImplementedError(
-                f"cache variant {cache[0]!r} is not ported yet (only "
-                f"'served' and 'served_q')")
+            attn = self._attend_cached(q, k, v, cache)
         attn = attn.reshape(B, S, heads * self.head_dim)
         x = residual + self.dropout(self.out_proj(attn))
         residual = x
         h = self.ffn2(self.act(self.ffn1(self.ln2(x))))
         x = residual + self.dropout(h)
         return x if cache is None else (x, cache)
+
+    @staticmethod
+    def _prefill_attend(q, k, v):
+        # prompt attention of the cache variants; pad positions of a
+        # right-padded prompt write junk that lengths keep invisible
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              dropout_p=0.0, training=False)
+
+    def _attend_cached(self, q, k, v, cache):
+        S = q.shape[1]
+        if len(cache) == 3 and not isinstance(cache[0], str):
+            k_buf, v_buf, pos = cache
+            k_buf[:, pos:pos + S] = k.to(k_buf.dtype)
+            v_buf[:, pos:pos + S] = v.to(v_buf.dtype)
+            T = k_buf.shape[1]
+            i = torch.arange(S, device=q.device)[:, None]
+            j = torch.arange(T, device=q.device)[None, :]
+            mask = torch.zeros((S, T), dtype=torch.float32, device=q.device) \
+                .masked_fill_(j > pos + i, -1e30)[None, None]
+            return F.scaled_dot_product_attention(
+                q, k_buf, v_buf, attn_mask=mask, dropout_p=0.0,
+                training=False)
+        tag = cache[0]
+        if tag == "paged":
+            _, kp, vp, pos = cache
+            if S > 1:
+                paged_prefill_write(kp, k)
+                paged_prefill_write(vp, v)
+                return self._prefill_attend(q, k, v)
+            paged_token_write(kp, k[:, 0], pos)
+            paged_token_write(vp, v[:, 0], pos)
+            return paged_decode_attend(q[:, 0], kp, vp, pos)[:, None]
+        if tag == "served":
+            _, kp, vp, table, lens = cache
+            if S > 1:
+                paged_table_prefill_write(kp, k, table)
+                paged_table_prefill_write(vp, v, table)
+                return self._prefill_attend(q, k, v)
+            paged_table_token_write(kp, k[:, 0], table, lens)
+            paged_table_token_write(vp, v[:, 0], table, lens)
+            return paged_attention(q[:, 0], kp, vp, table, lens + 1)[:, None]
+        if tag == "served_chunk":
+            _, kp, vp, table, lens = cache
+            paged_table_chunk_write(kp, k, table, lens)
+            paged_table_chunk_write(vp, v, table, lens)
+            return paged_chunk_attend(q, kp, vp, table, lens)
+        if tag == "served_chunk_q":
+            _, kp, vp, ks, vs, table, lens = cache
+            paged_table_chunk_write_quant(kp, ks, k, table, lens)
+            paged_table_chunk_write_quant(vp, vs, v, table, lens)
+            return paged_chunk_attend_quant(q, kp, vp, ks, vs, table, lens)
+        if tag == "served_q":
+            # quantized pools: prefill attends the full-precision prompt
+            # (only the cache is quantized); decode dequantizes in K4
+            _, kp, vp, ks, vs, table, lens = cache
+            if S > 1:
+                paged_table_prefill_write_quant(kp, ks, k, table)
+                paged_table_prefill_write_quant(vp, vs, v, table)
+                return self._prefill_attend(q, k, v)
+            paged_table_token_write_quant(kp, ks, k[:, 0], table, lens)
+            paged_table_token_write_quant(vp, vs, v[:, 0], table, lens)
+            return paged_attention_quantized(q[:, 0], kp, vp, ks, vs, table,
+                                             lens + 1)[:, None]
+        raise ValueError(f"unknown cache variant {tag!r}")
 
 
 class GPTModel(torch.nn.Module):
@@ -181,3 +235,135 @@ class GPTForCausalLM(torch.nn.Module):
             return logits
         return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                                labels[:, 1:].reshape(-1), reduction="mean")
+
+    # ------------------------------------------------------------ generation
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0, top_k=0,
+                 top_p=1.0, seed=None, use_cache=True,
+                 decode_strategy="sampling", num_beams=4, length_penalty=0.0,
+                 eos_token_id=None, cache_impl="dense", page_size=16,
+                 max_len=None):
+        """Autoregressive generation; ``input_ids`` ``[B, S0]`` (a tensor
+        or an array), returns ``[B, S0 + max_new_tokens]`` int64 on the
+        model's device.
+
+        ``use_cache=True``: one prefill writes the prompt's K/V into
+        preallocated caches, then one single-token step per new token
+        (``_decode.decode_loop``); the caches are updated in place.
+        ``cache_impl="dense"`` keeps ``[L, B, T, h, d]`` buffers attended
+        under a mask (the plain attention, as in the TPU package);
+        ``"paged"`` keeps per-sequence page pools, prefill through the
+        flash kernel (K1) and decode through ``paged_decode_attend`` (K3).
+        ``max_len`` pre-sizes the caches beyond ``S0 + max_new_tokens``.
+        Greedy (``temperature=0``) ids are the same either way; sampling
+        draws by Gumbel-max from a ``torch.Generator`` seeded with
+        ``seed``.  ``use_cache=False``: the eager full-prefix loop, sampled
+        on the host from ``np.random.RandomState(seed)``.
+        ``decode_strategy="beam_search"``: :func:`_decode.beam_search`."""
+        if decode_strategy == "beam_search":
+            from ._decode import beam_search
+
+            return beam_search(self, input_ids, max_new_tokens,
+                               num_beams=num_beams,
+                               length_penalty=length_penalty,
+                               eos_token_id=eos_token_id)
+        if not use_cache:
+            return self._generate_eager(input_ids, max_new_tokens, temperature,
+                                        top_k, top_p, seed)
+        if max_new_tokens <= 0:
+            return input_ids
+        from ._decode import (decode_loop, host_ids, jitted_decode,
+                              paged_pool_shape)
+
+        ids0 = host_ids(input_ids)
+        B, S0 = ids0.shape
+        T = max(S0 + max_new_tokens, max_len or 0)
+        max_pos = self.gpt.position_embeddings.weight.shape[0]
+        if T > max_pos:
+            raise ValueError(
+                f"generate: prompt {S0} + max_new_tokens {max_new_tokens} "
+                f"(cache {T}) exceeds max_position_embeddings {max_pos}")
+        gpt = self.gpt
+        L = len(gpt.layers)
+        blk = gpt.layers[0]
+        w = gpt.word_embeddings.weight
+        sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                        seed=seed)
+
+        def run(ids, cache, pos):
+            S = ids.shape[1]
+            pos_ids = pos + torch.arange(S, device=ids.device)[None, :]
+            x, _ = gpt(ids, position_ids=pos_ids, cache=cache)
+            return x[:, -1].float() @ w.float().T
+
+        if cache_impl == "paged":
+            pool = paged_pool_shape(B, T, blk.num_heads, blk.head_dim,
+                                    page_size)
+
+            def fwd_paged(ids, cache, pos):
+                kps, vps = cache
+                return run(ids, [("paged", kps[i], vps[i], pos)
+                                 for i in range(L)], pos), cache
+
+            def init_cache():
+                kp = torch.zeros((L,) + pool, dtype=w.dtype, device=w.device)
+                return kp, torch.zeros_like(kp)
+
+            return decode_loop(self, fwd_paged, ids0, max_new_tokens,
+                               init_cache, **sampling)
+        if cache_impl != "dense":
+            raise ValueError(f"cache_impl must be 'dense' or 'paged', "
+                             f"got {cache_impl!r}")
+
+        def fwd(ids, ks, vs, pos):
+            return run(ids, [(ks[i], vs[i], pos) for i in range(L)],
+                       pos), ks, vs
+
+        return jitted_decode(self, fwd, ids0, max_new_tokens,
+                             (L, B, T, blk.num_heads, blk.head_dim), w.dtype,
+                             **sampling)
+
+    def _generate_eager(self, input_ids, max_new_tokens=32, temperature=1.0,
+                        top_k=0, top_p=1.0, seed=None):
+        """Full-prefix loop: every step runs the no-cache forward (K1 on
+        the card) over the whole sequence so far, and picks the next token
+        on the host with numpy, from ``np.random.RandomState(seed)`` when
+        sampling, as the TPU package does."""
+        from ._decode import host_ids
+
+        ids = host_ids(input_ids)
+        max_pos = self.gpt.position_embeddings.weight.shape[0]
+        if ids.shape[1] + max_new_tokens > max_pos:
+            raise ValueError(
+                f"generate: prompt {ids.shape[1]} + max_new_tokens "
+                f"{max_new_tokens} exceeds max_position_embeddings {max_pos}")
+        dev = self.gpt.word_embeddings.weight.device
+        rng = np.random.RandomState(seed)
+        for _ in range(max_new_tokens):
+            with torch.inference_mode():
+                logits = self.forward(torch.as_tensor(ids, device=dev))
+            step = logits[:, -1].float().cpu().numpy()
+            if temperature != 1.0:
+                step = step / max(temperature, 1e-6)
+            if top_k:
+                kk = min(int(top_k), step.shape[-1])
+                kth = np.sort(step, axis=-1)[:, -kk][:, None]
+                step = np.where(step < kth, -np.inf, step)
+            if temperature == 0.0:
+                nxt = step.argmax(-1)
+            else:
+                p = np.exp(step - step.max(-1, keepdims=True))
+                p /= p.sum(-1, keepdims=True)
+                if top_p < 1.0:  # nucleus: smallest prefix >= top_p
+                    srt = np.argsort(-p, axis=-1)
+                    ps = np.take_along_axis(p, srt, -1)
+                    keep = np.cumsum(ps, -1) - ps < top_p
+                    ps = np.where(keep, ps, 0.0)
+                    ps = ps / ps.sum(-1, keepdims=True)
+                    pick = np.stack([rng.choice(ps.shape[-1], p=ps[i])
+                                     for i in range(ps.shape[0])])
+                    nxt = np.take_along_axis(srt, pick[:, None], -1)[:, 0]
+                else:
+                    nxt = np.array([rng.choice(p.shape[-1], p=p[i])
+                                    for i in range(p.shape[0])])
+            ids = np.concatenate([ids, nxt[:, None]], axis=1)
+        return torch.as_tensor(ids, device=dev)

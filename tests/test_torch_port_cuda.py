@@ -651,3 +651,185 @@ def test_qat_tiny_gpt_trains_on_card_like_cpu(cuda):
             outs[dev] = [h.result(timeout=300) for h in hs]
     assert [o[0] for o in outs["cuda"]] == [o[0] for o in outs["cpu"]]
     assert top1_agreement(outs["cpu"], outs["cuda"]) >= 0.8
+
+
+# ------------------------------------- generate() and speculative / chunked
+def _stacked_pools(gen, dtype, L, shape):
+    """Layer 1 of stacked ``[L, *shape]`` pools (a view, as generate()
+    hands each layer)."""
+    return [torch.randn((L,) + shape, generator=gen, device="cuda").to(dtype)[1]
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,PP,pos", [(4, 20, 300), (8, 40, 639), (1, 1, 0)])
+def test_paged_decode_attend_identity_table(cuda, dtype, B, PP, pos):
+    """K3 over generate()'s per-sequence pools viewed as [B*PP, ...] with
+    the identity table, against the plain version on the CPU."""
+    kp, vp = _stacked_pools(cuda, dtype, 3, (B, PP, 16, 12, 64))
+    q = torch.randn(B, 12, 64, generator=cuda, device="cuda").to(dtype)
+    k3, via = pa.LAUNCHES, pa.DECODE_ATTEND_LAUNCHES
+    o = pa.paged_decode_attend(q, kp, vp, pos)
+    assert pa.LAUNCHES == k3 + 1 and pa.DECODE_ATTEND_LAUNCHES == via + 1
+    ref = pa.paged_decode_attend(q.cpu(), kp.cpu(), vp.cpu(), pos)
+    torch.testing.assert_close(o.cpu().float(), ref.float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+def _chunk_inputs(gen, dtype, B, C, lens, NP=64, quant=False):
+    P = B * NP + 1
+    table = torch.randperm(P - 1, generator=gen, device="cuda")[:B * NP] \
+        .to(torch.int32).reshape(B, NP)
+    q = torch.randn(B, C, 12, 64, generator=gen, device="cuda").to(dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if quant:
+        return (q, *_quant_pools(gen, P, 16, 12, 64), table, ln)
+    kp = torch.randn(P, 16, 12, 64, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(P, 16, 12, 64, generator=gen, device="cuda").to(dtype)
+    return q, kp, vp, table, ln
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("B,C,lens", [
+    (8, 5, [514, 916, 354, 835, 193, 675, 113, 1021]),   # verify, one at cap
+    (1, 128, [512]),                                     # one prefill chunk
+    (3, 17, [0, 1000, 40]),
+])
+def test_chunk_attend_expanded_rows(cuda, dtype, quant, B, C, lens):
+    """K3 (K4 over int8 pools) over the [B*C]-row expansion, against the
+    plain version on the card, a second launch bit-equal."""
+    args = _chunk_inputs(cuda, dtype, B, C, lens, quant=quant)
+    if quant:
+        fn, ref_fn = pa.paged_chunk_attend_quant, pa.paged_chunk_attend_quant_ref
+        before = (pa.QUANT_LAUNCHES, pa.QUANT_CHUNK_LAUNCHES)
+    else:
+        fn, ref_fn = pa.paged_chunk_attend, pa.paged_chunk_attend_ref
+        before = (pa.LAUNCHES, pa.CHUNK_LAUNCHES)
+    o = fn(*args)
+    after = (pa.QUANT_LAUNCHES, pa.QUANT_CHUNK_LAUNCHES) if quant \
+        else (pa.LAUNCHES, pa.CHUNK_LAUNCHES)
+    assert after == (before[0] + 1, before[1] + 1)
+    assert torch.equal(fn(*args), o)
+    torch.testing.assert_close(o.float(), ref_fn(*args).float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_chunk_write_on_card_equals_cpu(cuda, quant):
+    """The chunk write with lanes past the table (a slot at the cap, one
+    wholly past it) is byte-equal on the card and on the CPU."""
+    P, ps, NP = 13, 4, 3
+    table = torch.randperm(P - 1, generator=cuda, device="cuda")[:9] \
+        .to(torch.int32).reshape(3, NP)
+    lens = torch.tensor([2, 10, 13], dtype=torch.int32, device="cuda")
+    kv = torch.randn(3, 5, 2, 8, generator=cuda, device="cuda")
+    pool = torch.randn(P, ps, 2, 8, generator=cuda, device="cuda")
+    if quant:
+        pool = pool.mul(50).to(torch.int8)
+        spool = torch.rand(P, ps, 2, generator=cuda, device="cuda")
+        got = pa.paged_table_chunk_write_quant(pool.clone(), spool.clone(),
+                                               kv, table, lens)
+        want = pa.paged_table_chunk_write_quant(
+            pool.cpu(), spool.cpu(), kv.cpu(), table.cpu(), lens.cpu())
+    else:
+        got = (pa.paged_table_chunk_write(pool.clone(), kv, table, lens),)
+        want = (pa.paged_table_chunk_write(pool.cpu(), kv.cpu(), table.cpu(),
+                                           lens.cpu()),)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["additive", "bool"])
+def test_masked_attention_on_card_matches_cpu(cuda, dtype, mask_kind):
+    """A masked call without dropout runs the plain attention on the card
+    (the dense decode cache's path), as on the CPU."""
+    from paddle_tpu_torch.nn import functional as TF
+
+    q = torch.randn(2, 5, 4, 64, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(2, 20, 4, 64, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(2, 20, 4, 64, generator=cuda, device="cuda").to(dtype)
+    keep = torch.arange(20, device="cuda")[None, :] \
+        <= 14 + torch.arange(5, device="cuda")[:, None]
+    mask = keep[None, None] if mask_kind == "bool" else \
+        torch.zeros(1, 1, 5, 20, device="cuda").masked_fill(~keep, -1e30)
+    o = TF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                        training=False)
+    ref = TF.scaled_dot_product_attention(q.cpu(), k.cpu(), v.cpu(),
+                                          attn_mask=mask.cpu(), training=False)
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.cpu().float(), ref.float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+def test_dropout_on_card_still_raises(cuda):
+    from paddle_tpu_torch.nn import functional as TF
+
+    q = torch.randn(1, 8, 2, 64, device="cuda")
+    mask = torch.zeros(1, 1, 8, 8, device="cuda")
+    with pytest.raises(NotImplementedError):
+        TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+                                        is_causal=True)
+    with pytest.raises(NotImplementedError):
+        TF.scaled_dot_product_attention(q, q, q, attn_mask=mask,
+                                        dropout_p=0.1)
+
+
+def _tiny_pair(cfg=None):
+    cfg = cfg or dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+                      num_attention_heads=2, max_position_embeddings=64)
+    torch.manual_seed(0)
+    cpu = GPTForCausalLM(device="cpu", **cfg)
+    return cpu, copy.deepcopy(cpu).to("cuda")
+
+
+def test_generate_on_card_matches_cpu(cuda):
+    """Tiny random GPT, float32: greedy generate() ids on the card equal
+    the CPU's for the dense and paged caches, no cache and beam search;
+    the paged prefill runs K1 once per layer, each paged decode step K3
+    through paged_decode_attend once per layer."""
+    cpu, card = _tiny_pair()
+    ids = torch.from_numpy(np.random.RandomState(1).randint(1, 96, (3, 21)))
+    for kw in (dict(cache_impl="dense"), dict(cache_impl="paged", page_size=8),
+               dict(use_cache=False),
+               dict(decode_strategy="beam_search", num_beams=3)):
+        n = 4 if kw.get("use_cache") is False else 12
+        k1, via = fa.LAUNCHES, pa.DECODE_ATTEND_LAUNCHES
+        got = card.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        if kw.get("cache_impl") == "paged":
+            assert fa.LAUNCHES - k1 == 2
+            assert pa.DECODE_ATTEND_LAUNCHES - via == 2 * (n - 1)
+        assert got.device.type == "cuda"
+        want = cpu.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        assert torch.equal(got.cpu(), want), kw
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_spec_and_chunked_engine_on_card_matches_cpu(cuda, kv_dtype):
+    """Tiny random GPT, float32, speculative_k=3 with prefill_chunk_tokens=8
+    on repetitive prompts: the card engine against the CPU engine (equal
+    ids natively; with int8 pools first tokens equal and agreement >= 0.8),
+    every verify step and prefill chunk through K3 (K4) via the chunk
+    attend."""
+    cpu, card = _tiny_pair()
+    prompts = [[5, 6, 7, 8] * 3, [9, 10] * 10, [11, 12, 13] * 8, [14] * 5]
+
+    def serve(model, device):
+        with ServingEngine(model, device=device, num_slots=3, page_size=8,
+                           max_model_len=64, speculative_k=3,
+                           prefill_chunk_tokens=8, kv_dtype=kv_dtype) as eng:
+            hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            return [h.result(timeout=120) for h in hs], eng.stats()
+
+    want, _ = serve(cpu, "cpu")
+    c0 = pa.QUANT_CHUNK_LAUNCHES if kv_dtype else pa.CHUNK_LAUNCHES
+    got, st = serve(card, "cuda")
+    c1 = pa.QUANT_CHUNK_LAUNCHES if kv_dtype else pa.CHUNK_LAUNCHES
+    if kv_dtype:
+        assert [g[0] for g in got] == [w[0] for w in want]
+        assert _top1(want, got) >= 0.8
+    else:
+        assert got == want
+    assert c1 - c0 == 2 * (st["verify_steps"] + st["prefill_chunks"])
+    assert st["verify_steps"] > 0 and st["prefill_chunks"] > 0
