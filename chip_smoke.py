@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec
-    python3 chip_smoke.py --phases build,kernels,generate,spec
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience
+    python3 chip_smoke.py --phases build,kernels,prefix,resilience
     python3 chip_smoke.py --phases build,kernels,slice,train,quant,custom_op,qat,profile
 
 Phases, each printing one JSON line and then its seconds:
@@ -82,7 +82,26 @@ Phases, each printing one JSON line and then its seconds:
    launched through ``paged_chunk_attend(_quant)``; bf16 tokens/s and
    acceptance in turns with the plain engine; bf16 TTFT of seven short
    requests behind a 900-token prompt, with and without chunking.
-10. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+10. ``prefix``  — GPT-base through the hierarchical KV cache on the
+   reference's Zipfian shared-prefix traffic (24 prompts of 512 tokens,
+   4 shared 480-token prefixes at Zipf 1.2, 20% one-off prompts, seed 0;
+   ``num_slots=4``, page 32, ``num_pages=72``, 16 new tokens, waves of
+   4): float32 ids equal across the ``lru``, ``radix`` and
+   ``radix_spill`` arms and equal the CPU ``lru`` engine's on the first 8
+   requests, whose ``saved_tokens`` equal the CPU radix engine's; the
+   spill tier spills and resurrects; K3 through ``paged_chunk_attend``
+   once per layer per cached prefill; ``kv_dtype="int8"`` radix_spill
+   under the int8 rule with K4 counted; bf16 TTFT p50 and tokens/s of the
+   three arms in turns; K3 / K4 at the cached-tail shape (32 rows behind
+   480 cached tokens).
+11. ``resilience`` — GPT-base float32 on the card: a transient step
+   crash restarts the engine (ids equal an uninterrupted run, the pools
+   rebuilt on the card), a fatal one aborts, a NaN decode lane fails only
+   its request under ``numeric_guard``, a realtime request preempts a
+   batch one (ids unchanged), a 2 s wedge sheds ``deadline_unmeetable``
+   and ``queue_full`` and fires the watchdog once; the host syncs of one
+   decode step with the guard off and on.
+12. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under ``torch.profiler``: device time by kernel and the
    device's idle share.
@@ -389,13 +408,14 @@ def _k2_timed(gen):
     return out
 
 
-def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP):
+def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP,
+               ps=PAGE):
     B = len(lens)
     pages = B * np_
     perm = torch.randperm(pages, generator=gen, device="cuda").to(torch.int32)
     table = perm.reshape(B, np_).contiguous()
-    kp = torch.randn(pages, PAGE, kv_heads, d, generator=gen, device="cuda").to(dtype)
-    vp = torch.randn(pages, PAGE, kv_heads, d, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(pages, ps, kv_heads, d, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(pages, ps, kv_heads, d, generator=gen, device="cuda").to(dtype)
     q = torch.randn(B, heads, d, generator=gen, device="cuda").to(dtype)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     return q, kp, vp, table, ln
@@ -436,7 +456,8 @@ def _k3_case(gen, dtype, lens, heads, kv_heads, np_=NP):
             "empty_rows_zero": zero_ok, "k5a_bit_equal_k3": k5a_ok, "ok": ok}
 
 
-def _k4_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP):
+def _k4_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP,
+               ps=PAGE):
     """q in ``dtype`` and int8 pools with their float32 scale pools,
     quantized from normal K / V on the pool grid."""
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -445,9 +466,9 @@ def _k4_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP):
     pages = B * np_
     perm = torch.randperm(pages, generator=gen, device="cuda").to(torch.int32)
     table = perm.reshape(B, np_).contiguous()
-    kq, ks = pa.quantize_kv(torch.randn(pages, PAGE, kv_heads, d,
+    kq, ks = pa.quantize_kv(torch.randn(pages, ps, kv_heads, d,
                                         generator=gen, device="cuda"))
-    vq, vs = pa.quantize_kv(torch.randn(pages, PAGE, kv_heads, d,
+    vq, vs = pa.quantize_kv(torch.randn(pages, ps, kv_heads, d,
                                         generator=gen, device="cuda"))
     q = torch.randn(B, heads, d, generator=gen, device="cuda").to(dtype)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -721,32 +742,34 @@ def _k4_timed(gen, dlens, k3_ms, k5b_launches):
     return k4, k5b
 
 
-def _chunk_timed(gen, dlens):
+def _chunk_timed(gen, dlens, cases=None):
     """K3 through ``paged_chunk_attend`` at the speculative verify shape
     (the slice's 8 decode rows, k + 1 = 5 positions each: 40 rows) and at
     one prefill chunk (one slot, 128 positions at 512-639: 128 rows), and
     K4 through ``paged_chunk_attend_quant`` at the verify shape; bf16 q,
     12 heads, against the plain version, by CUDA-graph replay (and
-    eagerly).  Bound: each slot's valid pages read once (K4: int8 with
-    float32 scales), q read and o written once; 4 D operations per
-    (position, visible key) per head.  The kernel re-reads a slot's pages
-    once per row of the expansion, as the TPU design does."""
+    eagerly).  ``cases`` replaces that list: ``(name, lens, positions,
+    int8, page size, table width)``.  Bound: each slot's valid pages read
+    once (K4: int8 with float32 scales), q read and o written once; 4 D
+    operations per (position, visible key) per head.  The kernel re-reads
+    a slot's pages once per row of the expansion, as the TPU design
+    does."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
     out = {}
-    for name, lens, C, quant in (
-            ("k3_verify", dlens, SPEC_K + 1, False),
-            ("k3_chunk", [512], CHUNK_TOKENS, False),
-            ("k4_verify", dlens, SPEC_K + 1, True)):
+    for name, lens, C, quant, ps, np_ in cases or (
+            ("k3_verify", dlens, SPEC_K + 1, False, PAGE, NP),
+            ("k3_chunk", [512], CHUNK_TOKENS, False, PAGE, NP),
+            ("k4_verify", dlens, SPEC_K + 1, True, PAGE, NP)):
         B = len(lens)
         if quant:
             _, *pools, table, ln = _k4_inputs(gen, torch.bfloat16, lens,
-                                              HEADS, HEADS)
+                                              HEADS, HEADS, np_=np_, ps=ps)
             fn, ref_fn = pa.paged_chunk_attend_quant, pa.paged_chunk_attend_quant_ref
             per_key = 2 * HEADS * (HEAD_DIM + 4)
         else:
             _, *pools, table, ln = _k3_inputs(gen, torch.bfloat16, lens,
-                                              HEADS, HEADS)
+                                              HEADS, HEADS, np_=np_, ps=ps)
             fn, ref_fn = pa.paged_chunk_attend, pa.paged_chunk_attend_ref
             per_key = 2 * HEADS * HEAD_DIM * 2
         q = torch.randn(B, C, HEADS, HEAD_DIM, generator=gen,
@@ -754,14 +777,16 @@ def _chunk_timed(gen, dlens):
         args = (q, *pools, table, ln)
         o = fn(*args)
         err = (o.float() - ref_fn(*args).float()).abs().max().item()
-        seen = np.minimum(np.asarray(lens)[:, None] + 1 + np.arange(C), NP * PAGE)
-        pages = int(sum(-(-int(r.max()) // PAGE) for r in seen))
-        nbytes = (pages * PAGE * per_key + 2 * q.numel() * 2
+        seen = np.minimum(np.asarray(lens)[:, None] + 1 + np.arange(C),
+                          np_ * ps)
+        pages = int(sum(-(-int(r.max()) // ps) for r in seen))
+        nbytes = (pages * ps * per_key + 2 * q.numel() * 2
                   + table.numel() * 4 + ln.numel() * 4)
         b_ms, b_by = bound(4 * int(seen.sum()) * HEADS * HEAD_DIM, nbytes)
         out[name] = {
             "slots": B, "positions": C, "rows": B * C, "lens": list(lens),
-            "splits": pa._splits(B * C, HEADS, NP),
+            "page_size": ps, "table_width": np_,
+            "splits": pa._splits(B * C, HEADS, np_),
             "kernel_ms": cuda_ms(lambda: fn(*args), graph=True),
             "eager_ms": cuda_ms(lambda: fn(*args)),
             "plain_ms": cuda_ms(lambda: ref_fn(*args)), "library_ms": None,
@@ -1620,6 +1645,501 @@ def phase_spec():
     return {"launches": launches}
 
 
+# ------------------------------------------------------------------ prefix
+# the reference's shared-prefix traffic and engine (bench.py
+# _zipf_prefix_workload, _measure_serving_prefix)
+PFX_REQUESTS, PFX_GROUPS, PFX_ZIPF_S, PFX_ONEOFF = 24, 4, 1.2, 0.2
+PFX_S0, PFX_PAGE, PFX_SLOTS, PFX_PAGES, PFX_NEW = 512, 32, 4, 72, 16
+PFX_MAXLEN = PFX_S0 + PFX_NEW
+PFX_CPU_REQUESTS = 8        # the CPU references serve the first 8
+PFX_ARMS = {"lru": {"prefix_sharing": True},
+            "radix": {"prefix_cache": "radix"},
+            "radix_spill": {"prefix_cache": "radix", "kv_spill": True}}
+
+
+def prefix_requests():
+    """24 prompts of 512 tokens: 4 shared prefixes of 480 tokens with
+    Zipf(1.2) popularity, each followed by a fresh 32-token tail, and 20%
+    one-off prompts of 512 fresh tokens (ids 1-499, seed 0)."""
+    rs = np.random.RandomState(0)
+    shared_len = (PFX_S0 // PFX_PAGE - 1) * PFX_PAGE
+    tail = PFX_S0 - shared_len
+    pz = 1.0 / np.arange(1, PFX_GROUPS + 1, dtype="float64") ** PFX_ZIPF_S
+    pz /= pz.sum()
+    shared = [rs.randint(1, 500, (shared_len,)) for _ in range(PFX_GROUPS)]
+    groups = rs.choice(PFX_GROUPS, size=PFX_REQUESTS, p=pz)
+    oneoff = rs.rand(PFX_REQUESTS) < PFX_ONEOFF
+    return [rs.randint(1, 500, (PFX_S0,)).tolist() if oneoff[i] else
+            np.concatenate([shared[g], rs.randint(1, 500, (tail,))]).tolist()
+            for i, g in enumerate(groups)]
+
+
+def _prefix_serve(model, device, prompts, **engine_kw):
+    """Serve ``prompts`` in waves of ``PFX_SLOTS`` (each wave drained
+    before the next, so shared prefixes go idle between waves and one-off
+    prompts can evict them), 16 greedy tokens each; returns the ids, the
+    wall seconds, the stats, the prefix-cache counters after each wave
+    and the requests' TTFTs."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, device=device, num_slots=PFX_SLOTS,
+                        page_size=PFX_PAGE, max_model_len=PFX_MAXLEN,
+                        num_pages=PFX_PAGES, **engine_kw)
+    ids, ttft, waves = [], [], {}
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with eng:
+        for w in range(0, len(prompts), PFX_SLOTS):
+            hs = [eng.submit(p, max_new_tokens=PFX_NEW)
+                  for p in prompts[w:w + PFX_SLOTS]]
+            ids += [h.result(timeout=900) for h in hs]
+            ttft += [h.ttft for h in hs]
+            waves[w + len(hs)] = copy.deepcopy(eng.stats()["prefix_cache"])
+        st = eng.stats()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return ids, time.perf_counter() - t0, st, waves, ttft
+
+
+def _prefix_want(st, quant):
+    """Launches a prefix-cache run must make: K1 once per layer per full
+    prefill; the pool layout's decode kernel once per layer per decode
+    step and per cached prefill, the latter through the chunk attend."""
+    decode = "paged_flash_decode_q" if quant else "paged_flash_decode"
+    via = "via_paged_chunk_attend_quant" if quant else "via_paged_chunk_attend"
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = LAYERS * (st["prefills"]
+                                            - st["cached_prefills"])
+    want[decode] = LAYERS * (st["iteration"] + st["cached_prefills"])
+    want[via] = LAYERS * st["cached_prefills"]
+    return want
+
+
+def phase_prefix():
+    """GPT-base through the hierarchical KV cache on the reference's
+    Zipfian shared-prefix traffic (``prefix_requests``) with its engine
+    (``num_slots=4``, page 32, ``max_model_len=528``, ``num_pages=72``,
+    undersized so idle prefixes are evicted), three arms: ``lru`` (exact-
+    key sharing), ``radix`` (partial-prefix hits prefill only the tail:
+    one chunk dispatch, K3 through ``paged_chunk_attend``) and
+    ``radix_spill`` (plus the host tier).
+
+    1. float32 on the card: ids equal across the three arms, and equal the
+       CPU ``lru`` engine's on the first 8 requests; the radix arm's
+       ``saved_tokens`` after those 8 equal the CPU radix engine's;
+       ``radix_spill`` spills and resurrects; each arm's launches checked
+       (``_prefix_want``).  ``kv_dtype="int8"`` ``radix_spill`` against
+       the CPU int8 engine on the first 8 requests: first tokens equal and
+       top-1 agreement >= 0.8, K4 through ``paged_chunk_attend_quant``.
+    2. bf16, after an untimed warm-up, the three arms in turns (lru,
+       radix, radix_spill, radix_spill, radix, lru): TTFT p50 and
+       tokens/s.
+    3. K3 and K4 at the cached-tail shape (one slot, a 32-row tail behind
+       480 cached tokens, page 32) against their plain versions."""
+    from paddle_tpu_torch.serving.quant import top1_agreement
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts = prefix_requests()
+    n_cpu = PFX_CPU_REQUESTS
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
+    model = copy.deepcopy(cpu_model).to("cuda")
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)   # the f32 card runs
+    f32, ok = {}, True
+    for arm, kw in PFX_ARMS.items():
+        _zero_counts()
+        ids, wall, st, waves, _ = _prefix_serve(model, "cuda", prompts, **kw)
+        counts = _read_counts()
+        for k in KERNEL_COUNTERS:
+            launches[k] += counts[k]
+        pc = st["prefix_cache"]
+        f32[arm] = {"ids": ids, "wall_s": wall, "prefills": st["prefills"],
+                    "cached_prefills": st["cached_prefills"],
+                    "decode_steps": st["iteration"],
+                    "prefix_cache": {k: v for k, v in pc.items()
+                                     if k != "index"},
+                    "saved_tokens_first_8": waves[n_cpu]["saved_tokens"],
+                    "launches": counts,
+                    "launches_ok": counts == _prefix_want(st, False)}
+        ok = ok and f32[arm]["launches_ok"]
+    t0 = time.perf_counter()
+    cpu_lru, _, _, _, _ = _prefix_serve(cpu_model, "cpu", prompts[:n_cpu],
+                                        **PFX_ARMS["lru"])
+    cpu_radix, _, cpu_st, _, _ = _prefix_serve(
+        cpu_model, "cpu", prompts[:n_cpu], **PFX_ARMS["radix"])
+    cpu_s = time.perf_counter() - t0
+    ids = {arm: r.pop("ids") for arm, r in f32.items()}
+    spill = f32["radix_spill"]["prefix_cache"]
+    checks = {
+        "arms_equal": ids["lru"] == ids["radix"] == ids["radix_spill"],
+        "equal_cpu_lru_first_8": ids["lru"][:n_cpu] == cpu_lru,
+        "cpu_radix_equal_cpu_lru": cpu_radix == cpu_lru,
+        "saved_tokens_first_8_equal_cpu_radix":
+            f32["radix"]["saved_tokens_first_8"]
+            == cpu_st["prefix_cache"]["saved_tokens"],
+        "cpu_radix_saved_tokens": cpu_st["prefix_cache"]["saved_tokens"],
+        "spills_and_resurrections":
+            spill["spill"]["spills"] > 0 and spill["resurrections"] > 0,
+        "cached_prefills": f32["radix"]["cached_prefills"] > 0}
+    ok = ok and all(v for k, v in checks.items()
+                    if k != "cpu_radix_saved_tokens")
+
+    # int8 pools, radix + spill, against the CPU int8 engine
+    _zero_counts()
+    got8, wall8, st8, _, _ = _prefix_serve(model, "cuda", prompts,
+                                           kv_dtype="int8",
+                                           **PFX_ARMS["radix_spill"])
+    counts8 = _read_counts()
+    for k in KERNEL_COUNTERS:
+        launches[k] += counts8[k]
+    t0 = time.perf_counter()
+    ref8, _, _, _, _ = _prefix_serve(cpu_model, "cpu", prompts[:n_cpu],
+                                     kv_dtype="int8",
+                                     **PFX_ARMS["radix_spill"])
+    cpu_s += time.perf_counter() - t0
+    int8 = {"wall_s": wall8, "cached_prefills": st8["cached_prefills"],
+            "prefix_cache": {k: v for k, v in st8["prefix_cache"].items()
+                             if k != "index"},
+            "first_tokens_equal_cpu": [g[0] for g in got8[:n_cpu]]
+            == [r[0] for r in ref8],
+            "top1_agreement_cpu": top1_agreement(ref8, got8[:n_cpu]),
+            "first_divergence_cpu": [_first_divergence(g, r)
+                                     for g, r in zip(got8, ref8)],
+            "launches": counts8,
+            "launches_ok": counts8 == _prefix_want(st8, True),
+            "gate": "first tokens equal and top-1 agreement >= 0.8 (CPU int8)"}
+    ok = ok and int8["first_tokens_equal_cpu"] \
+        and int8["top1_agreement_cpu"] >= 0.8 and int8["launches_ok"] \
+        and st8["cached_prefills"] > 0
+    del cpu_model
+
+    model = model.to(torch.bfloat16)
+    _prefix_serve(model, "cuda", prompts[:PFX_SLOTS],       # warm-up
+                  **PFX_ARMS["radix_spill"])
+    timed = {}
+    for arm in ("lru", "radix", "radix_spill", "radix_spill", "radix", "lru"):
+        outs, wall, st, _, ttft = _prefix_serve(model, "cuda", prompts,
+                                                **PFX_ARMS[arm])
+        tokens = sum(len(o) for o in outs)
+        timed.setdefault(arm, []).append({
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "ttft_p50_s": float(np.median(ttft)),
+            "ttft_p90_s": float(np.percentile(ttft, 90)),
+            "cached_prefills": st["cached_prefills"],
+            "saved_tokens": st["prefix_cache"]["saved_tokens"],
+            "outs": outs})
+    bf16_equal = [sum(a == b for a, b in zip(timed["lru"][0]["outs"],
+                                             timed[arm][0]["outs"]))
+                  for arm in ("radix", "radix_spill")]
+    for rs in timed.values():
+        for r in rs:
+            del r["outs"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tail = _chunk_timed(gen, None, cases=(
+        ("k3_cached_tail", [PFX_S0 - PFX_PAGE], PFX_PAGE, False, PFX_PAGE,
+         -(-PFX_MAXLEN // PFX_PAGE)),
+        ("k4_cached_tail", [PFX_S0 - PFX_PAGE], PFX_PAGE, True, PFX_PAGE,
+         -(-PFX_MAXLEN // PFX_PAGE))))
+    ok = ok and all(c["ok"] for c in tail.values())
+    emit({"phase": "prefix", "ok": ok, "model": "GPT-base 12x768 vocab 50304",
+          "engine": {"num_slots": PFX_SLOTS, "page_size": PFX_PAGE,
+                     "max_model_len": PFX_MAXLEN, "num_pages": PFX_PAGES,
+                     "max_new_tokens": PFX_NEW},
+          "traffic": {"requests": PFX_REQUESTS, "groups": PFX_GROUPS,
+                      "zipf_s": PFX_ZIPF_S, "oneoff_frac": PFX_ONEOFF,
+                      "prompt_tokens": PFX_S0, "seed": 0},
+          "f32": f32, "f32_checks": checks, "cpu_reference_s": cpu_s,
+          "int8_radix_spill": int8,
+          "bf16": {"order": "lru, radix, radix_spill, radix_spill, radix, "
+                   "lru", **timed,
+                   "requests_equal_lru_radix_radix_spill": bf16_equal,
+                   "agreement_gated": False},
+          "cached_tail_timed": tail, "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("prefix phase failed: the arms' f32 ids differ from "
+                         "each other or the CPU, saved tokens differ from the "
+                         "CPU radix engine, the spill tier never resurrected, "
+                         "int8 misses its rule, a cached-tail kernel "
+                         "disagrees, or the launches show a path that did "
+                         "not run through its kernels")
+    return {"launches": launches, "cached_tail": tail}
+
+
+# -------------------------------------------------------------- resilience
+def _held_submit(eng, faults, reqs, arm=None):
+    """Submit ``reqs`` [(prompt, new tokens, kwargs)] while the scheduler
+    sits in a ``serving.scheduler_wedge`` (so one admission pass sees them
+    all), call ``arm()`` (a fault), then release it."""
+    site = f"serving.scheduler_wedge@{eng.replica}"
+    faults.inject(site, seconds=60.0, times=1)
+    t0 = time.monotonic()
+    while faults.trip_count(site) < 1:
+        if time.monotonic() - t0 > 60:
+            raise SystemExit("resilience phase: the scheduler never reached "
+                             "its wedge site")
+        time.sleep(0.005)
+    hs = [eng.submit(p, max_new_tokens=n, **kw) for p, n, kw in reqs]
+    if arm is not None:
+        arm()
+    faults.clear(site)
+    return hs
+
+
+def _step_syncs(model, prompts, guard):
+    """Host syncs of ONE plain decode step of two slots, counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the step is run from this
+    thread while the scheduler sits in a wedge, after one uncounted step
+    (a thread's first CUDA work syncs once more, setting up its
+    handles)."""
+    import warnings
+
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, num_slots=2, page_size=PAGE,
+                        max_model_len=MAXLEN, numeric_guard=guard,
+                        replica=f"syncs-{int(guard)}")
+    with eng:
+        eng.generate(prompts[0][:32], max_new_tokens=2, timeout=300)
+        site = f"serving.scheduler_wedge@{eng.replica}"
+        faults.inject(site, seconds=60.0, times=1)
+        while faults.trip_count(site) < 1:
+            time.sleep(0.005)
+        hs = [eng.submit(p, max_new_tokens=4) for p in prompts[:2]]
+        with torch.inference_mode():
+            eng._admit()
+            active = [i for i, s in enumerate(eng._slots) if s is not None]
+            eng._plain_step(active)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    eng._plain_step(active)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        faults.clear(site)
+        for h in hs:
+            h.result(timeout=300)
+    sites = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in rec
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return {"active": len(active), "syncs": len(sites), "sites": sites,
+            "other_warnings": [str(w.message)[:120] for w in rec
+                               if "called a synchronizing" not in
+                               str(w.message)]}
+
+
+def phase_resilience():
+    """GPT-base float32 on the card through the engine's robustness paths,
+    each against an uninterrupted card run of the same requests (greedy,
+    prompts of 100-300 tokens):
+
+    - restart: a ``TransientError`` from ``serving.step_crash`` at the
+      4th decode step with 2 requests in flight (admitted together, held
+      at a wedge): ids equal, one restart, 2 requeues, the rebuilt pools
+      on the card, launches checked (K1 per layer per prefill,
+      re-admissions included; K3 per layer per decode step);
+    - fatal: a ``ValueError`` at the first step fails the request and the
+      engine rejects new submits;
+    - numeric guard: a NaN injected into decode lane 0: only that request
+      fails (NumericFault), the other's ids equal the unguarded run's;
+    - QoS: two ``batch`` requests fill ``num_slots=2``, a ``realtime`` one
+      preempts one of them; every request's ids equal;
+    - wedge: a 2 s ``serving.scheduler_wedge`` with ``max_queue=2`` and a
+      0.5 s watchdog: submits shed ``deadline_unmeetable`` and
+      ``queue_full``, health reads degraded, then healthy, and the
+      watchdog fires once;
+    - the host syncs of one decode step, numeric guard off and on."""
+    from paddle_tpu_torch.observability import faults, numerics
+    from paddle_tpu_torch.resilience import NumericFault, TransientError
+    from paddle_tpu_torch.serving import (RequestRejectedError,
+                                          ServingEngine)
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda")           # GPT-base defaults
+    rs = np.random.RandomState(4)
+    P = [rs.randint(1, VOCAB, size=n).tolist() for n in (100, 200, 300)]
+    N = 24
+
+    def engine(**kw):
+        kw.setdefault("num_slots", 2)
+        return ServingEngine(model, page_size=PAGE, max_model_len=MAXLEN,
+                             **kw)
+
+    with engine(replica="ref") as eng:
+        ref = [eng.generate(p, max_new_tokens=n, timeout=300)
+               for p, n in ((P[0], N), (P[1], N), (P[0], 2 * N),
+                            (P[1], 2 * N), (P[2], 8))]
+    out, ok = {}, True
+
+    def boom():
+        raise TransientError("injected decode crash")
+
+    eng = engine(replica="restart")
+    with eng:
+        eng.generate(P[2][:32], max_new_tokens=2, timeout=300)
+        st0 = eng.stats()
+        _zero_counts()
+        hs = _held_submit(eng, faults, [(P[0], N, {}), (P[1], N, {})],
+                          arm=lambda: faults.inject("serving.step_crash",
+                                                    fn=boom, at_trips={4}))
+        got = [h.result(timeout=300) for h in hs]
+        counts = _read_counts()
+        faults.clear()
+        st = eng.stats()
+        want = dict.fromkeys(COUNTERS, 0)
+        want["flash_attention_fwd"] = LAYERS * (st["prefills"]
+                                                - st0["prefills"])
+        want["paged_flash_decode"] = LAYERS * (st["iteration"]
+                                               - st0["iteration"])
+        out["restart"] = {
+            "equal_uninterrupted": got == ref[:2],
+            "engine_restarts": st["engine_restarts"],
+            "requests_requeued": st["requests_requeued"],
+            "pools_on_card": all(p.device.type == "cuda" for p in eng._pools),
+            "launches": counts, "launches_ok": counts == want}
+    r = out["restart"]
+    ok = ok and r["equal_uninterrupted"] and r["engine_restarts"] == 1 \
+        and r["requests_requeued"] == 2 and r["pools_on_card"] \
+        and r["launches_ok"]
+
+    eng = engine(replica="fatal")
+    with eng:
+        eng.generate(P[2][:32], max_new_tokens=2, timeout=300)
+
+        def bug():
+            raise ValueError("a real scheduler bug")
+
+        faults.inject("serving.step_crash", fn=bug, at_trips={1})
+        h = eng.submit(P[0], max_new_tokens=N)
+        try:
+            h.result(timeout=300)
+            raised = False
+        except RuntimeError:
+            raised = True
+        faults.clear()
+        health = eng.health
+    try:
+        eng.submit(P[0], max_new_tokens=2)
+        rejects = False
+    except RuntimeError:
+        rejects = True
+    out["fatal"] = {"request_failed": raised, "status": h.status,
+                    "health": health, "rejects_submits": rejects,
+                    "engine_restarts": eng.stats()["engine_restarts"]}
+    ok = ok and raised and h.status == "error" and health == "error" \
+        and rejects and out["fatal"]["engine_restarts"] == 0
+
+    eng = engine(replica="guard", numeric_guard=True)
+    with eng:
+        eng.generate(P[2][:32], max_new_tokens=2, timeout=300)
+        numerics.set_nan_inject_row(0)
+        h0 = eng.submit(P[0], max_new_tokens=N)
+        h1 = eng.submit(P[1], max_new_tokens=N)
+        it0, it1 = h0.stream(), h1.stream()
+        next(it0)
+        next(it1)
+        faults.inject("numerics.nan_inject", times=1)
+        try:
+            h0.result(timeout=300)
+            fault = None
+        except NumericFault as e:
+            fault = e.site
+        other = h1.result(timeout=300)
+        faults.clear()
+        out["numeric_guard"] = {
+            "poisoned_status": h0.status, "fault_site": fault,
+            "other_status": h1.status, "other_equal_unguarded": other == ref[1],
+            "numeric_faults": eng.stats()["numeric_faults"]}
+    g = out["numeric_guard"]
+    ok = ok and g["poisoned_status"] == "error" and g["fault_site"] == "logits" \
+        and g["other_status"] == "completed" and g["other_equal_unguarded"] \
+        and g["numeric_faults"] == 1
+
+    eng = engine(replica="qos", qos=True)
+    with eng:
+        b1 = eng.submit(P[0], max_new_tokens=2 * N, tier="batch")
+        b2 = eng.submit(P[1], max_new_tokens=2 * N, tier="batch")
+        t0 = time.monotonic()
+        while sum(s is not None for s in eng._slots) < 2:
+            if time.monotonic() - t0 > 60:
+                raise SystemExit("resilience phase: slots never filled")
+            time.sleep(0.002)
+        rt = eng.submit(P[2], max_new_tokens=8, tier="realtime")
+        got = [rt.result(timeout=300), b1.result(timeout=300),
+               b2.result(timeout=300)]
+        out["qos"] = {"equal_uninterrupted": got == [ref[4], ref[2], ref[3]],
+                      "preemptions": [rt.preemptions, b1.preemptions,
+                                      b2.preemptions],
+                      "stats_preemptions": eng.stats()["preemptions"]}
+    q = out["qos"]
+    ok = ok and q["equal_uninterrupted"] and sum(q["preemptions"]) == 1 \
+        and q["preemptions"][0] == 0
+
+    eng = engine(replica="wedge", num_slots=1, max_queue=2,
+                 degraded_stall_s=0.2, watchdog_s=0.5)
+    with eng:
+        eng.generate(P[2][:32], max_new_tokens=2, timeout=300)
+        healthy0 = eng.health
+        faults.inject("serving.scheduler_wedge", seconds=2.0, times=1)
+        t0 = time.monotonic()
+        while time.monotonic() - eng._progress_t < 0.6:
+            if time.monotonic() - t0 > 60:
+                raise SystemExit("resilience phase: the wedge never held")
+            time.sleep(0.005)
+        reasons = []
+        h1 = eng.submit(P[0][:64], max_new_tokens=4)
+        for kw in ({"deadline_s": 0.05}, None, {}):
+            if kw is None:
+                h2 = eng.submit(P[1][:64], max_new_tokens=4)
+                continue
+            try:
+                eng.submit(P[2][:64], max_new_tokens=4, **kw)
+                reasons.append(None)
+            except RequestRejectedError as e:
+                reasons.append(e.reason)
+        during = eng.health_state()
+        done = [len(h1.result(timeout=300)), len(h2.result(timeout=300))]
+        t0 = time.monotonic()
+        while eng.health != "healthy" and time.monotonic() - t0 < 30:
+            time.sleep(0.01)
+        faults.clear()
+        out["wedge"] = {"healthy_before": healthy0 == "healthy",
+                        "shed": reasons, "during": during,
+                        "completed_after": done, "health_after": eng.health,
+                        "load_shed": eng.stats()["load_shed"],
+                        "watchdog_fires": len(eng.watchdog.fired),
+                        "watchdog_age_s": [f["age_s"]
+                                           for f in eng.watchdog.fired]}
+    w = out["wedge"]
+    ok = ok and w["healthy_before"] \
+        and w["shed"] == ["deadline_unmeetable", "queue_full"] \
+        and w["during"]["state"] == "degraded" and w["completed_after"] == [4, 4] \
+        and w["health_after"] == "healthy" and w["watchdog_fires"] == 1
+
+    out["step_syncs"] = {"guard_off": _step_syncs(model, P, False),
+                         "guard_on": _step_syncs(model, P, True)}
+    s = out["step_syncs"]
+    ok = ok and s["guard_on"]["syncs"] == s["guard_off"]["syncs"] \
+        and s["guard_off"]["active"] == 2
+    emit({"phase": "resilience", "ok": ok,
+          "model": "GPT-base 12x768 vocab 50304, float32",
+          "engine": {"num_slots": 2, "page_size": PAGE,
+                     "max_model_len": MAXLEN},
+          "prompt_lens": [len(p) for p in P], **out,
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("resilience phase failed: see the restart / fatal / "
+                         "numeric_guard / qos / wedge / step_syncs results")
+    return {"launches": {k: r["launches"][k] for k in KERNEL_COUNTERS}}
+
+
 # ----------------------------------------------------------------- profile
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
     # K1: the tensor-core body (flash_fwd_tc_kernel) and the SIMT body
@@ -1746,12 +2266,30 @@ def _profiled_engine(model, prompts, **engine_kw):
     return _profiled(serve)
 
 
+def _profiled_prefix(model, arm):
+    """The prefix phase's 24 requests through one arm under the profiler,
+    after a warm-up on the first wave."""
+    prompts = prefix_requests()
+    _prefix_serve(model, "cuda", prompts[:PFX_SLOTS], **PFX_ARMS[arm])
+
+    def serve():
+        _, _, st, _, ttft = _prefix_serve(model, "cuda", prompts,
+                                          **PFX_ARMS[arm])
+        return {"prefills": st["prefills"],
+                "cached_prefills": st["cached_prefills"],
+                "decode_steps": st["iteration"],
+                "ttft_p50_s": float(np.median(ttft))}
+
+    return _profiled(serve)
+
+
 def phase_profile():
     """Where the time goes (not part of the default run), each under
     ``torch.profiler`` after a warm-up: the bf16 slice's 12 requests with
     native and with int8 pools, bf16 ``generate()`` with each cache, the
     speculative engine on the spec phase's requests beside the plain
-    engine on them, the chunked engine on the chunk requests, 3 bf16 O2
+    engine on them, the chunked engine on the chunk requests, the prefix
+    phase's traffic through its lru, radix and radix_spill arms, 3 bf16 O2
     training steps at B=8, S=1024, the same steps of the QAT-wrapped model,
     and that model converted by ``convert_to_int8`` (static scales, bf16)
     serving the 12 requests with int8 pools, beside the dynamic-scale
@@ -1769,6 +2307,8 @@ def phase_profile():
     spec = _profiled_engine(model, spec_requests(), speculative_k=SPEC_K)
     chunked = _profiled_engine(model, chunk_requests(),
                                prefill_chunk_tokens=CHUNK_TOKENS)
+    prefix = {arm: _profiled_prefix(model, arm) for arm in PFX_ARMS}
+    # weight_dtype="int8" converts the model's Linears in place: last
     int8_dynamic = _profiled_serve(model, kv_dtype="int8", weight_dtype="int8")
     del model
     torch.manual_seed(0)
@@ -1785,6 +2325,7 @@ def phase_profile():
           "spec_requests_bf16_plain": spec_plain,
           "spec_requests_bf16_speculative": spec,
           "chunk_requests_bf16_chunked": chunked,
+          "prefix_bf16": prefix,
           "train_bf16_O2": train, "train_bf16_O2_qat": qat_train,
           "nvidia_smi": smi_line()})
 
@@ -1792,7 +2333,8 @@ def phase_profile():
 KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
     ("k1", "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
      "paddle_tpu/ops/flash_attention.py:112",
-     "serving prefill, training, generate() (paged prefill, no cache, beam)"),
+     "serving prefill (full prefills, radix misses), training, generate() "
+     "(paged prefill, no cache, beam)"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:276", "training"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1800,10 +2342,11 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:371",
      "serving decode, generate() paged decode, speculative verify, chunked "
-     "prefill"),
+     "prefill, the radix cache's cached-tail prefill"),
     ("k4", "paged_flash_decode_q", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
      "paddle_tpu/ops/paged_attention.py:870",
-     "int8 serving decode, int8 speculative verify and chunked prefill"),
+     "int8 serving decode, int8 speculative verify, chunked prefill and "
+     "cached-tail prefill"),
     # the full-sweep twins have no path, in the TPU package either
     ("k5a", "paged_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:128", None),
@@ -1817,7 +2360,7 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
-                    "custom_op,qat,generate,spec")
+                    "custom_op,qat,generate,spec,prefix,resilience")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1832,6 +2375,8 @@ def main():
                      ("qat", lambda: phase_qat(
                          (results.get("train") or {}).get("step_ms"))),
                      ("generate", phase_generate), ("spec", phase_spec),
+                     ("prefix", phase_prefix),
+                     ("resilience", phase_resilience),
                      ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
@@ -1844,13 +2389,18 @@ def main():
         # the first bf16 int8 slice for K1 and K4, the example's card run
         # for K6, the f32 static-scale int8 run for K1 and K4, the first
         # timed bf16 dense and paged generate() for K1 and K3, the f32
-        # speculative and chunked card runs for K1, K3 and K4); K5a / K5b:
-        # the kernels phase's checks
+        # speculative and chunked card runs for K1, K3 and K4, the f32
+        # prefix-cache arms for K1, K3 and K4, the resilience phase's
+        # restart run for K1 and K3); K5a / K5b: the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
-                     "generate", "spec"):
+                     "generate", "spec", "prefix", "resilience"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
+        tail = (results.get("prefix") or {}).get("cached_tail", {})
+        for key in ("k3", "k4"):        # the cached-tail prefill's shape
+            times[key].setdefault("other_shapes", {}).update(
+                {k: v for k, v in tail.items() if k.startswith(key)})
         rows = []
         for key, name, src, tpu, path in KERNELS:
             t = times[key]

@@ -16,7 +16,11 @@ AMP and :class:`~.jit.TrainStep`), the int8 serving slice (int8 KV
 page pools with the dequantizing decode kernel, ``Int8Linear`` and
 ``serving.quant``) and the custom-op / quantization slice
 (:func:`register_op` and :func:`load_op_library` over the fused
-bias + GELU kernel, QAT, PTQ and ``quantization.convert_to_int8``).
+bias + GELU kernel, QAT, PTQ and ``quantization.convert_to_int8``),
+``generate()`` with speculative decoding and chunked prefill, and the
+engine's robustness (restart and requeue, load shedding, the numeric
+guard, ``resilience`` and ``observability``), the radix prefix cache with
+its host spill tier, and QoS tiers.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -125,6 +125,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def loaded(name: str) -> bool:
+    """Whether ``csrc/<name>.cu``'s library is loaded in this process (a
+    first call that is not may spend seconds in ``nvcc``)."""
+    return name in _libs
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry returned a non-zero cudaError_t."""
     if err:

@@ -1,10 +1,16 @@
 """paddle_tpu_torch.serving — continuous-batching LLM serving over the
-paged KV cache (counterpart of ``paddle_tpu/serving``; its core path).
+paged KV cache (counterpart of ``paddle_tpu/serving``).
 
 - :mod:`.engine` — :class:`ServingEngine`: iteration-level scheduler over a
-  fixed-shape decode batch, per-slot positions, in-place page pools.
+  fixed-shape decode batch, per-slot positions, in-place page pools; the
+  restart / requeue, load shedding, health and numeric-guard paths.
 - :mod:`.block_manager` — :class:`BlockManager`: paged KV block allocation,
-  capacity-based admission, optional exact-key prefix sharing.
+  capacity-based admission, exact-key or radix prefix sharing.
+- :mod:`.prefix_index` — :class:`RadixPrefixIndex`, the radix mode's
+  longest-shared-run index; :mod:`.kv_spill` — :class:`KVSpillTier`, its
+  host-memory tier.
+- :mod:`.qos` — QoS tiers: :class:`QoSConfig`, :class:`TierPolicy`,
+  :class:`TieredQueue` and the brownout ladder.
 - :mod:`.adapter` — :class:`GPTAdapter`: the prefill / step calls.
 - :mod:`.api` — :class:`ContinuousBatchingPredictor`, the
   ``paddle.inference``-shaped facade.
@@ -15,10 +21,14 @@ paged KV cache (counterpart of ``paddle_tpu/serving``; its core path).
   harness.
 """
 
-from ..resilience.retry import EngineStoppedError  # noqa: F401
+from ..observability.slo import SLOPolicy  # noqa: F401
+from ..resilience.retry import EngineStoppedError, NumericFault  # noqa: F401
 from .adapter import GPTAdapter  # noqa: F401
 from .api import ContinuousBatchingPredictor  # noqa: F401
 from .block_manager import BlockManager, PageAllocation  # noqa: F401
 from .engine import (RequestHandle, RequestRejectedError,  # noqa: F401
                      SamplingParams, ServingEngine)
+from .kv_spill import KVSpillTier  # noqa: F401
+from .prefix_index import RadixPrefixIndex  # noqa: F401
+from .qos import QoSConfig, TieredQueue, TierPolicy, brownout  # noqa: F401
 from .speculative import NgramDrafter  # noqa: F401

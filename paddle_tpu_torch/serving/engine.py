@@ -1,5 +1,5 @@
 """Continuous-batching LLM serving engine (counterpart of
-``paddle_tpu/serving/engine.py``, its core scheduler).
+``paddle_tpu/serving/engine.py``).
 
 One fixed-shape batch of ``num_slots`` decode slots runs against per-layer
 GLOBAL page pools; a background scheduler thread executes iterations:
@@ -18,14 +18,34 @@ GLOBAL page pools; a background scheduler thread executes iterations:
 Prefill prompts are right-padded to a page-count bucket (exact up to
 ``_PREFILL_POW2_PAGES`` pages, then the next power of two), as in the TPU
 package.  The pools are updated in place by the adapter.  The scheduler
-thread runs under ``torch.inference_mode`` (grad mode is per thread).  A
-failure in the scheduler — a CUDA fault surfaces at the next sync, when
-the sampled tokens come to the host — fails every in-flight and queued
-request with that error and leaves the engine stopped; the TPU package's
-transient-restart path waits for a later slice.
+thread runs under ``torch.inference_mode`` (grad mode is per thread).
 
 The engine runs on the card unless ``device="cpu"``; it moves the model
 to its device (``nn.Module.to`` moves in place).
+
+Resilience: a health state machine (``health_state()``: healthy,
+degraded, draining, stopped, error); load shedding at submit with
+distinct reasons (``RequestRejectedError.reason``: ``queue_full`` past
+``max_queue``, ``deadline_unmeetable`` when a stall or the queue-position
+estimate already exceeds the deadline, ``draining``, ``brownout`` on QoS
+engines); a :class:`~..observability.watchdog.ServingWatchdog`
+(``watchdog_s``).  A failure in the scheduler — a CUDA fault surfaces at
+the next sync, when the sampled tokens come to the host — is classified
+by :func:`~..resilience.retry.classify_failure`: a transient one restarts
+the engine (fresh pools and BlockManager) and re-queues every in-flight
+request as prompt + tokens-so-far with the remaining budget, so greedy
+ids are those of an uninterrupted run, up to ``max_engine_restarts``
+within ``restart_cooldown_s``; a fatal one (or a burned budget, or a
+recovery that itself fails) fails every in-flight and queued request with
+that error and leaves the engine stopped.  The fault sites
+``serving.scheduler_wedge`` and ``serving.step_crash`` (and their
+``@<replica>`` twins) of :mod:`..observability.faults` drive these paths.
+
+NaN-safe serving (``numeric_guard=True``): each dispatch also flags the
+rows whose logits are non-finite, in the same host transfer as the
+tokens, and exactly those requests fail (``status="error"``,
+:class:`~..resilience.retry.NumericFault`); the others' tokens are
+unchanged.
 
 Speculative decoding (``speculative_k > 0``, :mod:`.speculative`): each
 iteration drafts up to k tokens per slot by n-gram suffix match over the
@@ -45,29 +65,54 @@ the slots mid-prefill and interleaved with the decode step, so one long
 prompt no longer stalls the decode batch for its whole prefill; the final
 chunk's token seeds decode.
 
+Hierarchical KV cache (``prefix_cache="radix"``): the BlockManager's
+radix index reuses the longest shared page run of a prompt, and the
+prefill runs only the divergent tail — ONE ``prefill_chunk`` at the
+cached offset (K3 / K4 through ``paged_chunk_attend(_quant)`` on the
+card).  ``kv_spill=True`` adds the host tier (:mod:`.kv_spill`): evicted
+idle pages are copied to host memory and copied back on the next matching
+prefix.  ``prefix_cache="lru"`` (or ``prefix_sharing=True``) is the
+exact-key sharing, which saves memory but recomputes every prefill.
+
+QoS tiers (``qos=True`` or a :class:`~.qos.QoSConfig`): ``submit(tier=)``
+selects the request's queue, admission weight, SLO accounting and
+preemption rank; a high-tier request preempts a lower-tier decode slot
+(requeued like a restart, so its greedy ids do not change), and the
+protected tier's SLO burn rate sheds lower tiers at admission.
+
 Quantized serving: ``kv_dtype="int8"`` stores the page pools as int8 with
 parallel float32 scale pools (:class:`~.quant.QuantizedGPTAdapter`; the
 writes quantize and decode runs the dequantizing kernel K4), about 1.9x
 the resident sequences per pool byte at head_dim 64;
 ``weight_dtype="int8"`` converts the model's Linears to ``Int8Linear`` in
 place (:func:`~.quant.quantize_model_weights`, idempotent).
+
+The counts the TPU package keeps in its metrics registry (restarts,
+requeues, shed reasons, preemptions, numeric faults) are attributes here,
+reported by :meth:`ServingEngine.stats`.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import queue as _queue
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..resilience.retry import EngineStoppedError
-from ..text.models._decode import make_batched_sampler
+from ..observability import faults as _faults
+from ..observability import numerics as _numerics
+from ..ops import _build
+from ..resilience.retry import (EngineStoppedError, NumericFault,
+                                classify_failure)
+from ..text.models._decode import make_batched_sampler, nonfinite_rows
 from .adapter import GPTAdapter
 from .block_manager import BlockManager
 
@@ -79,9 +124,11 @@ _PREFILL_POW2_PAGES = 4
 
 
 class RequestRejectedError(RuntimeError):
-    """Raised by submit() for requests the engine can never serve
-    (``reason="unservable"``: too long for the model or the page pool), or
-    turns away while it drains (``reason="draining"``)."""
+    """Raised by submit() for requests the engine can never serve or
+    sheds.  ``reason``: ``unservable`` (too long for the model or the page
+    pool), ``queue_full``, ``deadline_unmeetable`` (the deadline cannot be
+    met given the queue or a stall), ``brownout`` (a QoS tier shed while
+    the protected tier burns its error budget) or ``draining``."""
 
     def __init__(self, message, reason="rejected"):
         super().__init__(message)
@@ -104,6 +151,9 @@ class Request:
     eos_token_id: int | None
     deadline: float | None      # absolute time.time() seconds
     handle: "RequestHandle"
+    # QoS tier name — None on engines without a tier table; carried
+    # verbatim across requeues (restart recovery, preemption)
+    tier: str | None = None
 
 
 class RequestHandle:
@@ -118,7 +168,14 @@ class RequestHandle:
         self.request_id = request_id
         self.prompt_len = prompt_len
         self.token_ids = []            # generated ids (appended by the engine)
+        # wall-clock stamp of every emission: the request's timeline, which
+        # observability.slo evaluates
+        self.token_times = []
         self.status = "queued"
+        # QoS: the resolved tier (None on non-QoS engines) and how many
+        # times a higher tier evicted it from a decode slot
+        self.tier = None
+        self.preemptions = 0
         self.submitted_at = time.time()
         self.first_token_at = None
         self.finished_at = None
@@ -145,7 +202,9 @@ class RequestHandle:
         return self.first_token_at - self.submitted_at
 
     def _raise_error(self):
-        if isinstance(self._error, EngineStoppedError):
+        # stopped mid-flight / this row's logits went non-finite: verdicts
+        # about this request, surfaced as they are
+        if isinstance(self._error, (EngineStoppedError, NumericFault)):
             raise self._error
         raise RuntimeError("serving engine failed") from self._error
 
@@ -212,9 +271,14 @@ class ServingEngine:
 
     def __init__(self, model, num_slots=4, page_size=16, max_model_len=None,
                  num_pages=None, top_k=0, top_p=1.0, prefix_sharing=False,
-                 seed=0, device=None, kv_dtype=None, weight_dtype=None,
-                 speculative_k=0, draft_max_ngram=3, draft_min_ngram=1,
-                 prefill_chunk_tokens=None):
+                 max_queue=None, seed=0, watchdog_s=None,
+                 max_engine_restarts=3, degraded_stall_s=2.0,
+                 restart_cooldown_s=10.0, speculative_k=0, draft_max_ngram=3,
+                 draft_min_ngram=1, replica="0", device=None,
+                 health_gating=True, slo=None, kv_dtype=None,
+                 weight_dtype=None, numeric_guard=None,
+                 prefill_chunk_tokens=None, qos=None, prefix_cache=None,
+                 kv_spill=False, kv_spill_budget_bytes=None):
         if prefill_chunk_tokens:
             prefill_chunk_tokens = int(prefill_chunk_tokens)
             if prefill_chunk_tokens < 1:
@@ -236,6 +300,33 @@ class ServingEngine:
         if self.weight_dtype not in ("native", "int8"):
             raise ValueError(f"weight_dtype must be None/'native' or "
                              f"'int8', got {weight_dtype!r}")
+        # replica identity: names the replica-scoped fault sites
+        # serving.{scheduler_wedge,step_crash}@<replica>
+        self.replica = str(replica)
+        self._site_wedge = f"serving.scheduler_wedge@{self.replica}"
+        self._site_step_crash = f"serving.step_crash@{self.replica}"
+        # stored and reported; the /healthz provider it gates is not
+        # ported yet
+        self._health_gating = bool(health_gating)
+        # hierarchical KV cache: "radix" reuses the longest shared page run
+        # and prefills only the tail; "lru" is the exact-key sharing
+        if prefix_cache not in (None, "lru", "radix"):
+            raise ValueError(f"prefix_cache must be None, 'lru' or "
+                             f"'radix', got {prefix_cache!r}")
+        if prefix_sharing and prefix_cache is None:
+            prefix_cache = "lru"    # the older spelling of the same mode
+        self._prefix_cache = prefix_cache
+        self._radix = prefix_cache == "radix"
+        self._spill = None
+        if kv_spill:
+            if not self._radix:
+                raise ValueError(
+                    "kv_spill=True needs prefix_cache='radix': spilled "
+                    "pages are content-addressed through the radix index")
+            from .kv_spill import KVSpillTier
+
+            self._spill = KVSpillTier(replica=self.replica,
+                                      budget_bytes=kv_spill_budget_bytes)
         self.device = resolve_device(device)
         self._model = model.to(self.device)
         if self.weight_dtype == "int8":
@@ -248,6 +339,12 @@ class ServingEngine:
             self._adapter = QuantizedGPTAdapter(model, page_size)
         else:
             self._adapter = GPTAdapter(model, page_size)
+        # the kernels a dispatch of this engine may build on first use
+        # (the card only): K1 for prefills, the pool layout's paged decode
+        self._kernels = ("flash_attention_fwd",
+                         "paged_flash_decode_q" if kv_dtype == "int8"
+                         else "paged_flash_decode") \
+            if self.device.type == "cuda" else ()
         self.page_size = int(page_size)
         self.num_slots = int(num_slots)
         cap = self._adapter.max_model_len
@@ -260,16 +357,22 @@ class ServingEngine:
         self._bytes_per_page = int(self._adapter.page_bytes())
         self._pool_dtype = "int8" if kv_dtype == "int8" \
             else str(self._adapter.dtype).removeprefix("torch.")
-        self._bm = BlockManager(self._num_pages, self.page_size,
-                                prefix_sharing=prefix_sharing,
-                                bytes_per_page=self._bytes_per_page,
-                                pool_dtype=self._pool_dtype)
+        self._bm = self._new_block_manager()
         # pool row num_pages is the SCRATCH page: inactive decode slots and
         # padded table tails point at it (every table entry must be a valid
         # pool row; junk written there is never attended)
         self._scratch = int(num_pages)
         self._pools = tuple(self._adapter.init_pools(num_pages + 1))
+        if self._spill is not None:
+            # the callables read the CURRENT pool tuple, so a rebuild after
+            # a crash needs no re-attachment
+            self._spill.attach(self._spill_snapshot, self._spill_restore)
         self._sampler = make_batched_sampler(top_k, top_p)
+        # NaN-safe serving: off unless asked (or the active tensor-checker
+        # config says serving_guard); the guard wraps the SAME sampler
+        self._numeric_guard = bool(_numerics.serving_guard_default()
+                                   if numeric_guard is None
+                                   else numeric_guard)
         self._spec_k = int(speculative_k)
         if self._spec_k < 0:
             raise ValueError(f"speculative_k must be >= 0, got {speculative_k}")
@@ -286,7 +389,38 @@ class ServingEngine:
         self._gen.manual_seed(int(seed))
         self._rid = 0
 
-        self._queue = collections.deque()
+        # QoS tiers: a per-tier queue with weighted head selection, a
+        # per-tier SLO accountant where the tier has a policy, brownout
+        # sheds at admission, preemption of lower-tier decode slots
+        self._qos = None
+        self._tier_slo = {}
+        self._tier_ema = {}          # per-tier completed-duration EMAs
+        self._last_preempt_t = None
+        self._bo_cache = (0.0, None)  # throttled brownout snapshot
+        if qos:
+            from ..observability.slo import SLOAccountant
+            from .qos import QoSConfig, TieredQueue
+
+            if qos is True:
+                qos = QoSConfig()
+            if not isinstance(qos, QoSConfig):
+                raise TypeError(f"qos must be a QoSConfig or True, "
+                                f"got {qos!r}")
+            self._qos = qos
+            for t in qos.tiers:
+                if t.slo is not None:
+                    self._tier_slo[t.name] = SLOAccountant(
+                        t.slo, replica=self.replica, tier=t.name)
+            self._queue = TieredQueue(qos)
+        else:
+            self._queue = collections.deque()
+        self._slo = None
+        if slo is not None:
+            from ..observability.slo import SLOAccountant, SLOPolicy
+
+            if not isinstance(slo, SLOPolicy):
+                raise TypeError(f"slo must be an SLOPolicy, got {slo!r}")
+            self._slo = SLOAccountant(slo, replica=self.replica)
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._slots = [None] * self.num_slots
@@ -300,17 +434,64 @@ class ServingEngine:
         # speculative verify rows: the last token + k drafts, draft lengths
         self._h_ids = np.zeros((self.num_slots, self._spec_k + 1), np.int64)
         self._h_dlen = np.zeros((self.num_slots,), np.int32)
+        self._max_queue = max_queue
         self._stop_evt = threading.Event()
         self._thread = None
         self._started = False
         self._draining = False
         self._modes = None
         self._iteration = 0       # decode steps run
-        self._prefills = 0        # prefills run (monolithic or chunked)
+        self._prefills = 0        # prefills run (monolithic, chunked, cached)
+        self._cached_prefills = 0  # prefills that started past cached pages
         self._prefill_chunks = 0  # chunked-prefill dispatches
         self._verify_steps = 0    # speculative verify steps (of _iteration)
         self._error = None
         self._admitting = None    # request popped but not yet slotted
+        # heartbeat (stamped each loop iteration and after each dispatch)
+        # for the watchdog, the health state and deadline shedding
+        self._progress_t = None
+        self._compiling = False   # a dispatch may be building a kernel
+        self._watchdog_s = watchdog_s
+        self._watchdog = None
+        # restart on transient failures: the budget heals after a cooldown
+        self._max_engine_restarts = int(max_engine_restarts)
+        self._degraded_stall_s = float(degraded_stall_s)
+        self._restart_cooldown_s = float(restart_cooldown_s)
+        self._engine_restarts = 0
+        self._restarts_total = 0
+        self._last_restart_t = None
+        self._ema_request_s = None   # EMA of completed request durations
+        # the counts the TPU package keeps in its metrics registry
+        self._requeued = 0
+        self._numeric_faults = 0
+        self._shed_counts = collections.Counter()     # (reason, tier)
+        self._preempt_counts = collections.Counter()  # (reason, tier)
+
+    def _new_block_manager(self):
+        return BlockManager(self._num_pages, self.page_size,
+                            prefix_sharing=self._prefix_cache is not None,
+                            bytes_per_page=self._bytes_per_page,
+                            pool_dtype=self._pool_dtype,
+                            radix=self._radix, spill=self._spill)
+
+    # ------------------------------------------------- hierarchical KV cache
+    def _spill_snapshot(self, page):
+        """Copy of ONE page row of EVERY pool to the host — the spill
+        tier's snapshot.  Walking the whole tuple keeps an int8 payload
+        and its scales together.  A copy even on the CPU (``.cpu()`` of a
+        CPU tensor would alias the pool, and the page is about to be
+        reused)."""
+        return tuple(p[:, page].to("cpu", copy=True) for p in self._pools)
+
+    def _spill_restore(self, page, payload):
+        """Copy a resurrected entry back into device page ``page``, in
+        place in every pool (the layers' caches are views of the pools)."""
+        for p, a in zip(self._pools, payload):
+            p[:, page].copy_(a)
+
+    def prefix_index_summary(self):
+        """Resident-prefix digests (None outside radix mode)."""
+        return self._bm.index_summary()
 
     # ----------------------------------------------------------- lifecycle
     def start(self):
@@ -322,12 +503,32 @@ class ServingEngine:
         self._model.eval()
         self._stop_evt.clear()
         self._draining = False
+        self._engine_restarts = 0   # a fresh start() is a fresh budget
+        self._progress_t = time.monotonic()
         self._thread = threading.Thread(target=self._loop,
-                                        name="paddle-serving-engine",
+                                        name=f"paddle-serving-engine"
+                                             f"[{self.replica}]",
                                         daemon=True)
         self._started = True
         self._thread.start()
+        self._start_watchdog()
         return self
+
+    def _start_watchdog(self):
+        """The wedged-scheduler watchdog, from ``watchdog_s`` (None or 0 =
+        off)."""
+        wd = self._watchdog_s
+        if not wd or wd <= 0:
+            return
+        if self._watchdog is None:
+            from ..observability.watchdog import ServingWatchdog
+
+            self._watchdog = ServingWatchdog(self, deadline_s=wd)
+        self._watchdog.start()
+
+    @property
+    def watchdog(self):
+        return self._watchdog
 
     def drain(self, timeout=600):
         """Stop admitting (submits reject with reason ``draining``) and
@@ -336,16 +537,26 @@ class ServingEngine:
         self._draining = True
         deadline = time.monotonic() + float(timeout)
         while time.monotonic() < deadline:
-            if self._error is not None or not self._started:
-                return True
-            with self._lock:
-                empty = not self._queue and self._admitting is None \
-                    and all(s is None for s in self._slots)
-            if empty:
+            if self.quiescent:
                 return True
             time.sleep(0.01)
         raise TimeoutError(f"engine did not drain within {timeout}s: "
                            f"{self.stats()}")
+
+    def begin_drain(self):
+        """Non-blocking drain: stop admitting (submits shed with reason
+        ``draining``) while in-flight work runs to completion; poll
+        :attr:`quiescent`."""
+        self._draining = True
+
+    @property
+    def quiescent(self):
+        """True once nothing is queued or in flight."""
+        if self._error is not None or not self._started:
+            return True
+        with self._lock:
+            return not self._queue and self._admitting is None \
+                and all(s is None for s in self._slots)
 
     def stop(self, drain=False, drain_timeout=600):
         """Stop the scheduler.  ``drain=True`` first finishes all in-flight
@@ -377,6 +588,8 @@ class ServingEngine:
             for m, tr in self._modes:
                 m.training = tr
             self._modes = None
+        if self._watchdog is not None:
+            self._watchdog.stop()
         self._started = False
 
     def _fail_stopped(self, handle):
@@ -396,10 +609,17 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
-               eos_token_id=None, deadline_s=None):
+               eos_token_id=None, deadline_s=None, tier=None):
         """Queue one request; returns a :class:`RequestHandle` at once.
         ``deadline_s`` is a wall-clock budget from now — a sequence still
-        queued or decoding past it retires with status ``expired``."""
+        queued or decoding past it retires with status ``expired``.
+        ``tier`` names a QoS tier (``qos=`` engines only; None = the
+        config's default tier)."""
+        if self._qos is not None:
+            tier = self._qos.resolve(tier)
+        elif tier is not None:
+            raise ValueError(
+                "tier= needs a QoS-enabled engine (ServingEngine(qos=...))")
         prompt = self._normalize_prompt(prompt_ids)
         if not prompt:
             raise ValueError("empty prompt")
@@ -416,19 +636,85 @@ class ServingEngine:
         self.start()  # before enqueue: a failed engine rejects loudly
         with self._cv:
             if self._draining:
-                raise RequestRejectedError(
-                    "engine is draining; not admitting new work",
-                    reason="draining")
+                self._shed("draining",
+                           "engine is draining; not admitting new work",
+                           tier=tier)
+            if self._qos is not None:
+                self._check_qos_admission(tier)
+            if self._max_queue is not None \
+                    and len(self._queue) >= self._max_queue:
+                self._shed("queue_full",
+                           f"admission queue full ({self._max_queue})",
+                           tier=tier)
+            if deadline_s is not None:
+                self._check_deadline_meetable(float(deadline_s), tier=tier)
             handle = RequestHandle(self._rid, len(prompt))
+            handle.tier = tier
             self._rid += 1
             deadline = time.time() + deadline_s \
                 if deadline_s is not None else None
             self._queue.append(Request(
                 prompt, int(max_new_tokens),
                 SamplingParams(temperature=float(temperature)), eos_token_id,
-                deadline, handle))
+                deadline, handle, tier=tier))
             self._cv.notify_all()
         return handle
+
+    def _shed(self, reason, message, tier=None):
+        """Reject at admission with a distinct, machine-readable reason
+        (shedding under pressure beats timing out after queueing)."""
+        self._shed_counts[(reason, tier)] += 1
+        raise RequestRejectedError(message, reason=reason)
+
+    def _check_qos_admission(self, tier):
+        """QoS admission (under the cv lock): shed whole tiers by the
+        brownout ladder and enforce per-tier queue caps."""
+        bo = self._brownout()
+        if tier in bo["shed"]:
+            self._shed(
+                "brownout",
+                f"tier {tier!r} shed at brownout level {bo['level']} "
+                f"({bo['state']}): protected-tier burn rate "
+                f"{bo['burn_rate']:.2f}", tier=tier)
+        pol = self._qos.tier(tier)
+        if pol.max_queue is not None \
+                and self._queue.depth(tier) >= pol.max_queue:
+            self._shed("queue_full",
+                       f"tier {tier!r} queue full ({pol.max_queue})",
+                       tier=tier)
+
+    def _check_deadline_meetable(self, deadline_s, tier=None):
+        """Deadline-aware admission (under the cv lock): shed NOW if the
+        scheduler has been stalled longer than the whole deadline budget,
+        or if the queue-position estimate (queue depth over slots times
+        the completed-request duration EMA) already exceeds it.  QoS
+        engines estimate per tier: the submitting tier's own EMA, and only
+        the queued requests at the same or higher priority."""
+        stamp = self._progress_t
+        if stamp is not None and not self._compiling:
+            stall = time.monotonic() - stamp
+            if stall > max(self._degraded_stall_s, deadline_s):
+                self._shed("deadline_unmeetable",
+                           f"scheduler stalled for {stall:.2f}s, longer "
+                           f"than the {deadline_s:.2f}s deadline",
+                           tier=tier)
+        if self._qos is not None and tier is not None:
+            ema = self._tier_ema.get(tier, self._ema_request_s)
+            ahead = self._queue.depth_at_or_above(
+                self._qos.tier(tier).priority)
+        else:
+            ema = self._ema_request_s
+            ahead = len(self._queue)
+        if ema is not None and ahead:
+            est = (ahead / max(self.num_slots, 1) + 1.0) * ema
+            if est > deadline_s:
+                self._shed(
+                    "deadline_unmeetable",
+                    f"estimated completion in {est:.2f}s (queue-ahead "
+                    f"{ahead}, typical request {ema:.2f}s"
+                    + (f" for tier {tier!r}" if tier is not None else "")
+                    + f") exceeds the {deadline_s:.2f}s deadline",
+                    tier=tier)
 
     def generate(self, prompt_ids, max_new_tokens=32, timeout=None, **kw):
         """Blocking convenience: submit + wait; returns generated ids."""
@@ -456,6 +742,11 @@ class ServingEngine:
         with torch.inference_mode():
             while not self._stop_evt.is_set():
                 try:
+                    # heartbeat FIRST, fault hook second: a wedge injected
+                    # here leaves the stamp stale like a stuck iteration
+                    self._progress_t = time.monotonic()
+                    _faults.maybe("serving.scheduler_wedge")
+                    _faults.maybe(self._site_wedge)
                     self._admit()
                     # chunked prefill rides the same iteration as the
                     # decode step: one budget of chunk work, then one step
@@ -471,11 +762,92 @@ class ServingEngine:
                         continue
                     self._step_once()
                 except Exception as e:
-                    # the thread's boundary: fail every waiter, don't hang
+                    # the restart budget is a burst limit: a cooldown of
+                    # healthy operation since the last restart heals it
+                    if self._engine_restarts \
+                            and self._last_restart_t is not None \
+                            and time.monotonic() - self._last_restart_t \
+                            > self._restart_cooldown_s:
+                        self._engine_restarts = 0
+                    # the traceback's finished frames (the dispatch, the
+                    # sampler) hold the old pools and logits: drop their
+                    # locals, or a rebuild would hold two pool sets
+                    traceback.clear_frames(e.__traceback__)
+                    if classify_failure(e) == "transient" \
+                            and self._engine_restarts \
+                            < self._max_engine_restarts:
+                        try:
+                            self._recover(e)
+                            continue
+                        except Exception as e2:  # recovery itself died
+                            e = e2
+                    # fatal (or budget burned): fail every waiter
                     _logger.exception("serving scheduler failed")
                     self._error = e
                     self._abort_all(e)
                     return
+
+    def _recover(self, exc):
+        """Transient scheduler failure: rebuild the device state and
+        re-queue every in-flight request instead of failing it.  Tokens
+        already emitted stay emitted — each request is re-admitted as
+        prompt + tokens-so-far with the remaining budget, so a greedy
+        request's final ids are those of an uninterrupted run."""
+        self._engine_restarts += 1
+        self._restarts_total += 1
+        self._last_restart_t = time.monotonic()
+        _logger.error(
+            "serving engine auto-restart %d/%d after transient failure %r; "
+            "re-queueing in-flight requests", self._engine_restarts,
+            self._max_engine_restarts, exc)
+        inflight = []
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                self._slots[i] = None
+                inflight.append((s.req, s.produced))
+        pending, self._admitting = self._admitting, None
+        if pending is not None and \
+                all(req.handle is not pending.handle for req, _ in inflight):
+            inflight.append((pending, 0))
+        # re-queue BEFORE touching device state: if the rebuild below
+        # raises (recovery itself died), _abort_all fails these handles
+        # with the queue instead of leaving them waiting forever
+        with self._lock:
+            for req, produced in reversed(inflight):
+                h = req.handle
+                if h.done:
+                    continue
+                if h.cancelled:
+                    self._finish(h, "cancelled")
+                    continue
+                remaining = req.max_new_tokens - produced
+                if remaining <= 0:  # had finished, crash beat the retire
+                    self._finish(h, "completed")
+                    continue
+                self._requeue(req, h, produced, remaining)
+        del inflight, pending
+        # fresh device state: re-admission prefills rewrite every
+        # sequence's K/V, and the host tier resets with the radix index.
+        # The old pools go first, so two sets never coexist on the card;
+        # the new ones are made outside inference mode, like the first
+        if self._spill is not None:
+            self._spill.clear()
+        self._bm = self._new_block_manager()
+        self._pools = None
+        self._reset_host_buffers()
+        with torch.inference_mode(False):
+            self._pools = tuple(
+                self._adapter.init_pools(self._num_pages + 1))
+
+    def _requeue(self, req, h, produced, remaining):
+        """Put ``req`` back at the FRONT of its queue as prompt +
+        tokens-so-far with the remaining budget (under the lock)."""
+        prompt = list(req.prompt) + \
+            ([int(t) for t in h.token_ids[-produced:]] if produced else [])
+        h.status = "queued"
+        self._queue.appendleft(dataclasses.replace(
+            req, prompt=prompt, max_new_tokens=remaining))
+        self._requeued += 1
 
     def _abort_all(self, exc):
         pending, self._admitting = self._admitting, None
@@ -495,6 +867,124 @@ class ServingEngine:
                 req.handle._error = exc
                 self._finish(req.handle, "error")
 
+    # --------------------------------------------------- QoS preemption
+    def _queue_pop(self, req):
+        """Pop the already-peeked head ``req`` (under the lock).  QoS
+        engines pop by identity: preemption may have requeued victims into
+        lower tiers between the peek and this pop."""
+        if self._qos is not None:
+            self._queue.pop_exact(req)
+        else:
+            self._queue.popleft()
+
+    def _count_preemption(self, req, reason):
+        self._preempt_counts[(reason, req.tier)] += 1
+
+    def _preempt_victims(self, req):
+        """Decode slots ``req`` may evict, cheapest first: strictly
+        lower-priority preemptible tiers, lowest priority then least
+        produced.  Slots that already hit EOS / budget are skipped."""
+        pri = self._qos.tier(req.tier).priority
+        out = []
+        for i, s in enumerate(self._slots):
+            if s is None or s.req.tier is None:
+                continue
+            pol = self._qos.tier(s.req.tier)
+            if not pol.preemptible or pol.priority >= pri:
+                continue
+            if (s.eos is not None and s.last == s.eos) \
+                    or s.produced >= s.max_new:
+                continue
+            out.append((pol.priority, s.produced, i))
+        out.sort()
+        return [i for _, _, i in out]
+
+    def _preempt_for_slot(self, req):
+        """All slots busy: evict one lower-tier victim so ``req`` admits
+        now.  Returns the freed slot index, or None."""
+        if self._qos is None or req.tier is None:
+            return None
+        victims = self._preempt_victims(req)
+        if not victims:
+            return None
+        i = victims[0]
+        self._preempt_slot(i)
+        return i
+
+    def _preempt_for_pages(self, req):
+        """Page pool exhausted: evict lower-tier victims until ``req``'s
+        allocation fits — or none at all, if evicting every eligible
+        victim still could not cover the need (no thrash)."""
+        if self._qos is None or req.tier is None:
+            return None
+        victims = self._preempt_victims(req)
+        if not victims:
+            return None
+        need = self._bm.pages_for(len(req.prompt) + req.max_new_tokens)
+        free = self._bm.num_pages - self._bm.used_pages
+        gain = sum(len(self._slots[i].alloc.pages) for i in victims)
+        if free + gain < need:
+            return None
+        for i in victims:
+            self._preempt_slot(i)
+            alloc = self._bm.allocate(
+                req.prompt, len(req.prompt) + req.max_new_tokens)
+            if alloc is not None:
+                return alloc
+        return None
+
+    def _preempt_slot(self, i):
+        """Evict slot ``i`` for QoS (under the lock): free its pages, clear
+        its lane and requeue it at the FRONT of its tier — the restart
+        requeue, scheduled on purpose."""
+        s = self._slots[i]
+        h = s.handle
+        produced = s.produced
+        self._bm.free(s.alloc)
+        self._slots[i] = None
+        self._clear_slot_row(i)
+        if h.cancelled:
+            self._finish(h, "cancelled")
+            return
+        remaining = s.req.max_new_tokens - produced
+        if remaining <= 0:      # had finished; eviction beat the retire
+            self._finish(h, "completed")
+            return
+        h.preemptions += 1
+        self._requeue(s.req, h, produced, remaining)
+        self._count_preemption(s.req, "qos")
+        self._last_preempt_t = time.monotonic()
+        self._bo_cache = (0.0, None)    # ladder rung changed: drop cache
+
+    def _brownout(self):
+        """Current brownout rung (cached ~50 ms)."""
+        from .qos import brownout
+
+        now = time.monotonic()
+        cached_t, cached = self._bo_cache
+        if cached is not None and now - cached_t < 0.05:
+            return cached
+        preempting = self._last_preempt_t is not None \
+            and now - self._last_preempt_t < 1.0
+        bo = brownout(self._qos, self.qos_burn_rate(), preempting=preempting)
+        self._bo_cache = (now, bo)
+        return bo
+
+    def qos_burn_rate(self):
+        """The protected (highest-priority) tier's error-budget burn rate;
+        0.0 until that tier has completed requests (or on non-QoS
+        engines)."""
+        if self._qos is None:
+            return 0.0
+        acct = self._tier_slo.get(self._qos.protected.name)
+        if acct is None:
+            return 0.0
+        cur = acct.current()
+        if not cur or cur.get("burn_rate") is None:
+            return 0.0
+        return float(cur["burn_rate"])
+
+    # ------------------------------------------------------------ admission
     def _admit(self):
         while True:
             with self._lock:
@@ -517,14 +1007,19 @@ class ServingEngine:
                 free_slot = next((i for i, s in enumerate(self._slots)
                                   if s is None), None)
                 if free_slot is None:
+                    # QoS: a full batch must not gate high-tier work
+                    free_slot = self._preempt_for_slot(req)
+                if free_slot is None:
                     return
                 alloc = self._bm.allocate(
                     req.prompt, len(req.prompt) + req.max_new_tokens)
                 if alloc is None:
+                    alloc = self._preempt_for_pages(req)
+                if alloc is None:
                     return      # FIFO: park until a retirement frees pages
-                self._queue.popleft()
+                self._queue_pop(req)
                 # between dequeue and slot assignment the request lives in
-                # _admitting, so a failure mid-prefill still fails its handle
+                # _admitting, so a failure mid-prefill still reaches it
                 self._admitting = req
             if self._chunk_tokens and len(req.prompt) > self._chunk_tokens:
                 self._admit_chunked(req, alloc, free_slot)
@@ -545,37 +1040,101 @@ class ServingEngine:
     def _to_device(self, arr):
         return torch.tensor(arr, device=self.device)
 
+    @contextlib.contextmanager
+    def _dispatch(self):
+        """Bracket one device dispatch: flag ``_compiling`` while a kernel
+        of this engine may still be built (the first calls on the card),
+        so the watchdog and the health state read the build as slow, not
+        stuck; stamp the heartbeat after it."""
+        if self._kernels and all(_build.loaded(n) for n in self._kernels):
+            self._kernels = ()      # every kernel is loaded: no more builds
+        self._compiling = bool(self._kernels)
+        try:
+            yield
+        finally:
+            self._compiling = False
+            self._progress_t = time.monotonic()
+
+    def _inject(self, logits):
+        """Numeric guard: ``logits [B, ...]`` plus the inject vector, which
+        is zero (nothing added, nothing copied to the device) unless the
+        ``numerics.nan_inject`` fault tripped."""
+        inj = self._numeric_inject(logits.shape[0])
+        if not inj.any():
+            return logits
+        return logits + self._to_device(inj).view(
+            -1, *([1] * (logits.dim() - 1)))
+
     def _sample(self, logits, temps):
-        """Tokens for ``logits [B, V]`` at host ``temps [B]``, on the host
-        (this is the step's device sync).  All-greedy batches skip the
-        random draw."""
+        """Tokens for ``logits [B, V]`` at host ``temps [B]``, and with the
+        numeric guard the rows whose logits are non-finite, on the host in
+        ONE transfer (the dispatch's device sync).  All-greedy batches
+        skip the random draw.  Returns ``(tokens, bad or None)``."""
+        bad = None
+        if self._numeric_guard:
+            logits = self._inject(logits)
+            bad = nonfinite_rows(logits)
         if (temps > 0).any():
             tok = self._sampler(logits, self._to_device(temps), self._gen)
         else:
             tok = torch.argmax(logits, dim=-1)
-        return tok.cpu().numpy()
+        if bad is None:
+            return tok.cpu().numpy(), None
+        out = torch.stack([tok, bad.long()]).cpu().numpy()
+        return out[0], out[1].astype(bool)
 
     def _prefill(self, req, alloc, slot_idx):
         S0 = len(req.prompt)
-        s_pad = self._prefill_bucket(S0)
-        ids = np.zeros((1, s_pad), np.int64)
-        ids[0, :S0] = req.prompt
+        # hierarchical KV cache: leading pages the radix index matched (or
+        # the spill tier resurrected) already hold their K/V — run only the
+        # divergent tail, clamped so at least the last prompt position is
+        # computed (its logits seed the first token)
+        cached = min(alloc.cached_pages * self.page_size, S0 - 1) \
+            if alloc.cached_pages else 0
         table_row = np.asarray(alloc.pages, np.int32)
         table = np.full((1, self.table_width), self._scratch, np.int32)
         table[0, :len(table_row)] = table_row
-        lens = np.asarray([S0], np.int32)
         temps = np.asarray([req.sampling.temperature], np.float32)
-        logits, *pools = self._adapter.prefill(
-            self._to_device(ids), *self._pools, self._to_device(table),
-            self._to_device(lens))
-        self._pools = tuple(pools)
-        tok = int(self._sample(logits, temps)[0])
+        with self._dispatch():
+            if cached > 0:
+                # ONE chunk dispatch over the tail at positions cached..S0-1
+                # (K3 / K4 through paged_chunk_attend on the card)
+                tail = S0 - cached
+                ids = np.zeros((1, self._prefill_bucket(tail)), np.int64)
+                ids[0, :tail] = req.prompt[cached:]
+                logits, *pools = self._adapter.prefill_chunk(
+                    self._to_device(ids),
+                    self._to_device(np.asarray([tail], np.int32)),
+                    *self._pools, self._to_device(table),
+                    self._to_device(np.asarray([cached], np.int32)))
+            else:
+                ids = np.zeros((1, self._prefill_bucket(S0)), np.int64)
+                ids[0, :S0] = req.prompt
+                logits, *pools = self._adapter.prefill(
+                    self._to_device(ids), *self._pools,
+                    self._to_device(table),
+                    self._to_device(np.asarray([S0], np.int32)))
+            self._pools = tuple(pools)
+            tok, bad = self._sample(logits, temps)
         self._prefills += 1
+        self._cached_prefills += cached > 0
+        if bad is not None and bad[0]:
+            # non-finite first-token logits: fail THIS request before it
+            # ever occupies a decode lane
+            h = req.handle
+            h._error = NumericFault(
+                "non-finite logits at prefill", site="logits",
+                stream=f"serving/{self.replica}", step=self._iteration)
+            self._numeric_faults += 1
+            self._bm.free(alloc)
+            self._admitting = None
+            self._finish(h, "error")
+            return
         slot = _Slot(req, alloc, table_row)
         req.handle.status = "running"
         self._slots[slot_idx] = slot
         self._admitting = None
-        self._go_live(slot_idx, slot, tok)
+        self._go_live(slot_idx, slot, int(tok[0]))
 
     def _go_live(self, i, slot, tok):
         """Slot ``i``'s prompt is in the pools and ``tok`` is its first
@@ -596,11 +1155,14 @@ class ServingEngine:
     # ------------------------------------------------- chunked prefill
     def _admit_chunked(self, req, alloc, slot_idx):
         """Admit a long prompt without running its prefill: the slot goes
-        live at once with ``prefilled=0`` and ingests chunk by chunk in
-        :meth:`_advance_prefills`, interleaved with decode.  Its host row
-        stays inert until the final chunk seeds decode."""
+        live at once and ingests chunk by chunk in
+        :meth:`_advance_prefills`, interleaved with decode, starting past
+        the cached pages of a radix hit (clamped so the final chunk
+        computes at least the last prompt position).  Its host row stays
+        inert until the final chunk seeds decode."""
         slot = _Slot(req, alloc, np.asarray(alloc.pages, np.int32))
-        slot.prefilled = 0
+        slot.prefilled = min(alloc.cached_pages * self.page_size,
+                             max(len(req.prompt) - 1, 0))
         req.handle.status = "running"
         self._slots[slot_idx] = slot
         self._admitting = None
@@ -620,13 +1182,18 @@ class ServingEngine:
             if budget <= 0:
                 return
             s = self._slots[i]
+            if s is None or s.prefilled is None:
+                continue
             h = s.handle
             if h.cancelled or (s.deadline is not None
                                and time.time() > s.deadline):
+                status = "cancelled" if h.cancelled else "expired"
+                if status == "expired":
+                    self._count_preemption(s.req, "deadline")
                 self._bm.free(s.alloc)
                 self._slots[i] = None
                 self._clear_slot_row(i)
-                self._finish(h, "cancelled" if h.cancelled else "expired")
+                self._finish(h, status)
                 continue
             budget -= self._prefill_chunk_step(i, s)
             self._prefill_rr = (i + 1) % self.num_slots
@@ -647,41 +1214,88 @@ class ServingEngine:
         ids[0, :nval] = req.prompt[c0:c0 + nval]
         table = np.full((1, self.table_width), self._scratch, np.int32)
         table[0, :len(slot.table_row)] = slot.table_row
-        logits, *pools = self._adapter.prefill_chunk(
-            self._to_device(ids), self._to_device(np.asarray([nval], np.int32)),
-            *self._pools, self._to_device(table),
-            self._to_device(np.asarray([c0], np.int32)))
-        self._pools = tuple(pools)
-        self._prefill_chunks += 1
-        slot.prefilled = c0 + nval
-        if slot.prefilled < S0:
+        with self._dispatch():
+            logits, *pools = self._adapter.prefill_chunk(
+                self._to_device(ids),
+                self._to_device(np.asarray([nval], np.int32)),
+                *self._pools, self._to_device(table),
+                self._to_device(np.asarray([c0], np.int32)))
+            self._pools = tuple(pools)
+            self._prefill_chunks += 1
+            final = c0 + nval >= S0
+            bad = None
+            if final:
+                tok, bad = self._sample(
+                    logits, np.asarray([slot.temp], np.float32))
+            elif self._numeric_guard:
+                # a middle chunk samples nothing, but its logits are
+                # guarded all the same (one small transfer)
+                bad = nonfinite_rows(self._inject(logits)).cpu().numpy()
+        if bad is not None and bad[0]:
+            self._fail_numeric(i)
             return nval
-        tok = int(self._sample(logits, np.asarray([slot.temp], np.float32))[0])
+        slot.prefilled = c0 + nval
+        if not final:
+            return nval
         self._prefills += 1
         slot.prefilled = None
-        self._go_live(i, slot, tok)
+        self._go_live(i, slot, int(tok[0]))
         return nval
 
     # ------------------------------------------------------------ decode
     def _step_once(self):
         """One decode iteration over the lanes that finished ingesting
-        (mid-prefill lanes stay inert in the dispatch)."""
+        (mid-prefill lanes stay inert in the dispatch).  The fault sites
+        sit before the dispatch, plain or verify."""
+        _faults.maybe("serving.step_crash")
+        _faults.maybe(self._site_step_crash)
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and s.prefilled is None]
         if self._spec_k:
             return self._verify_once(active)
         return self._plain_step(active)
 
+    def _numeric_inject(self, B):
+        """The ``[B]`` f32 vector a guarded dispatch adds to its logits:
+        zeros disarmed, NaN in lane :func:`~..observability.numerics.
+        nan_inject_row` when the ``numerics.nan_inject`` fault tripped
+        since the last call."""
+        inj = np.zeros((B,), np.float32)
+        v = _numerics.consume_nan_inject()
+        if not np.isfinite(v):
+            inj[_numerics.nan_inject_row() % B] = v
+        return inj
+
+    def _fail_numeric(self, i):
+        """Retire lane ``i`` with a numeric fault: exactly this request
+        errors (``status="error"``, :class:`NumericFault`), its pages free
+        and the lane backfills at the next admit."""
+        slot = self._slots[i]
+        h = slot.handle
+        h._error = NumericFault(
+            f"non-finite logits in decode lane {i}", site="logits",
+            stream=f"serving/{self.replica}", step=self._iteration)
+        self._numeric_faults += 1
+        self._bm.free(slot.alloc)
+        self._slots[i] = None
+        self._clear_slot_row(i)
+        self._finish(h, "error")
+
     def _plain_step(self, active):
         """One decode step for every lane; inactive lanes (length 0,
         all-scratch table row) compute junk nobody reads."""
-        logits, *pools = self._adapter.step(
-            self._to_device(self._h_last), *self._pools,
-            self._to_device(self._h_table), self._to_device(self._h_lens))
-        self._pools = tuple(pools)
-        tok = self._sample(logits, self._h_temps)
+        with self._dispatch():
+            logits, *pools = self._adapter.step(
+                self._to_device(self._h_last), *self._pools,
+                self._to_device(self._h_table), self._to_device(self._h_lens))
+            self._pools = tuple(pools)
+            tok, bad = self._sample(logits, self._h_temps)
         self._iteration += 1
         for i in active:
+            if bad is not None and bad[i]:
+                # this lane's logits went non-finite: fail exactly it
+                self._fail_numeric(i)
+                continue
             s = self._slots[i]
             s.length += 1
             s.produced += 1
@@ -717,21 +1331,31 @@ class ServingEngine:
             drafts[i] = d
         if not any(drafts.values()):
             return self._plain_step(active)
-        ids = self._to_device(self._h_ids)
-        logits, *pools = self._adapter.verify(
-            ids, *self._pools, self._to_device(self._h_table),
-            self._to_device(self._h_lens))
-        self._pools = tuple(pools)
-        targets, accept = self._verifier(
-            logits, ids[:, 1:], self._to_device(self._h_dlen),
-            self._to_device(self._h_temps), self._gen)
-        # one transfer to the host: this is the step's device sync
-        out = torch.cat([targets, accept.long()], dim=1).cpu().numpy()
-        targets, accept = out[:, :K + 1], out[:, K + 1:].astype(bool)
+        with self._dispatch():
+            ids = self._to_device(self._h_ids)
+            logits, *pools = self._adapter.verify(
+                ids, *self._pools, self._to_device(self._h_table),
+                self._to_device(self._h_lens))
+            self._pools = tuple(pools)
+            parts = []
+            if self._numeric_guard:
+                logits = self._inject(logits)
+                parts.append(nonfinite_rows(logits).long()[:, None])
+            targets, accept = self._verifier(
+                logits, ids[:, 1:], self._to_device(self._h_dlen),
+                self._to_device(self._h_temps), self._gen)
+            # one transfer to the host: this is the step's device sync
+            out = torch.cat([targets, accept.long()] + parts,
+                            dim=1).cpu().numpy()
+        targets, accept = out[:, :K + 1], out[:, K + 1:2 * K + 1].astype(bool)
+        bad = out[:, -1].astype(bool) if self._numeric_guard else None
         self._iteration += 1
         self._verify_steps += 1
         proposed = accepted = 0
         for i in active:
+            if bad is not None and bad[i]:
+                self._fail_numeric(i)
+                continue
             s = self._slots[i]
             d = drafts[i]
             a = 0
@@ -765,9 +1389,11 @@ class ServingEngine:
 
     def _emit_token(self, slot, tok):
         h = slot.handle
+        now = time.time()
         if h.first_token_at is None:
-            h.first_token_at = time.time()
+            h.first_token_at = now
         h.token_ids.append(tok)
+        h.token_times.append(now)
         h._events.put(("token", tok))
 
     def _retire_if_done(self, i):
@@ -782,6 +1408,7 @@ class ServingEngine:
             status = "completed"
         elif slot.deadline is not None and time.time() > slot.deadline:
             status = "expired"
+            self._count_preemption(slot.req, "deadline")
         if status is None:
             return False
         self._bm.free(slot.alloc)
@@ -811,19 +1438,93 @@ class ServingEngine:
     def _finish(self, handle, status):
         handle.status = status
         handle.finished_at = time.time()
+        if status == "completed":
+            # completed-request duration EMAs feed deadline-aware shedding
+            # (per tier too: a slow batch request must not inflate the
+            # realtime estimate)
+            dur = handle.finished_at - handle.submitted_at
+            self._ema_request_s = dur if self._ema_request_s is None \
+                else 0.8 * self._ema_request_s + 0.2 * dur
+            if handle.tier is not None:
+                prev = self._tier_ema.get(handle.tier)
+                self._tier_ema[handle.tier] = dur if prev is None \
+                    else 0.8 * prev + 0.2 * dur
+        if status in ("completed", "expired"):
+            # expired = the deadline preempted it: an SLO miss by
+            # definition; cancelled / stopped / error requests measure the
+            # caller or the engine, not the latency promise
+            miss = False if status == "expired" else None
+            for acct in (self._slo, self._tier_slo.get(handle.tier)):
+                if acct is not None:
+                    acct.observe(handle, met_override=miss)
         handle._events.put(("done", status))
         handle._done.set()
+
+    # --------------------------------------------------------------- health
+    def health_state(self):
+        """The health state machine:
+
+        - ``healthy`` — scheduler progressing, queue under pressure limits;
+        - ``degraded`` — serving, but queue pressure, a stalled scheduler,
+          a recent auto-restart or a QoS brownout says trouble (``reasons``
+          lists which);
+        - ``draining`` — graceful rundown, no new admissions;
+        - ``stopped`` / ``error`` — not serving.
+        """
+        if self._error is not None:
+            return {"state": "error", "reasons": [repr(self._error)]}
+        if self._draining:
+            return {"state": "draining", "reasons": ["drain requested"]}
+        if not self._started:
+            return {"state": "stopped", "reasons": []}
+        reasons = []
+        qd = len(self._queue)
+        if self._max_queue and qd >= max(1, int(0.8 * self._max_queue)):
+            reasons.append(f"queue_pressure:{qd}/{self._max_queue}")
+        stamp = self._progress_t
+        busy = qd or any(s is not None for s in self._slots)
+        if busy and stamp is not None and not self._compiling:
+            age = time.monotonic() - stamp
+            if age > self._degraded_stall_s:
+                reasons.append(f"scheduler_stalled:{age:.2f}s")
+        if self._last_restart_t is not None and \
+                time.monotonic() - self._last_restart_t \
+                < self._restart_cooldown_s:
+            reasons.append(f"recent_restart:{self._engine_restarts}")
+        if self._qos is not None:
+            bo = self._brownout()
+            if bo["level"]:
+                reasons.append(f"brownout:L{bo['level']}:{bo['state']}")
+        return {"state": "degraded" if reasons else "healthy",
+                "reasons": reasons}
+
+    @property
+    def health(self):
+        return self.health_state()["state"]
 
     # -------------------------------------------------------------- insight
     @property
     def block_manager(self):
         return self._bm
 
+    @property
+    def slo_accountant(self):
+        """The engine's SLO accountant (None unless ``slo=`` was set)."""
+        return self._slo
+
     def stats(self):
-        return {
+        def by_reason(counts):
+            out = {}
+            for (reason, _), n in counts.items():
+                out[reason] = out.get(reason, 0) + n
+            return out
+
+        st = {
             "device": str(self.device),
+            "replica": self.replica,
             "iteration": self._iteration,
             "prefills": self._prefills,
+            "cached_prefills": self._cached_prefills,
             "prefill_chunks": self._prefill_chunks,
             "verify_steps": self._verify_steps,
             "queue_depth": len(self._queue),
@@ -844,5 +1545,48 @@ class ServingEngine:
             "spec_proposed": self._spec_proposed_total,
             "spec_accepted": self._spec_accepted_total,
             "prefill_chunk_tokens": self._chunk_tokens,
+            "numeric_guard": self._numeric_guard,
+            # resilience: lifetime counts
+            "health": self.health,
+            "health_gating": self._health_gating,
+            "engine_restarts": self._restarts_total,
+            "requests_requeued": self._requeued,
+            "load_shed": by_reason(self._shed_counts),
+            "preemptions": by_reason(self._preempt_counts),
+            "numeric_faults": self._numeric_faults,
+            "typical_request_s": self._ema_request_s,
+            "watchdog_fires": len(self._watchdog.fired)
+            if self._watchdog is not None else 0,
             "error": repr(self._error) if self._error is not None else None,
         }
+        if self._prefix_cache is not None:
+            st["prefix_cache"] = self._bm.stats()["prefix_cache"]
+            summ = self.prefix_index_summary()
+            if summ is not None:
+                st["prefix_index"] = summ
+        if self._slo is not None:
+            st["slo"] = self._slo.summary()
+        if self._qos is not None:
+            active = dict.fromkeys(self._qos.names, 0)
+            for s in self._slots:
+                if s is not None and s.req.tier in active:
+                    active[s.req.tier] += 1
+            st["qos"] = {
+                "config": self._qos.to_dict(),
+                "brownout": self._brownout(),
+                "queue_by_tier": self._queue.depths(),
+                "active_by_tier": active,
+                "typical_request_s_by_tier": dict(self._tier_ema),
+                "slo_by_tier": {name: acct.summary()
+                                for name, acct in self._tier_slo.items()},
+                "load_shed_by_tier": {
+                    f"{reason}@{tier}": n
+                    for (reason, tier), n in self._shed_counts.items()
+                    if tier is not None},
+                "preemptions_by_tier": {
+                    f"{reason}@{tier}": n
+                    for (reason, tier), n in self._preempt_counts.items()
+                    if tier is not None},
+            }
+        return st
+

@@ -82,6 +82,26 @@ def make_batched_sampler(top_k=0, top_p=1.0):
     return sample
 
 
+def make_guarded_batched_sampler(top_k=0, top_p=1.0):
+    """NaN-safe twin of :func:`make_batched_sampler`: ``sample(logits,
+    temps, generator) -> (tokens, bad)``, ``bad [B] bool`` flagging rows
+    whose logits hold any non-finite value (:func:`nonfinite_rows`, the
+    flags the serving engine's numeric guard computes beside its one
+    sampler).  The token math is the same sampler's, so every finite
+    row's token is unchanged."""
+    inner = make_batched_sampler(top_k, top_p)
+
+    def sample(logits, temps, generator):
+        return inner(logits, temps, generator), nonfinite_rows(logits)
+
+    return sample
+
+
+def nonfinite_rows(logits):
+    """``[B]`` bool: rows of ``logits [B, ...]`` holding a NaN or inf."""
+    return ~torch.isfinite(logits).flatten(1).all(dim=1)
+
+
 def host_ids(input_ids):
     """``[B, S]`` prompt ids as an int64 numpy array (from a tensor on any
     device, or an array)."""

@@ -14,6 +14,7 @@ JAX, and that machine may have none):
 """
 
 import copy
+import time
 
 import numpy as np
 import pytest
@@ -833,3 +834,249 @@ def test_spec_and_chunked_engine_on_card_matches_cpu(cuda, kv_dtype):
         assert got == want
     assert c1 - c0 == 2 * (st["verify_steps"] + st["prefill_chunks"])
     assert st["verify_steps"] > 0 and st["prefill_chunks"] > 0
+
+
+# ------------------------------------------- robustness and prefix cache
+def _held(eng, reqs, arm=None):
+    """Submit while the scheduler sits in a wedge (one admission pass sees
+    every request), arm a fault, release."""
+    from paddle_tpu_torch.observability import faults
+
+    site = f"serving.scheduler_wedge@{eng.replica}"
+    faults.inject(site, seconds=60.0, times=1)
+    while faults.trip_count(site) < 1:
+        time.sleep(0.005)
+    hs = [eng.submit(p, max_new_tokens=n, **kw) for p, n, kw in reqs]
+    if arm is not None:
+        arm()
+    faults.clear(site)
+    return hs
+
+
+def _engine_on(model, device, **kw):
+    kw.setdefault("num_slots", 2)
+    return ServingEngine(model, device=device, page_size=8,
+                         max_model_len=64, **kw)
+
+
+def _uninterrupted(model, reqs, **kw):
+    with _engine_on(model, "cuda", **kw) as eng:
+        return [eng.generate(p, max_new_tokens=n, timeout=120)
+                for p, n, _ in reqs]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_restart_on_card_keeps_ids(cuda, kv_dtype):
+    """A TransientError at the 4th decode step with two requests in
+    flight: one restart, both requeued, the rebuilt pools on the card, and
+    the ids of an uninterrupted card run."""
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.resilience import TransientError
+
+    _, card = _tiny_pair()
+    reqs = [([5, 6, 7, 8, 9], 12, {}), ([11, 12, 13] * 4, 10, {})]
+
+    def boom():
+        raise TransientError("injected decode crash")
+
+    eng = _engine_on(card, "cuda", kv_dtype=kv_dtype, replica="c-restart")
+    try:
+        with eng:
+            eng.generate([3, 4], max_new_tokens=2, timeout=120)
+            hs = _held(eng, reqs, arm=lambda: faults.inject(
+                "serving.step_crash", fn=boom, at_trips={4}))
+            got = [h.result(timeout=120) for h in hs]
+            st = eng.stats()
+    finally:
+        faults.clear()
+    assert st["engine_restarts"] == 1 and st["requests_requeued"] == 2
+    assert all(p.device.type == "cuda" for p in eng._pools)
+    assert got == _uninterrupted(card, reqs, kv_dtype=kv_dtype)
+
+
+def test_restart_after_the_step_holds_one_pool_set(cuda):
+    """A TransientError from the sampler, after the adapter's step (the
+    traceback's frames held the pools and logits): the card's allocated
+    bytes while the rebuild runs never pass one pool set (pools sized to
+    dominate the card's other tensors), and the ids are unchanged."""
+    from paddle_tpu_torch.resilience import TransientError
+
+    _, card = _tiny_pair()
+    reqs = [([5, 6, 7, 8, 9], 12, {}), ([11, 12, 13] * 4, 10, {})]
+    eng = _engine_on(card, "cuda", num_pages=65536, replica="c-one-set")
+    pool_bytes = sum(p.numel() * p.element_size() for p in eng._pools)
+    base = torch.cuda.memory_allocated()
+    slack = 64 << 20
+    assert pool_bytes > 8 * slack
+    orig_sample, orig_init = eng._sample, eng._adapter.init_pools
+    armed, seen = {"n": None}, {}
+
+    def sample(logits, temps):
+        out = orig_sample(logits, temps)
+        if armed["n"] is not None:
+            armed["n"] -= 1
+            if armed["n"] == 0:
+                armed["n"] = None
+                raise TransientError("crash after the step")
+        return out
+
+    def init_pools(num_pages):
+        seen["entry"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pools = orig_init(num_pages)
+        seen["peak"] = torch.cuda.max_memory_allocated()
+        return pools
+
+    eng._sample = sample
+    eng._adapter.init_pools = init_pools
+    with eng:
+        eng.generate([3, 4], max_new_tokens=2, timeout=120)
+        hs = _held(eng, reqs, arm=lambda: armed.update(n=4))
+        got = [h.result(timeout=120) for h in hs]
+        assert eng.stats()["engine_restarts"] == 1
+    assert seen["entry"] <= base - pool_bytes + slack, (seen, base, pool_bytes)
+    assert seen["peak"] <= base + slack, (seen, base, pool_bytes)
+    assert got == _uninterrupted(card, reqs)
+
+
+def test_nan_lane_on_card_fails_only_that_request(cuda):
+    from paddle_tpu_torch.observability import faults, numerics
+    from paddle_tpu_torch.resilience import NumericFault
+
+    _, card = _tiny_pair()
+    eng = _engine_on(card, "cuda", numeric_guard=True, replica="c-nan")
+    try:
+        with eng:
+            eng.generate([3, 4], max_new_tokens=2, timeout=120)
+            numerics.set_nan_inject_row(0)
+            h0 = eng.submit([9, 10, 11], max_new_tokens=30)
+            h1 = eng.submit([12, 13, 14], max_new_tokens=30)
+            it0, it1 = h0.stream(), h1.stream()
+            next(it0)
+            next(it1)
+            faults.inject("numerics.nan_inject", times=1)
+            with pytest.raises(NumericFault):
+                h0.result(timeout=120)
+            other = h1.result(timeout=120)
+    finally:
+        faults.clear()
+    assert h0.status == "error" and h1.status == "completed"
+    assert other == _uninterrupted(card, [([12, 13, 14], 30, {})])[0]
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_dtype": "int8"},
+                                {"prefill_chunk_tokens": 8},
+                                {"speculative_k": 3}],
+                         ids=["plain", "int8", "chunked", "spec"])
+def test_preemption_on_card_keeps_ids(cuda, kw):
+    _, card = _tiny_pair()
+    n = 20 if "prefill_chunk_tokens" in kw else 6
+    rs = np.random.RandomState(6)
+    bp1, bp2 = rs.randint(1, 96, n).tolist(), rs.randint(1, 96, n).tolist()
+    rp = [7, 8, 9, 10]
+    with _engine_on(card, "cuda", qos=True, **kw) as eng:
+        b1 = eng.submit(bp1, max_new_tokens=30, tier="batch")
+        b2 = eng.submit(bp2, max_new_tokens=30, tier="batch")
+        while sum(s is not None for s in eng._slots) < 2:
+            time.sleep(0.002)
+        rt = eng.submit(rp, max_new_tokens=8, tier="realtime")
+        got = [rt.result(timeout=120), b1.result(timeout=120),
+               b2.result(timeout=120)]
+    assert b1.preemptions + b2.preemptions == 1 and rt.preemptions == 0
+    assert got == _uninterrupted(card, [(rp, 8, {}), (bp1, 30, {}),
+                                        (bp2, 30, {})], **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_prefix_cache_arms_on_card(cuda, kv_dtype):
+    """lru, radix and radix_spill over shared-prefix traffic in an
+    undersized pool: float32 ids equal across the arms and (native pools)
+    equal the CPU engine's (int8: first tokens equal, agreement >= 0.8);
+    every cached prefill runs the chunk attend once per layer (K3, or K4
+    over int8 pools); the spill tier spills and resurrects."""
+    cpu, card = _tiny_pair()
+    rs = np.random.RandomState(2)
+    heads = [rs.randint(1, 96, 24).tolist() for _ in range(2)]
+    prompts = []
+    for i in range(10):
+        if i % 4 == 3:
+            prompts.append(rs.randint(1, 96, 40).tolist())   # one-off
+        else:
+            prompts.append(heads[i % 2] + rs.randint(1, 96, 5).tolist())
+    arms = {"lru": {"prefix_cache": "lru"},
+            "radix": {"prefix_cache": "radix"},
+            "radix_spill": {"prefix_cache": "radix", "kv_spill": True}}
+
+    def serve(model, device, kw):
+        with _engine_on(model, device, num_slots=1, num_pages=9,
+                        kv_dtype=kv_dtype, **kw) as eng:
+            outs = [eng.generate(p, max_new_tokens=6, timeout=120)
+                    for p in prompts]
+            return outs, eng.stats()
+
+    want, _ = serve(cpu, "cpu", arms["lru"])
+    got = {}
+    for arm, kw in arms.items():
+        c0 = pa.QUANT_CHUNK_LAUNCHES if kv_dtype else pa.CHUNK_LAUNCHES
+        outs, st = serve(card, "cuda", kw)
+        c1 = pa.QUANT_CHUNK_LAUNCHES if kv_dtype else pa.CHUNK_LAUNCHES
+        assert c1 - c0 == 2 * st["cached_prefills"], arm
+        assert (st["cached_prefills"] > 0) == (arm != "lru"), arm
+        got[arm] = outs
+        if arm == "radix_spill":
+            pc = st["prefix_cache"]
+            assert pc["spill"]["spills"] > 0 and pc["resurrections"] > 0
+    assert got["lru"] == got["radix"] == got["radix_spill"]
+    if kv_dtype:
+        assert [g[0] for g in got["lru"]] == [w[0] for w in want]
+        assert _top1(want, got["lru"]) >= 0.8
+    else:
+        assert got["lru"] == want
+
+
+def test_guard_adds_no_host_sync_to_the_step(cuda):
+    """One plain decode step of two slots, run from this thread while the
+    scheduler sits in a wedge (after one uncounted step: a thread's first
+    CUDA work syncs once more), under torch.cuda.set_sync_debug_mode: the
+    numeric guard's flags come back in the tokens' transfer, so the step
+    syncs as often with the guard as without it."""
+    import warnings
+
+    from paddle_tpu_torch.observability import faults
+
+    _, card = _tiny_pair()
+    syncs = {}
+    for guard in (False, True):
+        eng = _engine_on(card, "cuda", numeric_guard=guard,
+                         replica=f"c-sync-{guard}")
+        try:
+            with eng:
+                eng.generate([3, 4], max_new_tokens=2, timeout=120)
+                site = f"serving.scheduler_wedge@{eng.replica}"
+                faults.inject(site, seconds=60.0, times=1)
+                while faults.trip_count(site) < 1:
+                    time.sleep(0.005)
+                hs = [eng.submit(p, max_new_tokens=4)
+                      for p in ([5, 6, 7], [8, 9, 10, 11])]
+                with torch.inference_mode():
+                    eng._admit()
+                    active = [i for i, s in enumerate(eng._slots)
+                              if s is not None]
+                    eng._plain_step(active)
+                    torch.cuda.synchronize()
+                    with warnings.catch_warnings(record=True) as rec:
+                        warnings.simplefilter("always")
+                        torch.cuda.set_sync_debug_mode("warn")
+                        try:
+                            eng._plain_step(active)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                faults.clear(site)
+                for h in hs:
+                    assert len(h.result(timeout=120)) == 4
+        finally:
+            faults.clear()
+        assert active == [0, 1]
+        syncs[guard] = sum("called a synchronizing CUDA operation"
+                           in str(w.message) for w in rec)
+    assert syncs[True] == syncs[False] >= 1
