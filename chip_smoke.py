@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe
+    python3 chip_smoke.py --phases build,kernels,observe
     python3 chip_smoke.py --phases build,kernels,prefix,resilience
     python3 chip_smoke.py --phases build,kernels,slice,train,quant,custom_op,qat,profile
 
@@ -101,7 +102,17 @@ Phases, each printing one JSON line and then its seconds:
    batch one (ids unchanged), a 2 s wedge sheds ``deadline_unmeetable``
    and ``queue_full`` and fires the watchdog once; the host syncs of one
    decode step with the guard off and on.
-12. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+12. ``observe`` — GPT-base through the engine's observability layer: the
+   slice's requests in float32 with the sinks on (span tracer, flight
+   recorder, telemetry on an ephemeral port, the numerics stream) give
+   the ids of the sinks-off engine and the CPU engine, with /metrics,
+   /healthz and /statusz scraped over localhost while they run and K1 /
+   K3 (K4 with int8 pools) counted; ``PADDLE_HBM_BUDGET_BYTES`` at half
+   the pages sheds requests without changing the admitted ids; the
+   memory ledger against the pools and the CUDA allocator, a forced OOM
+   recognized and dumped; 4 host syncs per decode step with the sinks on;
+   the sinks' cost in bf16 tokens/s, TTFT and ITL, in 3 rounds of turns.
+13. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under ``torch.profiler``: device time by kernel and the
    device's idle share.
@@ -146,6 +157,10 @@ SPEC_K, CHUNK_TOKENS = 4, 128
 # f32 steps held against the CPU
 TRAIN_B, TRAIN_S, PARITY_B, PARITY_S = 8, 1024, 2, 256
 WARMUP_STEPS, TIMED_STEPS, PARITY_STEPS = 2, 10, 3
+# the observe phase's cost turns: rounds of (off, on, on, off); one call's
+# host-bound walls spread ~5-15% from turn to turn, so one round cannot
+# resolve a cost of a few percent
+COST_ROUNDS = 3
 # f32 QAT losses, card against CPU: fake-quant turns last-bit differences
 # of the GEMMs into whole grid steps at rounding ties, so the losses move
 # by ~1e-4 where a plain run agrees to ~1e-7 (the phase's control run
@@ -890,7 +905,7 @@ def phase_slice():
     if not ok:
         raise SystemExit("slice phase failed: greedy ids differ from the CPU "
                          "engine or a request did not complete")
-    return {"launches": counts16}
+    return {"launches": counts16, "cpu_ref": ref}
 
 
 # ------------------------------------------------------------------- quant
@@ -1888,7 +1903,7 @@ def _held_submit(eng, faults, reqs, arm=None):
     return hs
 
 
-def _step_syncs(model, prompts, guard):
+def _step_syncs(model, prompts, guard, tag="syncs", **engine_kw):
     """Host syncs of ONE plain decode step of two slots, counted under
     ``torch.cuda.set_sync_debug_mode("warn")``: the step is run from this
     thread while the scheduler sits in a wedge, after one uncounted step
@@ -1901,7 +1916,7 @@ def _step_syncs(model, prompts, guard):
 
     eng = ServingEngine(model, num_slots=2, page_size=PAGE,
                         max_model_len=MAXLEN, numeric_guard=guard,
-                        replica=f"syncs-{int(guard)}")
+                        replica=f"{tag}-{int(guard)}", **engine_kw)
     with eng:
         eng.generate(prompts[0][:32], max_new_tokens=2, timeout=300)
         site = f"serving.scheduler_wedge@{eng.replica}"
@@ -2140,6 +2155,320 @@ def phase_resilience():
     return {"launches": {k: r["launches"][k] for k in KERNEL_COUNTERS}}
 
 
+# ----------------------------------------------------------------- observe
+def _scrape(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _observed_run(model, prompts, temps, replica, on, flight_dir,
+                  scrape=False, **engine_kw):
+    """Serve ``prompts`` (32 new tokens each) with the observability sinks
+    on — a span ``Tracer``, the flight recorder, telemetry on an ephemeral
+    port, the numeric guard's numerics stream — or off (the metrics
+    registry counts either way); the kernel counters zeroed just before
+    and read just after.  The wall runs from the engine's start to the
+    last token.  ``scrape``: GET /metrics, /healthz and /statusz
+    over localhost while the requests run.  Returns the run's record and
+    the (stopped) engine."""
+    from paddle_tpu_torch.observability import flight_recorder, tracing
+    from paddle_tpu_torch.serving import ServingEngine
+
+    tr = None
+    if on:
+        tr = tracing.Tracer().start()
+        flight_recorder.enable(dir=flight_dir)
+        engine_kw.update(telemetry_port=0, numeric_guard=True)
+    eng = ServingEngine(model, num_slots=SLOTS, page_size=PAGE,
+                        max_model_len=MAXLEN, replica=replica, **engine_kw)
+    scrapes = None
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with eng:
+            hs = [eng.submit(p, max_new_tokens=32, temperature=t)
+                  for p, t in zip(prompts, temps)]
+            if scrape:
+                srv = eng.telemetry
+                if srv is None:
+                    raise SystemExit("observe phase: the telemetry server "
+                                     "did not start")
+                scrapes = {path: _scrape(srv.url + path)
+                           for path in ("/metrics", "/healthz", "/statusz")}
+                scrapes["while_running"] = sum(not h.done for h in hs)
+            outs = [h.result(timeout=900) for h in hs]
+            # the serving wall ends with the last token, before stop():
+            # stopping the telemetry server waits out its 0.5 s poll
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = eng.stats()
+        counts = dict(zip(KERNEL_COUNTERS,
+                          (_read_counts()[k] for k in KERNEL_COUNTERS)))
+    finally:
+        if tr is not None:
+            tr.stop()
+            flight_recorder.disable()
+    ttft = [h.ttft for h in hs]
+    itl = [b - a for h in hs for a, b in zip(h.token_times, h.token_times[1:])]
+    run = {"outs": outs, "wall_s": wall, "stats": stats, "launches": counts,
+           "scrapes": scrapes, "ttft": ttft, "itl": itl,
+           "spans": len(tr.spans) if tr is not None else 0,
+           "span_names": sorted({sp.name for sp in tr.spans})
+           if tr is not None else []}
+    return run, eng
+
+
+def _launch_check(run):
+    """K1 once per layer per prefill, the pool layout's decode kernel (K3
+    native, K4 int8) once per layer per decode step, the other never."""
+    st = run["stats"]
+    decode = "paged_flash_decode_q" if st["kv_dtype"] == "int8" \
+        else "paged_flash_decode"
+    want = dict.fromkeys(KERNEL_COUNTERS, 0)
+    want["flash_attention_fwd"] = LAYERS * st["prefills"]
+    want[decode] = LAYERS * st["iteration"]
+    got = run["launches"]
+    return got == want and got["flash_attention_fwd"] > 0 \
+        and got[decode] > 0, want
+
+
+def _q(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def phase_observe(cpu_ref=None):
+    """GPT-base through the engine's observability layer on the card:
+
+    - float32, the slice's 12 requests, the sinks on (span tracer, flight
+      recorder, telemetry on an ephemeral port, the numeric guard's
+      numerics stream): greedy ids equal the same engine with the sinks
+      off and the CPU engine; /metrics, /healthz and /statusz scraped over
+      localhost while the requests run; K1 = 12 x prefills, K3 = 12 x
+      decode steps; again with ``kv_dtype="int8"``: K4 counted, K3 = 0;
+    - ``PADDLE_HBM_BUDGET_BYTES`` at the weights plus half the pages the
+      12 requests need (admission held at a wedge): the shed count, and
+      the admitted greedy ids equal the unbudgeted run's;
+    - memory: the ledger's pool bytes equal the pools' and ``stats()``'s
+      pages x bytes per page; untracked = ``torch.cuda.memory_allocated()``
+      - the registered card bytes >= 0; a forced OOM (one oversized
+      ``torch.empty``) is recognized and dumped;
+    - the host syncs of one decode step with the sinks on, guard off and
+      on (4 each);
+    - the cost: bf16 tokens/s, TTFT p50, ITL p50 / p99, sinks off and on in
+      turns (off, on, on, off, ``COST_ROUNDS`` times) after an uncounted
+      bf16 run, each arm's medians, the wall-measured quantiles (the
+      handles' stamps) beside the registry histograms'.  The registry
+      counts in both arms.  Printed, not gated."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.observability import faults, memory
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.serving import RequestRejectedError, ServingEngine
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts, temps = slice_requests()
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
+    if cpu_ref is None:
+        cpu_ref = _serve(cpu_model, "cpu", prompts, temps)[0]
+    model = copy.deepcopy(cpu_model).to("cuda")
+    del cpu_model
+    flight_dir = tempfile.mkdtemp(prefix="observe_flight_")
+    out, ok = {}, True
+
+    # f32: sinks off, then on with the scrapes; ids, launches, spans
+    off, _ = _observed_run(model, prompts, temps, "obs-f32-off", False,
+                           flight_dir)
+    on, eng = _observed_run(model, prompts, temps, "obs-f32-on", True,
+                            flight_dir, scrape=True)
+    mism = [i for i in greedy
+            if not on["outs"][i] == off["outs"][i] == cpu_ref[i]]
+    lc_on, want_on = _launch_check(on)
+    sc = on["scrapes"]
+    fams = sorted({ln.split(" ")[2] for ln in sc["/metrics"][1].splitlines()
+                   if ln.startswith("# TYPE serving_")})
+    hz = json.loads(sc["/healthz"][1])
+    sz = json.loads(sc["/statusz"][1])
+    sec = sz.get("serving/obs-f32-on", {})
+    scrape_ok = all(sc[p][0] == 200 for p in ("/metrics", "/healthz",
+                                              "/statusz")) \
+        and "serving_ttft_seconds" in fams and hz["status"] == "ok" \
+        and sec.get("num_slots") == SLOTS and "memory" in sz
+    out["f32"] = {
+        "greedy_mismatches_vs_off_and_cpu": mism,
+        "off": {"wall_s": off["wall_s"], "launches": off["launches"]},
+        "on": {"wall_s": on["wall_s"], "launches": on["launches"],
+               "launches_expected": want_on, "spans": on["spans"],
+               "span_names": on["span_names"]},
+        "scrapes": {"codes": {p: sc[p][0] for p in ("/metrics", "/healthz",
+                                                     "/statusz")},
+                    "requests_in_flight_at_scrape": sc["while_running"],
+                    "metrics_bytes": len(sc["/metrics"][1]),
+                    "serving_families": len(fams),
+                    "healthz_status": hz["status"],
+                    "statusz_sections": sorted(sz)}}
+    ok = ok and not mism and lc_on and scrape_ok and on["spans"] > 0
+
+    # memory: the ledger against the pools and the allocator, then an OOM
+    led = memory.ledger()
+    rows = led.owner_rows(replica="obs-f32-on")
+    ledger_pool = sum(r["bytes"] for r in rows
+                      if r["owner"] in ("kv.pages", "kv.scales"))
+    pool_bytes = sum(p.numel() * p.element_size() for p in eng._pools)
+    st = on["stats"]
+    stats_pool = (st["num_pages"] + 1) * st["bytes_per_page"]
+    rep = led.report()
+    try:
+        torch.empty(1 << 46, dtype=torch.uint8, device="cuda")
+        oom = None
+    except Exception as e:      # the allocator's refusal, examined below
+        oom = e
+    is_oom = oom is not None and memory.is_oom_error(oom)
+    path = memory.oom_dump(oom, replica="obs-f32-on") if is_oom else None
+    doc = json.load(open(path)) if path else {}
+    out["memory"] = {
+        "owners": [{k: r[k] for k in ("owner", "bytes", "arrays")}
+                   for r in rows],
+        "ledger_pool_bytes": ledger_pool, "pool_bytes": pool_bytes,
+        "stats_pages_x_bytes_per_page": stats_pool,
+        "fixed_bytes": eng._fixed_bytes,
+        "tracked_bytes": rep["tracked_bytes"],
+        "cuda_memory_allocated": rep["live_bytes"],
+        "untracked_bytes": rep["untracked_bytes"],
+        "oom": {"type": type(oom).__name__, "recognized": is_oom,
+                "dump_reason": doc.get("reason"),
+                "dump_owner_rows": len(doc.get("extra", {})
+                                       .get("memory", {}).get("owners", []))}}
+    ok = ok and ledger_pool == pool_bytes == stats_pool \
+        and rep["untracked_bytes"] is not None \
+        and rep["untracked_bytes"] >= 0 and is_oom \
+        and doc.get("reason") == "oom"
+    del eng
+
+    # int8 pools, sinks on: K4 counted, K3 never
+    q, _ = _observed_run(model, prompts, temps, "obs-int8-on", True,
+                         flight_dir, kv_dtype="int8")
+    lc_q, want_q = _launch_check(q)
+    out["int8"] = {"wall_s": q["wall_s"], "launches": q["launches"],
+                   "launches_expected": want_q}
+    ok = ok and lc_q
+
+    # the HBM pre-flight: half the pages the requests need
+    eng = ServingEngine(model, num_slots=SLOTS, page_size=PAGE,
+                        max_model_len=MAXLEN, replica="obs-hbm")
+    need = [-(-(len(p) + 32) // PAGE) for p in prompts]
+    budget = eng._fixed_bytes + (sum(need) // 2) * eng._bytes_per_page
+    os.environ["PADDLE_HBM_BUDGET_BYTES"] = str(budget)
+    try:
+        with eng:
+            site = "serving.scheduler_wedge@obs-hbm"
+            faults.inject(site, seconds=60.0, times=1)
+            t0 = time.monotonic()
+            while faults.trip_count(site) < 1:
+                if time.monotonic() - t0 > 60:
+                    raise SystemExit("observe phase: the scheduler never "
+                                     "reached its wedge site")
+                time.sleep(0.005)
+            hs = {}
+            for i, (p, t) in enumerate(zip(prompts, temps)):
+                try:
+                    hs[i] = eng.submit(p, max_new_tokens=32, temperature=t)
+                except RequestRejectedError as e:
+                    if e.reason != "hbm_budget":
+                        raise
+            committed = eng._committed_pages
+            faults.clear(site)
+            got = {i: h.result(timeout=900) for i, h in hs.items()}
+            after = eng._committed_pages
+    finally:
+        del os.environ["PADDLE_HBM_BUDGET_BYTES"]
+    shed = sorted(set(range(len(prompts))) - set(got))
+    bad = [i for i in got if i in greedy and got[i] != off["outs"][i]]
+    out["hbm_budget"] = {"budget_bytes": budget,
+                         "pages_needed": sum(need),
+                         "pages_budgeted": sum(need) // 2,
+                         "committed_while_held": committed,
+                         "committed_after": after, "shed": shed,
+                         "admitted": sorted(got),
+                         "admitted_greedy_mismatches": bad}
+    ok = ok and bool(shed) and not bad and after == 0 \
+        and committed <= sum(need) // 2
+    del eng
+
+    # host syncs of one decode step with the sinks on
+    from paddle_tpu_torch.observability import flight_recorder, tracing
+
+    tr = tracing.Tracer().start()
+    flight_recorder.enable(dir=flight_dir)
+    try:
+        out["step_syncs"] = {
+            g: _step_syncs(model, [p[:200] for p in prompts[:2]], guard,
+                           tag="obs-syncs", telemetry_port=0)
+            for g, guard in (("guard_off", False), ("guard_on", True))}
+    finally:
+        tr.stop()
+        flight_recorder.disable()
+    ok = ok and all(v["syncs"] == 4 and v["active"] == 2
+                    for v in out["step_syncs"].values())
+
+    # the cost, bf16, in turns, after one uncounted bf16 run (the first
+    # bf16 run of a process pays cuBLAS's heuristics for the new dtype)
+    model = model.to(torch.bfloat16)
+    _observed_run(model, prompts[:4], temps[:4], "obs-bf16-warm", False,
+                  flight_dir)
+    reg = metrics.get_registry()
+    cost = []
+    for i, arm in enumerate(("off", "on", "on", "off") * COST_ROUNDS):
+        rep_name = f"obs-bf16-{arm}-{i}"
+        r, _ = _observed_run(model, prompts, temps, rep_name, arm == "on",
+                             flight_dir)
+        tok = sum(len(o) for o in r["outs"])
+        hist_ttft = reg.get("serving.ttft_seconds").labels(replica=rep_name)
+        hist_itl = reg.get("serving.inter_token_seconds").labels(
+            replica=rep_name)
+        cost.append({
+            "arm": arm, "wall_s": r["wall_s"], "tokens": tok,
+            "tokens_per_s": tok / r["wall_s"],
+            "ttft_p50_s": _q(r["ttft"], 50),
+            "itl_p50_s": _q(r["itl"], 50), "itl_p99_s": _q(r["itl"], 99),
+            "hist_ttft_p50_s": hist_ttft.quantile(0.5),
+            "hist_itl_p50_s": hist_itl.quantile(0.5),
+            "hist_itl_p99_s": hist_itl.quantile(0.99),
+            "hist_counts": {"ttft": hist_ttft.count, "itl": hist_itl.count}})
+    summary = {}
+    for a in ("off", "on"):
+        arm_turns = [c for c in cost if c["arm"] == a]
+        summary[a] = {k: float(np.median([c[k] for c in arm_turns]))
+                      for k in ("tokens_per_s", "ttft_p50_s", "itl_p50_s",
+                                "itl_p99_s")}
+        tps = [c["tokens_per_s"] for c in arm_turns]
+        summary[a]["tokens_per_s_min_max"] = [min(tps), max(tps)]
+    out["cost_bf16"] = {"turns": cost, "median": summary,
+                        "tokens_per_s_on_over_off":
+                            summary["on"]["tokens_per_s"]
+                            / summary["off"]["tokens_per_s"]}
+    emit({"phase": "observe", "ok": ok,
+          "model": "GPT-base 12x768 vocab 50304",
+          "requests": len(prompts), "max_new_tokens": 32, **out,
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("observe phase failed: see the f32 / memory / int8 "
+                         "/ hbm_budget / step_syncs results")
+    return {"launches": {k: on["launches"][k] + q["launches"][k]
+                         for k in KERNEL_COUNTERS}}
+
+
 # ----------------------------------------------------------------- profile
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
     # K1: the tensor-core body (flash_fwd_tc_kernel) and the SIMT body
@@ -2360,7 +2689,7 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
-                    "custom_op,qat,generate,spec,prefix,resilience")
+                    "custom_op,qat,generate,spec,prefix,resilience,observe")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2377,6 +2706,8 @@ def main():
                      ("generate", phase_generate), ("spec", phase_spec),
                      ("prefix", phase_prefix),
                      ("resilience", phase_resilience),
+                     ("observe", lambda: phase_observe(
+                         (results.get("slice") or {}).get("cpu_ref"))),
                      ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
@@ -2391,10 +2722,12 @@ def main():
         # timed bf16 dense and paged generate() for K1 and K3, the f32
         # speculative and chunked card runs for K1, K3 and K4, the f32
         # prefix-cache arms for K1, K3 and K4, the resilience phase's
-        # restart run for K1 and K3); K5a / K5b: the kernels phase's checks
+        # restart run for K1 and K3, the observe phase's f32 and int8
+        # sinks-on runs for K1, K3 and K4); K5a / K5b: the kernels phase's
+        # checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
-                     "generate", "spec", "prefix", "resilience"):
+                     "generate", "spec", "prefix", "resilience", "observe"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         tail = (results.get("prefix") or {}).get("cached_tail", {})

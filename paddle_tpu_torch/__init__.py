@@ -19,15 +19,29 @@ page pools with the dequantizing decode kernel, ``Int8Linear`` and
 bias + GELU kernel, QAT, PTQ and ``quantization.convert_to_int8``),
 ``generate()`` with speculative decoding and chunked prefill, and the
 engine's robustness (restart and requeue, load shedding, the numeric
-guard, ``resilience`` and ``observability``), the radix prefix cache with
-its host spill tier, and QoS tiers.
+guard, ``resilience``), the radix prefix cache with its host spill tier,
+QoS tiers, and the engine's observability layer (``profiler.metrics``,
+span tracing, the flight recorder, ``/metrics`` ``/healthz`` ``/statusz``
+telemetry, the memory ledger with the HBM pre-flight, the numerics
+stream: ``observability``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+import importlib as _importlib
+
 __version__ = "0.1.0"
+
+# subpackages loaded on first attribute access, as the reference's are
+_LAZY = ("amp", "framework", "jit", "nn", "observability", "ops",
+         "optimizer", "profiler", "quantization", "resilience", "serving",
+         "text", "utils")
 
 
 def __getattr__(name):
+    if name in _LAZY:
+        mod = _importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
     # the custom-op plugin surface, as ``paddle_tpu.register_op``
     if name in ("register_op", "load_op_library"):
         from .framework import custom_op

@@ -27,6 +27,8 @@ Sites wired in this package:
 - ``numerics.nan_inject`` — each trip turns the next
   :func:`~.numerics.consume_nan_inject` call into a NaN that a guarded
   serving dispatch adds to one lane's logits;
+- ``memory.leak`` — each trip grows the memory ledger's synthetic
+  ``fault.memory_leak`` owner (:class:`~.memory.MemoryWatchdog`);
 - every engine also polls ``serving.scheduler_wedge@<replica>`` and
   ``serving.step_crash@<replica>``.
 """

@@ -1,8 +1,5 @@
 """Request-level SLO accounting for the serving engine (counterpart of
-``paddle_tpu/observability/slo.py``; its ``serving.slo.*`` counters and
-gauges wait for the metrics registry, so the accountant keeps its
-numbers itself and answers :meth:`SLOAccountant.current` /
-:meth:`SLOAccountant.summary`).
+``paddle_tpu/observability/slo.py``).
 
 A latency SLO is a per-REQUEST promise: "first token within X, every
 subsequent token within Y, done within Z".
@@ -12,13 +9,21 @@ subsequent token within Y, done within Z".
 - :class:`RequestTimeline` / :func:`timeline_of` — the token-level
   timeline of one request, from the timestamps the engine stamps on its
   handles (``submitted_at``, per-token ``token_times``, ``finished_at``);
-- :class:`SLOAccountant` — evaluates each finished request and keeps a
-  rolling window: attainment, burn rate, tokens/s and goodput (tokens of
-  requests that MET their SLO, per second).
+- :class:`SLOAccountant` — evaluates each finished request, keeps a
+  rolling window, and exports ``serving.slo.requests{met=}``,
+  ``serving.slo.{good_tokens,tokens}`` counters and
+  ``serving.slo.{attainment,burn_rate,goodput_tokens_per_sec,
+  tokens_per_sec}`` gauges.  Goodput: tokens of requests that MET their
+  SLO, per second — a replica decoding fast but blowing TTFT scores zero
+  goodput, which raw tokens/sec hides.
+- :func:`slo_histogram_buckets` — latency histogram edges aligned with
+  the SLO thresholds.
 
-Wiring: ``ServingEngine(slo=SLOPolicy(...))`` accounts per engine; QoS
-tiers with a policy get one accountant each, whose burn rate drives the
-brownout ladder (:mod:`..serving.qos`).
+Wiring: ``ServingEngine(slo=SLOPolicy(...))`` accounts per engine
+(``replica=`` label); QoS tiers with a policy get one accountant each
+(``tier=`` too), whose burn rate drives the brownout ladder
+(:mod:`..serving.qos`).  Every derived gauge is an exact function of the
+per-request timelines (the window), so tests can recompute them.
 """
 
 from __future__ import annotations
@@ -122,12 +127,39 @@ def timeline_of(handle) -> RequestTimeline:
 
 class SLOAccountant:
     """Evaluates finished requests against one policy and keeps the
-    rolling window.  ``labels`` (``replica=``, ``tier=``) name what the
-    accountant covers."""
+    rolling window, keeping the ``serving.slo.*`` series current.
+    ``labels`` (``replica=``, ``tier=``) pre-merge into every series."""
 
-    def __init__(self, policy: SLOPolicy, **labels):
+    def __init__(self, policy: SLOPolicy, registry=None, **labels):
+        from ..profiler import metrics as _metrics
+
         self.policy = policy
         self.labels = dict(labels)
+        reg = registry if registry is not None else _metrics.get_registry()
+
+        def _b(m):
+            return _metrics.bind(m, **labels) if labels else m
+
+        self._m_requests = _b(reg.counter(
+            "serving.slo.requests", "finished requests by SLO outcome"))
+        self._m_good_tokens = _b(reg.counter(
+            "serving.slo.good_tokens",
+            "tokens of requests that met their SLO (goodput numerator)"))
+        self._m_tokens = _b(reg.counter(
+            "serving.slo.tokens", "tokens of all SLO-evaluated requests"))
+        self._m_attainment = _b(reg.gauge(
+            "serving.slo.attainment",
+            "SLO-met fraction over the rolling request window"))
+        self._m_burn = _b(reg.gauge(
+            "serving.slo.burn_rate",
+            "(1 - attainment) / (1 - objective); >1 burns error budget"))
+        self._m_goodput = _b(reg.gauge(
+            "serving.slo.goodput_tokens_per_sec",
+            "SLO-met tokens/sec over the rolling window"))
+        self._m_tps = _b(reg.gauge(
+            "serving.slo.tokens_per_sec",
+            "all tokens/sec over the same window (goodput's denominator "
+            "twin: the gap between the two is SLO-missed throughput)"))
         # window rows: (submitted_at, finished_at, tokens, good_tokens, met)
         self._window = collections.deque(maxlen=int(policy.window))
         self._lock = threading.Lock()
@@ -136,15 +168,32 @@ class SLOAccountant:
 
     # ---------------------------------------------------------------- feed
     def observe(self, handle, met_override=None) -> SLOReport:
-        """Evaluate one finished request.  ``met_override=False`` forces a
-        miss regardless of the timeline (deadline-expired requests missed
-        by definition)."""
+        """Evaluate one finished request and refresh counters/gauges.
+        ``met_override=False`` forces a miss regardless of the timeline
+        (deadline-expired requests missed by definition).
+
+        A miss that would have been a MET had the request not waited out a
+        kernel build (the engine accumulates ``handle.compile_s``) is
+        labelled ``cause=cold_start`` — a distinct child of the same
+        counter, so total misses remain the sum across causes."""
         tl = timeline_of(handle)
         rep = self.policy.evaluate(tl)
         if met_override is not None and rep.met != bool(met_override):
             rep = dataclasses.replace(
                 rep, met=bool(met_override),
                 good_tokens=rep.tokens if met_override else 0)
+        cause = None
+        compile_s = float(getattr(handle, "compile_s", 0.0) or 0.0)
+        if not rep.met and met_override is None and compile_s > 0.0:
+            # re-evaluate the counterfactual timeline with the build stall
+            # subtracted from every stamp after submission
+            warm = RequestTimeline(
+                submitted_at=tl.submitted_at,
+                token_times=tuple(t - compile_s for t in tl.token_times),
+                finished_at=None if tl.finished_at is None
+                else tl.finished_at - compile_s)
+            if self.policy.evaluate(warm).met:
+                cause = "cold_start"
         end = tl.finished_at if tl.finished_at is not None \
             else tl.submitted_at
         with self._lock:
@@ -152,6 +201,15 @@ class SLOAccountant:
                 (tl.submitted_at, end, rep.tokens, rep.good_tokens, rep.met))
             self._evaluated += 1
             self._met += 1 if rep.met else 0
+            rows = list(self._window)
+        if cause is not None:
+            self._m_requests.inc(met="false", cause=cause)
+        else:
+            self._m_requests.inc(met="true" if rep.met else "false")
+        self._m_tokens.inc(rep.tokens)
+        if rep.good_tokens:
+            self._m_good_tokens.inc(rep.good_tokens)
+        self._refresh(rows)
         return rep
 
     @staticmethod
@@ -172,6 +230,15 @@ class SLOAccountant:
                 "tokens_per_sec": tps, "goodput_tokens_per_sec": goodput,
                 "window": len(rows), "met": met, "tokens": tokens,
                 "good_tokens": good, "window_span_s": span}
+
+    def _refresh(self, rows):
+        rates = self.window_rates(rows, self.policy.objective)
+        if rates is None:
+            return
+        self._m_attainment.set(rates["attainment"])
+        self._m_burn.set(rates["burn_rate"])
+        self._m_goodput.set(rates["goodput_tokens_per_sec"])
+        self._m_tps.set(rates["tokens_per_sec"])
 
     # -------------------------------------------------------------- insight
     def current(self):
@@ -194,3 +261,16 @@ class SLOAccountant:
         if rates is not None:
             out["window"] = rates
         return out
+
+
+def slo_histogram_buckets(default_buckets, *targets):
+    """Histogram edges aligned with SLO thresholds: the default latency
+    buckets plus each configured target and its half/double — so "what
+    fraction of samples beat the target" is answerable from the
+    ``_bucket`` series alone."""
+    edges = set(default_buckets)
+    for t in targets:
+        if t:
+            edges.update((round(t * 0.5, 9), round(float(t), 9),
+                          round(t * 2.0, 9)))
+    return tuple(sorted(edges))

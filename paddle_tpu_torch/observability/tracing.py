@@ -1,0 +1,467 @@
+"""Distributed span tracing over the host RecordEvent tree (counterpart
+of ``paddle_tpu/observability/tracing.py``).
+
+- :func:`span` is the instrumentation primitive.  With no sink armed it
+  returns a module-level no-op singleton — instrumented hot paths (the
+  ``ServingEngine`` decode step) pay a single ``if _ACTIVE`` check and
+  nothing else.
+- A :class:`Tracer` collects finished :class:`Span` objects (bounded) for
+  export; the armed :class:`~.flight_recorder.FlightRecorder` additionally
+  receives every finished span into its crash ring.  Either sink flips the
+  shared ``_ACTIVE`` flag.
+- Trace context is a thread-local span stack.  A span started with an
+  explicit ``trace_id=`` (the serving engine passes the request's id from
+  ``submit()``) roots a new trace on that id; otherwise the parent's trace
+  id is inherited.
+- IDs follow OTLP conventions: 16-byte hex trace ids, 8-byte hex span ids.
+
+Cross-rank story: every exporter stamps its file with the process rank
+(``torch.distributed.get_rank()`` once a process group is initialized,
+else 0) and a wall-clock anchor (``unix_time`` at the perf-counter origin
+all span timestamps are relative to).  :func:`merge_rank_traces` reads any
+number of per-rank chrome-trace files, shifts each rank onto the earliest
+rank's clock, and writes one merged, monotonically sorted timeline.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from time import perf_counter, time as _wall
+
+from ..profiler import events as _events
+from ..profiler import metrics as _metrics
+
+# Fast-path flag: True while a Tracer and/or a FlightRecorder is armed.
+_ACTIVE = False
+_LOCK = threading.Lock()
+_TRACER = None   # the single active Tracer, if any
+_FLIGHT = None   # the armed FlightRecorder (set by flight_recorder.enable)
+
+_ctx = threading.local()  # per-thread stack of open Spans
+_OPEN: dict[int, "Span"] = {}  # every open span, for /statusz + flight dumps
+
+
+def _refresh_active():
+    global _ACTIVE
+    _ACTIVE = (_TRACER is not None) or (_FLIGHT is not None)
+
+
+def new_trace_id() -> str:
+    return os.urandom(16).hex()
+
+
+def new_span_id() -> str:
+    return os.urandom(8).hex()
+
+
+def current_trace_id():
+    """Trace id of the innermost open span on this thread (or None)."""
+    stack = getattr(_ctx, "stack", None)
+    return stack[-1].trace_id if stack else None
+
+
+def current_span():
+    stack = getattr(_ctx, "stack", None)
+    return stack[-1] if stack else None
+
+
+def enabled() -> bool:
+    return _ACTIVE
+
+
+class Span:
+    """One timed region with distributed-tracing identity."""
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "t0", "t1",
+                 "wall_t0", "attrs", "rank", "tid", "_ev", "_col")
+
+    def __init__(self, name, attrs):
+        self.name = name
+        self.attrs = attrs
+        self.trace_id = None
+        self.span_id = new_span_id()
+        self.parent_id = None
+        self.t0 = self.t1 = None
+        self.wall_t0 = None
+        self.rank = safe_rank()
+        self.tid = threading.get_ident()
+        self._ev = None
+        self._col = None
+
+    @property
+    def duration(self):
+        return (self.t1 - self.t0) if self.t1 is not None else None
+
+    def __enter__(self):
+        explicit = self.attrs.pop("trace_id", None)
+        stack = getattr(_ctx, "stack", None)
+        if stack is None:
+            stack = _ctx.stack = []
+        parent = stack[-1] if stack else None
+        if explicit is not None:
+            self.trace_id = explicit
+            # an explicit id roots its own trace: only a same-trace parent
+            # is a structural parent
+            if parent is not None and parent.trace_id == explicit:
+                self.parent_id = parent.span_id
+        elif parent is not None:
+            self.trace_id = parent.trace_id
+            self.parent_id = parent.span_id
+        else:
+            self.trace_id = new_trace_id()
+        self.t0 = perf_counter()
+        self.wall_t0 = _wall()
+        stack.append(self)
+        with _LOCK:
+            _OPEN[id(self)] = self
+        # wrap the RecordEvent tree: spans show up in a collector's summary
+        col = _events._COLLECTOR if _events._ACTIVE else None
+        if col is not None:
+            self._col = col
+            self._ev = col.push(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.t1 = perf_counter()
+        if exc_type is not None:
+            self.attrs = dict(self.attrs, error=repr(exc))
+        if self._ev is not None:
+            self._col.pop(self._ev)
+            self._ev = self._col = None
+        stack = getattr(_ctx, "stack", None)
+        if stack and stack[-1] is self:
+            stack.pop()
+        with _LOCK:
+            _OPEN.pop(id(self), None)
+        tracer, flight = _TRACER, _FLIGHT
+        if tracer is not None:
+            tracer._deliver(self)
+        if flight is not None:
+            flight.record_span(self)
+        return False
+
+    def to_dict(self):
+        return {"name": self.name, "trace_id": self.trace_id,
+                "span_id": self.span_id, "parent_id": self.parent_id,
+                "t0": self.t0, "duration": self.duration,
+                "wall_t0": self.wall_t0, "rank": self.rank, "tid": self.tid,
+                "attrs": dict(self.attrs)}
+
+    def __repr__(self):
+        dur = self.duration
+        return (f"Span({self.name!r}, trace={self.trace_id[:8]}…, "
+                f"{'open' if dur is None else f'{dur * 1e3:.3f} ms'})")
+
+
+class _NoopSpan:
+    """Returned by span() when no sink is armed — zero-allocation path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NOOP = _NoopSpan()
+
+
+def span(name, **attrs):
+    """Open a traced region: ``with span("serving.prefill", trace_id=t): …``
+
+    Pass ``trace_id=`` to root the span on an existing trace (cross-thread
+    propagation — the serving engine hands the scheduler thread each
+    request's id this way); otherwise the innermost open span's trace id is
+    inherited, or a fresh one is minted.
+    """
+    if not _ACTIVE:
+        return NOOP
+    return Span(name, attrs)
+
+
+def event(name, **attrs):
+    """Record an instantaneous span (entry == exit) in the current trace
+    context — the cheap spelling for point events like traced-phase
+    collective registrations."""
+    if not _ACTIVE:
+        return None
+    s = Span(name, attrs)
+    s.__enter__()
+    s.__exit__(None, None, None)
+    return s
+
+
+def open_spans(lock_timeout=None):
+    """Snapshot of every in-flight span (any thread) — /statusz + flight
+    dumps read this to name what was running when things went wrong.
+
+    ``lock_timeout`` bounds the lock wait for crash-time callers: a signal
+    handler runs ON the interrupted thread, which may be holding the
+    (non-reentrant) registry lock inside a span enter/exit — blocking
+    there would deadlock the dump.  On timeout the copy proceeds without
+    the lock, best-effort (concurrent mutation can at worst drop a span).
+    """
+    acquired = _LOCK.acquire(timeout=lock_timeout) \
+        if lock_timeout is not None else _LOCK.acquire()
+    try:
+        try:
+            spans = list(_OPEN.values())
+        except RuntimeError:  # lockless copy raced a resize
+            spans = []
+    finally:
+        if acquired:
+            _LOCK.release()
+    return [s.to_dict() for s in spans]
+
+
+def safe_rank():
+    """This process's rank: ``torch.distributed.get_rank()`` once a
+    process group is initialized, else 0 (crash paths and telemetry must
+    not die on an uninitialized runtime)."""
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank()
+    except Exception:
+        pass
+    return 0
+
+
+class Tracer:
+    """Collects finished spans for export (one per process; rank-stamped).
+
+    ::
+
+        tr = Tracer().start()
+        with span("step"):
+            ...
+        tr.stop()
+        tr.export_chrome("/tmp/trace/rank0_spans_chrome_trace.json")
+    """
+
+    def __init__(self, rank=None, max_spans=100_000):
+        self.rank = safe_rank() if rank is None else int(rank)
+        self.max_spans = int(max_spans)
+        self.spans: list[Span] = []
+        self.dropped = 0
+        self._lock = threading.Lock()
+        # wall-clock anchor: unix time at the perf_counter origin every
+        # exported timestamp is relative to (the clock-alignment handle)
+        self.clock_perf = perf_counter()
+        self.clock_unix = _wall()
+        self._m_spans = _metrics.counter(
+            "observability.spans_recorded", "finished spans kept by tracers")
+
+    # ------------------------------------------------------------- control
+    def start(self):
+        global _TRACER
+        with _LOCK:
+            _TRACER = self
+            _refresh_active()
+        return self
+
+    def stop(self):
+        global _TRACER
+        with _LOCK:
+            if _TRACER is self:
+                _TRACER = None
+                _refresh_active()
+        return self
+
+    def _deliver(self, sp):
+        with self._lock:
+            if len(self.spans) >= self.max_spans:
+                self.dropped += 1
+                return
+            self.spans.append(sp)
+        self._m_spans.inc()
+
+    def find(self, name=None, trace_id=None):
+        return [s for s in self.spans
+                if (name is None or s.name == name)
+                and (trace_id is None or s.trace_id == trace_id)]
+
+    # ------------------------------------------------------------- export
+    def _clock_meta(self):
+        return {"unix_time": self.clock_unix, "perf_counter": self.clock_perf}
+
+    def export_chrome(self, path):
+        """Chrome-trace JSON, one file per rank.  ``ts`` is microseconds
+        from this tracer's perf origin; the metadata clock anchor lets
+        :func:`merge_rank_traces` put every rank on one absolute axis."""
+        evs = []
+        with self._lock:
+            spans = list(self.spans)
+        for s in spans:
+            args = {"trace_id": s.trace_id, "span_id": s.span_id}
+            if s.parent_id:
+                args["parent_id"] = s.parent_id
+            args.update({k: v for k, v in s.attrs.items()
+                         if isinstance(v, (str, int, float, bool, list))})
+            evs.append({"name": s.name, "ph": "X", "cat": "span",
+                        "ts": (s.t0 - self.clock_perf) * 1e6,
+                        "dur": (s.duration or 0.0) * 1e6,
+                        "pid": s.rank, "tid": s.tid, "args": args})
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"traceEvents": evs, "displayTimeUnit": "ms",
+                       "metadata": {"rank": self.rank,
+                                    "clock": self._clock_meta(),
+                                    "dropped_spans": self.dropped}}, f)
+        return path
+
+    def export_otlp(self, path):
+        """OTLP-shaped JSON (ExportTraceServiceRequest layout) so the spans
+        feed any OpenTelemetry pipeline without a collector-side shim."""
+        with self._lock:
+            spans = list(self.spans)
+        otlp_spans = []
+        for s in spans:
+            start_ns = int((self.clock_unix + (s.t0 - self.clock_perf)) * 1e9)
+            end_ns = start_ns + int((s.duration or 0.0) * 1e9)
+            span_attrs = dict(s.attrs)
+            # a 'links' attribute of trace ids (decode steps serving many
+            # requests) is the OTLP Span.links field, not a generic attr —
+            # viewers only navigate real links
+            link_ids = span_attrs.pop("links", None)
+            attrs = [{"key": k, "value": _otlp_value(v)}
+                     for k, v in span_attrs.items()]
+            attrs.append({"key": "rank", "value": {"intValue": str(s.rank)}})
+            rec = {
+                "traceId": s.trace_id, "spanId": s.span_id,
+                "parentSpanId": s.parent_id or "",
+                "name": s.name, "kind": 1,
+                "startTimeUnixNano": str(start_ns),
+                "endTimeUnixNano": str(end_ns),
+                "attributes": attrs,
+            }
+            if link_ids:
+                rec["links"] = [{"traceId": str(t), "spanId": ""}
+                                for t in link_ids]
+            otlp_spans.append(rec)
+        doc = {"resourceSpans": [{
+            "resource": {"attributes": [
+                {"key": "service.name",
+                 "value": {"stringValue": "paddle_tpu_torch"}},
+                {"key": "process.rank",
+                 "value": {"intValue": str(self.rank)}},
+            ]},
+            "scopeSpans": [{
+                "scope": {"name": "paddle_tpu_torch.observability"},
+                "spans": otlp_spans,
+            }],
+        }]}
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+def _otlp_value(v):
+    if isinstance(v, bool):
+        return {"boolValue": v}
+    if isinstance(v, int):
+        return {"intValue": str(v)}
+    if isinstance(v, float):
+        return {"doubleValue": v}
+    if isinstance(v, (list, tuple)):
+        return {"arrayValue": {"values": [_otlp_value(x) for x in v]}}
+    return {"stringValue": str(v)}
+
+
+def get_tracer():
+    return _TRACER
+
+
+# ------------------------------------------------------- cross-rank merging
+def merge_rank_traces(inputs, out_path=None):
+    """Merge per-rank chrome-trace files into ONE clock-aligned timeline.
+
+    ``inputs``: a directory (every ``*.json`` with ``traceEvents`` inside)
+    or an explicit list of file paths.  Each file carries a metadata clock
+    anchor (``{"rank": r, "clock": {"unix_time": u}}``) written by
+    :meth:`Tracer.export_chrome` (the reference's ``Profiler.export``
+    writes the same); event
+    timestamps are shifted by the anchor delta to the EARLIEST rank's
+    clock, pids are rewritten to the rank, and the merged stream is sorted
+    so timestamps are monotonic.  Returns the merged dict (and writes it to
+    ``out_path`` when given).
+    """
+    if isinstance(inputs, (str, os.PathLike)):
+        if os.path.isdir(inputs):
+            paths = sorted(
+                os.path.join(inputs, f) for f in os.listdir(inputs)
+                if f.endswith(".json"))
+        elif os.path.isfile(inputs):
+            paths = [os.fspath(inputs)]
+        else:
+            raise FileNotFoundError(
+                f"merge_rank_traces: {os.fspath(inputs)!r} is neither a "
+                "directory of trace files nor a trace file")
+    else:
+        paths = [os.fspath(p) for p in inputs]
+    loaded = []
+    for p in paths:
+        with open(p) as f:
+            data = json.load(f)
+        if isinstance(data, list):
+            data = {"traceEvents": data, "metadata": {}}
+        if "traceEvents" not in data:
+            continue
+        meta = data.get("metadata") or {}
+        clock = meta.get("clock") or {}
+        loaded.append((p, data, meta.get("rank"), clock.get("unix_time")))
+    if not loaded:
+        raise ValueError(f"merge_rank_traces: no trace files in {inputs!r}")
+    anchors = [u for _, _, _, u in loaded if u is not None]
+    base = min(anchors) if anchors else 0.0
+    unaligned = [p for p, _, _, u in loaded if u is None]
+    if unaligned and anchors:
+        import warnings
+
+        warnings.warn(
+            f"merge_rank_traces: {len(unaligned)} source(s) carry no clock "
+            f"anchor and merge UNALIGNED (raw timestamps): {unaligned} — "
+            "re-export them with a current Tracer for a "
+            "clock-aligned timeline", stacklevel=2)
+    merged, ranks = [], []
+    for i, (p, data, rank, unix) in enumerate(loaded):
+        rank = rank if rank is not None else i
+        ranks.append(rank)
+        off_us = ((unix - base) * 1e6) if unix is not None else 0.0
+        for ev in data["traceEvents"]:
+            if ev.get("ph") == "M":
+                continue
+            ev = dict(ev)
+            ev["ts"] = ev.get("ts", 0.0) + off_us
+            ev["pid"] = rank
+            merged.append(ev)
+    merged.sort(key=lambda e: e["ts"])
+    out = {"traceEvents": (
+        [{"ph": "M", "name": "process_name", "pid": r, "ts": 0.0,
+          "args": {"name": f"rank{r}"}} for r in sorted(set(ranks))]
+        + merged),
+        "displayTimeUnit": "ms",
+        "metadata": {"merged_ranks": sorted(set(ranks)),
+                     "clock_base_unix_time": base,
+                     "sources": [p for p, _, _, _ in loaded],
+                     "unaligned_sources": unaligned}}
+    if out_path is not None:
+        d = os.path.dirname(os.path.abspath(out_path))
+        os.makedirs(d, exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    return out

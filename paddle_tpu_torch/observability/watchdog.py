@@ -1,16 +1,19 @@
 """Watchdog over a wedged serving scheduler (counterpart of
-``paddle_tpu/observability/watchdog.py``, its :class:`ServingWatchdog`;
-the flight-recorder dump and the fire counter wait for the metrics
-registry and the flight recorder).
+``paddle_tpu/observability/watchdog.py``: its :class:`ServingWatchdog`
+and fire listeners; the ``CollectiveWatchdog`` waits for the port's
+collectives).
 
 :class:`ServingWatchdog` monitors one :class:`ServingEngine`: if work is
 pending (queued requests or occupied slots) and the scheduler loop's
 heartbeat (``engine._progress_t``, stamped once per iteration and after
 every dispatch) has not advanced within the deadline, the scheduler is
-wedged: the watchdog logs it loudly and appends a record to
-:attr:`ServingWatchdog.fired`, once per wedge, re-arming when progress
-resumes.  It stays quiet while the engine's first dispatch builds a
-kernel (``engine._compiling``): slow, not stuck.
+wedged.  The fire, once per wedge (re-arming when progress resumes): a
+loud log, a flight-recorder dump (``reason="serving_watchdog"``, the
+engine's stats attached), an ``observability.watchdog_fires{kind=
+"serving"}`` counter bump, a record appended to
+:attr:`ServingWatchdog.fired` and every fire listener called.  It stays
+quiet while the engine's first dispatch builds a kernel
+(``engine._compiling``): slow, not stuck.
 
 The engine starts one when it is given ``watchdog_s``.
 """
@@ -21,7 +24,42 @@ import logging
 import threading
 from time import monotonic
 
+from ..profiler import metrics as _metrics
+from . import flight_recorder as _flight
+
 logger = logging.getLogger("paddle_tpu_torch.observability")
+
+
+def _fires_counter():
+    return _metrics.counter(
+        "observability.watchdog_fires", "watchdog triggers by kind/op")
+
+
+# Fire listeners: detection-to-recovery wiring.  Listeners run on the
+# monitor thread and must never raise into the fire path.
+_FIRE_LISTENERS: list = []
+
+
+def add_fire_listener(fn):
+    """Register ``fn(kind, record)`` called on every watchdog fire
+    (``kind`` is ``"serving"``)."""
+    if fn not in _FIRE_LISTENERS:
+        _FIRE_LISTENERS.append(fn)
+
+
+def remove_fire_listener(fn):
+    try:
+        _FIRE_LISTENERS.remove(fn)
+    except ValueError:
+        pass
+
+
+def _notify_fire(kind, record):
+    for fn in list(_FIRE_LISTENERS):
+        try:
+            fn(kind, record)
+        except Exception:
+            logger.exception("watchdog fire listener failed (kind=%s)", kind)
 
 
 class ServingWatchdog:
@@ -31,15 +69,17 @@ class ServingWatchdog:
     than the deadline.  Re-arms after progress resumes, so a second wedge
     fires again."""
 
-    def __init__(self, engine, deadline_s, poll_s=None):
+    def __init__(self, engine, deadline_s, poll_s=None, recorder=None):
         self.engine = engine
         self.deadline_s = float(deadline_s)
         self.poll_s = float(poll_s) if poll_s is not None \
             else max(min(self.deadline_s / 4, 5.0), 0.02)
         self._stop = threading.Event()
         self._thread = None
+        self._recorder = recorder
         self._fired_at_stamp = None  # heartbeat value already reported
         self.fired: list[dict] = []
+        self._m_fires = _fires_counter()
 
     def start(self):
         if self._thread is None or not self._thread.is_alive():
@@ -96,6 +136,12 @@ class ServingWatchdog:
         logger.error(
             "SERVING WATCHDOG: scheduler thread made no progress for %.1fs "
             "(deadline %.1fs) with work pending — iteration=%s queue=%s "
-            "active=%s", age, self.deadline_s, record["iteration"],
-            stats.get("queue_depth"), stats.get("active_slots"))
+            "active=%s; dumping flight record", age, self.deadline_s,
+            record["iteration"], stats.get("queue_depth"),
+            stats.get("active_slots"))
+        rec = self._recorder or _flight.get_flight_recorder()
+        rec.record("watchdog", "serving_scheduler_wedge", **record)
+        record["dump_path"] = rec.dump("serving_watchdog", extra=record)
+        self._m_fires.inc(kind="serving", op="scheduler_wedge")
         self.fired.append(record)
+        _notify_fire("serving", record)

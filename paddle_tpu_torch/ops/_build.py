@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -37,6 +38,11 @@ _lock = threading.Lock()
 #: nvcc's output (ptxas registers / shared memory / spills) of the last
 #: build of each library in this process, or of the cached build it loaded
 BUILD_LOGS: dict[str, str] = {}
+
+#: wall seconds this process spent in builds that ran ``nvcc`` (a kernel's
+#: first use with no cached library): the serving engine bills the growth
+#: over a dispatch to the requests that waited it out (cold TTFT)
+BUILD_SECONDS = 0.0
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -80,15 +86,17 @@ def build(*names: str) -> dict[str, Path]:
     """Compile every named source that has no up-to-date library yet, all
     ``nvcc`` processes at once, and return ``{name: library path}``.
     Raises ``RuntimeError`` with the compiler's output if a build fails."""
+    global BUILD_SECONDS
+    t0 = time.perf_counter()
     targets = {n: _target(n) for n in names}
     build_dir().mkdir(parents=True, exist_ok=True)
     locks = []
+    procs = {}
     try:
         for n in sorted(targets):
             f = open(targets[n].with_suffix(".lock"), "w")
             locks.append(f)
             fcntl.flock(f, fcntl.LOCK_EX)
-        procs = {}
         for n, out in targets.items():
             if out.exists():
                 log = out.with_suffix(".log")
@@ -113,6 +121,8 @@ def build(*names: str) -> dict[str, Path]:
     finally:
         for f in locks:
             f.close()           # closing the file releases its lock
+        if procs:
+            BUILD_SECONDS += time.perf_counter() - t0
     return targets
 
 

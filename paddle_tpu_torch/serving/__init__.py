@@ -19,6 +19,10 @@ paged KV cache (counterpart of ``paddle_tpu/serving``).
 - :mod:`.quant` — int8 serving: ``ServingEngine(kv_dtype="int8",
   weight_dtype="int8")``'s adapter, weight conversion and the calibration
   harness.
+
+The engine's ``serving.*`` metric families, spans, telemetry providers,
+memory ledger rows and numerics stream come from
+:mod:`paddle_tpu_torch.observability` and :mod:`paddle_tpu_torch.profiler`.
 """
 
 from ..observability.slo import SLOPolicy  # noqa: F401

@@ -71,6 +71,11 @@ class GPTAdapter:
         return (2 * self.num_layers * self.page_size * self.num_kv_heads
                 * self.head_dim * torch.empty((), dtype=self.dtype).element_size())
 
+    def pool_owners(self):
+        """Memory-ledger owner labels over the pool tuple: ``(owner,
+        pool-index tuple)`` pairs covering every pool tensor."""
+        return (("kv.pages", (0, 1)),)
+
     def _layer_caches(self, tag, pools, table, lens):
         """Per-layer GPTDecoderLayer cache tuples: views into the pools."""
         kp, vp = pools

@@ -66,14 +66,15 @@ class PageAllocation:
 
 class BlockManager:
     def __init__(self, num_pages, page_size, prefix_sharing=False,
-                 bytes_per_page=None, pool_dtype=None, radix=False,
-                 spill=None):
+                 replica="0", bytes_per_page=None, pool_dtype=None,
+                 radix=False, spill=None):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
+        self.replica = str(replica)
         self.radix = bool(radix)
         self.prefix_sharing = bool(prefix_sharing) or self.radix
         # device accounting: what one page costs across all layers, K and
@@ -103,7 +104,29 @@ class BlockManager:
         # bump, idle resurrection or host-tier re-page), misses = sharable
         # pages allocated fresh, evictions = idle prefix pages reclaimed
         # because the free list ran dry, saved_tokens = prompt tokens the
-        # hit pages cover (a 100-page hit weighs 100x a 1-page hit)
+        # hit pages cover (a 100-page hit weighs 100x a 1-page hit).  The
+        # serving.prefix_cache_* series carry replica= (the engine's id),
+        # so N engines in one process stay distinct; the attributes stay
+        # for stats()
+        from ..profiler import metrics as _metrics
+
+        self._m_hits = _metrics.bind(_metrics.counter(
+            "serving.prefix_cache_hits",
+            "prefix-sharing pages reused from the active/idle cache"),
+            replica=self.replica)
+        self._m_misses = _metrics.bind(_metrics.counter(
+            "serving.prefix_cache_misses",
+            "sharable prefix pages that had to be allocated fresh"),
+            replica=self.replica)
+        self._m_evictions = _metrics.bind(_metrics.counter(
+            "serving.prefix_cache_evictions",
+            "idle prefix pages evicted LRU to refill the free list"),
+            replica=self.replica)
+        self._m_saved = _metrics.bind(_metrics.counter(
+            "serving.prefix_cache_saved_tokens",
+            "prompt tokens covered by prefix-cache page hits "
+            "(hit pages x page_size)"),
+            replica=self.replica)
         self._hits = 0
         self._misses = 0
         self._evictions = 0
@@ -188,12 +211,14 @@ class BlockManager:
                 raise RuntimeError("page pool exhausted with nothing idle "
                                    "(admission plan should have refused)")
             key, page = ev
+            self._m_evictions.inc()
             self._evictions += 1
             if self._spill is not None:
                 # copy the bytes out BEFORE the row is reused
                 self._spill.spill(key, page)
             return page
         _, page = self._idle.popitem(last=False)
+        self._m_evictions.inc()
         self._evictions += 1
         return page
 
@@ -238,10 +263,12 @@ class BlockManager:
         return need, n_sharable, hits
 
     def _record_hits(self, pages, prompt_len):
+        self._m_hits.inc(pages)
         self._hits += pages
         saved = pages * self.page_size
         if prompt_len is not None:
             saved = min(saved, max(int(prompt_len) - 1, 0))
+        self._m_saved.inc(saved)
         self._saved_tokens += saved
 
     def allocate(self, prompt_ids, num_tokens):
@@ -300,6 +327,7 @@ class BlockManager:
         # tail (prefill will write them), then private pages
         fresh_shar = n_sharable - cached
         if fresh_shar > 0:
+            self._m_misses.inc(fresh_shar)
             self._misses += fresh_shar
             for i in range(cached, n_sharable):
                 new_blocks.append(blocks[i])
@@ -338,6 +366,7 @@ class BlockManager:
             else:
                 page = self._pop_free()
                 if key is not None:
+                    self._m_misses.inc()
                     self._misses += 1
             pages.append(page)
             if key is not None:     # new sharable prefix page: register it
@@ -400,6 +429,7 @@ class BlockManager:
                 i = len(pages) + len(new_pages)
                 new_blocks.append(blocks[i])
                 new_pages.append(self._free.popleft())
+                self._m_misses.inc()
                 self._misses += 1
             self._index.insert(tip, new_blocks, new_pages)
             return pages + new_pages, cached

@@ -87,9 +87,32 @@ the resident sequences per pool byte at head_dim 64;
 ``weight_dtype="int8"`` converts the model's Linears to ``Int8Linear`` in
 place (:func:`~.quant.quantize_model_weights`, idempotent).
 
-The counts the TPU package keeps in its metrics registry (restarts,
-requeues, shed reasons, preemptions, numeric faults) are attributes here,
-reported by :meth:`ServingEngine.stats`.
+Observability: every ``serving.*`` family of the reference engine, in
+the port's metrics registry (:mod:`..profiler.metrics`), each series
+labelled ``replica=<id>`` — the ``serving.ttft_seconds``,
+``serving.ttft_cold_seconds``, ``serving.inter_token_seconds``,
+``serving.step_seconds``, ``serving.prefill_seconds`` and
+``serving.prefill_chunk_seconds`` histograms (TTFT / ITL edges aligned to
+an ``SLOPolicy``'s targets), the occupancy / pool / health gauges, and the
+request, token, shed, restart, requeue, preemption, numeric-fault and
+speculative counters; :meth:`ServingEngine.stats` reports the same counts.
+The ``serving.*_traces`` counters are registered, as in the reference,
+and stay 0: the port compiles no program.  A request is *cold* (its TTFT
+also lands in ``serving.ttft_cold_seconds``) when its wait spanned a
+first-use ``nvcc`` build of a kernel, the port's only compile stall.
+Spans (:mod:`..observability.tracing`): ``serving.submit``,
+``serving.prefill`` / ``serving.prefill_cached`` /
+``serving.prefill_chunk`` on the request's trace, one
+``serving.decode_step`` / ``serving.verify_step`` per iteration linking
+every active request's trace.  ``telemetry_port=`` (or
+``PADDLE_TELEMETRY_PORT``) serves ``/metrics`` ``/healthz`` ``/statusz``
+with this engine's health (gating unless ``health_gating=False``) and
+status sections; the flight recorder arms from ``PADDLE_FLIGHT_DIR``; the
+memory ledger holds the engine's pools and weights, and with
+``PADDLE_HBM_BUDGET_BYTES`` set, ``submit`` sheds ``hbm_budget`` when a
+request's pages would not fit what the budget leaves after the weights;
+an OOM in the scheduler dumps a flight record; guarded dispatches feed
+their logits' stats row to the numerics stream (resolved off the step).
 """
 
 from __future__ import annotations
@@ -97,19 +120,25 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import logging
+import os
 import queue as _queue
 import threading
 import time
 import traceback
+import weakref
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..observability import faults as _faults
+from ..observability import memory as _obs_memory
 from ..observability import numerics as _numerics
+from ..observability import tracing as _tracing
 from ..ops import _build
+from ..profiler import metrics as _metrics
 from ..resilience.retry import (EngineStoppedError, NumericFault,
                                 classify_failure)
 from ..text.models._decode import make_batched_sampler, nonfinite_rows
@@ -117,6 +146,9 @@ from .adapter import GPTAdapter
 from .block_manager import BlockManager
 
 _logger = logging.getLogger("paddle_tpu_torch.serving")
+
+_HEALTH_CODE = {"healthy": 0, "degraded": 1, "draining": 2, "stopped": 3,
+                "error": 4}
 
 # prefill bucketing: prompts up to this many pages pad to their own page
 # count; above it, page counts round up to the next power of two
@@ -128,7 +160,8 @@ class RequestRejectedError(RuntimeError):
     sheds.  ``reason``: ``unservable`` (too long for the model or the page
     pool), ``queue_full``, ``deadline_unmeetable`` (the deadline cannot be
     met given the queue or a stall), ``brownout`` (a QoS tier shed while
-    the protected tier burns its error budget) or ``draining``."""
+    the protected tier burns its error budget), ``hbm_budget`` (the pages
+    would not fit ``PADDLE_HBM_BUDGET_BYTES``) or ``draining``."""
 
     def __init__(self, message, reason="rejected"):
         super().__init__(message)
@@ -176,6 +209,11 @@ class RequestHandle:
         # times a higher tier evicted it from a decode slot
         self.tier = None
         self.preemptions = 0
+        # distributed-tracing identity: every span this request touches
+        # (submit -> prefill -> each decode iteration) carries or links it
+        self.trace_id = _tracing.new_trace_id()
+        self.compile_s = 0.0           # kernel-build stalls it waited out
+        self._hbm_pages = 0            # pre-flight page reservation
         self.submitted_at = time.time()
         self.first_token_at = None
         self.finished_at = None
@@ -238,7 +276,7 @@ class RequestHandle:
 class _Slot:
     __slots__ = ("handle", "req", "alloc", "table_row", "length", "last",
                  "produced", "temp", "eos", "max_new", "deadline",
-                 "prefilled")
+                 "last_token_t", "prefilled")
 
     def __init__(self, req, alloc, table_row):
         self.handle = req.handle
@@ -252,6 +290,7 @@ class _Slot:
         self.eos = req.eos_token_id
         self.max_new = req.max_new_tokens
         self.deadline = req.deadline
+        self.last_token_t = None            # inter-token latency stamp
         # chunked prefill: prompt tokens whose K/V have landed so far; None
         # once ingestion is complete (or for a monolithic prefill).  While
         # it is an int, the slot's host row stays inert (scratch table,
@@ -272,8 +311,9 @@ class ServingEngine:
     def __init__(self, model, num_slots=4, page_size=16, max_model_len=None,
                  num_pages=None, top_k=0, top_p=1.0, prefix_sharing=False,
                  max_queue=None, seed=0, watchdog_s=None,
-                 max_engine_restarts=3, degraded_stall_s=2.0,
-                 restart_cooldown_s=10.0, speculative_k=0, draft_max_ngram=3,
+                 telemetry_port=None, max_engine_restarts=3,
+                 degraded_stall_s=2.0, restart_cooldown_s=10.0,
+                 speculative_k=0, draft_max_ngram=3,
                  draft_min_ngram=1, replica="0", device=None,
                  health_gating=True, slo=None, kv_dtype=None,
                  weight_dtype=None, numeric_guard=None,
@@ -300,13 +340,18 @@ class ServingEngine:
         if self.weight_dtype not in ("native", "int8"):
             raise ValueError(f"weight_dtype must be None/'native' or "
                              f"'int8', got {weight_dtype!r}")
-        # replica identity: names the replica-scoped fault sites
-        # serving.{scheduler_wedge,step_crash}@<replica>
+        # replica identity: stamps every serving.* series with replica=
+        # so N engines in one process keep distinct series, keys the
+        # /statusz and /healthz provider registration, and names the
+        # replica-scoped fault sites serving.{scheduler_wedge,step_crash}@
         self.replica = str(replica)
         self._site_wedge = f"serving.scheduler_wedge@{self.replica}"
         self._site_step_crash = f"serving.step_crash@{self.replica}"
-        # stored and reported; the /healthz provider it gates is not
-        # ported yet
+        # keys this engine's /statusz and /healthz sections, and names its
+        # numerics stream
+        self._provider_key = f"serving/{self.replica}"
+        # False: the engine still shows on /healthz, but its state does
+        # not fold into the 503 answer
         self._health_gating = bool(health_gating)
         # hierarchical KV cache: "radix" reuses the longest shared page run
         # and prefills only the tail; "lru" is the exact-key sharing
@@ -387,7 +432,7 @@ class ServingEngine:
         self._spec_accepted_total = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        self._rid = 0
+        self._rid_counter = itertools.count()
 
         # QoS tiers: a per-tier queue with weighted head selection, a
         # per-tier SLO accountant where the tier has a policy, brownout
@@ -415,12 +460,23 @@ class ServingEngine:
         else:
             self._queue = collections.deque()
         self._slo = None
+        ttft_buckets = itl_buckets = None
         if slo is not None:
-            from ..observability.slo import SLOAccountant, SLOPolicy
+            from ..observability.slo import (SLOAccountant, SLOPolicy,
+                                             slo_histogram_buckets)
 
             if not isinstance(slo, SLOPolicy):
                 raise TypeError(f"slo must be an SLOPolicy, got {slo!r}")
             self._slo = SLOAccountant(slo, replica=self.replica)
+            # align the latency histogram edges with the SLO thresholds so
+            # "fraction of samples under target" reads straight off the
+            # Prometheus _bucket series
+            if slo.ttft_s:
+                ttft_buckets = slo_histogram_buckets(
+                    _metrics._DEFAULT_BUCKETS, slo.ttft_s)
+            if slo.itl_s:
+                itl_buckets = slo_histogram_buckets(
+                    _metrics._DEFAULT_BUCKETS, slo.itl_s)
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._slots = [None] * self.num_slots
@@ -453,6 +509,15 @@ class ServingEngine:
         self._compiling = False   # a dispatch may be building a kernel
         self._watchdog_s = watchdog_s
         self._watchdog = None
+        self._telemetry_port = telemetry_port
+        self._status_provider = None
+        self._health_provider = None
+        self._owns_server = False
+        self._gauges_t = 0.0      # last _update_gauges stamp (throttled)
+        self._npoll_t = 0.0       # last numerics-stream resolve
+        self._guard_step = 0      # numerics-stream step of the dispatch
+        self._drift_t = 0.0       # last quant-drift sample
+        self._drift_idx = 0
         # restart on transient failures: the budget heals after a cooldown
         self._max_engine_restarts = int(max_engine_restarts)
         self._degraded_stall_s = float(degraded_stall_s)
@@ -461,15 +526,234 @@ class ServingEngine:
         self._restarts_total = 0
         self._last_restart_t = None
         self._ema_request_s = None   # EMA of completed request durations
-        # the counts the TPU package keeps in its metrics registry
+        # lifetime counts behind stats(); each moves with its serving.*
+        # series below
         self._requeued = 0
         self._numeric_faults = 0
         self._shed_counts = collections.Counter()     # (reason, tier)
         self._preempt_counts = collections.Counter()  # (reason, tier)
+        self._register_families(ttft_buckets, itl_buckets)
+        self._set_pool_gauges()
+        # memory observability: the engine's device allocations register
+        # with the process ledger, and admission pre-flight projects new
+        # requests against PADDLE_HBM_BUDGET_BYTES — fixed bytes (weights)
+        # plus pages committed to admitted-but-unfinished requests
+        self._fixed_bytes = self._weight_bytes()
+        self._committed_pages = 0
+        self._commit_lock = threading.Lock()
+        self._register_memory()
+
+    def _register_families(self, ttft_buckets, itl_buckets):
+        """Every serving.* family of the reference engine, bound to
+        ``replica=`` once here; per-call labels (status=, reason=, tier=)
+        merge on top (metrics.bind)."""
+        def _h(name, help, buckets=None):
+            return _metrics.bind(_metrics.histogram(name, help,
+                                                    buckets=buckets),
+                                 replica=self.replica)
+
+        def _g(name, help):
+            return _metrics.bind(_metrics.gauge(name, help),
+                                 replica=self.replica)
+
+        def _c(name, help):
+            return _metrics.bind(_metrics.counter(name, help),
+                                 replica=self.replica)
+
+        self._m_ttft = _h("serving.ttft_seconds", "submit -> first token",
+                          buckets=ttft_buckets)
+        self._m_ttft_cold = _h(
+            "serving.ttft_cold_seconds",
+            "submit -> first token for requests that paid a compile stall "
+            "(subset of serving.ttft_seconds)", buckets=ttft_buckets)
+        self._m_itl = _h(
+            "serving.inter_token_seconds", "per-sequence inter-token latency",
+            buckets=itl_buckets)
+        self._m_step_seconds = _h(
+            "serving.step_seconds", "one batched decode iteration")
+        self._m_prefill_seconds = _h(
+            "serving.prefill_seconds", "admit-time prefill")
+        self._m_queue_depth = _g(
+            "serving.queue_depth", "requests waiting for a slot")
+        self._m_active = _g(
+            "serving.active_slots", "slots decoding this iteration")
+        self._m_occupancy = _g(
+            "serving.slot_occupancy", "active_slots / num_slots")
+        self._m_page_util = _g(
+            "serving.page_utilization", "KV pages in use / pool size")
+        self._m_pages_used = _g(
+            "serving.pages_in_use", "KV pages held by live sequences")
+        self._m_tokens = _c(
+            "serving.tokens_generated", "tokens emitted to callers")
+        self._m_requests = _c(
+            "serving.requests", "requests by terminal status")
+        self._m_blocked = _c(
+            "serving.admissions_blocked",
+            "admissions deferred: page pool exhausted")
+        self._m_preempt = _c(
+            "serving.preemptions",
+            "sequences evicted from their decode slot (reason=deadline: "
+            "retired expired; reason=qos: requeued for a higher tier)")
+        # per-tier pressure gauges (QoS engines set them; registered
+        # unconditionally so the metric families are stable)
+        self._m_tier_depth = _g(
+            "serving.tier.queue_depth", "queued requests per QoS tier")
+        self._m_tier_active = _g(
+            "serving.tier.active_slots", "decoding slots held per QoS tier")
+        # the reference counts JAX program traces here; registered as it
+        # registers them, they stay 0 until the port compiles steps
+        self._m_step_traces = _c(
+            "serving.step_traces", "decode-step program traces")
+        self._m_prefill_traces = _c(
+            "serving.prefill_traces", "prefill program traces")
+        self._m_prefill_chunk_seconds = _h(
+            "serving.prefill_chunk_seconds",
+            "one chunked-prefill dispatch (prefill_chunk_tokens tokens)")
+        self._m_prefill_chunk_traces = _c(
+            "serving.prefill_chunk_traces",
+            "chunked-prefill program traces")
+        self._m_shed = _c(
+            "serving.load_shed", "requests shed at submit, by reason")
+        self._m_engine_restarts = _c(
+            "serving.engine_restarts",
+            "scheduler auto-restarts after transient failures")
+        self._m_requeued = _c(
+            "serving.requests_requeued",
+            "in-flight requests transparently re-queued across a restart")
+        self._m_health = _g(
+            "serving.health_state",
+            "0 healthy, 1 degraded, 2 draining, 3 stopped, 4 error")
+        self._m_spec_proposed = _c(
+            "serving.spec_proposed", "draft tokens submitted to verification")
+        self._m_spec_accepted = _c(
+            "serving.spec_accepted", "draft tokens accepted by verification")
+        self._m_accept_rate = _g(
+            "serving.acceptance_rate",
+            "speculative acceptance: spec_accepted / spec_proposed")
+        self._m_verify_traces = _c(
+            "serving.verify_traces", "verify-step program traces")
+        self._m_numeric_faults = _c(
+            "serving.numeric_faults",
+            "requests failed on non-finite logits (guarded programs)")
+        self._m_quant_drift = _g(
+            "serving.quant_drift",
+            "sampled int8 weight dequant->requant roundtrip error "
+            "(relative, one layer per tick)")
+        self._m_kv_bytes_tok = _g(
+            "serving.kv_bytes_per_token",
+            "KV-cache HBM bytes per token position (all layers, K+V, "
+            "scale pools included)")
+        self._m_pool_bytes = _g(
+            "serving.pool_bytes",
+            "allocated KV page-pool HBM bytes (scratch page included)")
+
+    def _set_pool_gauges(self):
+        self._m_kv_bytes_tok.set(self._bytes_per_page / self.page_size)
+        # one series per pool dtype: the int8 engine's float32 scale pools
+        # are real device residency
+        for dt, b in self.pool_bytes_by_dtype().items():
+            self._m_pool_bytes.set(float(b), dtype=dt)
+
+    def pool_bytes_by_dtype(self):
+        """Actual pool-tuple device bytes, keyed by dtype (payload AND
+        scale pools — what /statusz reconciles against the ledger)."""
+        out = {}
+        for p in self._pools:
+            dt = str(p.dtype).removeprefix("torch.")
+            out[dt] = out.get(dt, 0) + p.numel() * p.element_size()
+        return out
+
+    def _params_and_buffers(self):
+        """``({name: parameter}, {name: buffer})``: the model's
+        device-resident weights.  Non-persistent buffers are left out —
+        ``Int8Linear``'s float32 scale scalars, which the reference keeps
+        as plain attributes."""
+        params = dict(self._model.named_parameters())
+        bufs = {}
+        for mname, m in self._model.named_modules():
+            skip = m._non_persistent_buffers_set
+            for bname, b in m.named_buffers(recurse=False):
+                if b is not None and bname not in skip:
+                    bufs[f"{mname}.{bname}" if mname else bname] = b
+        return params, bufs
+
+    def _weight_bytes(self):
+        params, bufs = self._params_and_buffers()
+        return sum(t.numel() * t.element_size()
+                   for t in (*params.values(), *bufs.values()))
+
+    def _register_memory(self):
+        """Register this engine's device allocations with the process
+        MemoryLedger.  Sources close over a weakref — the ledger never
+        pins the engine, and every read resolves the CURRENT pool tuple,
+        so a post-crash ``_recover()`` rebuild needs no re-registration."""
+        led = _obs_memory.ledger()
+        ref = weakref.ref(self)
+
+        def _pools_src(idx):
+            def src():
+                eng = ref()
+                if eng is None or eng._pools is None:
+                    return None
+                return [eng._pools[i] for i in idx]
+            return src
+
+        for owner, idx in self._adapter.pool_owners():
+            meta = None
+            if owner == "kv.pages":
+                meta = {
+                    "kind": "kv",
+                    "bytes_per_page": self._bytes_per_page,
+                    "page_size": self.page_size,
+                    "num_pages": self._num_pages,
+                    "max_model_len": self.max_model_len,
+                    "max_resident_slots":
+                        self._bm.max_resident_sequences(self.max_model_len),
+                }
+            elif owner == "kv.scales":
+                meta = {"kind": "kv_scales"}
+            led.register(owner, _pools_src(idx), replica=self.replica,
+                         meta=meta)
+
+        def _named_src(which, pred):
+            def src():
+                eng = ref()
+                if eng is None:
+                    return None
+                d = eng._params_and_buffers()[which == "bufs"]
+                return [v for k, v in d.items() if pred(k)]
+            return src
+
+        # int8-converted weights get their own owner row; everything else
+        # (float params, buffers, Int8Linear biases) is model.params.
+        # Int8Linear keeps its payload in a buffer named weight_int8.
+        is_q = lambda k: k.endswith("weight_int8")  # noqa: E731
+        led.register("model.params", _named_src("params", lambda k: True),
+                     replica=self.replica, meta={"kind": "weights"})
+        led.register("model.params",
+                     _named_src("bufs", lambda k: not is_q(k)),
+                     replica=self.replica, meta={"kind": "weights"})
+        if self.weight_dtype == "int8":
+            led.register("model.weights_int8", _named_src("bufs", is_q),
+                         replica=self.replica, meta={"kind": "weights_int8"})
+        if self._spill is not None:
+            sref = weakref.ref(self._spill)
+
+            def _spill_src():
+                tier = sref()
+                return None if tier is None else tier.nbytes()
+
+            # host tier: device="host" rows are bookkeeping only, outside
+            # the allocator reconciliation
+            led.register("kv.spilled", _spill_src, replica=self.replica,
+                         device="host",
+                         meta={"kind": "kv-spill",
+                               "budget_bytes": self._spill.budget_bytes})
 
     def _new_block_manager(self):
         return BlockManager(self._num_pages, self.page_size,
                             prefix_sharing=self._prefix_cache is not None,
+                            replica=self.replica,
                             bytes_per_page=self._bytes_per_page,
                             pool_dtype=self._pool_dtype,
                             radix=self._radix, spill=self._spill)
@@ -511,20 +795,79 @@ class ServingEngine:
                                         daemon=True)
         self._started = True
         self._thread.start()
-        self._start_watchdog()
+        self._start_observability()
         return self
 
-    def _start_watchdog(self):
-        """The wedged-scheduler watchdog, from ``watchdog_s`` (None or 0 =
-        off)."""
-        wd = self._watchdog_s
-        if not wd or wd <= 0:
-            return
-        if self._watchdog is None:
-            from ..observability.watchdog import ServingWatchdog
+    def _start_observability(self):
+        """Opt-in forensics: the flight recorder from PADDLE_FLIGHT_DIR,
+        the /metrics|/healthz|/statusz endpoint from ``telemetry_port``
+        (or PADDLE_TELEMETRY_PORT; 0 = ephemeral), the wedged-scheduler
+        watchdog from ``watchdog_s`` (None or 0 = off).  All default to
+        off."""
+        from ..observability import flight_recorder as _flight
+        from ..observability import telemetry as _telemetry
+        from ..observability.watchdog import ServingWatchdog
 
+        _flight.maybe_enable_from_env()
+        try:
+            port = self._telemetry_port
+            if port is None:
+                env = os.environ.get("PADDLE_TELEMETRY_PORT")
+                port = int(env) if env else None
+            if port is not None:
+                self._owns_server = _telemetry.get_server() is None
+                _telemetry.serve(port)
+                # registration is KEYED by replica id, so a second engine
+                # gets its own /statusz section and /healthz component
+                self._status_provider = self._statusz
+                _telemetry.add_status_provider(self._provider_key,
+                                               self._status_provider)
+                self._health_provider = self.health_state
+                _telemetry.add_health_provider(self._provider_key,
+                                               self._health_provider,
+                                               gating=self._health_gating)
+        except Exception as e:
+            # opt-in observability must never take down serving startup
+            # (EADDRINUSE on a shared port, a malformed env value, ...)
+            self._owns_server = False
+            logging.getLogger("paddle_tpu_torch.observability").error(
+                "telemetry endpoint not started (%r); serving continues "
+                "without /metrics|/statusz", e)
+        wd = self._watchdog_s
+        if wd and wd > 0 and self._watchdog is None:
             self._watchdog = ServingWatchdog(self, deadline_s=wd)
-        self._watchdog.start()
+        if self._watchdog is not None:
+            self._watchdog.start()
+
+    def _stop_telemetry(self):
+        """Unregister OUR providers only (a newer engine may own the key
+        by now) — which also frees this engine for GC — and shut the
+        process server down if this engine started it and no other
+        engine's section is left on it."""
+        from ..observability import telemetry as _telemetry
+
+        if self._status_provider is not None \
+                or self._health_provider is not None:
+            _telemetry.remove_providers_if_owner(
+                self._provider_key, self._status_provider,
+                self._health_provider)
+            self._status_provider = None
+            self._health_provider = None
+        if self._owns_server:
+            self._owns_server = False
+            if not any(k.startswith("serving/")
+                       for k in (*_telemetry._PROVIDERS,
+                                 *_telemetry._HEALTH_PROVIDERS)):
+                _telemetry.shutdown()
+
+    @property
+    def telemetry(self):
+        """The process telemetry server this engine serves on (None when
+        it was not asked for one)."""
+        from ..observability import telemetry as _telemetry
+
+        return _telemetry.get_server() \
+            if self._status_provider is not None else None
 
     @property
     def watchdog(self):
@@ -590,6 +933,7 @@ class ServingEngine:
             self._modes = None
         if self._watchdog is not None:
             self._watchdog.stop()
+        self._stop_telemetry()
         self._started = False
 
     def _fail_stopped(self, handle):
@@ -626,45 +970,96 @@ class ServingEngine:
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         total = len(prompt) + int(max_new_tokens)
+        handle = RequestHandle(next(self._rid_counter), len(prompt))
+        handle.tier = tier
         if total > self.max_model_len \
                 or self._bm.pages_for(total) > self._bm.num_pages:
+            self._m_requests.inc(status="rejected")
             raise RequestRejectedError(
                 f"prompt {len(prompt)} + max_new_tokens {max_new_tokens} "
                 f"needs {self._bm.pages_for(total)} pages / {total} "
                 f"positions; engine caps are {self._bm.num_pages} pages / "
                 f"{self.max_model_len} positions", reason="unservable")
         self.start()  # before enqueue: a failed engine rejects loudly
-        with self._cv:
-            if self._draining:
-                self._shed("draining",
-                           "engine is draining; not admitting new work",
-                           tier=tier)
-            if self._qos is not None:
-                self._check_qos_admission(tier)
-            if self._max_queue is not None \
-                    and len(self._queue) >= self._max_queue:
-                self._shed("queue_full",
-                           f"admission queue full ({self._max_queue})",
-                           tier=tier)
-            if deadline_s is not None:
-                self._check_deadline_meetable(float(deadline_s), tier=tier)
-            handle = RequestHandle(self._rid, len(prompt))
-            handle.tier = tier
-            self._rid += 1
-            deadline = time.time() + deadline_s \
-                if deadline_s is not None else None
-            self._queue.append(Request(
-                prompt, int(max_new_tokens),
-                SamplingParams(temperature=float(temperature)), eos_token_id,
-                deadline, handle, tier=tier))
-            self._cv.notify_all()
+        with _tracing.span("serving.submit", trace_id=handle.trace_id,
+                           request_id=handle.request_id,
+                           prompt_len=len(prompt)):
+            with self._cv:
+                if self._draining:
+                    self._shed("draining",
+                               "engine is draining; not admitting new work",
+                               tier=tier)
+                if self._qos is not None:
+                    self._check_qos_admission(tier)
+                if self._max_queue is not None \
+                        and len(self._queue) >= self._max_queue:
+                    self._shed("queue_full",
+                               f"admission queue full ({self._max_queue})",
+                               tier=tier)
+                if deadline_s is not None:
+                    self._check_deadline_meetable(float(deadline_s),
+                                                  tier=tier)
+                self._preflight_hbm(handle, total)
+                deadline = time.time() + deadline_s \
+                    if deadline_s is not None else None
+                self._queue.append(Request(
+                    prompt, int(max_new_tokens),
+                    SamplingParams(temperature=float(temperature)),
+                    eos_token_id, deadline, handle, tier=tier))
+                self._m_requests.inc(status="submitted")
+                self._m_queue_depth.set(len(self._queue))
+                self._cv.notify_all()
         return handle
 
     def _shed(self, reason, message, tier=None):
         """Reject at admission with a distinct, machine-readable reason
-        (shedding under pressure beats timing out after queueing)."""
+        (shedding under pressure beats timing out after queueing).  The
+        ``tier=`` label is only attached on QoS engines, as in the
+        reference."""
         self._shed_counts[(reason, tier)] += 1
+        if tier is not None:
+            self._m_shed.inc(reason=reason, tier=tier)
+        else:
+            self._m_shed.inc(reason=reason)
+        self._m_requests.inc(status="rejected")
         raise RequestRejectedError(message, reason=reason)
+
+    def _preflight_hbm(self, handle, total):
+        """With ``PADDLE_HBM_BUDGET_BYTES`` set, project this request's
+        worst-case page need against what the budget leaves after the
+        fixed allocations (the weights; the page pools are resident
+        already, so what grows with admission is the COMMITTED page count
+        across admitted-but-unfinished requests).  Shedding here with
+        reason ``hbm_budget`` never changes what admitted requests
+        compute: pages either fit or the request never runs."""
+        budget = _obs_memory.hbm_budget_bytes()
+        if budget is None:
+            return
+        need = self._bm.pages_for(total)
+        headroom = int(budget) - self._fixed_bytes
+        page_budget = headroom // self._bytes_per_page if headroom > 0 else 0
+        # the pool caps the committed total too: never promise pages past P
+        page_budget = min(page_budget, self._num_pages)
+        with self._commit_lock:
+            if self._committed_pages + need > page_budget:
+                self._shed(
+                    "hbm_budget",
+                    f"request needs {need} pages "
+                    f"({need * self._bytes_per_page} B) but "
+                    f"{self._committed_pages}/{page_budget} budgeted pages "
+                    f"are committed (PADDLE_HBM_BUDGET_BYTES={budget}, "
+                    f"fixed {self._fixed_bytes} B)")
+            self._committed_pages += need
+            handle._hbm_pages = need
+
+    def _release_hbm(self, handle):
+        """Idempotent un-commit of a handle's pre-flight reservation
+        (every terminal path goes through ``_finish``)."""
+        n = handle._hbm_pages
+        if n:
+            handle._hbm_pages = 0
+            with self._commit_lock:
+                self._committed_pages -= n
 
     def _check_qos_admission(self, tier):
         """QoS admission (under the cv lock): shed whole tiers by the
@@ -752,6 +1147,7 @@ class ServingEngine:
                     # decode step: one budget of chunk work, then one step
                     # over the lanes that finished ingesting
                     self._advance_prefills()
+                    self._update_gauges()
                     if not any(s is not None and s.prefilled is None
                                for s in self._slots):
                         if any(s is not None for s in self._slots):
@@ -762,6 +1158,11 @@ class ServingEngine:
                         continue
                     self._step_once()
                 except Exception as e:
+                    # OOM forensics FIRST, while the allocation state that
+                    # produced the failure is still live: one flight dump
+                    # carrying the ledger's owner table
+                    if _obs_memory.is_oom_error(e):
+                        _obs_memory.oom_dump(e, replica=self.replica)
                     # the restart budget is a burst limit: a cooldown of
                     # healthy operation since the last restart heals it
                     if self._engine_restarts \
@@ -796,6 +1197,7 @@ class ServingEngine:
         self._engine_restarts += 1
         self._restarts_total += 1
         self._last_restart_t = time.monotonic()
+        self._m_engine_restarts.inc()
         _logger.error(
             "serving engine auto-restart %d/%d after transient failure %r; "
             "re-queueing in-flight requests", self._engine_restarts,
@@ -825,6 +1227,7 @@ class ServingEngine:
                     self._finish(h, "completed")
                     continue
                 self._requeue(req, h, produced, remaining)
+            self._m_queue_depth.set(len(self._queue))
         del inflight, pending
         # fresh device state: re-admission prefills rewrite every
         # sequence's K/V, and the host tier resets with the radix index.
@@ -838,6 +1241,7 @@ class ServingEngine:
         with torch.inference_mode(False):
             self._pools = tuple(
                 self._adapter.init_pools(self._num_pages + 1))
+        self._set_pool_gauges()
 
     def _requeue(self, req, h, produced, remaining):
         """Put ``req`` back at the FRONT of its queue as prompt +
@@ -848,6 +1252,7 @@ class ServingEngine:
         self._queue.appendleft(dataclasses.replace(
             req, prompt=prompt, max_new_tokens=remaining))
         self._requeued += 1
+        self._m_requeued.inc()
 
     def _abort_all(self, exc):
         pending, self._admitting = self._admitting, None
@@ -878,7 +1283,14 @@ class ServingEngine:
             self._queue.popleft()
 
     def _count_preemption(self, req, reason):
+        """serving.preemptions: label-less on non-tiered requests (as in
+        the reference, whose deadline-expiry series predates QoS),
+        ``{tier=,reason=}`` on QoS ones."""
         self._preempt_counts[(reason, req.tier)] += 1
+        if req.tier is not None:
+            self._m_preempt.inc(tier=req.tier, reason=reason)
+        else:
+            self._m_preempt.inc()
 
     def _preempt_victims(self, req):
         """Decode slots ``req`` may evict, cheapest first: strictly
@@ -1016,8 +1428,11 @@ class ServingEngine:
                 if alloc is None:
                     alloc = self._preempt_for_pages(req)
                 if alloc is None:
-                    return      # FIFO: park until a retirement frees pages
+                    # FIFO: park until a retirement frees pages
+                    self._m_blocked.inc()
+                    return
                 self._queue_pop(req)
+                self._m_queue_depth.set(len(self._queue))
                 # between dequeue and slot assignment the request lives in
                 # _admitting, so a failure mid-prefill still reaches it
                 self._admitting = req
@@ -1041,17 +1456,24 @@ class ServingEngine:
         return torch.tensor(arr, device=self.device)
 
     @contextlib.contextmanager
-    def _dispatch(self):
+    def _dispatch(self, handles=()):
         """Bracket one device dispatch: flag ``_compiling`` while a kernel
         of this engine may still be built (the first calls on the card),
         so the watchdog and the health state read the build as slow, not
-        stuck; stamp the heartbeat after it."""
+        stuck; bill the ``nvcc`` wall the dispatch waited out to
+        ``handles`` (their ``compile_s``: cold TTFT); stamp the heartbeat
+        after it."""
         if self._kernels and all(_build.loaded(n) for n in self._kernels):
             self._kernels = ()      # every kernel is loaded: no more builds
         self._compiling = bool(self._kernels)
+        built0 = _build.BUILD_SECONDS if self._compiling else None
         try:
             yield
         finally:
+            if built0 is not None and _build.BUILD_SECONDS > built0:
+                stall = _build.BUILD_SECONDS - built0
+                for h in handles:
+                    h.compile_s += stall
             self._compiling = False
             self._progress_t = time.monotonic()
 
@@ -1065,15 +1487,28 @@ class ServingEngine:
         return logits + self._to_device(inj).view(
             -1, *([1] * (logits.dim() - 1)))
 
+    def _guard_stats(self, logits):
+        """Numeric guard: park the (injected) logits' stats row on this
+        engine's numerics stream at step ``_guard_step`` (the iteration
+        the dispatch's tokens belong to, as the reference numbers it) — a
+        device tensor, resolved by ``numerics.poll`` off the step, never
+        here."""
+        _numerics.submit(self._provider_key, ("logits",),
+                         _numerics.stats_row(logits,
+                                             _numerics.low_dtype())[None],
+                         step=self._guard_step)
+
     def _sample(self, logits, temps):
         """Tokens for ``logits [B, V]`` at host ``temps [B]``, and with the
         numeric guard the rows whose logits are non-finite, on the host in
-        ONE transfer (the dispatch's device sync).  All-greedy batches
-        skip the random draw.  Returns ``(tokens, bad or None)``."""
+        ONE transfer (the dispatch's device sync), the logits' stats row
+        submitted to the numerics stream.  All-greedy batches skip the
+        random draw.  Returns ``(tokens, bad or None)``."""
         bad = None
         if self._numeric_guard:
             logits = self._inject(logits)
             bad = nonfinite_rows(logits)
+            self._guard_stats(logits)
         if (temps > 0).any():
             tok = self._sampler(logits, self._to_device(temps), self._gen)
         else:
@@ -1095,7 +1530,18 @@ class ServingEngine:
         table = np.full((1, self.table_width), self._scratch, np.int32)
         table[0, :len(table_row)] = table_row
         temps = np.asarray([req.sampling.temperature], np.float32)
-        with self._dispatch():
+        h = req.handle
+        if cached > 0:
+            span = _tracing.span(
+                "serving.prefill_cached", trace_id=h.trace_id,
+                request_id=h.request_id, slot=slot_idx, prompt_len=S0,
+                cached_tokens=cached)
+        else:
+            span = _tracing.span(
+                "serving.prefill", trace_id=h.trace_id,
+                request_id=h.request_id, slot=slot_idx, prompt_len=S0)
+        t0 = time.perf_counter()
+        with self._dispatch((h,)), span:
             if cached > 0:
                 # ONE chunk dispatch over the tail at positions cached..S0-1
                 # (K3 / K4 through paged_chunk_attend on the card)
@@ -1115,17 +1561,19 @@ class ServingEngine:
                     self._to_device(table),
                     self._to_device(np.asarray([S0], np.int32)))
             self._pools = tuple(pools)
+            self._guard_step = self._iteration
             tok, bad = self._sample(logits, temps)
+        self._m_prefill_seconds.observe(time.perf_counter() - t0)
         self._prefills += 1
         self._cached_prefills += cached > 0
         if bad is not None and bad[0]:
             # non-finite first-token logits: fail THIS request before it
             # ever occupies a decode lane
-            h = req.handle
             h._error = NumericFault(
                 "non-finite logits at prefill", site="logits",
                 stream=f"serving/{self.replica}", step=self._iteration)
             self._numeric_faults += 1
+            self._m_numeric_faults.inc()
             self._bm.free(alloc)
             self._admitting = None
             self._finish(h, "error")
@@ -1214,7 +1662,12 @@ class ServingEngine:
         ids[0, :nval] = req.prompt[c0:c0 + nval]
         table = np.full((1, self.table_width), self._scratch, np.int32)
         table[0, :len(slot.table_row)] = slot.table_row
-        with self._dispatch():
+        h = slot.handle
+        t0 = time.perf_counter()
+        with self._dispatch((h,)), _tracing.span(
+                "serving.prefill_chunk", trace_id=h.trace_id,
+                request_id=h.request_id, slot=i, chunk_start=c0,
+                chunk_tokens=nval):
             logits, *pools = self._adapter.prefill_chunk(
                 self._to_device(ids),
                 self._to_device(np.asarray([nval], np.int32)),
@@ -1224,13 +1677,17 @@ class ServingEngine:
             self._prefill_chunks += 1
             final = c0 + nval >= S0
             bad = None
+            self._guard_step = self._iteration
             if final:
                 tok, bad = self._sample(
                     logits, np.asarray([slot.temp], np.float32))
             elif self._numeric_guard:
                 # a middle chunk samples nothing, but its logits are
                 # guarded all the same (one small transfer)
-                bad = nonfinite_rows(self._inject(logits)).cpu().numpy()
+                logits = self._inject(logits)
+                self._guard_stats(logits)
+                bad = nonfinite_rows(logits).cpu().numpy()
+        self._m_prefill_chunk_seconds.observe(time.perf_counter() - t0)
         if bad is not None and bad[0]:
             self._fail_numeric(i)
             return nval
@@ -1276,6 +1733,7 @@ class ServingEngine:
             f"non-finite logits in decode lane {i}", site="logits",
             stream=f"serving/{self.replica}", step=self._iteration)
         self._numeric_faults += 1
+        self._m_numeric_faults.inc()
         self._bm.free(slot.alloc)
         self._slots[i] = None
         self._clear_slot_row(i)
@@ -1284,12 +1742,24 @@ class ServingEngine:
     def _plain_step(self, active):
         """One decode step for every lane; inactive lanes (length 0,
         all-scratch table row) compute junk nobody reads."""
-        with self._dispatch():
+        handles = [self._slots[i].handle for i in active]
+        if _tracing._ACTIVE:
+            # one span per batched iteration, LINKING every active
+            # request's trace id (a decode step serves many traces at once)
+            cm = _tracing.span(
+                "serving.decode_step", iteration=self._iteration,
+                batch=len(active), links=[h.trace_id for h in handles])
+        else:  # hot path: one flag read, no span or link list built
+            cm = _tracing.NOOP
+        t0 = time.perf_counter()
+        with self._dispatch(handles), cm:
             logits, *pools = self._adapter.step(
                 self._to_device(self._h_last), *self._pools,
                 self._to_device(self._h_table), self._to_device(self._h_lens))
             self._pools = tuple(pools)
+            self._guard_step = self._iteration + 1
             tok, bad = self._sample(logits, self._h_temps)
+        self._m_step_seconds.observe(time.perf_counter() - t0)
         self._iteration += 1
         for i in active:
             if bad is not None and bad[i]:
@@ -1331,7 +1801,17 @@ class ServingEngine:
             drafts[i] = d
         if not any(drafts.values()):
             return self._plain_step(active)
-        with self._dispatch():
+        handles = [self._slots[i].handle for i in active]
+        if _tracing._ACTIVE:
+            cm = _tracing.span(
+                "serving.verify_step", iteration=self._iteration,
+                batch=len(active), k=K,
+                drafted=int(sum(len(drafts[i]) for i in active)),
+                links=[h.trace_id for h in handles])
+        else:
+            cm = _tracing.NOOP
+        t0 = time.perf_counter()
+        with self._dispatch(handles), cm:
             ids = self._to_device(self._h_ids)
             logits, *pools = self._adapter.verify(
                 ids, *self._pools, self._to_device(self._h_table),
@@ -1341,12 +1821,15 @@ class ServingEngine:
             if self._numeric_guard:
                 logits = self._inject(logits)
                 parts.append(nonfinite_rows(logits).long()[:, None])
+                self._guard_step = self._iteration + 1
+                self._guard_stats(logits)
             targets, accept = self._verifier(
                 logits, ids[:, 1:], self._to_device(self._h_dlen),
                 self._to_device(self._h_temps), self._gen)
             # one transfer to the host: this is the step's device sync
             out = torch.cat([targets, accept.long()] + parts,
                             dim=1).cpu().numpy()
+        self._m_step_seconds.observe(time.perf_counter() - t0)
         targets, accept = out[:, :K + 1], out[:, K + 1:2 * K + 1].astype(bool)
         bad = out[:, -1].astype(bool) if self._numeric_guard else None
         self._iteration += 1
@@ -1384,17 +1867,42 @@ class ServingEngine:
             accepted += min(n, a)
             if not done:
                 self._drafter.extend(i, emitted)
-        self._spec_proposed_total += proposed
-        self._spec_accepted_total += accepted
+        if proposed:
+            self._m_spec_proposed.inc(proposed)
+            self._spec_proposed_total += proposed
+        if accepted:
+            self._m_spec_accepted.inc(accepted)
+            self._spec_accepted_total += accepted
+        if self._spec_proposed_total:
+            self._m_accept_rate.set(
+                self._spec_accepted_total / self._spec_proposed_total)
 
     def _emit_token(self, slot, tok):
         h = slot.handle
         now = time.time()
+        # QoS engines label the latency histograms per tier; non-tiered
+        # requests keep the label-less children
+        tier = slot.req.tier
         if h.first_token_at is None:
             h.first_token_at = now
+            if tier is not None:
+                self._m_ttft.observe(now - h.submitted_at, tier=tier)
+            else:
+                self._m_ttft.observe(now - h.submitted_at)
+            if h.compile_s > 0.0:
+                # waited out a kernel build: the cold subset, a parallel
+                # family so serving.ttft_seconds stays whole
+                self._m_ttft_cold.observe(now - h.submitted_at)
+        elif slot.last_token_t is not None:
+            if tier is not None:
+                self._m_itl.observe(now - slot.last_token_t, tier=tier)
+            else:
+                self._m_itl.observe(now - slot.last_token_t)
+        slot.last_token_t = now
         h.token_ids.append(tok)
         h.token_times.append(now)
         h._events.put(("token", tok))
+        self._m_tokens.inc()
 
     def _retire_if_done(self, i):
         slot = self._slots[i]
@@ -1436,6 +1944,7 @@ class ServingEngine:
             self._drafter.reset()
 
     def _finish(self, handle, status):
+        self._release_hbm(handle)
         handle.status = status
         handle.finished_at = time.time()
         if status == "completed":
@@ -1457,8 +1966,73 @@ class ServingEngine:
             for acct in (self._slo, self._tier_slo.get(handle.tier)):
                 if acct is not None:
                     acct.observe(handle, met_override=miss)
+        self._m_requests.inc(status=status)
         handle._events.put(("done", status))
         handle._done.set()
+
+    def _update_gauges(self):
+        """Refresh the occupancy / pool / health / tier gauges (throttled:
+        gauges are dashboards, not control flow; queue_depth is also set
+        where it changes), sample the quant-drift gauge, and resolve this
+        engine's numerics stream (the one small sync, off the step)."""
+        now = time.monotonic()
+        if now - self._gauges_t < 0.05:
+            return
+        self._gauges_t = now
+        n = sum(1 for s in self._slots if s is not None)
+        self._m_queue_depth.set(len(self._queue))
+        self._m_active.set(n)
+        self._m_occupancy.set(n / self.num_slots)
+        self._m_page_util.set(self._bm.utilization())
+        self._m_pages_used.set(self._bm.used_pages)
+        self._m_health.set(_HEALTH_CODE.get(self.health, 1))
+        if self._qos is not None:
+            for tname, depth in self._queue.depths().items():
+                self._m_tier_depth.set(depth, tier=tname)
+            for tname, cnt in self._active_by_tier().items():
+                self._m_tier_active.set(cnt, tier=tname)
+        if self.weight_dtype == "int8" and now - self._drift_t > 5.0:
+            # a slow dashboard (a host-side weight walk): one sampled
+            # layer every few seconds, never per step
+            self._drift_t = now
+            self._quant_drift_tick()
+        if self._numeric_guard and now - self._npoll_t > 0.5:
+            # never raising: per-row failure is the guard's job, and an
+            # abort-level checker must not kill the scheduler thread
+            self._npoll_t = now
+            _numerics.poll(self._provider_key, raise_on_fault=False)
+
+    def _quant_drift_tick(self):
+        """Sampled quantization-drift gauge (int8-weight engines): one
+        ``Int8Linear`` per tick, dequantize its stored payload and measure
+        the requantize-on-fresh-absmax roundtrip error — drift above the
+        rounding floor means the frozen ``w_scale`` no longer matches the
+        weights it quantized."""
+        from ..quantization import Int8Linear
+
+        layers = [m for m in self._model.modules()
+                  if isinstance(m, Int8Linear)]
+        if not layers:
+            return
+        m = layers[self._drift_idx % len(layers)]
+        self._drift_idx += 1
+        q = m.weight_int8.detach().to("cpu", torch.float32).numpy()
+        w = q * np.float32(m.w_scale)
+        amax = float(np.abs(w).max())
+        if amax <= 0.0:
+            self._m_quant_drift.set(0.0)
+            return
+        s2 = amax / m._qmax
+        q2 = np.clip(np.rint(w / s2), -m._qmax, m._qmax)
+        drift = float(np.mean(np.abs(q2 * s2 - w))) / amax
+        self._m_quant_drift.set(drift)
+
+    def _active_by_tier(self):
+        active = dict.fromkeys(self._qos.names, 0)
+        for s in self._slots:
+            if s is not None and s.req.tier in active:
+                active[s.req.tier] += 1
+        return active
 
     # --------------------------------------------------------------- health
     def health_state(self):
@@ -1529,6 +2103,9 @@ class ServingEngine:
             "verify_steps": self._verify_steps,
             "queue_depth": len(self._queue),
             "active_slots": sum(1 for s in self._slots if s is not None),
+            "prefilling_slots": sum(
+                1 for s in self._slots
+                if s is not None and s.prefilled is not None),
             "num_slots": self.num_slots,
             "pages_in_use": self._bm.used_pages,
             "free_pages": self._bm.free_pages,
@@ -1567,15 +2144,11 @@ class ServingEngine:
         if self._slo is not None:
             st["slo"] = self._slo.summary()
         if self._qos is not None:
-            active = dict.fromkeys(self._qos.names, 0)
-            for s in self._slots:
-                if s is not None and s.req.tier in active:
-                    active[s.req.tier] += 1
             st["qos"] = {
                 "config": self._qos.to_dict(),
                 "brownout": self._brownout(),
                 "queue_by_tier": self._queue.depths(),
-                "active_by_tier": active,
+                "active_by_tier": self._active_by_tier(),
                 "typical_request_s_by_tier": dict(self._tier_ema),
                 "slo_by_tier": {name: acct.summary()
                                 for name, acct in self._tier_slo.items()},
@@ -1590,3 +2163,39 @@ class ServingEngine:
             }
         return st
 
+    def _statusz(self):
+        """/statusz provider: stats + the live slot table (a diagnostic
+        snapshot — reads race the scheduler thread benignly; no engine
+        lock is taken)."""
+        st = self.stats()
+        st["kv_cache"] = self._bm.stats()
+        # this replica's ledger owner rows, the pool tuple's per-dtype
+        # residency and the admission pre-flight state.  (The reference
+        # also reports pool_shard_bytes_by_dtype, the per-chip share under
+        # a tensor-parallel mesh; the port has no mesh=, so every pool is
+        # whole on one card.)
+        st["memory"] = {
+            "owners": _obs_memory.ledger().owner_rows(replica=self.replica),
+            "pool_bytes_by_dtype": self.pool_bytes_by_dtype(),
+            "fixed_bytes": self._fixed_bytes,
+            "committed_pages": self._committed_pages,
+            "hbm_budget_bytes": _obs_memory.hbm_budget_bytes(),
+        }
+        st["started"] = self._started
+        st["health"] = self.health_state()
+        st["draining"] = self._draining
+        if self._progress_t is not None:
+            st["last_progress_age_s"] = time.monotonic() - self._progress_t
+        slots = []
+        for i, s in enumerate(self._slots):
+            if s is None:
+                slots.append(None)
+                continue
+            slots.append({"slot": i, "request_id": s.handle.request_id,
+                          "trace_id": s.handle.trace_id,
+                          "status": s.handle.status, "length": s.length,
+                          "produced": s.produced, "max_new": s.max_new,
+                          "pages": len(s.table_row),
+                          "prefilled": s.prefilled})
+        st["slots"] = slots
+        return st

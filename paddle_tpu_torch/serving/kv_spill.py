@@ -1,7 +1,7 @@
 """Host-memory KV spill tier — the middle rung of the hierarchical cache
-(counterpart of ``paddle_tpu/serving/kv_spill.py``; its counters are
-plain attributes here, :meth:`KVSpillTier.stats`, until the metrics
-registry is ported).
+(counterpart of ``paddle_tpu/serving/kv_spill.py``).  Its counts are the
+``serving.kv_spill_*`` series (``replica=`` label) and, for
+:meth:`KVSpillTier.stats`, plain attributes.
 
 Device pages -> host spill -> recompute: when the radix prefix index
 (:mod:`.prefix_index`) evicts an idle page to refill the free list, the
@@ -53,6 +53,24 @@ class KVSpillTier:
         self._spills = 0
         self._resurrections = 0
         self._drops = 0
+        from ..profiler import metrics as _metrics
+
+        self._m_spills = _metrics.bind(_metrics.counter(
+            "serving.kv_spill_pages",
+            "idle KV pages spilled to the host tier instead of dropped"),
+            replica=self.replica)
+        self._m_resurrections = _metrics.bind(_metrics.counter(
+            "serving.kv_spill_resurrections",
+            "spilled pages re-paged into device slots on a prefix hit"),
+            replica=self.replica)
+        self._m_drops = _metrics.bind(_metrics.counter(
+            "serving.kv_spill_drops",
+            "spilled pages dropped LRU to stay inside the host budget"),
+            replica=self.replica)
+        self._m_bytes = _metrics.bind(_metrics.gauge(
+            "serving.kv_spill_bytes",
+            "host DRAM bytes resident in the KV spill tier"),
+            replica=self.replica)
 
     def attach(self, snapshot, restore):
         self._snapshot = snapshot
@@ -91,6 +109,7 @@ class KVSpillTier:
         nb = sum(int(a.nbytes) for a in payload)
         with self._lock:
             if nb > self.budget_bytes:
+                self._m_drops.inc()
                 self._drops += 1
                 return False
             old = self._entries.pop(key, None)
@@ -99,10 +118,13 @@ class KVSpillTier:
             while self._entries and self._nbytes + nb > self.budget_bytes:
                 _, dropped = self._entries.popitem(last=False)
                 self._nbytes -= sum(int(a.nbytes) for a in dropped)
+                self._m_drops.inc()
                 self._drops += 1
             self._entries[key] = payload
             self._nbytes += nb
+            self._m_spills.inc()
             self._spills += 1
+            self._m_bytes.set(self._nbytes)
         return True
 
     def resurrect(self, key, page):
@@ -115,7 +137,9 @@ class KVSpillTier:
             if payload is None:
                 return False
             self._nbytes -= sum(int(a.nbytes) for a in payload)
+            self._m_resurrections.inc()
             self._resurrections += 1
+            self._m_bytes.set(self._nbytes)
         self._restore(page, payload)
         return True
 
@@ -123,3 +147,4 @@ class KVSpillTier:
         with self._lock:
             self._entries.clear()
             self._nbytes = 0
+            self._m_bytes.set(0)

@@ -49,6 +49,11 @@ class QuantizedGPTAdapter(GPTAdapter):
         return (2 * self.num_layers * self.page_size * self.num_kv_heads
                 * (self.head_dim + 4))
 
+    def pool_owners(self):
+        """int8 payload pools and float32 scale pools get separate ledger
+        owners: the scale pools are real device residency."""
+        return (("kv.pages", (0, 1)), ("kv.scales", (2, 3)))
+
     def _layer_caches(self, tag, pools, table, lens):
         kp, vp, ks, vs = pools
         return [(tag, kp[i], vp[i], ks[i], vs[i], table, lens)

@@ -5,7 +5,9 @@ full-sweep K5a / K5b bit for bit against K3 / K4), Int8Linear's torch._int_mm ag
 tiny-GPT serving engine on the card (native and int8 pools) against the
 same engine on the CPU, tiny-GPT training through the flash kernels
 forward and backward, the fused bias + GELU kernel (K6) and fake-quant on
-the card against the CPU.  Marked ``cuda``; every test
+the card against the CPU, and the serving engine's observability on the
+card (the sinks add no host sync, the ledger against the CUDA allocator,
+an OOM recognized, the HBM pre-flight).  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -1080,3 +1082,194 @@ def test_guard_adds_no_host_sync_to_the_step(cuda):
         syncs[guard] = sum("called a synchronizing CUDA operation"
                            in str(w.message) for w in rec)
     assert syncs[True] == syncs[False] >= 1
+
+
+# --------------------------------------------------------- observability
+def _step_sync_count(card, guard, replica):
+    """Host syncs of one plain decode step of two slots (the recipe of
+    test_guard_adds_no_host_sync_to_the_step)."""
+    import warnings
+
+    from paddle_tpu_torch.observability import faults
+
+    eng = _engine_on(card, "cuda", numeric_guard=guard, replica=replica,
+                     telemetry_port=0)
+    try:
+        with eng:
+            eng.generate([3, 4], max_new_tokens=2, timeout=120)
+            site = f"serving.scheduler_wedge@{eng.replica}"
+            faults.inject(site, seconds=60.0, times=1)
+            while faults.trip_count(site) < 1:
+                time.sleep(0.005)
+            hs = [eng.submit(p, max_new_tokens=4)
+                  for p in ([5, 6, 7], [8, 9, 10, 11])]
+            with torch.inference_mode():
+                eng._admit()
+                active = [i for i, s in enumerate(eng._slots)
+                          if s is not None]
+                eng._plain_step(active)
+                torch.cuda.synchronize()
+                with warnings.catch_warnings(record=True) as rec:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        eng._plain_step(active)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+            faults.clear(site)
+            for h in hs:
+                assert len(h.result(timeout=120)) == 4
+    finally:
+        faults.clear()
+    assert active == [0, 1]
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in rec)
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_sinks_add_no_host_sync_to_the_step(cuda, guard, tmp_path):
+    """With a span tracer, the flight recorder and telemetry on (and the
+    guard's numerics stream), a decode step syncs as often as with every
+    sink off: 4 (3 host-row copies, the tokens' transfer)."""
+    from paddle_tpu_torch.observability import flight_recorder, tracing
+
+    _, card = _tiny_pair()
+    off = _step_sync_count(card, guard, f"c-obs-sync-off-{guard}")
+    tr = tracing.Tracer().start()
+    flight_recorder.enable(dir=str(tmp_path))
+    try:
+        on = _step_sync_count(card, guard, f"c-obs-sync-on-{guard}")
+    finally:
+        tr.stop()
+        flight_recorder.disable()
+    assert on == off == 4
+    assert tr.find("serving.decode_step")
+
+
+def test_observed_engine_on_card_matches_cpu(cuda, tmp_path):
+    """Tiny random GPT, float32, every sink on: the card's greedy ids equal
+    the CPU engine's; /metrics, /healthz and /statusz answer while the
+    requests run; K1 once per layer per prefill, K3 per layer per step."""
+    import json
+    import urllib.request
+
+    from paddle_tpu_torch.observability import flight_recorder, tracing
+
+    cpu, card = _tiny_pair()
+    prompts = [[5, 6, 7, 8] * 3, [9, 10] * 10, [11, 12, 13] * 8, [14] * 5]
+    with _engine_on(cpu, "cpu", num_slots=3) as eng:
+        want = [eng.generate(p, max_new_tokens=12, timeout=120)
+                for p in prompts]
+    tr = tracing.Tracer().start()
+    flight_recorder.enable(dir=str(tmp_path))
+    k1, k3 = fa.LAUNCHES, pa.LAUNCHES
+    try:
+        with _engine_on(card, "cuda", num_slots=3, telemetry_port=0,
+                        numeric_guard=True, replica="c-obs-on") as eng:
+            hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            url = eng.telemetry.url
+            codes = {}
+            for path in ("/metrics", "/healthz", "/statusz"):
+                with urllib.request.urlopen(url + path, timeout=30) as r:
+                    codes[path] = (r.status, r.read())
+            got = [h.result(timeout=120) for h in hs]
+            st = eng.stats()
+    finally:
+        tr.stop()
+        flight_recorder.disable()
+    assert got == want
+    assert all(c == 200 for c, _ in codes.values())
+    assert b"serving_ttft_seconds" in codes["/metrics"][1]
+    assert "serving/c-obs-on" in json.loads(codes["/statusz"][1])
+    assert fa.LAUNCHES - k1 == 2 * st["prefills"]
+    assert pa.LAUNCHES - k3 == 2 * st["iteration"]
+    assert tr.find("serving.prefill") and tr.find("serving.decode_step")
+
+
+def test_ledger_reconciles_with_the_allocator_on_card(cuda):
+    """The engine's pools in the ledger are the pools' bytes; the
+    remainder against torch.cuda.memory_allocated is >= 0; an oversized
+    allocation is an OOM the ledger recognizes and dumps."""
+    import json
+
+    from paddle_tpu_torch.observability import memory
+
+    _, card = _tiny_pair()
+    eng = _engine_on(card, "cuda", replica="c-obs-mem")
+    rows = memory.ledger().owner_rows(replica="c-obs-mem")
+    pools = sum(p.numel() * p.element_size() for p in eng._pools)
+    assert sum(r["bytes"] for r in rows if r["owner"] == "kv.pages") == pools
+    assert all(r["device"].startswith("cuda") for r in rows if r["arrays"])
+    rep = memory.ledger().report()
+    assert rep["untracked_bytes"] is not None and rep["untracked_bytes"] >= 0
+    assert rep["live_bytes"] == torch.cuda.memory_allocated()
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(1 << 46, dtype=torch.uint8, device="cuda")
+    assert memory.is_oom_error(ei.value)
+    doc = json.load(open(memory.oom_dump(ei.value, replica="c-obs-mem")))
+    assert doc["reason"] == "oom"
+    assert any(r["owner"] == "kv.pages"
+               for r in doc["extra"]["memory"]["owners"])
+    torch.ones(4, device="cuda").sum().item()      # the card still works
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stats_row_on_card_equals_cpu(cuda, dtype):
+    """The numerics probe on the card: the CPU's row within 1e-6
+    relative (NaN, inf, zeros, subnormals), and no host sync."""
+    import warnings
+
+    from paddle_tpu_torch.observability import numerics
+
+    x = torch.randn(8, 5003, generator=torch.Generator().manual_seed(3))
+    x[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    x[1, :100] = 0.0
+    x[2, :4] = torch.tensor([1e-39, -1e-40, 3e-5, 2e38])
+    x = x.to(dtype)
+    want = numerics.stats_row(x)
+    xc = x.cuda()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = numerics.stats_row(xc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in rec if "synchronizing" in str(w.message)]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+
+
+def test_hbm_budget_on_card_keeps_admitted_ids(cuda, monkeypatch):
+    """PADDLE_HBM_BUDGET_BYTES at the weights plus 6 pages: of four
+    requests held at a wedge, the ones that fit run with the ids of an
+    unbudgeted card engine; the others shed ``hbm_budget``."""
+    from paddle_tpu_torch.serving import RequestRejectedError
+
+    _, card = _tiny_pair()
+    reqs = [([5, 6, 7, 8] * 3, 20, {}), ([9, 10] * 10, 20, {}),
+            ([11, 12, 13], 4, {}), ([14] * 20, 30, {})]
+    want = _uninterrupted(card, reqs)
+    eng = _engine_on(card, "cuda", replica="c-obs-hbm")
+    monkeypatch.setenv("PADDLE_HBM_BUDGET_BYTES",
+                       str(eng._fixed_bytes + 6 * eng._bytes_per_page))
+    out = []
+    with eng:
+        from paddle_tpu_torch.observability import faults
+
+        site = f"serving.scheduler_wedge@{eng.replica}"
+        faults.inject(site, seconds=60.0, times=1)
+        while faults.trip_count(site) < 1:
+            time.sleep(0.005)
+        for p, n, _ in reqs:
+            try:
+                out.append(eng.submit(p, max_new_tokens=n))
+            except RequestRejectedError as e:
+                out.append(e.reason)
+        faults.clear(site)
+        got = [o if isinstance(o, str) else o.result(timeout=120)
+               for o in out]
+    assert got.count("hbm_budget") == 2
+    assert [g for g in got if not isinstance(g, str)] \
+        == [w for w, g in zip(want, got) if not isinstance(g, str)]
+    assert eng._committed_pages == 0
