@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,llama
+    python3 chip_smoke.py --phases build,kernels,llama
     python3 chip_smoke.py --phases build,kernels,observe
     python3 chip_smoke.py --phases build,kernels,prefix,resilience
     python3 chip_smoke.py --phases build,kernels,slice,train,quant,custom_op,qat,profile
@@ -112,7 +113,25 @@ Phases, each printing one JSON line and then its seconds:
    memory ledger against the pools and the CUDA allocator, a forced OOM
    recognized and dumped; 4 host syncs per decode step with the sinks on;
    the sinks' cost in bf16 tokens/s, TTFT and ITL, in 3 rounds of turns.
-13. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+13. ``llama``  — Llama-3-8B (meta-llama/Meta-Llama-3-8B's config: vocab
+   128256, 4096 wide, SwiGLU 14336, 32 heads over 8 kv heads of 128,
+   rope_theta 500000; random weights from a card generator seeded with 0)
+   through ``LlamaForCausalLM``: float32 at depth 2 (the depth cut, named
+   in the output) against a CPU copy, greedy ids equal for the dense and
+   paged caches (B=2, prompts of 64, 16 new tokens; dense equal to paged),
+   ``use_cache=False`` and beam search (4 beams, 8 tokens), each
+   call's launches checked; bf16 weights at the full depth 32, B=8,
+   prompts of 512, 128 new tokens, paged and dense in turns (paged, dense,
+   dense, paged) with K1 = 32 per paged call and K3 = 32 x 127, f32 logits
+   (a bf16 Llama computes in f32, as in the TPU package) and the first new
+   token of each row equal between the caches, each cache once under
+   ``torch.profiler`` (16 new tokens); 3 f32 TrainSteps of a narrow
+   head_dim-128 GQA config against the CPU (rtol 1e-4), 8 timed bf16 O2
+   steps at the full width, depth 2, B=4, S=1024 (K1 = K2a = K2b = 2 per
+   step; MFU against 989 TFLOP/s), two more under the profiler; then K1
+   (f32 and bf16), K2a / K2b and K3's f32-query entry over bf16 pools at
+   those shapes beside their plain versions and PyTorch's calls.
+14. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under ``torch.profiler``: device time by kernel and the
    device's idle share.
@@ -303,8 +322,9 @@ def _rel_err(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
-def _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse, layout="contiguous"):
-    """q, k, v, g ``[b, S, HEADS, d]`` and the kernel forward's lse with
+def _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse, layout="contiguous",
+               heads=HEADS):
+    """q, k, v, g ``[b, S, heads, d]`` and the kernel forward's lse with
     the row correction r = delta (- g_lse).  ``layout``: "contiguous";
     "unaligned", each tensor a view one element into rows of d + 1 (no
     16-byte copies: the kernels' scalar staging); "qkv", q / k / v the
@@ -312,11 +332,11 @@ def _k2_inputs(gen, dtype, b, sq, sk, d, causal, g_lse, layout="contiguous"):
     from paddle_tpu_torch.ops import flash_attention as fa
 
     def t(s, width=d):
-        return torch.randn(b, s, HEADS, width, generator=gen,
+        return torch.randn(b, s, heads, width, generator=gen,
                            device="cuda").to(dtype)
 
     if layout == "qkv":
-        q, k, v = torch.randn(b, sq, HEADS, 3, d, generator=gen,
+        q, k, v = torch.randn(b, sq, heads, 3, d, generator=gen,
                               device="cuda").to(dtype).unbind(3)
         g = t(sq)
     elif layout == "unaligned":
@@ -1361,12 +1381,12 @@ def _read_counts():
                                pa.QUANT_CHUNK_LAUNCHES)))
 
 
-def _gen_ids(b, s, seed):
-    return torch.from_numpy(np.random.RandomState(seed).randint(1, VOCAB,
+def _gen_ids(b, s, seed, vocab=VOCAB):
+    return torch.from_numpy(np.random.RandomState(seed).randint(1, vocab,
                                                                 (b, s)))
 
 
-def _gen_want(kind, n):
+def _gen_want(kind, n, layers=LAYERS):
     """Launches a generate() call of ``n`` new tokens must make: the paged
     cache runs K1 once per layer (prefill) and K3 through
     ``paged_decode_attend`` once per layer per decode step; the dense cache
@@ -1374,11 +1394,11 @@ def _gen_want(kind, n):
     no-cache loop and beam search run K1 once per layer per forward."""
     want = dict.fromkeys(COUNTERS, 0)
     if kind == "paged":
-        want["flash_attention_fwd"] = LAYERS
+        want["flash_attention_fwd"] = layers
         want["paged_flash_decode"] = want["via_paged_decode_attend"] = \
-            LAYERS * (n - 1)
+            layers * (n - 1)
     elif kind in ("no_cache", "beam"):
-        want["flash_attention_fwd"] = LAYERS * n
+        want["flash_attention_fwd"] = layers * n
     return want
 
 
@@ -2470,6 +2490,416 @@ def phase_observe(cpu_ref=None):
 
 
 # ----------------------------------------------------------------- profile
+# ------------------------------------------------------------------- llama
+# Llama-3-8B: meta-llama/Meta-Llama-3-8B config.json (8,030,261,248
+# parameters; GQA group 4, head_dim 128, untied head)
+LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=8, rope_theta=500000.0, rms_norm_eps=1e-5,
+                 max_position_embeddings=8192, tie_word_embeddings=False)
+LL_HEADS, LL_KV_HEADS, LL_HEAD_DIM = 32, 8, 128
+# f32 parity against the CPU at the full width, the depth cut to 2: batch,
+# prompt and new tokens (beam search reruns the whole prefix of every beam
+# per token, on the CPU too, so it takes fewer)
+LL_PARITY_LAYERS, LL_B, LL_S, LL_NEW = 2, 2, 64, 16
+LL_EAGER_NEW, LL_BEAM_NEW, LL_BEAMS = 16, 8, 4
+# bf16 weights at the full depth: the timed generate() calls, and the new
+# tokens of the profiled ones
+LL_BF16_B, LL_BF16_S, LL_BF16_NEW, LL_PROFILE_NEW = 8, 512, 128, 16
+# training: 3 f32 steps of a narrow head_dim-128 GQA config against the CPU,
+# then bf16 O2 steps at the full width, the depth cut to 2
+LL_NARROW = dict(vocab_size=32000, hidden_size=512, intermediate_size=1376,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 num_key_value_heads=2, rope_theta=500000.0,
+                 rms_norm_eps=1e-5, max_position_embeddings=8192)
+LL_NARROW_B, LL_NARROW_S = 2, 128
+LL_TRAIN_LAYERS, LL_TRAIN_B, LL_TRAIN_S, LL_TRAIN_STEPS = 2, 4, 1024, 8
+
+
+def _llama(layers, dtype=None):
+    """Llama-3-8B at ``layers`` deep on the card, its weights drawn there
+    from a card generator seeded with 0 (no host copy, no download)."""
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return LlamaForCausalLM(device="cuda", dtype=dtype, generator=gen,
+                            **dict(LLAMA3_8B, num_hidden_layers=layers))
+
+
+def _free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _llama_parity():
+    """Greedy ids of the f32 card model against a CPU copy: dense, paged,
+    no cache, beam; each card call's launches checked."""
+    card = _llama(LL_PARITY_LAYERS)
+    cpu = copy.deepcopy(card).to("cpu")
+    vocab = LLAMA3_8B["vocab_size"]
+    cases, outs = [], {}
+    for kind, n, kw in (
+            ("dense", LL_NEW, {}),
+            ("paged", LL_NEW, dict(cache_impl="paged", page_size=PAGE)),
+            ("no_cache", LL_EAGER_NEW, dict(use_cache=False)),
+            ("beam", LL_BEAM_NEW, dict(decode_strategy="beam_search",
+                                       num_beams=LL_BEAMS))):
+        ids = _gen_ids(LL_B, LL_S, 11, vocab)
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = card.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = _read_counts()
+        got = got.cpu()
+        t0 = time.perf_counter()
+        want = cpu.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        outs[kind] = got
+        cases.append({
+            "case": kind, "B": LL_B, "prompt": LL_S, "new_tokens": n,
+            "equal_cpu": torch.equal(got, want),
+            "first_divergence": [_first_divergence(a.tolist(), b.tolist())
+                                 for a, b in zip(got, want)],
+            "launches": counts,
+            "launches_ok": counts == _gen_want(kind, n, LL_PARITY_LAYERS),
+            "card_s": card_s, "cpu_s": time.perf_counter() - t0})
+    del card, cpu
+    _free_card()
+    return cases, torch.equal(outs["dense"], outs["paged"])
+
+
+def _llama_generate_bf16():
+    """The full-depth bf16 model: generate() paged and dense in turns,
+    then each cache once under the profiler."""
+    from paddle_tpu_torch.serving.quant import top1_agreement
+
+    t0 = time.perf_counter()
+    model = _llama(LLAMA3_8B["num_hidden_layers"], torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    L = LLAMA3_8B["num_hidden_layers"]
+    ids = _gen_ids(LL_BF16_B, LL_BF16_S, 7, LLAMA3_8B["vocab_size"])
+    with torch.no_grad():
+        logits_dtype = str(model(ids[:1, :16].to("cuda")).dtype)
+    for impl in ("paged", "dense"):       # untimed warm-up
+        model.generate(ids[:, :64], max_new_tokens=4, temperature=0.0,
+                       cache_impl=impl, page_size=PAGE)
+    runs = {}
+    for impl in ("paged", "dense", "dense", "paged"):
+        _zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=LL_BF16_NEW, temperature=0.0,
+                             cache_impl=impl, page_size=PAGE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        tokens = LL_BF16_B * LL_BF16_NEW
+        runs.setdefault(impl, []).append({
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counts,
+            "launches_ok": counts == _gen_want(impl, LL_BF16_NEW, L),
+            "out": out[:, LL_BF16_S:].cpu()})
+    paged, dense = runs["paged"][0]["out"], runs["dense"][0]["out"]
+    first_equal = torch.equal(paged[:, 0], dense[:, 0])
+    agree = {"ids_equal": int((paged == dense).sum()),
+             "ids": paged.numel(),
+             "top1_agreement": top1_agreement(dense.tolist(), paged.tolist()),
+             "first_token_equal_every_row": first_equal}
+    for r in runs["paged"] + runs["dense"]:
+        del r["out"]
+
+    def gen(impl):
+        def run():
+            model.generate(ids, max_new_tokens=LL_PROFILE_NEW,
+                           temperature=0.0, cache_impl=impl, page_size=PAGE)
+            return {"B": LL_BF16_B, "prompt": LL_BF16_S,
+                    "new_tokens": LL_PROFILE_NEW}
+        return run
+
+    profile = {impl: _profiled(gen(impl)) for impl in ("paged", "dense")}
+    del model
+    _free_card()
+    return {"layers": L, "parameters": n_params, "build_s": build_s,
+            "B": LL_BF16_B, "prompt": LL_BF16_S, "new_tokens": LL_BF16_NEW,
+            "order": "paged, dense, dense, paged", "logits_dtype": logits_dtype,
+            "paged": runs["paged"], "dense": runs["dense"],
+            "paged_vs_dense": agree, "profile": profile}
+
+
+def _llama_train():
+    """3 f32 TrainSteps of the narrow config on the card against the CPU,
+    then bf16 O2 steps of the full-width model at depth 2, timed, and two
+    more under the profiler."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, LL_NARROW["vocab_size"],
+                                      (LL_NARROW_B, LL_NARROW_S)))
+    cpu = LlamaForCausalLM(device="cpu", generator=torch.Generator()
+                           .manual_seed(0), **LL_NARROW)
+    card = copy.deepcopy(cpu).to("cuda")
+    losses = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        step, x = _trainer(model), ids.to(dev)
+        losses[dev] = [step({"input_ids": x, "labels": x}).item()
+                       for _ in range(PARITY_STEPS)]
+    del cpu, card
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+
+    model = _llama(LL_TRAIN_LAYERS)                    # f32 masters
+    step = _trainer(model, amp_level="O2")
+    x = torch.from_numpy(rs.randint(0, LLAMA3_8B["vocab_size"],
+                                    (LL_TRAIN_B, LL_TRAIN_S))).to("cuda")
+    batch = {"input_ids": x, "labels": x}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    out = [step(batch) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out += [step(batch) for _ in range(LL_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention_fwd": fa.LAUNCHES,
+              "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+              "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+    steps = WARMUP_STEPS + LL_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in model.llama.layers.parameters())
+    n += model.llama.norm.weight.numel() + model.lm_head.weight.numel()
+    hidden = LLAMA3_8B["hidden_size"]
+    flops = (6 * n + 6 * LL_TRAIN_LAYERS * LL_TRAIN_S * hidden) \
+        * LL_TRAIN_B * LL_TRAIN_S
+    step_s = wall / LL_TRAIN_STEPS
+    o2_losses = [l.item() for l in out]
+
+    def two_steps():
+        for _ in range(2):
+            step(batch)
+        return {"steps": 2, "B": LL_TRAIN_B, "S": LL_TRAIN_S}
+
+    profile = _profiled(two_steps)
+    del model, step
+    _free_card()
+    return {
+        "f32_parity": {"config": LL_NARROW, "B": LL_NARROW_B,
+                       "S": LL_NARROW_S, "steps": PARITY_STEPS,
+                       "cpu_losses": losses["cpu"],
+                       "cuda_losses": losses["cuda"], "max_rel_diff": rel,
+                       "rtol": 1e-4, "ok": rel <= 1e-4},
+        "bf16_O2": {"layers": LL_TRAIN_LAYERS, "parameters_counted": n,
+                    "B": LL_TRAIN_B, "S": LL_TRAIN_S,
+                    "warmup_steps": WARMUP_STEPS,
+                    "timed_steps": LL_TRAIN_STEPS, "step_ms": step_s * 1e3,
+                    "tokens_per_s": LL_TRAIN_B * LL_TRAIN_S / step_s,
+                    "flops_per_step": flops,
+                    "flops_formula": "(6 N + 6 L S d) per token, N = layer "
+                                     "+ final-norm + LM-head params",
+                    "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS,
+                    "peak_memory_allocated_bytes": peak,
+                    "losses": o2_losses, "launches": counts,
+                    "launches_ok": counts == dict.fromkeys(
+                        counts, LL_TRAIN_LAYERS * steps),
+                    "loss_fell": o2_losses[-1] < o2_losses[0]
+                    and bool(np.isfinite(o2_losses).all())},
+        "profile_bf16_O2": profile}
+
+
+def _llama_kernel_times(gen, launches):
+    """The kernels at Llama-3-8B's shapes (32 heads of 128; TF32 off):
+    K1 f32 at the bf16 model's prefill (B=8, S=512; its rotated q / k are
+    f32) beside SDPA in f32, K1 bf16 and K2a / K2b at the O2 step's shape
+    (B=4, S=1024) beside SDPA and its backward, and K3's f32-query entry
+    over bf16 pools at a decode step of the bf16 run (B=8, 8 kv heads,
+    lengths 512-639), by CUDA-graph replay.  Bounds: K1 4 D operations per
+    visible (query, key) pair, K2a 8 D, K2b 6 D, K3 4 D per (head, valid
+    key), f32 work at the f32 rate; bytes each input read and each output
+    written once."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    H, D = LL_HEADS, LL_HEAD_DIM
+    out = {}
+    for name, dtype, b, S in (("k1_llama_f32", torch.float32, LL_BF16_B,
+                               LL_BF16_S),
+                              ("k1_llama_bf16", torch.bfloat16, LL_TRAIN_B,
+                               LL_TRAIN_S)):
+        q, k, v = (torch.randn(b, S, H, D, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        o = fa.flash_attention_fn(q, k, v, causal=True)
+        err = (o.float() - fa.flash_attention_ref(q, k, v, causal=True)
+               .float()).abs().max().item()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        es = q.element_size()
+        b_ms, b_by = bound(4 * H * D * b * S * (S + 1) // 2,
+                           4 * q.numel() * es,
+                           PEAK_FLOPS if es == 2 else PEAK_F32_FLOPS)
+        out[name] = {
+            "shape": [b, S, H, D], "dtype": str(dtype).split(".")[-1],
+            "rows": b * S,
+            "kernel_ms": cuda_ms(lambda: fa.flash_attention_fn(
+                q, k, v, causal=True), graph=True),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(
+                q, k, v, causal=True), iters=3),
+            "library_ms": cuda_ms(lambda: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True), graph=True),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "ok": err <= ATOL[dtype]}
+        del q, k, v, qt, kt, vt, o
+    out["k1_llama_f32"]["launches"] = launches["k1_f32"]
+    out["k1_llama_bf16"]["launches"] = launches["k1_bf16"]
+
+    B, S = LL_TRAIN_B, LL_TRAIN_S
+    scale = D ** -0.5
+    q, k, v, g, lse, r = _k2_inputs(gen, torch.bfloat16, B, S, S, D, True,
+                                    False, heads=H)
+    dk, dv = fa._bwd_dkdv_kernel(q, k, v, g, lse, r, scale, True)
+    dq = fa._bwd_dq_kernel(q, k, v, g, lse, r, scale, True)
+    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, True)
+    pairs = B * H * S * (S + 1) // 2
+    elems = q.numel()
+    reads = 4 * elems * 2 + 2 * B * H * S * 4
+    a_ms, a_by = bound(8 * D * pairs, reads + 2 * elems * 2)
+    b_ms, b_by = bound(6 * D * pairs, reads + elems * 2)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(
+        q, k, v, g, lse, r, scale, True), iters=3)
+    library_ms = cuda_ms(_library_bwd(q, k, v, g))
+    shape = {"shape": [B, S, H, D], "dtype": "bfloat16", "rows": B * S,
+             "plain_and_library_ms_are_for_the_pair": True}
+    err_a = max((dk.float() - rk.float()).abs().max().item(),
+                (dv.float() - rv.float()).abs().max().item())
+    err_b = (dq.float() - rq.float()).abs().max().item()
+    out["k2a_llama"] = {
+        **shape, "kernel_ms": cuda_ms(lambda: fa._bwd_dkdv_kernel(
+            q, k, v, g, lse, r, scale, True)),
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": a_ms,
+        "bound_by": a_by, "max_abs_err": err_a,
+        "rel_err": _rel_err(dk, rk), "launches": launches["k2a"],
+        "ok": max(_rel_err(dk, rk), _rel_err(dv, rv)) <= BWD_TOL[torch.bfloat16]}
+    out["k2b_llama"] = {
+        **shape, "kernel_ms": cuda_ms(lambda: fa._bwd_dq_kernel(
+            q, k, v, g, lse, r, scale, True)),
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "max_abs_err": err_b, "rel_err": _rel_err(dq, rq),
+        "launches": launches["k2b"],
+        "ok": _rel_err(dq, rq) <= BWD_TOL[torch.bfloat16]}
+    del q, k, v, g, lse, r, dk, dv, dq, rq, rk, rv
+
+    # K3: an f32 q over bf16 pools, 8 rows at lengths 512-639
+    lens = [int(x) for x in np.linspace(LL_BF16_S, LL_BF16_S
+                                        + LL_BF16_NEW - 1, LL_BF16_B)]
+    np_ = -(-(LL_BF16_S + LL_BF16_NEW) // PAGE)
+    _, kp, vp, table, ln = _k3_inputs(gen, torch.bfloat16, lens, H,
+                                      LL_KV_HEADS, d=D, np_=np_)
+    qd = torch.randn(len(lens), H, D, generator=gen, device="cuda")
+    od = pa.paged_attention(qd, kp, vp, table, ln)
+    err = (od - pa.paged_attention_ref(qd, kp, vp, table, ln)
+           ).abs().max().item()
+    valid_pages = sum(-(-n // PAGE) for n in lens)
+    nbytes = (2 * valid_pages * PAGE * LL_KV_HEADS * D * 2
+              + 2 * qd.numel() * 4 + table.numel() * 4 + ln.numel() * 4)
+    k3_ms, k3_by = bound(4 * sum(lens) * H * D, nbytes, PEAK_F32_FLOPS)
+    out["k3_llama_f32q"] = {
+        "B": len(lens), "heads": H, "kv_heads": LL_KV_HEADS, "head_dim": D,
+        "q_dtype": "float32", "pools": "bfloat16", "lens": lens,
+        "rows": len(lens), "page_size": PAGE, "table_width": np_,
+        "splits": pa._splits(len(lens), LL_KV_HEADS, np_),
+        "kernel_ms": cuda_ms(lambda: pa.paged_attention(qd, kp, vp, table, ln),
+                             graph=True),
+        "eager_ms": cuda_ms(lambda: pa.paged_attention(qd, kp, vp, table, ln)),
+        "plain_ms": cuda_ms(lambda: pa.paged_attention_ref(qd, kp, vp, table,
+                                                           ln)),
+        "library_ms": None, "bound_ms": k3_ms, "bound_by": k3_by,
+        "max_abs_err": err, "launches": launches["k3"],
+        "ok": err <= ATOL[torch.float32]}
+    # the same pools under a bf16 q (K3's bf16 entry): what the f32 query
+    # costs beside it
+    qb = qd.to(torch.bfloat16)
+    out["k3_llama_f32q"]["bf16_q_kernel_ms"] = cuda_ms(
+        lambda: pa.paged_attention(qb, kp, vp, table, ln), graph=True)
+    return out
+
+
+def phase_llama():
+    """Llama-3-8B (vocab 128256, 4096 wide, 32 heads over 8 kv heads of 128,
+    SwiGLU 14336, rope_theta 500000; random weights from a card generator
+    seeded with 0) through ``LlamaForCausalLM``: float32 at depth 2 (the
+    cut) against a CPU copy, greedy ids equal for the dense and paged
+    caches (dense equal to paged too), ``use_cache=False`` and beam search,
+    each call's launches checked; bf16 weights at the full depth 32,
+    generate() B=8, prompts of 512, 128 new tokens, paged and dense in
+    turns (its activations are f32, as in the TPU package: K1's f32 body,
+    K3's f32-query entry over the bf16 pools), the first new token of each
+    row equal between the caches, each cache once under the profiler; 3
+    f32 TrainSteps of a narrow head_dim-128 GQA config against the CPU
+    (rtol 1e-4) and bf16 O2 TrainSteps at the full width, depth 2, B=4,
+    S=1024, with K1 = K2a = K2b = 2 launches per step; then the kernels at
+    these shapes beside their plain versions and PyTorch's calls."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    secs = {}
+    t0 = time.perf_counter()
+    cases, dense_eq_paged = _llama_parity()
+    secs["f32_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf16 = _llama_generate_bf16()
+    secs["bf16_generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = _llama_train()
+    secs["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paged0, dense0 = bf16["paged"][0], bf16["dense"][0]
+    o2 = train["bf16_O2"]["launches"]
+    times = _llama_kernel_times(
+        torch.Generator(device="cuda").manual_seed(0),
+        {"k1_f32": paged0["launches"]["flash_attention_fwd"],
+         "k1_bf16": o2["flash_attention_fwd"],
+         "k2a": o2["flash_attention_bwd_dkdv"],
+         "k2b": o2["flash_attention_bwd_dq"],
+         "k3": paged0["launches"]["paged_flash_decode"]})
+    secs["kernel_times"] = time.perf_counter() - t0
+    ok = (all(c["equal_cpu"] and c["launches_ok"] for c in cases)
+          and dense_eq_paged and bf16["logits_dtype"] == "torch.float32"
+          and all(r["launches_ok"] for r in bf16["paged"] + bf16["dense"])
+          and bf16["paged_vs_dense"]["first_token_equal_every_row"]
+          and train["f32_parity"]["ok"] and train["bf16_O2"]["launches_ok"]
+          and train["bf16_O2"]["loss_fell"]
+          and all(t["ok"] for t in times.values()))
+    emit({"phase": "llama", "ok": ok,
+          "model": "Llama-3-8B (meta-llama/Meta-Llama-3-8B config.json), "
+                   "random weights",
+          "config": LLAMA3_8B,
+          "depth_cut": {"f32_parity_layers": LL_PARITY_LAYERS,
+                        "bf16_generate_layers":
+                            LLAMA3_8B["num_hidden_layers"],
+                        "o2_train_layers": LL_TRAIN_LAYERS},
+          "f32_vs_cpu": cases, "f32_dense_equal_paged": dense_eq_paged,
+          "bf16": bf16, "train": train, "kernel_times": times,
+          "seconds": secs, "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("llama phase failed: greedy ids differ from the CPU, "
+                         "dense differs from paged, a launch count shows a "
+                         "path off its kernels, the f32 training losses "
+                         "differ from the CPU's, or a kernel disagrees with "
+                         "its plain version at the Llama shapes")
+    # the kernels line counts the first timed bf16 paged generate() (K1,
+    # K3) and the O2 steps (K1, K2a, K2b)
+    launches = {k: paged0["launches"][k] + dense0["launches"][k]
+                for k in KERNEL_COUNTERS}
+    launches["flash_attention_fwd"] += o2["flash_attention_fwd"]
+    launches["flash_attention_bwd_dkdv"] = o2["flash_attention_bwd_dkdv"]
+    launches["flash_attention_bwd_dq"] = o2["flash_attention_bwd_dq"]
+    return {"launches": launches, "kernel_shapes": times}
+
+
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
     # K1: the tensor-core body (flash_fwd_tc_kernel) and the SIMT body
     ("K1 flash_fwd", ("flash_fwd_",)),
@@ -2689,7 +3119,8 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
-                    "custom_op,qat,generate,spec,prefix,resilience,observe")
+                    "custom_op,qat,generate,spec,prefix,resilience,observe,"
+                    "llama")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2708,7 +3139,7 @@ def main():
                      ("resilience", phase_resilience),
                      ("observe", lambda: phase_observe(
                          (results.get("slice") or {}).get("cpu_ref"))),
-                     ("profile", phase_profile)):
+                     ("llama", phase_llama), ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
@@ -2723,17 +3154,23 @@ def main():
         # speculative and chunked card runs for K1, K3 and K4, the f32
         # prefix-cache arms for K1, K3 and K4, the resilience phase's
         # restart run for K1 and K3, the observe phase's f32 and int8
-        # sinks-on runs for K1, K3 and K4); K5a / K5b: the kernels phase's
-        # checks
+        # sinks-on runs for K1, K3 and K4, the llama phase's first timed
+        # bf16 paged and dense generate() for K1 and K3 and its O2 steps
+        # for K1 and K2); K5a / K5b: the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
-                     "generate", "spec", "prefix", "resilience", "observe"):
+                     "generate", "spec", "prefix", "resilience", "observe",
+                     "llama"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
-        tail = (results.get("prefix") or {}).get("cached_tail", {})
-        for key in ("k3", "k4"):        # the cached-tail prefill's shape
+        # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's
+        # (K1, K2a, K2b, K3)
+        shapes = dict((results.get("prefix") or {}).get("cached_tail", {}))
+        shapes.update((results.get("llama") or {}).get("kernel_shapes", {}))
+        for key in ("k1", "k2a", "k2b", "k3", "k4"):
             times[key].setdefault("other_shapes", {}).update(
-                {k: v for k, v in tail.items() if k.startswith(key)})
+                {k: v for k, v in shapes.items()
+                 if k.split("_")[0] == key})
         rows = []
         for key, name, src, tpu, path in KERNELS:
             t = times[key]
@@ -2744,11 +3181,13 @@ def main():
                          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"],
                          "library_ms": t["library_ms"]})
-            if "other_shapes" in t:     # the chunk attend's row expansion
+            if t.get("other_shapes"):   # chunk rows, Llama shapes
                 rows[-1]["other_shapes"] = {
-                    k: {f: v[f] for f in ("rows", "kernel_ms", "plain_ms",
+                    k: {f: v[f] for f in ("shape", "rows", "launches",
+                                          "kernel_ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms", "max_abs_err")}
+                                          "library_ms", "max_abs_err")
+                        if f in v}
                     for k, v in t["other_shapes"].items()}
         emit({"kernels": rows})
     print(smi_line(), flush=True)

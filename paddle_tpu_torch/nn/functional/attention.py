@@ -13,6 +13,9 @@ additive float32 mask promotes lower-precision logits to float32 there,
 as in JAX.  Any other CUDA call (dropout, GQA) raises
 ``NotImplementedError``.  CPU tensors take :func:`_sdpa_ref`.  Under
 ``amp.auto_cast`` the inputs are cast to the amp dtype (white list).
+q, k and v of different float dtypes are first promoted to their common
+dtype, as jnp's einsum promotes them (Llama's f32 rotated q / k beside a
+bf16 v run K1's f32 body on the card).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from ... import amp
 from ...ops import _build
 from ...ops.flash_attention import flash_attention_bshd, supported
+from ..layers.common import promote
 
 
 def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale, training):
@@ -57,6 +61,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """paddle layout: (batch, seq, num_heads, head_dim)."""
     query, key, value, attn_mask = amp.cast(
         "scaled_dot_product_attention", query, key, value, attn_mask)
+    query, key, value = promote(query, key, value)
     if query.device.type == "cpu":
         return _sdpa_ref(query, key, value, attn_mask, dropout_p, is_causal,
                          scale, training)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ... import amp
+from ..functional.norm import rms_norm
 
 
 class LayerNorm(torch.nn.Module):
@@ -29,3 +30,16 @@ class LayerNorm(torch.nn.Module):
         var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
         out = ((xf - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)
         return out * weight.to(x.dtype) + bias.to(x.dtype)
+
+
+class RMSNorm(torch.nn.Module):
+    """RMSNorm over the last dim (:func:`..functional.norm.rms_norm`), its
+    weight all ones."""
+
+    def __init__(self, hidden_size, epsilon=1e-6):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = torch.nn.Parameter(torch.ones(hidden_size))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.epsilon)

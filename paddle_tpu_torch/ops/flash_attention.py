@@ -205,7 +205,8 @@ def _check_cuda_args(q, k, v, causal, grad):
         raise NotImplementedError(
             f"the flash attention kernels do not take q {tuple(q.shape)} / "
             f"k {tuple(k.shape)} (causal={causal}, needs_grad={grad}): they "
-            f"need equal head counts (GQA comes with the Llama slice), "
+            f"need equal head counts (a GQA model repeats its K / V heads "
+            f"first, as Llama does), "
             f"head_dim <= 256 (<= 128 with a gradient) and, when causal, no "
             f"more queries than keys")
     if q.device.type != "cuda":

@@ -58,6 +58,9 @@ from .quant import quantize_absmax
 NEG_INF = -1e30
 #: blocks the split-K decode aims for: four per SM of the H100's 132
 _TARGET_BLOCKS = 4 * 132
+#: the pool dtypes K3 takes under an f32 q (a bf16 Llama's rotated queries
+#: over its bf16 cache); under a bf16 / f16 q the pools are in q's dtype
+_F32_Q_POOLS = (torch.float32, torch.bfloat16, torch.float16)
 
 #: launches of each CUDA kernel in this process: K3, K4, K5a, K5b
 LAUNCHES = 0
@@ -79,7 +82,9 @@ def _last_page(seq_len, page_size):
 def _gathered_attend(q, k, v, seq_lens, scale):
     """q ``[B, H, D]`` against gathered k/v ``[B, T, HKV, D]`` masked by
     ``seq_lens``.  GQA as a grouped einsum over ``[HKV, g]``: query head
-    ``k * g + j`` attends kv head ``k`` (the ``repeat`` convention).  Rows
+    ``k * g + j`` attends kv head ``k`` (the ``repeat`` convention).  The
+    math runs in f32 and the output takes q's dtype, so an f32 q over bf16
+    pages gives f32, as the TPU package's ``astype(q.dtype)`` does.  Rows
     with ``seq_lens == 0`` give zeros, as every kernel does (the TPU
     package's oracles give the mean of V, an all-masked softmax)."""
     B, H, D = q.shape
@@ -134,10 +139,10 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     """Decode attention over a paged KV cache.
 
     q ``[B, H, D]`` (head dim unit-stride; other strides free), pools
-    ``[P, ps, HKV, D]``, ``page_table [B, NP]`` int32, ``seq_lens [B]``
-    int32; output ``[B, H, D]`` in q's dtype.  Every table entry a row's
-    sweep reaches must index a valid page; slots past the row's length are
-    never read."""
+    ``[P, ps, HKV, D]`` in q's dtype (or bf16 / f16 under an f32 q),
+    ``page_table [B, NP]`` int32, ``seq_lens [B]`` int32; output
+    ``[B, H, D]`` in q's dtype.  Every table entry a row's sweep reaches
+    must index a valid page; slots past the row's length are never read."""
     scale = _check_heads(q, k_pages, scale)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
@@ -200,16 +205,18 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
     work = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
                        device=q.device)
     if k_scales is None:
-        name, scales = "paged_flash_decode", ()
+        # the pools' own dtype code: q's, or bf16 / f16 under an f32 q
+        name, scales, codes = "paged_flash_decode", (), (
+            _build.dtype_code(q), _build.dtype_code(k_pages))
     else:
-        name, scales = "paged_flash_decode_q", (k_scales.data_ptr(),
-                                                v_scales.data_ptr())
+        name, scales, codes = "paged_flash_decode_q", (
+            k_scales.data_ptr(), v_scales.data_ptr()), (_build.dtype_code(q),)
     fn = getattr(_lib(name), "ptt_" + name)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
                  page_table.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
-                 work.data_ptr(), _build.dtype_code(q), B, H, HKV, D, ps, NP,
-                 nsplit, q.stride(0), q.stride(1), scale, int(bounded),
+                 work.data_ptr(), *codes, B, H, HKV, D, ps, NP, nsplit,
+                 q.stride(0), q.stride(1), scale, int(bounded),
                  _build.stream_handle(q))
     _build.check(err, name)
     return o
@@ -231,10 +238,16 @@ def _check_cuda_args(q, k_pages, v_pages, k_scales, v_scales, page_table,
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    want = torch.int8 if quant else q.dtype
-    if k_pages.dtype != want or v_pages.dtype != want:
-        raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype}: "
-                        f"this kernel takes {want}")
+    if quant:
+        want = (torch.int8,)
+    elif q.dtype == torch.float32:
+        want = _F32_Q_POOLS
+    else:
+        want = (q.dtype,)
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in want:
+        raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype} under "
+                        f"a {q.dtype} q: this kernel takes "
+                        f"{' or '.join(map(str, want))}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != q.shape[2]:
         raise ValueError(f"pools {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q "
@@ -258,12 +271,15 @@ def _check_cuda_args(q, k_pages, v_pages, k_scales, v_scales, page_table,
                                   "query heads per kv head and head_dim <= 256")
 
 
-# leading pointer arguments of each entry; then both take
-# dtype, B, H, HKV, D, ps, NP, nsplit | qsb, qsh | scale | bounded | stream
-_N_PTRS = {
-    "paged_flash_decode": 7,        # q, k, v, table, lens, o, workspace
-    # q, k, v, k_scales, v_scales, table, lens, o, workspace
-    "paged_flash_decode_q": 9,
+# (pointer, int) arguments that lead each entry; then both take
+# qsb, qsh | scale | bounded | stream
+_N_ARGS = {
+    # q, k, v, table, lens, o, workspace | dtype, kv_dtype, B, H, HKV, D,
+    # ps, NP, nsplit
+    "paged_flash_decode": (7, 9),
+    # q, k, v, k_scales, v_scales, table, lens, o, workspace | dtype, B, H,
+    # HKV, D, ps, NP, nsplit
+    "paged_flash_decode_q": (9, 8),
 }
 
 
@@ -272,8 +288,9 @@ def _lib(name):
     fn = getattr(lib, "ptt_" + name)
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * _N_PTRS[name] + [I] * 8 + [L, L, ctypes.c_float,
-                                                       I, P]
+        n_ptrs, n_ints = _N_ARGS[name]
+        fn.argtypes = [P] * n_ptrs + [I] * n_ints + [L, L, ctypes.c_float,
+                                                     I, P]
         fn.restype = I
     return lib
 
@@ -418,8 +435,9 @@ def paged_chunk_attend(q, k_pages, v_pages, table, lens):
 
 def paged_prefill_write(pages, kv):
     """Write whole prompts' K or V at position 0, in place: pages
-    ``[B, PP, ps, h, d]``; kv ``[B, S, h, d]``.  The last page's tail past
-    S is zeroed, as JAX's padded slice-assign does."""
+    ``[B, PP, ps, h, d]``; kv ``[B, S, h, d]``, cast to the pages' dtype
+    (a bf16 Llama's f32 rotated keys land in its bf16 pool).  The last
+    page's tail past S is zeroed, as JAX's padded slice-assign does."""
     B, S, h, d = kv.shape
     ps = pages.shape[2]
     pad = (ps - S % ps) % ps
@@ -441,7 +459,8 @@ def paged_token_write(pages, tok, pos):
 
 def paged_decode_attend(q, k_pages, v_pages, pos, scale=None):
     """One decode step of attention over per-sequence pools: q ``[B, hq,
-    d]``; pools ``[B, PP, ps, hkv, d]``; tokens ``0 .. pos`` are valid.
+    d]``; pools ``[B, PP, ps, hkv, d]`` in q's dtype, or bf16 / f16 under
+    an f32 q; tokens ``0 .. pos`` are valid.
 
     A CPU tensor attends the reshaped pools directly (the identity table
     below makes the plain version's gathers pure copies).  A CUDA tensor

@@ -168,6 +168,42 @@ def jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape, cache_dtype,
                        seed=seed)
 
 
+def cached_decode(model, run, ids0, max_new_tokens, cache_shape, cache_dtype,
+                  cache_impl="dense", page_size=16, **sampling):
+    """``generate()``'s cached decode for a decoder whose ``run(ids, caches,
+    pos) -> last-token logits f32 [B, V]`` runs its layers over one cache
+    tuple per layer.  ``cache_shape`` ``[L, B, T, h, d]``; ``cache_impl=
+    "dense"``: zeroed buffers of that shape, layer i's cache ``(ks[i],
+    vs[i], pos)`` (:func:`jitted_decode`); ``"paged"``: per-sequence pools
+    :func:`paged_pool_shape`, layer i's cache ``("paged", kps[i], vps[i],
+    pos)``.  ``sampling``: :func:`decode_loop`'s."""
+    L, B, T, h, d = cache_shape
+    if cache_impl == "paged":
+        pool = paged_pool_shape(B, T, h, d, page_size)
+
+        def fwd_paged(ids, cache, pos):
+            kps, vps = cache
+            return run(ids, [("paged", kps[i], vps[i], pos)
+                             for i in range(L)], pos), cache
+
+        def init_cache():
+            kp = torch.zeros((L,) + pool, dtype=cache_dtype,
+                             device=_model_device(model))
+            return kp, torch.zeros_like(kp)
+
+        return decode_loop(model, fwd_paged, ids0, max_new_tokens, init_cache,
+                           **sampling)
+    if cache_impl != "dense":
+        raise ValueError(f"cache_impl must be 'dense' or 'paged', "
+                         f"got {cache_impl!r}")
+
+    def fwd(ids, ks, vs, pos):
+        return run(ids, [(ks[i], vs[i], pos) for i in range(L)], pos), ks, vs
+
+    return jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape,
+                         cache_dtype, **sampling)
+
+
 def paged_pool_shape(batch, max_len, num_kv_heads, head_dim, page_size=16):
     """``[B, PP, ps, h, d]`` pool shape covering ``max_len`` tokens."""
     pp = -(-max_len // page_size)

@@ -271,8 +271,7 @@ class GPTForCausalLM(torch.nn.Module):
                                         top_k, top_p, seed)
         if max_new_tokens <= 0:
             return input_ids
-        from ._decode import (decode_loop, host_ids, jitted_decode,
-                              paged_pool_shape)
+        from ._decode import cached_decode, host_ids
 
         ids0 = host_ids(input_ids)
         B, S0 = ids0.shape
@@ -283,11 +282,8 @@ class GPTForCausalLM(torch.nn.Module):
                 f"generate: prompt {S0} + max_new_tokens {max_new_tokens} "
                 f"(cache {T}) exceeds max_position_embeddings {max_pos}")
         gpt = self.gpt
-        L = len(gpt.layers)
         blk = gpt.layers[0]
         w = gpt.word_embeddings.weight
-        sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p,
-                        seed=seed)
 
         def run(ids, cache, pos):
             S = ids.shape[1]
@@ -295,32 +291,11 @@ class GPTForCausalLM(torch.nn.Module):
             x, _ = gpt(ids, position_ids=pos_ids, cache=cache)
             return x[:, -1].float() @ w.float().T
 
-        if cache_impl == "paged":
-            pool = paged_pool_shape(B, T, blk.num_heads, blk.head_dim,
-                                    page_size)
-
-            def fwd_paged(ids, cache, pos):
-                kps, vps = cache
-                return run(ids, [("paged", kps[i], vps[i], pos)
-                                 for i in range(L)], pos), cache
-
-            def init_cache():
-                kp = torch.zeros((L,) + pool, dtype=w.dtype, device=w.device)
-                return kp, torch.zeros_like(kp)
-
-            return decode_loop(self, fwd_paged, ids0, max_new_tokens,
-                               init_cache, **sampling)
-        if cache_impl != "dense":
-            raise ValueError(f"cache_impl must be 'dense' or 'paged', "
-                             f"got {cache_impl!r}")
-
-        def fwd(ids, ks, vs, pos):
-            return run(ids, [(ks[i], vs[i], pos) for i in range(L)],
-                       pos), ks, vs
-
-        return jitted_decode(self, fwd, ids0, max_new_tokens,
-                             (L, B, T, blk.num_heads, blk.head_dim), w.dtype,
-                             **sampling)
+        return cached_decode(
+            self, run, ids0, max_new_tokens,
+            (len(gpt.layers), B, T, blk.num_heads, blk.head_dim), w.dtype,
+            cache_impl, page_size, temperature=temperature, top_k=top_k,
+            top_p=top_p, seed=seed)
 
     def _generate_eager(self, input_ids, max_new_tokens=32, temperature=1.0,
                         top_k=0, top_p=1.0, seed=None):

@@ -7,7 +7,9 @@ same engine on the CPU, tiny-GPT training through the flash kernels
 forward and backward, the fused bias + GELU kernel (K6) and fake-quant on
 the card against the CPU, and the serving engine's observability on the
 card (the sinks add no host sync, the ledger against the CUDA allocator,
-an OOM recognized, the HBM pre-flight).  Marked ``cuda``; every test
+an OOM recognized, the HBM pre-flight), and Llama: K3's f32-query entry
+over bf16 / f16 pools, K1's f32 body at head_dim 128, a small GQA Llama's
+card ids against the CPU's and its O2 step through K1 / K2.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -1273,3 +1275,132 @@ def test_hbm_budget_on_card_keeps_admitted_ids(cuda, monkeypatch):
     assert [g for g in got if not isinstance(g, str)] \
         == [w for w, g in zip(want, got) if not isinstance(g, str)]
     assert eng._committed_pages == 0
+
+
+# ------------------------------------------------------------------- Llama
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("h,hkv,d", [(32, 8, 128), (32, 32, 128), (8, 1, 64)])
+def test_paged_kernel_f32_q_over_16bit_pools(cuda, pool_dtype, h, hkv, d):
+    """K3's f32-query entry (a bf16 Llama's decode): an f32 q over bf16 /
+    f16 pools, f32 out, against the plain version within the f32 tolerance
+    (the pages widen exactly), at the slot-boundary lengths; a second
+    launch bit-equal to the first."""
+    ps, NP = 16, 12
+    lens = [0, 1, ps - 1, ps, ps + 1, NP * ps, 5 * ps + 3, NP * ps + 9]
+    B = len(lens)
+    table = torch.randperm(B * NP, generator=cuda, device="cuda")
+    table = table.to(torch.int32).reshape(B, NP)
+    kp, vp = (torch.randn(B * NP, ps, hkv, d, generator=cuda, device="cuda")
+              .to(pool_dtype) for _ in range(2))
+    q = torch.randn(B, h, d, generator=cuda, device="cuda")
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n0 = pa.LAUNCHES
+    o = pa.paged_attention(q, kp, vp, table, ln)
+    again = pa.paged_attention(q, kp, vp, table, ln)
+    assert pa.LAUNCHES == n0 + 2 and o.dtype == torch.float32
+    ref = pa.paged_attention_ref(q, kp, vp, table, ln)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, ref, atol=ATOL[torch.float32], rtol=0)
+    assert torch.equal(again, o)
+    assert bool((o[0] == 0).all())
+
+
+def test_paged_kernel_takes_only_its_dtype_pairings(cuda):
+    """Pools in q's dtype, or bf16 / f16 under an f32 q: every other
+    pairing raises before a launch."""
+    table = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
+    ln = torch.ones(1, dtype=torch.int32, device="cuda")
+
+    def pools(dt, dt_v=None):
+        return (torch.zeros(1, 16, 2, 64, dtype=dt, device="cuda"),
+                torch.zeros(1, 16, 2, 64, dtype=dt_v or dt, device="cuda"))
+
+    for q_dt, k_dt, v_dt in ((torch.bfloat16, torch.float32, None),
+                             (torch.float16, torch.bfloat16, None),
+                             (torch.bfloat16, torch.float16, None),
+                             (torch.float32, torch.bfloat16, torch.float16),
+                             (torch.float32, torch.int8, None)):
+        q = torch.zeros(1, 4, 64, dtype=q_dt, device="cuda")
+        with pytest.raises(TypeError):
+            pa.paged_attention(q, *pools(k_dt, v_dt), table, ln)
+
+
+def test_flash_kernel_f32_at_llama_width(cuda):
+    """K1's f32 body at a Llama head (H=32, D=128, S=512), causal: what a
+    bf16-weight Llama's prefill runs (its rotated q / k are f32)."""
+    q, k, v = (torch.randn(1, 512, 32, 128, generator=cuda, device="cuda")
+               for _ in range(3))
+    o, lse = fa.flash_attention_fn(q, k, v, causal=True, return_lse=True)
+    o2, lse2 = fa.flash_attention_fn(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    torch.testing.assert_close(o, fa.flash_attention_ref(q, k, v, causal=True),
+                               atol=ATOL[torch.float32], rtol=0)
+
+
+def _tiny_llama_pair(dtype=None):
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+
+    cfg = dict(vocab_size=160, hidden_size=256, num_hidden_layers=2,
+               num_attention_heads=2, num_key_value_heads=1,
+               intermediate_size=256, max_position_embeddings=128)
+    cpu = LlamaForCausalLM(device="cpu", generator=torch.Generator()
+                           .manual_seed(0), **cfg)
+    card = copy.deepcopy(cpu).to("cuda")
+    if dtype is not None:
+        cpu, card = cpu.to(dtype), card.to(dtype)
+    return cpu, card
+
+
+def test_llama_generate_on_card_matches_cpu(cuda):
+    """A small GQA Llama (head_dim 128, 2 heads over 1 kv head), float32:
+    greedy ids on the card equal the CPU's for the dense and paged caches
+    and beam search; the paged prefill runs K1 once per layer, each decode
+    step K3 once per layer."""
+    cpu, card = _tiny_llama_pair()
+    ids = torch.from_numpy(np.random.RandomState(1).randint(1, 160, (3, 21)))
+    for kw in (dict(cache_impl="dense"), dict(cache_impl="paged", page_size=8),
+               dict(decode_strategy="beam_search", num_beams=3)):
+        n = 12
+        k1, via = fa.LAUNCHES, pa.DECODE_ATTEND_LAUNCHES
+        got = card.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        if kw.get("cache_impl") == "paged":
+            assert fa.LAUNCHES - k1 == 2
+            assert pa.DECODE_ATTEND_LAUNCHES - via == 2 * (n - 1)
+        want = cpu.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        assert torch.equal(got.cpu(), want), kw
+
+
+def test_llama_bf16_weights_decode_through_the_f32_query_entry(cuda):
+    """The same Llama with bf16 weights: its activations are f32 (jnp's
+    promotion), so the paged prefill runs K1's f32 body and each decode
+    step K3's f32-query entry over the bf16 pools; the logits are f32 and
+    each row's first new token equals the CPU's (later tokens may part
+    where a last-bit difference rounds a cached key to another bf16)."""
+    cpu, card = _tiny_llama_pair(torch.bfloat16)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(1, 160, (3, 21)))
+    with torch.no_grad():
+        assert card(ids.to("cuda")).dtype == torch.float32
+    k1, via = fa.LAUNCHES, pa.DECODE_ATTEND_LAUNCHES
+    got = card.generate(ids, max_new_tokens=8, temperature=0.0,
+                        cache_impl="paged", page_size=8)
+    assert (fa.LAUNCHES - k1, pa.DECODE_ATTEND_LAUNCHES - via) == (2, 2 * 7)
+    want = cpu.generate(ids, max_new_tokens=8, temperature=0.0,
+                        cache_impl="paged", page_size=8)
+    assert torch.equal(got.cpu()[:, 21], want[:, 21])
+
+
+def test_llama_o2_trainstep_runs_the_flash_kernels(cuda):
+    """One AMP O2 TrainStep of the small GQA Llama: K1, K2a and K2b once
+    per layer (bf16 over the repeated kv heads), a finite f32 loss."""
+    _, card = _tiny_llama_pair()
+    o = optimizer.AdamW(learning_rate=1e-3, parameters=card.parameters(),
+                        grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+    step = jit.TrainStep(card, o, loss_fn=None, amp_level="O2")
+    x = torch.from_numpy(np.random.RandomState(2).randint(0, 160, (2, 64)))
+    x = x.to("cuda")
+    n = fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
+    loss = step({"input_ids": x, "labels": x})
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert (fa.LAUNCHES - n[0], fa.BWD_DKDV_LAUNCHES - n[1],
+            fa.BWD_DQ_LAUNCHES - n[2]) == (2, 2, 2)
