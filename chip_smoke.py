@@ -16,13 +16,14 @@ Phases, each printing one JSON line and then its seconds:
    / f32, lse within 1e-3; the backward's max error over max |ref| within
    2e-2 / 5e-3 / 1e-4), the K1, K2 and paged-decode cases also bit-equal
    on a second launch: K1
-   in bf16, f16 and f32 (the tensor-core body and the SIMT body) over
+   in bf16, f16 and f32 (its three bodies: 16-bit tensor cores, f32 on
+   the tensor cores by 3xTF32, and the SIMT body above head_dim 128) over
    lengths 17-1024, causal and full, sq < sk, head_dim 17 / 32 / 40 / 64
-   / 96 / 128 / 256, a misaligned layout (scalar staging), the model's
-   strided qkv split and the training shape; the flash backward K2a /
-   K2b over the same reach (head_dim <= 128), with and without a g_lse
-   term, and gradients through K1 + K2 against torch autograd through the
-   plain forward; the split-K paged decode K3 (and K4 over int8 pools)
+   / 96 / 128 / 192 / 256, a misaligned layout (scalar staging), the
+   model's strided qkv split and the training shape; the flash backward
+   K2a / K2b over the same reach (head_dim to 256), with and without a
+   g_lse term, and gradients through K1 + K2 against torch autograd
+   through the plain forward; the split-K paged decode K3 (and K4 over int8 pools)
    at the slot-boundary lengths, one 1024-token row alone and a 256-slot
    table, also with NaN in every dead page (K3) or dead page's scale
    rows (K4), and the full-sweep twins K5a / K5b bit for bit against K3 /
@@ -31,12 +32,15 @@ Phases, each printing one JSON line and then its seconds:
    width and a non-contiguous x.  Then time kernel, plain version and
    PyTorch's own call with CUDA events: K1 at the longest prefill (B=1)
    and at the training shape (B=8) beside
-   ``F.scaled_dot_product_attention``, K3, K4 and K5a / K5b at a decode
-   step (K1, K3-K5b and the library call by CUDA-graph replay, with the
-   eager time beside K1, K3 and K4: eagerly a launch can take longer on
-   the host than the kernel on the card), K2 at the training shape
-   (bf16, and the f32 body), K6 at ``[8192, 3072]`` beside
-   ``F.gelu(x + b)``; K3 / K4 through the chunk attend at the speculative
+   ``F.scaled_dot_product_attention``, K1's f32 body at the longest f32
+   prefill (B=1) and at Llama-3-8B's prefill (B=8, S=512, 32 heads of
+   128) beside SDPA in f32 (bound: 3 x the operations at the TF32 rate,
+   the f32 rate's figure beside it), K3, K4 and K5a / K5b at a decode
+   step (K1, K3-K6 and the library calls by CUDA-graph replay, with the
+   eager time beside K1, K3, K4 and K6: eagerly a launch can take longer
+   on the host than the kernel on the card), K2 at the training shape
+   (bf16, and the f32 body) and at head_dim 256 (bf16 and f32), K6 at
+   ``[8192, 3072]`` beside ``F.gelu(x + b)``; K3 / K4 through the chunk attend at the speculative
    verify shape (8 slots x 5 positions) and K3 at one 128-token prefill
    chunk, against the chunk attend's plain version.
 3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
@@ -47,7 +51,11 @@ Phases, each printing one JSON line and then its seconds:
 4. ``train``   — train GPT-base with ``jit.TrainStep`` (AdamW, global-norm
    clip 1.0): 3 steps in f32 on the card must give the CPU's losses; then
    12 bf16 O2 steps at B=8, S=1024 are timed, with K1 = K2a = K2b =
-   12 launches per step checked.
+   12 launches per step checked, and every flash launch on its dtype's
+   body (f32: 3xTF32 forward, SIMT backward; bf16: the 16-bit tensor
+   cores); then GPT-tiny with attention dropout 0.1 trains 8 steps on the
+   card (the plain attention with dropout, no flash launch; finite,
+   falling losses) and its eval forward equals dropout 0's bit for bit.
 5. ``quant``   — the slice's requests through
    ``ServingEngine(kv_dtype="int8")``: float32 on the card against the
    CPU int8 engine (the first 6 requests; greedy top-1 agreement >= 0.8,
@@ -156,9 +164,14 @@ import numpy as np
 import torch
 
 PEAK_FLOPS = 989e12        # H100 SXM dense bf16 / fp16 tensor-core rate
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
+# K1's f32 body on the tensor cores (3xTF32, head_dim <= 128), beside
+# ATOL: a one-pass TF32 body fails it (tests/test_torch_port_cuda.py,
+# test_flash_f32_one_pass_tf32_fails_the_tight_check)
+K1_F32_TC_ATOL = 2e-5
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3,      # max err / max |ref|
            torch.float32: 1e-4}
 
@@ -232,6 +245,21 @@ def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k1_bounds(dtype, ops, nbytes):
+    """K1's bound for ``ops`` operations and ``nbytes`` moved: bf16 / f16
+    at the 16-bit tensor-core rate; f32 runs three TF32 products for each
+    product (3xTF32), so 3 x ``ops`` at the TF32 rate, with the f32 SIMT
+    rate's figure beside it (labelled: a 3xTF32 kernel may beat it)."""
+    if dtype != torch.float32:
+        ms, by = bound(ops, nbytes)
+        return {"bound_ms": ms, "bound_by": by}
+    ms, by = bound(3 * ops, nbytes, PEAK_TF32_FLOPS)
+    f32_ms, f32_by = bound(ops, nbytes, PEAK_F32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_rule": "max(3 ops / 495e12, bytes / 3.35e12)",
+            "bound_f32_rate_ms": f32_ms, "bound_f32_rate_by": f32_by}
+
+
 # ------------------------------------------------------------------- build
 def phase_build():
     from paddle_tpu_torch.ops import _build
@@ -256,8 +284,9 @@ def phase_build():
 
 # ----------------------------------------------------------------- kernels
 def _k1_case(gen, dtype, sq, sk, d, causal, b=1, layout="contiguous"):
-    """K1 against its plain version (o within ATOL, lse within 1e-3) and a
-    second launch bit-equal to the first.  ``layout``: "contiguous";
+    """K1 against its plain version (o within ATOL, the 3xTF32 body within
+    K1_F32_TC_ATOL; lse within 1e-3) and a second launch bit-equal to the
+    first.  ``layout``: "contiguous";
     "unaligned", each tensor a view one element into rows of d + 1 (the
     scalar staging); "qkv", the model's head-major split of one
     ``[b, S, HEADS, 3, d]`` tensor."""
@@ -278,7 +307,9 @@ def _k1_case(gen, dtype, sq, sk, d, causal, b=1, layout="contiguous"):
     lse_ref = fa.flash_attention_lse_ref(q, k, causal=causal)
     lse_err = (lse - lse_ref).abs().max().item()
     same = torch.equal(o, o2) and torch.equal(lse, lse2)
-    ok = (err <= ATOL[dtype] and lse_err <= 1e-3 and same
+    tol = K1_F32_TC_ATOL if dtype == torch.float32 and d <= 128 \
+        else ATOL[dtype]
+    ok = (err <= tol and lse_err <= 1e-3 and same
           and bool(torch.isfinite(o).all()))
     return {"b": b, "sq": sq, "sk": sk, "d": d, "causal": causal,
             "layout": layout, "dtype": str(dtype).split(".")[-1],
@@ -286,35 +317,39 @@ def _k1_case(gen, dtype, sq, sk, d, causal, b=1, layout="contiguous"):
             "bit_equal_relaunch": same, "ok": ok}
 
 
-def _k1_timed(gen, b, S=1024):
+def _k1_timed(gen, b, S=1024, dtype=torch.bfloat16, heads=HEADS,
+              d=HEAD_DIM):
     """K1, its plain version and ``F.scaled_dot_product_attention`` at
-    ``[b, S, HEADS, HEAD_DIM]``, causal, bf16.  Bound: 4 D operations per
-    visible (query, key) pair at the bf16 rate against q, k, v read and o
-    written once."""
+    ``[b, S, heads, d]``, causal, by CUDA-graph replay (and K1 eagerly).
+    Bound (``k1_bounds``): 4 D operations per visible (query, key) pair
+    against q, k, v read and o written once."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    q, k, v = (torch.randn(b, S, HEADS, HEAD_DIM, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn(b, S, heads, d, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
     o = fa.flash_attention_fn(q, k, v, causal=True)
     err = (o.float() - fa.flash_attention_ref(q, k, v, causal=True).float()
            ).abs().max().item()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pairs = b * S * (S + 1) // 2
-    k1_bound, k1_by = bound(4 * HEADS * HEAD_DIM * pairs, 4 * q.numel() * 2)
-    return {"shape": [b, S, HEADS, HEAD_DIM], "causal": True,
-            "dtype": "bfloat16",
-            "kernel_ms": cuda_ms(lambda: fa.flash_attention_fn(q, k, v,
-                                                               causal=True),
-                                 graph=True),
-            "eager_ms": cuda_ms(lambda: fa.flash_attention_fn(q, k, v,
-                                                              causal=True)),
-            "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v,
-                                                               causal=True),
-                                iters=5),
-            "library_ms": cuda_ms(lambda: torch.nn.functional
-                                  .scaled_dot_product_attention(
-                                      qt, kt, vt, is_causal=True), graph=True),
-            "bound_ms": k1_bound, "bound_by": k1_by, "max_abs_err": err}
+    out = {"shape": [b, S, heads, d], "causal": True,
+           "dtype": str(dtype).split(".")[-1], "rows": b * S,
+           "kernel_ms": cuda_ms(lambda: fa.flash_attention_fn(q, k, v,
+                                                              causal=True),
+                                graph=True),
+           "eager_ms": cuda_ms(lambda: fa.flash_attention_fn(q, k, v,
+                                                             causal=True)),
+           "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                              causal=True),
+                               iters=5),
+           "library_ms": cuda_ms(lambda: torch.nn.functional
+                                 .scaled_dot_product_attention(
+                                     qt, kt, vt, is_causal=True), graph=True),
+           **k1_bounds(dtype, 4 * heads * d * pairs,
+                       4 * q.numel() * q.element_size()),
+           "max_abs_err": err, "ok": err <= ATOL[dtype]}
+    del q, k, v, qt, kt, vt, o
+    return out
 
 
 def _rel_err(a, b):
@@ -390,9 +425,20 @@ def _k2_autograd_case(gen):
 
 
 def _library_bwd(q, k, v, g):
-    """One PyTorch call computing dq, dk, dv: the flash-attention backward
-    ATen op on the outputs of its own forward (``[B, H, S, D]`` views)."""
+    """One PyTorch call computing dq, dk, dv (causal) on the outputs of its
+    own forward (``[B, H, S, D]`` views): the flash-attention backward ATen
+    op for bf16 / f16, which takes 16-bit inputs only; for f32 the
+    memory-efficient one (CUTLASS, 3xTF32 on sm80+: the family of f32
+    SDPA, K1 f32's yardstick)."""
     qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+    if q.dtype == torch.float32:
+        out, lse, seed, offset = torch.ops.aten \
+            ._scaled_dot_product_efficient_attention(qt, kt, vt, None, True,
+                                                     0.0, True)
+        return lambda: torch.ops.aten \
+            ._scaled_dot_product_efficient_attention_backward(
+                gt, qt, kt, vt, None, out, lse, seed, offset, 0.0,
+                [True, True, True, False], True)
     fwd = torch.ops.aten._scaled_dot_product_flash_attention(
         qt, kt, vt, 0.0, True, False)
     out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
@@ -400,47 +446,58 @@ def _library_bwd(q, k, v, g):
         gt, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
 
 
-def _k2_timed(gen):
-    """K2a, K2b, the plain backward and the library backward at the
-    training shape (B=8, S=1024, 12 heads, D=64, causal, bf16), and the
-    kernels' f32 body at the same shape (bound at the f32 rate)."""
+def _k2_timed(gen, B=TRAIN_B, S=TRAIN_S, H=HEADS, D=HEAD_DIM, tag=""):
+    """K2a, K2b, the plain backward and the library backward
+    (``_library_bwd``) at ``[B, S, H, D]``, causal, in bf16 (keys
+    ``k2a<tag>``, ``k2b<tag>``) and f32 (``*_f32``); by default the
+    training shape.  Bound: 8 D (K2a) and 6 D
+    (K2b) operations per visible (query, key) pair at the input dtype's
+    rate (f32: the SIMT rate), q, k, v, g, lse, r read and the outputs
+    written once."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    B, S = TRAIN_B, TRAIN_S
-    scale = HEAD_DIM ** -0.5
-    pairs = B * HEADS * S * (S + 1) // 2
+    scale = D ** -0.5
+    pairs = B * H * S * (S + 1) // 2
     out = {}
-    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-        q, k, v, g, lse, r = _k2_inputs(gen, dtype, B, S, S, HEAD_DIM, True,
-                                        False)
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        q, k, v, g, lse, r = _k2_inputs(gen, dtype, B, S, S, D, True, False,
+                                        heads=H)
         dk, dv = fa._bwd_dkdv_kernel(q, k, v, g, lse, r, scale, True)
         dq = fa._bwd_dq_kernel(q, k, v, g, lse, r, scale, True)
         rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, scale, True)
         es = q.element_size()
         elems = q.numel()                               # B*S*H*D
-        reads = 4 * elems * es + 2 * B * HEADS * S * 4  # q,k,v,g + lse,r
+        reads = 4 * elems * es + 2 * B * H * S * 4      # q,k,v,g + lse,r
         peak = PEAK_FLOPS if es == 2 else PEAK_F32_FLOPS
-        a_bound, a_by = bound(8 * HEAD_DIM * pairs, reads + 2 * elems * es, peak)
-        b_bound, b_by = bound(6 * HEAD_DIM * pairs, reads + elems * es, peak)
+        a_bound, a_by = bound(8 * D * pairs, reads + 2 * elems * es, peak)
+        b_bound, b_by = bound(6 * D * pairs, reads + elems * es, peak)
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(
             q, k, v, g, lse, r, scale, True), iters=5)
-        # PyTorch's flash backward takes 16-bit inputs only
-        library_ms = cuda_ms(_library_bwd(q, k, v, g)) if es == 2 else None
-        out["k2a" + tag] = {
-            "kernel_ms": cuda_ms(lambda: fa._bwd_dkdv_kernel(
+        library_ms = cuda_ms(_library_bwd(q, k, v, g))
+        shape = {"shape": [B, S, H, D], "causal": True,
+                 "dtype": str(dtype).split(".")[-1], "rows": B * S,
+                 "plain_and_library_ms_are_for_the_pair": True,
+                 "plain_ms": plain_ms, "library_ms": library_ms}
+        out["k2a" + tag + suffix] = {
+            **shape, "kernel_ms": cuda_ms(lambda: fa._bwd_dkdv_kernel(
                 q, k, v, g, lse, r, scale, True)),
-            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": a_bound, "bound_by": a_by,
             "max_abs_err": max((dk.float() - rk.float()).abs().max().item(),
-                               (dv.float() - rv.float()).abs().max().item())}
-        out["k2b" + tag] = {
-            "kernel_ms": cuda_ms(lambda: fa._bwd_dq_kernel(
+                               (dv.float() - rv.float()).abs().max().item()),
+            "ok": max(_rel_err(dk, rk), _rel_err(dv, rv)) <= BWD_TOL[dtype]}
+        out["k2b" + tag + suffix] = {
+            **shape, "kernel_ms": cuda_ms(lambda: fa._bwd_dq_kernel(
                 q, k, v, g, lse, r, scale, True)),
-            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_bound, "bound_by": b_by,
-            "max_abs_err": (dq.float() - rq.float()).abs().max().item()}
+            "max_abs_err": (dq.float() - rq.float()).abs().max().item(),
+            "ok": _rel_err(dq, rq) <= BWD_TOL[dtype]}
         del q, k, v, g, lse, r, dk, dv, dq, rq, rk, rv
     return out
+
+
+# K2 at head_dim 256: the SIMT body with 32-row tiles (no model of the
+# repository trains there; the TPU package's limit)
+K2_WIDE_B, K2_WIDE_S, K2_WIDE_H, K2_WIDE_D = 2, 1024, 8, 256
 
 
 def _k3_inputs(gen, dtype, lens, heads, kv_heads, d=HEAD_DIM, np_=NP,
@@ -564,15 +621,17 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # K1 on both bodies: head_dim 17-128 on the tensor cores in bf16 / f16
-    # (zero-padded to 64 / 128; 17 and a misaligned base take the scalar
-    # staging), 256 and f32 on the SIMT body
+    # K1 on its three bodies: head_dim 17-128 on the tensor cores, bf16 /
+    # f16 by 16-bit products and f32 by 3xTF32 (zero-padded to 64 / 128;
+    # 17 and a misaligned base take the scalar staging), 192 and 256 on the
+    # SIMT body
     k1_shapes = [(s, s, 64, True) for s in (17, 256, 300, 512, 1024)]
     k1_shapes += [(64, 320, 64, True), (300, 300, 64, False),
                   (1024, 1024, 64, False), (256, 256, 128, True),
                   (300, 300, 32, True), (200, 256, 40, True),
                   (129, 129, 96, False), (100, 100, 17, True),
-                  (70, 70, 256, True), (1, 513, 128, True),
+                  (70, 70, 256, True), (160, 200, 192, True),
+                  (1, 513, 128, True),
                   (300, 300, 64, True, 1, "unaligned"),
                   (1024, 1024, 64, True, 2, "qkv"),
                   (TRAIN_S, TRAIN_S, HEAD_DIM, True, TRAIN_B)]
@@ -607,6 +666,11 @@ def phase_kernels():
                   (300, 300, 64, True, False, 1, "unaligned"),
                   (1024, 1024, 64, True, False, 2, "qkv"),
                   (TRAIN_S, TRAIN_S, HEAD_DIM, True, False, TRAIN_B)]
+    # head_dim 129-256: the SIMT body with 32-row tiles in every dtype,
+    # ragged lengths, sq < sk, a g_lse term
+    k2_shapes += [(160, 160, 192, True, False), (129, 200, 192, False, True),
+                  (300, 300, 256, True, True), (64, 257, 256, True, False),
+                  (200, 200, 256, False, False, 1, "unaligned")]
     k2 = [_k2_case(gen, dt, *sh)
           for dt in (torch.bfloat16, torch.float16, torch.float32)
           for sh in k2_shapes]
@@ -614,9 +678,16 @@ def phase_kernels():
 
     # times at the served shapes, bf16: K1 at the longest prefill bucket
     # (B=1) and at the training shape (B=8), K3 at a decode step of the
-    # slice's first 8 requests
+    # slice's first 8 requests; K1's f32 body (3xTF32) at the longest f32
+    # prefill of the GPT phases and at Llama-3-8B's prefill (B=8, S=512,
+    # 32 heads of 128: its rotated q / k are f32)
     k1_time = _k1_timed(gen, 1)
     k1_train_time = _k1_timed(gen, TRAIN_B)
+    k1_time["other_shapes"] = {
+        "k1_train_shape": k1_train_time,
+        "k1_f32_gpt": _k1_timed(gen, 1, dtype=torch.float32),
+        "k1_f32_llama_prefill": _k1_timed(
+            gen, LL_BF16_B, LL_BF16_S, torch.float32, LL_HEADS, LL_HEAD_DIM)}
 
     prompts, _ = slice_requests()
     dlens = [len(p) + 16 for p in prompts[:SLOTS]]
@@ -650,18 +721,23 @@ def phase_kernels():
                                   k5_launches["k5b"])
     chunk_time = _chunk_timed(gen, dlens)
     k2_time = _k2_timed(gen)
+    k2_wide_time = _k2_timed(gen, K2_WIDE_B, K2_WIDE_S, K2_WIDE_H,
+                             K2_WIDE_D, tag="_d256")
     k6 = _k6_cases(gen)
     k6_time = _k6_timed(gen)
     ok = all(c["ok"] for c in k1 + k2 + k3 + k4 + k6
-             + list(chunk_time.values()))
+             + list(chunk_time.values()) + list(k2_time.values())
+             + list(k2_wide_time.values())
+             + list(k1_time["other_shapes"].values()))
     emit({"phase": "kernels", "ok": ok, "k1_cases": k1, "k2_cases": k2,
           "k3_cases": k3, "k4_cases": k4, "k6_cases": k6,
-          "k1_timed": k1_time, "k1_timed_train_shape": k1_train_time,
+          "k1_timed": k1_time,
           "k2_timed": {"shape": [TRAIN_B, TRAIN_S, HEADS, HEAD_DIM],
                        "causal": True,
                        "dtype": "bfloat16 (k2a, k2b), float32 (*_f32)",
                        "plain_and_library_ms_are_for_the_pair": True,
                        **k2_time},
+          "k2_timed_d256": k2_wide_time,
           "k3_timed": {"B": SLOTS, "heads": HEADS, "page_size": PAGE,
                        "table_width": NP, "dtype": "bfloat16", **k3_time},
           "k4_timed": {"B": SLOTS, "heads": HEADS, "page_size": PAGE,
@@ -679,9 +755,12 @@ def phase_kernels():
     k3_time["other_shapes"] = {k: v for k, v in chunk_time.items()
                                if k.startswith("k3")}
     k4_time["other_shapes"] = {"k4_verify": chunk_time["k4_verify"]}
-    return {"k1": k1_time, "k1_train": k1_train_time, "k3": k3_time,
-            "k4": k4_time, "k5a": k5a_time, "k5b": k5b_time,
-            "k6": k6_time["bfloat16"], **k2_time}
+    for key in ("k2a", "k2b"):
+        k2_time[key]["other_shapes"] = {
+            n: v for n, v in list(k2_time.items()) + list(k2_wide_time.items())
+            if n.startswith(key) and n != key}
+    return {"k1": k1_time, "k3": k3_time, "k4": k4_time, "k5a": k5a_time,
+            "k5b": k5b_time, "k6": k6_time["bfloat16"], **k2_time}
 
 
 def _k6_cases(gen):
@@ -714,7 +793,8 @@ def _k6_cases(gen):
 def _k6_timed(gen):
     """K6, its plain version and ``F.gelu(x + b)`` (two PyTorch calls; no
     single call adds a bias inside the GELU) at ``[8192, 3072]``, bf16 x
-    with a float32 bias and float32 throughout.  Bound: x and b read once,
+    with a float32 bias and float32 throughout; K6 and the two calls by
+    CUDA-graph replay and eagerly.  Bound: x and b read once,
     y written once; 6 operations per element (erf counted as one) at the
     float32 rate, far below the bytes' time."""
     from paddle_tpu_torch.ops import bias_gelu as bg
@@ -730,11 +810,15 @@ def _k6_timed(gen):
         bx = b.to(xd)
         out[str(xd).split(".")[-1]] = {
             "shape": list(x.shape), "b_dtype": "float32",
-            "kernel_ms": cuda_ms(lambda: bg.bias_gelu(x, b)),
+            "kernel_ms": cuda_ms(lambda: bg.bias_gelu(x, b), graph=True),
+            "eager_ms": cuda_ms(lambda: bg.bias_gelu(x, b)),
             "plain_ms": cuda_ms(lambda: bg.bias_gelu_ref(x, b)),
             "library_ms": None,
             "library_note": "no single PyTorch call adds a bias inside the GELU",
-            "two_call_ms": cuda_ms(lambda: torch.nn.functional.gelu(x + bx)),
+            "two_call_ms": cuda_ms(lambda: torch.nn.functional.gelu(x + bx),
+                                   graph=True),
+            "two_call_eager_ms": cuda_ms(
+                lambda: torch.nn.functional.gelu(x + bx)),
             "two_call": "torch.nn.functional.gelu(x + b), b in x's dtype",
             "bound_ms": k6_bound, "bound_by": k6_by, "bytes": nbytes,
             "max_abs_err": err}
@@ -1060,6 +1144,79 @@ def _train_flops_per_token(model):
     return 6 * n + 6 * LAYERS * TRAIN_S * HIDDEN
 
 
+def _zero_bodies():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    for d in (fa.FWD_BODY_LAUNCHES, fa.BWD_BODY_LAUNCHES):
+        d.update(dict.fromkeys(d, 0))
+
+
+def _read_bodies():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": dict(fa.FWD_BODY_LAUNCHES), "bwd": dict(fa.BWD_BODY_LAUNCHES)}
+
+
+def _want_bodies(n, fwd, bwd):
+    """n forward launches all on body ``fwd``, 2 n backward launches (K2a
+    and K2b) all on ``bwd``."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    want = {"fwd": dict.fromkeys(fa.FWD_BODY_LAUNCHES, 0),
+            "bwd": dict.fromkeys(fa.BWD_BODY_LAUNCHES, 0)}
+    want["fwd"][fwd], want["bwd"][bwd] = n, 2 * n
+    return want
+
+
+# GPT-tiny with attention dropout: the config, its dropout, the steps
+DROPOUT_CFG = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+                   num_attention_heads=2, max_position_embeddings=64)
+DROPOUT_P, DROPOUT_STEPS = 0.1, 8
+
+
+def _dropout_check():
+    """GPT-tiny with ``attention_probs_dropout_prob=0.1`` on the card:
+    TrainSteps (AdamW lr 1e-3) run its attention as the plain attention
+    with dropout, as the TPU package does (no flash launch), with finite
+    and falling losses; in eval mode its forward equals, bit for bit, the
+    same weights' forward at dropout 0, both through K1."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda",
+                           attention_probs_dropout_prob=DROPOUT_P,
+                           **DROPOUT_CFG)
+    plain = GPTForCausalLM(device="cuda", **DROPOUT_CFG)
+    plain.load_state_dict(model.state_dict())
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, DROPOUT_CFG["vocab_size"], (4, 48))).to("cuda")
+    model.eval()
+    plain.eval()
+    n0 = fa.LAUNCHES
+    with torch.no_grad():
+        eval_equal = torch.equal(model(ids), plain(ids))
+    eval_launches = fa.LAUNCHES - n0
+    model.train()
+    opt = optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    step = jit.TrainStep(model, opt, loss_fn=None)
+    n0 = fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
+    losses = [step({"input_ids": ids, "labels": ids}).item()
+              for _ in range(DROPOUT_STEPS)]
+    train_launches = [fa.LAUNCHES - n0[0], fa.BWD_DKDV_LAUNCHES - n0[1],
+                      fa.BWD_DQ_LAUNCHES - n0[2]]
+    layers = DROPOUT_CFG["num_hidden_layers"]
+    ok = (eval_equal and eval_launches == 2 * layers
+          and train_launches == [0, 0, 0]
+          and bool(np.isfinite(losses).all()) and losses[-1] < losses[0])
+    return {"config": DROPOUT_CFG, "attention_probs_dropout_prob": DROPOUT_P,
+            "steps": DROPOUT_STEPS, "losses": losses,
+            "train_flash_launches": train_launches,
+            "eval_equal_dropout_0": eval_equal,
+            "eval_flash_launches": eval_launches, "ok": ok}
+
+
 def phase_train():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
@@ -1068,7 +1225,8 @@ def phase_train():
     torch.backends.cudnn.allow_tf32 = False
     rs = np.random.RandomState(0)
 
-    # parity: f32 on the card against a CPU copy of the same model
+    # parity: f32 on the card against a CPU copy of the same model; K1 runs
+    # its 3xTF32 body, K2 its f32 SIMT body
     ids = torch.from_numpy(rs.randint(0, VOCAB, (PARITY_B, PARITY_S)))
     torch.manual_seed(0)
     cpu_model = GPTForCausalLM(device="cpu")
@@ -1076,11 +1234,14 @@ def phase_train():
     losses = {}
     for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
         step, x = _trainer(model), ids.to(dev)
+        _zero_bodies()
         losses[dev] = [step({"input_ids": x, "labels": x}).item()
                        for _ in range(PARITY_STEPS)]
+    f32_bodies = _read_bodies()
     del cpu_model, card_model
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    parity_ok = rel <= 1e-4
+    parity_ok = rel <= 1e-4 and f32_bodies == _want_bodies(
+        LAYERS * PARITY_STEPS, fwd="3xtf32", bwd="simt")
 
     # timed: bf16 O2 at the full training shape, one fixed batch
     torch.manual_seed(0)
@@ -1091,6 +1252,7 @@ def phase_train():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    _zero_bodies()
     out = [step(batch) for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1104,18 +1266,25 @@ def phase_train():
     if counts != dict.fromkeys(counts, LAYERS * steps):
         raise SystemExit(f"launch counts {counts} != {LAYERS} x {steps} steps: "
                          f"the training path did not run through the kernels")
+    # bf16 at head_dim 64: the 16-bit tensor-core bodies, forward and back
+    bf16_bodies = _read_bodies()
+    bodies_ok = bf16_bodies == _want_bodies(LAYERS * steps, fwd="tc16",
+                                            bwd="tc16")
     bf16_losses = [l.item() for l in out]
     tokens = TRAIN_B * TRAIN_S
     flops = _train_flops_per_token(model) * tokens
     step_s = wall / TIMED_STEPS
+    del model, step, batch
+    dropout = _dropout_check()
     ok = (parity_ok and bf16_losses[-1] < bf16_losses[0]
-          and all(np.isfinite(bf16_losses)))
+          and all(np.isfinite(bf16_losses)) and bodies_ok and dropout["ok"])
     emit({"phase": "train", "ok": ok, "model": "GPT-base 12x768 vocab 50304",
           "optimizer": "AdamW lr 1e-4 wd 0.01, ClipGradByGlobalNorm(1.0)",
           "f32_parity": {"B": PARITY_B, "S": PARITY_S, "steps": PARITY_STEPS,
                          "cpu_losses": losses["cpu"],
                          "cuda_losses": losses["cuda"],
-                         "max_rel_diff": rel, "rtol": 1e-4, "ok": parity_ok},
+                         "max_rel_diff": rel, "rtol": 1e-4,
+                         "launches_by_body": f32_bodies, "ok": parity_ok},
           "bf16_O2": {"B": TRAIN_B, "S": TRAIN_S, "warmup_steps": WARMUP_STEPS,
                       "timed_steps": TIMED_STEPS, "step_ms": step_s * 1e3,
                       "tokens_per_s": tokens / step_s,
@@ -1126,11 +1295,15 @@ def phase_train():
                       "peak_memory_allocated_bytes":
                           torch.cuda.max_memory_allocated(),
                       "first_loss": bf16_losses[0], "last_loss": bf16_losses[-1],
-                      "losses": bf16_losses, "launches": counts},
+                      "losses": bf16_losses, "launches": counts,
+                      "launches_by_body": bf16_bodies, "bodies_ok": bodies_ok},
+          "attention_dropout": dropout,
           "nvidia_smi": smi_line()})
     if not ok:
         raise SystemExit("train phase failed: f32 losses differ from the CPU "
-                         "run beyond rtol 1e-4, or the bf16 loss did not fall")
+                         "run beyond rtol 1e-4, the bf16 loss did not fall, "
+                         "a flash call took another body than its dtype's, "
+                         "or the attention-dropout check failed")
     return {"launches": counts, "step_ms": step_s * 1e3}
 
 
@@ -2714,47 +2887,20 @@ def _llama_train():
 
 def _llama_kernel_times(gen, launches):
     """The kernels at Llama-3-8B's shapes (32 heads of 128; TF32 off):
-    K1 f32 at the bf16 model's prefill (B=8, S=512; its rotated q / k are
-    f32) beside SDPA in f32, K1 bf16 and K2a / K2b at the O2 step's shape
-    (B=4, S=1024) beside SDPA and its backward, and K3's f32-query entry
+    K1 bf16 and K2a / K2b at the O2 step's shape (B=4, S=1024) beside SDPA
+    and its backward, and K3's f32-query entry
     over bf16 pools at a decode step of the bf16 run (B=8, 8 kv heads,
     lengths 512-639), by CUDA-graph replay.  Bounds: K1 4 D operations per
-    visible (query, key) pair, K2a 8 D, K2b 6 D, K3 4 D per (head, valid
-    key), f32 work at the f32 rate; bytes each input read and each output
-    written once."""
+    visible (query, key) pair (``k1_bounds``: f32 as 3xTF32), K2a 8 D, K2b
+    6 D, K3 4 D per (head, valid key), other f32 work at the f32 rate;
+    bytes each input read and each output written once.  (K1 f32 at the
+    bf16 model's prefill, B=8, S=512, is timed in the kernels phase.)"""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
     H, D = LL_HEADS, LL_HEAD_DIM
-    out = {}
-    for name, dtype, b, S in (("k1_llama_f32", torch.float32, LL_BF16_B,
-                               LL_BF16_S),
-                              ("k1_llama_bf16", torch.bfloat16, LL_TRAIN_B,
-                               LL_TRAIN_S)):
-        q, k, v = (torch.randn(b, S, H, D, generator=gen, device="cuda")
-                   .to(dtype) for _ in range(3))
-        o = fa.flash_attention_fn(q, k, v, causal=True)
-        err = (o.float() - fa.flash_attention_ref(q, k, v, causal=True)
-               .float()).abs().max().item()
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        es = q.element_size()
-        b_ms, b_by = bound(4 * H * D * b * S * (S + 1) // 2,
-                           4 * q.numel() * es,
-                           PEAK_FLOPS if es == 2 else PEAK_F32_FLOPS)
-        out[name] = {
-            "shape": [b, S, H, D], "dtype": str(dtype).split(".")[-1],
-            "rows": b * S,
-            "kernel_ms": cuda_ms(lambda: fa.flash_attention_fn(
-                q, k, v, causal=True), graph=True),
-            "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(
-                q, k, v, causal=True), iters=3),
-            "library_ms": cuda_ms(lambda: torch.nn.functional
-                                  .scaled_dot_product_attention(
-                                      qt, kt, vt, is_causal=True), graph=True),
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-            "ok": err <= ATOL[dtype]}
-        del q, k, v, qt, kt, vt, o
-    out["k1_llama_f32"]["launches"] = launches["k1_f32"]
+    out = {"k1_llama_bf16": _k1_timed(gen, LL_TRAIN_B, LL_TRAIN_S,
+                                      torch.bfloat16, H, D)}
     out["k1_llama_bf16"]["launches"] = launches["k1_bf16"]
 
     B, S = LL_TRAIN_B, LL_TRAIN_S
@@ -2860,8 +3006,7 @@ def phase_llama():
     o2 = train["bf16_O2"]["launches"]
     times = _llama_kernel_times(
         torch.Generator(device="cuda").manual_seed(0),
-        {"k1_f32": paged0["launches"]["flash_attention_fwd"],
-         "k1_bf16": o2["flash_attention_fwd"],
+        {"k1_bf16": o2["flash_attention_fwd"],
          "k2a": o2["flash_attention_bwd_dkdv"],
          "k2b": o2["flash_attention_bwd_dq"],
          "k3": paged0["launches"]["paged_flash_decode"]})
@@ -2897,7 +3042,9 @@ def phase_llama():
     launches["flash_attention_fwd"] += o2["flash_attention_fwd"]
     launches["flash_attention_bwd_dkdv"] = o2["flash_attention_bwd_dkdv"]
     launches["flash_attention_bwd_dq"] = o2["flash_attention_bwd_dq"]
-    return {"launches": launches, "kernel_shapes": times}
+    return {"launches": launches, "kernel_shapes": times,
+            "k1_f32_prefill_launches": paged0["launches"][
+                "flash_attention_fwd"]}
 
 
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
@@ -3166,7 +3313,11 @@ def main():
         # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's
         # (K1, K2a, K2b, K3)
         shapes = dict((results.get("prefix") or {}).get("cached_tail", {}))
-        shapes.update((results.get("llama") or {}).get("kernel_shapes", {}))
+        llama = results.get("llama") or {}
+        shapes.update(llama.get("kernel_shapes", {}))
+        if "k1_f32_prefill_launches" in llama:     # that run's K1 f32 body
+            times["k1"]["other_shapes"]["k1_f32_llama_prefill"][
+                "launches"] = llama["k1_f32_prefill_launches"]
         for key in ("k1", "k2a", "k2b", "k3", "k4"):
             times[key].setdefault("other_shapes", {}).update(
                 {k: v for k, v in shapes.items()
@@ -3183,10 +3334,11 @@ def main():
                          "library_ms": t["library_ms"]})
             if t.get("other_shapes"):   # chunk rows, Llama shapes
                 rows[-1]["other_shapes"] = {
-                    k: {f: v[f] for f in ("shape", "rows", "launches",
-                                          "kernel_ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms", "max_abs_err")
+                    k: {f: v[f] for f in ("shape", "dtype", "rows",
+                                          "launches", "kernel_ms", "eager_ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "bound_f32_rate_ms", "library_ms",
+                                          "max_abs_err")
                         if f in v}
                     for k, v in t["other_shapes"].items()}
         emit({"kernels": rows})

@@ -55,14 +55,20 @@
 // fast grid axis so each wave takes the heaviest tiles of every head.
 // head_dim <= 128.
 //
-// f32 design: the exact SIMT body (plain f32 FMAs out of shared memory).
-// f32 callers (the f32 card-vs-CPU training parity, rtol 1e-4) need full
-// f32 products, which TF32 tensor cores would not give, so f32 stays
-// bounded by the 67 TFLOP/s f32 rate.  One block of 256 threads per
-// (64-row tile, batch * head); four threads own one key (K2a) or query
-// (K2b) row and accumulate D/4 output columns in registers; tiles are
-// staged as f32 with a +1 row pad (100 / 166 KB of shared memory for K2a
-// and 83 / 149 KB for K2b at head_dim 64 / 128, opted in per launch).
+// f32 design, and every dtype at 128 < head_dim <= 256: the exact SIMT
+// body (plain f32 FMAs out of shared memory).  f32 callers (the f32
+// card-vs-CPU training parity, rtol 1e-4) need full f32 products, which
+// one-pass TF32 tensor cores would not give, so f32 stays bounded by the
+// 67 TFLOP/s f32 rate.  One block of 256 threads per (KB-row tile, batch *
+// head), KB = 64 at head_dim <= 128 and 32 at 129-256 (at 64 rows a
+// 256-wide K2a would need 297 KB of shared memory, over the 227 KB a block
+// may have); 256 / KB threads own one key (K2a) or query (K2b) row and
+// accumulate DP * KB / 256 output columns in registers; tiles are staged
+// as f32 with a +1 row pad (K2a 100 / 166 / 137 KB and K2b 83 / 149 / 133
+// KB of shared memory at head_dim 64 / 128 / 256, opted in per launch).
+// No model of the repository trains above head_dim 128, so the 256-wide
+// body is the simple one; bf16 / f16 at head_dim <= 128 keep the tensor
+// cores.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -78,30 +84,34 @@ struct Ptrs {
 };
 
 // ------------------------------------------------------- f32: SIMT body
-constexpr int kB = 64;                  // rows (queries or keys) per tile
 constexpr int kThreads = 256;
-constexpr int kTPR = kThreads / kB;     // threads per owned row (4)
-constexpr int kCols = kB / kTPR;        // scores per thread per tile (16)
-constexpr int kPS = kB + 1;             // padded row of a [64][64] tile
 
-template <int DP>
+// KB rows (queries or keys) per tile: 64 at head_dim <= 128, 32 above
+template <int KB>
+struct Simt {
+  static constexpr int kTPR = kThreads / KB;   // threads per owned row
+  static constexpr int kCols = KB / kTPR;      // scores per thread per tile
+  static constexpr int kPS = KB + 1;           // padded row of a [KB][KB] tile
+};
+
+template <int DP, int KB>
 constexpr size_t dkdv_smem_bytes() {
-  // K, V, Q, G [kB][DP+1]; P^T, dS^T [kB][kB+1]; lse, r [kB]
-  return sizeof(float) * (4 * kB * (DP + 1) + 2 * kB * kPS + 2 * kB);
+  // K, V, Q, G [KB][DP+1]; P^T, dS^T [KB][KB+1]; lse, r [KB]
+  return sizeof(float) * (4 * KB * (DP + 1) + 2 * KB * (KB + 1) + 2 * KB);
 }
 
-template <int DP>
+template <int DP, int KB>
 constexpr size_t dq_smem_bytes() {
-  // Q, G, K, V [kB][DP+1]; dS [kB][kB+1]
-  return sizeof(float) * (4 * kB * (DP + 1) + kB * kPS);
+  // Q, G, K, V [KB][DP+1]; dS [KB][KB+1]
+  return sizeof(float) * (4 * KB * (DP + 1) + KB * (KB + 1));
 }
 
-// Stage rows [row0, row0 + kB) of one (batch, head) slice as f32 into a
-// [kB][DP+1] tile; rows past n and columns past D are zero.
-template <typename T, int DP>
+// Stage rows [row0, row0 + KB) of one (batch, head) slice as f32 into a
+// [KB][DP+1] tile; rows past n and columns past D are zero.
+template <typename T, int DP, int KB>
 __device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
                                       int row0, int n, int D) {
-  for (int idx = threadIdx.x; idx < kB * DP; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < KB * DP; idx += kThreads) {
     const int rr = idx / DP;
     const int d = idx % DP;
     const int row = row0 + rr;
@@ -110,7 +120,7 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int KB>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
@@ -119,17 +129,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       T* __restrict__ dv, int H, int Sq, int Sk, int D,
                       Ptrs qs, Ptrs ks, Ptrs vs, Ptrs gs, float scale,
                       int causal) {
+  constexpr int kTPR = Simt<KB>::kTPR;
+  constexpr int kCols = Simt<KB>::kCols;
+  constexpr int kPS = Simt<KB>::kPS;
   constexpr int RS = DP + 1;
   constexpr int DPT = DP / kTPR;        // dk / dv columns per thread
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kB * RS;
-  float* Qs = Vs + kB * RS;
-  float* Gs = Qs + kB * RS;
-  float* Pt = Gs + kB * RS;             // p^T  [key][query]
-  float* Dt = Pt + kB * kPS;            // ds^T [key][query]
-  float* Ls = Dt + kB * kPS;
-  float* Rs = Ls + kB;
+  float* Vs = Ks + KB * RS;
+  float* Qs = Vs + KB * RS;
+  float* Gs = Qs + KB * RS;
+  float* Pt = Gs + KB * RS;             // p^T  [key][query]
+  float* Dt = Pt + KB * kPS;            // ds^T [key][query]
+  float* Ls = Dt + KB * kPS;
+  float* Rs = Ls + KB;
 
   const int tid = threadIdx.x;
   const int j = tid / kTPR;             // this thread's key row in the tile
@@ -137,7 +150,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int k0 = blockIdx.x * kB;
+  const int k0 = blockIdx.x * KB;
   const int kj = k0 + j;
   const int offset = Sk - Sq;
 
@@ -148,8 +161,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* lb = lse + static_cast<long long>(bh) * Sq;
   const float* rb = rc + static_cast<long long>(bh) * Sq;
 
-  stage<T, DP>(Ks, kb, ks.ss, k0, Sk, D);
-  stage<T, DP>(Vs, vb, vs.ss, k0, Sk, D);
+  stage<T, DP, KB>(Ks, kb, ks.ss, k0, Sk, D);
+  stage<T, DP, KB>(Vs, vb, vs.ss, k0, Sk, D);
 
   float dk_acc[DPT], dv_acc[DPT];
 #pragma unroll
@@ -157,17 +170,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // causal: query i sees this tile's first key k0 once i >= k0 - offset
   int qstart = 0;
-  if (causal) qstart = (max(0, k0 - offset) / kB) * kB;
+  if (causal) qstart = (max(0, k0 - offset) / KB) * KB;
 
   const float* krow = Ks + j * RS;
   const float* vrow = Vs + j * RS;
   float* prow = Pt + j * kPS;
   float* drow = Dt + j * kPS;
-  for (int q0 = qstart; q0 < Sq; q0 += kB) {
+  for (int q0 = qstart; q0 < Sq; q0 += KB) {
     __syncthreads();                    // K/V staged / last tile consumed
-    stage<T, DP>(Qs, qb, qs.ss, q0, Sq, D);
-    stage<T, DP>(Gs, gb, gs.ss, q0, Sq, D);
-    if (tid < kB) {
+    stage<T, DP, KB>(Qs, qb, qs.ss, q0, Sq, D);
+    stage<T, DP, KB>(Gs, gb, gs.ss, q0, Sq, D);
+    if (tid < KB) {
       const int row = q0 + tid;
       Ls[tid] = row < Sq ? lb[row] : 0.f;
       Rs[tid] = row < Sq ? rb[row] : 0.f;
@@ -197,9 +210,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       prow[i] = p;
       drow[i] = p * (dp[c] - Rs[i]) * scale;
     }
-    __syncwarp();                       // the row's 4 threads share a warp
+    __syncwarp();                       // the row's threads share a warp
 #pragma unroll 4
-    for (int i = 0; i < kB; ++i) {
+    for (int i = 0; i < KB; ++i) {
       const float p = prow[i];
       const float ds = drow[i];
       const float* grow = Gs + i * RS;
@@ -227,7 +240,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int KB>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ g,
@@ -235,14 +248,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ rc, T* __restrict__ dq, int H,
                     int Sq, int Sk, int D, Ptrs qs, Ptrs ks, Ptrs vs,
                     Ptrs gs, float scale, int causal) {
+  constexpr int kTPR = Simt<KB>::kTPR;
+  constexpr int kCols = Simt<KB>::kCols;
+  constexpr int kPS = Simt<KB>::kPS;
   constexpr int RS = DP + 1;
   constexpr int DPT = DP / kTPR;        // dq columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Gs = Qs + kB * RS;
-  float* Ks = Gs + kB * RS;
-  float* Vs = Ks + kB * RS;
-  float* Ds = Vs + kB * RS;             // ds [query][key]
+  float* Gs = Qs + KB * RS;
+  float* Ks = Gs + KB * RS;
+  float* Vs = Ks + KB * RS;
+  float* Ds = Vs + KB * RS;             // ds [query][key]
 
   const int tid = threadIdx.x;
   const int i = tid / kTPR;             // this thread's query row in the tile
@@ -250,7 +266,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * kB;
+  const int q0 = blockIdx.x * KB;
   const int qi = q0 + i;
   const int offset = Sk - Sq;
 
@@ -261,8 +277,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float l_i = qi < Sq ? lse[static_cast<long long>(bh) * Sq + qi] : 0.f;
   const float r_i = qi < Sq ? rc[static_cast<long long>(bh) * Sq + qi] : 0.f;
 
-  stage<T, DP>(Qs, qb, qs.ss, q0, Sq, D);
-  stage<T, DP>(Gs, gb, gs.ss, q0, Sq, D);
+  stage<T, DP, KB>(Qs, qb, qs.ss, q0, Sq, D);
+  stage<T, DP, KB>(Gs, gb, gs.ss, q0, Sq, D);
 
   float dq_acc[DPT];
 #pragma unroll
@@ -270,15 +286,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // causal: the tile's last valid query sees keys up to q_last + offset
   int kend = Sk;
-  if (causal) kend = min(Sk, min(q0 + kB, Sq) - 1 + offset + 1);
+  if (causal) kend = min(Sk, min(q0 + KB, Sq) - 1 + offset + 1);
 
   const float* qrow = Qs + i * RS;
   const float* grow = Gs + i * RS;
   float* drow = Ds + i * kPS;
-  for (int k0 = 0; k0 < kend; k0 += kB) {
+  for (int k0 = 0; k0 < kend; k0 += KB) {
     __syncthreads();                    // Q/G staged / last tile consumed
-    stage<T, DP>(Ks, kb, ks.ss, k0, Sk, D);
-    stage<T, DP>(Vs, vb, vs.ss, k0, Sk, D);
+    stage<T, DP, KB>(Ks, kb, ks.ss, k0, Sk, D);
+    stage<T, DP, KB>(Vs, vb, vs.ss, k0, Sk, D);
     __syncthreads();
 
     float s[kCols], dp[kCols];
@@ -305,7 +321,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 #pragma unroll 4
-    for (int j = 0; j < kB; ++j) {
+    for (int j = 0; j < KB; ++j) {
       const float ds = drow[j];
       const float* krow = Ks + j * RS;
 #pragma unroll
@@ -665,17 +681,17 @@ Ptrs ptrs(const long long* st, int which) {
   return Ptrs{st[3 * which], st[3 * which + 1], st[3 * which + 2]};
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int KB>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* g, const float* lse, const float* r,
                         void* dk, void* dv, int B, int H, int Sq, int Sk,
                         int D, const long long* st, float scale, int causal,
                         cudaStream_t stream) {
-  auto kernel = flash_bwd_dkdv_kernel<T, DP>;
-  const size_t smem = dkdv_smem_bytes<DP>();
+  auto kernel = flash_bwd_dkdv_kernel<T, DP, KB>;
+  const size_t smem = dkdv_smem_bytes<DP, KB>();
   cudaError_t err = ptt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sk + kB - 1) / kB, B * H);
+  dim3 grid((Sk + KB - 1) / KB, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
@@ -684,17 +700,17 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int KB>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* g, const float* lse, const float* r,
                       void* dq, int B, int H, int Sq, int Sk, int D,
                       const long long* st, float scale, int causal,
                       cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, DP>;
-  const size_t smem = dq_smem_bytes<DP>();
+  auto kernel = flash_bwd_dq_kernel<T, DP, KB>;
+  const size_t smem = dq_smem_bytes<DP, KB>();
   cudaError_t err = ptt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kB - 1) / kB, B * H);
+  dim3 grid((Sq + KB - 1) / KB, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
@@ -750,44 +766,72 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
 }
 
 bool bad_shape(int B, int H, int Sq, int Sk, int D) {
-  return D < 1 || D > 128 || B < 1 || H < 1 || Sq < 1 || Sk < 1;
+  return D < 1 || D > 256 || B < 1 || H < 1 || Sq < 1 || Sk < 1;
 }
 
-// f32 takes the SIMT body, bf16 / f16 the tensor cores; head_dim padded
-// to 64 or 128
+// The body that takes a call: bf16 / f16 at head_dim <= 128 the tensor
+// cores (head_dim padded to 64 or 128); f32 at head_dim <= 128 the SIMT
+// body with 64-row tiles (padded to 64 or 128); every dtype at 128 <
+// head_dim <= 256 the SIMT body with 32-row tiles (padded to 256).
+// run_dkdv / run_dq launch the body this rule names, and the wrapper
+// counts launches by it.
+enum BwdBody : int { kBwdSimt = 0, kBwdTc16 = 1 };
+
+int bwd_body(int dtype, int D) {
+  return D <= 128 && dtype != ptt::kF32 ? kBwdTc16 : kBwdSimt;
+}
+
+// T is the C++ type of dtype code `dtype`.
 template <typename T>
-cudaError_t run_dkdv(const void* q, const void* k, const void* v,
+cudaError_t run_dkdv(int dtype, const void* q, const void* k, const void* v,
                      const void* g, const float* lse, const float* r,
                      void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
                      const long long* st, float scale, int causal,
                      cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value)
-    return D <= 64 ? launch_dkdv<T, 64>(q, k, v, g, lse, r, dk, dv, B, H, Sq,
-                                        Sk, D, st, scale, causal, s)
-                   : launch_dkdv<T, 128>(q, k, v, g, lse, r, dk, dv, B, H,
-                                         Sq, Sk, D, st, scale, causal, s);
-  else
+  // each branch builds only the instantiations the rule names for T; a
+  // rule that named another would get cudaErrorInvalidValue, not a
+  // miscounted launch
+  if (bwd_body(dtype, D) == kBwdSimt) {
+    if (D > 128)
+      return launch_dkdv<T, 256, 32>(q, k, v, g, lse, r, dk, dv, B, H, Sq,
+                                     Sk, D, st, scale, causal, s);
+    if constexpr (std::is_same<T, float>::value)
+      return D <= 64 ? launch_dkdv<T, 64, 64>(q, k, v, g, lse, r, dk, dv, B,
+                                              H, Sq, Sk, D, st, scale, causal,
+                                              s)
+                     : launch_dkdv<T, 128, 64>(q, k, v, g, lse, r, dk, dv, B,
+                                               H, Sq, Sk, D, st, scale,
+                                               causal, s);
+  } else if constexpr (!std::is_same<T, float>::value) {
     return D <= 64 ? launch_dkdv_tc<T, 64>(q, k, v, g, lse, r, dk, dv, B, H,
                                            Sq, Sk, D, st, scale, causal, s)
                    : launch_dkdv_tc<T, 128>(q, k, v, g, lse, r, dk, dv, B, H,
                                             Sq, Sk, D, st, scale, causal, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t run_dq(const void* q, const void* k, const void* v,
+cudaError_t run_dq(int dtype, const void* q, const void* k, const void* v,
                    const void* g, const float* lse, const float* r, void* dq,
                    int B, int H, int Sq, int Sk, int D, const long long* st,
                    float scale, int causal, cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value)
-    return D <= 64 ? launch_dq<T, 64>(q, k, v, g, lse, r, dq, B, H, Sq, Sk,
-                                      D, st, scale, causal, s)
-                   : launch_dq<T, 128>(q, k, v, g, lse, r, dq, B, H, Sq, Sk,
-                                       D, st, scale, causal, s);
-  else
+  if (bwd_body(dtype, D) == kBwdSimt) {   // as run_dkdv
+    if (D > 128)
+      return launch_dq<T, 256, 32>(q, k, v, g, lse, r, dq, B, H, Sq, Sk, D,
+                                   st, scale, causal, s);
+    if constexpr (std::is_same<T, float>::value)
+      return D <= 64 ? launch_dq<T, 64, 64>(q, k, v, g, lse, r, dq, B, H, Sq,
+                                            Sk, D, st, scale, causal, s)
+                     : launch_dq<T, 128, 64>(q, k, v, g, lse, r, dq, B, H,
+                                             Sq, Sk, D, st, scale, causal, s);
+  } else if constexpr (!std::is_same<T, float>::value) {
     return D <= 64 ? launch_dq_tc<T, 64>(q, k, v, g, lse, r, dq, B, H, Sq,
                                          Sk, D, st, scale, causal, s)
                    : launch_dq_tc<T, 128>(q, k, v, g, lse, r, dq, B, H, Sq,
                                           Sk, D, st, scale, causal, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -807,8 +851,8 @@ extern "C" int ptt_flash_attention_bwd_dkdv(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = run_dkdv<scalar_t>(q, k, v, g, l, rr, dk, dv, B, H, Sq, Sk, D,
-                             strides, scale, causal, s);
+    err = run_dkdv<scalar_t>(dtype, q, k, v, g, l, rr, dk, dv, B, H, Sq,
+                             Sk, D, strides, scale, causal, s);
   });
   return static_cast<int>(err);
 }
@@ -825,8 +869,14 @@ extern "C" int ptt_flash_attention_bwd_dq(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = run_dq<scalar_t>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D, strides,
-                           scale, causal, s);
+    err = run_dq<scalar_t>(dtype, q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
+                           strides, scale, causal, s);
   });
   return static_cast<int>(err);
+}
+
+// The body both backward entries launch for (dtype, D): 0 SIMT, 1 the
+// 16-bit tensor cores (the wrapper counts launches per body).
+extern "C" int ptt_flash_attention_bwd_body(int dtype, int D) {
+  return bwd_body(dtype, D);
 }

@@ -13,7 +13,8 @@
 // served model (S up to 1024, D = 64) the work is about 4 * S^2 * D / 2
 // operations per (batch, head) against 4 * S * D * 2 bytes, far above the
 // H100's ~295 operations per byte, so a good kernel is bound by
-// operations, at the 989 TFLOP/s bf16 / f16 tensor-core rate.
+// operations, at the 989 TFLOP/s bf16 / f16 tensor-core rate (f32: three
+// TF32 products per product, at 495 TFLOP/s).
 //
 // bf16 / f16 design, head_dim <= 128 (the served and trained paths), after
 // FlashAttention-2's forward and built from K2b's parts (mma.cuh): one
@@ -35,14 +36,41 @@
 // multiple of 16, a misaligned base or stride) are staged by a scalar loop
 // in the same kernel, chosen per tensor by vec_mask.
 //
-// f32 design, and bf16 / f16 with 128 < head_dim <= 256 (no path of the
-// repository runs those: GPT-base has D = 64): the SIMT body.  f32 callers
-// (the f32 card-vs-CPU serving and training parity) need full f32
-// products, which TF32 tensor cores would not give.  One block of 256
-// threads per (64-row query tile, batch * head); the key tiles are staged
-// as f32 in shared memory; four threads own one query row, each computing
-// 16 of the tile's 64 scores with plain f32 FMAs and D/4 output columns;
-// row max and row sum are reduced with two warp shuffles.
+// f32 design, head_dim <= 128 (Llama's f32 prefill, every f32 card-vs-CPU
+// gate of the GPT phases): the same structure on the tensor cores by
+// 3xTF32.  Each f32 operand is split into a TF32 big part and a TF32 small
+// remainder (mma.cuh split_tf32: big rounded to nearest by two integer
+// ops -- cvt.rna.tf32.f32 compiles to a longer integer, compare and
+// select sequence on sm_90a, which set the pace of this body's first
+// version; small = x - big, whose top 19 bits the mma reads) and every
+// product is a_small.b_big + a_big.b_small + a_big.b_big, three
+// mma.sync.m16n8k8 TF32 products accumulated in f32: about 2^-21 relative
+// per product, at up to 495 / 3 = 165 TFLOP/s against the 67 TFLOP/s
+// SIMT rate.  Its bound is 3 x the
+// operations at the TF32 rate.  4 warps per (64-query tile, batch *
+// head), each warp 16 query rows; Q is staged once in shared memory, and
+// K and V tiles (64 keys at head_dim <= 64, 32 at <= 128: 88 / 101 KB of
+// shared memory with Q, two blocks per SM) stream through a
+// double-buffered ring by 16-byte cp.async.cg into f32 rows padded
+// against bank conflicts (Q and K rows DP + 8 for the float2 fragment
+// reads, V rows DP + 4 for the two-row reads).  TF32 fragments are
+// 32-bit, so there is no ldmatrix: fragments come from plain shared
+// loads, and both reductions take their k dimension in the order (0, 2,
+// 4, 6, 1, 3, 5, 7) within each 8-wide step, which the sums do not depend
+// on.  Then fragment columns t and t+4 are adjacent head dims (one float2
+// of Q and of K per lane), and for P.V they are the keys 2t and 2t+1 that
+// the S accumulator already holds in the lane: P is the A operand as it
+// stands, with no shuffle.  The online softmax, the causal mask and the
+// heaviest-tile-first order are the 16-bit body's.  Registers and spills
+// of each instantiation: chip_smoke.py's build line (PERF.md).
+//
+// bf16 / f16 / f32 with 128 < head_dim <= 256 (no path of the repository
+// runs those: GPT-base has D = 64, Llama D = 128): the SIMT body, one
+// block of 256 threads per (64-row query tile, batch * head); the key
+// tiles are staged as f32 in shared memory; four threads own one query
+// row, each computing 16 of the tile's 64 scores with plain f32 FMAs and
+// D/4 output columns; row max and row sum are reduced with two warp
+// shuffles.
 //
 // q/k/v are read in the public [B, S, H, D] layout straight from their
 // strides (the head dim must be unit-stride), so the qkv split of the
@@ -406,6 +434,218 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- f32: 3xTF32 tensor cores
+// keys per streamed tile, and the padded f32 rows of the Q tile and the K
+// and V rings
+template <int DP>
+struct F32Tc {
+  static constexpr int kKeys = DP <= 64 ? 64 : 32;
+  // Q and K rows: the lanes' float2 fragment reads (8 rows x 4 column
+  // pairs) on distinct banks; V row: the two-row scalar reads (4 row pairs
+  // x 8 columns) on distinct banks; all 16-byte multiples for cp.async
+  static constexpr int kKS = DP + 8;
+  static constexpr int kVS = DP + 4;
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kKeys * (kKS + kVS) + kTcM * kKS);
+};
+
+// vec: bit i set when tensor i of (q, k, v) takes 16-byte copies.
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_f32_tc_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int H, int Sq, int Sk, int D,
+                        long long qsb, long long qss, long long qsh,
+                        long long ksb, long long kss, long long ksh,
+                        long long vsb, long long vss, long long vsh,
+                        float scale, int causal, int vec) {
+  constexpr int NK = F32Tc<DP>::kKeys;
+  constexpr int KS = F32Tc<DP>::kKS;
+  constexpr int VS = F32Tc<DP>::kVS;
+  constexpr int NT = NK / 8;            // 8-key tiles of S (and k-steps of P.V)
+  constexpr int DT = DP / 8;            // 8-wide tiles of o (and k-steps of Q.K^T)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // [2][NK][KS]
+  float* Vs = Ks + 2 * NK * KS;                      // [2][NK][VS]
+  float* Qs = Vs + 2 * NK * VS;                      // [64][KS]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;               // fragment row (and B column)
+  const int t = lane % 4;               // fragment column pair
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  // the last query tile sees the most keys: it goes out first
+  const int q0 =
+      ((Sq + kTcM - 1) / kTcM - 1 - static_cast<int>(blockIdx.y)) * kTcM;
+  const int offset = Sk - Sq;
+
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
+
+  const int kend = causal ? min(Sk, min(q0 + kTcM, Sq) + offset) : Sk;
+  const int ntiles = (kend + NK - 1) / NK;
+
+  auto load_tile = [&](int it) {
+    const int buf = it & 1;
+    stage_tc<float, NK, DP, KS>(Ks + buf * NK * KS, kb, kss, it * NK, Sk, D,
+                                vec & 2);
+    stage_tc<float, NK, DP, VS>(Vs + buf * NK * VS, vb, vss, it * NK, Sk, D,
+                                vec & 4);
+  };
+  stage_tc<float, kTcM, DP, KS>(Qs, qb, qss, q0, Sq, D, vec & 1);
+  load_tile(0);
+  cp_async_commit();
+
+  // This lane's two query rows.  The reduction over head_dim does not
+  // depend on its order, so k-step kk takes the columns in the order
+  // 8 kk + (0, 2, 4, 6, 1, 3, 5, 7): fragment columns t and t + 4 are the
+  // adjacent head dims 8 kk + 2t and 8 kk + 2t + 1, one float2 of Q and
+  // one of K.  Q stays in shared memory as f32 and is split into TF32
+  // halves at each k-step (held in registers, Q would push the 128-wide
+  // body past 255 registers into spills).
+  const int qi0 = q0 + warp * 16 + g;
+  const int wq0 = q0 + warp * 16;
+  const float* qr = Qs + (warp * 16 + g) * KS + 2 * t;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = it * NK;
+    const float* Kc = Ks + (it & 1) * NK * KS;
+    const float* Vc = Vs + (it & 1) * NK * VS;
+
+    // S = Q.K^T over the warp's 16 queries x NK keys
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      const float2 q_lo = *reinterpret_cast<const float2*>(qr + kk * 8);
+      const float2 q_hi =
+          *reinterpret_cast<const float2*>(qr + 8 * KS + kk * 8);
+      const Tf32Frag aq = split_frag(q_lo.x, q_hi.x, q_lo.y, q_hi.y);
+      const float* kr = Kc + g * KS + kk * 8 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 kv = *reinterpret_cast<const float2*>(kr + n * 8 * KS);
+        mma1688_3xtf32(s[n], aq, kv.x, kv.y);
+      }
+    }
+
+    // online softmax on the fragment, as the 16-bit body: scores in
+    // base-2 units, the element mask only where the diagonal or the
+    // ragged key edge crosses the tile
+    const bool full = !(causal && k0 + NK - 1 > wq0 + offset) && k0 + NK <= Sk;
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (!full) {
+          const int qi = qi0 + (e >> 1) * 8;
+          const int kj = k0 + n * 8 + 2 * t + (e & 1);
+          if (!(kj < Sk && (!causal || kj <= qi + offset))) x = -INFINITY;
+        }
+        s[n][e] = x;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+      }
+    }
+    float alpha[2], base[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], 1));
+      tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], 2));
+      const float m_new = fmaxf(m[x], tmax[x]);
+      // a row that has seen no visible key keeps m = -inf; subtracting 0
+      // then gives exp2(-inf) = 0 instead of exp2(nan)
+      base[x] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[x] = exp2f(m[x] - base[x]);
+      m[x] = m_new;
+      l[x] *= alpha[x];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - base[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // O += P.V.  k-step kq takes the keys in the order kq 8 + (0, 2, 4, 6,
+    // 1, 3, 5, 7): fragment columns t and t + 4 are keys 2t and 2t + 1,
+    // which the accumulator of S tile kq already holds in this lane, so P
+    // is the A operand as it stands (p in [0, 1] splits cleanly); V's B
+    // fragment reads rows 2t and 2t + 1 to match.
+#pragma unroll
+    for (int kq = 0; kq < NT; ++kq) {
+      const Tf32Frag ap = split_frag(s[kq][0], s[kq][2], s[kq][1], s[kq][3]);
+      const float* vr = Vc + (kq * 8 + 2 * t) * VS + g;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        mma1688_3xtf32(acc[n], ap, vr[n * 8], vr[VS + n * 8]);
+    }
+    __syncthreads();                    // this buffer is free to refill
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+  }
+  const bool pairs = D % 2 == 0;        // two adjacent columns per store
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int qi = qi0 + x * 8;
+    if (qi >= Sq) continue;
+    const float inv = l[x] > 0.f ? 1.f / l[x] : 0.f;
+    float* orow = o + (static_cast<long long>(b) * Sq + qi) * H * D +
+                  static_cast<long long>(h) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int d = n * 8 + 2 * t;
+      const float lo = acc[n][2 * x] * inv;
+      const float hi = acc[n][2 * x + 1] * inv;
+      if (pairs && d + 1 < D) {
+        *reinterpret_cast<float2*>(orow + d) = make_float2(lo, hi);
+      } else {
+        if (d < D) orow[d] = lo;
+        if (d + 1 < D) orow[d + 1] = hi;
+      }
+    }
+    // natural-log logsumexp, as the other bodies and K2 have it
+    if (lse != nullptr && t == 0)
+      lse[static_cast<long long>(bh) * Sq + qi] =
+          l[x] > 0.f ? (m[x] + log2f(l[x])) / kLog2e : -INFINITY;
+  }
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int Sq, int Sk, int D,
@@ -444,28 +684,63 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// bf16 / f16 with head_dim <= 128 take the tensor cores (head_dim padded
-// to 64 or 128), the rest the SIMT body (padded to 64, 128 or 256)
+template <int DP>
+cudaError_t launch_f32_tc(const void* q, const void* k, const void* v,
+                          void* o, float* lse, int B, int H, int Sq, int Sk,
+                          int D, const long long* st, float scale, int causal,
+                          cudaStream_t stream) {
+  auto kernel = flash_fwd_f32_tc_kernel<DP>;
+  const size_t smem = F32Tc<DP>::kSmem;
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const void* x[3] = {q, k, v};
+  const int vec = vec_mask(x, 3, st, D, sizeof(float));
+  dim3 grid(B * H, (Sq + kTcM - 1) / kTcM);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Sq, Sk, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale, causal, vec);
+  return cudaGetLastError();
+}
+
+// The body that takes a call: head_dim <= 128 the tensor cores (head_dim
+// padded to 64 or 128), f32 by 3xTF32, bf16 / f16 by 16-bit products;
+// 128 < head_dim <= 256 the SIMT body in every dtype (padded to 256).
+// run launches the body this rule names, and the wrapper counts launches
+// by it.
+enum FwdBody : int { kFwdSimt = 0, kFwdTc16 = 1, kFwdTf32 = 2 };
+
+int fwd_body(int dtype, int D) {
+  if (D > 128) return kFwdSimt;
+  return dtype == ptt::kF32 ? kFwdTf32 : kFwdTc16;
+}
+
+// T is the C++ type of dtype code `dtype`.
 template <typename T>
-cudaError_t run(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int H, int Sq, int Sk, int D,
+cudaError_t run(int dtype, const void* q, const void* k, const void* v,
+                void* o, float* lse, int B, int H, int Sq, int Sk, int D,
                 const long long* st, float scale, int causal, cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (D <= 64)
-      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
-                           causal, s);
-    if (D <= 128)
-      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
+  switch (fwd_body(dtype, D)) {
+    case kFwdSimt:
+      return launch<T, 256>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
                             causal, s);
-  } else {
-    if (D <= 64)
-      return launch_tc<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
-                              causal, s);
-    if (D <= 128)
-      return launch_tc<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
-                               causal, s);
+    case kFwdTf32:
+      if constexpr (std::is_same<T, float>::value)
+        return D <= 64 ? launch_f32_tc<64>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                           st, scale, causal, s)
+                       : launch_f32_tc<128>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                            st, scale, causal, s);
+      break;
+    case kFwdTc16:
+      if constexpr (!std::is_same<T, float>::value)
+        return D <= 64 ? launch_tc<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                          st, scale, causal, s)
+                       : launch_tc<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                           st, scale, causal, s);
+      break;
   }
-  return launch<T, 256>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, s);
+  return cudaErrorInvalidValue;         // a body this dtype has no build of
 }
 
 }  // namespace
@@ -485,8 +760,14 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = run<scalar_t>(q, k, v, o, lse_f, B, H, Sq, Sk, D, strides, scale,
-                        causal, s);
+    err = run<scalar_t>(dtype, q, k, v, o, lse_f, B, H, Sq, Sk, D, strides,
+                        scale, causal, s);
   });
   return static_cast<int>(err);
+}
+
+// The body ptt_flash_attention_fwd launches for (dtype, D): 0 SIMT, 1 the
+// 16-bit tensor cores, 2 3xTF32 (the wrapper counts launches per body).
+extern "C" int ptt_flash_attention_fwd_body(int dtype, int D) {
+  return fwd_body(dtype, D);
 }

@@ -13,10 +13,8 @@ in the paddle ``[B, S, H, D]`` layout:
 - a CPU tensor takes the plain PyTorch versions (:func:`flash_attention_ref`
   forward, :func:`flash_attention_bwd_ref` backward);
 - a CUDA tensor launches the kernels, or raises for what they do not take
-  (GQA, head_dim > 256 — > 128 when a gradient is needed —, a causal call
-  with more queries than keys).  A call that needs a gradient is checked
-  against the backward's rule in the forward, before any compute.  There
-  is no quiet fallback.
+  (GQA, head_dim > 256, a causal call with more queries than keys), in the
+  forward, before any compute.  There is no quiet fallback.
 
 The backward takes, as the TPU package's ``_bwd_dispatch`` does,
 ``delta = sum(g * o)`` (one torch reduction, outside the kernels) and the
@@ -24,7 +22,10 @@ row correction ``r = delta - g_lse``, so :func:`flash_attention_with_lse`
 is differentiable in both of its outputs at no extra cost.
 
 ``LAUNCHES``, ``BWD_DKDV_LAUNCHES`` and ``BWD_DQ_LAUNCHES`` count kernel
-launches, so a run can show that its attention went through the kernels.
+launches, so a run can show that its attention went through the kernels;
+``FWD_BODY_LAUNCHES`` / ``BWD_BODY_LAUNCHES`` split them by the body the C
+entry chose (``"tc16"``: bf16 / f16 on the tensor cores, ``"3xtf32"``: f32
+on the tensor cores, ``"simt"``: f32 backward and head_dim 129-256).
 """
 
 from __future__ import annotations
@@ -37,11 +38,20 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
+#: widest head_dim the kernels take, forward and backward (the TPU
+#: package's limit)
+MAX_HEAD_DIM = 256
 
 #: number of times each CUDA kernel was launched in this process
 LAUNCHES = 0                # K1, forward
 BWD_DKDV_LAUNCHES = 0       # K2a, dk / dv
 BWD_DQ_LAUNCHES = 0         # K2b, dq
+#: the same launches by body (K2a and K2b together), as the C entries'
+#: ``*_body`` functions name it
+FWD_BODY_LAUNCHES = {"simt": 0, "tc16": 0, "3xtf32": 0}
+BWD_BODY_LAUNCHES = {"simt": 0, "tc16": 0}
+_FWD_BODIES = ("simt", "tc16", "3xtf32")     # csrc enum FwdBody
+_BWD_BODIES = ("simt", "tc16")               # csrc enum BwdBody
 
 
 def _scores(q, k, scale, causal):
@@ -108,19 +118,18 @@ def flash_attention_bwd_ref(q, k, v, g, lse, r, scale, causal):
             _from_bh(dv, b, h).to(v.dtype))
 
 
-def supported(q_shape, k_shape, causal=False, needs_grad=False) -> bool:
-    """Whether the CUDA kernels take these ``[B, S, H, D]`` shapes: 4-D,
-    as many kv heads as query heads, head_dim <= 256 (<= 128 when the call
-    needs a gradient: the backward kernels pad head_dim to 64 or 128 in
-    shared memory), and for a causal call no more queries than keys.  Unlike the
-    TPU kernels there is no sequence floor: the ragged tile is masked in
-    the kernels, so they take every length."""
+def supported(q_shape, k_shape, causal=False) -> bool:
+    """Whether the CUDA kernels, forward and backward, take these
+    ``[B, S, H, D]`` shapes: 4-D, as many kv heads as query heads,
+    head_dim <= ``MAX_HEAD_DIM``, and for a causal call no more queries
+    than keys.  Unlike the TPU kernels there is no sequence floor: the
+    ragged tile is masked in the kernels, so they take every length."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return False
     b, sq, h, d = q_shape
     if k_shape[0] != b or k_shape[2] != h or k_shape[3] != d:
         return False
-    if d > (128 if needs_grad else 256):
+    if d > MAX_HEAD_DIM:
         return False
     return not (causal and sq > k_shape[1])
 
@@ -201,14 +210,14 @@ class _FlashAttention(torch.autograd.Function):
 
 def _check_cuda_args(q, k, v, causal, grad):
     """Raise, before any compute, for a call the kernels do not take."""
-    if not supported(q.shape, k.shape, causal, grad):
+    if not supported(q.shape, k.shape, causal):
         raise NotImplementedError(
             f"the flash attention kernels do not take q {tuple(q.shape)} / "
             f"k {tuple(k.shape)} (causal={causal}, needs_grad={grad}): they "
             f"need equal head counts (a GQA model repeats its K / V heads "
             f"first, as Llama does), "
-            f"head_dim <= 256 (<= 128 with a gradient) and, when causal, no "
-            f"more queries than keys")
+            f"head_dim <= {MAX_HEAD_DIM} and, when causal, no more queries "
+            f"than keys")
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"flash attention runs on cuda or cpu tensors, got {q.device}")
@@ -245,6 +254,8 @@ def _fwd_kernel(q, k, v, scale, causal, return_lse):
     _build.check(err, "flash_attention_fwd")
     global LAUNCHES
     LAUNCHES += 1
+    FWD_BODY_LAUNCHES[_FWD_BODIES[lib.ptt_flash_attention_fwd_body(
+        _build.dtype_code(q), d)]] += 1
     return o, lse
 
 
@@ -273,6 +284,7 @@ def _bwd_dkdv_kernel(q, k, v, g, lse, r, scale, causal):
     _build.check(err, "flash_attention_bwd_dkdv")
     global BWD_DKDV_LAUNCHES
     BWD_DKDV_LAUNCHES += 1
+    _count_bwd_body(lib, q)
     return dk, dv
 
 
@@ -288,7 +300,13 @@ def _bwd_dq_kernel(q, k, v, g, lse, r, scale, causal):
     _build.check(err, "flash_attention_bwd_dq")
     global BWD_DQ_LAUNCHES
     BWD_DQ_LAUNCHES += 1
+    _count_bwd_body(lib, q)
     return dq
+
+
+def _count_bwd_body(lib, q):
+    BWD_BODY_LAUNCHES[_BWD_BODIES[lib.ptt_flash_attention_bwd_body(
+        _build.dtype_code(q), q.shape[-1])]] += 1
 
 
 _ARGTYPES = {
@@ -309,5 +327,11 @@ def _lib(name):
         if fn is not None and fn.argtypes is None:
             fn.argtypes = [P] * n_ptrs + [I] * 6 + [
                 ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, I, P]
+            fn.restype = I
+    for fn_name in ("ptt_flash_attention_fwd_body",
+                    "ptt_flash_attention_bwd_body"):    # (dtype, D) -> body
+        fn = getattr(lib, fn_name, None)
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = [I, I]
             fn.restype = I
     return lib

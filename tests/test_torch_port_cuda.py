@@ -1,7 +1,10 @@
 """PyTorch port on the card: each hand-written CUDA kernel held against its
 plain PyTorch version on CUDA tensors (K1 over both of its bodies, the
 split-K decode also bit for bit against a second launch, and the
-full-sweep K5a / K5b bit for bit against K3 / K4), Int8Linear's torch._int_mm against the CPU, the
+full-sweep K5a / K5b bit for bit against K3 / K4; K2 to head_dim 256; each
+dtype's flash body by the per-body counters), attention with dropout
+(eval mode is K1, training mode the plain attention's keep rate and
+scale, masked, GPT-tiny training), Int8Linear's torch._int_mm against the CPU, the
 tiny-GPT serving engine on the card (native and int8 pools) against the
 same engine on the CPU, tiny-GPT training through the flash kernels
 forward and backward, the fused bias + GELU kernel (K6) and fake-quant on
@@ -18,6 +21,7 @@ JAX, and that machine may have none):
 """
 
 import copy
+import shutil
 import time
 
 import numpy as np
@@ -35,6 +39,11 @@ from paddle_tpu_torch.text.models import GPTForCausalLM
 pytestmark = pytest.mark.cuda
 
 ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
+#: K1's f32 body on the tensor cores (3xTF32, head_dim <= 128) against its
+#: plain version, beside ATOL: a body that dropped the split's cross terms
+#: (one TF32 product per product) fails it, see
+#: test_flash_f32_one_pass_tf32_fails_the_tight_check
+F32_TC_ATOL = 2e-5
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
@@ -78,6 +87,7 @@ def _fwd_inputs(gen, dtype, b, h, sq, sk, d, layout):
     (2, 3, 200, 256, 40, True, "contiguous"),
     (2, 3, 129, 129, 96, False, "contiguous"),
     (1, 2, 70, 70, 256, True, "contiguous"),
+    (2, 2, 160, 200, 192, True, "contiguous"),
     # lengths to 1024, causal and full, sq < sk
     (1, 12, 17, 17, 64, False, "contiguous"),
     (1, 12, 1024, 1024, 64, True, "contiguous"),
@@ -91,8 +101,8 @@ def _fwd_inputs(gen, dtype, b, h, sq, sk, d, layout):
 def test_flash_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d, causal,
                                     layout):
     """K1 against its plain version (o within ATOL, lse within 1e-3) over
-    the reach of both of its bodies; a second launch is bit-equal to the
-    first."""
+    the reach of its three bodies (f32 at head_dim <= 128 on the tensor
+    cores by 3xTF32); a second launch is bit-equal to the first."""
     q, k, v = _fwd_inputs(cuda, dtype, b, h, sq, sk, d, layout)
     n0 = fa.LAUNCHES
     o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
@@ -102,6 +112,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d, causal,
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(o.float(), ref.float(), atol=ATOL[dtype], rtol=0)
+    if dtype == torch.float32 and d <= 128:         # the 3xTF32 body
+        torch.testing.assert_close(o, ref, atol=F32_TC_ATOL, rtol=0)
     torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k, causal=causal),
                                atol=1e-3, rtol=0)
 
@@ -129,13 +141,19 @@ def test_kernels_refuse_calls_that_need_a_gradient(cuda):
     """Paged decode has no backward: a call autograd would differentiate
     raises instead of returning an output without a gradient.  Flash
     attention has one (K2), but refuses in the forward, before any launch,
-    a gradient it cannot take (head_dim > 128).  Under no_grad both run."""
+    a gradient it cannot take (head_dim > 256); at 256 it takes one.
+    Under no_grad both run."""
     q = torch.randn(1, 8, 2, 64, device="cuda", requires_grad=True)
     wide = torch.randn(1, 8, 2, 256, device="cuda", requires_grad=True)
+    too_wide = torch.randn(1, 8, 2, 257, device="cuda", requires_grad=True)
     n0 = fa.LAUNCHES
     with pytest.raises(NotImplementedError, match="needs_grad=True"):
-        fa.flash_attention_fn(wide, wide, wide, causal=True)
+        fa.flash_attention_fn(too_wide, too_wide, too_wide, causal=True)
     assert fa.LAUNCHES == n0
+    n = fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
+    fa.flash_attention_fn(wide, wide, wide, causal=True).sum().backward()
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1)
     pool = torch.randn(4, 8, 2, 64, device="cuda")
     table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
     ln = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
@@ -145,6 +163,81 @@ def test_kernels_refuse_calls_that_need_a_gradient(cuda):
     with torch.no_grad():
         fa.flash_attention_fn(wide, wide, wide, causal=True)
         pa.paged_attention(qd, pool, pool, table, ln)
+
+
+@pytest.mark.parametrize("dtype,d,fwd_body,bwd_body", [
+    (torch.bfloat16, 64, "tc16", "tc16"), (torch.float16, 128, "tc16", "tc16"),
+    (torch.float32, 64, "3xtf32", "simt"), (torch.float32, 128, "3xtf32", "simt"),
+    (torch.bfloat16, 192, "simt", "simt"), (torch.float32, 256, "simt", "simt")])
+def test_flash_calls_reach_their_dtypes_bodies(cuda, dtype, d, fwd_body,
+                                               bwd_body):
+    """The C entries' body rule, by the per-body launch counters: bf16 /
+    f16 at head_dim <= 128 stay on the 16-bit tensor cores forward and
+    backward, f32 takes 3xTF32 forward and the SIMT backward, head_dim
+    129-256 the SIMT bodies; one forward and one K2a + K2b per call."""
+    q, k, v = _fwd_inputs(cuda, dtype, 2, 3, 100, 100, d, "contiguous")
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    fwd0, bwd0 = dict(fa.FWD_BODY_LAUNCHES), dict(fa.BWD_BODY_LAUNCHES)
+    fa.flash_attention_fn(q, k, v, causal=True).float().sum().backward()
+    fwd = {n: c - fwd0[n] for n, c in fa.FWD_BODY_LAUNCHES.items()}
+    bwd = {n: c - bwd0[n] for n, c in fa.BWD_BODY_LAUNCHES.items()}
+    assert fwd == {n: int(n == fwd_body) for n in fwd}
+    assert bwd == {n: 2 * int(n == bwd_body) for n in bwd}
+
+
+def test_flash_f32_keys_are_not_symmetric(cuda):
+    """K1's 3xTF32 body takes the keys of each 8-wide step in a permuted
+    order (2t, 2t + 1 per lane): V that rises with the key index and a q.k
+    that favours late keys would show any mismatch between the P and V
+    fragments, at the f32 tolerance."""
+    b, h, s, d = 2, 4, 200, 96
+    q = torch.randn(b, s, h, d, generator=cuda, device="cuda")
+    k = torch.randn(b, s, h, d, generator=cuda, device="cuda") \
+        + torch.linspace(0, 1, s, device="cuda")[None, :, None, None]
+    v = torch.arange(s * d, dtype=torch.float32, device="cuda").reshape(
+        1, s, 1, d).expand(b, s, h, d).contiguous() / (s * d)
+    for causal in (True, False):
+        o = fa.flash_attention_fn(q, k, v, causal=causal)
+        torch.testing.assert_close(
+            o, fa.flash_attention_ref(q, k, v, causal=causal),
+            atol=ATOL[torch.float32], rtol=0)
+
+
+def test_flash_f32_one_pass_tf32_fails_the_tight_check(cuda, tmp_path,
+                                                       monkeypatch):
+    """The control for F32_TC_ATOL: K1 built from a copy of the sources
+    whose TF32 product lacks the 3xTF32 split's two cross terms (one TF32
+    product per product, the precision 3xTF32 exists to avoid) errs past
+    F32_TC_ATOL on f32 cases where the committed body stays within it.
+    The copy is built into this test's own directory and unloaded after."""
+    from paddle_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    cross = ("  mma1688_tf32(c, a.small, p0.big, p1.big);\n"
+             "  mma1688_tf32(c, a.big, p0.small, p1.small);\n")
+    text = (src / "mma.cuh").read_text()
+    assert text.count(cross) == 1
+    (src / "mma.cuh").write_text(text.replace(cross, ""))
+    cases = [_fwd_inputs(cuda, torch.float32, b, h, sq, sk, d, "contiguous")
+             + (causal,) for b, h, sq, sk, d, causal in (
+                 (2, 3, 300, 300, 64, True), (2, 3, 256, 256, 128, True),
+                 (1, 4, 512, 512, 128, False), (2, 3, 200, 256, 40, True))]
+
+    def errs():
+        return [(fa.flash_attention_fn(q, k, v, causal=c)
+                 - fa.flash_attention_ref(q, k, v, causal=c)).abs().max()
+                .item() for q, k, v, c in cases]
+
+    three = errs()
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_SECONDS", _build.BUILD_SECONDS)
+    monkeypatch.setenv("PADDLE_TPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.delitem(_build._libs, "flash_attention_fwd", raising=False)
+    one = errs()
+    print(f"K1 f32 max |err| per case: 3xTF32 {three}; one-pass TF32 {one} "
+          f"(ATOL {ATOL[torch.float32]}, F32_TC_ATOL {F32_TC_ATOL})")
+    assert max(three) <= F32_TC_ATOL < min(one)
 
 
 def _rel_err(a, b):
@@ -196,7 +289,14 @@ def _bwd_inputs(gen, dtype, b, h, sq, sk, d, causal, g_lse, layout):
     (2, 3, 100, 100, 17, True, False, "contiguous"),
     (2, 3, 300, 300, 64, True, False, "unaligned"),
     # the model's strided head-major qkv split, read in place
-    (2, 12, 512, 512, 64, True, False, "qkv")])
+    (2, 12, 512, 512, 64, True, False, "qkv"),
+    # head_dim 129-256: the SIMT body with 32-row tiles in every dtype,
+    # causal and not, ragged lengths, sq < sk
+    (2, 2, 160, 160, 192, True, False, "contiguous"),
+    (2, 2, 129, 200, 192, False, True, "contiguous"),
+    (2, 2, 160, 160, 256, False, False, "contiguous"),
+    (1, 3, 77, 300, 256, True, True, "contiguous"),
+    (1, 2, 100, 100, 256, True, False, "unaligned")])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, b, h, sq, sk, d, causal,
                                        g_lse, layout):
     """K2a (dk, dv) and K2b (dq) against flash_attention_bwd_ref on the
@@ -769,16 +869,113 @@ def test_masked_attention_on_card_matches_cpu(cuda, dtype, mask_kind):
 
 
 def test_dropout_on_card_still_raises(cuda):
+    """With dropout active, what the plain attention cannot take still
+    raises on the card: unequal head counts without a mask (GQA), as in
+    the TPU package."""
     from paddle_tpu_torch.nn import functional as TF
 
-    q = torch.randn(1, 8, 2, 64, device="cuda")
-    mask = torch.zeros(1, 1, 8, 8, device="cuda")
-    with pytest.raises(NotImplementedError):
-        TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+    q = torch.randn(1, 8, 4, 64, device="cuda")
+    kv = torch.randn(1, 8, 2, 64, device="cuda")
+    with pytest.raises(NotImplementedError, match="dropout_p=0.1"):
+        TF.scaled_dot_product_attention(q, kv, kv, dropout_p=0.1,
                                         is_causal=True)
-    with pytest.raises(NotImplementedError):
-        TF.scaled_dot_product_attention(q, q, q, attn_mask=mask,
-                                        dropout_p=0.1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_inactive_dropout_on_card_is_the_kernel(cuda, dtype):
+    """Eval mode with dropout_p > 0, and dropout_p = 0, dispatch to K1 and
+    equal a direct K1 call bit for bit."""
+    from paddle_tpu_torch.nn import functional as TF
+
+    q, k, v = _fwd_inputs(cuda, dtype, 2, 3, 70, 70, 64, "contiguous")
+    want = fa.flash_attention_bshd(q, k, v, causal=True)
+    n0 = fa.LAUNCHES
+    for kw in (dict(dropout_p=0.3, training=False),
+               dict(dropout_p=0.0, training=True)):
+        got = TF.scaled_dot_product_attention(q, k, v, is_causal=True, **kw)
+        assert torch.equal(got, want)
+    assert fa.LAUNCHES == n0 + 2
+
+
+def test_dropout_on_card_keeps_1_minus_p_and_scales(cuda):
+    """Training-mode dropout runs the plain attention on the card: with
+    q = k = 0 every probability is 1 / Sk, and a one-hot V reads each
+    dropped probability out, so every output entry is 0 or exactly
+    1 / (Sk (1 - p)).  The kept share lies within 4 binomial standard
+    deviations of 1 - p (N = 98,304 draws; the generator is seeded)."""
+    from paddle_tpu_torch.nn import functional as TF
+
+    B, S, H, p = 2, 64, 12, 0.3
+    q = torch.zeros(B, S, H, S, device="cuda")
+    v = torch.eye(S, device="cuda")[None, :, None, :].expand(B, S, H, S)
+    torch.manual_seed(0)
+    n0 = fa.LAUNCHES
+    out = TF.scaled_dot_product_attention(q, q, v.contiguous(), dropout_p=p,
+                                          training=True)
+    assert fa.LAUNCHES == n0
+    kept = out != 0
+    torch.testing.assert_close(out[kept], torch.full_like(
+        out[kept], 1 / (S * (1 - p))), atol=1e-7, rtol=1e-6)
+    n = out.numel()
+    share = kept.float().mean().item()
+    assert abs(share - (1 - p)) <= 4 * (p * (1 - p) / n) ** 0.5
+
+
+def test_masked_dropout_on_card(cuda):
+    """A masked call with dropout: masked keys get no weight, kept ones
+    1 / (visible keys x (1 - p)) under q = k = 0, in training mode; in
+    eval mode the masked plain attention, as without dropout."""
+    from paddle_tpu_torch.nn import functional as TF
+
+    B, S, H, p = 2, 40, 4, 0.5
+    q = torch.zeros(B, S, H, S, device="cuda")
+    v = torch.eye(S, device="cuda")[None, :, None, :].expand(
+        B, S, H, S).contiguous()
+    keep = torch.arange(S, device="cuda")[None, :] < 10 + torch.arange(
+        S, device="cuda")[:, None] // 2
+    mask = keep[None, None]
+    torch.manual_seed(1)
+    out = TF.scaled_dot_product_attention(q, q, v, attn_mask=mask,
+                                          dropout_p=p, training=True)
+    probs = out.permute(0, 2, 1, 3)                # [B, H, query, key]
+    assert not bool(probs[..., ~keep].any())
+    visible = keep.sum(-1).float()[None, None, :, None].expand_as(probs)
+    kept = probs != 0
+    torch.testing.assert_close(probs[kept], 1 / (visible[kept] * (1 - p)),
+                               atol=1e-7, rtol=1e-6)
+    assert 0.3 < kept.float().sum().item() / keep.sum().item() / (B * H) < 0.7
+    ev = TF.scaled_dot_product_attention(q, q, v, attn_mask=mask,
+                                         dropout_p=p, training=False)
+    torch.testing.assert_close(ev, TF.scaled_dot_product_attention(
+        q, q, v, attn_mask=mask, training=False), atol=0, rtol=0)
+
+
+def test_gpt_tiny_trains_with_attention_dropout_on_card(cuda):
+    """GPT-tiny with attention_probs_dropout_prob=0.1: TrainSteps on the
+    card run the plain attention with dropout (no flash launch) with
+    finite, falling losses; in eval mode its logits equal the same
+    weights' at dropout 0 bit for bit, both through K1."""
+    cfg = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+               num_attention_heads=2, max_position_embeddings=64)
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda", attention_probs_dropout_prob=0.1,
+                           **cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 96, (2, 48))
+                           ).to("cuda")
+    step = jit.TrainStep(model, optimizer.AdamW(
+        learning_rate=1e-3, parameters=model.parameters()))
+    n0 = fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES
+    losses = [step({"input_ids": ids, "labels": ids}).item() for _ in range(6)]
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES) == n0
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    plain = GPTForCausalLM(device="cuda", **cfg)
+    plain.load_state_dict(model.state_dict())
+    model.eval()
+    plain.eval()
+    n0 = fa.LAUNCHES
+    with torch.no_grad():
+        assert torch.equal(model(ids), plain(ids))
+    assert fa.LAUNCHES == n0 + 2 * cfg["num_hidden_layers"]
 
 
 def _tiny_pair(cfg=None):

@@ -148,18 +148,24 @@ def test_flash_attention_with_lse_grads_match_jax():
 
 
 def test_supported_backward_rule():
-    assert tfa.supported((2, 1024, 12, 64), (2, 1024, 12, 64), True, True)
-    assert tfa.supported((1, 17, 2, 128), (1, 17, 2, 128), True, True)
-    assert tfa.supported((1, 17, 2, 256), (1, 17, 2, 256), True, False)
-    assert not tfa.supported((1, 17, 2, 256), (1, 17, 2, 256), True, True)
-    assert not tfa.supported((1, 64, 4, 64), (1, 64, 2, 64), False, True)  # GQA
+    """One rule for the forward and the backward: head_dim <= 256 (the TPU
+    package's limit, with or without a gradient); 257 refused."""
+    assert tfa.MAX_HEAD_DIM == 256
+    assert tfa.supported((2, 1024, 12, 64), (2, 1024, 12, 64), True)
+    assert tfa.supported((1, 17, 2, 128), (1, 17, 2, 128), True)
+    assert tfa.supported((1, 17, 2, 256), (1, 17, 2, 256), True)
+    assert tfa.supported((1, 17, 2, 192), (1, 17, 2, 192), False)
+    assert not tfa.supported((1, 17, 2, 257), (1, 17, 2, 257), True)
+    assert not tfa.supported((1, 17, 2, 257), (1, 17, 2, 257), False)
+    assert not tfa.supported((1, 64, 4, 64), (1, 64, 2, 64), False)  # GQA
 
 
 def test_grad_calls_the_kernels_cannot_take_raise_in_forward():
     """Off the CPU (meta tensors here) a call that needs a gradient the
-    backward kernels cannot take raises NotImplementedError in the forward,
-    naming the rule; K3 (inference-only) refuses any gradient."""
-    q = torch.empty(1, 8, 2, 256, device="meta", requires_grad=True)
+    backward kernels cannot take (head_dim > 256) raises
+    NotImplementedError in the forward, naming the rule; K3
+    (inference-only) refuses any gradient."""
+    q = torch.empty(1, 8, 2, 257, device="meta", requires_grad=True)
     with pytest.raises(NotImplementedError, match="needs_grad=True"):
         tfa.flash_attention_fn(q, q, q, causal=True)
     with pytest.raises(NotImplementedError, match="needs_grad=True"):
