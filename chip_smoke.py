@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,llama
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama
+    python3 chip_smoke.py --phases build,programs
     python3 chip_smoke.py --phases build,kernels,llama
     python3 chip_smoke.py --phases build,kernels,observe
     python3 chip_smoke.py --phases build,kernels,prefix,resilience
@@ -119,9 +120,26 @@ Phases, each printing one JSON line and then its seconds:
    K3 (K4 with int8 pools) counted; ``PADDLE_HBM_BUDGET_BYTES`` at half
    the pages sheds requests without changing the admitted ids; the
    memory ledger against the pools and the CUDA allocator, a forced OOM
-   recognized and dumped; 4 host syncs per decode step with the sinks on;
+   recognized and dumped; 1 host sync per decode step with the sinks on;
    the sinks' cost in bf16 tokens/s, TTFT and ITL, in 3 rounds of turns.
-13. ``llama``  — Llama-3-8B (meta-llama/Meta-Llama-3-8B's config: vocab
+   (Since the program layer, a decode step syncs once: its tokens'
+   transfer; the eager step synced 4 times.)
+13. ``programs`` — GPT-base through the program layer: every engine
+   program (``serve_step``, ``serve_prefill/<bucket>``,
+   ``serve_prefill_chunk/<c>``, ``verify/k4``) a CUDA graph captured at
+   its first dispatch and replayed after.  A cold f32 engine on the
+   slice's 12 requests (greedy ids equal the CPU engine's) captures its
+   manifest; an engine over a fresh copy of the weights replays it with
+   ``warmup()`` and serves the requests again: the same ids, 0 new mints,
+   ``compile_s == 0``, every key a replayed graph, K1 / K3 counted per
+   layer per prefill / step; the same with int8 pools (K4), with
+   ``speculative_k=4`` (verify) and with ``prefill_chunk_tokens=128``
+   (chunks); paged ``generate()`` replaying its captured step; the perf
+   table's rows (share of peak <= 1.05); one sync per decode step; a
+   warmed bf16 engine's wall, TTFT, inter-token p50 / p99, and under the
+   port's ``Profiler`` the device trace's K1 and K3 and the card's idle
+   share, beside PERF.md's eager figures (different calls, no A/B).
+14. ``llama``  — Llama-3-8B (meta-llama/Meta-Llama-3-8B's config: vocab
    128256, 4096 wide, SwiGLU 14336, 32 heads over 8 kv heads of 128,
    rope_theta 500000; random weights from a card generator seeded with 0)
    through ``LlamaForCausalLM``: float32 at depth 2 (the depth cut, named
@@ -139,10 +157,10 @@ Phases, each printing one JSON line and then its seconds:
    step; MFU against 989 TFLOP/s), two more under the profiler; then K1
    (f32 and bf16), K2a / K2b and K3's f32-query entry over bf16 pools at
    those shapes beside their plain versions and PyTorch's calls.
-14. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+15. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
-   (plain and QAT) under ``torch.profiler``: device time by kernel and the
-   device's idle share.
+   (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
+   device trace): device time by kernel and the device's idle share.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name / power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Each phase
@@ -2612,7 +2630,9 @@ def phase_observe(cpu_ref=None):
     finally:
         tr.stop()
         flight_recorder.disable()
-    ok = ok and all(v["syncs"] == 4 and v["active"] == 2
+    # one sync per step: the packed tokens' transfer (the host rows reach
+    # the captured step through pinned staging buffers, non_blocking)
+    ok = ok and all(v["syncs"] == 1 and v["active"] == 2
                     for v in out["step_syncs"].values())
 
     # the cost, bf16, in turns, after one uncounted bf16 run (the first
@@ -2660,6 +2680,303 @@ def phase_observe(cpu_ref=None):
                          "/ hbm_budget / step_syncs results")
     return {"launches": {k: on["launches"][k] + q["launches"][k]
                          for k in KERNEL_COUNTERS}}
+
+
+# ---------------------------------------------------------------- programs
+# PERF.md section 5's profiled bf16 serving of the 12 slice requests with
+# eager steps, before the program layer (a different call, on its own
+# card): printed beside this phase's figures, no A/B claimed
+EAGER_SERVE_BF16 = {"source": "PERF.md section 5: the profile phase's "
+                              "bf16 serving run, eager steps",
+                    "wall_s": 1.3847, "device_busy_s": 0.1231,
+                    "device_idle_share": 0.911, "host_syncs_per_step": 4}
+
+
+def _program_run(model, prompts, temps, replica, manifest=None,
+                 profile=False, **engine_kw):
+    """Serve ``prompts`` (32 new tokens each) through one engine, warmed
+    from ``manifest`` first when given, the kernel counters zeroed just
+    before the requests and read just after; with ``profile`` the requests
+    run under the port's ``Profiler``.  Returns the run's record and the
+    (stopped) engine: ids, wall, counts, the programs minted during the
+    requests, each request's ``compile_s``, and per program kind the keys,
+    captures and replays of this engine."""
+    from paddle_tpu_torch.profiler import Profiler
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, num_slots=SLOTS, page_size=PAGE,
+                        max_model_len=MAXLEN, replica=replica, **engine_kw)
+    warm = eng.warmup(manifest) if manifest is not None else None
+    n0 = eng.program_traces()
+    prof = Profiler() if profile else None
+    torch.cuda.synchronize()
+    _zero_counts()
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    with eng:
+        hs = [eng.submit(p, max_new_tokens=32, temperature=t)
+              for p, t in zip(prompts, temps)]
+        outs = [h.result(timeout=900) for h in hs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = eng.stats()
+    if prof is not None:
+        prof.stop()
+    every = _read_counts()
+    counts = {k: every[k] for k in KERNEL_COUNTERS}
+    kinds = {}
+    for key, prog in eng._graphs.items():
+        k = kinds.setdefault(key[0], {"keys": 0, "captured": 0,
+                                      "replays": 0})
+        k["keys"] += 1
+        k["captured"] += prog.captured
+        k["replays"] += prog.runs - 1 if prog.captured else 0
+    run = {"outs": outs, "wall_s": wall, "stats": stats, "launches": counts,
+           "launches_all": every, "mints": eng.program_traces() - n0,
+           "compile_s": [h.compile_s for h in hs],
+           "ttft": [h.ttft for h in hs],
+           "itl": [b - a for h in hs
+                   for a, b in zip(h.token_times, h.token_times[1:])],
+           "kinds": kinds, "warmup": warm,
+           "eager_keys": [repr(k) for k, p in eng._graphs.items()
+                          if not p.captured],
+           "graph_pool_bytes": eng.graph_pool_bytes()}
+    if prof is not None:
+        run["profile"] = _device_share(prof, wall)
+    return run, eng
+
+
+def _device_share(prof, wall):
+    """Busy time of the card (the union of its kernels' and copies'
+    intervals in the Profiler's device trace) over the run's wall, and
+    the port's kernels by name."""
+    ivs = sorted((t0, t1) for _, t0, t1 in prof.device_events())
+    busy, end = 0.0, None
+    for t0, t1 in ivs:
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    names = sorted({n for n, _, _ in prof.device_events()
+                    if "flash" in n or "paged" in n})
+    busy_s = busy / 1e6
+    return {"device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
+            "port_kernels": [n[:80] for n in names],
+            "k1_in_trace": any("flash_fwd" in n for n in names),
+            "k3_in_trace": any("paged_flash_decode_kernel" in n
+                               and "signed char" not in n for n in names),
+            "k4_in_trace": any("paged_flash_decode_kernel" in n
+                               and "signed char" in n for n in names)}
+
+
+def _program_launch_check(run, prompts, chunk=None):
+    """The counts a run of these programs must show, replays included
+    (the rule of ``_counted_spec_run``): K1 once per layer per monolithic
+    prefill; the pool layout's decode kernel once per layer per decode
+    step (plain or verify) and per prefill chunk; the chunk attend once
+    per layer per verify step and per chunk; nothing else."""
+    st = run["stats"]
+    quant = st["kv_dtype"] == "int8"
+    decode = "paged_flash_decode_q" if quant else "paged_flash_decode"
+    via = "via_paged_chunk_attend_quant" if quant \
+        else "via_paged_chunk_attend"
+    n_chunked = sum(1 for p in prompts if chunk and len(p) > chunk)
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = LAYERS * (st["prefills"] - n_chunked)
+    want[via] = LAYERS * (st["verify_steps"] + st["prefill_chunks"])
+    want[decode] = LAYERS * (st["iteration"] + st["prefill_chunks"])
+    got = run["launches_all"]
+    return got == want and got[decode] > 0, got, want
+
+
+def _cold_warm(model, fresh, prompts, temps, tag, resolve=False,
+               **engine_kw):
+    """A cold engine over ``model``, then a warm one over ``fresh`` (the
+    same weights, a fresh program store) warmed from the cold engine's
+    manifest: its ids equal the cold ids, it mints nothing, its requests
+    pay no stall, every key it ran is a replayed graph.  ``resolve``: the
+    perf table's costs are resolved while the cold engine's programs
+    live (one counted eager step of each program's shapes)."""
+    from paddle_tpu_torch.observability import perf
+
+    cold, eng = _program_run(model, prompts, temps, f"prog-{tag}-cold",
+                             **engine_kw)
+    manifest = eng.capture_manifest()
+    if resolve:
+        perf.resolve_costs()
+    del eng
+    warm, eng = _program_run(fresh, prompts, temps, f"prog-{tag}-warm",
+                             manifest=manifest, **engine_kw)
+    chunk = engine_kw.get("prefill_chunk_tokens")
+    lc_cold, _, _ = _program_launch_check(cold, prompts, chunk)
+    lc_warm, got, want = _program_launch_check(warm, prompts, chunk)
+    ok = (warm["outs"] == cold["outs"] and warm["mints"] == 0
+          and lc_cold and lc_warm
+          and all(c == 0.0 for c in warm["compile_s"])
+          and not warm["eager_keys"] and not cold["eager_keys"]
+          and all(k["captured"] == k["keys"] and k["replays"] > 0
+                  for k in warm["kinds"].values()))
+    rec = {"ok": ok, "manifest_keys": len(manifest),
+           "warmup": warm["warmup"], "cold_mints": cold["mints"],
+           "warm_mints": warm["mints"],
+           "cold_compile_s_first": cold["compile_s"][0],
+           "warm_compile_s_max": max(warm["compile_s"]),
+           "ids_equal": warm["outs"] == cold["outs"],
+           "kinds_warm": warm["kinds"], "eager_keys": warm["eager_keys"],
+           "launch_check_cold": lc_cold, "launch_check_warm": lc_warm,
+           "launches_warm": got, "launches_expected_warm": want,
+           "graph_pool_bytes": warm["graph_pool_bytes"],
+           "prefills": warm["stats"]["prefills"],
+           "decode_steps": warm["stats"]["iteration"]}
+    return rec, cold, warm, eng
+
+
+def phase_programs(cpu_ref=None):
+    """GPT-base at full width through the program layer on the card: each
+    engine program (``serve_step``, ``serve_prefill/<bucket>``,
+    ``serve_prefill_chunk/<c>``, ``verify/k4``) a CUDA graph captured at
+    its first dispatch and replayed after.
+
+    - f32: a cold engine serves the slice's 12 requests (greedy ids equal
+      the CPU engine's) and captures its manifest; an engine over a fresh
+      copy of the weights replays the manifest with ``warmup()`` before
+      ``start()`` and serves them again: the same ids (sampled rows too),
+      0 new mints, ``compile_s == 0`` for every request, every key a
+      captured, replayed graph, K1 / K3 counted as the eager engines count
+      them (K1 once per layer per prefill, K3 per layer per step);
+    - the same with ``kv_dtype="int8"`` (K4), with ``speculative_k=4`` on
+      the spec phase's requests (verify: K3 through the chunk attend) and
+      with ``prefill_chunk_tokens=128`` on the chunk phase's (chunks), every
+      engine's launches counted as ``_counted_spec_run`` counts them;
+    - ``generate()`` paged: a second call with the first's key gives its
+      ids, replays its captured step 14 times (15 steps: the first eager
+      and captured) and leaves no device memory behind;
+    - the perf table's rows (costs resolved while the engines live), each
+      row's share of peak <= 1.05; host syncs of one decode step (guard
+      off and on);
+    - bf16: a warmed engine's wall, TTFT and inter-token p50 / p99 on the
+      12 requests, then one more warmed run under the port's ``Profiler``:
+      its device trace names K1 and K3, and the card's idle share.  Printed
+      beside PERF.md's eager figures: different calls, no A/B claimed."""
+    from paddle_tpu_torch.observability import perf
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts, temps = slice_requests()
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")
+    if cpu_ref is None:
+        cpu_ref = _serve(cpu_model, "cpu", prompts, temps)[0]
+    model = copy.deepcopy(cpu_model).to("cuda")
+    fresh = copy.deepcopy(cpu_model).to("cuda")
+    perf.reset()
+    out, ok = {}, True
+
+    f32, cold, warm, eng = _cold_warm(model, fresh, prompts, temps, "f32",
+                                      resolve=True)
+    mism = [i for i in greedy if cold["outs"][i] != cpu_ref[i]]
+    rows = perf.table().statusz()["programs"]
+    f32.update(greedy_mismatches_vs_cpu=mism)
+    ok = ok and f32["ok"] and not mism
+    out["f32"] = f32
+    launches = {k: cold["launches"][k] + warm["launches"][k]
+                for k in KERNEL_COUNTERS}
+    del eng
+
+    for tag, reqs, tmp, kw, kind in (
+            ("int8", prompts, temps, {"kv_dtype": "int8"}, "serve_step"),
+            ("spec", spec_requests(), [0.0] * 6,
+             {"speculative_k": SPEC_K}, "verify"),
+            ("chunk", chunk_requests(), [0.0] * 6,
+             {"prefill_chunk_tokens": CHUNK_TOKENS}, "serve_prefill_chunk")):
+        rec, cold, warm, eng = _cold_warm(model, fresh, reqs, tmp, tag, **kw)
+        rec["kind_checked"] = kind
+        ok = ok and rec["ok"] and warm["kinds"].get(kind, {}).get(
+            "replays", 0) > 0
+        out[tag] = rec
+        del eng
+
+    # generate(): each call captures its step and replays it for the rest
+    # of its tokens; the cache and the graph go with the call
+    from paddle_tpu_torch.jit import graphs
+
+    ids = _gen_ids(GEN_B, 64, 3)
+    a = model.generate(ids, max_new_tokens=16, temperature=0.0,
+                       cache_impl="paged", page_size=PAGE)
+    torch.cuda.synchronize()
+    mem0, rep0 = torch.cuda.memory_allocated(), graphs.REPLAYS
+    _zero_counts()
+    b = model.generate(ids, max_new_tokens=16, temperature=0.0,
+                       cache_impl="paged", page_size=PAGE)
+    gen_counts = _read_counts()
+    ids_equal = bool(torch.equal(a, b))
+    del b   # the ids it returned: all that may outlive the call
+    torch.cuda.synchronize()
+    replays = graphs.REPLAYS - rep0
+    held = torch.cuda.memory_allocated() - mem0
+    gen_ok = ids_equal and replays == 14 and held == 0 \
+        and gen_counts["flash_attention_fwd"] == LAYERS \
+        and gen_counts["via_paged_decode_attend"] == LAYERS * 15
+    out["generate_paged"] = {"ok": gen_ok, "ids_equal": ids_equal,
+                             "step_replays": replays,
+                             "bytes_held_after_call": held,
+                             "launches": gen_counts}
+    ok = ok and gen_ok
+
+    fracs = [r["frac_of_peak"] for r in rows if r["frac_of_peak"] is not None]
+    out["perf_programs"] = [{k: r.get(k) for k in (
+        "program", "calls", "device_seconds", "flops_per_call",
+        "bytes_per_call", "regime", "frac_of_peak", "cost")} for r in rows]
+    ok = ok and bool(fracs) and max(fracs) <= 1.05
+
+    syncs = {g: _step_syncs(model, [p[:200] for p in prompts[:2]], guard,
+                            tag="prog-syncs")
+             for g, guard in (("guard_off", False), ("guard_on", True))}
+    out["step_syncs"] = syncs
+    ok = ok and all(v["syncs"] == 1 and v["active"] == 2
+                    for v in syncs.values())
+    del model, fresh
+
+    # bf16: a cold engine (uncounted: it builds the bf16 programs), then
+    # warmed engines from its manifest — one timed, one profiled
+    torch.manual_seed(0)
+    m16 = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
+    f16 = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
+    f16.load_state_dict(m16.state_dict())
+    _, eng = _program_run(m16, prompts, temps, "prog-bf16-cold")
+    manifest = eng.capture_manifest()
+    del eng
+    timed, eng = _program_run(f16, prompts, temps, "prog-bf16-warm",
+                              manifest=manifest)
+    del eng
+    prof, eng = _program_run(f16, prompts, temps, "prog-bf16-prof",
+                             manifest=manifest, profile=True)
+    del eng
+    tokens = sum(len(o) for o in timed["outs"])
+    out["bf16_warm"] = {
+        "wall_s": timed["wall_s"], "tokens": tokens,
+        "tokens_per_s": tokens / timed["wall_s"],
+        "ttft_p50_s": _q(timed["ttft"], 50),
+        "itl_p50_s": _q(timed["itl"], 50), "itl_p99_s": _q(timed["itl"], 99),
+        "mints": timed["mints"], "kinds": timed["kinds"],
+        "profiled": {"wall_s": prof["wall_s"], **prof["profile"]},
+        "eager_reference_different_call": EAGER_SERVE_BF16}
+    pr = prof["profile"]
+    ok = ok and timed["mints"] == 0 and pr["k1_in_trace"] \
+        and pr["k3_in_trace"]
+    emit({"phase": "programs", "ok": ok,
+          "model": "GPT-base 12x768 vocab 50304", "requests": len(prompts),
+          "max_new_tokens": 32, **out, "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("programs phase failed: see the f32 / int8 / spec "
+                         "/ chunk / generate_paged / perf_programs / "
+                         "step_syncs / bf16_warm results")
+    return {"launches": launches}
 
 
 # ----------------------------------------------------------------- profile
@@ -3069,19 +3386,20 @@ PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
 
 
 def _profiled(fn):
-    """``fn()`` under ``torch.profiler``: wall, device busy time and idle
-    share, and the top kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """``fn()`` under the port's ``Profiler`` (its device trace is a
+    ``torch.profiler`` session over the CPU and the card): wall, device
+    busy time and idle share, and the top kernels by device time."""
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU])
+    with prof:
         t0 = time.perf_counter()
         extra = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
-    for e in prof.key_averages():
+    for e in prof.device_profile().key_averages():
         # device-side events only: a CPU op's row repeats the device time
         # of the kernels it launched
         if "CUDA" not in str(e.device_type):
@@ -3267,7 +3585,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
-                    "llama")
+                    "programs,llama")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3286,6 +3604,8 @@ def main():
                      ("resilience", phase_resilience),
                      ("observe", lambda: phase_observe(
                          (results.get("slice") or {}).get("cpu_ref"))),
+                     ("programs", lambda: phase_programs(
+                         (results.get("slice") or {}).get("cpu_ref"))),
                      ("llama", phase_llama), ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
@@ -3301,13 +3621,14 @@ def main():
         # speculative and chunked card runs for K1, K3 and K4, the f32
         # prefix-cache arms for K1, K3 and K4, the resilience phase's
         # restart run for K1 and K3, the observe phase's f32 and int8
-        # sinks-on runs for K1, K3 and K4, the llama phase's first timed
+        # sinks-on runs for K1, K3 and K4, the programs phase's cold and
+        # warm f32 runs for K1 and K3, the llama phase's first timed
         # bf16 paged and dense generate() for K1 and K3 and its O2 steps
         # for K1 and K2); K5a / K5b: the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
                      "generate", "spec", "prefix", "resilience", "observe",
-                     "llama"):
+                     "programs", "llama"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's

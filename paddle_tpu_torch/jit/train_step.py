@@ -26,18 +26,42 @@ Kept from the TPU package:
 - ``return_outputs``, ``sync()``, ``found_inf``, ``loss_scale``,
   ``state_dict`` / ``set_state_dict`` and :func:`train_step`.
 
-The loss comes back as a 0-d device tensor, with no host sync.  The TPU
-package's metrics registry, tracing, perf-table and numerics-probe hooks
-are not ported yet; neither is a CUDA-graph step (``donate`` is accepted
-and has no effect: updates are in place already).
+The loss comes back as a 0-d device tensor, with no host sync.
+
+Programs, as the reference counts them: each input signature (the batch's
+structure, shapes and dtypes, and the model's training flag) is a
+variant with its own roofline family ``train_step/t<n>.v<i>`` (``t<n>``
+per TrainStep instance; the family leaves the process table when the
+TrainStep is collected).  A variant's first call lands a ledger row
+(``record_compile``, kind ``train_step``: the call's wall) and a lazy cost
+thunk (one forward + backward of the signature's shapes, counted; the
+update's elementwise passes are not); every later call records the
+interval since the previous call under the previous call's family, and,
+once the cost is resolved, the ``train_step.achieved_tflops`` and
+``train_step.mfu`` gauges (against :func:`~..observability.perf
+.peak_flops`).  The step itself runs eagerly: a TrainStep CUDA graph is
+not ported yet, and neither are the reference's other ``train_step.*``
+metrics, its spans and its numerics probes (``donate`` is accepted and
+has no effect: updates are in place already).
 """
 
 from __future__ import annotations
+
+import itertools
+import threading
+import weakref
+from time import perf_counter
 
 import numpy as np
 import torch
 
 from .. import amp as _amp
+from ..observability import perf as _perf
+from ..observability import programs as _programs
+from ..observability import tracing as _tracing
+from ..profiler import metrics as _metrics
+
+_PERF_INSTANCE_IDS = itertools.count()
 
 
 def _master_or_self(p):
@@ -96,10 +120,106 @@ class TrainStep:
         else:
             self._scaler_state = None
         self._step_count = 0
+        # held by a step and by the cost count: a count resolved on another
+        # thread never overlaps a step (an O2 forward rebinds the model's
+        # parameters for its call)
+        self._lock = threading.Lock()
+        # roofline attribution: one family per input signature, scoped to
+        # this instance (dropped from the process table when it dies)
+        self._perf_tag = f"train_step/t{next(_PERF_INSTANCE_IDS)}"
+        weakref.finalize(self, _perf.table().drop_prefix, self._perf_tag)
+        self._variants = {}            # signature -> perf family
+        self._perf_prev_family = None  # the family the last call ran
+        self._last_call_t = None
+        reg = _metrics.get_registry()
+        self._m_tflops = reg.gauge(
+            "train_step.achieved_tflops", "flops_per_step / step wall time")
+        self._m_mfu = reg.gauge(
+            "train_step.mfu", "achieved FLOP/s over device peak "
+            "(PADDLE_PEAK_FLOPS or the chip's bf16 datasheet number)")
 
     # ------------------------------------------------------------------ call
     def __call__(self, *batch):
         batch = _tree_map(self._to_device, batch)
+        sig = (_signature(batch), bool(self.model.training))
+        family = self._variants.get(sig)
+        new_variant = family is None
+        t_call = perf_counter()
+        if new_variant:
+            family = self._variants[sig] = \
+                f"{self._perf_tag}.v{len(self._variants)}"
+        elif self._last_call_t is not None:
+            # the interval since the last call, under the family that RAN
+            # in it (alternating variants must not swap their seconds)
+            dt = t_call - self._last_call_t
+            _perf.record(self._perf_prev_family, dt)
+            flops = _perf.table().flops_per_call(self._perf_prev_family)
+            if flops:
+                self._m_tflops.set(flops / max(dt, 1e-12) / 1e12)
+                peak = _perf.peak_flops()
+                if peak:
+                    self._m_mfu.set(flops / max(dt, 1e-12) / peak)
+        self._last_call_t = t_call
+        self._perf_prev_family = family
+        with self._lock:
+            out = self._step(batch)
+        if new_variant:
+            # a variant's first call is its mint: a ledger row with the
+            # call's wall, and a lazy cost for the roofline table
+            _programs.ledger().record_compile(
+                family, perf_counter() - t_call, family=family,
+                kind="train_step", replica="-",
+                trace_id=_tracing.current_trace_id())
+            if _perf.needs_cost(family):
+                _perf.register_cost_thunk(family,
+                                          self._cost_thunk(batch))
+            # the next interval would include this first call
+            self._last_call_t = None
+        return out
+
+    def _cost_thunk(self, batch):
+        """Lazy ``(flops, bytes)`` of one forward + backward at ``batch``'s
+        shapes (zeros), holding only the shapes and a weakref.  The count
+        changes nothing the training sees: it holds the step's lock, the
+        gradients are put back as they were (``None`` between steps), the
+        parameters
+        and buffers are read and never written (a quantizer's scale keeps
+        its value), and no random number is drawn
+        (:func:`~..observability.perf.count_cost`)."""
+        shapes = _tree_map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta")
+            if isinstance(x, torch.Tensor) else x, batch)
+        ref = weakref.ref(self)
+
+        def thunk():
+            ts = ref()
+            if ts is None:
+                raise RuntimeError("TrainStep was garbage-collected before "
+                                   "its cost resolved")
+            fake = _tree_map(
+                lambda x: torch.zeros(x.shape, dtype=x.dtype,
+                                      device=ts._device)
+                if isinstance(x, torch.Tensor) else x, shapes)
+
+            def run():
+                loss, _ = ts._forward(fake)
+                loss.backward()
+
+            state = [*ts.model.parameters(), *ts.model.buffers()]
+            state += [p._master for p in state
+                      if getattr(p, "_master", None) is not None]
+            with ts._lock:
+                grads = [p.grad for p in ts._params]
+                try:
+                    return _perf.count_cost(run, inference=False,
+                                            protect=state)
+                finally:
+                    for p, g in zip(ts._params, grads):
+                        p.grad = g
+
+        return thunk
+
+    def _step(self, batch):
         acc = self.accumulate_steps
         scale = self._scaler_state[0] if self._scaler is not None else None
         for p in self._params:
@@ -276,6 +396,17 @@ class TrainStep:
         if "scaler_state" in sd and self._scaler is not None:
             self._scaler_state = tuple(torch.as_tensor(v, device=self._device).clone()
                                        for v in sd["scaler_state"])
+
+
+def _signature(batch):
+    """The structure, shapes and dtypes of a batch (a variant's key)."""
+    if isinstance(batch, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(batch.items()))
+    if isinstance(batch, (list, tuple)):
+        return (type(batch).__name__, tuple(_signature(v) for v in batch))
+    if isinstance(batch, torch.Tensor):
+        return (tuple(batch.shape), str(batch.dtype))
+    return repr(batch)
 
 
 def train_step(model, optimizer, loss_fn=None, **kwargs):

@@ -20,10 +20,12 @@ the metrics registry of :mod:`paddle_tpu_torch.profiler` (counterpart of
 - :mod:`.numerics` — tensor stats, the numerics stream and its anomaly
   engine, the numeric guard's hooks.
 - :mod:`.slo` — :class:`~.slo.SLOPolicy` and :class:`~.slo.SLOAccountant`.
+- :mod:`.programs` — the program ledger (:class:`ProgramLedger`: every
+  mint of a serving, generate or TrainStep program, its first-dispatch
+  stall and who paid it) and :class:`WarmupManifest`.
+- :mod:`.perf` — the per-program roofline table (:class:`ProgramTable`).
 
-The reference's program ledger (``programs.py``) and XLA cost tables
-(``perf.py``) describe compiled XLA programs; they wait for the port's
-CUDA-graph steps.  The ``CollectiveWatchdog`` waits for its collectives.
+The ``CollectiveWatchdog`` waits for the port's collectives.
 
 Env flags (README, the port's "Observability" part):
 ``PADDLE_FLIGHT_DIR``, ``PADDLE_TELEMETRY_PORT``,
@@ -33,18 +35,20 @@ Env flags (README, the port's "Observability" part):
 from __future__ import annotations
 
 from . import (  # noqa: F401
-    faults, flight_recorder, memory, numerics, slo, telemetry, tracing,
-    watchdog,
+    faults, flight_recorder, memory, numerics, perf, programs, slo,
+    telemetry, tracing, watchdog,
 )
 from .faults import FaultPlan  # noqa: F401
 from .flight_recorder import (  # noqa: F401
     FlightRecorder, get_flight_recorder, install_crash_handlers,
 )
 from .memory import MemoryLedger, MemoryWatchdog  # noqa: F401
+from .perf import ProgramTable  # noqa: F401
 from .numerics import (  # noqa: F401
     NumericsMonitor, TensorCheckerConfig, check_numerics,
     disable_tensor_checker, enable_tensor_checker,
 )
+from .programs import ProgramLedger, WarmupManifest  # noqa: F401
 from .slo import RequestTimeline, SLOAccountant, SLOPolicy  # noqa: F401
 from .telemetry import (  # noqa: F401
     TelemetryServer, add_health_provider, add_status_provider, serve,
@@ -59,7 +63,8 @@ from .watchdog import (  # noqa: F401
 
 __all__ = [
     "tracing", "flight_recorder", "watchdog", "telemetry", "faults",
-    "slo", "memory", "numerics", "NumericsMonitor", "TensorCheckerConfig",
+    "slo", "memory", "numerics", "perf", "programs", "ProgramLedger",
+    "WarmupManifest", "ProgramTable", "NumericsMonitor", "TensorCheckerConfig",
     "enable_tensor_checker", "disable_tensor_checker", "check_numerics",
     "SLOPolicy", "SLOAccountant", "RequestTimeline", "MemoryLedger",
     "MemoryWatchdog", "Span", "Tracer", "span", "event", "new_trace_id",

@@ -100,15 +100,22 @@ def is_oom_error(exc) -> bool:
 
 def oom_dump(exc, replica=None):
     """OOM forensics: one flight-recorder dump carrying the full owner
-    table — the answer to 'who had the bytes when the allocator gave up'.
-    Never raises.  (The reference also attaches its compiled programs'
-    memory rows; the port compiles no programs, so there are none.)"""
+    table and every known per-program memory row (the graph pool's bytes
+    of each captured program family) — the answer to 'who had the bytes
+    when the allocator gave up'.  Never raises, never runs a program
+    (pending perf costs stay pending)."""
     from . import flight_recorder as _flight
+    from . import perf as _perf
 
     try:
         extra = {"error": f"{type(exc).__name__}: {exc}"[:4000],
                  "replica": replica,
-                 "memory": ledger().statusz()}
+                 "memory": ledger().statusz(),
+                 "programs": [
+                     {k: r.get(k) for k in
+                      ("program", "calls", "argument_bytes", "output_bytes",
+                       "temp_bytes", "peak_bytes")}
+                     for r in _perf.snapshot(resolve=False)]}
     except Exception:
         extra = {"error": repr(exc)[:4000], "replica": replica}
     return _flight.get_flight_recorder().dump("oom", extra=extra)
@@ -246,6 +253,13 @@ class MemoryLedger:
             out.append(row)
         out.sort(key=lambda r: -r["bytes"])
         return out
+
+    def kv_pool_bytes(self):
+        """Total bytes under the KV owners (payload + scale pools) — the
+        denominator perf's chunk-the-prefill hint compares peak temp
+        bytes against."""
+        return sum(b for reg, b, _ in self._rows()
+                   if reg.owner in ("kv.pages", "kv.scales"))
 
     def owner_totals(self):
         """{owner: bytes} summed across replicas/devices (the watchdog's

@@ -9,8 +9,12 @@
 - ``/statusz`` — the human page: engine occupancy / queue depth / slot
   table / page-pool utilization (via registered status providers, one
   ``serving/<replica>`` section per engine), in-flight spans, the flight
-  recorder, armed faults, and the ``memory`` (ledger) and ``numerics``
-  sections once those modules are in use.
+  recorder, armed faults, and the ``memory`` (ledger), ``numerics``,
+  ``perf_programs`` (the per-program roofline table) and ``programs``
+  (the program ledger: per-key compile seconds, cold / warm provenance,
+  the trace id that paid each stall, and whether a compile window is open
+  right now — a capture in progress against a wedged scheduler) sections
+  once those modules are in use.
 
 Opt-in spellings: ``observability.serve(port)`` from code, or
 ``ServingEngine(telemetry_port=...)`` / ``PADDLE_TELEMETRY_PORT`` and let

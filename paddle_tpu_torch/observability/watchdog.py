@@ -12,8 +12,10 @@ loud log, a flight-recorder dump (``reason="serving_watchdog"``, the
 engine's stats attached), an ``observability.watchdog_fires{kind=
 "serving"}`` counter bump, a record appended to
 :attr:`ServingWatchdog.fired` and every fire listener called.  It stays
-quiet while the engine's first dispatch builds a kernel
-(``engine._compiling``): slow, not stuck.
+quiet while the program ledger holds a compile window open for the
+engine (:meth:`~.programs.ProgramLedger.compiling`: a first dispatch
+building its kernels, running and capturing its program): slow, not
+stuck.
 
 The engine starts one when it is given ``watchdog_s``.
 """
@@ -26,6 +28,7 @@ from time import monotonic
 
 from ..profiler import metrics as _metrics
 from . import flight_recorder as _flight
+from . import programs as _programs
 
 logger = logging.getLogger("paddle_tpu_torch.observability")
 
@@ -110,9 +113,13 @@ class ServingWatchdog:
             stamp = getattr(e, "_progress_t", None)
             if stamp is None or not getattr(e, "_started", False):
                 continue
-            if getattr(e, "_compiling", False):
-                # a dispatch is building a kernel (nvcc on first use):
-                # slow, not stuck
+            if _programs.ledger().compiling(e):
+                # the program ledger holds an OPEN compile window for this
+                # engine: a first dispatch building its kernels (nvcc),
+                # running and capturing its program — slow, not stuck.
+                # The ledger (not an engine flag someone forgot to clear)
+                # is the authority, and its compile_in_progress gauge keeps
+                # the stall visible on /statusz while we stay quiet.
                 continue
             age = monotonic() - stamp
             if age <= self.deadline_s or not self._busy():

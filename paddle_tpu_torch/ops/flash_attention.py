@@ -252,11 +252,30 @@ def _fwd_kernel(q, k, v, scale, causal, return_lse):
             _build.dtype_code(q), b, h, sq, k.shape[1], d, _strides(q, k, v),
             scale, int(bool(causal)), _build.stream_handle(q))
     _build.check(err, "flash_attention_fwd")
+    _report_cost(q, k, causal, return_lse)
     global LAUNCHES
     LAUNCHES += 1
     FWD_BODY_LAUNCHES[_FWD_BODIES[lib.ptt_flash_attention_fwd_body(
         _build.dtype_code(q), d)]] += 1
     return o, lse
+
+
+def _report_cost(q, k, causal, return_lse):
+    """K1's analytic cost for the perf table's counted step (a ctypes
+    launch is invisible to the flop counter): 4 * D operations per visible
+    (query, key) pair per head; q, k, v read and o (and lse) written
+    once."""
+    from ..observability import perf as _perf
+
+    if not _perf.counting_kernels():
+        return
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = sq * (sk - sq) + sq * (sq + 1) // 2 if causal else sq * sk
+    elt = q.element_size()
+    nbytes = elt * b * h * d * (2 * sq + 2 * sk) \
+        + (4 * b * h * sq if return_lse else 0)
+    _perf.kernel_cost(4 * d * pairs * b * h, nbytes)
 
 
 def _bwd_kernels(q, k, v, g, lse, r, scale, causal):

@@ -219,7 +219,33 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
                  q.stride(0), q.stride(1), scale, int(bounded),
                  _build.stream_handle(q))
     _build.check(err, name)
+    _report_cost(q, k_pages, k_scales, page_table, seq_lens)
     return o
+
+
+def _report_cost(q, k_pages, k_scales, page_table, seq_lens):
+    """K3 / K4's analytic cost for the perf table's counted step (a
+    ctypes launch is invisible to the flop counter): 4 * D operations per
+    visible key per query head; q read and o written once, each page a
+    row's sweep reaches read once (int8 pages with their scales).  Reads
+    the lengths from the card: only ever off the dispatch path."""
+    from ..observability import perf as _perf
+
+    if not _perf.counting_kernels():
+        return
+    B, H, D = q.shape
+    P, ps, HKV, _ = k_pages.shape
+    NP = page_table.shape[1]
+    lens = torch.clamp(seq_lens.long(), 0, NP * ps).cpu()
+    table = page_table.cpu()
+    pages = set()
+    for b in range(B):
+        pages.update(table[b, :-(-int(lens[b]) // ps)].tolist())
+    per_page = 2 * ps * HKV * D * k_pages.element_size() \
+        + (2 * ps * HKV * 4 if k_scales is not None else 0)
+    _perf.kernel_cost(4 * D * H * int(lens.sum()),
+                      2 * B * H * D * q.element_size()
+                      + len(pages) * per_page)
 
 
 def _check_cuda_args(q, k_pages, v_pages, k_scales, v_scales, page_table,
@@ -430,7 +456,8 @@ def paged_chunk_attend(q, k_pages, v_pages, table, lens):
 # The pools of ``generate(cache_impl="paged")``: one pool per layer laid
 # out per sequence, ``[B, PP, ps, h, d]`` (page i of sequence b is row
 # ``b * PP + i`` of the flattened pool), and ONE position ``pos`` (a Python
-# int) shared by the whole batch.  Written in place.
+# int, or a 0-d device tensor in a captured step) shared by the whole
+# batch.  Written in place.
 
 
 def paged_prefill_write(pages, kv):
@@ -449,10 +476,17 @@ def paged_prefill_write(pages, kv):
 
 
 def paged_token_write(pages, tok, pos):
-    """Write one token per sequence at position ``pos``, in place: pages
-    ``[B, PP, ps, h, d]``; tok ``[B, h, d]``.  A page index past the pool
-    clamps to its last page, as JAX's ``dynamic_update_slice`` does."""
+    """Write one token per sequence at position ``pos`` (a Python int, or
+    a 0-d integer tensor on the pages' device: a captured decode step's),
+    in place: pages ``[B, PP, ps, h, d]``; tok ``[B, h, d]``.  A page
+    index past the pool clamps to its last page, as JAX's
+    ``dynamic_update_slice`` does."""
     ps, PP = pages.shape[2], pages.shape[1]
+    if isinstance(pos, torch.Tensor):
+        p = pos.reshape(1).long()
+        pages[:, torch.clamp(p // ps, max=PP - 1), p % ps] = \
+            tok[:, None].to(pages.dtype)
+        return pages
     pages[:, min(pos // ps, PP - 1), pos % ps] = tok.to(pages.dtype)
     return pages
 
@@ -460,7 +494,8 @@ def paged_token_write(pages, tok, pos):
 def paged_decode_attend(q, k_pages, v_pages, pos, scale=None):
     """One decode step of attention over per-sequence pools: q ``[B, hq,
     d]``; pools ``[B, PP, ps, hkv, d]`` in q's dtype, or bf16 / f16 under
-    an f32 q; tokens ``0 .. pos`` are valid.
+    an f32 q; tokens ``0 .. pos`` are valid (``pos`` a Python int or a 0-d
+    integer tensor on q's device).
 
     A CPU tensor attends the reshaped pools directly (the identity table
     below makes the plain version's gathers pure copies).  A CUDA tensor
@@ -468,16 +503,18 @@ def paged_decode_attend(q, k_pages, v_pages, pos, scale=None):
     the token write and the attend see one storage) through the identity
     table ``b * PP + i``, as the TPU branch does."""
     B, PP, ps, hkv, d = k_pages.shape
+    if isinstance(pos, torch.Tensor):
+        lens = (pos.reshape(1) + 1).to(torch.int32).expand(B).contiguous()
+    else:
+        lens = torch.full((B,), pos + 1, dtype=torch.int32, device=q.device)
     if q.device.type == "cpu":
         sc = scale if scale is not None else 1.0 / math.sqrt(d)
-        lens = torch.full((B,), pos + 1, dtype=torch.int32)
         return _gathered_attend(q, k_pages.reshape(B, PP * ps, hkv, d),
                                 v_pages.reshape(B, PP * ps, hkv, d), lens, sc)
     global DECODE_ATTEND_LAUNCHES
     dev = q.device
     table = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * PP
              + torch.arange(PP, dtype=torch.int32, device=dev)[None, :])
-    lens = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
     out = paged_attention(q, k_pages.view(B * PP, ps, hkv, d),
                           v_pages.view(B * PP, ps, hkv, d), table, lens,
                           scale)

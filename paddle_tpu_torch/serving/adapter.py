@@ -40,6 +40,9 @@ class GPTAdapter:
     #: GPTDecoderLayer cache-variant tags this adapter drives
     tag = "served"
     chunk_tag = "served_chunk"
+    #: pool tensors per layer stack, and what they hold
+    n_pools = 2
+    kv_dtype = "native"
 
     def __init__(self, model, page_size=16):
         self.model = model
@@ -57,6 +60,21 @@ class GPTAdapter:
         self.device = wte.device
         self.max_model_len = self.gpt.position_embeddings.weight.shape[0]
         self.page_size = int(page_size)
+
+    def signature(self):
+        """The static geometry a program is specialized on, as a JSON-plain
+        dict — the reference's fields and spellings (dtype ``"bfloat16"``,
+        not ``"torch.bfloat16"``), so a warmup manifest stamped by either
+        package's engine is accepted, or refused, by the other's."""
+        return {"adapter": type(self).__name__,
+                "kv_dtype": self.kv_dtype,
+                "n_pools": int(self.n_pools),
+                "num_layers": int(self.num_layers),
+                "num_kv_heads": int(self.num_kv_heads),
+                "head_dim": int(self.head_dim),
+                "page_size": int(self.page_size),
+                "max_model_len": int(self.max_model_len),
+                "dtype": str(self.dtype).removeprefix("torch.")}
 
     # ----------------------------------------------------------- pool hooks
     def init_pools(self, num_pages):

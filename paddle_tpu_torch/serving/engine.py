@@ -96,10 +96,30 @@ labelled ``replica=<id>`` — the ``serving.ttft_seconds``,
 an ``SLOPolicy``'s targets), the occupancy / pool / health gauges, and the
 request, token, shed, restart, requeue, preemption, numeric-fault and
 speculative counters; :meth:`ServingEngine.stats` reports the same counts.
-The ``serving.*_traces`` counters are registered, as in the reference,
-and stay 0: the port compiles no program.  A request is *cold* (its TTFT
-also lands in ``serving.ttft_cold_seconds``) when its wait spanned a
-first-use ``nvcc`` build of a kernel, the port's only compile stall.
+Programs, as the reference keys them: each dispatch runs the program of
+its static key — ``serve_step``, ``serve_prefill/<bucket>``,
+``serve_prefill_chunk/<c>`` (chunks and radix cached tails) and
+``verify/k<k>`` — minted once per key in the model's program store
+(:func:`~..text.models._decode.program_store`) and counted by
+``serving.step_traces`` / ``prefill_traces`` / ``prefill_chunk_traces``
+/ ``verify_traces``, with a row in the program ledger
+(:mod:`..observability.programs`) and per-family device time in the
+roofline table (:mod:`..observability.perf`).  On the card a program is a
+CUDA graph (:class:`~..jit.graphs.Program`) over static input buffers
+(filled from pinned host rows, ``non_blocking``), the pools and this
+engine's generator, the sampler and the numeric guard's inject vector
+inside it; all of an engine's graphs share one memory pool, which the
+memory ledger counts (``programs.graph_pool``).  Its first dispatch by
+this engine builds the kernels, runs the step eagerly and captures it;
+later dispatches replay it, and the one host sync of a dispatch is its
+outputs' transfer.  A second engine over the same model finds the key
+minted (no count) and captures its own graph over its own pools, billed
+to the waiting request's ``compile_s``.  On the CPU a program is the eager
+step bound to its key.  :meth:`ServingEngine.warmup` replays a
+:class:`~..observability.programs.WarmupManifest` with inert dispatches
+before :meth:`~ServingEngine.start`, so the first request mints and
+captures nothing.  A request is *cold* (its TTFT also lands in
+``serving.ttft_cold_seconds``) when it waited out a first dispatch.
 Spans (:mod:`..observability.tracing`): ``serving.submit``,
 ``serving.prefill`` / ``serving.prefill_cached`` /
 ``serving.prefill_chunk`` on the request's trace, one
@@ -118,8 +138,8 @@ their logits' stats row to the numerics stream (resolved off the step).
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
+import functools
 import itertools
 import logging
 import os
@@ -133,11 +153,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..jit.graphs import Program, rng_position, set_rng_position
 from ..observability import faults as _faults
 from ..observability import memory as _obs_memory
 from ..observability import numerics as _numerics
+from ..observability import perf as _perf
+from ..observability import programs as _programs
 from ..observability import tracing as _tracing
-from ..ops import _build
 from ..profiler import metrics as _metrics
 from ..resilience.retry import (EngineStoppedError, NumericFault,
                                 classify_failure)
@@ -212,9 +234,12 @@ class RequestHandle:
         # distributed-tracing identity: every span this request touches
         # (submit -> prefill -> each decode iteration) carries or links it
         self.trace_id = _tracing.new_trace_id()
-        self.compile_s = 0.0           # kernel-build stalls it waited out
+        # first-dispatch stalls it waited out (build, run and capture of a
+        # program before its first token)
+        self.compile_s = 0.0
         self._hbm_pages = 0            # pre-flight page reservation
         self.submitted_at = time.time()
+        self.admitted_at = None        # queue -> slot (first dispatch start)
         self.first_token_at = None
         self.finished_at = None
         self._events = _queue.Queue()
@@ -238,6 +263,34 @@ class RequestHandle:
         if self.first_token_at is None:
             return None
         return self.first_token_at - self.submitted_at
+
+    # ------------------------------------------------ TTFT decomposition
+    @property
+    def queue_s(self):
+        """Submit -> admission wait (None until admitted)."""
+        if self.admitted_at is None:
+            return None
+        return self.admitted_at - self.submitted_at
+
+    @property
+    def prefill_s(self):
+        """TTFT minus queueing minus first-dispatch stalls: the dispatch
+        work itself, defined as the remainder so the decomposition sums
+        exactly (``queue_s + compile_s + prefill_s == ttft``)."""
+        t = self.ttft
+        if t is None or self.queue_s is None:
+            return None
+        return max(0.0, t - self.queue_s - self.compile_s)
+
+    def ttft_breakdown(self):
+        """Cold-start forensics: where this request's first token went.
+        ``None`` until the first token lands."""
+        t = self.ttft
+        if t is None:
+            return None
+        return {"ttft_s": t, "queue_s": self.queue_s,
+                "compile_s": self.compile_s, "prefill_s": self.prefill_s,
+                "cold": self.compile_s > 0.0, "trace_id": self.trace_id}
 
     def _raise_error(self):
         # stopped mid-flight / this row's logits went non-finite: verdicts
@@ -384,12 +437,6 @@ class ServingEngine:
             self._adapter = QuantizedGPTAdapter(model, page_size)
         else:
             self._adapter = GPTAdapter(model, page_size)
-        # the kernels a dispatch of this engine may build on first use
-        # (the card only): K1 for prefills, the pool layout's paged decode
-        self._kernels = ("flash_attention_fwd",
-                         "paged_flash_decode_q" if kv_dtype == "int8"
-                         else "paged_flash_decode") \
-            if self.device.type == "cuda" else ()
         self.page_size = int(page_size)
         self.num_slots = int(num_slots)
         cap = self._adapter.max_model_len
@@ -433,6 +480,18 @@ class ServingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self._rid_counter = itertools.count()
+        # program keys and families, spelled as the reference spells them:
+        # the sampler's static axes; "@int8" with int8 pools; "@flash" on
+        # the card, where K3 / K4 bound each row's page sweep by its length
+        self._top = (int(top_k), float(top_p))
+        self._fam_suffix = "@int8" if kv_dtype == "int8" else ""
+        self._flash_tag = "@flash" if self.device.type == "cuda" else ""
+        # this engine's programs by key (on the card: its CUDA graphs, over
+        # its pools), sharing one graph memory pool
+        self._graphs = {}
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        self._warmed = None
 
         # QoS tiers: a per-tier queue with weighted head selection, a
         # per-tier SLO accountant where the tier has a policy, brownout
@@ -506,7 +565,7 @@ class ServingEngine:
         # heartbeat (stamped each loop iteration and after each dispatch)
         # for the watchdog, the health state and deadline shedding
         self._progress_t = None
-        self._compiling = False   # a dispatch may be building a kernel
+        self._compiling = False   # a compile window is open (the ledger's)
         self._watchdog_s = watchdog_s
         self._watchdog = None
         self._telemetry_port = telemetry_port
@@ -515,7 +574,6 @@ class ServingEngine:
         self._owns_server = False
         self._gauges_t = 0.0      # last _update_gauges stamp (throttled)
         self._npoll_t = 0.0       # last numerics-stream resolve
-        self._guard_step = 0      # numerics-stream step of the dispatch
         self._drift_t = 0.0       # last quant-drift sample
         self._drift_idx = 0
         # restart on transient failures: the budget heals after a cooldown
@@ -538,7 +596,7 @@ class ServingEngine:
         # with the process ledger, and admission pre-flight projects new
         # requests against PADDLE_HBM_BUDGET_BYTES — fixed bytes (weights)
         # plus pages committed to admitted-but-unfinished requests
-        self._fixed_bytes = self._weight_bytes()
+        self._weights_bytes = self._weight_bytes()
         self._committed_pages = 0
         self._commit_lock = threading.Lock()
         self._register_memory()
@@ -600,8 +658,8 @@ class ServingEngine:
             "serving.tier.queue_depth", "queued requests per QoS tier")
         self._m_tier_active = _g(
             "serving.tier.active_slots", "decoding slots held per QoS tier")
-        # the reference counts JAX program traces here; registered as it
-        # registers them, they stay 0 until the port compiles steps
+        # program mints per kind (a key's first dispatch for the model's
+        # program store; a second engine's capture is not a mint)
         self._m_step_traces = _c(
             "serving.step_traces", "decode-step program traces")
         self._m_prefill_traces = _c(
@@ -682,6 +740,18 @@ class ServingEngine:
         return sum(t.numel() * t.element_size()
                    for t in (*params.values(), *bufs.values()))
 
+    def graph_pool_bytes(self):
+        """Device bytes the captures of this engine's programs reserved in
+        their shared memory pool (0 on the CPU, and before a capture)."""
+        return sum(p.pool_bytes or 0 for p in self._graphs.values())
+
+    @property
+    def _fixed_bytes(self):
+        """What the HBM pre-flight holds fixed: the weights and the graph
+        pool (its largest capture — the widest prefill bucket's
+        activations — sets its size)."""
+        return self._weights_bytes + self.graph_pool_bytes()
+
     def _register_memory(self):
         """Register this engine's device allocations with the process
         MemoryLedger.  Sources close over a weakref — the ledger never
@@ -728,6 +798,16 @@ class ServingEngine:
         # (float params, buffers, Int8Linear biases) is model.params.
         # Int8Linear keeps its payload in a buffer named weight_int8.
         is_q = lambda k: k.endswith("weight_int8")  # noqa: E731
+        def _graph_pool_src():
+            eng = ref()
+            return None if eng is None else eng.graph_pool_bytes()
+
+        # the captures' memory pool: reserved by the allocator, not held
+        # by live tensors, so a byte count outside the reconciliation with
+        # the allocator's live bytes
+        led.register("programs.graph_pool", _graph_pool_src,
+                     replica=self.replica, device=str(self.device),
+                     meta={"kind": "graph_pool"})
         led.register("model.params", _named_src("params", lambda k: True),
                      replica=self.replica, meta={"kind": "weights"})
         led.register("model.params",
@@ -797,6 +877,157 @@ class ServingEngine:
         self._thread.start()
         self._start_observability()
         return self
+
+    # ------------------------------------------------------------- warmup
+    def warmup(self, manifest):
+        """Replay a :class:`~..observability.programs.WarmupManifest` ahead
+        of admission: every engine-owned key in it gets its first dispatch
+        now, as an INERT one (all lanes inactive — scratch table rows,
+        zero lengths — so it computes junk lanes nobody reads and writes
+        only the scratch page), with the engine's generator restored after
+        it.  On the card that first dispatch builds the kernels and
+        captures the key's graph over this engine's pools, so the first
+        real request mints and captures nothing.
+
+        Accepts a manifest object, a saved path, or its JSON dict.  Keys
+        whose static axes (slot count, table width, pool shape / dtype,
+        sampler, guard) do not match THIS engine are skipped.  Must run
+        before :meth:`start`: the inert dispatches write the live pools,
+        which must not race the scheduler thread."""
+        if self._started:
+            raise RuntimeError(
+                "warmup() must run before start(): replay dispatches "
+                "write the live page pools")
+        if isinstance(manifest, (str, os.PathLike)):
+            manifest = _programs.WarmupManifest.load(manifest)
+        elif isinstance(manifest, dict):
+            manifest = _programs.WarmupManifest.from_json(manifest)
+        want = manifest.meta.get("adapter")
+        have = self._adapter_signature()
+        if want is not None and want != have:
+            raise ValueError(
+                f"manifest captured for adapter {want}, this engine is "
+                f"{have} — replaying would mint useless programs")
+        # replay runs in eval mode, exactly like the scheduler
+        modes = [(m, m.training) for m in self._model.modules()]
+        self._model.eval()
+        t0 = time.perf_counter()
+        warmed, skipped = 0, []
+        try:
+            for key in manifest:
+                try:
+                    ok = self._warm_one(key)
+                except Exception as exc:
+                    _logger.warning("warmup: replay of %r failed: %r",
+                                    key, exc)
+                    ok = False
+                if ok:
+                    warmed += 1
+                    ent = _programs.ledger().entry(key, store=self._store())
+                    if ent is not None and ent.trace_id is None:
+                        ent.trace_id = "warmup"  # provenance: nobody paid
+                else:
+                    skipped.append(key)
+        finally:
+            for m, tr in modes:
+                m.training = tr
+        info = {"warmed": warmed, "skipped": len(skipped),
+                "seconds": round(time.perf_counter() - t0, 3)}
+        self._warmed = info
+        _logger.info("warmup: %(warmed)d programs in %(seconds).2fs "
+                     "(%(skipped)d keys skipped)", info)
+        return info
+
+    def capture_manifest(self):
+        """Snapshot this model's program-store key set, stamped with the
+        adapter signature so :meth:`warmup` refuses a mismatched model
+        geometry."""
+        return _programs.WarmupManifest.capture(
+            self._model, meta={"adapter": self._adapter_signature()})
+
+    def _adapter_signature(self):
+        sig = getattr(self._adapter, "signature", None)
+        return sig() if callable(sig) else None
+
+    def _warm_one(self, key):
+        """Give one manifest key its first dispatch if it belongs to this
+        engine's static configuration.  Returns True when the key is now
+        warm."""
+        kind = key[0] if isinstance(key, tuple) and key else None
+        if kind == "serve_step" and key == self._step_store_key():
+            warm = self._warm_step
+        elif kind == "serve_prefill" and len(key) > 1 \
+                and key == self._prefill_store_key(key[1]):
+            warm = functools.partial(self._warm_prefill, key[1])
+        elif kind == "serve_prefill_chunk" and len(key) > 1 \
+                and key == self._prefill_chunk_store_key(key[1]):
+            warm = functools.partial(self._warm_prefill_chunk, key[1])
+        elif kind == "verify" and self._spec_k and len(key) > 1 \
+                and key == self._verify_store_key(self._spec_k):
+            warm = self._warm_verify
+        else:
+            return False
+        # an inert dispatch draws nothing the requests will see: the
+        # generator goes back where it was
+        pos = rng_position(self._gen)
+        try:
+            with torch.inference_mode():
+                warm()
+        finally:
+            set_rng_position(self._gen, pos)
+        return True
+
+    def _warm_step(self):
+        B = self.num_slots
+        self._dispatch(
+            self._step_store_key(), self._decode_family(),
+            self._decode_family(), self._m_step_traces, (), self._step_fn,
+            (self._h_last, self._h_table, self._h_lens, self._h_temps),
+            self._numeric_inject(B) if self._numeric_guard else None)
+
+    def _warm_prefill(self, s_pad):
+        table = np.full((1, self.table_width), self._scratch, np.int32)
+        fam = self._prefill_family(s_pad)
+        # junk K/V of the s_pad pad tokens lands in the scratch page
+        self._dispatch(
+            self._prefill_store_key(s_pad), fam, fam, self._m_prefill_traces,
+            (), self._prefill_fn,
+            (np.zeros((1, s_pad), np.int64), table,
+             np.asarray([s_pad], np.int32), np.zeros((1,), np.float32)),
+            self._numeric_inject(1) if self._numeric_guard else None)
+
+    def _warm_prefill_chunk(self, c_pad):
+        table = np.full((1, self.table_width), self._scratch, np.int32)
+        fam = self._prefill_chunk_family(c_pad)
+        self._dispatch(
+            self._prefill_chunk_store_key(c_pad), fam, fam,
+            self._m_prefill_chunk_traces, (), self._chunk_fn,
+            (np.zeros((1, c_pad), np.int64), np.asarray([c_pad], np.int32),
+             table, np.zeros((1,), np.int32), np.zeros((1,), np.float32)),
+            self._numeric_inject(1) if self._numeric_guard else None)
+
+    def _warm_verify(self):
+        fam = self._verify_family()
+        self._dispatch(
+            self._verify_store_key(self._spec_k), fam, fam,
+            self._m_verify_traces, (), self._verify_fn,
+            (self._h_ids, self._h_table, self._h_lens, self._h_dlen,
+             self._h_temps),
+            self._numeric_inject(self.num_slots)
+            if self._numeric_guard else None)
+
+    def program_traces(self):
+        """Total mint count across this model's program store (serving
+        entries carry a ``[count]`` box; generate() entries do not).  The
+        warmup invariant — a warmed engine's first request mints nothing —
+        is asserted as a zero delta of this sum."""
+        total = 0
+        for ent in self._store().values():
+            if isinstance(ent, tuple) and len(ent) == 2 \
+                    and isinstance(ent[1], list) and ent[1] \
+                    and isinstance(ent[1][0], int):
+                total += ent[1][0]
+        return total
 
     def _start_observability(self):
         """Opt-in forensics: the flight recorder from PADDLE_FLIGHT_DIR,
@@ -1231,16 +1462,24 @@ class ServingEngine:
         del inflight, pending
         # fresh device state: re-admission prefills rewrite every
         # sequence's K/V, and the host tier resets with the radix index.
-        # The old pools go first, so two sets never coexist on the card;
-        # the new ones are made outside inference mode, like the first
+        # On the card the captured programs hold the pools' addresses, so
+        # the pools are zeroed in place and every program stays valid (the
+        # reference's keys are shapes: its restart retraces nothing
+        # either).  On the CPU (no graphs) they are rebuilt: the old pools
+        # go first, so two sets never coexist, and the new ones are made
+        # outside inference mode, like the first
         if self._spill is not None:
             self._spill.clear()
         self._bm = self._new_block_manager()
-        self._pools = None
         self._reset_host_buffers()
-        with torch.inference_mode(False):
-            self._pools = tuple(
-                self._adapter.init_pools(self._num_pages + 1))
+        if self.device.type == "cuda":
+            for p in self._pools:
+                p.zero_()
+        else:
+            self._pools = None
+            with torch.inference_mode(False):
+                self._pools = tuple(
+                    self._adapter.init_pools(self._num_pages + 1))
         self._set_pool_gauges()
 
     def _requeue(self, req, h, produced, remaining):
@@ -1452,73 +1691,221 @@ class ServingEngine:
             pages = 1 << (pages - 1).bit_length()
         return min(pages, self.table_width) * ps
 
-    def _to_device(self, arr):
-        return torch.tensor(arr, device=self.device)
+    # ------------------------------------------------------------ programs
+    def _store(self):
+        from ..text.models._decode import program_store
 
-    @contextlib.contextmanager
-    def _dispatch(self, handles=()):
-        """Bracket one device dispatch: flag ``_compiling`` while a kernel
-        of this engine may still be built (the first calls on the card),
-        so the watchdog and the health state read the build as slow, not
-        stuck; bill the ``nvcc`` wall the dispatch waited out to
-        ``handles`` (their ``compile_s``: cold TTFT); stamp the heartbeat
-        after it."""
-        if self._kernels and all(_build.loaded(n) for n in self._kernels):
-            self._kernels = ()      # every kernel is loaded: no more builds
-        self._compiling = bool(self._kernels)
-        built0 = _build.BUILD_SECONDS if self._compiling else None
+        return program_store(self._model)
+
+    def _device_label(self):
+        return str(self.device)
+
+    def _guard_key(self):
+        """Program-store key component of the numeric-guard variant: empty
+        when the guard is off, so the unguarded keys stay the reference's
+        byte for byte."""
+        return ("nguard",) if self._numeric_guard else ()
+
+    def _pool_key(self):
+        """The pools' static axes in a key: shape and dtype as the
+        reference spells them (``(L, P, ps, h, d)``, ``"bfloat16"``)."""
+        p = self._pools[0]
+        return tuple(int(n) for n in p.shape), \
+            str(p.dtype).removeprefix("torch.")
+
+    # program-store key builders — shared by the mint sites, the dispatch
+    # sites' compile windows and warmup() replay
+    def _step_store_key(self):
+        return ("serve_step", self.num_slots, self.table_width,
+                *self._pool_key(), self._top) + self._guard_key()
+
+    def _verify_store_key(self, k_pad):
+        return ("verify", k_pad, self.num_slots, self.table_width,
+                *self._pool_key(), self._top) + self._guard_key()
+
+    def _prefill_store_key(self, s_pad):
+        return ("serve_prefill", s_pad, self.table_width,
+                *self._pool_key(), self._top) + self._guard_key()
+
+    def _prefill_chunk_store_key(self, c_pad):
+        return ("serve_prefill_chunk", c_pad, self.table_width,
+                *self._pool_key(), self._top) + self._guard_key()
+
+    def _prefill_family(self, s_pad):
+        return f"prefill/{s_pad}{self._fam_suffix}"
+
+    def _prefill_chunk_family(self, c):
+        return f"prefill_chunk/{c}{self._fam_suffix}"
+
+    def _prefill_cached_family(self, c, cached_pages):
+        """A radix cached-tail dispatch: the chunk program at width ``c``,
+        attributed to its own family (tail-only compute)."""
+        return f"prefill/{c}@cached{cached_pages}{self._fam_suffix}"
+
+    def _decode_family(self):
+        return f"decode{self._flash_tag}{self._fam_suffix}"
+
+    def _verify_family(self):
+        return f"verify/k{self._spec_k}{self._fam_suffix}"
+
+    def _program(self, key, family):
+        """The store entry of ``key`` — ``(kind, [mints])`` — minting it
+        (and its ledger row) when the model's store has none."""
+        store = self._store()
+        ent = store.get(key)
+        if ent is None:
+            t0 = time.perf_counter()
+            ent = store[key] = (key[0], [0])
+            _programs.ledger().record_mint(
+                key, family=family, replica=self.replica,
+                device=self._device_label(), store=store,
+                owner=self._model, build_s=time.perf_counter() - t0)
+        return ent
+
+    @property
+    def step_traces(self):
+        """Mint count of this engine's decode-step key (the continuous
+        batching invariant: 1 for the model's lifetime)."""
         try:
-            yield
+            return self._program(self._step_store_key(),
+                                 self._decode_family())[1][0]
+        except Exception:
+            return 0
+
+    def _dispatch(self, key, mint_family, family, counter, handles, fn,
+                  host, inject):
+        """Run the program of ``key`` on host inputs ``host`` (and the
+        guard's ``inject`` vector, or None): fill its static buffers, run
+        it (on this engine's first dispatch of the key the eager step and,
+        on the card, its capture; a replay after that), and bring its
+        packed outputs to the host — the dispatch's one sync.  Returns
+        ``(packed host array, stats row or None)``.
+
+        The key's first dispatch for the model's store is its mint: a
+        compile window bills the stall to ``handles``, the ledger records
+        it and ``counter`` counts it.  A first dispatch by this engine of
+        a key another engine minted (a capture over this engine's pools)
+        is billed to ``handles`` too, and counted nowhere.  Warm
+        dispatches record their wall in the perf table."""
+        _, traces = self._program(key, mint_family)
+        n0 = traces[0]
+        prog = self._graphs.get(key)
+        if prog is None:
+            arrays = (*host, inject) if inject is not None else host
+            # the program reaches this engine by weak reference: the engine
+            # and its graphs go with the last strong reference to it, not
+            # at the next garbage collection
+            fn, ref = weakref.WeakMethod(fn), weakref.ref(self)
+            prog = self._graphs[key] = Program(
+                lambda *a, **kw: fn()(*a, **kw),
+                [(a.shape, torch.from_numpy(np.asarray(a)).dtype)
+                 for a in arrays], self.device, pool=self._graph_pool,
+                generator=self._gen,
+                cost_fn=lambda: ref()._program_cost(key))
+        first = prog.runs == 0
+        # this engine's first dispatch of the key captures it on the card,
+        # whoever minted it (on the CPU only a mint is a first dispatch)
+        capture = first and prog.device.type == "cuda"
+        if first and _perf.needs_cost(family):
+            _perf.register_cost_thunk(family, _perf.jit_cost_thunk(prog))
+        win = _programs.ledger().compile_window(
+            key, family=family, replica=self.replica,
+            device=self._device_label(), store=self._store(),
+            owner=self._model, handles=handles, engine=self,
+            cold=n0 == 0 or capture)
+        t0 = time.perf_counter()
+        try:
+            prog.feed(*host, *(() if inject is None else (inject,)))
+            packed, stats = prog()
+            out = packed.cpu().numpy()
+            if stats is not None:
+                stats = stats.clone()   # a replay rewrites the static row
+            if n0 == 0:
+                traces[0] = 1
+            win.attach(prog, None)
         finally:
-            if built0 is not None and _build.BUILD_SECONDS > built0:
-                stall = _build.BUILD_SECONDS - built0
-                for h in handles:
-                    h.compile_s += stall
-            self._compiling = False
+            win.close(traced=traces[0] > n0)
             self._progress_t = time.monotonic()
+        elapsed = time.perf_counter() - t0
+        if traces[0] > n0:
+            counter.inc(traces[0] - n0)
+        elif capture:
+            # this engine's capture of a key minted elsewhere: the waiting
+            # requests paid it, as they pay a mint (not counted as one)
+            for h in handles:
+                if h is not None and h.first_token_at is None:
+                    h.compile_s += elapsed
+        elif n0:
+            _perf.record(family, elapsed)
+        return out, stats
 
-    def _inject(self, logits):
-        """Numeric guard: ``logits [B, ...]`` plus the inject vector, which
-        is zero (nothing added, nothing copied to the device) unless the
-        ``numerics.nan_inject`` fault tripped."""
-        inj = self._numeric_inject(logits.shape[0])
-        if not inj.any():
-            return logits
-        return logits + self._to_device(inj).view(
-            -1, *([1] * (logits.dim() - 1)))
-
-    def _guard_stats(self, logits):
-        """Numeric guard: park the (injected) logits' stats row on this
-        engine's numerics stream at step ``_guard_step`` (the iteration
-        the dispatch's tokens belong to, as the reference numbers it) — a
-        device tensor, resolved by ``numerics.poll`` off the step, never
-        here."""
-        _numerics.submit(self._provider_key, ("logits",),
-                         _numerics.stats_row(logits,
-                                             _numerics.low_dtype())[None],
-                         step=self._guard_step)
+    def _program_cost(self, key):
+        """(flops, bytes) of one dispatch of the program of ``key``: its
+        function on a copy of the static inputs, over the live pools, which
+        the count reads and never writes; it draws nothing from the
+        engine's generator (:func:`~..observability.perf.count_cost`).
+        No pool is copied: a server's pools may fill the card."""
+        prog = self._graphs[key]
+        inputs = [t.clone() for t in prog.inputs]
+        return _perf.count_cost(lambda: prog.fn(*inputs),
+                                protect=self._pools)
 
     def _sample(self, logits, temps):
-        """Tokens for ``logits [B, V]`` at host ``temps [B]``, and with the
-        numeric guard the rows whose logits are non-finite, on the host in
-        ONE transfer (the dispatch's device sync), the logits' stats row
-        submitted to the numerics stream.  All-greedy batches skip the
-        random draw.  Returns ``(tokens, bad or None)``."""
-        bad = None
-        if self._numeric_guard:
-            logits = self._inject(logits)
-            bad = nonfinite_rows(logits)
-            self._guard_stats(logits)
-        if (temps > 0).any():
-            tok = self._sampler(logits, self._to_device(temps), self._gen)
-        else:
-            tok = torch.argmax(logits, dim=-1)
-        if bad is None:
-            return tok.cpu().numpy(), None
-        out = torch.stack([tok, bad.long()]).cpu().numpy()
-        return out[0], out[1].astype(bool)
+        """Tokens ``[B]`` for ``logits [B, V]`` at device ``temps [B]``:
+        the Gumbel-max draw of :func:`make_batched_sampler` from this
+        engine's generator (greedy rows exact argmax), inside the program
+        (no host branch on the temperatures)."""
+        return self._sampler(logits, temps, self._gen)
+
+    def _tail(self, logits, temps, inject):
+        """A program's outputs from its logits ``[B, V]``: ``(packed,
+        stats)`` — ``[1 or 2, B]`` int64 (the tokens, then the numeric
+        guard's non-finite row flags) and the guard's logits stats row.
+        With the guard, the ``inject`` vector (zeros, or NaN in one lane
+        when ``numerics.nan_inject`` tripped) is added first: it is always
+        an argument of a guarded program."""
+        if inject is None:
+            return self._sample(logits, temps)[None], None
+        logits = logits + inject[:, None]
+        bad = nonfinite_rows(logits)
+        stats = _numerics.stats_row(logits, _numerics.low_dtype())[None]
+        return torch.stack([self._sample(logits, temps), bad.long()]), stats
+
+    def _step_fn(self, last, table, lens, temps, inject=None):
+        logits, *_ = self._adapter.step(last, *self._pools, table, lens)
+        return self._tail(logits, temps, inject)
+
+    def _prefill_fn(self, ids, table, lens, temps, inject=None):
+        logits, *_ = self._adapter.prefill(ids, *self._pools, table, lens)
+        return self._tail(logits, temps, inject)
+
+    def _chunk_fn(self, ids, nvalid, table, lens, temps, inject=None):
+        logits, *_ = self._adapter.prefill_chunk(ids, nvalid, *self._pools,
+                                                 table, lens)
+        return self._tail(logits, temps, inject)
+
+    def _verify_fn(self, ids, table, lens, dlen, temps, inject=None):
+        logits, *_ = self._adapter.verify(ids, *self._pools, table, lens)
+        parts = []
+        stats = None
+        if inject is not None:
+            logits = logits + inject[:, None, None]
+            parts.append(nonfinite_rows(logits).long()[:, None])
+            stats = _numerics.stats_row(logits, _numerics.low_dtype())[None]
+        targets, accept = self._verifier(logits, ids[:, 1:], dlen, temps,
+                                         self._gen)
+        return torch.cat([targets, accept.long()] + parts, dim=1), stats
+
+    def _guard_stats(self, stats, step):
+        """Numeric guard: park a dispatch's logits stats row on this
+        engine's numerics stream at ``step`` (the iteration its tokens
+        belong to, as the reference numbers it) — a device row, resolved
+        by ``numerics.poll`` off the step, never here."""
+        _numerics.submit(self._provider_key, ("logits",), stats, step=step)
 
     def _prefill(self, req, alloc, slot_idx):
+        if req.handle.admitted_at is None:   # TTFT decomposition: queue_s
+            req.handle.admitted_at = time.time()
         S0 = len(req.prompt)
         # hierarchical KV cache: leading pages the radix index matched (or
         # the spill tier resurrected) already hold their K/V — run only the
@@ -1531,39 +1918,43 @@ class ServingEngine:
         table[0, :len(table_row)] = table_row
         temps = np.asarray([req.sampling.temperature], np.float32)
         h = req.handle
-        if cached > 0:
-            span = _tracing.span(
-                "serving.prefill_cached", trace_id=h.trace_id,
-                request_id=h.request_id, slot=slot_idx, prompt_len=S0,
-                cached_tokens=cached)
-        else:
-            span = _tracing.span(
-                "serving.prefill", trace_id=h.trace_id,
-                request_id=h.request_id, slot=slot_idx, prompt_len=S0)
+        inject = self._numeric_inject(1) if self._numeric_guard else None
         t0 = time.perf_counter()
-        with self._dispatch((h,)), span:
-            if cached > 0:
-                # ONE chunk dispatch over the tail at positions cached..S0-1
-                # (K3 / K4 through paged_chunk_attend on the card)
-                tail = S0 - cached
-                ids = np.zeros((1, self._prefill_bucket(tail)), np.int64)
-                ids[0, :tail] = req.prompt[cached:]
-                logits, *pools = self._adapter.prefill_chunk(
-                    self._to_device(ids),
-                    self._to_device(np.asarray([tail], np.int32)),
-                    *self._pools, self._to_device(table),
-                    self._to_device(np.asarray([cached], np.int32)))
-            else:
-                ids = np.zeros((1, self._prefill_bucket(S0)), np.int64)
-                ids[0, :S0] = req.prompt
-                logits, *pools = self._adapter.prefill(
-                    self._to_device(ids), *self._pools,
-                    self._to_device(table),
-                    self._to_device(np.asarray([S0], np.int32)))
-            self._pools = tuple(pools)
-            self._guard_step = self._iteration
-            tok, bad = self._sample(logits, temps)
+        if cached > 0:
+            # ONE dispatch of the chunk program over the tail at positions
+            # cached..S0-1 (K3 / K4 through paged_chunk_attend on the
+            # card), at the tail's prefill bucket
+            tail = S0 - cached
+            C = self._prefill_bucket(tail)
+            ids = np.zeros((1, C), np.int64)
+            ids[0, :tail] = req.prompt[cached:]
+            with _tracing.span("serving.prefill_cached", trace_id=h.trace_id,
+                               request_id=h.request_id, slot=slot_idx,
+                               prompt_len=S0, cached_tokens=cached):
+                out, stats = self._dispatch(
+                    self._prefill_chunk_store_key(C),
+                    self._prefill_chunk_family(C),
+                    self._prefill_cached_family(C, alloc.cached_pages),
+                    self._m_prefill_traces, (h,), self._chunk_fn,
+                    (ids, np.asarray([tail], np.int32), table,
+                     np.asarray([cached], np.int32), temps), inject)
+        else:
+            s_pad = self._prefill_bucket(S0)
+            ids = np.zeros((1, s_pad), np.int64)
+            ids[0, :S0] = req.prompt
+            fam = self._prefill_family(s_pad)
+            with _tracing.span("serving.prefill", trace_id=h.trace_id,
+                               request_id=h.request_id, slot=slot_idx,
+                               prompt_len=S0):
+                out, stats = self._dispatch(
+                    self._prefill_store_key(s_pad), fam, fam,
+                    self._m_prefill_traces, (h,), self._prefill_fn,
+                    (ids, table, np.asarray([S0], np.int32), temps), inject)
         self._m_prefill_seconds.observe(time.perf_counter() - t0)
+        tok, bad = out[0], (out[1].astype(bool) if inject is not None
+                            else None)
+        if stats is not None:
+            self._guard_stats(stats, self._iteration)
         self._prefills += 1
         self._cached_prefills += cached > 0
         if bad is not None and bad[0]:
@@ -1608,6 +1999,8 @@ class ServingEngine:
         the cached pages of a radix hit (clamped so the final chunk
         computes at least the last prompt position).  Its host row stays
         inert until the final chunk seeds decode."""
+        if req.handle.admitted_at is None:   # TTFT decomposition: queue_s
+            req.handle.admitted_at = time.time()
         slot = _Slot(req, alloc, np.asarray(alloc.pages, np.int32))
         slot.prefilled = min(alloc.cached_pages * self.page_size,
                              max(len(req.prompt) - 1, 0))
@@ -1663,31 +2056,27 @@ class ServingEngine:
         table = np.full((1, self.table_width), self._scratch, np.int32)
         table[0, :len(slot.table_row)] = slot.table_row
         h = slot.handle
+        inject = self._numeric_inject(1) if self._numeric_guard else None
+        fam = self._prefill_chunk_family(C)
         t0 = time.perf_counter()
-        with self._dispatch((h,)), _tracing.span(
-                "serving.prefill_chunk", trace_id=h.trace_id,
-                request_id=h.request_id, slot=i, chunk_start=c0,
-                chunk_tokens=nval):
-            logits, *pools = self._adapter.prefill_chunk(
-                self._to_device(ids),
-                self._to_device(np.asarray([nval], np.int32)),
-                *self._pools, self._to_device(table),
-                self._to_device(np.asarray([c0], np.int32)))
-            self._pools = tuple(pools)
-            self._prefill_chunks += 1
-            final = c0 + nval >= S0
-            bad = None
-            self._guard_step = self._iteration
-            if final:
-                tok, bad = self._sample(
-                    logits, np.asarray([slot.temp], np.float32))
-            elif self._numeric_guard:
-                # a middle chunk samples nothing, but its logits are
-                # guarded all the same (one small transfer)
-                logits = self._inject(logits)
-                self._guard_stats(logits)
-                bad = nonfinite_rows(logits).cpu().numpy()
+        # every chunk runs the same program (it samples; only the final
+        # chunk's token is used) and is guarded all the same
+        with _tracing.span("serving.prefill_chunk", trace_id=h.trace_id,
+                           request_id=h.request_id, slot=i, chunk_start=c0,
+                           chunk_tokens=nval):
+            out, stats = self._dispatch(
+                self._prefill_chunk_store_key(C), fam, fam,
+                self._m_prefill_chunk_traces, (h,), self._chunk_fn,
+                (ids, np.asarray([nval], np.int32), table,
+                 np.asarray([c0], np.int32),
+                 np.asarray([slot.temp], np.float32)), inject)
         self._m_prefill_chunk_seconds.observe(time.perf_counter() - t0)
+        self._prefill_chunks += 1
+        final = c0 + nval >= S0
+        tok, bad = out[0], (out[1].astype(bool) if inject is not None
+                            else None)
+        if stats is not None:
+            self._guard_stats(stats, self._iteration)
         if bad is not None and bad[0]:
             self._fail_numeric(i)
             return nval
@@ -1751,15 +2140,21 @@ class ServingEngine:
                 batch=len(active), links=[h.trace_id for h in handles])
         else:  # hot path: one flag read, no span or link list built
             cm = _tracing.NOOP
+        inject = self._numeric_inject(self.num_slots) \
+            if self._numeric_guard else None
+        fam = self._decode_family()
         t0 = time.perf_counter()
-        with self._dispatch(handles), cm:
-            logits, *pools = self._adapter.step(
-                self._to_device(self._h_last), *self._pools,
-                self._to_device(self._h_table), self._to_device(self._h_lens))
-            self._pools = tuple(pools)
-            self._guard_step = self._iteration + 1
-            tok, bad = self._sample(logits, self._h_temps)
+        with cm:
+            out, stats = self._dispatch(
+                self._step_store_key(), fam, fam, self._m_step_traces,
+                handles, self._step_fn,
+                (self._h_last, self._h_table, self._h_lens, self._h_temps),
+                inject)
         self._m_step_seconds.observe(time.perf_counter() - t0)
+        tok, bad = out[0], (out[1].astype(bool) if inject is not None
+                            else None)
+        if stats is not None:
+            self._guard_stats(stats, self._iteration + 1)
         self._iteration += 1
         for i in active:
             if bad is not None and bad[i]:
@@ -1810,26 +2205,21 @@ class ServingEngine:
                 links=[h.trace_id for h in handles])
         else:
             cm = _tracing.NOOP
+        inject = self._numeric_inject(self.num_slots) \
+            if self._numeric_guard else None
+        fam = self._verify_family()
         t0 = time.perf_counter()
-        with self._dispatch(handles), cm:
-            ids = self._to_device(self._h_ids)
-            logits, *pools = self._adapter.verify(
-                ids, *self._pools, self._to_device(self._h_table),
-                self._to_device(self._h_lens))
-            self._pools = tuple(pools)
-            parts = []
-            if self._numeric_guard:
-                logits = self._inject(logits)
-                parts.append(nonfinite_rows(logits).long()[:, None])
-                self._guard_step = self._iteration + 1
-                self._guard_stats(logits)
-            targets, accept = self._verifier(
-                logits, ids[:, 1:], self._to_device(self._h_dlen),
-                self._to_device(self._h_temps), self._gen)
-            # one transfer to the host: this is the step's device sync
-            out = torch.cat([targets, accept.long()] + parts,
-                            dim=1).cpu().numpy()
+        with cm:
+            # the (k+1)-wide verify program (k_pad = speculative_k, as the
+            # reference pads it); one transfer to the host: the step's sync
+            out, stats = self._dispatch(
+                self._verify_store_key(K), fam, fam, self._m_verify_traces,
+                handles, self._verify_fn,
+                (self._h_ids, self._h_table, self._h_lens, self._h_dlen,
+                 self._h_temps), inject)
         self._m_step_seconds.observe(time.perf_counter() - t0)
+        if stats is not None:
+            self._guard_stats(stats, self._iteration + 1)
         targets, accept = out[:, :K + 1], out[:, K + 1:2 * K + 1].astype(bool)
         bad = out[:, -1].astype(bool) if self._numeric_guard else None
         self._iteration += 1
@@ -2111,6 +2501,7 @@ class ServingEngine:
             "free_pages": self._bm.free_pages,
             "num_pages": self._bm.num_pages,
             "page_utilization": self._bm.utilization(),
+            "step_traces": self.step_traces,
             "bytes_per_page": self._bytes_per_page,
             # what the pools are made of and what a token costs in them
             # (scale pools included)

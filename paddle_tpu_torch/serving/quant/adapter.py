@@ -30,6 +30,8 @@ class QuantizedGPTAdapter(GPTAdapter):
 
     tag = "served_q"
     chunk_tag = "served_chunk_q"
+    n_pools = 4
+    kv_dtype = "int8"
 
     def init_pools(self, num_pages):
         """Zeroed ``(kp, vp, k_scales, v_scales)``: int8 payload pools

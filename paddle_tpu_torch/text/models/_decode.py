@@ -4,9 +4,13 @@ step per token over preallocated caches (:func:`decode_loop`,
 :func:`jitted_decode`), beam search, and the samplers the serving engine
 and the speculative verifier share.
 
-The TPU package compiles the prefill and a step with donated caches; here
-the "compiled step" is the eager step over caches preallocated once and
-updated in place, with the tokens kept on the device until the end.
+The TPU package compiles the prefill and a step with donated caches and
+keeps the pair in the model's program store; here the store keeps the key,
+and each call runs its prefill eagerly and its step as a
+:class:`~paddle_tpu_torch.jit.graphs.Program` over a cache of the call's
+own, updated in place (on the card a CUDA graph, captured at the first
+step and replayed for the rest), with the tokens kept on the device until
+the end.
 
 Randomness comes from an explicit ``torch.Generator`` on the logits'
 device.  It draws other numbers than ``jax.random`` from the same seed, so
@@ -114,41 +118,178 @@ def _model_device(model):
     return next(model.parameters()).device
 
 
-def decode_loop(model, fwd, ids0, max_new_tokens, init_cache,
-                temperature=1.0, top_k=0, top_p=1.0, seed=None):
-    """Prefill + one step per new token over an arbitrary cache.
+class _ProgramStore(dict):
+    """A model's program store.  A copy of the model (``copy.deepcopy``,
+    pickling) is another model, whose weights none of these programs has
+    seen: it starts with an empty store."""
 
-    ``fwd(ids [B, S] int64, cache, pos: int) -> (last-token logits f32
-    [B, V], cache)``, the cache updated in place.  The model runs in eval
+    def __deepcopy__(self, memo):
+        return _ProgramStore()
+
+    def __reduce__(self):
+        return (_ProgramStore, ())
+
+
+def program_store(model):
+    """The per-model program store (the TPU package's, by name and key):
+    ``decode_loop`` keys it by ``generate()``'s program keys, the serving
+    engine by its ``(kind, shapes, sampler)`` keys, so a second engine
+    over the same model finds its keys minted.  Stored in the model's
+    ``__dict__``, outside ``nn.Module``'s attribute bookkeeping; it goes
+    with the model."""
+    store = model.__dict__.get("_decode_programs")
+    if store is None:
+        store = _ProgramStore()
+        object.__setattr__(model, "_decode_programs", store)
+    return store
+
+
+class _GenerateKey:
+    """What one ``generate()`` program key keeps between calls: how to
+    build its decode step (the latest call's ``fwd``, ``init_cache`` and
+    sampler, the batch and prompt widths), and the first call's build /
+    run / capture walls for the program ledger.  The cache and the
+    captured step are each call's own and are freed when it returns, as
+    the TPU package's donated cache is: only the key outlives the call."""
+
+    build_s = run_s = capture_s = 0.0
+    pool_bytes = None
+
+    def __init__(self, fwd, init_cache, sample, B, S0, device):
+        self.fwd, self.init_cache, self.sample = fwd, init_cache, sample
+        self.B, self.S0, self.device = B, S0, device
+
+    def step_program(self, cache, gen):
+        """The decode step over ``cache`` as a
+        :class:`~paddle_tpu_torch.jit.graphs.Program` with inputs ``last
+        [B, 1]`` and ``pos`` (a 0-d int64): it writes its token back into
+        ``last`` and advances ``pos``, so consecutive runs need no host
+        input.  On the card its first run is eager and captures a CUDA
+        graph in a pool of its own; the later runs replay it."""
+        from ...jit.graphs import Program
+
+        fwd, sample = self.fwd, self.sample
+
+        def step(last, pos):
+            logits, _ = fwd(last, cache, pos)
+            tok = sample(logits, gen)
+            last.copy_(tok[:, None])
+            pos.add_(1)
+            return (tok,)
+
+        return Program(step, [((self.B, 1), torch.int64), ((), torch.int64)],
+                       self.device, generator=gen)
+
+    def cost(self):
+        """One decode step's ``(flops, bytes)``, counted over a fresh zero
+        cache (one call's working set, freed on return; never a live
+        call's state)."""
+        from ...observability import perf as _perf
+
+        with torch.inference_mode(False):
+            cache = self.init_cache()
+        prog = self.step_program(
+            cache, torch.Generator(device=self.device))
+        prog.inputs[1].fill_(self.S0)
+        return _perf.count_cost(lambda: prog.fn(*prog.inputs))
+
+
+def decode_loop(model, fwd, ids0, max_new_tokens, init_cache,
+                temperature=1.0, top_k=0, top_p=1.0, seed=None,
+                program_key=None):
+    """Prefill + one step per new token over a cache of this call's.
+
+    ``fwd(ids [B, S] int64, cache, pos) -> (last-token logits f32 [B, V],
+    cache)``, the cache updated in place; ``pos`` is 0 for the prefill
+    and a 0-d int64 device tensor for the steps.  The model runs in eval
     mode (restored after) under ``torch.inference_mode``; the sampled
     tokens stay on the device, and one concatenation at the end gives the
-    id matrix ``[B, S0 + max_new_tokens]`` on the model's device."""
+    id matrix ``[B, S0 + max_new_tokens]`` on the model's device.
+
+    The prefill runs eagerly; the step is a
+    :class:`~paddle_tpu_torch.jit.graphs.Program` over the cache (on the
+    card: the first step eager and captured as a CUDA graph, every later
+    step a replay).  Cache, graph and its pool are freed on return.
+
+    ``program_key`` names everything the step is specialized on
+    (``generate()``'s ``(cache_impl, B, S0, T, ..., sampling, training)``):
+    the key lives in :func:`program_store`, so its first call is its mint
+    (a ``generate.decode`` row in the program ledger, billed the prefill
+    and the step's build and capture) and later calls are warm (recorded
+    in the perf table per emitted token)."""
+    from time import perf_counter
+
+    from ...observability import perf as _perf
+    from ...observability import programs as _programs
+    from ...observability import tracing as _tracing
+
+    B, S0 = ids0.shape
     device = _model_device(model)
-    S0 = ids0.shape[1]
     modes = [(m, m.training) for m in model.modules()]
     model.eval()
-    sample = make_sampler(temperature, top_k, top_p)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed if seed is not None else 0)
+    store = program_store(model) if program_key is not None else None
+    warm = store is not None and program_key in store
+    ent = _GenerateKey(fwd, init_cache,
+                       make_sampler(temperature, top_k, top_p), B, S0, device)
+    if store is not None:
+        if warm:
+            # keep the mint's walls; the closures are this call's
+            old = store[program_key]
+            ent.build_s, ent.run_s = old.build_s, old.run_s
+            ent.capture_s, ent.pool_bytes = old.capture_s, old.pool_bytes
+        store[program_key] = ent
+        # every store mint lands a ledger row; warm hits record provenance
+        _programs.ledger().record_mint(
+            program_key, family="generate.decode", kind="generate",
+            store=store, owner=model, replica="-", warm=warm)
     try:
         with torch.inference_mode():
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed if seed is not None else 0)
+            with torch.inference_mode(False):
+                cache = init_cache()
+            step = ent.step_program(cache, gen)
+            t_loop = perf_counter()
             ids = torch.as_tensor(ids0, device=device)
-            cache = init_cache()
-            logits, cache = fwd(ids, cache, 0)
-            nxt = sample(logits, gen)
-            out = [ids, nxt[:, None]]
+            logits, _ = fwd(ids, cache, 0)
+            nxt = ent.sample(logits, gen)
+            out = [ids, nxt[:, None].clone()]
+            last, pos = step.inputs
+            last.copy_(nxt[:, None])
+            pos.fill_(S0)
             for t in range(1, max_new_tokens):
-                logits, cache = fwd(nxt[:, None], cache, S0 + t - 1)
-                nxt = sample(logits, gen)
-                out.append(nxt[:, None])
-            return torch.cat(out, dim=1)
+                tok, = step()
+                out.append(tok[:, None].clone())
+                if t == 1 and not warm and store is not None:
+                    # the mint's stall: the prefill and the step's first
+                    # run (its kernels' build, and on the card its capture)
+                    ent.build_s, ent.run_s = step.build_s, step.run_s
+                    ent.capture_s, ent.pool_bytes = \
+                        step.capture_s, step.pool_bytes
+                    _programs.ledger().record_compile(
+                        program_key, perf_counter() - t_loop,
+                        family="generate.decode", kind="generate",
+                        store=store, owner=model, replica="-",
+                        trace_id=_tracing.current_trace_id(), program=ent)
+            if store is not None and _perf.needs_cost("generate.decode"):
+                _perf.register_cost_thunk("generate.decode",
+                                          _perf.jit_cost_thunk(ent))
+            ids = torch.cat(out, dim=1)
+            if warm:
+                # the whole loop per emitted token (a cold call's walls are
+                # build and capture, not device time)
+                ids.cpu()
+                _perf.record("generate.decode", perf_counter() - t_loop,
+                             calls=max_new_tokens)
+            return ids
     finally:
         for m, tr in modes:
             m.training = tr
 
 
 def jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape, cache_dtype,
-                  temperature=1.0, top_k=0, top_p=1.0, seed=None):
+                  temperature=1.0, top_k=0, top_p=1.0, seed=None,
+                  program_key=None):
     """Dense-cache decode: zeroed K/V buffers ``cache_shape`` ``[L, B, T,
     h, d]`` on the model's device; ``fwd(ids, ks, vs, pos) -> (logits, ks,
     vs)``.  The name is the TPU package's; nothing is compiled here."""
@@ -165,7 +306,7 @@ def jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape, cache_dtype,
 
     return decode_loop(model, fwd_cache, ids0, max_new_tokens, init_cache,
                        temperature=temperature, top_k=top_k, top_p=top_p,
-                       seed=seed)
+                       seed=seed, program_key=program_key)
 
 
 def cached_decode(model, run, ids0, max_new_tokens, cache_shape, cache_dtype,
@@ -178,6 +319,10 @@ def cached_decode(model, run, ids0, max_new_tokens, cache_shape, cache_dtype,
     :func:`paged_pool_shape`, layer i's cache ``("paged", kps[i], vps[i],
     pos)``.  ``sampling``: :func:`decode_loop`'s."""
     L, B, T, h, d = cache_shape
+    key = (B, ids0.shape[1], T)
+    train = bool(model.training)
+    samp = (sampling.get("temperature", 1.0), sampling.get("top_k", 0),
+            sampling.get("top_p", 1.0))
     if cache_impl == "paged":
         pool = paged_pool_shape(B, T, h, d, page_size)
 
@@ -192,7 +337,8 @@ def cached_decode(model, run, ids0, max_new_tokens, cache_shape, cache_dtype,
             return kp, torch.zeros_like(kp)
 
         return decode_loop(model, fwd_paged, ids0, max_new_tokens, init_cache,
-                           **sampling)
+                           program_key=("paged", *key, page_size, *samp,
+                                        train), **sampling)
     if cache_impl != "dense":
         raise ValueError(f"cache_impl must be 'dense' or 'paged', "
                          f"got {cache_impl!r}")
@@ -201,7 +347,8 @@ def cached_decode(model, run, ids0, max_new_tokens, cache_shape, cache_dtype,
         return run(ids, [(ks[i], vs[i], pos) for i in range(L)], pos), ks, vs
 
     return jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape,
-                         cache_dtype, **sampling)
+                         cache_dtype, program_key=("dense", *key, *samp, train),
+                         **sampling)
 
 
 def paged_pool_shape(batch, max_len, num_kv_heads, head_dim, page_size=16):

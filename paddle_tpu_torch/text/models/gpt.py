@@ -62,7 +62,8 @@ class GPTDecoderLayer(torch.nn.Module):
 
         - ``(k_buf, v_buf, pos)`` — the static dense cache of
           ``generate()``: ``[B, T, heads, head_dim]`` buffers written at
-          ``pos`` (a Python int), attended under an additive float32 mask
+          ``pos`` (a Python int, or a 0-d device tensor in a captured
+          step), attended under an additive float32 mask
           (the plain attention, on the card too, as in the TPU package);
         - ``("paged", kp, vp, pos)`` — ``generate(cache_impl="paged")``:
           per-sequence pools ``[B, PP, ps, heads, head_dim]``; prefill
@@ -111,10 +112,12 @@ class GPTDecoderLayer(torch.nn.Module):
         S = q.shape[1]
         if len(cache) == 3 and not isinstance(cache[0], str):
             k_buf, v_buf, pos = cache
-            k_buf[:, pos:pos + S] = k.to(k_buf.dtype)
-            v_buf[:, pos:pos + S] = v.to(v_buf.dtype)
+            # pos: a Python int, or a 0-d device tensor (a captured step)
+            i = torch.arange(S, device=q.device)
+            k_buf.index_copy_(1, pos + i, k.to(k_buf.dtype))
+            v_buf.index_copy_(1, pos + i, v.to(v_buf.dtype))
             T = k_buf.shape[1]
-            i = torch.arange(S, device=q.device)[:, None]
+            i = i[:, None]
             j = torch.arange(T, device=q.device)[None, :]
             mask = torch.zeros((S, T), dtype=torch.float32, device=q.device) \
                 .masked_fill_(j > pos + i, -1e30)[None, None]

@@ -161,7 +161,8 @@ class LlamaAttention(torch.nn.Module):
 
         - ``(k_buf, v_buf, pos)`` — the static dense cache of
           ``generate()``: ``[B, T, hkv, d]`` buffers written at ``pos`` (a
-          Python int) with the rotated keys, attended under an additive
+          Python int, or a 0-d device tensor in a captured step) with the
+          rotated keys, attended under an additive
           f32 mask (the plain attention, on the card too); ``attn_bias``,
           when given, is a key-padding bias ``[B, 1, 1, T]``;
         - ``("paged", kp, vp, pos)`` — ``generate(cache_impl="paged")``:
@@ -205,8 +206,10 @@ class LlamaAttention(torch.nn.Module):
             k_buf, v_buf, pos = cache
             kw, vw = amp.cast("cache_write", kh, vh)
             # the rope math runs in f32; the buffers keep their dtype
-            k_buf[:, pos:pos + S] = kw.to(k_buf.dtype)
-            v_buf[:, pos:pos + S] = vw.to(v_buf.dtype)
+            # pos: a Python int, or a 0-d device tensor (a captured step)
+            idx = pos + torch.arange(S, device=k_buf.device)
+            k_buf.index_copy_(1, idx, kw.to(k_buf.dtype))
+            v_buf.index_copy_(1, idx, vw.to(v_buf.dtype))
             kf, vf, mask = self._expand_and_mask(k_buf, v_buf, pos, S, rep,
                                                  attn_bias)
             att = F.scaled_dot_product_attention(qh, kf, vf, attn_mask=mask,

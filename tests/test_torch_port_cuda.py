@@ -12,7 +12,10 @@ the card against the CPU, and the serving engine's observability on the
 card (the sinks add no host sync, the ledger against the CUDA allocator,
 an OOM recognized, the HBM pre-flight), and Llama: K3's f32-query entry
 over bf16 / f16 pools, K1's f32 body at head_dim 128, a small GQA Llama's
-card ids against the CPU's and its O2 step through K1 / K2.  Marked ``cuda``; every test
+card ids against the CPU's and its O2 step through K1 / K2; and the
+program layer (each captured engine program's replay bit-equal to the
+eager step on cloned pools, generate() replaying its graphs, a restart
+keeping the graphs).  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -1096,48 +1099,210 @@ def test_restart_on_card_keeps_ids(cuda, kv_dtype):
 
 
 def test_restart_after_the_step_holds_one_pool_set(cuda):
-    """A TransientError from the sampler, after the adapter's step (the
-    traceback's frames held the pools and logits): the card's allocated
-    bytes while the rebuild runs never pass one pool set (pools sized to
-    dominate the card's other tensors), and the ids are unchanged."""
+    """A TransientError at the 4th decode step with two requests in
+    flight: the restart zeroes the pools in place — the same tensors, so
+    the card's allocated bytes never pass one pool set (pools sized to
+    dominate the card's other tensors) and every captured program stays
+    valid (replayed, not captured again) — and the ids are unchanged."""
+    from paddle_tpu_torch.observability import faults
     from paddle_tpu_torch.resilience import TransientError
 
     _, card = _tiny_pair()
     reqs = [([5, 6, 7, 8, 9], 12, {}), ([11, 12, 13] * 4, 10, {})]
+    want = _uninterrupted(card, reqs)
     eng = _engine_on(card, "cuda", num_pages=65536, replica="c-one-set")
+    pools = [id(p) for p in eng._pools]
     pool_bytes = sum(p.numel() * p.element_size() for p in eng._pools)
-    base = torch.cuda.memory_allocated()
     slack = 64 << 20
     assert pool_bytes > 8 * slack
-    orig_sample, orig_init = eng._sample, eng._adapter.init_pools
-    armed, seen = {"n": None}, {}
 
-    def sample(logits, temps):
-        out = orig_sample(logits, temps)
-        if armed["n"] is not None:
-            armed["n"] -= 1
-            if armed["n"] == 0:
-                armed["n"] = None
-                raise TransientError("crash after the step")
-        return out
+    def boom():
+        raise TransientError("crash at the step")
 
-    def init_pools(num_pages):
-        seen["entry"] = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        pools = orig_init(num_pages)
-        seen["peak"] = torch.cuda.max_memory_allocated()
-        return pools
+    try:
+        with eng:
+            eng.generate([3, 4], max_new_tokens=2, timeout=120)
+            graphs = dict(eng._graphs)
+            n0 = eng.program_traces()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            hs = _held(eng, reqs, arm=lambda: faults.inject(
+                "serving.step_crash@c-one-set", fn=boom, at_trips={4}))
+            got = [h.result(timeout=120) for h in hs]
+            st = eng.stats()
+    finally:
+        faults.clear()
+    assert st["engine_restarts"] == 1
+    assert [id(p) for p in eng._pools] == pools
+    assert torch.cuda.max_memory_allocated() <= base + slack
+    # the graphs captured before the crash are the ones replayed after it;
+    # the only mints are the requeued prompts' new prefill buckets
+    assert all(eng._graphs[k] is g and g.captured for k, g in graphs.items())
+    new = set(eng._graphs) - set(graphs)
+    assert eng.program_traces() - n0 == len(new)
+    assert all(k[0] == "serve_prefill" for k in new)
+    assert got == want
 
-    eng._sample = sample
-    eng._adapter.init_pools = init_pools
+
+def _greedy_inputs(eng, B, rows):
+    """A table of distinct real pages per row and lengths ``rows``."""
+    NP = eng.table_width
+    table = np.full((B, NP), eng._scratch, np.int32)
+    for b in range(B):
+        table[b, :] = np.arange(b * NP, (b + 1) * NP)
+    return table, np.asarray(rows, np.int32)
+
+
+def _counters():
+    return (fa.LAUNCHES, pa.LAUNCHES, pa.QUANT_LAUNCHES, pa.CHUNK_LAUNCHES,
+            pa.QUANT_CHUNK_LAUNCHES)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_captured_programs_replay_bit_equal_to_eager(cuda, kv_dtype):
+    """Tiny GPT, float32, speculative k=2: after a run, each captured
+    program — the serve_step (K3 / K4), a prefill bucket (K1) and the
+    verify step (K3 / K4 over the [B*(k+1)]-row expansion) — replayed on
+    fresh inputs gives the greedy tokens of the eager adapter call on
+    cloned pools, and leaves the pools bit-equal to that call's; each
+    replay adds its kernels' launches to the counters."""
+    _, card = _tiny_pair()
+    eng = _engine_on(card, "cuda", num_slots=2, kv_dtype=kv_dtype,
+                     speculative_k=2, replica=f"c-replay-{kv_dtype}")
     with eng:
-        eng.generate([3, 4], max_new_tokens=2, timeout=120)
-        hs = _held(eng, reqs, arm=lambda: armed.update(n=4))
-        got = [h.result(timeout=120) for h in hs]
-        assert eng.stats()["engine_restarts"] == 1
-    assert seen["entry"] <= base - pool_bytes + slack, (seen, base, pool_bytes)
-    assert seen["peak"] <= base + slack, (seen, base, pool_bytes)
-    assert got == _uninterrupted(card, reqs)
+        for p in ([5, 6, 7] * 6, [9, 10, 11, 12] * 3, [4] * 20):
+            eng.generate(p, max_new_tokens=8, timeout=120)
+    L = card.gpt.layers.__len__()
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+    decode = 2 if kv_dtype else 1
+    kinds = {}
+    for key, prog in eng._graphs.items():
+        assert prog.captured, key
+        kinds.setdefault(key[0], key)
+    assert {"serve_step", "serve_prefill", "verify"} <= set(kinds)
+    rs = np.random.RandomState(7)
+    temps = np.zeros((2,), np.float32)
+
+    def run(key, host, eager):
+        pools = [p.clone() for p in eng._pools]
+        with torch.inference_mode():
+            logits = eager(pools)
+            c0 = _counters()
+            prog = eng._graphs[key]
+            prog.feed(*host)
+            packed, _ = prog()
+            torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eng._pools, pools))
+        return packed.cpu(), logits.cpu(), \
+            [a - b for a, b in zip(_counters(), c0)]
+
+    # serve_step: one token per slot at lengths 21 and 9
+    table, lens = _greedy_inputs(eng, 2, [21, 9])
+    last = rs.randint(1, 96, (2, 1)).astype(np.int64)
+    packed, logits, dc = run(
+        kinds["serve_step"], (last, table, lens, temps),
+        lambda pools: eng._adapter.step(t(last), *pools, t(table),
+                                        t(lens))[0])
+    assert torch.equal(packed[0], logits.argmax(-1))
+    assert dc[decode] == L and dc[0] == 0
+
+    # a prefill bucket: one prompt right-padded to the bucket
+    s_pad = kinds["serve_prefill"][1]
+    ids = np.zeros((1, s_pad), np.int64)
+    ids[0, :s_pad - 3] = rs.randint(1, 96, (s_pad - 3,))
+    t1, _ = _greedy_inputs(eng, 1, [0])
+    l1 = np.asarray([s_pad - 3], np.int32)
+    packed, logits, dc = run(
+        kinds["serve_prefill"], (ids, t1, l1, temps[:1]),
+        lambda pools: eng._adapter.prefill(t(ids), *pools, t(t1),
+                                           t(l1))[0])
+    assert torch.equal(packed[0], logits.argmax(-1))
+    assert dc[0] == L and dc[decode] == 0
+
+    # verify: the last token and 2 drafts per slot
+    vids = rs.randint(1, 96, (2, 3)).astype(np.int64)
+    dlen = np.asarray([2, 1], np.int32)
+    packed, logits, dc = run(
+        kinds["verify"], (vids, table, lens, dlen, temps),
+        lambda pools: eng._adapter.verify(t(vids), *pools, t(table),
+                                          t(lens))[0])
+    greedy = logits.argmax(-1)
+    assert torch.equal(packed[:, :3], greedy)
+    real = torch.arange(2)[None, :] < torch.as_tensor(dlen)[:, None]
+    assert torch.equal(packed[:, 3:5].bool(),
+                       (torch.as_tensor(vids[:, 1:]) == greedy[:, :2]) & real)
+    assert dc[decode] == L and dc[decode + 2] == L
+
+
+def test_generate_replays_its_captured_step(cuda):
+    """generate() on the card: each call captures its decode step once and
+    replays it for the rest of its tokens (6 steps: 1 eager and captured,
+    5 replays); a second call with the same key gives the first call's
+    greedy ids and counts K1 / K3 as the first call did."""
+    from paddle_tpu_torch.jit import graphs
+
+    _, card = _tiny_pair()
+    ids = np.random.RandomState(2).randint(1, 96, (2, 11))
+    c0, r0 = _counters(), graphs.REPLAYS
+    a = card.generate(ids, max_new_tokens=7, temperature=0.0,
+                      cache_impl="paged", page_size=8)
+    c1, r1 = _counters(), graphs.REPLAYS
+    b = card.generate(ids, max_new_tokens=7, temperature=0.0,
+                      cache_impl="paged", page_size=8)
+    c2, r2 = _counters(), graphs.REPLAYS
+    assert r1 - r0 == 5 and r2 - r1 == 5
+    assert torch.equal(a, b)
+    assert [x - y for x, y in zip(c1, c0)] == [x - y for x, y in zip(c2, c1)]
+    assert c2[0] - c1[0] == 2 and c2[1] - c1[1] == 2 * 6
+
+
+def test_generate_returns_the_card_memory_it_took(cuda):
+    """generate() over several prompt lengths, dense and paged: after each
+    call the allocated device memory is back at its baseline (the cache,
+    the captured step and its pool go with the call)."""
+    _, card = _tiny_pair()
+    card.generate(np.ones((2, 4), np.int64), max_new_tokens=3,
+                  temperature=0.0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for impl in ("dense", "paged"):
+        for s0 in (5, 9, 17, 30):
+            ids = np.random.RandomState(s0).randint(1, 96, (2, s0))
+            card.generate(ids, max_new_tokens=6, temperature=0.7,
+                          cache_impl=impl, page_size=8)
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() == base, (impl, s0)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_cost_count_copies_no_pool(cuda, kv_dtype):
+    """The perf table's count of each captured program of a live engine
+    reads its pools in place: the allocator's peak over a round of counts
+    (after a first round, which sets up this thread's cuBLAS workspace)
+    stays below the pools' bytes, which a copy of them would pass, and the
+    pools are bit-equal across it."""
+    _, card = _tiny_pair(dict(vocab_size=96, hidden_size=64,
+                              num_hidden_layers=2, num_attention_heads=2,
+                              max_position_embeddings=1024))
+    eng = ServingEngine(card, device="cuda", page_size=8, max_model_len=1024,
+                        num_slots=4, kv_dtype=kv_dtype,
+                        replica=f"c-cost-{kv_dtype}")
+    with eng:
+        eng.generate([5, 6, 7] * 6, max_new_tokens=8, timeout=120)
+        keys = list(eng._graphs)
+        assert {k[0] for k in keys} >= {"serve_step", "serve_prefill"}
+        costs = [eng._program_cost(k) for k in keys]
+        pools = [p.clone() for p in eng._pools]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        assert [eng._program_cost(k) for k in keys] == costs
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        assert all(f > 0 for f, _ in costs)
+        assert peak < sum(p.numel() * p.element_size() for p in pools)
+        assert all(torch.equal(a, b) for a, b in zip(pools, eng._pools))
 
 
 def test_nan_lane_on_card_fails_only_that_request(cuda):
@@ -1329,7 +1494,8 @@ def _step_sync_count(card, guard, replica):
 def test_sinks_add_no_host_sync_to_the_step(cuda, guard, tmp_path):
     """With a span tracer, the flight recorder and telemetry on (and the
     guard's numerics stream), a decode step syncs as often as with every
-    sink off: 4 (3 host-row copies, the tokens' transfer)."""
+    sink off: once, the packed tokens' transfer (the host rows go through
+    pinned staging buffers, non_blocking, into the graph's inputs)."""
     from paddle_tpu_torch.observability import flight_recorder, tracing
 
     _, card = _tiny_pair()
@@ -1341,7 +1507,7 @@ def test_sinks_add_no_host_sync_to_the_step(cuda, guard, tmp_path):
     finally:
         tr.stop()
         flight_recorder.disable()
-    assert on == off == 4
+    assert on == off == 1
     assert tr.find("serving.decode_step")
 
 
