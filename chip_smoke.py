@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant
+    python3 chip_smoke.py --phases build,numerics,multitenant
     python3 chip_smoke.py --phases build,programs
     python3 chip_smoke.py --phases build,kernels,llama
     python3 chip_smoke.py --phases build,kernels,observe
@@ -157,7 +158,32 @@ Phases, each printing one JSON line and then its seconds:
    step; MFU against 989 TFLOP/s), two more under the profiler; then K1
    (f32 and bf16), K2a / K2b and K3's f32-query entry over bf16 pools at
    those shapes beside their plain versions and PyTorch's calls.
-15. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+15. ``numerics`` — GPT-base numerics capture and TrainStep observability:
+   3 f32 TrainSteps (B=2, S=256) with probes off and on from one init,
+   losses byte-identical and K1 = K2a = K2b = 12 per step either way; the
+   probed step's rows (one per module call, the loss, one per gradient)
+   against the CPU's (same sites; absmax / rms rtol 1e-3, fractions 1e-3);
+   a ``numerics.nan_inject`` trip giving exactly one flight dump naming
+   the first layer; ``collect_operator_stats`` over an eval forward (114
+   module calls); bf16 O1 with a ``GradScaler``: the ``train_step.*``
+   series and, with one poisoned eager cycle, ``amp.*``; a step's host
+   syncs with probes off (0) and on; the probed bf16 O2 step at B=8,
+   S=1024 against the plain one in turns (plain, probed, probed, plain).
+16. ``multitenant`` — GPT-base through ``MultiTenantEngine`` (8 slots,
+   page 16, length 1024) with a ``LoRAStore`` of ranks (8, 16) over
+   ``qkv`` / ``out_proj`` and 4 seeded adapters: one mixed batch (3
+   adapters over both buckets, a base row, a JSON-schema row, an embed
+   and a score request) in f32 on the card against the CPU (greedy ids
+   equal, embeddings and logprobs within 1e-3), each generate row against
+   a dedicated engine (byte-equal, f32 and bf16; the base row against a
+   plain ``ServingEngine``), the schema row parsing and equal with
+   ``speculative_k=4``, embed / score allocating no page, a hot swap
+   during serving (0 mints, 0 recaptures, pools written in place), int8
+   pools (K4, no K3), exact K1 / K3 / K4 counts, one host sync per decode
+   step with a LoRA and a constrained row live, the grammar's host cost at
+   the full vocabulary, and bf16 tokens/s, TTFT and ITL of a plain and a
+   multi-tenant engine in turns with the card's idle share.
+17. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
@@ -3385,6 +3411,725 @@ PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
 )
 
 
+# ---------------------------------------------------------------- numerics
+def _probed_table(stream):
+    """The newest resolved probe table of ``stream``: (sites, [n, 6])."""
+    from paddle_tpu_torch.observability import numerics
+
+    numerics.poll()
+    ent = numerics.latest(stream)
+    return ent["sites"], ent["table"]
+
+
+def _train_syncs(step, batch):
+    """Host syncs of ONE TrainStep call, counted under
+    ``torch.cuda.set_sync_debug_mode("warn")`` after an uncounted call."""
+    import warnings
+
+    step(batch)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in rec
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+# probe rows, card against CPU: the activation / gradient absmax and rms
+# of two f32 runs (K1 3xTF32 and K2's SIMT body against the plain CPU
+# attention) within rtol 1e-3; the fractions within 1e-3 (the qkv bias
+# gradients' zero fraction excepted: their key slice is zero in exact
+# arithmetic and rounding noise on either device)
+PROBE_RTOL, PROBE_FRAC_ATOL = 1e-3, 1e-3
+PROBE_STEPS, PROBE_TURN_STEPS = 3, 5
+
+
+def _probe_rows_agree(card, cpu):
+    sites, t = card
+    csites, c = cpu
+    if tuple(sites) != tuple(csites):
+        return False, "site lists differ"
+    t, c = np.array(t), np.array(c)
+    noise = [i for i, s in enumerate(sites) if s.endswith("qkv.bias")]
+    t[noise, 3] = c[noise, 3] = 0.0
+    if not np.array_equal(t[:, 0], c[:, 0]):
+        return False, "nonfinite counts differ"
+    rel = np.abs(t[:, 1:3] - c[:, 1:3]) / np.maximum(np.abs(c[:, 1:3]), 1e-30)
+    frac = np.abs(t[:, 3:] - c[:, 3:])
+    return (bool(rel.max() <= PROBE_RTOL and frac.max() <= PROBE_FRAC_ATOL),
+            {"max_rel_absmax_rms": float(rel.max()),
+             "max_abs_fraction": float(frac.max())})
+
+
+def phase_numerics():
+    """Numerics capture and TrainStep observability on GPT-base: f32
+    TrainSteps with probes off and on (losses byte-identical, K1 / K2 per
+    layer per step), the probed step's rows against the CPU's, one
+    ``numerics.nan_inject`` dump naming the first layer, the operator-stats
+    collector over every module call, the ``train_step.*`` and ``amp.*``
+    series under bf16 O1 with a ``GradScaler``, a step's host syncs with
+    probes off and on, and the probed step's cost in turns (bf16 O2 at the
+    training shape)."""
+    import tempfile
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.observability import (faults, flight_recorder,
+                                                numerics)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    numerics.reset()
+    faults.clear()
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, VOCAB, (PARITY_B, PARITY_S)))
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")
+
+    def counted_steps(model, probed, steps=PROBE_STEPS):
+        step = _trainer(model)
+        x = ids.to(next(model.parameters()).device)
+        fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+        losses, tables = [], []
+        for _ in range(steps):
+            losses.append(step({"input_ids": x, "labels": x}))
+            if probed:
+                tables.append(_probed_table(step._perf_tag))
+        counts = {"flash_attention_fwd": fa.LAUNCHES,
+                  "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+                  "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+        return step, torch.stack(losses), tables, counts
+
+    numerics.disable_tensor_checker()
+    _, off, _, off_counts = counted_steps(
+        copy.deepcopy(cpu_model).to("cuda"), False)
+    numerics.enable_tensor_checker(level="warn")
+    card_step, on, card_tables, on_counts = counted_steps(
+        copy.deepcopy(cpu_model).to("cuda"), True)
+    want = dict.fromkeys(on_counts, LAYERS * PROBE_STEPS)
+    byte_identical = torch.equal(on, off)
+    # the CPU's first probed step, from the same init
+    _, cpu_loss, cpu_tables, _ = counted_steps(cpu_model, True, steps=1)
+    rows_ok, rows_err = _probe_rows_agree(card_tables[0], cpu_tables[0])
+    loss_rel = abs(on[0].item() - cpu_loss[0].item()) / abs(cpu_loss[0].item())
+    n_sites = len(card_tables[0][0])
+    del cpu_model
+
+    # numerics.nan_inject: one dump naming the first layer
+    flight_dir = tempfile.mkdtemp(prefix="numerics_flight_")
+    rec = flight_recorder.get_flight_recorder()
+    rec.dir = flight_dir
+    numerics.enable_tensor_checker(level="dump")
+    x = ids.to("cuda")
+    card_step({"input_ids": x, "labels": x})
+    numerics.poll()
+    faults.inject("numerics.nan_inject", times=1)
+    card_step({"input_ids": x, "labels": x})
+    numerics.poll()
+    card_step({"input_ids": x, "labels": x})
+    numerics.poll()
+    import glob
+    import os
+
+    dumps = sorted(glob.glob(os.path.join(flight_dir,
+                                          "flight_pid*_numerics_*.json")))
+    doc = json.load(open(dumps[0])) if dumps else {"extra": {}}
+    first_site = card_tables[0][0][0]
+    inject_ok = len(dumps) == 1 and doc["extra"].get("site") == first_site
+    faults.clear()
+    numerics.disable_tensor_checker()
+    del card_step
+
+    # collect_operator_stats over an eval forward: every module call
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda").eval()
+    with numerics.collect_operator_stats(model) as col, torch.no_grad():
+        model(x)
+    called = list(col._cap.sites)
+    modules = {n for n, m in model.named_modules()
+               if n and not isinstance(m, torch.nn.ModuleList)} \
+        | {"gptforcausallm"}
+    per_layer = 9           # ln1 qkv out_proj dropout ln2 ffn1 ffn2 dropout
+    want_calls = 3 + LAYERS * per_layer + 3   # + layer; embeds+drop; ln, gpt, top
+    collect_ok = set(called) == modules and len(called) == want_calls \
+        and all(s["nonfinite"] == 0 for s in col.summary().values())
+
+    # bf16 O1 with a GradScaler: the train_step.* and amp.* series
+    reg = metrics.get_registry()
+
+    def total(name):
+        m = reg.get(name)
+        return m.total() if m is not None else None
+
+    before = {n: total(n) or 0 for n in ("train_step.compiles",
+                                         "amp.found_inf", "amp.scale_decr")}
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+    from paddle_tpu_torch import jit
+
+    model.train()
+    step = jit.TrainStep(model, opt, loss_fn=None, amp_level="O1",
+                         scaler=amp.GradScaler(init_loss_scaling=2.0 ** 15))
+    o1_losses = [step({"input_ids": x, "labels": x}).item()
+                 for _ in range(4)]
+    step.sync()
+    cost = step.cost_analysis()
+    steps_seconds = reg.get("train_step.step_seconds").labels()
+    syncs_off = _train_syncs(step, {"input_ids": x, "labels": x})
+    numerics.enable_tensor_checker(level="warn")
+    syncs_on = _train_syncs(step, {"input_ids": x, "labels": x})
+    numerics.disable_tensor_checker()
+    # the eager scaler: one cycle with a poisoned gradient
+    sc = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    opt.clear_grad()
+    with amp.auto_cast(level="O1"):
+        loss = model(x, labels=x)
+    sc.scale(loss).backward()
+    next(p for p in model.parameters() if p.grad is not None).grad.fill_(
+        float("inf"))
+    sc.step(opt)
+    sc.update()
+    opt.clear_grad()
+    series = {
+        "train_step.compiles": total("train_step.compiles")
+        - before["train_step.compiles"],
+        "train_step.retraces": total("train_step.retraces"),
+        "train_step.compile_seconds": reg.get(
+            "train_step.compile_seconds").get(),
+        "train_step.step_seconds_count": steps_seconds.count,
+        "train_step.donated_bytes": reg.get("train_step.donated_bytes").get(),
+        "train_step.flops_per_step": reg.get(
+            "train_step.flops_per_step").get(),
+        "train_step.achieved_tflops": reg.get(
+            "train_step.achieved_tflops").get(),
+        "train_step.mfu": reg.get("train_step.mfu").get(),
+        "amp.loss_scale": reg.get("amp.loss_scale").get(),
+        "amp.found_inf": total("amp.found_inf") - before["amp.found_inf"],
+        "amp.scale_decr": total("amp.scale_decr") - before["amp.scale_decr"],
+    }
+    series_ok = (series["train_step.compiles"] >= 2
+                 and series["train_step.compile_seconds"] > 0
+                 and series["train_step.step_seconds_count"] > 0
+                 and series["train_step.donated_bytes"] > 0
+                 and (series["train_step.flops_per_step"] or 0) > 0
+                 and series["amp.loss_scale"] is not None
+                 and series["amp.found_inf"] == 1
+                 and series["amp.scale_decr"] == 1
+                 and all(np.isfinite(o1_losses)))
+    del step, opt, model
+
+    # the probed step's cost in turns: bf16 O2 at the training shape
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cuda")
+    step = _trainer(model, amp_level="O2")
+    xt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, VOCAB, (TRAIN_B, TRAIN_S))).to("cuda")
+    batch = {"input_ids": xt, "labels": xt}
+
+    def turn(probed):
+        if probed:
+            numerics.enable_tensor_checker(level="warn")
+        else:
+            numerics.disable_tensor_checker()
+        step(batch)                          # the variant's first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROBE_TURN_STEPS):
+            step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / PROBE_TURN_STEPS * 1e3
+
+    turns = [("plain", turn(False)), ("probed", turn(True)),
+             ("probed", turn(True)), ("plain", turn(False))]
+    numerics.disable_tensor_checker()
+    numerics.poll()
+    plain_ms = [t for k, t in turns if k == "plain"]
+    probed_ms = [t for k, t in turns if k == "probed"]
+    del step, model
+    syncs_ok = not syncs_off
+    ok = (byte_identical and on_counts == want and off_counts == want
+          and rows_ok and loss_rel <= 1e-4 and inject_ok
+        and collect_ok and series_ok and syncs_ok)
+    emit({"phase": "numerics", "ok": ok,
+          "model": "GPT-base 12x768 vocab 50304, f32, AdamW",
+          "probes_off_vs_on": {"B": PARITY_B, "S": PARITY_S,
+                               "steps": PROBE_STEPS,
+                               "losses_off": off.tolist(),
+                               "losses_on": on.tolist(),
+                               "byte_identical": byte_identical,
+                               "launches_on": on_counts,
+                               "launches_off_one_step": off_counts},
+          "probe_rows_vs_cpu": {"sites": n_sites, "ok": rows_ok,
+                                "detail": rows_err,
+                                "rtol_absmax_rms": PROBE_RTOL,
+                                "atol_fractions": PROBE_FRAC_ATOL,
+                                "loss_rel_diff": loss_rel,
+                                "first_sites": list(card_tables[0][0][:4])},
+          "nan_inject": {"dumps": len(dumps),
+                         "site": doc["extra"].get("site"),
+                         "want_site": first_site, "ok": inject_ok},
+          "collect_operator_stats": {"calls": len(called),
+                                     "want_calls": want_calls,
+                                     "distinct_sites": len(set(called)),
+                                     "modules": len(modules),
+                                     "ok": collect_ok},
+          "bf16_O1_scaler": {"losses": o1_losses, "series": series,
+                             "cost_analysis": cost, "ok": series_ok},
+          "host_syncs_per_step": {"probes_off": len(syncs_off),
+                                  "probes_off_sites": syncs_off,
+                                  "probes_on": len(syncs_on),
+                                  "probes_on_sites": syncs_on},
+          "probe_cost_bf16_O2": {"B": TRAIN_B, "S": TRAIN_S,
+                                 "steps_per_turn": PROBE_TURN_STEPS,
+                                 "turns_ms": turns,
+                                 "plain_ms_mean": float(np.mean(plain_ms)),
+                                 "probed_ms_mean": float(np.mean(probed_ms)),
+                                 "probed_over_plain": float(
+                                     np.mean(probed_ms) / np.mean(plain_ms))},
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("numerics phase failed: probed losses differ from "
+                         "the unprobed ones, launch counts, probe rows vs "
+                         "the CPU, the nan-inject dump, the collector, the "
+                         "train_step / amp series or the host syncs")
+    return {"launches": on_counts}
+
+
+# ------------------------------------------------------------- multitenant
+MT_RANKS = (8, 16)
+MT_TARGETS = ("qkv", "out_proj")
+MT_ADAPTERS = (("tenant-a", 4, 31), ("tenant-b", 8, 32),
+               ("tenant-c", 12, 33), ("tenant-d", 16, 34))
+# the adapters' draw scale.  Random GPT-base weights leave the residual
+# stream to the N(0, 1) embeddings, so greedy ids barely move with an
+# adapter: that the tenants bite is read off their embeddings instead
+MT_SCALE, MT_NEW, MT_CAPACITY = 0.1, 24, 8
+# a tenant's embedding against the base model's on the same prompt
+MT_BITE_MIN = 1e-3
+MT_SCHEMA = {"type": "object",
+             "properties": {"tag": {"enum": ["x", "y"]},
+                            "ok": {"type": "boolean"}}}
+MT_TURN_REQS = 8
+# embeddings and score logprobs, card (f32, K1's 3xTF32 body) against CPU
+MT_VALUE_ATOL = 1e-3
+
+
+def _mt_vocab():
+    """A JSON-spellable synthetic vocabulary of GPT-base's 50,304 tokens
+    (the reference tests' recipe): characters and literals first, filler,
+    EOS last."""
+    chars = list("0123456789{}[]\",:-abcdefghijklmnopqrstuvwxyz. _")
+    vocab = ["<pad>"] + chars + ["true", "false", "null", '"x"', '"y"']
+    vocab += [f"<u{i}>" for i in range(VOCAB - 1 - len(vocab))]
+    return vocab + ["<eos>"]
+
+
+def _mt_store(model):
+    from paddle_tpu_torch.serving.multitenant import LoRAAdapter, LoRAStore
+
+    store = LoRAStore(model, capacity=MT_CAPACITY, ranks=MT_RANKS,
+                      targets=MT_TARGETS)
+    for name, rank, seed in MT_ADAPTERS:
+        store.register(LoRAAdapter.random(model, name, rank=rank, seed=seed,
+                                          scale=MT_SCALE))
+    return store
+
+
+def _mt_prompts(n=7, seed=21):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(1, 40000, (int(s),)).tolist()
+            for s in rs.randint(24, 160, (n,))]
+
+
+def _mt_rows(grammar):
+    """The mixed batch: three adapters (two rank buckets), a base row, a
+    JSON-schema row, an embed and a score request."""
+    p = _mt_prompts()
+    return [("tenant-a", p[0], {"adapter": "tenant-a"}),
+            ("tenant-b", p[1], {"adapter": "tenant-b"}),
+            ("tenant-c", p[2], {"adapter": "tenant-c"}),
+            ("base", p[3], {}),
+            ("schema", p[4], {"grammar": grammar}),
+            ("embed", p[5], {"mode": "embed"}),
+            ("score", p[6], {"mode": "score"})]
+
+
+def _mt_engine(model, store, device="cuda", **kw):
+    from paddle_tpu_torch.serving.multitenant import MultiTenantEngine
+
+    kw.setdefault("num_slots", SLOTS)
+    return MultiTenantEngine(model, lora_store=store, device=device,
+                             page_size=PAGE, max_model_len=MAXLEN, **kw)
+
+
+def _mt_serve(eng, rows, new=MT_NEW):
+    """Submit ``rows`` at once through a started engine; returns the
+    results by row name (ids, or embed / score arrays) and the handles."""
+    hs = {name: eng.submit(p, max_new_tokens=new, **kw)
+          for name, p, kw in rows}
+    out = {}
+    for name, h in hs.items():
+        r = h.result(timeout=900)
+        out[name] = np.asarray(r) if h.mode != "generate" else list(r)
+    return out, hs
+
+
+def _mt_counted(eng, rows, new=MT_NEW):
+    """``_mt_serve`` with the kernel counters zeroed just before and read
+    just after, held to exact counts: K1 once per layer per prefill and
+    per embed / score dispatch, the decode kernel of the pool layout once
+    per layer per decode step (and per verify step through the chunk
+    attend), the other one never."""
+    _zero_counts()
+    st0 = eng.stats()
+    n_pass = sum(1 for _, _, kw in rows if kw.get("mode") in ("embed",
+                                                                "score"))
+    with eng:
+        out, hs = _mt_serve(eng, rows, new)
+        st = eng.stats()
+    counts = _read_counts()
+    d = {k: st[k] - st0[k] for k in ("prefills", "iteration",
+                                      "verify_steps")}
+    quant = st["kv_dtype"] == "int8"
+    decode = "paged_flash_decode_q" if quant else "paged_flash_decode"
+    via = "via_paged_chunk_attend_quant" if quant \
+        else "via_paged_chunk_attend"
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_attention_fwd"] = LAYERS * (d["prefills"] + n_pass)
+    want[decode] = LAYERS * d["iteration"]
+    want[via] = LAYERS * d["verify_steps"]
+    if counts != want or not counts[decode]:
+        raise SystemExit(f"multitenant: launch counts {counts} != expected "
+                         f"{want}: the path did not run through the kernels")
+    return out, hs, counts, d
+
+
+def _mt_syncs(eng, prompts, grammar):
+    """Host syncs of ONE multi-tenant decode step with a LoRA row and a
+    constrained row live (the mask rows are fed that step), counted as
+    ``_step_syncs`` counts them, after one uncounted step."""
+    import warnings
+
+    from paddle_tpu_torch.observability import faults
+
+    site = f"serving.scheduler_wedge@{eng.replica}"
+    with eng:
+        eng.generate(prompts[0][:32], max_new_tokens=2, timeout=300)
+        faults.inject(site, seconds=60.0, times=1)
+        while faults.trip_count(site) < 1:
+            time.sleep(0.005)
+        hs = [eng.submit(prompts[0], max_new_tokens=6, adapter="tenant-a"),
+              eng.submit(prompts[1], max_new_tokens=6, grammar=grammar)]
+        with torch.inference_mode():
+            eng._admit()
+            active = [i for i, s in enumerate(eng._slots) if s is not None]
+            eng._plain_step(active)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    eng._plain_step(active)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        faults.clear(site)
+        for h in hs:
+            h.result(timeout=300)
+    sites = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in rec
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return {"active": len(active), "syncs": len(sites), "sites": sites}
+
+
+def _mt_parses(out, vocab, grammar):
+    text = "".join(vocab[t] for t in out if t != grammar.eos_token_id)
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        return False, text
+    return (out[-1] == grammar.eos_token_id and grammar.matches(out)
+            and set(doc) == set(MT_SCHEMA["properties"])), text
+
+
+def _mt_dedicated(model, store, rows):
+    """Each generate row of ``rows`` alone: adapter / schema rows on a
+    dedicated multi-tenant engine, the base row on a plain engine, all
+    with ``num_slots`` = 8."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    out = {}
+    for name, p, kw in rows:
+        if kw.get("mode") in ("embed", "score"):
+            continue
+        eng = ServingEngine(model, num_slots=SLOTS, page_size=PAGE,
+                            max_model_len=MAXLEN) if name == "base" \
+            else _mt_engine(model, store)
+        with eng:
+            out[name] = eng.generate(p, max_new_tokens=MT_NEW, timeout=900,
+                                     **kw)
+    return out
+
+
+def _mt_bites(eng, prompt, names):
+    """Max |embedding(tenant) - embedding(base)| on ``prompt`` per
+    tenant: an adapter that changes nothing reads 0."""
+    hs = {n: eng.submit(prompt, mode="embed", adapter=n)
+          for n in (None, *names)}
+    emb = {n: np.asarray(h.result(timeout=900)) for n, h in hs.items()}
+    return {n: float(np.abs(emb[n] - emb[None]).max()) for n in names}
+
+
+def _mt_wave(eng, prompts, names):
+    """One timed wave through a warm engine: ``prompts`` at once, 32 new
+    tokens each (``names``: each row's adapter, None = base)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=32,
+                     **({"adapter": n} if n else {}))
+          for p, n in zip(prompts, names)]
+    outs = [h.result(timeout=900) for h in hs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    itl = [b - a for h in hs for a, b in zip(h.token_times, h.token_times[1:])]
+    toks = sum(len(o) for o in outs)
+    return {"wall_s": wall, "tokens_per_s": toks / wall,
+            "ttft_p50_s": _q([h.ttft for h in hs], 50),
+            "itl_p50_s": _q(itl, 50), "itl_p99_s": _q(itl, 99)}, outs
+
+
+def phase_multitenant():
+    """Multi-tenant serving on GPT-base (12 x 768, 12 heads, vocab 50,304,
+    page 16, length 1024, 8 slots): a ``LoRAStore`` of ranks (8, 16) over
+    ``qkv`` / ``out_proj`` with 4 seeded adapters; one mixed batch (3
+    adapters, a base row, a JSON-schema row, an embed and a score
+    request) in f32 on the card against the CPU, each generate row against
+    a dedicated engine in f32 and bf16; the grammar row with speculative
+    k=4; embed / score allocating no page; a hot swap during serving with
+    no mint and no recapture; int8 pools (K4, no K3); exact launch
+    counts; a decode step's host syncs; the bf16 cost against a plain
+    engine in turns, with the card's idle share; and the grammar's host
+    cost at the full vocabulary."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.multitenant import (LoRAAdapter,
+                                                      compile_json_schema)
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vocab = _mt_vocab()
+    t0 = time.perf_counter()
+    grammar = compile_json_schema(MT_SCHEMA, vocab, VOCAB - 1)
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grammar.allowed(grammar.start)
+    first_state_ms = (time.perf_counter() - t0) * 1e3
+    expand = {"states": 0, "seconds": 0.0}
+    inner = grammar._expand_locked
+
+    def timed_expand(sid):
+        if grammar._tok_trans[sid] is None:
+            t = time.perf_counter()
+            inner(sid)
+            expand["states"] += 1
+            expand["seconds"] += time.perf_counter() - t
+        else:
+            inner(sid)
+
+    grammar._expand_locked = timed_expand
+    rows = _mt_rows(grammar)
+    prompts = [p for _, p, _ in rows]
+
+    # f32: the card against the CPU, one mixed batch each
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")
+    model = copy.deepcopy(cpu_model).to("cuda")
+    store = _mt_store(model)
+    eng = _mt_engine(model, store, replica="mt-f32")
+    card, hs, counts_f32, d_f32 = _mt_counted(eng, rows)
+    t0 = time.perf_counter()
+    with _mt_engine(cpu_model, _mt_store(cpu_model), device="cpu",
+                    replica="mt-cpu") as ceng:
+        cpu, _ = _mt_serve(ceng, rows)
+    cpu_s = time.perf_counter() - t0
+    del cpu_model, ceng
+    gen_rows = [n for n, _, kw in rows if kw.get("mode") is None]
+    ids_equal = all(card[n] == cpu[n] for n in gen_rows)
+    value_err = {n: float(np.abs(card[n] - cpu[n]).max())
+                 for n in ("embed", "score")}
+    values_ok = all(v <= MT_VALUE_ATOL for v in value_err.values()) and \
+        card["embed"].shape == (HIDDEN,) and \
+        len(card["score"]) == len(prompts[6]) - 1
+    schema_ok, schema_text = _mt_parses(card["schema"], vocab, grammar)
+    grammar_wall = hs["schema"].finished_at - hs["schema"].submitted_at
+    no_pages = eng.block_manager.used_pages == 0
+
+    # each generate row alone on a dedicated engine: byte-equal, f32
+    dedicated = _mt_dedicated(model, store, rows)
+    f32_equal = all(dedicated[n] == card[n] for n in gen_rows)
+
+    # embed / score alone: one dispatch each, no page ever allocated
+    peng = _mt_engine(model, store, replica="mt-pass")
+    with peng:
+        _mt_serve(peng, rows[5:])
+        # every tenant moves the hidden states away from the base model's
+        bites = _mt_bites(peng, prompts[5], [n for n, _, _ in MT_ADAPTERS])
+        pass_pages = peng.block_manager.used_pages
+        pass_prefills = peng.stats()["prefills"]
+        pass_alloc = peng.block_manager.stats()
+    tenants_differ = min(bites.values()) > MT_BITE_MIN
+    passthrough_ok = pass_pages == 0 and pass_prefills == 0
+
+    # the schema row with speculative k=4: the same ids
+    seng = _mt_engine(model, store, speculative_k=SPEC_K, replica="mt-spec")
+    spec, _, counts_spec, d_spec = _mt_counted(seng, rows[4:5] + rows[:1])
+    spec_equal = spec["schema"] == card["schema"] and \
+        spec["tenant-a"] == card["tenant-a"]
+
+    # hot swap while serving: no mint, no recapture, pools written in place
+    heng = _mt_engine(model, store, replica="mt-hot")
+    with heng:
+        _mt_serve(heng, rows[:4])                       # warm every program
+        mints0 = heng.program_traces()
+        graphs0 = {k: id(p.graph) for k, p in heng._graphs.items()}
+        ptrs0 = [p.data_ptr() for p in store.device_args()]
+        long = heng.submit(prompts[0], max_new_tokens=MT_NEW,
+                           adapter="tenant-a")
+        store.register(LoRAAdapter.random(model, "tenant-e", rank=8,
+                                          seed=35, scale=MT_SCALE))
+        hot = heng.submit(prompts[1], max_new_tokens=MT_NEW,
+                          adapter="tenant-e")
+        long.result(timeout=900)
+        hot_ids = hot.result(timeout=900)
+        hot_mints = heng.program_traces() - mints0
+        graphs1 = {k: id(p.graph) for k, p in heng._graphs.items()}
+        recaptures = sum(1 for k in graphs1 if graphs0.get(k) != graphs1[k])
+        hot_bite = _mt_bites(heng, prompts[5], ["tenant-e"])["tenant-e"]
+    in_place = [p.data_ptr() for p in store.device_args()] == ptrs0
+    # the swapped-in tenant serves what a dedicated engine serves for it
+    with _mt_engine(model, store, replica="mt-hot-ded") as deng:
+        hot_ded = deng.generate(prompts[1], max_new_tokens=MT_NEW,
+                                adapter="tenant-e", timeout=900)
+    hot_ok = hot_mints == 0 and recaptures == 0 and in_place and \
+        hot_ids == hot_ded and hot_bite > MT_BITE_MIN
+
+    # int8 pools: K4, no K3
+    qeng = _mt_engine(model, store, kv_dtype="int8", replica="mt-int8")
+    qout, _, counts_int8, d_int8 = _mt_counted(qeng, rows)
+    int8_ok = counts_int8["paged_flash_decode_q"] > 0 and \
+        counts_int8["paged_flash_decode"] == 0
+    int8_first = sum(qout[n][0] == card[n][0] for n in gen_rows)
+
+    # a decode step's host syncs (a LoRA row and a constrained row live)
+    syncs = _mt_syncs(_mt_engine(model, store, num_slots=2,
+                                 replica="mt-syncs"), prompts, grammar)
+    del model, store, eng, peng, seng, heng, qeng
+    torch.cuda.empty_cache()
+
+    # bf16: the mixed batch against dedicated engines, then the cost
+    torch.manual_seed(0)
+    bmodel = GPTForCausalLM(device="cuda", dtype=torch.bfloat16)
+    bstore = _mt_store(bmodel)
+    with _mt_engine(bmodel, bstore, replica="mt-bf16") as beng:
+        bf16, _ = _mt_serve(beng, rows)
+    bdedicated = _mt_dedicated(bmodel, bstore, rows)
+    bf16_equal = all(bdedicated[n] == bf16[n] for n in gen_rows)
+    bschema_ok, _ = _mt_parses(bf16["schema"], vocab, grammar)
+
+    turn_prompts = _mt_prompts(MT_TURN_REQS, seed=22)
+    names = [("tenant-a", "tenant-b", "tenant-c", None)[i % 4]
+             for i in range(MT_TURN_REQS)]
+    plain = ServingEngine(bmodel, num_slots=SLOTS, page_size=PAGE,
+                          max_model_len=MAXLEN, replica="mt-plain-turns")
+    mt = _mt_engine(bmodel, bstore, replica="mt-turns")
+    arms = {"plain": (plain, [None] * MT_TURN_REQS), "mt": (mt, names)}
+    turns = []
+    with plain, mt:
+        for arm in ("plain", "mt"):                    # warm both
+            _mt_wave(arms[arm][0], turn_prompts, arms[arm][1])
+        for arm in ("plain", "mt", "mt", "plain"):
+            r, _ = _mt_wave(arms[arm][0], turn_prompts, arms[arm][1])
+            turns.append(dict(r, arm=arm))
+        from paddle_tpu_torch.profiler import Profiler
+
+        idle = {}
+        for arm in ("plain", "mt"):
+            prof = Profiler()
+            prof.start()
+            r, _ = _mt_wave(arms[arm][0], turn_prompts, arms[arm][1])
+            prof.stop()
+            idle[arm] = _device_share(prof, r["wall_s"])
+        steps = {arm: arms[arm][0].stats()["iteration"] for arm in arms}
+    mean = {arm: float(np.mean([t["tokens_per_s"] for t in turns
+                                if t["arm"] == arm])) for arm in arms}
+    del bmodel, bstore, plain, mt
+    torch.cuda.empty_cache()
+
+    launches = {k: counts_f32.get(k, 0) + counts_int8.get(k, 0)
+                + counts_spec.get(k, 0) for k in KERNEL_COUNTERS}
+    ok = (ids_equal and values_ok and tenants_differ and schema_ok
+          and no_pages and f32_equal and passthrough_ok and spec_equal
+          and hot_ok and int8_ok and syncs["syncs"] == 1 and bf16_equal
+          and bschema_ok)
+    emit({"phase": "multitenant", "ok": ok,
+          "model": "GPT-base 12x768 vocab 50304, page 16, length 1024, "
+                   "8 slots",
+          "store": {"ranks": MT_RANKS, "targets": MT_TARGETS,
+                    "capacity": MT_CAPACITY,
+                    "adapters": [{"name": n, "rank": r, "seed": s}
+                                 for n, r, s in MT_ADAPTERS],
+                    "scale": MT_SCALE},
+          "f32_card_vs_cpu": {"ids_equal": ids_equal,
+                              "value_max_abs_err": value_err,
+                              "value_atol": MT_VALUE_ATOL,
+                              "values_ok": values_ok,
+                              "tenants_differ": tenants_differ,
+                              "embedding_vs_base_max_abs": bites,
+                              "launches": counts_f32, "steps": d_f32,
+                              "cpu_reference_s": cpu_s},
+          "schema_row": {"parses": schema_ok, "text": schema_text,
+                         "bf16_parses": bschema_ok},
+          "dedicated_byte_equal": {"f32": f32_equal, "bf16": bf16_equal},
+          "embed_score_pages": {"used_pages": pass_pages,
+                                "prefills": pass_prefills,
+                                "kv_cache": {k: pass_alloc[k] for k in
+                                             ("used_pages", "free_pages")
+                                             if k in pass_alloc},
+                                "ok": passthrough_ok},
+          "speculative_k4": {"ids_equal": spec_equal,
+                             "launches": counts_spec, "steps": d_spec},
+          "hot_swap": {"new_mints": hot_mints, "recaptures": recaptures,
+                       "pools_in_place": in_place,
+                       "ids_equal_dedicated": hot_ids == hot_ded,
+                       "embedding_vs_base_max_abs": hot_bite,
+                       "ok": hot_ok},
+          "int8_pools": {"ok": int8_ok, "launches": counts_int8,
+                         "steps": d_int8,
+                         "first_tokens_equal_native": int8_first},
+          "host_syncs_per_decode_step": syncs,
+          "grammar_full_vocab": {"vocab": VOCAB, "compile_s": compile_s,
+                                 "first_state_expansion_ms": first_state_ms,
+                                 "states_expanded_in_run": expand["states"],
+                                 "expansion_s_in_run": expand["seconds"],
+                                 "schema_request_wall_s": grammar_wall,
+                                 "expansion_share_of_that_wall":
+                                     expand["seconds"] / grammar_wall},
+          "bf16_cost_in_turns": {"requests": MT_TURN_REQS, "new_tokens": 32,
+                                 "mt_rows": names, "turns": turns,
+                                 "tokens_per_s_mean": mean,
+                                 "mt_over_plain": mean["mt"] / mean["plain"],
+                                 "idle_share": {a: idle[a].get(
+                                     "device_idle_share") for a in idle},
+                                 "profiled": idle,
+                                 "decode_steps_total": steps},
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit("multitenant phase failed: see the line above")
+    return {"launches": launches}
+
+
 def _profiled(fn):
     """``fn()`` under the port's ``Profiler`` (its device trace is a
     ``torch.profiler`` session over the CPU and the card): wall, device
@@ -3557,20 +4302,22 @@ def phase_profile():
 KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
     ("k1", "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
      "paddle_tpu/ops/flash_attention.py:112",
-     "serving prefill (full prefills, radix misses), training, generate() "
-     "(paged prefill, no cache, beam)"),
+     "serving prefill (full prefills, radix misses), training (probed too), "
+     "generate() (paged prefill, no cache, beam), multi-tenant prefill, "
+     "embed and score"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-     "paddle_tpu/ops/flash_attention.py:276", "training"),
+     "paddle_tpu/ops/flash_attention.py:276", "training (probed too)"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-     "paddle_tpu/ops/flash_attention.py:307", "training"),
+     "paddle_tpu/ops/flash_attention.py:307", "training (probed too)"),
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:371",
      "serving decode, generate() paged decode, speculative verify, chunked "
-     "prefill, the radix cache's cached-tail prefill"),
+     "prefill, the radix cache's cached-tail prefill, multi-tenant decode "
+     "and verify"),
     ("k4", "paged_flash_decode_q", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
      "paddle_tpu/ops/paged_attention.py:870",
      "int8 serving decode, int8 speculative verify, chunked prefill and "
-     "cached-tail prefill"),
+     "cached-tail prefill, multi-tenant decode over int8 pools"),
     # the full-sweep twins have no path, in the TPU package either
     ("k5a", "paged_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:128", None),
@@ -3585,7 +4332,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
-                    "programs,llama")
+                    "programs,llama,numerics,multitenant")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3606,7 +4353,9 @@ def main():
                          (results.get("slice") or {}).get("cpu_ref"))),
                      ("programs", lambda: phase_programs(
                          (results.get("slice") or {}).get("cpu_ref"))),
-                     ("llama", phase_llama), ("profile", phase_profile)):
+                     ("llama", phase_llama), ("numerics", phase_numerics),
+                     ("multitenant", phase_multitenant),
+                     ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
@@ -3624,11 +4373,13 @@ def main():
         # sinks-on runs for K1, K3 and K4, the programs phase's cold and
         # warm f32 runs for K1 and K3, the llama phase's first timed
         # bf16 paged and dense generate() for K1 and K3 and its O2 steps
-        # for K1 and K2); K5a / K5b: the kernels phase's checks
+        # for K1 and K2, the numerics phase's probed f32 steps for K1 and
+        # K2, the multitenant phase's f32, k=4 and int8 mixed batches for
+        # K1, K3 and K4); K5a / K5b: the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
                      "generate", "spec", "prefix", "resilience", "observe",
-                     "programs", "llama"):
+                     "programs", "llama", "numerics", "multitenant"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's

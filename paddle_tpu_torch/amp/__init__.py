@@ -10,7 +10,11 @@ through :func:`cast` by the port's own ops — ``Linear``, ``LayerNorm``, the
 GPT embedding lookups and LM-head matmul, ``scaled_dot_product_attention``
 and ``cross_entropy`` — from a thread-local state that :func:`auto_cast`
 sets.  bfloat16 needs no loss scaling, so ``GradScaler`` with bf16 only
-checks for inf/nan; float16 keeps full dynamic loss scaling.
+checks for inf/nan; float16 keeps full dynamic loss scaling.  The scaler's
+state is exported as the reference's ``amp.loss_scale`` gauge and
+``amp.found_inf`` / ``amp.scale_decr`` counters, read at ``update()``,
+where the deferred inf/nan verdict resolves anyway (and by
+``jit.TrainStep.sync()`` for the scale a TrainStep keeps on the device).
 """
 
 from __future__ import annotations
@@ -19,6 +23,15 @@ import contextlib
 import threading
 
 import torch
+
+from ..profiler import metrics as _metrics
+
+_m_loss_scale = _metrics.gauge(
+    "amp.loss_scale", "current dynamic loss scale")
+_m_found_inf = _metrics.counter(
+    "amp.found_inf", "scaler update cycles that saw non-finite grads")
+_m_scale_decr = _metrics.counter(
+    "amp.scale_decr", "dynamic loss-scale decreases")
 
 WHITE_LIST = {
     "matmul", "mm", "bmm", "addmm", "conv1d", "conv2d", "conv3d", "linear",
@@ -210,10 +223,12 @@ class GradScaler:
             self._unscaled = False
             return
         if self._found_inf:
+            _m_found_inf.inc()
             self._bad_steps += 1
             self._good_steps = 0
             if self._bad_steps >= self._decr_every:
                 self._scale = max(self._scale * self._decr_ratio, 1.0)
+                _m_scale_decr.inc()
                 self._bad_steps = 0
         else:
             self._good_steps += 1
@@ -221,6 +236,7 @@ class GradScaler:
             if self._good_steps >= self._incr_every:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
+        _m_loss_scale.set(self._scale)
         self._unscaled = False
         self._found_inf = False
 

@@ -43,6 +43,11 @@ from ..ops import _build
 #: kernels inside them)
 REPLAYS = 0
 
+#: an argument of :meth:`Program.feed` that leaves its static buffer as it
+#: is (a device-resident input the caller has not changed since it last
+#: fed it: no host copy, no transfer)
+KEEP = object()
+
 
 def _counter_modules():
     from ..ops import bias_gelu, flash_attention, paged_attention
@@ -166,12 +171,16 @@ class Program:
         return self.graph is not None
 
     def feed(self, *arrays):
-        """Copy host arrays into the static input buffers (in order)."""
+        """Copy host arrays into the static input buffers (in order);
+        a :data:`KEEP` entry leaves its buffer as it is."""
         if self._staging is None:
             for buf, a in zip(self.inputs, arrays):
-                buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+                if a is not KEEP:
+                    buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
             return
         for buf, stage, a in zip(self.inputs, self._staging, arrays):
+            if a is KEEP:
+                continue
             # the previous run ended in a host sync (its outputs' transfer),
             # so no copy out of this staging buffer is still pending
             stage.numpy()[...] = a

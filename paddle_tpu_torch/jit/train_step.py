@@ -29,26 +29,48 @@ Kept from the TPU package:
 The loss comes back as a 0-d device tensor, with no host sync.
 
 Programs, as the reference counts them: each input signature (the batch's
-structure, shapes and dtypes, and the model's training flag) is a
-variant with its own roofline family ``train_step/t<n>.v<i>`` (``t<n>``
-per TrainStep instance; the family leaves the process table when the
-TrainStep is collected).  A variant's first call lands a ledger row
-(``record_compile``, kind ``train_step``: the call's wall) and a lazy cost
-thunk (one forward + backward of the signature's shapes, counted; the
-update's elementwise passes are not); every later call records the
-interval since the previous call under the previous call's family, and,
-once the cost is resolved, the ``train_step.achieved_tflops`` and
-``train_step.mfu`` gauges (against :func:`~..observability.perf
-.peak_flops`).  The step itself runs eagerly: a TrainStep CUDA graph is
-not ported yet, and neither are the reference's other ``train_step.*``
-metrics, its spans and its numerics probes (``donate`` is accepted and
-has no effect: updates are in place already).
+structure, shapes and dtypes, the model's training flag and the numerics
+probe token) is a variant with its own roofline family
+``train_step/t<n>.v<i>`` (``t<n>`` per TrainStep instance; the family
+leaves the process table when the TrainStep is collected).  A variant's
+first call is its "compile": ``train_step.compiles`` counts it,
+``train_step.compile_seconds`` holds its wall, a ledger row lands
+(``record_compile``, kind ``train_step``), ``train_step.donated_bytes``
+is refreshed (the parameters, optimizer state, buffers and scaler state
+the step updates in place) and a lazy cost thunk is registered (one
+forward + backward of the signature's shapes, counted; the update's
+elementwise passes are not).  A second input signature also counts
+``train_step.retraces`` and warns, as the reference does; a probe toggle
+over an existing signature stays quiet.  Every later call observes the
+interval since the previous call in ``train_step.step_seconds``, records
+it under the previous call's family, and, once the cost is resolved
+(:meth:`TrainStep.cost_analysis`, or the perf table's resolve), sets the
+``train_step.flops_per_step``, ``train_step.achieved_tflops`` and
+``train_step.mfu`` gauges (against
+:func:`~..observability.perf.peak_flops`).  With a tracer active each
+call is a ``jit.train_step`` span (``step=``, ``new_variant=``); with a
+profiler recording, a ``TrainStep`` host event.
+
+Numerics probes (:mod:`..observability.numerics`): with the tensor
+checker enabled, every ``probe_cadence()``-th step runs the probed
+variant — the layer tap records one stats row per module output of the
+forward (not with ``accumulate_steps > 1``, as in the reference), then a
+``loss`` row and one ``grad/<name>`` row per trained parameter (sorted
+by name, the gradients unscaled and not yet clipped).  The table stays on
+the device: it is submitted to the numerics stream under the step's
+perf tag and resolved by ``numerics.maybe_poll`` off the step.  The
+``numerics.nan_inject`` fault site poisons the first probed site (or
+``TensorCheckerConfig.nan_inject_site``).  With the checker off the step
+is the unprobed one, unchanged.  The step itself runs eagerly: a
+TrainStep CUDA graph is not ported yet (``donate`` is accepted and has no
+effect: updates are in place already).
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+import warnings
 import weakref
 from time import perf_counter
 
@@ -56,9 +78,11 @@ import numpy as np
 import torch
 
 from .. import amp as _amp
+from ..observability import numerics as _numerics
 from ..observability import perf as _perf
 from ..observability import programs as _programs
 from ..observability import tracing as _tracing
+from ..profiler import events as _prof_events
 from ..profiler import metrics as _metrics
 
 _PERF_INSTANCE_IDS = itertools.count()
@@ -131,19 +155,55 @@ class TrainStep:
         self._variants = {}            # signature -> perf family
         self._perf_prev_family = None  # the family the last call ran
         self._last_call_t = None
+        self._retrace_count = 0
         reg = _metrics.get_registry()
+        self._m_compiles = reg.counter(
+            "train_step.compiles", "TrainStep XLA program compilations")
+        self._m_retraces = reg.counter(
+            "train_step.retraces",
+            "recompilations after the first variant (input shape/dtype churn)")
+        self._m_compile_s = reg.gauge(
+            "train_step.compile_seconds",
+            "wall time of the last trace+compile (first dispatch of a variant)")
+        self._m_step_s = reg.histogram(
+            "train_step.step_seconds",
+            "wall time between consecutive fused-step dispatches")
+        self._m_donated = reg.gauge(
+            "train_step.donated_bytes",
+            "HBM held by donated params + optimizer state + buffers")
+        self._m_flops = reg.gauge(
+            "train_step.flops_per_step", "XLA cost_analysis flops of the step")
         self._m_tflops = reg.gauge(
             "train_step.achieved_tflops", "flops_per_step / step wall time")
         self._m_mfu = reg.gauge(
             "train_step.mfu", "achieved FLOP/s over device peak "
             "(PADDLE_PEAK_FLOPS or the chip's bf16 datasheet number)")
+        self._m_donated.set(self._donated_bytes())
 
     # ------------------------------------------------------------------ call
     def __call__(self, *batch):
         batch = _tree_map(self._to_device, batch)
-        sig = (_signature(batch), bool(self.model.training))
+        # the probe token enters the variant key: 0 with the checker off
+        # (the unprobed step), else every cadence-th step is the probed one
+        ptok = _numerics.probe_token()
+        probed = bool(ptok) and \
+            self._step_count % _numerics.probe_cadence() == 0
+        sig = (_signature(batch), bool(self.model.training),
+               ptok if probed else 0)
         family = self._variants.get(sig)
         new_variant = family is None
+        if new_variant and self._variants \
+                and not any(v[:2] == sig[:2] for v in self._variants):
+            # a second input signature: loud, as in the reference (a probe
+            # toggle over an existing signature stays quiet)
+            self._retrace_count += 1
+            self._m_retraces.inc()
+            warnings.warn(
+                f"TrainStep retrace #{self._retrace_count}: input signature "
+                f"changed (training={sig[1]}); {len(self._variants)} "
+                "variant(s) already exist.  Each distinct batch shape/dtype "
+                "is a new program — pad or bucket batches to avoid it.",
+                stacklevel=2)
         t_call = perf_counter()
         if new_variant:
             family = self._variants[sig] = \
@@ -152,22 +212,36 @@ class TrainStep:
             # the interval since the last call, under the family that RAN
             # in it (alternating variants must not swap their seconds)
             dt = t_call - self._last_call_t
+            self._m_step_s.observe(dt)
             _perf.record(self._perf_prev_family, dt)
             flops = _perf.table().flops_per_call(self._perf_prev_family)
             if flops:
+                self._m_flops.set(flops)
                 self._m_tflops.set(flops / max(dt, 1e-12) / 1e12)
                 peak = _perf.peak_flops()
                 if peak:
                     self._m_mfu.set(flops / max(dt, 1e-12) / peak)
         self._last_call_t = t_call
         self._perf_prev_family = family
-        with self._lock:
-            out = self._step(batch)
+        inject = _numerics.consume_nan_inject() if probed else None
+        cm = _tracing.span("jit.train_step", step=self._step_count,
+                           new_variant=new_variant) \
+            if _tracing._ACTIVE else _tracing.NOOP
+        with cm, self._lock:
+            if _prof_events._ACTIVE:
+                with _prof_events.record("TrainStep"):
+                    out, stats = self._step(batch, probed, inject)
+            else:
+                out, stats = self._step(batch, probed, inject)
         if new_variant:
             # a variant's first call is its mint: a ledger row with the
             # call's wall, and a lazy cost for the roofline table
+            compile_s = perf_counter() - t_call
+            self._m_compiles.inc()
+            self._m_compile_s.set(compile_s)
+            self._m_donated.set(self._donated_bytes())
             _programs.ledger().record_compile(
-                family, perf_counter() - t_call, family=family,
+                family, compile_s, family=family,
                 kind="train_step", replica="-",
                 trace_id=_tracing.current_trace_id())
             if _perf.needs_cost(family):
@@ -175,7 +249,52 @@ class TrainStep:
                                           self._cost_thunk(batch))
             # the next interval would include this first call
             self._last_call_t = None
+        if stats is not None:
+            # the device table, parked for resolution off the step
+            _numerics.submit(self._perf_tag, stats[0], stats[1],
+                             step=self._step_count)
+            _numerics.maybe_poll()
         return out
+
+    def _donated_bytes(self):
+        """Bytes the step updates in place: the trained parameters (their
+        f32 masters where kept), the optimizer state, the buffers and the
+        scaler state — the reference's donated carry."""
+        seen, total = set(), 0
+
+        def add(t):
+            nonlocal total
+            if isinstance(t, torch.Tensor) and id(t) not in seen:
+                seen.add(id(t))
+                total += t.numel() * t.element_size()
+
+        for p in self._params:
+            add(_master_or_self(p))
+            for t in self.optimizer._states.get(id(p), {}).values():
+                add(t)
+        for b in self.model.buffers():
+            add(b)
+        for t in self._scaler_state or ():
+            add(t)
+        return total
+
+    def cost_analysis(self):
+        """``{"flops", "bytes_accessed"}`` of the last variant's step (its
+        lazy cost, resolved now if it was not), also setting
+        ``train_step.flops_per_step``; None before the first step."""
+        family = self._perf_prev_family
+        if family is None:
+            return None
+        _perf.resolve_costs()
+        tab = _perf.table()
+        flops = tab.flops_per_call(family)
+        if not flops:
+            return None
+        self._m_flops.set(flops)
+        row = next((r for r in tab.snapshot() if r["program"] == family),
+                   {})
+        return {"flops": float(flops),
+                "bytes_accessed": float(row.get("bytes_per_call") or 0.0)}
 
     def _cost_thunk(self, batch):
         """Lazy ``(flops, bytes)`` of one forward + backward at ``batch``'s
@@ -219,11 +338,14 @@ class TrainStep:
 
         return thunk
 
-    def _step(self, batch):
+    def _step(self, batch, probed=False, inject=None):
+        """One step; returns ``(out, stats)``, ``stats`` the probed
+        variant's ``(sites, [n, 6] device table)`` or None."""
         acc = self.accumulate_steps
         scale = self._scaler_state[0] if self._scaler is not None else None
         for p in self._params:
             p.grad = None
+        act = None
         if acc > 1:
             loss = torch.zeros((), dtype=torch.float32, device=self._device)
             for micro in self._micro_batches(batch, acc):
@@ -236,16 +358,51 @@ class TrainStep:
                 for p in self._params:
                     if p.grad is not None:
                         p.grad.div_(acc)
+        elif probed:
+            # per-layer stats (and the nan_inject poison point) recorded
+            # while the forward runs
+            cfg = _numerics.config()
+            with _numerics.capture(
+                    stream=self._perf_tag,
+                    names=_numerics.layer_names(self.model), inject=inject,
+                    inject_site=getattr(cfg, "nan_inject_site", None)) as act:
+                loss, outs = self._forward(batch)
+            (loss * scale if scale is not None else loss).backward()
+            loss = loss.detach()
         else:
             loss, outs = self._forward(batch)
             (loss * scale if scale is not None else loss).backward()
             loss = loss.detach()
-        self._update()
+        rows = self._update(probe=probed)
+        stats = None
+        if probed:
+            stats = self._probe_table(act, loss, rows)
         self._step_count += 1
         if self.return_outputs:
-            return loss, _tree_map(
-                lambda o: o.detach() if isinstance(o, torch.Tensor) else o, outs)
-        return loss
+            return (loss, _tree_map(
+                lambda o: o.detach() if isinstance(o, torch.Tensor) else o,
+                outs)), stats
+        return loss, stats
+
+    def _probe_table(self, act, loss, grad_rows):
+        """The probed variant's stats table: activation rows (capture
+        order), the loss, then one row per gradient — "first offending
+        layer" falls out of this order."""
+        sites, rows = [], []
+        if act is not None:
+            a_sites, a_stats = act.stack()
+            if a_sites:
+                sites += a_sites
+                rows.append(a_stats)
+        if _numerics._match("loss"):
+            sites.append("loss")
+            rows.append(_numerics.stats_row(loss)[None])
+        if grad_rows:
+            sites += [k for k, _ in grad_rows]
+            rows.append(torch.stack([r for _, r in grad_rows]))
+        table = torch.cat(rows) if rows else \
+            torch.zeros((0, _numerics.NSTATS), dtype=torch.float32)
+        return tuple(sites), table
 
     def _to_device(self, x):
         if isinstance(x, np.ndarray):
@@ -297,17 +454,27 @@ class TrainStep:
             loss = loss["loss"]
         return loss.float(), outs
 
-    def _update(self):
+    def _update(self, probe=False):
         """Unscale / check (scaler), clip over every gradient, apply the
-        rule, then drop the gradients."""
+        rule, then drop the gradients.  With ``probe``, returns the
+        ``("grad/<name>", stats row)`` pairs of the unscaled, unclipped
+        gradients, sorted by name (the reference's gradient dict order)."""
         opt = self.optimizer
         pg = [(p, p.grad) for p in self._params if p.grad is not None]
+        rows = []
         with torch.no_grad():
             if self._scaler is not None:
                 scale, good, bad, _ = self._scaler_state
                 inv = 1.0 / scale
                 for _, g in pg:
                     g.mul_(inv)
+            if probe:
+                for k, p in sorted(zip(self._names, self._params),
+                                   key=lambda kp: kp[0]):
+                    nm = "grad/" + k
+                    if p.grad is not None and _numerics._match(nm):
+                        rows.append((nm, _numerics.stats_row(p.grad)))
+            if self._scaler is not None:
                 found = torch.zeros((), dtype=torch.bool, device=self._device)
                 for _, g in pg:
                     found = found | ~torch.isfinite(g).all()
@@ -328,6 +495,7 @@ class TrainStep:
                 self._scaler_state = self._next_scale(scale, good, bad, found)
         for p in self._params:
             p.grad = None
+        return rows
 
     def _next_scale(self, scale, good, bad, found):
         sc = self._scaler
@@ -352,6 +520,7 @@ class TrainStep:
             self._scaler._scale = float(s)
             self._scaler._good_steps = int(g)
             self._scaler._bad_steps = int(b)
+            _amp._m_loss_scale.set(float(s))
         return self
 
     @property

@@ -1,8 +1,9 @@
 """Common layers (counterpart of ``paddle_tpu/nn/layers/common.py``).
 
-``Embedding`` and ``Dropout`` are ``torch.nn``'s own (paddle's defaults
-match them).  ``Linear`` keeps torch's ``[out, in]`` weight; paddle stores
-``[in, out]``, and ``text.models.convert`` transposes on load.
+``Dropout`` is ``torch.nn``'s own (paddle's defaults match it);
+``Embedding`` is ``torch.nn``'s with the amp cast of the lookup.
+``Linear`` keeps torch's ``[out, in]`` weight; paddle stores ``[in, out]``,
+and ``text.models.convert`` transposes on load.
 """
 
 from __future__ import annotations
@@ -41,3 +42,16 @@ class Linear(torch.nn.Linear):
         torch.nn.init.xavier_uniform_(self.weight)
         if self.bias is not None:
             torch.nn.init.zeros_(self.bias)
+
+
+class Embedding(torch.nn.Embedding):
+    """``torch.nn.Embedding`` whose table is cast for the ``"embedding"``
+    op under ``amp.auto_cast`` (O2: the amp dtype; O1 leaves it), as
+    paddle's lookup dispatches.  A module call, so the numerics layer tap
+    sees it as the reference's ``Embedding`` layer."""
+
+    def forward(self, ids):
+        w, = amp.cast("embedding", self.weight)
+        return torch.nn.functional.embedding(
+            ids, w, self.padding_idx, self.max_norm, self.norm_type,
+            self.scale_grad_by_freq, self.sparse)

@@ -28,10 +28,20 @@ numbers.
   lane :func:`nan_inject_row`, so arming a fault never changes what the
   dispatch computes for the other lanes.
 
+- **in-program probes** — :func:`capture` turns on the layer tap (one
+  process-wide ``torch.nn`` module forward hook, installed while any
+  capture region is active and removed after the last one) so a probed
+  TrainStep, or an eager region, records one stats row per module output
+  under the reference's site names: the module's qualified name from
+  :func:`layer_names` where the caller gave one, else its class name
+  lower-cased (paddle's ``_name_scope``) with ``#k`` on repeats.
+  :func:`probe_token` / :func:`probe_cadence` key the probed TrainStep
+  variant: 0 when the checker is off, and then every step is the unprobed
+  one.  :class:`OperatorStatsCollector` / :func:`collect_operator_stats`
+  are the eager spelling (``paddle.amp.debugging``'s context manager).
+
 The ``/statusz`` "numerics" section renders the last RESOLVED tables only
-— scrapes never touch the device.  The reference's in-program probes
-(``capture``, ``collect_operator_stats``, probe tokens and cadence) wait
-for the training step's observability.
+— scrapes never touch the device.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import threading
 import time
 import warnings
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,11 +61,12 @@ from . import faults as _faults
 
 __all__ = [
     "STAT_FIELDS", "TensorCheckerConfig", "enable_tensor_checker",
-    "disable_tensor_checker", "check_numerics", "tensor_stats", "stats_row",
-    "submit", "poll", "maybe_poll", "checker_enabled", "monitor",
+    "disable_tensor_checker", "check_numerics", "collect_operator_stats",
+    "tensor_stats", "stats_row", "capture", "submit", "poll", "maybe_poll",
+    "probe_token", "probe_cadence", "checker_enabled", "monitor",
     "serving_guard_default", "consume_nan_inject", "set_nan_inject_row",
     "nan_inject_row", "latest", "statusz", "reset", "Anomaly",
-    "NumericsMonitor",
+    "NumericsMonitor", "OperatorStatsCollector", "layer_names",
 ]
 
 STAT_FIELDS = ("nonfinite", "absmax", "rms", "zero_frac",
@@ -119,18 +131,23 @@ class TensorCheckerConfig:
     also fires one flight-recorder dump per episode, ``"abort"`` also
     raises (``FloatingPointError`` from :func:`check_numerics`,
     :class:`~..resilience.retry.NumericFault` from :func:`poll`).
-    ``include``/``exclude`` are name-substring filters over check sites;
-    ``serving_guard`` is the default for ``ServingEngine(numeric_guard=
-    None)``; the anomaly engine's spike test is a rolling median + MAD over
-    ``window`` samples, firing above ``median + mad_threshold * MAD``
-    after ``min_history`` samples."""
+    ``include``/``exclude`` are name-substring filters over probe / check
+    sites; ``cadence`` is how often a TrainStep runs its probed variant
+    (every Nth step); ``serving_guard`` is the default for
+    ``ServingEngine(numeric_guard=None)``; ``nan_inject_site`` names the
+    probed site ``numerics.nan_inject`` poisons (None: the first); the
+    anomaly engine's spike test is a rolling median + MAD over ``window``
+    samples, firing above ``median + mad_threshold * MAD`` after
+    ``min_history`` samples."""
 
     enable: bool = True
     level: str = "dump"
     include: tuple = ()
     exclude: tuple = ()
+    cadence: int = 1
     low_dtype: str = "bfloat16"
     serving_guard: bool = False
+    nan_inject_site: str | None = None
     window: int = 64
     mad_threshold: float = 10.0
     min_history: int = 8
@@ -145,6 +162,7 @@ class TensorCheckerConfig:
             self.exclude = (self.exclude,)
         self.include = tuple(self.include or ())
         self.exclude = tuple(self.exclude or ())
+        self.cadence = max(1, int(self.cadence))
 
     def match(self, name):
         name = str(name)
@@ -158,7 +176,11 @@ class TensorCheckerConfig:
 # ------------------------------------------------------------ process state
 _LOCK = threading.Lock()
 _CONFIG: TensorCheckerConfig | None = None
+_VERSION = 0                     # bumps on enable/disable -> probe_token
 _PROVIDER_REGISTERED = False
+_TLS = threading.local()
+_ACTIVE_CAPTURES = 0
+_HOOK = None                     # the module forward hook while capturing
 
 _PENDING: dict = {}              # stream -> (sites, device stats, step)
 _LATEST: dict = {}               # stream -> {"sites", "table", "step", "ts"}
@@ -173,18 +195,22 @@ _MONITOR = None
 def enable_tensor_checker(config=None, **kw):
     """Install ``config`` (or ``TensorCheckerConfig(**kw)``) as the active
     configuration; returns it."""
-    global _CONFIG
+    global _CONFIG, _VERSION
     cfg = config if config is not None else TensorCheckerConfig(**kw)
     with _LOCK:
         _CONFIG = cfg
+        _VERSION += 1
     _ensure_provider()
     return cfg
 
 
 def disable_tensor_checker():
-    global _CONFIG
+    """Disarm: probe tokens return 0, and a TrainStep runs its unprobed
+    variant again."""
+    global _CONFIG, _VERSION
     with _LOCK:
         _CONFIG = None
+        _VERSION += 1
 
 
 def config():
@@ -201,6 +227,18 @@ def level():
     return cfg.level if cfg is not None else "warn"
 
 
+def probe_token():
+    """Program-variant key component: 0 when probes are off (producers
+    then run exactly their unprobed step), a fresh non-zero integer per
+    enable so a stale probed variant never aliases a new one."""
+    return _VERSION if checker_enabled() else 0
+
+
+def probe_cadence():
+    cfg = _CONFIG
+    return cfg.cadence if (cfg is not None and cfg.enable) else 1
+
+
 def serving_guard_default():
     cfg = _CONFIG
     return bool(cfg is not None and cfg.enable and cfg.serving_guard)
@@ -214,6 +252,167 @@ def low_dtype():
 def _match(name):
     cfg = _CONFIG
     return cfg.match(name) if cfg is not None else True
+
+
+# ------------------------------------------------------- capture machinery
+class _Capture:
+    """Collector of (site, stats-row) pairs fed by the layer tap.
+    ``inject`` (a float32 scalar on the host, or a 0-d tensor) is ADDED to
+    the output of the matching site — the ``numerics.nan_inject`` poison
+    point.  A host 0.0 (the disarmed value) adds nothing, so a disarmed
+    probed step computes exactly what the unprobed one does."""
+
+    def __init__(self, stream="trace", names=None, inject=None,
+                 inject_site=None, low_dtype="bfloat16", eager=False):
+        self.stream = stream
+        self.sites: list = []
+        self.rows: list = []
+        self.eager = eager
+        self.inject = inject
+        self.inject_site = inject_site
+        self.low = low_dtype
+        self._names = names or {}
+        self._counts: dict = {}
+        self._injected = False
+
+    def _name_for(self, layer):
+        name = self._names.get(id(layer))
+        if name is None:
+            base = getattr(layer, "_name_scope", type(layer).__name__.lower())
+            k = self._counts.get(base, 0)
+            self._counts[base] = k + 1
+            name = base if k == 0 else f"{base}#{k}"
+        return name
+
+    def _inject_here(self, name):
+        if self.inject is None or self._injected:
+            return False
+        if self.inject_site is None:
+            return True                       # first probed site
+        return self.inject_site in name
+
+    def add(self, name, value):
+        """Manual probe site (loss, grads, logits)."""
+        if not _match(name):
+            return
+        self.sites.append(str(name))
+        self.rows.append(stats_row(value, low_dtype=self.low))
+
+    def tap(self, layer, out):
+        arr = _first_array(out)
+        if arr is None:
+            return out
+        name = self._name_for(layer)
+        if not _match(name):
+            return out
+        if self._inject_here(name):
+            self._injected = True
+            inj = self.inject
+            if isinstance(inj, torch.Tensor) or float(inj) != 0.0:
+                poisoned = arr + torch.as_tensor(
+                    inj, device=arr.device).to(arr.dtype)
+                out = _replace_array(out, poisoned)
+                arr = poisoned
+        self.sites.append(name)
+        self.rows.append(stats_row(arr, low_dtype=self.low))
+        return out
+
+    def stack(self):
+        """``(sites, float32[n, 6])`` — the stats table on the device."""
+        if not self.rows:
+            return (), torch.zeros((0, NSTATS), dtype=torch.float32)
+        return tuple(self.sites), torch.stack(self.rows)
+
+    def summary(self):
+        """``{site: {field: float}}`` in call order (syncs)."""
+        out = {}
+        if not self.rows:
+            return out
+        table = torch.stack(self.rows).cpu().numpy()
+        for name, row in zip(self.sites, table):
+            out[name] = {k: float(v) for k, v in zip(STAT_FIELDS, row)}
+        return out
+
+
+def _first_array(out):
+    if isinstance(out, torch.Tensor):
+        return out
+    if isinstance(out, (tuple, list)) and out:
+        return _first_array(out[0])
+    return None
+
+
+def _replace_array(out, arr):
+    if isinstance(out, torch.Tensor):
+        return arr
+    if isinstance(out, (tuple, list)) and out:
+        head = _replace_array(out[0], arr)
+        rest = list(out[1:])
+        return type(out)([head] + rest) if isinstance(out, list) \
+            else (head,) + tuple(rest)
+    return out
+
+
+def _layer_tap(module, args, out):
+    stack = getattr(_TLS, "captures", None)
+    if not stack:
+        return None
+    new = stack[-1].tap(module, out)
+    return None if new is out else new
+
+
+def _set_hook(active):
+    """Install (or remove) the process-wide module forward hook — the
+    counterpart of the reference's ``nn.Layer.__call__`` tap.  Modules
+    called on other threads pass through it untouched (no capture on
+    their thread)."""
+    global _HOOK
+    if active and _HOOK is None:
+        _HOOK = torch.nn.modules.module.register_module_forward_hook(
+            _layer_tap)
+    elif not active and _HOOK is not None:
+        _HOOK.remove()
+        _HOOK = None
+
+
+@contextmanager
+def capture(stream="trace", names=None, inject=None, inject_site=None,
+            eager=False):
+    """Activate the layer tap on this thread; yields the
+    :class:`_Capture` whose ``stack()`` / ``summary()`` the caller reads
+    after the region."""
+    global _ACTIVE_CAPTURES
+    cap = _Capture(stream=stream, names=names, inject=inject,
+                   inject_site=inject_site, low_dtype=low_dtype(),
+                   eager=eager)
+    stack = getattr(_TLS, "captures", None)
+    if stack is None:
+        stack = _TLS.captures = []
+    stack.append(cap)
+    with _LOCK:
+        _ACTIVE_CAPTURES += 1
+        _set_hook(True)
+    try:
+        yield cap
+    finally:
+        stack.pop()
+        with _LOCK:
+            _ACTIVE_CAPTURES -= 1
+            if _ACTIVE_CAPTURES == 0:
+                _set_hook(False)
+
+
+def layer_names(model):
+    """``{id(module): qualified_name}`` for capture naming — the model
+    itself under its lower-cased class name (paddle's ``_name_scope``),
+    every submodule under its ``named_modules`` path, which is the
+    reference's ``named_sublayers`` path (the port keeps its names)."""
+    out = {id(model): getattr(model, "_name_scope",
+                              type(model).__name__.lower())}
+    for name, sub in model.named_modules():
+        if name:
+            out[id(sub)] = name
+    return out
 
 
 # --------------------------------------------------- device table lifecycle
@@ -495,6 +694,57 @@ def check_numerics(x, name="tensor", stream="eager"):
     return stats
 
 
+class OperatorStatsCollector:
+    """Eager per-layer stats over a region — the
+    ``collect_operator_stats`` context manager's payload.  Rides the same
+    layer tap the probed TrainStep uses."""
+
+    def __init__(self, model=None, stream="eager"):
+        self.stream = stream
+        self._names = layer_names(model) if model is not None else None
+        self._cm = None
+        self._cap = None
+
+    def start(self):
+        self._cm = capture(stream=self.stream, names=self._names,
+                           eager=True)
+        self._cap = self._cm.__enter__()
+
+    def stop(self):
+        if self._cm is None:
+            return
+        self._cm.__exit__(None, None, None)
+        self._cm = None
+
+    def summary(self):
+        return self._cap.summary() if self._cap is not None else {}
+
+    def report(self):
+        lines = [" | ".join(["site".ljust(28)] + [f.rjust(14)
+                                                  for f in STAT_FIELDS])]
+        for site, stats in self.summary().items():
+            lines.append(" | ".join(
+                [site[:28].ljust(28)]
+                + [f"{stats[f]:14.6g}" for f in STAT_FIELDS]))
+        return "\n".join(lines)
+
+
+@contextmanager
+def collect_operator_stats(model=None, stream="eager"):
+    """``with collect_operator_stats() as col: ...`` — eager per-layer
+    tensor stats (``col.summary()`` / ``col.report()``), checking each
+    layer output against the active level on exit."""
+    col = OperatorStatsCollector(model=model, stream=stream)
+    col.start()
+    try:
+        yield col
+    finally:
+        col.stop()
+        for site, stats in col.summary().items():
+            if stats["nonfinite"] > 0:
+                check_numerics(np.float32("nan"), name=site, stream=stream)
+
+
 # ---------------------------------------------------------------- statusz
 def _ensure_provider():
     """Register the /statusz ``numerics`` section once, lazily on first
@@ -537,6 +787,8 @@ def statusz():
     return {
         "enabled": bool(cfg is not None and cfg.enable),
         "level": cfg.level if cfg else None,
+        "cadence": cfg.cadence if cfg else None,
+        "probe_token": probe_token(),
         "streams": resolved,
         "pending": pending,
         "episodes": eps,
@@ -548,9 +800,10 @@ def reset():
     """Tests: disarm the checker, drop pending/resolved tables, anomaly
     history and fault-site bookkeeping (the provider registration
     survives)."""
-    global _CONFIG, _nan_trips_seen, _NAN_INJECT_ROW, _last_poll
+    global _CONFIG, _VERSION, _nan_trips_seen, _NAN_INJECT_ROW, _last_poll
     with _LOCK:
         _CONFIG = None
+        _VERSION += 1
         _PENDING.clear()
         _LATEST.clear()
         _nan_trips_seen = 0

@@ -20,7 +20,17 @@ state — the pool tuple, ``(kp, vp)`` each ``[L, P, ps, h, d]`` here
   runs the next C prompt tokens per slot the same way and returns the
   logits at each row's last real lane ``nvalid[b] - 1``.
 
-All return ``(logits f32, *pools)``.  Chunk positions are clamped at
+- ``encode(ids, *pools, table, lens)`` / ``encode_chunk(...)``
+  (multi-tenant embed / score requests) run a prefill / chunk and return
+  the full hidden states and the tied LM-head weights instead of logits.
+
+Every closure reads its trailing arguments through ONE hook,
+:meth:`GPTAdapter._split_extra`: an adapter that takes extra dispatch
+arguments (the multi-tenant LoRA adapters: per-row adapter ids and the
+rank-bucketed pools) overrides that method, and the closure bodies stay
+single-copy.
+
+The logit closures return ``(logits f32, *pools)``.  Chunk positions are clamped at
 ``max_model_len - 1``: lanes past the cap are junk nobody reads.  The TPU package donated the
 pools into each compiled call and got new arrays back; here the layers
 write the per-layer views ``kp[i]`` IN PLACE, so the returned pools are
@@ -100,12 +110,28 @@ class GPTAdapter:
         return [(tag, kp[i], vp[i], table, lens)
                 for i in range(self.num_layers)]
 
-    def _run(self, ids, pools, table, lens, pos_ids, tag=None):
+    def _run(self, ids, pools, table, lens, pos_ids, tag=None, lora=None):
         """Hidden states ``[B, S, H]`` and the tied LM-head weights; the
         pools are written in place."""
         cache = self._layer_caches(tag or self.tag, pools, table, lens)
-        x, _ = self.gpt(ids, position_ids=pos_ids, cache=cache)
+        x, _ = self.gpt(ids, position_ids=pos_ids, cache=cache, lora=lora)
         return x, self.gpt.word_embeddings.weight
+
+    def _split(self, args):
+        """``(*pools, table, lens)`` -> (pools tuple, table, lens)."""
+        if len(args) != self.n_pools + 2:
+            raise TypeError(
+                f"{type(self).__name__} closures take {self.n_pools} pool "
+                f"tensors + table + lens; got {len(args)} trailing args")
+        return tuple(args[:self.n_pools]), args[-2], args[-1]
+
+    def _split_extra(self, args):
+        """``(pools, table, lens, lora)`` — THE extension hook: an adapter
+        carrying extra trailing dispatch arguments (multi-tenant LoRA:
+        per-row adapter ids and the rank-bucketed pools) overrides this
+        one method; the closure bodies below stay single-copy."""
+        pools, table, lens = self._split(args)
+        return pools, table, lens, None
 
     def _chunk_positions(self, lens, C):
         pos = lens[:, None].long() + torch.arange(C, device=lens.device)[None]
@@ -113,11 +139,11 @@ class GPTAdapter:
 
     # ------------------------------------------------------------- closures
     @torch.inference_mode()
-    def prefill(self, ids, *pools_table_lens):
-        *pools, table, lens = pools_table_lens
+    def prefill(self, ids, *args):
+        pools, table, lens, lora = self._split_extra(args)
         S = ids.shape[1]
         pos_ids = torch.arange(S, dtype=torch.int64, device=ids.device)[None, :]
-        x, w = self._run(ids, pools, table, lens, pos_ids)
+        x, w = self._run(ids, pools, table, lens, pos_ids, lora=lora)
         # logits at each row's LAST REAL position (rows are right-padded)
         idx = (lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
         h = torch.gather(x, 1, idx)[:, 0]
@@ -125,33 +151,64 @@ class GPTAdapter:
         return (logits, *pools)
 
     @torch.inference_mode()
-    def step(self, last, *pools_table_lens):
-        *pools, table, lens = pools_table_lens
+    def encode(self, ids, *args):
+        """Embedding / scoring forward (multi-tenant ``mode="embed" |
+        "score"`` requests): the (right-padded) prompts run like
+        :meth:`prefill`, returning the FULL hidden states and the tied
+        LM-head weights.  K/V still flows through the pool writes (the
+        caller points every table row at the scratch page, so nothing is
+        allocated and the junk is never attended).  Returns ``(hidden
+        [B, S, H] f32, w [V, H] f32, *pools)``."""
+        pools, table, lens, lora = self._split_extra(args)
+        S = ids.shape[1]
+        pos_ids = torch.arange(S, dtype=torch.int64, device=ids.device)[None, :]
+        x, w = self._run(ids, pools, table, lens, pos_ids, lora=lora)
+        return (x.float(), w.float(), *pools)
+
+    @torch.inference_mode()
+    def encode_chunk(self, ids, *args):
+        """Prefix-cached embed / score forward: ``ids [B, C]``, the
+        UNSHARED tail of each prompt, at positions ``lens[b] ..`` through
+        the chunk cache variant, attending the resident shared-run pages
+        the table points at (K/V at position p depends on tokens 0..p
+        only, so the tail's hiddens equal a full :meth:`encode`'s).
+        Returns ``(hidden [B, C, H] f32, w [V, H] f32, *pools)``."""
+        pools, table, lens, lora = self._split_extra(args)
+        pos_ids = self._chunk_positions(lens, ids.shape[1])
+        x, w = self._run(ids, pools, table, lens, pos_ids, self.chunk_tag,
+                         lora=lora)
+        return (x.float(), w.float(), *pools)
+
+    @torch.inference_mode()
+    def step(self, last, *args):
+        pools, table, lens, lora = self._split_extra(args)
         pos_ids = lens[:, None].long()
-        x, w = self._run(last, pools, table, lens, pos_ids)
+        x, w = self._run(last, pools, table, lens, pos_ids, lora=lora)
         logits = x[:, -1].float() @ w.float().T
         return (logits, *pools)
 
     @torch.inference_mode()
-    def verify(self, ids, *pools_table_lens):
+    def verify(self, ids, *args):
         """Speculative verify: ``logits[b, t]`` is the next-token
         distribution after ``ids[b, :t + 1]``; all C K/V per slot land in
         the pools in one chunk write."""
-        *pools, table, lens = pools_table_lens
+        pools, table, lens, lora = self._split_extra(args)
         pos_ids = self._chunk_positions(lens, ids.shape[1])
-        x, w = self._run(ids, pools, table, lens, pos_ids, self.chunk_tag)
+        x, w = self._run(ids, pools, table, lens, pos_ids, self.chunk_tag,
+                         lora=lora)
         logits = x.float() @ w.float().T
         return (logits, *pools)
 
     @torch.inference_mode()
-    def prefill_chunk(self, ids, nvalid, *pools_table_lens):
+    def prefill_chunk(self, ids, nvalid, *args):
         """One chunk of a long prompt (right-padded past ``nvalid[b]``) at
         positions ``lens[b] ..``; only the final chunk's logits seed
         decode.  Pad lanes write past the valid length (or are dropped
         past the table), where the next write overwrites them."""
-        *pools, table, lens = pools_table_lens
+        pools, table, lens, lora = self._split_extra(args)
         pos_ids = self._chunk_positions(lens, ids.shape[1])
-        x, w = self._run(ids, pools, table, lens, pos_ids, self.chunk_tag)
+        x, w = self._run(ids, pools, table, lens, pos_ids, self.chunk_tag,
+                         lora=lora)
         idx = torch.clamp(nvalid.long() - 1, min=0)[:, None, None] \
             .expand(-1, 1, x.shape[-1])
         h = torch.gather(x, 1, idx)[:, 0]

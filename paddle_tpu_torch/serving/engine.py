@@ -206,6 +206,17 @@ class Request:
     eos_token_id: int | None
     deadline: float | None      # absolute time.time() seconds
     handle: "RequestHandle"
+    # multi-tenant serving (serving.multitenant; every field defaults to
+    # the single-tenant base-model request, so the plain engine's paths
+    # are untouched): the tenant's registered LoRA adapter name, the
+    # compiled token FSM constraining this row's output, the request kind
+    # (generate | embed | score), the embed pooling, and the store lease
+    # held while the request is admitted
+    adapter: str | None = None
+    grammar: object = None
+    mode: str = "generate"
+    pooling: str = "mean"
+    lease: object = None
     # QoS tier name — None on engines without a tier table; carried
     # verbatim across requeues (restart recovery, preemption)
     tier: str | None = None
@@ -222,6 +233,14 @@ class RequestHandle:
     def __init__(self, request_id, prompt_len):
         self.request_id = request_id
         self.prompt_len = prompt_len
+        # multi-tenant surface: the request kind, the embed / score result
+        # (``value``), the tenant's adapter name, and a constrained row's
+        # live FSM state (on the HANDLE, so a restart's re-admission
+        # resumes the grammar where the emitted tokens left it)
+        self.mode = "generate"
+        self.value = None
+        self.adapter = None
+        self._fsm_state = None
         self.token_ids = []            # generated ids (appended by the engine)
         # wall-clock stamp of every emission: the request's timeline, which
         # observability.slo evaluates
@@ -300,12 +319,16 @@ class RequestHandle:
         raise RuntimeError("serving engine failed") from self._error
 
     def result(self, timeout=None):
-        """Generated token ids (blocks until the request finishes)."""
+        """Generated token ids (blocks until the request finishes);
+        ``mode="embed"`` requests return the pooled hidden-state vector,
+        ``mode="score"`` the per-token logprob list."""
         if not self._done.wait(timeout):
             raise TimeoutError(
                 f"request {self.request_id} not finished after {timeout}s")
         if self._error is not None:
             self._raise_error()
+        if self.mode != "generate":
+            return self.value
         return list(self.token_ids)
 
     def stream(self):
@@ -329,7 +352,7 @@ class RequestHandle:
 class _Slot:
     __slots__ = ("handle", "req", "alloc", "table_row", "length", "last",
                  "produced", "temp", "eos", "max_new", "deadline",
-                 "last_token_t", "prefilled")
+                 "last_token_t", "prefilled", "idx")
 
     def __init__(self, req, alloc, table_row):
         self.handle = req.handle
@@ -344,6 +367,7 @@ class _Slot:
         self.max_new = req.max_new_tokens
         self.deadline = req.deadline
         self.last_token_t = None            # inter-token latency stamp
+        self.idx = None                     # its decode lane
         # chunked prefill: prompt tokens whose K/V have landed so far; None
         # once ingestion is complete (or for a monolithic prefill).  While
         # it is an int, the slot's host row stays inert (scratch table,
@@ -363,7 +387,7 @@ class ServingEngine:
 
     def __init__(self, model, num_slots=4, page_size=16, max_model_len=None,
                  num_pages=None, top_k=0, top_p=1.0, prefix_sharing=False,
-                 max_queue=None, seed=0, watchdog_s=None,
+                 max_queue=None, seed=0, adapter=None, watchdog_s=None,
                  telemetry_port=None, max_engine_restarts=3,
                  degraded_stall_s=2.0, restart_cooldown_s=10.0,
                  speculative_k=0, draft_max_ngram=3,
@@ -431,7 +455,15 @@ class ServingEngine:
             from .quant.weights import quantize_model_weights
 
             quantize_model_weights(model)
-        if kv_dtype == "int8":
+        if adapter is not None:
+            # a caller-built adapter (the multi-tenant engine's LoRA ones);
+            # its pools must land on this engine's device
+            if (adapter.device.type, adapter.device.index or 0) != \
+                    (self.device.type, self.device.index or 0):
+                raise ValueError(f"adapter built for {adapter.device}, "
+                                 f"engine runs on {self.device}")
+            self._adapter = adapter
+        elif kv_dtype == "int8":
             from .quant.adapter import QuantizedGPTAdapter
 
             self._adapter = QuantizedGPTAdapter(model, page_size)
@@ -951,19 +983,20 @@ class ServingEngine:
 
     def _warm_one(self, key):
         """Give one manifest key its first dispatch if it belongs to this
-        engine's static configuration.  Returns True when the key is now
-        warm."""
-        kind = key[0] if isinstance(key, tuple) and key else None
-        if kind == "serve_step" and key == self._step_store_key():
+        engine's static configuration (its own store keys: the
+        multi-tenant engine's ``mt_*`` keys too).  Returns True when the
+        key is now warm."""
+        if not isinstance(key, tuple) or len(key) < 2:
+            return False
+        if key == self._step_store_key():
             warm = self._warm_step
-        elif kind == "serve_prefill" and len(key) > 1 \
+        elif isinstance(key[1], int) \
                 and key == self._prefill_store_key(key[1]):
             warm = functools.partial(self._warm_prefill, key[1])
-        elif kind == "serve_prefill_chunk" and len(key) > 1 \
+        elif isinstance(key[1], int) \
                 and key == self._prefill_chunk_store_key(key[1]):
             warm = functools.partial(self._warm_prefill_chunk, key[1])
-        elif kind == "verify" and self._spec_k and len(key) > 1 \
-                and key == self._verify_store_key(self._spec_k):
+        elif self._spec_k and key == self._verify_store_key(self._spec_k):
             warm = self._warm_verify
         else:
             return False
@@ -982,7 +1015,8 @@ class ServingEngine:
         self._dispatch(
             self._step_store_key(), self._decode_family(),
             self._decode_family(), self._m_step_traces, (), self._step_fn,
-            (self._h_last, self._h_table, self._h_lens, self._h_temps),
+            (self._h_last, self._h_table, self._h_lens, self._h_temps,
+             *self._step_extra()),
             self._numeric_inject(B) if self._numeric_guard else None)
 
     def _warm_prefill(self, s_pad):
@@ -993,7 +1027,8 @@ class ServingEngine:
             self._prefill_store_key(s_pad), fam, fam, self._m_prefill_traces,
             (), self._prefill_fn,
             (np.zeros((1, s_pad), np.int64), table,
-             np.asarray([s_pad], np.int32), np.zeros((1,), np.float32)),
+             np.asarray([s_pad], np.int32), np.zeros((1,), np.float32),
+             *self._warmup_prefill_extra()),
             self._numeric_inject(1) if self._numeric_guard else None)
 
     def _warm_prefill_chunk(self, c_pad):
@@ -1003,7 +1038,8 @@ class ServingEngine:
             self._prefill_chunk_store_key(c_pad), fam, fam,
             self._m_prefill_chunk_traces, (), self._chunk_fn,
             (np.zeros((1, c_pad), np.int64), np.asarray([c_pad], np.int32),
-             table, np.zeros((1,), np.int32), np.zeros((1,), np.float32)),
+             table, np.zeros((1,), np.int32), np.zeros((1,), np.float32),
+             *self._warmup_prefill_extra()),
             self._numeric_inject(1) if self._numeric_guard else None)
 
     def _warm_verify(self):
@@ -1012,7 +1048,7 @@ class ServingEngine:
             self._verify_store_key(self._spec_k), fam, fam,
             self._m_verify_traces, (), self._verify_fn,
             (self._h_ids, self._h_table, self._h_lens, self._h_dlen,
-             self._h_temps),
+             self._h_temps, *self._verify_extra([])),
             self._numeric_inject(self.num_slots)
             if self._numeric_guard else None)
 
@@ -1151,6 +1187,7 @@ class ServingEngine:
         for i, s in enumerate(self._slots):
             if s is not None:
                 self._bm.free(s.alloc)
+                self._release_tenant(s.req)
                 self._slots[i] = None
                 self._fail_stopped(s.handle)
         self._reset_host_buffers()
@@ -1184,12 +1221,22 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
-               eos_token_id=None, deadline_s=None, tier=None):
+               eos_token_id=None, deadline_s=None, tier=None, adapter=None,
+               grammar=None, mode="generate", pooling="mean"):
         """Queue one request; returns a :class:`RequestHandle` at once.
         ``deadline_s`` is a wall-clock budget from now — a sequence still
         queued or decoding past it retires with status ``expired``.
         ``tier`` names a QoS tier (``qos=`` engines only; None = the
-        config's default tier)."""
+        config's default tier).
+
+        Multi-tenant parameters (:class:`~.multitenant.MultiTenantEngine`
+        only; this engine rejects non-defaults): ``adapter`` names a
+        registered LoRA adapter serving this row; ``grammar`` is a
+        :class:`~.multitenant.grammar.CompiledGrammar` constraining the
+        row's output; ``mode``
+        picks generate | embed | score (embed / score run one dispatch and
+        retire without a decode slot or pages); ``pooling`` (mean | last)
+        shapes the embed vector."""
         if self._qos is not None:
             tier = self._qos.resolve(tier)
         elif tier is not None:
@@ -1200,10 +1247,26 @@ class ServingEngine:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        eos_token_id = self._validate_tenant(adapter, grammar, mode, pooling,
+                                             eos_token_id)
+        if mode != "generate":
+            max_new_tokens = 1          # no decode slot is ever occupied
         total = len(prompt) + int(max_new_tokens)
         handle = RequestHandle(next(self._rid_counter), len(prompt))
         handle.tier = tier
-        if total > self.max_model_len \
+        handle.mode = mode
+        handle.adapter = adapter
+        if grammar is not None:
+            handle._fsm_state = grammar.start
+        if mode != "generate":
+            # embed / score: the prompt runs against the scratch page — no
+            # pages, no decode positions
+            if len(prompt) > self.max_model_len:
+                self._m_requests.inc(status="rejected")
+                raise RequestRejectedError(
+                    f"{mode} prompt {len(prompt)} exceeds max_model_len "
+                    f"{self.max_model_len}", reason="unservable")
+        elif total > self.max_model_len \
                 or self._bm.pages_for(total) > self._bm.num_pages:
             self._m_requests.inc(status="rejected")
             raise RequestRejectedError(
@@ -1230,17 +1293,32 @@ class ServingEngine:
                 if deadline_s is not None:
                     self._check_deadline_meetable(float(deadline_s),
                                                   tier=tier)
-                self._preflight_hbm(handle, total)
+                self._preflight_hbm(handle, total, mode)
                 deadline = time.time() + deadline_s \
                     if deadline_s is not None else None
                 self._queue.append(Request(
                     prompt, int(max_new_tokens),
                     SamplingParams(temperature=float(temperature)),
-                    eos_token_id, deadline, handle, tier=tier))
+                    eos_token_id, deadline, handle, adapter=adapter,
+                    grammar=grammar, mode=mode, pooling=pooling, tier=tier))
                 self._m_requests.inc(status="submitted")
                 self._m_queue_depth.set(len(self._queue))
                 self._cv.notify_all()
         return handle
+
+    def _validate_tenant(self, adapter, grammar, mode, pooling,
+                         eos_token_id):
+        """Submit-time check of the multi-tenant parameters: this engine
+        serves one tenant in one mode, so anything non-default is
+        rejected (the multi-tenant engine overrides).  Returns the
+        effective ``eos_token_id``."""
+        if adapter is not None or grammar is not None \
+                or mode != "generate" or pooling != "mean":
+            raise ValueError(
+                "adapter=/grammar=/mode=/pooling= need a multi-tenant "
+                "engine (paddle_tpu_torch.serving.multitenant."
+                "MultiTenantEngine)")
+        return eos_token_id
 
     def _shed(self, reason, message, tier=None):
         """Reject at admission with a distinct, machine-readable reason
@@ -1255,14 +1333,17 @@ class ServingEngine:
         self._m_requests.inc(status="rejected")
         raise RequestRejectedError(message, reason=reason)
 
-    def _preflight_hbm(self, handle, total):
+    def _preflight_hbm(self, handle, total, mode="generate"):
         """With ``PADDLE_HBM_BUDGET_BYTES`` set, project this request's
         worst-case page need against what the budget leaves after the
         fixed allocations (the weights; the page pools are resident
         already, so what grows with admission is the COMMITTED page count
         across admitted-but-unfinished requests).  Shedding here with
         reason ``hbm_budget`` never changes what admitted requests
-        compute: pages either fit or the request never runs."""
+        compute: pages either fit or the request never runs.  Embed /
+        score requests commit no pages."""
+        if mode != "generate":
+            return
         budget = _obs_memory.hbm_budget_bytes()
         if budget is None:
             return
@@ -1437,8 +1518,11 @@ class ServingEngine:
         for i, s in enumerate(self._slots):
             if s is not None:
                 self._slots[i] = None
+                self._release_tenant(s.req)
                 inflight.append((s.req, s.produced))
         pending, self._admitting = self._admitting, None
+        if pending is not None:
+            self._release_tenant(pending)
         if pending is not None and \
                 all(req.handle is not pending.handle for req, _ in inflight):
             inflight.append((pending, 0))
@@ -1488,19 +1572,25 @@ class ServingEngine:
         prompt = list(req.prompt) + \
             ([int(t) for t in h.token_ids[-produced:]] if produced else [])
         h.status = "queued"
+        # the multi-tenant fields ride along; the LEASE is dropped (the
+        # re-admission acquires again), and the grammar state lives on the
+        # handle, already advanced through every emitted token
         self._queue.appendleft(dataclasses.replace(
-            req, prompt=prompt, max_new_tokens=remaining))
+            req, prompt=prompt, max_new_tokens=remaining, lease=None))
         self._requeued += 1
         self._m_requeued.inc()
 
     def _abort_all(self, exc):
         pending, self._admitting = self._admitting, None
+        if pending is not None:
+            self._release_tenant(pending)
         if pending is not None and not pending.handle.done:
             pending.handle._error = exc
             self._finish(pending.handle, "error")
         for i, s in enumerate(self._slots):
             if s is not None:
                 self._bm.free(s.alloc)
+                self._release_tenant(s.req)
                 self._slots[i] = None
                 s.handle._error = exc
                 self._finish(s.handle, "error")
@@ -1592,8 +1682,9 @@ class ServingEngine:
         h = s.handle
         produced = s.produced
         self._bm.free(s.alloc)
+        self._release_tenant(s.req)
         self._slots[i] = None
-        self._clear_slot_row(i)
+        self._clear_slot_row(i, s)
         if h.cancelled:
             self._finish(h, "cancelled")
             return
@@ -1655,30 +1746,102 @@ class ServingEngine:
                     break
                 if req is None:
                     return
-                free_slot = next((i for i, s in enumerate(self._slots)
-                                  if s is None), None)
-                if free_slot is None:
-                    # QoS: a full batch must not gate high-tier work
-                    free_slot = self._preempt_for_slot(req)
-                if free_slot is None:
-                    return
-                alloc = self._bm.allocate(
-                    req.prompt, len(req.prompt) + req.max_new_tokens)
-                if alloc is None:
-                    alloc = self._preempt_for_pages(req)
-                if alloc is None:
-                    # FIFO: park until a retirement frees pages
-                    self._m_blocked.inc()
-                    return
-                self._queue_pop(req)
-                self._m_queue_depth.set(len(self._queue))
-                # between dequeue and slot assignment the request lives in
-                # _admitting, so a failure mid-prefill still reaches it
-                self._admitting = req
-            if self._chunk_tokens and len(req.prompt) > self._chunk_tokens:
+                if req.mode != "generate":
+                    # embed / score: no decode slot, no pages — one
+                    # dispatch against the scratch page, retired at once
+                    # (multi-tenant engine only: this engine's submit
+                    # never queues them)
+                    if not self._acquire_tenant(req):
+                        return          # adapter slots pinned: stay queued
+                    self._queue_pop(req)
+                    self._m_queue_depth.set(len(self._queue))
+                    self._admitting = req
+                    alloc = free_slot = None
+                else:
+                    free_slot = next((i for i, s in enumerate(self._slots)
+                                      if s is None), None)
+                    if free_slot is None:
+                        # QoS: a full batch must not gate high-tier work
+                        free_slot = self._preempt_for_slot(req)
+                    if free_slot is None:
+                        return
+                    alloc = self._bm.allocate(
+                        req.prompt, len(req.prompt) + req.max_new_tokens)
+                    if alloc is None:
+                        alloc = self._preempt_for_pages(req)
+                    if alloc is None:
+                        # FIFO: park until a retirement frees pages
+                        self._m_blocked.inc()
+                        return
+                    if not self._acquire_tenant(req):
+                        # the adapter pool is pinned solid: the adapter
+                        # analog of page exhaustion — stay queued
+                        self._bm.free(alloc)
+                        self._m_blocked.inc()
+                        return
+                    self._queue_pop(req)
+                    self._m_queue_depth.set(len(self._queue))
+                    # between dequeue and slot assignment the request lives
+                    # in _admitting, so a failure mid-prefill still reaches
+                    # it
+                    self._admitting = req
+            if req.mode != "generate":
+                self._run_passthrough(req)
+            elif self._chunk_tokens \
+                    and len(req.prompt) > self._chunk_tokens:
                 self._admit_chunked(req, alloc, free_slot)
             else:
                 self._prefill(req, alloc, free_slot)
+
+    def _acquire_tenant(self, req):
+        """Pin the request's tenant resources (its LoRA adapter slot) for
+        its lifetime; False parks it in the queue.  This engine has no
+        tenants: always True (the multi-tenant engine overrides)."""
+        return True
+
+    def _release_tenant(self, req):
+        """Counterpart of :meth:`_acquire_tenant` at retirement."""
+
+    def _run_passthrough(self, req):
+        """Run an embed / score request.  Unreachable here: submit
+        rejects those modes."""
+        raise RuntimeError(
+            f"mode={req.mode!r} request reached the base engine scheduler")
+
+    # extension hooks of the multi-tenant engine; this engine's are empty
+    def _prefill_extra(self, req):
+        """Host arrays appended to a prefill / chunk dispatch's inputs (a
+        grammar mask, adapter ids)."""
+        return ()
+
+    def _warmup_prefill_extra(self):
+        """Request-independent stand-in for :meth:`_prefill_extra` in a
+        warmup replay."""
+        return self._prefill_extra(None)
+
+    def _step_extra(self):
+        """Host arrays appended to the decode dispatch's inputs."""
+        return ()
+
+    def _verify_extra(self, active):
+        """Host arrays appended to the verify dispatch's inputs (reads the
+        draft rows ``_h_ids`` / ``_h_dlen`` the caller just filled)."""
+        return ()
+
+    def _filter_draft(self, i, draft):
+        """Trim a slot's n-gram draft before verification (a constrained
+        row stops at its first grammar-illegal token)."""
+        return draft
+
+    def _on_admitted(self, slot, i):
+        """A request went live in decode lane ``i`` (its host rows are
+        filled)."""
+
+    def _budget_status(self, slot):
+        """Terminal status when ``max_new_tokens`` runs out: completion
+        here; a grammar row cut off mid-document reports ``truncated`` on
+        the multi-tenant engine."""
+        return "completed"
 
     def _prefill_bucket(self, S0):
         """Padded prefill width for a prompt of ``S0`` tokens: multiples of
@@ -1918,6 +2081,7 @@ class ServingEngine:
         table[0, :len(table_row)] = table_row
         temps = np.asarray([req.sampling.temperature], np.float32)
         h = req.handle
+        extra = self._prefill_extra(req)
         inject = self._numeric_inject(1) if self._numeric_guard else None
         t0 = time.perf_counter()
         if cached > 0:
@@ -1937,7 +2101,7 @@ class ServingEngine:
                     self._prefill_cached_family(C, alloc.cached_pages),
                     self._m_prefill_traces, (h,), self._chunk_fn,
                     (ids, np.asarray([tail], np.int32), table,
-                     np.asarray([cached], np.int32), temps), inject)
+                     np.asarray([cached], np.int32), temps, *extra), inject)
         else:
             s_pad = self._prefill_bucket(S0)
             ids = np.zeros((1, s_pad), np.int64)
@@ -1949,7 +2113,8 @@ class ServingEngine:
                 out, stats = self._dispatch(
                     self._prefill_store_key(s_pad), fam, fam,
                     self._m_prefill_traces, (h,), self._prefill_fn,
-                    (ids, table, np.asarray([S0], np.int32), temps), inject)
+                    (ids, table, np.asarray([S0], np.int32), temps, *extra),
+                    inject)
         self._m_prefill_seconds.observe(time.perf_counter() - t0)
         tok, bad = out[0], (out[1].astype(bool) if inject is not None
                             else None)
@@ -1966,6 +2131,7 @@ class ServingEngine:
             self._numeric_faults += 1
             self._m_numeric_faults.inc()
             self._bm.free(alloc)
+            self._release_tenant(req)
             self._admitting = None
             self._finish(h, "error")
             return
@@ -1981,10 +2147,12 @@ class ServingEngine:
         emit the token."""
         slot.last = tok
         slot.produced = 1
+        slot.idx = i
         self._h_table[i, :len(slot.table_row)] = slot.table_row
         self._h_lens[i] = slot.length
         self._h_temps[i] = slot.temp
         self._h_last[i, 0] = tok
+        self._on_admitted(slot, i)
         if self._drafter is not None:
             self._drafter.register(i, slot.req.prompt)
             self._drafter.extend(i, [tok])
@@ -2002,6 +2170,7 @@ class ServingEngine:
         if req.handle.admitted_at is None:   # TTFT decomposition: queue_s
             req.handle.admitted_at = time.time()
         slot = _Slot(req, alloc, np.asarray(alloc.pages, np.int32))
+        slot.idx = slot_idx
         slot.prefilled = min(alloc.cached_pages * self.page_size,
                              max(len(req.prompt) - 1, 0))
         req.handle.status = "running"
@@ -2032,8 +2201,9 @@ class ServingEngine:
                 if status == "expired":
                     self._count_preemption(s.req, "deadline")
                 self._bm.free(s.alloc)
+                self._release_tenant(s.req)
                 self._slots[i] = None
-                self._clear_slot_row(i)
+                self._clear_slot_row(i, s)
                 self._finish(h, status)
                 continue
             budget -= self._prefill_chunk_step(i, s)
@@ -2056,6 +2226,7 @@ class ServingEngine:
         table = np.full((1, self.table_width), self._scratch, np.int32)
         table[0, :len(slot.table_row)] = slot.table_row
         h = slot.handle
+        extra = self._prefill_extra(req)
         inject = self._numeric_inject(1) if self._numeric_guard else None
         fam = self._prefill_chunk_family(C)
         t0 = time.perf_counter()
@@ -2069,7 +2240,7 @@ class ServingEngine:
                 self._m_prefill_chunk_traces, (h,), self._chunk_fn,
                 (ids, np.asarray([nval], np.int32), table,
                  np.asarray([c0], np.int32),
-                 np.asarray([slot.temp], np.float32)), inject)
+                 np.asarray([slot.temp], np.float32), *extra), inject)
         self._m_prefill_chunk_seconds.observe(time.perf_counter() - t0)
         self._prefill_chunks += 1
         final = c0 + nval >= S0
@@ -2124,8 +2295,9 @@ class ServingEngine:
         self._numeric_faults += 1
         self._m_numeric_faults.inc()
         self._bm.free(slot.alloc)
+        self._release_tenant(slot.req)
         self._slots[i] = None
-        self._clear_slot_row(i)
+        self._clear_slot_row(i, slot)
         self._finish(h, "error")
 
     def _plain_step(self, active):
@@ -2140,6 +2312,7 @@ class ServingEngine:
                 batch=len(active), links=[h.trace_id for h in handles])
         else:  # hot path: one flag read, no span or link list built
             cm = _tracing.NOOP
+        extra = self._step_extra()
         inject = self._numeric_inject(self.num_slots) \
             if self._numeric_guard else None
         fam = self._decode_family()
@@ -2148,8 +2321,8 @@ class ServingEngine:
             out, stats = self._dispatch(
                 self._step_store_key(), fam, fam, self._m_step_traces,
                 handles, self._step_fn,
-                (self._h_last, self._h_table, self._h_lens, self._h_temps),
-                inject)
+                (self._h_last, self._h_table, self._h_lens, self._h_temps,
+                 *extra), inject)
         self._m_step_seconds.observe(time.perf_counter() - t0)
         tok, bad = out[0], (out[1].astype(bool) if inject is not None
                             else None)
@@ -2191,6 +2364,7 @@ class ServingEngine:
             cap = min(K, s.max_new - s.produced - 1,
                       self.max_model_len - s.length - 1)
             d = self._drafter.propose(i, cap) if cap > 0 else []
+            d = self._filter_draft(i, d)
             self._h_ids[i, 1:1 + len(d)] = d
             self._h_dlen[i] = len(d)
             drafts[i] = d
@@ -2205,6 +2379,7 @@ class ServingEngine:
                 links=[h.trace_id for h in handles])
         else:
             cm = _tracing.NOOP
+        extra = self._verify_extra(active)
         inject = self._numeric_inject(self.num_slots) \
             if self._numeric_guard else None
         fam = self._verify_family()
@@ -2216,7 +2391,7 @@ class ServingEngine:
                 self._verify_store_key(K), fam, fam, self._m_verify_traces,
                 handles, self._verify_fn,
                 (self._h_ids, self._h_table, self._h_lens, self._h_dlen,
-                 self._h_temps), inject)
+                 self._h_temps, *extra), inject)
         self._m_step_seconds.observe(time.perf_counter() - t0)
         if stats is not None:
             self._guard_stats(stats, self._iteration + 1)
@@ -2303,21 +2478,23 @@ class ServingEngine:
         elif slot.eos is not None and slot.last == slot.eos:
             status = "completed"
         elif slot.produced >= slot.max_new:
-            status = "completed"
+            status = self._budget_status(slot)
         elif slot.deadline is not None and time.time() > slot.deadline:
             status = "expired"
             self._count_preemption(slot.req, "deadline")
         if status is None:
             return False
         self._bm.free(slot.alloc)
+        self._release_tenant(slot.req)
         self._slots[i] = None
-        self._clear_slot_row(i)
+        self._clear_slot_row(i, slot)
         self._finish(h, status)
         return True
 
-    def _clear_slot_row(self, i):
+    def _clear_slot_row(self, i, slot):
         """Point slot ``i``'s host row at scratch again, so the next
-        dispatch treats the lane as inactive."""
+        dispatch treats the lane as inactive (``slot`` is the request that
+        held it)."""
         self._h_table[i, :] = self._scratch
         self._h_lens[i] = 0
         self._h_temps[i] = 0.0
@@ -2348,7 +2525,8 @@ class ServingEngine:
                 prev = self._tier_ema.get(handle.tier)
                 self._tier_ema[handle.tier] = dur if prev is None \
                     else 0.8 * prev + 0.2 * dur
-        if status in ("completed", "expired"):
+        if status in ("completed", "expired") \
+                and handle.mode == "generate":
             # expired = the deadline preempted it: an SLO miss by
             # definition; cancelled / stopped / error requests measure the
             # caller or the engine, not the latency promise

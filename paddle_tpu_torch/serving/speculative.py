@@ -155,3 +155,22 @@ def make_verifier(top_k=0, top_p=1.0):
         return targets, accept
 
     return verify
+
+
+def make_masked_verifier(top_k=0, top_p=1.0):
+    """Constrained-decoding twin of :func:`make_verifier` (multi-tenant
+    serving): ``verify(logits, allowed, drafts, dlen, temps, generator)``
+    with per-position token-FSM masks ``allowed [B, K+1, V]`` bool applied
+    to the verification logits BEFORE acceptance and resampling, so a
+    draft that exits the grammar is rejected by construction and the
+    bonus / resample token at the first rejection is drawn from the masked
+    distribution (always legal).  Disallowed entries get the reference's
+    ``-1e30``; all-True rows verify bit-identically to
+    :func:`make_verifier`."""
+    inner = make_verifier(top_k, top_p)
+
+    def verify(logits, allowed, drafts, dlen, temps, generator):
+        return inner(torch.where(allowed, logits, -1e30), drafts, dlen,
+                     temps, generator)
+
+    return verify

@@ -101,6 +101,24 @@ def make_guarded_batched_sampler(top_k=0, top_p=1.0):
     return sample
 
 
+def make_masked_batched_sampler(top_k=0, top_p=1.0):
+    """Constrained-decoding twin of :func:`make_batched_sampler`:
+    ``sample(logits [B, V], allowed [B, V] bool, temps [B], generator)``.
+    The multi-tenant engine's per-row token-FSM masks are applied BEFORE
+    greedy / temperature sampling, so a constrained row can only emit
+    grammar-legal tokens, while an all-True row samples bit-identically to
+    the unmasked sampler (``where`` with an all-True predicate is the
+    identity, and the Gumbel draw is the same).  Disallowed entries get
+    the reference's large negative constant, not ``-inf``, so a
+    temperature row's scores stay NaN-free."""
+    inner = make_batched_sampler(top_k, top_p)
+
+    def sample(logits, allowed, temps, generator):
+        return inner(torch.where(allowed, logits, -1e30), temps, generator)
+
+    return sample
+
+
 def nonfinite_rows(logits):
     """``[B]`` bool: rows of ``logits [B, ...]`` holding a NaN or inf."""
     return ~torch.isfinite(logits).flatten(1).all(dim=1)

@@ -79,8 +79,9 @@ def _linear_weights(model):
 
     keys = set()
     for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
         if isinstance(m, torch.nn.Linear):
-            keys.add(f"{name}.weight")
+            keys.add(f"{pre}weight")
         elif isinstance(m, Int8Linear):
-            keys.add(f"{name}.weight_int8")
+            keys.add(f"{pre}weight_int8")
     return keys

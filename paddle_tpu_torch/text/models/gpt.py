@@ -10,7 +10,12 @@ variants ``"served"`` / ``"served_chunk"`` and their int8 twins
 
 The qkv projection's output is HEAD-MAJOR, ``[B, S, heads, 3, head_dim]``,
 as in the TPU package (a column split over heads hands each shard whole
-(q, k, v) heads), so weights converted from it line up.
+(q, k, v) heads), so weights converted from it line up: conversion only
+transposes a weight, it never reorders output columns, so a LoRA ``B``
+of the qkv target carries the reference's column order too.
+
+Every branch takes ``lora=``: the multi-tenant engine's per-layer adapter
+slice (:meth:`GPTDecoderLayer._lin`), None for the base model.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 from ... import amp
 from ...device import resolve_device
 from ...nn import functional as F
-from ...nn.layers.common import Linear
+from ...nn.layers.common import Embedding, Linear
 from ...nn.layers.norm import LayerNorm
 from ...ops.paged_attention import (paged_attention, paged_attention_quantized,
                                     paged_chunk_attend,
@@ -55,7 +60,23 @@ class GPTDecoderLayer(torch.nn.Module):
         self.attn_dropout = attn_dropout
         self.act = getattr(F, act)
 
-    def forward(self, x, cache=None):
+    def _lin(self, name, x, lora):
+        """One decoder Linear call with an optional per-row LoRA bypass.
+
+        ``lora`` is this layer's multi-tenant adapter slice (or None): a
+        dict mapping target name -> flat tuple of per-row gathered
+        ``(A [B, d_in, r], B [B, r, d_out])`` pairs, one pair per rank
+        bucket (``serving.multitenant``; ``ops.lora``).  The base
+        projection may be an ``Int8Linear`` (``weight_dtype="int8"``): the
+        bypass rides on its output either way."""
+        y = getattr(self, name)(x)
+        if lora is not None and name in lora:
+            from ...ops.lora import apply_lora
+
+            y = apply_lora(x, y, *lora[name])
+        return y
+
+    def forward(self, x, cache=None, lora=None):
         """``cache`` is None (full causal attention over ``x``) or one of
         the cache tuples below; returns ``x``, or ``(x, cache)`` with the
         same tuple (its buffers and pools updated in place):
@@ -84,7 +105,7 @@ class GPTDecoderLayer(torch.nn.Module):
           K4."""
         residual = x
         h = self.ln1(x)
-        qkv = self.qkv(h)
+        qkv = self._lin("qkv", h, lora)
         B, S = h.shape[0], h.shape[1]
         heads = qkv.shape[-1] // (3 * self.head_dim)
         q, k, v = qkv.reshape(B, S, heads, 3, self.head_dim).unbind(3)
@@ -95,9 +116,10 @@ class GPTDecoderLayer(torch.nn.Module):
         else:
             attn = self._attend_cached(q, k, v, cache)
         attn = attn.reshape(B, S, heads * self.head_dim)
-        x = residual + self.dropout(self.out_proj(attn))
+        x = residual + self.dropout(self._lin("out_proj", attn, lora))
         residual = x
-        h = self.ffn2(self.act(self.ffn1(self.ln2(x))))
+        h = self._lin("ffn2", self.act(self._lin("ffn1", self.ln2(x), lora)),
+                      lora)
         x = residual + self.dropout(h)
         return x if cache is None else (x, cache)
 
@@ -176,9 +198,9 @@ class GPTModel(torch.nn.Module):
         super().__init__()
         intermediate_size = intermediate_size or 4 * hidden_size
         self.hidden_size = hidden_size
-        self.word_embeddings = torch.nn.Embedding(vocab_size, hidden_size)
-        self.position_embeddings = torch.nn.Embedding(max_position_embeddings,
-                                                      hidden_size)
+        self.word_embeddings = Embedding(vocab_size, hidden_size)
+        self.position_embeddings = Embedding(max_position_embeddings,
+                                             hidden_size)
         self.drop = torch.nn.Dropout(hidden_dropout_prob)
         self.layers = torch.nn.ModuleList([
             GPTDecoderLayer(hidden_size, num_attention_heads, intermediate_size,
@@ -191,22 +213,22 @@ class GPTModel(torch.nn.Module):
         if position_ids is None:
             S = input_ids.shape[1]
             position_ids = torch.arange(S, device=input_ids.device)[None, :]
-        wte, wpe = amp.cast("embedding", self.word_embeddings.weight,
-                            self.position_embeddings.weight)
-        return self.drop(torch.nn.functional.embedding(input_ids, wte)
-                         + torch.nn.functional.embedding(position_ids, wpe))
+        return self.drop(self.word_embeddings(input_ids)
+                         + self.position_embeddings(position_ids))
 
-    def forward(self, input_ids, position_ids=None, cache=None):
-        """``cache``: None, or one served cache tuple per layer; returns
-        the final hidden states (and the per-layer caches when given)."""
+    def forward(self, input_ids, position_ids=None, cache=None, lora=None):
+        """``cache``: None, or one served cache tuple per layer; ``lora``:
+        None, or the per-layer multi-tenant adapter slices; returns the
+        final hidden states (and the per-layer caches when given)."""
         x = self.embed(input_ids, position_ids)
         new_cache = []
         for i, layer in enumerate(self.layers):
+            li = lora[i] if lora is not None else None
             if cache is not None:
-                x, c = layer(x, cache[i])
+                x, c = layer(x, cache[i], lora=li)
                 new_cache.append(c)
             else:
-                x = layer(x)
+                x = layer(x, lora=li)
         x = self.final_ln(x)
         return (x, new_cache) if cache is not None else x
 

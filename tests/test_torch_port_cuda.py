@@ -15,7 +15,10 @@ over bf16 / f16 pools, K1's f32 body at head_dim 128, a small GQA Llama's
 card ids against the CPU's and its O2 step through K1 / K2; and the
 program layer (each captured engine program's replay bit-equal to the
 eager step on cloned pools, generate() replaying its graphs, a restart
-keeping the graphs).  Marked ``cuda``; every test
+keeping the graphs); the multi-tenant engine's captured ``mt_*``
+programs against the eager adapter calls, an in-place hot swap with no
+recapture, the mask buffers after a constrained row retires, memory after
+``evict``, and a probed TrainStep against the unprobed one.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -1767,3 +1770,201 @@ def test_llama_o2_trainstep_runs_the_flash_kernels(cuda):
     assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
     assert (fa.LAUNCHES - n[0], fa.BWD_DKDV_LAUNCHES - n[1],
             fa.BWD_DQ_LAUNCHES - n[2]) == (2, 2, 2)
+
+
+# ------------------------------------------- numerics and multi-tenant serving
+def _mt_on(model, store, **kw):
+    from paddle_tpu_torch.serving.multitenant import MultiTenantEngine
+
+    kw.setdefault("num_slots", 2)
+    return MultiTenantEngine(model, lora_store=store, device="cuda",
+                             page_size=8, max_model_len=64, **kw)
+
+
+def _tiny_store(model, n=3):
+    from paddle_tpu_torch.serving.multitenant import LoRAAdapter, LoRAStore
+
+    store = LoRAStore(model, capacity=4, ranks=(4, 8),
+                      targets=("qkv", "out_proj"))
+    for i in range(n):
+        store.register(LoRAAdapter.random(model, f"t{i}", rank=4 + 2 * i,
+                                          seed=20 + i, scale=0.3))
+    return store
+
+
+def _digit_grammar():
+    from paddle_tpu_torch.serving.multitenant import compile_regex
+
+    vocab = ["<pad>"] + list("0123456789") + [f"<u{i}>" for i in range(84)] \
+        + ["<eos>"]
+    return compile_regex("[0-9]{1,4}", vocab, 95)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_mt_captured_programs_replay_bit_equal_to_eager(cuda, kv_dtype):
+    """Tiny GPT, float32, multi-LoRA over two rank buckets, speculative
+    k=2: each captured ``mt_*`` program — the step (K3 / K4), a prefill
+    bucket (K1) and the verify step — replayed on fresh inputs gives the
+    greedy tokens of the eager adapter call on cloned pools, with the
+    adapter gather and the masks fed through the static buffers."""
+    _, card = _tiny_pair()
+    store = _tiny_store(card)
+    eng = _mt_on(card, store, kv_dtype=kv_dtype, speculative_k=2,
+                 replica=f"c-mt-replay-{kv_dtype}")
+    with eng:
+        for p, a in (([5, 6, 7] * 6, "t0"), ([9, 10, 11, 12] * 3, "t2"),
+                     ([4] * 20, None)):
+            eng.generate(p, max_new_tokens=8, adapter=a, timeout=120)
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+    kinds = {}
+    for key, prog in eng._graphs.items():
+        assert prog.captured, key
+        kinds.setdefault(key[0], key)
+    assert {"mt_step", "mt_prefill", "mt_verify"} <= set(kinds)
+    rs = np.random.RandomState(7)
+    temps = np.zeros((2,), np.float32)
+    lw = store.device_args()
+    lease = store.acquire("t2")
+    aid = np.zeros((2, 2), np.int32)
+    aid[lease.bucket, 0] = lease.row             # lane 0: t2, lane 1: base
+
+    def run(key, host, eager):
+        pools = [p.clone() for p in eng._pools]
+        with torch.inference_mode():
+            logits = eager(pools)
+            prog = eng._graphs[key]
+            prog.feed(*host)
+            packed, _ = prog()
+            torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eng._pools, pools))
+        return packed.cpu(), logits.cpu()
+
+    table, lens = _greedy_inputs(eng, 2, [21, 9])
+    last = rs.randint(1, 96, (2, 1)).astype(np.int64)
+    allowed = np.ones((2, 96), np.bool_)
+    packed, logits = run(
+        kinds["mt_step"], (last, table, lens, temps, allowed, aid),
+        lambda pools: eng._adapter.step(t(last), *pools, t(table), t(lens),
+                                        t(aid), *lw)[0])
+    assert torch.equal(packed[0], logits.argmax(-1))
+    s_pad = kinds["mt_prefill"][1]
+    ids = np.zeros((1, s_pad), np.int64)
+    ids[0, :s_pad - 3] = rs.randint(1, 96, (s_pad - 3,))
+    t1, _ = _greedy_inputs(eng, 1, [0])
+    l1 = np.asarray([s_pad - 3], np.int32)
+    a1 = aid[:, :1].copy()
+    packed, logits = run(
+        kinds["mt_prefill"], (ids, t1, l1, temps[:1], allowed[:1], a1),
+        lambda pools: eng._adapter.prefill(t(ids), *pools, t(t1), t(l1),
+                                           t(a1), *lw)[0])
+    assert torch.equal(packed[0], logits.argmax(-1))
+    vids = rs.randint(1, 96, (2, 3)).astype(np.int64)
+    dlen = np.asarray([2, 1], np.int32)
+    allowed3 = np.ones((2, 3, 96), np.bool_)
+    packed, logits = run(
+        kinds["mt_verify"], (vids, table, lens, dlen, temps, allowed3, aid),
+        lambda pools: eng._adapter.verify(t(vids), *pools, t(table),
+                                          t(lens), t(aid), *lw)[0])
+    assert torch.equal(packed[:, :3], logits.argmax(-1))
+    store.release(lease)
+
+
+def test_mt_hot_swap_in_place_no_recapture(cuda):
+    """Registering and serving a new adapter on a warm engine writes the
+    pool rows in place (every pool's data_ptr unchanged), mints nothing
+    and recaptures nothing; its ids equal a dedicated engine's."""
+    from paddle_tpu_torch.serving.multitenant import LoRAAdapter
+
+    _, card = _tiny_pair()
+    store = _tiny_store(card)
+    p = [7, 8, 9, 10, 11, 12]
+    with _mt_on(card, store, replica="c-mt-hot") as eng:
+        eng.generate(p, max_new_tokens=6, adapter="t0", timeout=120)
+        ptrs = [x.data_ptr() for x in store.device_args()]
+        graphs = {k: id(g.graph) for k, g in eng._graphs.items()}
+        mints = eng.program_traces()
+        eng.register_adapter(LoRAAdapter.random(card, "hot", rank=8,
+                                                seed=99, scale=0.3))
+        got = eng.generate(p, max_new_tokens=6, adapter="hot", timeout=120)
+        assert [x.data_ptr() for x in store.device_args()] == ptrs
+        assert {k: id(g.graph) for k, g in eng._graphs.items()} == graphs
+        assert eng.program_traces() == mints
+    with _mt_on(card, store, replica="c-mt-hot-2") as eng2:
+        assert eng2.generate(p, max_new_tokens=6, adapter="hot",
+                             timeout=120) == got
+
+
+def test_mt_mask_buffers_reset_on_retire(cuda):
+    """A constrained row feeds the step's mask buffer; once it retires
+    the buffer holds all-True rows again, and later steps copy no mask."""
+    from paddle_tpu_torch.jit.graphs import KEEP
+
+    _, card = _tiny_pair()
+    g = _digit_grammar()
+    with _mt_on(card, None, replica="c-mt-mask") as eng:
+        eng.generate([5, 6, 7], max_new_tokens=3, timeout=120)
+        out = eng.generate([8, 9, 10], max_new_tokens=6, grammar=g,
+                           timeout=120)
+        eng.generate([5, 6, 7], max_new_tokens=3, timeout=120)
+        key = eng._step_store_key()
+        buf = eng._graphs[key].inputs[4]
+        assert buf.dtype == torch.bool and bool(buf.all())
+        assert eng._mask_arg(key, eng._h_allowed) is KEEP
+    assert g.matches(out)
+
+
+def test_probed_trainstep_equals_unprobed_on_card(cuda):
+    """Tiny GPT f32 on the card: 3 probed TrainSteps give the unprobed
+    steps' losses bit for bit (K1 / K2 per layer per step either way), and
+    the probe rows hold no non-finite value."""
+    from paddle_tpu_torch.observability import numerics
+
+    cpu, _ = _tiny_pair()
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        1, 96, (2, 32))).to("cuda")
+    out = {}
+    try:
+        for probed in (False, True):
+            numerics.reset()
+            if probed:
+                numerics.enable_tensor_checker(level="warn")
+            model = copy.deepcopy(cpu).to("cuda")
+            step = jit.TrainStep(model, optimizer.AdamW(
+                learning_rate=1e-3, parameters=model.parameters()))
+            k1 = fa.LAUNCHES
+            out[probed] = torch.stack(
+                [step({"input_ids": ids, "labels": ids}) for _ in range(3)])
+            assert fa.LAUNCHES - k1 == 2 * 3
+            if probed:
+                numerics.poll()
+                ent = numerics.latest(step._perf_tag)
+                assert ent["sites"][0] == "gpt.word_embeddings"
+                assert not ent["table"][:, 0].any()
+    finally:
+        numerics.reset()
+    assert torch.equal(out[True], out[False])
+
+
+def test_mt_memory_returns_to_baseline_after_evict(cuda):
+    """Register, serve, release and evict adapters repeatedly: the
+    allocated card memory comes back to the baseline each time (page-ins
+    write the fixed pools; the host copies never reach the card)."""
+    from paddle_tpu_torch.serving.multitenant import LoRAAdapter
+
+    _, card = _tiny_pair()
+    store = _tiny_store(card, n=1)
+    with _mt_on(card, store, replica="c-mt-mem") as eng:
+        eng.generate([5, 6, 7, 8], max_new_tokens=4, adapter="t0",
+                     timeout=120)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        for i in range(4):
+            name = f"cyc{i}"
+            eng.register_adapter(LoRAAdapter.random(card, name, rank=8,
+                                                    seed=40 + i, scale=0.3))
+            eng.generate([5, 6, 7, 8], max_new_tokens=4, adapter=name,
+                         timeout=120)
+            store.evict(name)
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() == base, i

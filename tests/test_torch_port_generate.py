@@ -32,6 +32,7 @@ from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                           load_paddle_tpu_state_dict)
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 jpa = importlib.import_module("paddle_tpu.ops.paged_attention")
 

@@ -49,6 +49,7 @@ from paddle_tpu_torch.text.models import (GPTForCausalLM, LlamaConfig,
                                           load_paddle_tpu_state_dict)
 from paddle_tpu_torch.text.models import convert
 from paddle_tpu_torch.text.models import llama as tllama
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 jpa = importlib.import_module("paddle_tpu.ops.paged_attention")
 

@@ -64,6 +64,7 @@ from paddle_tpu_torch.resilience import retry
 from paddle_tpu_torch.serving import RequestRejectedError, ServingEngine
 from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                           load_paddle_tpu_state_dict)
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,

@@ -33,6 +33,7 @@ from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                           load_paddle_tpu_state_dict)
 from paddle_tpu_torch.text.models._decode import program_store
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 CFG = dict(vocab_size=96, hidden_size=128, num_hidden_layers=4,
            num_attention_heads=4, max_position_embeddings=64)

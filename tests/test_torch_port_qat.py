@@ -36,6 +36,7 @@ from paddle_tpu_torch.serving.quant import quantize_model_weights
 from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                           export_paddle_tpu_state_dict,
                                           load_paddle_tpu_state_dict)
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 GPT_CFG = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
                num_attention_heads=4, max_position_embeddings=64)

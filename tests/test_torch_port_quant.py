@@ -39,6 +39,7 @@ from paddle_tpu_torch.serving.quant import (QuantizedGPTAdapter, calibrate,
 from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                           export_paddle_tpu_state_dict,
                                           load_paddle_tpu_state_dict)
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 jpa = importlib.import_module("paddle_tpu.ops.paged_attention")
 

@@ -18,6 +18,7 @@ from paddle_tpu.text.models._decode import make_batched_sampler as j_sampler
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.text.models import GPTForCausalLM
 from paddle_tpu_torch.text.models._decode import make_batched_sampler
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 # (top_k, top_p): no filter, top-k, nucleus, both
 FILTERS = [(0, 1.0), (3, 1.0), (0, 0.9), (3, 0.9)]

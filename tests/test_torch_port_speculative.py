@@ -33,6 +33,7 @@ from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving.speculative import NgramDrafter, make_verifier
 from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                           load_paddle_tpu_state_dict)
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 CFG = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,
            num_attention_heads=2, max_position_embeddings=64)

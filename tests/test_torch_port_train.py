@@ -40,6 +40,7 @@ from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                           export_paddle_tpu_state_dict,
                                           load_paddle_tpu_state_dict)
+from _torch_port_jax_isolation import no_jax_hybrid_topology  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 jlr = importlib.import_module("paddle_tpu.optimizer.lr")
