@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune
+    python3 chip_smoke.py --phases build,cluster,finetune
     python3 chip_smoke.py --phases build,numerics,multitenant
     python3 chip_smoke.py --phases build,programs
     python3 chip_smoke.py --phases build,kernels,llama
@@ -183,7 +184,33 @@ Phases, each printing one JSON line and then its seconds:
    step with a LoRA and a constrained row live, the grammar's host cost at
    the full vocabulary, and bf16 tokens/s, TTFT and ITL of a plain and a
    multi-tenant engine in turns with the card's idle share.
-17. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+17. ``cluster`` — GPT-base through ``ServingCluster``: the example's
+   traffic (3 templates of 256 tokens x 3 requests, 32 new) on two
+   replicas of 4 slots in f32 against the same cluster on the CPU (ids
+   and replica histories equal, each template on its affine replica, K1
+   / K3 counted), one host sync per decode step on each replica, a
+   replica stopped mid-decode (f32 ids equal the uninterrupted run's);
+   in bf16 the cluster against one 8-slot engine in turns over 384
+   requests of the same templates (tokens/s, TTFT p50, each replica's
+   request count) and the failover's token agreement (reported); an
+   ``AutoScaler`` cluster warmed from a manifest: a
+   ``cluster.replica_preempt@<r>`` trip mid-traffic reaped and replaced
+   (0 mints, the CPU's ids), then a burst of 24 requests scaling to 3
+   replicas and draining back to 2; an int8-pool cluster (K4, no K3); a
+   ``lora_store=`` cluster keeping adapter affinity with a dedicated
+   engine's ids; the card's allocated memory over three add_replica /
+   reap cycles: the first sets the baseline, no later one grows it.
+18. ``finetune`` — the Llama fine-tune recipe
+   (``paddle_tpu_torch.examples.finetune_llama``): at its tiny default
+   with AMP off, losses, EMA weights and greedy ids under ``ema.apply()``
+   on the card against the CPU (rtol 1e-4); ``LookAhead(AdamW)`` under
+   ``TrainStep`` against the CPU; at Llama-3-8B's widths in bf16 O2
+   (depth 2, B=8, S=1024, accumulate 2, EMA): finite losses, K1 = K2a =
+   K2b = 4 per step, step ms, tokens/s, peak memory; a recomputed
+   Llama-3-8B-wide decoder layer's bf16 gradients bit-equal to the plain
+   run's with K1 launched twice, and a GPT-base decoder layer's with
+   dropout 0.1 (the plain attention, no K1) under one seed.
+19. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
@@ -4130,6 +4157,614 @@ def phase_multitenant():
     return {"launches": launches}
 
 
+# ----------------------------------------------------------------- cluster
+# the example's traffic at GPT-base: templates x requests each, prompts of
+# CL_PROMPT tokens (a template's first CL_PROMPT - 6 tokens + 6 of its own),
+# CL_NEW new tokens; 2 replicas of CL_SLOTS slots (one engine of SLOTS
+# slots in the bf16 turns: the same total)
+CL_TEMPLATES, CL_PER, CL_PROMPT, CL_NEW, CL_SLOTS = 3, 3, 256, 32, 4
+CL_AUTOSCALE = {"min_replicas": 2, "max_replicas": 3, "scale_up_queue": 1.0,
+                "stable_s": 0.1, "cooldown_s": 0.3, "interval_s": 0.05}
+CL_BURST = 24
+# the bf16 record's window: the same templates, CL_RECORD_PER requests each
+CL_RECORD_PER = 128
+# add_replica / reap cycles of the memory check (the first sets the
+# baseline)
+CL_MEM_CYCLES = 3
+
+
+def cluster_requests(per=CL_PER):
+    """(template id, prompt) pairs: CL_TEMPLATES shared prefixes, ``per``
+    requests each (the example's traffic at CL_PROMPT tokens), drawn from
+    the first seed whose templates reach both replicas (with seed 0 all
+    three hash to one), so both replicas serve in every run."""
+    from paddle_tpu_torch.serving.cluster import PrefixAffinityRouter
+
+    router = PrefixAffinityRouter(2, affinity_tokens=2 * PAGE)
+    for seed in range(100):
+        rs = np.random.RandomState(seed)
+        temps = [rs.randint(1, VOCAB, (CL_PROMPT - 6,)).tolist()
+                 for _ in range(CL_TEMPLATES)]
+        if len({router.affine_index(t) for t in temps}) == 2:
+            return [(g, t + rs.randint(1, VOCAB, (6,)).tolist())
+                    for g, t in enumerate(temps) for _ in range(per)]
+    raise SystemExit("cluster phase: no seed spreads the templates")
+
+
+def _cluster(model, name, device=None, **kw):
+    from paddle_tpu_torch.serving import ServingCluster
+
+    kw.setdefault("replicas", 2)
+    kw.setdefault("num_slots", CL_SLOTS)
+    if device is not None:
+        kw["device"] = device
+    return ServingCluster(model, page_size=PAGE, max_model_len=MAXLEN,
+                          name=name, replica_prefix=f"{name}/", **kw)
+
+
+def _cluster_serve(cl, prompts, new=None, **submit_kw):
+    """Submit every prompt at once (``new`` tokens each, CL_NEW by
+    default); the ids, each request's replica history, TTFT and the
+    wall."""
+    new = new or CL_NEW
+    t0 = time.perf_counter()
+    hs = [cl.submit(p, max_new_tokens=new, **submit_kw) for p in prompts]
+    outs = [h.result(timeout=900) for h in hs]
+    if next(cl.engines[0]._model.parameters()).is_cuda:
+        _stream_sync()
+    return {"outs": outs, "history": [h.replica_history for h in hs],
+            "ttft": [h.ttft for h in hs], "wall_s": time.perf_counter() - t0}
+
+
+def _replica(cl, replica):
+    return next(e for e in cl.engines if e.replica == replica)
+
+
+def _indices(histories):
+    """Replica histories without the cluster's name."""
+    return [[r.rsplit("/", 1)[-1] for r in h] for h in histories]
+
+
+def _summed_stats(engines):
+    st = {"prefills": 0, "cached_prefills": 0, "iteration": 0}
+    for e in engines:
+        s = e.stats()
+        for k in st:
+            st[k] += s[k]
+    return st
+
+
+def _stream_sync():
+    """Wait for this thread's stream only: a device-wide synchronize while
+    an engine thread captures a graph (a replica warming up) is illegal
+    and would invalidate that capture."""
+    torch.cuda.current_stream().synchronize()
+
+
+def _card_bytes():
+    """Allocated card memory, garbage collected, with no engine running."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _engine_step_syncs(eng, prompts):
+    """Host syncs of ONE plain decode step of a live engine (see
+    ``_step_syncs``): the step is run from this thread while the
+    scheduler sits in a wedge, after one uncounted step."""
+    import warnings
+
+    from paddle_tpu_torch.observability import faults
+
+    site = f"serving.scheduler_wedge@{eng.replica}"
+    faults.inject(site, seconds=60.0, times=1)
+    while faults.trip_count(site) < 1:
+        time.sleep(0.005)
+    hs = [eng.submit(p, max_new_tokens=4) for p in prompts[:2]]
+    with torch.inference_mode():
+        eng._admit()
+        active = [i for i, s in enumerate(eng._slots) if s is not None]
+        eng._plain_step(active)
+        _stream_sync()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng._plain_step(active)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    faults.clear(site)
+    for h in hs:
+        h.result(timeout=300)
+    return {"replica": eng.replica, "active": len(active),
+            "syncs": sum(1 for w in rec if "called a synchronizing CUDA "
+                         "operation" in str(w.message))}
+
+
+def _wait_for(cond, what, budget=120.0):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > budget:
+            raise SystemExit(f"cluster phase: {what} did not happen within "
+                             f"{budget:.0f}s")
+        time.sleep(0.01)
+
+
+def phase_cluster():
+    """Cluster serving on GPT-base (12 x 768, vocab 50,304, random weights
+    from ``torch.manual_seed(0)``): the example's traffic (3 templates of
+    256 tokens x 3 requests, 32 new) through a two-replica
+    ``ServingCluster`` on the card in f32 against the same cluster on the
+    CPU (ids equal, each template on its affine replica, K1 / K3 counted;
+    the gated clusters run without the prefix cache, whose cached-tail
+    prefill rounds differently from a full one, so the ids compare one
+    path); the bf16 turns run it, as the example does;
+    a replica stopped mid-decode (f32 ids equal the uninterrupted run's;
+    bf16 agreement reported); ``cluster.replica_preempt@<r>`` reaped and
+    replaced by the ``AutoScaler`` from a warmup manifest (0 mints) while
+    the survivor serves, then a burst scaling up to 3 and draining back;
+    an int8-pool cluster (K4, no K3); a ``lora_store=`` cluster keeping
+    adapter affinity; one host sync per decode step; the card's memory
+    flat over add_replica / reap cycles after the first (no cuBLAS
+    workspace cleared); and bf16 tokens/s and TTFT p50 of the cluster
+    against one engine of the same total slots, in turns over
+    CL_RECORD_PER requests of each template, with each replica's
+    request count."""
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.multitenant import (LoRAAdapter, LoRAStore,
+                                                      MultiTenantEngine)
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reqs = cluster_requests()
+    prompts = [p for _, p in reqs]
+    torch.manual_seed(0)
+    cpu_model = GPTForCausalLM(device="cpu")
+    model = copy.deepcopy(cpu_model).to("cuda")
+    base_bytes = _card_bytes()
+    checks, out = {}, {}
+
+    # 1. the traffic, CPU cluster against the card's
+    cpu_cl = _cluster(cpu_model, "cl-cpu", device="cpu", saturation_queue=32)
+    with cpu_cl:
+        ref = _cluster_serve(cpu_cl, prompts)
+    del cpu_cl
+    cl = _cluster(model, "cl-f32", saturation_queue=32)
+    _zero_counts()
+    with cl:
+        run = _cluster_serve(cl, prompts)
+        every = _read_counts()
+        st = _summed_stats(cl.engines)
+        affine = [cl.router.affine_index(p) for p in prompts]
+        syncs = [_engine_step_syncs(e, prompts) for e in cl.engines]
+        # a replica stopped mid-decode: one template's requests
+        lost = list(range(CL_PER))
+        hs = [cl.submit(prompts[i], max_new_tokens=CL_NEW) for i in lost]
+        _wait_for(lambda: all(len(h.token_ids) >= 4 for h in hs),
+                  "tokens before the stop")
+        victim = _replica(cl, hs[0].replica_history[0])
+        victim.stop()
+        fail_outs = [h.result(timeout=900) for h in hs]
+        fail_hist = [h.replica_history for h in hs]
+        manifest = cl.engines[0].capture_manifest()
+    counts = {k: every[k] for k in KERNEL_COUNTERS}
+    want = _prefix_want(st, quant=False)
+    checks["f32_ids_equal_cpu"] = run["outs"] == ref["outs"]
+    checks["f32_history_equal_cpu"] = _indices(run["history"]) \
+        == _indices(ref["history"])
+    checks["each_template_on_its_affine_replica"] = all(
+        h == [f"cl-f32/{a}"] for h, a in zip(run["history"], affine))
+    checks["launches_match"] = every == want and counts[
+        "flash_attention_fwd"] > 0 and counts["paged_flash_decode"] > 0
+    checks["failover_f32_ids_equal"] = fail_outs == [ref["outs"][i]
+                                                     for i in lost]
+    checks["failover_rerouted"] = all(len(h) == 2 for h in fail_hist)
+    checks["one_sync_per_decode_step"] = all(s["syncs"] == 1 for s in syncs)
+    out["f32"] = {"wall_s": run["wall_s"], "cpu_wall_s": ref["wall_s"],
+                  "history": run["history"], "affine": affine,
+                  "stats": st, "launches": counts, "want": want,
+                  "failover_history": fail_hist, "syncs": syncs}
+    launches = dict(counts)
+    del cl, victim, hs
+
+    # 2. bf16: failover agreement (not gated); the record, cluster against
+    # one engine of the same total slots in turns, over a window of
+    # CL_RECORD_PER requests of each template, all submitted at once
+    window = [p for _, p in cluster_requests(CL_RECORD_PER)]
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    c16 = _cluster(model16, "cl-bf16", prefix_sharing=True)
+    e16 = ServingEngine(model16, num_slots=2 * CL_SLOTS, page_size=PAGE,
+                        max_model_len=MAXLEN, prefix_sharing=True,
+                        replica="cl-bf16-one")
+    turns = []
+    with c16, e16:
+        _cluster_serve(c16, prompts)                     # warm both
+        hs = [e16.submit(p, max_new_tokens=CL_NEW) for p in prompts]
+        [h.result(timeout=900) for h in hs]
+        for arm in ("cluster", "engine", "engine", "cluster"):
+            by_replica = None
+            if arm == "cluster":
+                r = _cluster_serve(c16, window)
+                by_replica = {}
+                for h in _indices(r["history"]):
+                    by_replica[h[-1]] = by_replica.get(h[-1], 0) + 1
+            else:
+                t0 = time.perf_counter()
+                hs = [e16.submit(p, max_new_tokens=CL_NEW) for p in window]
+                outs = [h.result(timeout=900) for h in hs]
+                _stream_sync()
+                r = {"outs": outs, "ttft": [h.ttft for h in hs],
+                     "wall_s": time.perf_counter() - t0}
+            toks = sum(len(o) for o in r["outs"])
+            turns.append({"arm": arm, "requests": len(window),
+                          "tokens": toks, "wall_s": r["wall_s"],
+                          "tokens_per_s": toks / r["wall_s"],
+                          "ttft_p50_ms": 1e3 * float(np.median(r["ttft"])),
+                          "requests_by_replica": by_replica})
+        un16 = _cluster_serve(c16, [prompts[i] for i in lost])["outs"]
+        hs = [c16.submit(prompts[i], max_new_tokens=CL_NEW) for i in lost]
+        _wait_for(lambda: all(len(h.token_ids) >= 4 for h in hs),
+                  "bf16 tokens before the stop")
+        _replica(c16, hs[0].replica_history[0]).stop()
+        f16 = [h.result(timeout=900) for h in hs]
+    agree = [sum(a == b for a, b in zip(x, y)) / max(len(y), 1)
+             for x, y in zip(f16, un16)]
+    rate = {a: np.mean([t["tokens_per_s"] for t in turns if t["arm"] == a])
+            for a in ("cluster", "engine")}
+    out["bf16"] = {"turns": turns,
+                   "cluster_over_engine_tokens_per_s":
+                       float(rate["cluster"] / rate["engine"]),
+                   "failover_token_agreement": agree,
+                   "failover_ids_equal": f16 == un16}
+    del c16, e16, model16
+    _free_card()
+
+    # 3. replica loss + AutoScaler (warm replacement), then a burst
+    rc = _cluster(model, "cl-scale", warmup=manifest, autoscale=CL_AUTOSCALE)
+    with rc:
+        n0 = rc.engines[0].program_traces()
+        victim = rc.pool.engines[0].replica
+        hs = [rc.submit(p, max_new_tokens=CL_NEW) for p in prompts[:6]]
+        faults.inject(f"cluster.replica_preempt@{victim}", times=1)
+        try:
+            reap_outs = [h.result(timeout=900) for h in hs]
+        finally:
+            faults.clear()
+        _wait_for(lambda: victim not in [e.replica for e in rc.engines]
+                  and len(rc.engines) >= 2, "the reap and replacement")
+        fresh = rc.engines[-1]
+        _wait_for(lambda: fresh._started, "the replacement's start")
+        # the replacement serves (its affine traffic) with the CPU's ids
+        mine = [i for i, p in enumerate(prompts)
+                if rc.router.affine_index(p) == len(rc.engines) - 1][:2] \
+            or [0]
+        after = [rc.generate(prompts[i], max_new_tokens=CL_NEW, timeout=900)
+                 for i in mine]
+        mints = rc.engines[0].program_traces() - n0
+        # a burst: the pool grows to 3 while the others replay (sustained
+        # pressure, in waves of CL_BURST until the autoscaler adds one),
+        # and drains back to 2
+        burst, which, t0 = [], [], time.monotonic()
+        while [r["event"] for r in rc.autoscaler.timeline()].count("up") < 2:
+            if time.monotonic() - t0 > 120:
+                raise SystemExit("cluster phase: no scale-up under the burst")
+            which += [i % len(prompts) for i in range(CL_BURST)]
+            burst += [rc.submit(prompts[i % len(prompts)],
+                                max_new_tokens=CL_NEW)
+                      for i in range(CL_BURST)]
+            time.sleep(0.05)
+        burst_outs = [h.result(timeout=900) for h in burst]
+        _wait_for(lambda: len(rc.engines) == 2
+                  and rc.autoscaler.retiring is None
+                  and "down" in [r["event"] for r in
+                                 rc.autoscaler.timeline()],
+                  "the scale-down")
+        events = [r["event"] for r in rc.autoscaler.timeline()]
+        peak_replicas = max(r["replicas"] for r in rc.autoscaler.timeline())
+    checks["reap_ids_equal_cpu"] = reap_outs == ref["outs"][:6]
+    checks["replacement_ids_equal_cpu"] = after == [ref["outs"][i]
+                                                    for i in mine]
+    checks["replacement_warm_zero_mints"] = mints == 0 \
+        and bool(fresh._warmed and fresh._warmed["warmed"])
+    checks["burst_scaled_to_3_and_back"] = peak_replicas == 3 \
+        and events.index("reap") < events.index("drain") \
+        < events.index("down")
+    checks["burst_ids_equal_cpu"] = burst_outs == [ref["outs"][i]
+                                                   for i in which]
+    out["autoscale"] = {"timeline": events, "peak_replicas": peak_replicas,
+                        "mints": mints, "warmup": fresh._warmed,
+                        "burst_requests": len(burst),
+                        "burst_replicas": sorted({h.replica_history[-1]
+                                                  for h in burst}),
+                        "victim": victim,
+                        "replacement": fresh.replica}
+    del rc, fresh, hs, burst
+
+    # 4. int8 pools: K4 only
+    qc = _cluster(model, "cl-int8", kv_dtype="int8")
+    _zero_counts()
+    with qc:
+        qrun = _cluster_serve(qc, prompts[:6])
+        qevery = _read_counts()
+        qst = _summed_stats(qc.engines)
+    qcounts = {k: qevery[k] for k in KERNEL_COUNTERS}
+    checks["int8_launches"] = qevery == _prefix_want(qst, quant=True) \
+        and qcounts["paged_flash_decode_q"] > 0 \
+        and qcounts["paged_flash_decode"] == 0
+    out["int8"] = {"launches": qcounts, "stats": qst,
+                   "complete": all(len(o) == CL_NEW for o in qrun["outs"])}
+    launches["flash_attention_fwd"] += qcounts["flash_attention_fwd"]
+    launches["paged_flash_decode_q"] = qcounts["paged_flash_decode_q"]
+    del qc
+
+    # the card's memory over add_replica / reap cycles, with no workspace
+    # cleared: each cycle warms two replicas from the manifest, adds a
+    # third that captures while the two replay, preempts one mid-decode
+    # (the autoscaler reaps it) and stops.  cuBLAS keeps a workspace per
+    # (handle, stream) for the process's life, and a capture stream per
+    # handle (jit/graphs.py): the first cycle may add workspaces for new
+    # handles and sets the baseline; no later cycle may grow it.
+    cycle_bytes, cycle_ok = [], []
+    for c in range(CL_MEM_CYCLES):
+        mc = _cluster(model, f"cl-mem{c}", warmup=manifest,
+                      autoscale=dict(CL_AUTOSCALE, scale_up_queue=1e9,
+                                     stable_s=1e9))
+        # pace the schedulers (3 ms a step) so the preempt lands mid-decode
+        faults.inject("serving.step_crash", fn=lambda: time.sleep(0.003))
+        try:
+            with mc:
+                hs = [mc.submit(p, max_new_tokens=CL_NEW)
+                      for p in prompts[:6]]
+                third = mc.pool.add_replica()
+                _wait_for(lambda: all(len(h.token_ids) >= 2 for h in hs),
+                          "tokens before the preempt")
+                victim = hs[0].replica_history[0]
+                faults.inject(f"cluster.replica_preempt@{victim}", times=1)
+                outs = [h.result(timeout=900) for h in hs]
+                _wait_for(lambda: victim not in [e.replica
+                                                 for e in mc.engines],
+                          "the reap")
+                cycle_ok.append({
+                    "ids_equal_cpu": outs == ref["outs"][:6],
+                    "third_warmed": bool(third._warmed["warmed"]),
+                    "replicas": [e.replica for e in mc.engines],
+                    "timeline": [r["event"]
+                                 for r in mc.autoscaler.timeline()]})
+        finally:
+            faults.clear()
+        del mc, hs, third
+        cycle_bytes.append(_card_bytes())
+    checks["memory_cycles_ids_equal_cpu"] = all(
+        c["ids_equal_cpu"] and c["third_warmed"] and c["timeline"] == ["reap"]
+        and len(c["replicas"]) == 2 for c in cycle_ok)
+    checks["memory_flat_after_first_cycle"] = all(
+        b == cycle_bytes[0] for b in cycle_bytes[1:])
+    out["memory"] = {"before_the_clusters_bytes": base_bytes,
+                     "after_each_cycle_bytes": cycle_bytes,
+                     "cycles": cycle_ok}
+
+    # 5. lora_store=: adapter affinity
+    store = LoRAStore(model, capacity=4, ranks=(8,),
+                      targets=("qkv", "out_proj"))
+    for i in range(2):
+        store.register(LoRAAdapter.random(model, f"t{i}", rank=8,
+                                          seed=31 + i, scale=0.1))
+    ded = MultiTenantEngine(model, lora_store=store, num_slots=CL_SLOTS,
+                            page_size=PAGE, max_model_len=MAXLEN,
+                            replica="cl-lora-one")
+    with ded:
+        lref = [ded.generate(p, max_new_tokens=8, adapter="t0", timeout=900)
+                for p in prompts[:3]]
+    lc = _cluster(model, "cl-lora", lora_store=store)
+    with lc:
+        target = lc.router.affine_index([], adapter="t0")
+        lh = []
+        for p in prompts[:3]:
+            h = lc.submit(p, max_new_tokens=8, adapter="t0")
+            h.result(timeout=900)
+            lh.append(h)
+    checks["lora_adapter_affinity"] = all(
+        h.replica_history == [f"cl-lora/{target}"] for h in lh)
+    checks["lora_ids_equal_dedicated"] = [h.result() for h in lh] == lref
+    del lc, ded, store, lh
+    ok = all(checks.values())
+    emit({"phase": "cluster", "ok": ok, "checks": checks,
+          "model": "GPT-base 12x768 vocab 50304",
+          "traffic": {"templates": CL_TEMPLATES, "per_template": CL_PER,
+                      "prompt_tokens": CL_PROMPT, "new_tokens": CL_NEW,
+                      "replicas": 2, "slots_per_replica": CL_SLOTS},
+          **out, "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit(f"cluster phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    del model, cpu_model
+    _free_card()
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------- finetune
+# the recipe's tiny default (examples/finetune_llama.py's flags), and its
+# run at Llama-3-8B's widths cut to FT_LAYERS deep
+FT_TINY_STEPS = 30
+FT_LAYERS, FT_B, FT_S, FT_ACCUM, FT_STEPS = 2, 8, 1024, 2, 4
+
+
+def _rel_norm(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def phase_finetune():
+    """The Llama fine-tune recipe (``paddle_tpu_torch.examples
+    .finetune_llama``): at its tiny default with AMP off, the card's
+    losses, EMA weights and greedy ids under ``ema.apply()`` against a CPU
+    run (rtol 1e-4); at Llama-3-8B's widths in bf16 O2 (depth 2, B=8,
+    S=1024, accumulate 2, EMA): finite losses, K1 = K2a = K2b = 4 per
+    step, step ms, tokens/s and peak memory; ``LookAhead(AdamW)`` under
+    ``TrainStep`` against the CPU; a recomputed Llama decoder layer's bf16
+    gradients bit-equal to the plain run's with K1 launched twice, and a
+    recomputed GPT-base decoder layer's with dropout 0.1 under one seed."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.examples import finetune_llama as ft
+    from paddle_tpu_torch.incubate import LookAhead
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.text.models.gpt import GPTDecoderLayer
+    from paddle_tpu_torch.text.models.llama import (LlamaDecoderLayer,
+                                                    _rope_cos_sin)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    checks, out = {}, {}
+
+    # 1. the tiny default in f32: card against the CPU
+    cpu = LlamaForCausalLM(ft.tiny_config(), device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    runs = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        runs[dev] = ft.finetune(m, steps=FT_TINY_STEPS, amp_dtype="float32",
+                                log=None)
+    rel_loss = max(abs(a - b) / abs(b) for a, b in
+                   zip(runs["cuda"]["losses"], runs["cpu"]["losses"]))
+    shadows = [(k, runs["cuda"]["ema"]._shadow[k],
+                runs["cpu"]["ema"]._shadow[k])
+               for k in runs["cpu"]["ema"]._shadow]
+    rel_ema = max(_rel_norm(a, b) for _, a, b in shadows)
+    checks["tiny_f32_losses_rtol_1e-4"] = rel_loss <= 1e-4
+    checks["tiny_f32_ema_rtol_1e-4"] = rel_ema <= 1e-4
+    checks["tiny_f32_greedy_equal"] = \
+        runs["cuda"]["greedy"] == runs["cpu"]["greedy"]
+    out["tiny_f32"] = {"steps": FT_TINY_STEPS, "max_rel_loss": rel_loss,
+                       "max_rel_ema_norm": rel_ema,
+                       "cuda_losses": runs["cuda"]["losses"][:5],
+                       "cpu_losses": runs["cpu"]["losses"][:5],
+                       "greedy": runs["cuda"]["greedy"],
+                       "cuda_wall_s": runs["cuda"]["seconds"]}
+    del cpu, card, runs, shadows
+
+    # 2. LookAhead(AdamW) under TrainStep: card against the CPU
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, LL_NARROW["vocab_size"],
+                                      (LL_NARROW_B, LL_NARROW_S)))
+    cpu = LlamaForCausalLM(device="cpu", generator=torch.Generator()
+                           .manual_seed(0), **LL_NARROW)
+    card = copy.deepcopy(cpu).to("cuda")
+    la = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        o = LookAhead(optimizer.AdamW(learning_rate=1e-3,
+                                      parameters=m.parameters()),
+                      alpha=0.5, k=2)
+        step, x = jit.TrainStep(m, o, loss_fn=None), ids.to(dev)
+        la[dev] = [step({"input_ids": x, "labels": x}).item()
+                   for _ in range(4)]
+    la_rel = max(abs(a - b) / abs(b) for a, b in zip(la["cuda"], la["cpu"]))
+    la_w = max(_rel_norm(a, b) for a, b in zip(card.parameters(),
+                                               cpu.parameters()))
+    checks["lookahead_losses_rtol_1e-4"] = la_rel <= 1e-4
+    checks["lookahead_weights_rtol_1e-4"] = la_w <= 1e-4
+    out["lookahead"] = {"cuda_losses": la["cuda"], "cpu_losses": la["cpu"],
+                        "max_rel_loss": la_rel, "max_rel_weight_norm": la_w}
+    del cpu, card
+
+    # 3. Llama-3-8B widths, bf16 O2, depth 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = LlamaForCausalLM(device="cuda", generator=gen,
+                             **dict(LLAMA3_8B, num_hidden_layers=FT_LAYERS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    res = ft.finetune(model, steps=FT_STEPS, batch_size=FT_B, seq_len=FT_S,
+                      accum=FT_ACCUM, amp_dtype="bfloat16", log=None,
+                      on_step=on_step)
+    counts = {"flash_attention_fwd": fa.LAUNCHES,
+              "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+              "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    # K1 also runs in the closing generate()'s prefill (dense cache: none)
+    per_step = FT_LAYERS * FT_ACCUM
+    step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    checks["8b_losses_finite"] = bool(np.isfinite(res["losses"]).all())
+    checks["8b_launches_4_per_step"] = counts == dict.fromkeys(
+        counts, per_step * FT_STEPS)
+    out["llama3_8b_bf16_O2"] = {
+        "layers": FT_LAYERS, "B": FT_B, "S": FT_S, "accumulate": FT_ACCUM,
+        "steps": FT_STEPS, "losses": res["losses"],
+        "step_ms": step_s * 1e3, "tokens_per_s": FT_B * FT_S / step_s,
+        "peak_memory_allocated_bytes": peak, "launches": counts,
+        "greedy": res["greedy"]}
+    launches = dict(counts)
+    del model, res
+    _free_card()
+
+    # 4. recompute in bf16: one Llama-3-8B-wide decoder layer (K1 in the
+    # forward and again in the replay), then one GPT-base decoder layer
+    # with dropout 0.1 on its attention and residuals (the plain
+    # attention: the replay must draw the forward's masks)
+    def llama_layer():
+        cfg = LlamaConfig(**dict(LLAMA3_8B, num_hidden_layers=1))
+        layer = LlamaDecoderLayer(cfg)
+        rope = _rope_cos_sin(torch.arange(FT_S),
+                             cfg.hidden_size // cfg.num_attention_heads,
+                             cfg.rope_theta)
+        return layer, cfg.hidden_size, (rope,)
+
+    def gpt_layer():
+        layer = GPTDecoderLayer(768, 12, 3072, dropout=0.1, attn_dropout=0.1)
+        return layer, 768, ()
+
+    rec = {}
+    for name, make in (("llama3_8b_layer", llama_layer),
+                       ("gpt_base_layer_dropout_0.1", gpt_layer)):
+        torch.manual_seed(0)
+        with torch.device("cuda"):
+            layer, hidden, extra = make()
+            layer = layer.to(torch.bfloat16).train()
+            x0 = torch.randn(2, FT_S, hidden, dtype=torch.bfloat16)
+        grads, k1 = {}, {}
+        for mode in ("plain", "recompute"):
+            layer.zero_grad()
+            x = x0.clone().requires_grad_()
+            torch.manual_seed(7)
+            fa.LAUNCHES = 0
+            y = layer(x, *extra) if mode == "plain" \
+                else fleet.recompute(layer, x, *extra)
+            y.float().square().mean().backward()
+            torch.cuda.synchronize()
+            k1[mode] = fa.LAUNCHES
+            grads[mode] = [x.grad] + [p.grad for p in layer.parameters()]
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(grads["plain"], grads["recompute"]))
+        rec[name] = {"grads_bit_equal": equal, "k1_launches": k1}
+        checks[f"recompute_{name}_bit_equal"] = equal
+        if name == "llama3_8b_layer":
+            checks["recompute_k1_doubled"] = k1 == {"plain": 1,
+                                                    "recompute": 2}
+            launches["flash_attention_fwd"] += k1["plain"] + k1["recompute"]
+        else:   # training dropout runs the plain attention, no K1
+            checks["recompute_dropout_no_k1"] = k1 == {"plain": 0,
+                                                       "recompute": 0}
+        del layer, grads, x0, extra
+        _free_card()
+    out["recompute"] = rec
+    ok = all(checks.values())
+    emit({"phase": "finetune", "ok": ok, "checks": checks, **out,
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit(f"finetune phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": launches}
+
+
 def _profiled(fn):
     """``fn()`` under the port's ``Profiler`` (its device trace is a
     ``torch.profiler`` session over the CPU and the card): wall, device
@@ -4304,20 +4939,24 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
      "paddle_tpu/ops/flash_attention.py:112",
      "serving prefill (full prefills, radix misses), training (probed too), "
      "generate() (paged prefill, no cache, beam), multi-tenant prefill, "
-     "embed and score"),
+     "embed and score, cluster replicas' prefill and re-prefill, the "
+     "fine-tune recipe, recompute's replay"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-     "paddle_tpu/ops/flash_attention.py:276", "training (probed too)"),
+     "paddle_tpu/ops/flash_attention.py:276",
+     "training (probed too), the fine-tune recipe"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-     "paddle_tpu/ops/flash_attention.py:307", "training (probed too)"),
+     "paddle_tpu/ops/flash_attention.py:307",
+     "training (probed too), the fine-tune recipe"),
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:371",
      "serving decode, generate() paged decode, speculative verify, chunked "
      "prefill, the radix cache's cached-tail prefill, multi-tenant decode "
-     "and verify"),
+     "and verify, cluster replicas' decode"),
     ("k4", "paged_flash_decode_q", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
      "paddle_tpu/ops/paged_attention.py:870",
      "int8 serving decode, int8 speculative verify, chunked prefill and "
-     "cached-tail prefill, multi-tenant decode over int8 pools"),
+     "cached-tail prefill, multi-tenant decode over int8 pools, the "
+     "int8-pool cluster's decode"),
     # the full-sweep twins have no path, in the TPU package either
     ("k5a", "paged_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:128", None),
@@ -4332,7 +4971,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
-                    "programs,llama,numerics,multitenant")
+                    "programs,llama,numerics,multitenant,cluster,finetune")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4355,6 +4994,7 @@ def main():
                          (results.get("slice") or {}).get("cpu_ref"))),
                      ("llama", phase_llama), ("numerics", phase_numerics),
                      ("multitenant", phase_multitenant),
+                     ("cluster", phase_cluster), ("finetune", phase_finetune),
                      ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
@@ -4375,11 +5015,15 @@ def main():
         # bf16 paged and dense generate() for K1 and K3 and its O2 steps
         # for K1 and K2, the numerics phase's probed f32 steps for K1 and
         # K2, the multitenant phase's f32, k=4 and int8 mixed batches for
-        # K1, K3 and K4); K5a / K5b: the kernels phase's checks
+        # K1, K3 and K4, the cluster phase's f32 run for K1 and K3 and its
+        # int8-pool run for K4, the finetune phase's Llama-3-8B-wide O2
+        # steps for K1 and K2 and its recompute check for K1); K5a / K5b:
+        # the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
                      "generate", "spec", "prefix", "resilience", "observe",
-                     "programs", "llama", "numerics", "multitenant"):
+                     "programs", "llama", "numerics", "multitenant",
+                     "cluster", "finetune"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's

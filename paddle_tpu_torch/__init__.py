@@ -23,7 +23,12 @@ guard, ``resilience``), the radix prefix cache with its host spill tier,
 QoS tiers, and the engine's observability layer (``profiler.metrics``,
 span tracing, the flight recorder, ``/metrics`` ``/healthz`` ``/statusz``
 telemetry, the memory ledger with the HBM pre-flight, the numerics
-stream: ``observability``).
+stream: ``observability``), the program layer (CUDA graphs, manifests,
+the roofline table), multi-tenant and cluster serving
+(``serving.multitenant``, ``serving.cluster``, the ``AutoScaler``), and
+the breadth of training (all fifteen optimizers, ``incubate``'s
+LookAhead / EMA / ModelAverage, ``nn.utils``, ``distributed.fleet
+.recompute``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -32,9 +37,9 @@ import importlib as _importlib
 __version__ = "0.1.0"
 
 # subpackages loaded on first attribute access, as the reference's are
-_LAZY = ("amp", "framework", "jit", "nn", "observability", "ops",
-         "optimizer", "profiler", "quantization", "resilience", "serving",
-         "text", "utils")
+_LAZY = ("amp", "distributed", "framework", "incubate", "jit", "nn",
+         "observability", "ops", "optimizer", "profiler", "quantization",
+         "resilience", "serving", "text", "utils")
 
 
 def __getattr__(name):

@@ -19,9 +19,11 @@ port's counterpart is a :class:`Program`:
   offset would draw;
 - the kernels' launch counters (``LAUNCHES`` and the per-body dicts of
   ``ops.flash_attention``, ``ops.paged_attention``, ``ops.bias_gelu``)
-  count in Python and do not tick on replay: the capture's deltas are
-  recorded (and taken back, as the capture launches nothing) and added on
-  every replay;
+  count in Python and do not tick on replay: the capturing thread's
+  launches are recorded as the graph's own (``ops._build
+  .recording_launches``: the capture launches nothing, and other
+  threads' launches meanwhile count as theirs) and added on every
+  replay;
 - on the CPU every run is the eager step over the same buffers.
 
 A failed capture raises: a program never falls back to eager runs.
@@ -49,55 +51,6 @@ REPLAYS = 0
 KEEP = object()
 
 
-def _counter_modules():
-    from ..ops import bias_gelu, flash_attention, paged_attention
-
-    return (flash_attention, paged_attention, bias_gelu)
-
-
-def launch_counts():
-    """Snapshot of every kernel launch counter: ``{(module, name): int or
-    {body: int}}``."""
-    out = {}
-    for m in _counter_modules():
-        for name, v in vars(m).items():
-            if name.endswith("LAUNCHES") and name.isupper():
-                out[(m, name)] = dict(v) if isinstance(v, dict) else v
-    return out
-
-
-def _diff(after, before):
-    out = {}
-    for k, v in after.items():
-        b = before[k]
-        d = {j: v[j] - b.get(j, 0) for j in v} if isinstance(v, dict) \
-            else v - b
-        if (any(d.values()) if isinstance(d, dict) else d):
-            out[k] = d
-    return out
-
-
-def _restore(before):
-    for (m, name), v in before.items():
-        cur = getattr(m, name)
-        if isinstance(cur, dict):
-            cur.clear()
-            cur.update(v)
-        else:
-            setattr(m, name, v)
-
-
-def add_launches(delta):
-    """Add a recorded ``{(module, name): count}`` delta to the counters."""
-    for (m, name), d in delta.items():
-        cur = getattr(m, name)
-        if isinstance(cur, dict):
-            for j, n in d.items():
-                cur[j] = cur.get(j, 0) + n
-        else:
-            setattr(m, name, cur + d)
-
-
 def rng_position(gen):
     """Where ``gen`` is in its stream, restorable by :func:`set_rng_position`
     without replacing the generator's state object (a graph that registered
@@ -116,15 +69,39 @@ def set_rng_position(gen, pos):
         gen.set_state(pos)
 
 
-# one capture stream per (device, thread): cuBLAS keeps a workspace per
-# (handle, stream), so a new stream per capture would allocate a new
-# workspace into every graph's pool; a thread of its own per stream keeps
-# two engines' captures apart
+# one capture stream per (device, cuBLAS handle).  cuBLAS keeps a workspace
+# per (handle, stream) for the life of the process, so a stream per capture
+# or per thread would add one with every new engine thread.  A handle
+# belongs to one live thread at a time (two engines never capture on one
+# stream) and passes to a later thread when its own ends, so a replacement
+# engine reuses its predecessor's stream and workspaces.
 _CAPTURE_STREAMS = {}
 
 
+# the collector stays off while ANY thread captures: engines capture
+# concurrently, and one capture's end must not re-enable it under another
+_GC_LOCK = threading.Lock()
+_GC_HOLDS = [0, False]         # active captures, whether we disabled it
+
+
+def _hold_gc():
+    with _GC_LOCK:
+        if _GC_HOLDS[0] == 0:
+            _GC_HOLDS[1] = gc.isenabled()
+            gc.disable()
+        _GC_HOLDS[0] += 1
+
+
+def _release_gc():
+    with _GC_LOCK:
+        _GC_HOLDS[0] -= 1
+        if _GC_HOLDS[0] == 0 and _GC_HOLDS[1]:
+            gc.enable()
+
+
 def _capture_stream(device):
-    key = (device, threading.get_ident())
+    with torch.cuda.device(device):
+        key = (device, torch.cuda.current_blas_handle())
     s = _CAPTURE_STREAMS.get(key)
     if s is None:
         s = _CAPTURE_STREAMS[key] = torch.cuda.Stream(device)
@@ -196,11 +173,13 @@ class Program:
             global REPLAYS
             self.graph.replay()
             REPLAYS += 1
-            add_launches(self._deltas)
+            _build.add_launches(self._deltas)
             return self.outputs
         b0, t0 = _build.BUILD_SECONDS, time.perf_counter()
         out = self.fn(*self.inputs)
-        torch.cuda.synchronize(self.device)
+        # this stream only: a device-wide sync is illegal while another
+        # engine's thread is capturing, and would invalidate its capture
+        torch.cuda.current_stream(self.device).synchronize()
         self.build_s = _build.BUILD_SECONDS - b0
         self.run_s = time.perf_counter() - t0 - self.build_s
         self._capture()
@@ -208,7 +187,6 @@ class Program:
 
     def _capture(self):
         t0 = time.perf_counter()
-        before = launch_counts()
         reserved = torch.cuda.memory_reserved(self.device)
         g = torch.cuda.CUDAGraph()
         if self._gen is not None:
@@ -218,10 +196,10 @@ class Program:
         side.wait_stream(cur)
         # no garbage collection inside the capture: a collected graph's
         # destructor would call into CUDA from the capturing thread
-        collect = gc.isenabled()
-        gc.disable()
+        _hold_gc()
         try:
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), \
+                    _build.recording_launches() as launched:
                 # thread_local: other threads' CUDA calls (another engine,
                 # a scrape reading the allocator) do not invalidate it
                 g.capture_begin(pool=self._pool,
@@ -231,11 +209,10 @@ class Program:
                 finally:
                     g.capture_end()
         finally:
-            if collect:
-                gc.enable()
+            _release_gc()
         cur.wait_stream(side)
-        self._deltas = _diff(launch_counts(), before)
-        _restore(before)
+        # the capture launched nothing: its kernels run at each replay
+        self._deltas = launched
         self.graph, self.outputs = g, outs
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.capture_s = time.perf_counter() - t0

@@ -24,7 +24,13 @@ Kept from the TPU package:
   unscaled, the update is skipped when any gradient is not finite, and the
   scale is adjusted — all on the device, with no host sync;
 - ``return_outputs``, ``sync()``, ``found_inf``, ``loss_scale``,
-  ``state_dict`` / ``set_state_dict`` and :func:`train_step`.
+  ``state_dict`` / ``set_state_dict`` and :func:`train_step`;
+- wrapper optimizers (``incubate.LookAhead``): the step calls the
+  wrapper's ``_update`` and reads its ``_state_of`` / ``_live_state``,
+  so the wrapper's own state (LookAhead's slow weights and counter) is
+  checkpointed, counted in ``donated_bytes`` and restored with the rest
+  on a skipped fp16 step — the reference's ``sync_functional_state``
+  route for a wrapper's layout.
 
 The loss comes back as a 0-d device tensor, with no host sync.
 
@@ -270,7 +276,7 @@ class TrainStep:
 
         for p in self._params:
             add(_master_or_self(p))
-            for t in self.optimizer._states.get(id(p), {}).values():
+            for t in self.optimizer._live_state(p).values():
                 add(t)
         for b in self.model.buffers():
             add(b)

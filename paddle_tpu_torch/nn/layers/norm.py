@@ -1,4 +1,5 @@
-"""Normalisation layers (counterpart of ``paddle_tpu/nn/layers/norm.py``)."""
+"""Normalisation layers (counterpart of ``paddle_tpu/nn/layers/norm.py``):
+``LayerNorm``, ``RMSNorm`` and ``SpectralNorm``."""
 
 from __future__ import annotations
 
@@ -43,3 +44,37 @@ class RMSNorm(torch.nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
+
+
+class SpectralNorm(torch.nn.Module):
+    """``weight / sigma``, ``sigma`` the largest singular value of
+    ``weight`` seen as a ``[shape[dim], -1]`` matrix, estimated by
+    ``power_iters`` rounds of power iteration from the ``weight_u`` /
+    ``weight_v`` buffers (drawn N(0, 1) at construction and never written,
+    as in the reference; the gradient flows through the iteration)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 dtype="float32"):
+        super().__init__()
+        self._dim, self._power_iters, self._eps = dim, power_iters, eps
+        if isinstance(dtype, str):
+            dtype = getattr(torch, dtype)
+        h = weight_shape[dim]
+        w = 1
+        for i, s in enumerate(weight_shape):
+            if i != dim:
+                w *= s
+        self.register_buffer("weight_u", torch.randn(h, dtype=dtype))
+        self.register_buffer("weight_v", torch.randn(w, dtype=dtype))
+
+    def forward(self, weight):
+        dim, eps = self._dim, self._eps
+        wm = torch.movedim(weight, dim, 0).reshape(weight.shape[dim], -1)
+        u, v = self.weight_u, self.weight_v
+        for _ in range(self._power_iters):
+            v = wm.T @ u
+            v = v / (torch.linalg.vector_norm(v) + eps)
+            u = wm @ v
+            u = u / (torch.linalg.vector_norm(u) + eps)
+        sigma = u @ wm @ v
+        return weight / sigma

@@ -254,6 +254,20 @@ class MemoryLedger:
         out.sort(key=lambda r: -r["bytes"])
         return out
 
+    def replica_rollup(self, replicas):
+        """Per-replica owner totals for a cluster's ``stats()`` — a
+        lockless diagnostic: ``{replica: {"bytes": total, "owners":
+        {owner: bytes}}}``."""
+        out = {str(r): {"bytes": 0, "owners": {}} for r in replicas}
+        for reg, nbytes, _ in self._rows():
+            ent = out.get(reg.replica)
+            if ent is None:
+                continue
+            ent["bytes"] += nbytes
+            ent["owners"][reg.owner] = \
+                ent["owners"].get(reg.owner, 0) + nbytes
+        return out
+
     def kv_pool_bytes(self):
         """Total bytes under the KV owners (payload + scale pools) — the
         denominator perf's chunk-the-prefill hint compares peak temp

@@ -13,12 +13,14 @@ wrapper call on a CUDA tensor (or :func:`build`) does it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -165,3 +167,56 @@ def check_no_grad(*tensors) -> None:
         raise NotImplementedError(
             "paged flash decode is inference-only (it has no backward): "
             "call it under torch.no_grad() / torch.inference_mode()")
+
+
+# --------------------------------------------------------- launch counters
+# each wrapper adds one to its module's counter where it launches its
+# kernel; engines on several threads launch (and capture) at once, so the
+# counters move under a lock, and a thread capturing a CUDA graph records
+# its launches as the graph's own (its replays add them) instead
+_COUNT_LOCK = threading.Lock()
+_COUNT_TLS = threading.local()
+
+
+def count_launch(g, name, body=None):
+    """One launch on the counter ``name`` of the module whose globals are
+    ``g`` (``body``: the key of a per-body dict counter)."""
+    rec = getattr(_COUNT_TLS, "record", None)
+    if rec is not None:
+        key = (sys.modules[g["__name__"]], name)
+        if body is None:
+            rec[key] = rec.get(key, 0) + 1
+        else:
+            d = rec.setdefault(key, {})
+            d[body] = d.get(body, 0) + 1
+        return
+    with _COUNT_LOCK:
+        if body is None:
+            g[name] += 1
+        else:
+            g[name][body] = g[name].get(body, 0) + 1
+
+
+def add_launches(delta):
+    """Add a recorded ``{(module, name): count or {body: count}}`` delta
+    to the counters (a graph replay's launches)."""
+    with _COUNT_LOCK:
+        for (m, name), d in delta.items():
+            cur = getattr(m, name)
+            if isinstance(cur, dict):
+                for j, n in d.items():
+                    cur[j] = cur.get(j, 0) + n
+            else:
+                setattr(m, name, cur + d)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """This thread's launches go to the yielded dict, not the counters
+    (a capture: its kernels run at replay)."""
+    prev = getattr(_COUNT_TLS, "record", None)
+    rec = _COUNT_TLS.record = {}
+    try:
+        yield rec
+    finally:
+        _COUNT_TLS.record = prev

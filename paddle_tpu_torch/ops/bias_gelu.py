@@ -72,7 +72,6 @@ def _forward(x, b):
     if x.device.type != "cuda":
         raise NotImplementedError(
             f"bias_gelu runs on cuda or cpu tensors, got {x.device}")
-    global LAUNCHES
     x = x.contiguous()
     b = b.contiguous()
     y = torch.empty_like(x)
@@ -81,7 +80,7 @@ def _forward(x, b):
                                    x.numel(), x.shape[-1], _build.dtype_code(x),
                                    _build.dtype_code(b), _build.stream_handle(x))
     _build.check(err, "bias_gelu")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return y
 
 

@@ -253,10 +253,9 @@ def _fwd_kernel(q, k, v, scale, causal, return_lse):
             scale, int(bool(causal)), _build.stream_handle(q))
     _build.check(err, "flash_attention_fwd")
     _report_cost(q, k, causal, return_lse)
-    global LAUNCHES
-    LAUNCHES += 1
-    FWD_BODY_LAUNCHES[_FWD_BODIES[lib.ptt_flash_attention_fwd_body(
-        _build.dtype_code(q), d)]] += 1
+    _build.count_launch(globals(), "LAUNCHES")
+    _build.count_launch(globals(), "FWD_BODY_LAUNCHES", _FWD_BODIES[
+        lib.ptt_flash_attention_fwd_body(_build.dtype_code(q), d)])
     return o, lse
 
 
@@ -301,8 +300,7 @@ def _bwd_dkdv_kernel(q, k, v, g, lse, r, scale, causal):
             lse.data_ptr(), r.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_bwd_args(q, k, v, g, scale, causal))
     _build.check(err, "flash_attention_bwd_dkdv")
-    global BWD_DKDV_LAUNCHES
-    BWD_DKDV_LAUNCHES += 1
+    _build.count_launch(globals(), "BWD_DKDV_LAUNCHES")
     _count_bwd_body(lib, q)
     return dk, dv
 
@@ -317,15 +315,14 @@ def _bwd_dq_kernel(q, k, v, g, lse, r, scale, causal):
             lse.data_ptr(), r.data_ptr(), dq.data_ptr(),
             *_bwd_args(q, k, v, g, scale, causal))
     _build.check(err, "flash_attention_bwd_dq")
-    global BWD_DQ_LAUNCHES
-    BWD_DQ_LAUNCHES += 1
+    _build.count_launch(globals(), "BWD_DQ_LAUNCHES")
     _count_bwd_body(lib, q)
     return dq
 
 
 def _count_bwd_body(lib, q):
-    BWD_BODY_LAUNCHES[_BWD_BODIES[lib.ptt_flash_attention_bwd_body(
-        _build.dtype_code(q), q.shape[-1])]] += 1
+    _build.count_launch(globals(), "BWD_BODY_LAUNCHES", _BWD_BODIES[
+        lib.ptt_flash_attention_bwd_body(_build.dtype_code(q), q.shape[-1])])
 
 
 _ARGTYPES = {

@@ -147,10 +147,9 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
                                    scale)
-    global LAUNCHES
     o = _launch(q, k_pages, v_pages, None, None, page_table, seq_lens, scale,
                 bounded=True)
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return o
 
 
@@ -163,10 +162,9 @@ def _paged_full_sweep(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
                                    scale)
-    global FULL_SWEEP_LAUNCHES
     o = _launch(q, k_pages, v_pages, None, None, page_table, seq_lens, scale,
                 bounded=False)
-    FULL_SWEEP_LAUNCHES += 1
+    _build.count_launch(globals(), "FULL_SWEEP_LAUNCHES")
     return o
 
 
@@ -442,13 +440,12 @@ def paged_chunk_attend(q, k_pages, v_pages, table, lens):
     slot's pages."""
     if q.device.type == "cpu":
         return paged_chunk_attend_ref(q, k_pages, v_pages, table, lens)
-    global CHUNK_LAUNCHES
     B, C, H, D = q.shape
     lens2 = _chunk_lens(lens, C, table.shape[1] * k_pages.shape[1])
     table2, rows = _expand_rows(table, lens2)
     out = paged_attention(q.reshape(B * C, H, D), k_pages, v_pages, table2,
                           rows)
-    CHUNK_LAUNCHES += 1
+    _build.count_launch(globals(), "CHUNK_LAUNCHES")
     return out.reshape(B, C, H, D)
 
 
@@ -511,14 +508,13 @@ def paged_decode_attend(q, k_pages, v_pages, pos, scale=None):
         sc = scale if scale is not None else 1.0 / math.sqrt(d)
         return _gathered_attend(q, k_pages.reshape(B, PP * ps, hkv, d),
                                 v_pages.reshape(B, PP * ps, hkv, d), lens, sc)
-    global DECODE_ATTEND_LAUNCHES
     dev = q.device
     table = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * PP
              + torch.arange(PP, dtype=torch.int32, device=dev)[None, :])
     out = paged_attention(q, k_pages.view(B * PP, ps, hkv, d),
                           v_pages.view(B * PP, ps, hkv, d), table, lens,
                           scale)
-    DECODE_ATTEND_LAUNCHES += 1
+    _build.count_launch(globals(), "DECODE_ATTEND_LAUNCHES")
     return out
 
 
@@ -606,10 +602,9 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
         return paged_attention_quantized_ref(q, k_pages, v_pages, k_scales,
                                              v_scales, page_table, seq_lens,
                                              scale)
-    global QUANT_LAUNCHES
     o = _launch(q, k_pages, v_pages, k_scales, v_scales, page_table,
                 seq_lens, scale, bounded=True)
-    QUANT_LAUNCHES += 1
+    _build.count_launch(globals(), "QUANT_LAUNCHES")
     return o
 
 
@@ -623,10 +618,9 @@ def _paged_q_full_sweep(q, k_pages, v_pages, k_scales, v_scales, page_table,
         return paged_attention_quantized_ref(q, k_pages, v_pages, k_scales,
                                              v_scales, page_table, seq_lens,
                                              scale)
-    global QUANT_FULL_SWEEP_LAUNCHES
     o = _launch(q, k_pages, v_pages, k_scales, v_scales, page_table,
                 seq_lens, scale, bounded=False)
-    QUANT_FULL_SWEEP_LAUNCHES += 1
+    _build.count_launch(globals(), "QUANT_FULL_SWEEP_LAUNCHES")
     return o
 
 
@@ -654,13 +648,12 @@ def paged_chunk_attend_quant(q, k_pages, v_pages, k_scales, v_scales, table,
     if q.device.type == "cpu":
         return paged_chunk_attend_quant_ref(q, k_pages, v_pages, k_scales,
                                             v_scales, table, lens)
-    global QUANT_CHUNK_LAUNCHES
     B, C, H, D = q.shape
     lens2 = _chunk_lens(lens, C, table.shape[1] * k_pages.shape[1])
     table2, rows = _expand_rows(table, lens2)
     out = paged_attention_quantized(q.reshape(B * C, H, D), k_pages, v_pages,
                                     k_scales, v_scales, table2, rows)
-    QUANT_CHUNK_LAUNCHES += 1
+    _build.count_launch(globals(), "QUANT_CHUNK_LAUNCHES")
     return out.reshape(B, C, H, D)
 
 

@@ -10,7 +10,11 @@ paged KV cache (counterpart of ``paddle_tpu/serving``).
   longest-shared-run index; :mod:`.kv_spill` — :class:`KVSpillTier`, its
   host-memory tier.
 - :mod:`.qos` — QoS tiers: :class:`QoSConfig`, :class:`TierPolicy`,
-  :class:`TieredQueue` and the brownout ladder.
+  :class:`TieredQueue`, the brownout ladder and the cluster's
+  :class:`AutoScaler`.
+- :mod:`.cluster` — multi-replica serving: :class:`ReplicaPool`,
+  :class:`PrefixAffinityRouter` and :class:`ServingCluster` (routed
+  submits, cross-replica failover, autoscaling).
 - :mod:`.adapter` — :class:`GPTAdapter`: the prefill / step calls.
 - :mod:`.api` — :class:`ContinuousBatchingPredictor`, the
   ``paddle.inference``-shaped facade.
@@ -34,5 +38,8 @@ from .engine import (RequestHandle, RequestRejectedError,  # noqa: F401
                      SamplingParams, ServingEngine)
 from .kv_spill import KVSpillTier  # noqa: F401
 from .prefix_index import RadixPrefixIndex  # noqa: F401
-from .qos import QoSConfig, TieredQueue, TierPolicy, brownout  # noqa: F401
+from .qos import (AutoScaler, QoSConfig, TieredQueue,  # noqa: F401
+                  TierPolicy, brownout)
+from .cluster import (ClusterHandle, PrefixAffinityRouter,  # noqa: F401
+                      ReplicaPool, RouteDecision, ServingCluster)
 from .speculative import NgramDrafter  # noqa: F401

@@ -424,6 +424,8 @@ class ServingEngine:
         self.replica = str(replica)
         self._site_wedge = f"serving.scheduler_wedge@{self.replica}"
         self._site_step_crash = f"serving.step_crash@{self.replica}"
+        # the cluster's replica-loss drill: a trip kills this replica
+        self._site_replica_preempt = f"cluster.replica_preempt@{self.replica}"
         # keys this engine's /statusz and /healthz sections, and names its
         # numerics stream
         self._provider_key = f"serving/{self.replica}"
@@ -1222,12 +1224,20 @@ class ServingEngine:
     # ------------------------------------------------------------------ api
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
                eos_token_id=None, deadline_s=None, tier=None, adapter=None,
-               grammar=None, mode="generate", pooling="mean"):
+               grammar=None, mode="generate", pooling="mean", sampling=None,
+               _fsm_state=None, _autostart=True):
         """Queue one request; returns a :class:`RequestHandle` at once.
         ``deadline_s`` is a wall-clock budget from now — a sequence still
         queued or decoding past it retires with status ``expired``.
         ``tier`` names a QoS tier (``qos=`` engines only; None = the
-        config's default tier).
+        config's default tier).  ``sampling`` (a :class:`SamplingParams`)
+        overrides ``temperature``.
+
+        ``_autostart=False`` (the cluster's leg path) never starts a
+        stopped engine: the submit is rejected instead, atomically with
+        the enqueue, so a leg racing ``stop()`` cannot resurrect the
+        replica.  ``_fsm_state`` resumes a grammar mid-document (a
+        failover leg).
 
         Multi-tenant parameters (:class:`~.multitenant.MultiTenantEngine`
         only; this engine rejects non-defaults): ``adapter`` names a
@@ -1257,7 +1267,10 @@ class ServingEngine:
         handle.mode = mode
         handle.adapter = adapter
         if grammar is not None:
-            handle._fsm_state = grammar.start
+            handle._fsm_state = _fsm_state if _fsm_state is not None \
+                else grammar.start
+        if sampling is None:
+            sampling = SamplingParams(temperature=float(temperature))
         if mode != "generate":
             # embed / score: the prompt runs against the scratch page — no
             # pages, no decode positions
@@ -1274,11 +1287,19 @@ class ServingEngine:
                 f"needs {self._bm.pages_for(total)} pages / {total} "
                 f"positions; engine caps are {self._bm.num_pages} pages / "
                 f"{self.max_model_len} positions", reason="unservable")
-        self.start()  # before enqueue: a failed engine rejects loudly
+        if _autostart:
+            self.start()  # before enqueue: a failed engine rejects loudly
         with _tracing.span("serving.submit", trace_id=handle.trace_id,
                            request_id=handle.request_id,
                            prompt_len=len(prompt)):
             with self._cv:
+                # stop() sets _stop_evt before its queue sweep (under this
+                # lock): a leg either rejects here or the sweep fails it
+                if not _autostart and (not self._started
+                                       or self._error is not None
+                                       or self._stop_evt.is_set()):
+                    raise EngineStoppedError(
+                        f"replica {self.replica} is not running")
                 if self._draining:
                     self._shed("draining",
                                "engine is draining; not admitting new work",
@@ -1297,8 +1318,7 @@ class ServingEngine:
                 deadline = time.time() + deadline_s \
                     if deadline_s is not None else None
                 self._queue.append(Request(
-                    prompt, int(max_new_tokens),
-                    SamplingParams(temperature=float(temperature)),
+                    prompt, int(max_new_tokens), sampling,
                     eos_token_id, deadline, handle, adapter=adapter,
                     grammar=grammar, mode=mode, pooling=pooling, tier=tier))
                 self._m_requests.inc(status="submitted")
@@ -1445,6 +1465,19 @@ class ServingEngine:
         return [int(t) for t in arr]
 
     # ---------------------------------------------------------- loop thread
+    def _maybe_replica_preempt(self):
+        """The ``cluster.replica_preempt@<replica>`` drill: when the site
+        trips, this replica dies fatally.  The message avoids every
+        transient pattern (the site's own word included), so
+        ``classify_failure`` aborts instead of restarting in place: the
+        loss is the cluster's to handle."""
+        before = _faults.trip_count(self._site_replica_preempt)
+        _faults.maybe(self._site_replica_preempt)
+        if _faults.trip_count(self._site_replica_preempt) > before:
+            raise RuntimeError(
+                f"replica {self.replica} lost: host reclaimed by the "
+                "cluster scheduler (injected replica loss)")
+
     def _loop(self):
         with torch.inference_mode():
             while not self._stop_evt.is_set():
@@ -1454,6 +1487,8 @@ class ServingEngine:
                     self._progress_t = time.monotonic()
                     _faults.maybe("serving.scheduler_wedge")
                     _faults.maybe(self._site_wedge)
+                    if _faults.armed(self._site_replica_preempt):
+                        self._maybe_replica_preempt()
                     self._admit()
                     # chunked prefill rides the same iteration as the
                     # decode step: one budget of chunk work, then one step

@@ -1,7 +1,6 @@
 """QoS-tiered serving: priority tiers, weighted admission, deliberate
 preemption and SLO-aware brownouts (counterpart of
-``paddle_tpu/serving/qos.py``; its :class:`AutoScaler` waits for cluster
-serving).
+``paddle_tpu/serving/qos.py``).
 
 Production traffic is not one class: an interactive ``realtime``
 request, a ``standard`` API call and a ``batch`` eval row have different
@@ -25,6 +24,11 @@ promises first.  This module is the policy half:
   (level 1 sheds ``batch``, level 2 also ``standard``, level 3 = the
   engine is actively preempting), surfaced in ``health_state()``.
 
+- :class:`AutoScaler` — the elastic replica count of a cluster's
+  :class:`~.cluster.pool.ReplicaPool`: scale up under queue, occupancy or
+  burn pressure, drain-then-retire when idle, reap and replace lost
+  replicas, with hysteresis and a cooldown.
+
 The mechanism half — eviction, requeue as prompt + tokens-so-far with
 the remaining budget — is the engine's restart-recovery requeue
 scheduled on purpose, so a preempted greedy request's final ids are the
@@ -35,8 +39,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
+import time
 
 from ..observability.slo import SLOPolicy
+from ..profiler import metrics as _metrics
 
 #: brownout rung names for the default three-tier ladder (index = level)
 BROWNOUT_LADDER = ("normal", "shed_batch", "shed_standard", "preempt")
@@ -273,3 +280,202 @@ class TieredQueue:
         competes with (lower tiers never delay it past one cycle)."""
         return sum(len(self._qs[t.name]) for t in self.config.tiers
                    if t.priority >= priority)
+
+
+class AutoScaler:
+    """Elastic replica count for a :class:`~.cluster.pool.ReplicaPool`.
+
+    Driven by explicit :meth:`tick` calls (the
+    :class:`~.cluster.service.ServingCluster` monitor thread calls it
+    every poll; ``interval_s`` throttles the actual evaluation).  Scale
+    decisions need their signal to hold continuously for ``stable_s``
+    (hysteresis) and respect ``cooldown_s`` between events, so a traffic
+    blip neither thrashes the fleet up nor collapses it mid-burst.
+
+    - **up**: queued-per-replica >= ``scale_up_queue``, or fleet
+      occupancy >= ``scale_up_occupancy``, or the protected tier's SLO
+      burn (``burn_source()``) >= ``scale_up_burn_rate`` — and the pool
+      is below ``max_replicas``.  Spin-up is warm: the pool replays its
+      ``warmup=`` manifest before the new replica's scheduler starts.
+    - **down**: empty queues and occupancy <= ``scale_down_occupancy``
+      above ``min_replicas`` → the newest replica stops ADMITTING
+      (``begin_drain``) and is stopped + removed only once quiescent —
+      drain-then-retire, no in-flight request dropped.
+    - **reap**: a replica whose health reads ``error``/``stopped`` (fatal
+      crash, ``cluster.replica_preempt@<r>``) is removed immediately and
+      replaced up to ``min_replicas`` without waiting out the cooldown —
+      replacing lost capacity is not a scale decision.
+
+    ``history`` records ``{"t", "replicas", "event"}`` rows (the bench's
+    replica-count timeline); ``cluster.replicas{state=}`` and
+    ``cluster.scale_events{direction=up|down|reap}`` export the same.
+    """
+
+    #: health states counted as serving capacity
+    _LIVE = ("healthy", "degraded")
+    _DEAD = ("error", "stopped")
+
+    def __init__(self, pool, min_replicas=1, max_replicas=4,
+                 scale_up_queue=4.0, scale_up_occupancy=0.85,
+                 scale_up_burn_rate=2.0, scale_down_occupancy=0.25,
+                 stable_s=2.0, cooldown_s=5.0, interval_s=0.25,
+                 burn_source=None, cluster="0"):
+        if min_replicas < 1:
+            raise ValueError(f"min_replicas must be >= 1, got {min_replicas}")
+        if max_replicas < min_replicas:
+            raise ValueError(f"max_replicas {max_replicas} < min_replicas "
+                             f"{min_replicas}")
+        self.pool = pool
+        self.min_replicas = int(min_replicas)
+        self.max_replicas = int(max_replicas)
+        self.scale_up_queue = float(scale_up_queue)
+        self.scale_up_occupancy = float(scale_up_occupancy)
+        self.scale_up_burn_rate = None if scale_up_burn_rate is None \
+            else float(scale_up_burn_rate)
+        self.scale_down_occupancy = float(scale_down_occupancy)
+        self.stable_s = float(stable_s)
+        self.cooldown_s = float(cooldown_s)
+        self.interval_s = float(interval_s)
+        self._burn_source = burn_source
+        self.history = []                 # [{"t","replicas","event"}]
+        self._lock = threading.Lock()
+        self._retiring = None             # engine draining toward removal
+        self._up_since = None             # hysteresis: signal onset stamps
+        self._down_since = None
+        self._last_event_t = None
+        self._last_tick_t = None
+        self._m_replicas = _metrics.bind(
+            _metrics.gauge("cluster.replicas",
+                           "pool replicas by health state"),
+            cluster=str(cluster))
+        self._m_events = _metrics.bind(
+            _metrics.counter("cluster.scale_events",
+                             "autoscaler actions by direction=up|down|reap"),
+            cluster=str(cluster))
+
+    # -------------------------------------------------------------- insight
+    @property
+    def retiring(self):
+        return self._retiring
+
+    def timeline(self):
+        with self._lock:
+            return list(self.history)
+
+    def _record(self, event, n, now):
+        self.history.append({"t": now, "replicas": n, "event": event})
+
+    # ----------------------------------------------------------------- tick
+    def tick(self, now=None):
+        """Evaluate signals and maybe scale; returns the event applied
+        this tick (``"up"`` / ``"down"`` / ``"reap"`` / None).  Safe to
+        call from any single thread at any rate — evaluation is
+        throttled to ``interval_s``."""
+        now = time.monotonic() if now is None else float(now)
+        with self._lock:
+            if self._last_tick_t is not None \
+                    and now - self._last_tick_t < self.interval_s:
+                return None
+            self._last_tick_t = now
+            return self._tick_locked(now)
+
+    def _tick_locked(self, now):
+        event = None
+        engines, states = self.pool.snapshot_states()
+        # 1. finish an in-progress retirement (drain-then-retire)
+        ret = self._retiring
+        if ret is not None:
+            hs = ret.health_state()["state"]
+            if hs in self._DEAD or ret.quiescent:
+                self._stop_quietly(ret)
+                self.pool.remove_replica(ret)
+                self._retiring = None
+                self._last_event_t = now
+                event = "down"
+                self._m_events.inc(direction="down")
+                engines, states = self.pool.snapshot_states()
+                self._record("down", len(engines), now)
+        # 2. reap dead replicas (fatal crash / injected replica loss) and
+        #    replace lost capacity up to min_replicas — no cooldown: this
+        #    restores promised capacity, it doesn't change the target
+        dead = [e for e, st in zip(engines, states)
+                if st["state"] in self._DEAD and e is not self._retiring]
+        for e in dead:
+            self._stop_quietly(e)
+            self.pool.remove_replica(e)
+            self._m_events.inc(direction="reap")
+            event = event or "reap"
+        if dead:
+            engines, states = self.pool.snapshot_states()
+            self._record("reap", len(engines), now)
+        while len(engines) < self.min_replicas:
+            self.pool.add_replica()
+            self._m_events.inc(direction="up")
+            engines, states = self.pool.snapshot_states()
+            self._record("up", len(engines), now)
+            event = event or "up"
+        self._export_gauges(states)
+        if self._retiring is not None:
+            return event            # one state change in flight at a time
+        # 3. signals over the live fleet
+        live = [st for st in states if st["state"] in self._LIVE]
+        n = len(live)
+        if n == 0:
+            return event
+        queued = sum(st["queue_depth"] for st in live)
+        slots = sum(st["num_slots"] for st in live) or 1
+        occupancy = sum(st["active"] for st in live) / slots
+        burn = None
+        if self._burn_source is not None:
+            try:
+                burn = self._burn_source()
+            except Exception:
+                burn = None
+        up = len(engines) < self.max_replicas and (
+            queued / n >= self.scale_up_queue
+            or occupancy >= self.scale_up_occupancy
+            or (burn is not None and self.scale_up_burn_rate is not None
+                and burn >= self.scale_up_burn_rate))
+        down = (len(engines) > self.min_replicas and queued == 0
+                and occupancy <= self.scale_down_occupancy)
+        # hysteresis: the signal must hold since onset for stable_s
+        # (explicit None checks — an onset stamp of 0.0 is a valid time)
+        self._up_since = None if not up else (
+            self._up_since if self._up_since is not None else now)
+        self._down_since = None if not down else (
+            self._down_since if self._down_since is not None else now)
+        in_cooldown = (self._last_event_t is not None
+                       and now - self._last_event_t < self.cooldown_s)
+        if up and now - self._up_since >= self.stable_s and not in_cooldown:
+            self.pool.add_replica()
+            self._up_since = None
+            self._last_event_t = now
+            self._m_events.inc(direction="up")
+            engines, states = self.pool.snapshot_states()
+            self._export_gauges(states)
+            self._record("up", len(engines), now)
+            return "up"
+        if down and now - self._down_since >= self.stable_s \
+                and not in_cooldown:
+            victim = engines[-1]          # newest replica retires first
+            victim.begin_drain()
+            self._retiring = victim
+            self._down_since = None
+            self._record("drain", len(engines), now)
+            return event
+        return event
+
+    @staticmethod
+    def _stop_quietly(engine):
+        try:
+            engine.stop()
+        except Exception:
+            pass                          # a dead engine may refuse; reap on
+
+    def _export_gauges(self, states):
+        counts = {s: 0 for s in
+                  ("healthy", "degraded", "draining", "stopped", "error")}
+        for st in states:
+            counts[st["state"]] = counts.get(st["state"], 0) + 1
+        for state, c in counts.items():
+            self._m_replicas.set(c, state=state)

@@ -6,7 +6,11 @@
 caller converts them, so this module never imports the JAX package — and
 loads them into the port's model of the same structure.  Paddle's
 ``Linear`` stores ``[in, out]``; torch's ``[out, in]``, so those weights
-are transposed, and so are ``Int8Linear``'s ``weight_int8`` buffers.
+are transposed, and so are ``Int8Linear``'s ``weight_int8`` buffers and
+a Linear's reparameterized weights (``weight_v`` / ``weight_orig`` and
+the computed ``weight`` of ``nn.utils.weight_norm`` / ``spectral_norm``;
+``weight_g`` and the spectral ``weight_u`` / ``weight_v`` vectors pass as
+they are).
 (``Int8Linear.w_scale`` is an attribute, not state: a converted model is
 made by converting the float model with
 ``serving.quant.quantize_model_weights``.)  :func:`export_paddle_tpu_state_dict` is the inverse, so
@@ -53,7 +57,8 @@ def export_paddle_tpu_state_dict(model: torch.nn.Module, expected=None) -> dict:
     out = {}
     for key, t in model.state_dict().items():
         arr = t.detach().cpu()
-        arr = (arr.float() if arr.is_floating_point() else arr).numpy()
+        # a copy: on the CPU .numpy() would alias the live weights
+        arr = (arr.float() if arr.is_floating_point() else arr).numpy().copy()
         out[key] = arr.T if key in linear_weights else arr
     if expected is not None:
         _check_keys(out, expected)
@@ -74,14 +79,16 @@ def _check_keys(own, other):
 
 
 def _linear_weights(model):
-    """State-dict keys kept ``[out, in]`` here and ``[in, out]`` in paddle."""
+    """State-dict keys kept ``[out, in]`` here and ``[in, out]`` in paddle:
+    a Linear's weight, or under ``nn.utils.weight_norm`` its ``weight_v``
+    and computed ``weight``, or under ``spectral_norm`` its
+    ``weight_orig`` and computed ``weight``."""
+    from ...nn.layers.common import is_transposed
     from ...quantization import Int8Linear
 
-    keys = set()
+    keys = {k for k, t in model.state_dict(keep_vars=True).items()
+            if is_transposed(t)}
     for name, m in model.named_modules():
-        pre = f"{name}." if name else ""
-        if isinstance(m, torch.nn.Linear):
-            keys.add(f"{pre}weight")
-        elif isinstance(m, Int8Linear):
-            keys.add(f"{pre}weight_int8")
+        if isinstance(m, Int8Linear):
+            keys.add(f"{name}.weight_int8" if name else "weight_int8")
     return keys

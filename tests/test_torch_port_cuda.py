@@ -18,7 +18,12 @@ eager step on cloned pools, generate() replaying its graphs, a restart
 keeping the graphs); the multi-tenant engine's captured ``mt_*``
 programs against the eager adapter calls, an in-place hot swap with no
 recapture, the mask buffers after a constrained row retires, memory after
-``evict``, and a probed TrainStep against the unprobed one.  Marked ``cuda``; every test
+``evict``, and a probed TrainStep against the unprobed one; a cluster
+capturing a new replica's graphs while the others replay, with a
+replica stopped mid-decode (f32 ids equal the CPU's, memory back at its
+baseline) and one reaped after ``cluster.replica_preempt``; recompute's
+bit-equal gradients with K1 launched twice; the eleven optimizers on the
+card against the CPU.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -1968,3 +1973,216 @@ def test_mt_memory_returns_to_baseline_after_evict(cuda):
             store.evict(name)
             torch.cuda.synchronize()
             assert torch.cuda.memory_allocated() == base, i
+
+
+# ------------------------------------------------------ cluster, training
+def _cl_prompt(n, seed):
+    return np.random.RandomState(seed).randint(1, 96, (n,)).tolist()
+
+
+def test_cluster_captures_while_others_replay(cuda):
+    """A two-replica cluster on the card under load, three times over: a
+    third replica is built, warmed from a manifest and captures its graphs
+    while the others replay, a replica is stopped mid-decode (its requests
+    rerouted, f32 ids equal the CPU cluster's), and the cluster stops.
+    With no cuBLAS workspace cleared, the card's memory after the first
+    cycle is the baseline and no later cycle grows it (a capture stream
+    per cuBLAS handle: a new engine thread reuses its predecessor's)."""
+    import gc
+
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.serving import ServingCluster
+
+    cpu, card = _tiny_pair()
+    prompts = [_cl_prompt(9 + i % 5, 300 + i) for i in range(8)]
+
+    def cluster(model, **kw):
+        return ServingCluster(model, replicas=2, num_slots=2, page_size=8,
+                              max_model_len=64, **kw)
+
+    with cluster(cpu, device="cpu", replica_prefix="ccpu/") as c:
+        ref = [c.generate(p, max_new_tokens=24, timeout=120)
+               for p in prompts]
+    with cluster(card, replica_prefix="cw/") as c:   # mints every key
+        [c.generate(p, max_new_tokens=24, timeout=120) for p in prompts]
+        manifest = c.engines[0].capture_manifest()
+    del c
+    after = []
+    for cycle in range(3):
+        c = cluster(card, replica_prefix=f"cc{cycle}/", warmup=manifest)
+        # pace the schedulers (3 ms a step) so the stop lands mid-decode
+        faults.inject("serving.step_crash", fn=lambda: time.sleep(0.003))
+        with c:
+            hs = [c.submit(p, max_new_tokens=24) for p in prompts]
+            third = c.pool.add_replica()         # captures while 2 replay
+            t0 = time.time()
+            while not all(len(h.token_ids) >= 2 for h in hs[:2]):
+                assert time.time() - t0 < 60
+                time.sleep(0.001)
+            victim = next(e for e in c.engines
+                          if e.replica == hs[0].replica_history[0])
+            victim.stop()                        # stop mid-decode
+            outs = [h.result(timeout=120) for h in hs]
+            assert outs == ref
+            assert any(len(h.replica_history) == 2 for h in hs)
+            assert third._warmed["warmed"] > 0 and third._started
+            assert c.generate(prompts[0], max_new_tokens=24,
+                              timeout=120) == ref[0]
+        faults.clear()
+        del c, hs, third, victim
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert after[1:] == [after[0]] * 2, after
+
+
+def test_cluster_replica_preempt_reaped_on_card(cuda):
+    """``cluster.replica_preempt@<r>`` on the card: every request finishes
+    with the CPU engine's ids and the autoscaler replaces the replica."""
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.serving import ServingCluster
+
+    cpu, card = _tiny_pair()
+    prompts = [_cl_prompt(7 + i, 400 + i) for i in range(4)]
+    eng = ServingEngine(cpu, device="cpu", num_slots=2, page_size=8,
+                        max_model_len=64, replica="cpre-cpu")
+    with eng:
+        ref = [eng.generate(p, max_new_tokens=20, timeout=120)
+               for p in prompts]
+    c = ServingCluster(card, replicas=2, num_slots=2, page_size=8,
+                       max_model_len=64, replica_prefix="cpre/",
+                       name="cpre",
+                       autoscale={"min_replicas": 2, "max_replicas": 3,
+                                  "stable_s": 0.1, "cooldown_s": 0.3,
+                                  "interval_s": 0.05})
+    with c:
+        hs = [c.submit(p, max_new_tokens=20) for p in prompts]
+        faults.inject("cluster.replica_preempt@cpre/0", times=1)
+        try:
+            assert [h.result(timeout=120) for h in hs] == ref
+        finally:
+            faults.clear()
+        t0 = time.time()
+        while "cpre/2" not in [e.replica for e in c.engines]:
+            assert time.time() - t0 < 60
+            time.sleep(0.01)
+
+
+def test_recompute_bit_equal_grads_on_card(cuda):
+    """A recomputed bf16 Llama decoder layer: gradients bit-equal to the
+    plain run's, K1 launched twice; a recomputed bf16 GPT decoder layer
+    with dropout 0.1 (the plain attention): bit-equal under one seed."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.text.models import LlamaConfig
+    from paddle_tpu_torch.text.models.gpt import GPTDecoderLayer
+    from paddle_tpu_torch.text.models.llama import (LlamaDecoderLayer,
+                                                    _rope_cos_sin)
+
+    def llama():
+        cfg = LlamaConfig(hidden_size=256, intermediate_size=512,
+                          num_attention_heads=4, num_key_value_heads=2)
+        rope = _rope_cos_sin(torch.arange(128), 64, cfg.rope_theta)
+        return LlamaDecoderLayer(cfg), (rope,)
+
+    def gpt():
+        return GPTDecoderLayer(256, 4, 512, dropout=0.1, attn_dropout=0.1), ()
+
+    for make, want in ((llama, {"plain": 1, "recompute": 2}),
+                       (gpt, {"plain": 0, "recompute": 0})):
+        torch.manual_seed(0)
+        with torch.device("cuda"):
+            layer, extra = make()
+            layer = layer.to(torch.bfloat16).train()
+            x0 = torch.randn(2, 128, 256, dtype=torch.bfloat16)
+        grads, k1 = {}, {}
+        for mode in ("plain", "recompute"):
+            layer.zero_grad()
+            x = x0.clone().requires_grad_()
+            torch.manual_seed(7)
+            fa.LAUNCHES = 0
+            y = layer(x, *extra) if mode == "plain" \
+                else fleet.recompute(layer, x, *extra)
+            y.float().square().mean().backward()
+            k1[mode] = fa.LAUNCHES
+            grads[mode] = [x.grad] + [p.grad for p in layer.parameters()]
+        for a, b in zip(grads["plain"], grads["recompute"]):
+            assert torch.equal(a, b)
+        assert k1 == want
+
+
+@pytest.mark.parametrize("name", ["Adamax", "Adagrad", "RMSProp", "Adadelta",
+                                  "Lamb", "Rprop", "NAdam", "RAdam", "ASGD",
+                                  "Lars", "LBFGS"])
+def test_optimizer_on_card_matches_cpu(cuda, name):
+    """Each of the eleven optimizers trains the tiny GPT on the card as it
+    does on the CPU (f32, 4 steps; LBFGS through its closure): losses rtol
+    1e-4; its scalar state stays on the card."""
+    kw = {"Adagrad": {"learning_rate": 0.01}, "RMSProp": {"learning_rate": 1e-3},
+          "Adadelta": {"learning_rate": 1.0}, "Lars": {"learning_rate": 0.1},
+          "LBFGS": {"learning_rate": 0.1, "max_iter": 3},
+          "ASGD": {"learning_rate": 0.01, "batch_num": 2}}.get(
+        name, {"learning_rate": 1e-3})
+    cpu, card = _tiny_pair()
+    ids = torch.from_numpy(np.random.RandomState(3).randint(0, 96, (2, 32)))
+    losses = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        o = getattr(optimizer, name)(parameters=m.parameters(), **kw)
+        x = ids.to(dev)
+
+        def closure():
+            o.clear_grad()
+            loss = m(x, labels=x)
+            loss.backward()
+            return loss
+
+        out = []
+        for _ in range(4):
+            if name == "LBFGS":
+                out.append(float(o.step(closure)))
+            else:
+                out.append(float(closure().detach()))
+                o.step()
+        losses[dev] = out
+        if name != "LBFGS":
+            st = o._states[id(next(m.parameters()))]
+            assert all(t.device.type == dev for t in st.values())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_replicas_capture_their_first_dispatch_concurrently(cuda, kv_dtype):
+    """Two replicas take their first dispatches (eager run, then capture)
+    at the same moment: neither capture is invalidated by the other
+    thread (a device-wide synchronize after a first eager run once did
+    that), the launch counters stay exact (a capture's launches were once
+    taken as a global before / after difference, which another thread's
+    launches corrupted), and the ids equal one CPU engine's."""
+    from paddle_tpu_torch.serving import ServingCluster
+
+    cpu, card = _tiny_pair()
+    prompts = [_cl_prompt(5 + i % 7, 500 + i) for i in range(8)]
+    eng = ServingEngine(cpu, device="cpu", num_slots=2, page_size=8,
+                        max_model_len=64, kv_dtype=kv_dtype,
+                        replica=f"ccc-cpu-{kv_dtype}")
+    with eng:
+        ref = [eng.generate(p, max_new_tokens=12, timeout=120)
+               for p in prompts]
+    c = ServingCluster(card, replicas=2, num_slots=2, page_size=8,
+                       max_model_len=64, kv_dtype=kv_dtype,
+                       replica_prefix=f"ccc-{kv_dtype}/")
+    fa.LAUNCHES = pa.LAUNCHES = pa.QUANT_LAUNCHES = 0
+    with c:
+        hs = [c.submit(p, max_new_tokens=12) for p in prompts]
+        outs = [h.result(timeout=120) for h in hs]
+        assert all(e.health != "error" for e in c.engines)
+        st = [e.stats() for e in c.engines]
+    # each thread's capture records its own launches: the counters are
+    # the eager and replayed launches of both replicas, none lost or
+    # counted twice
+    decode = pa.QUANT_LAUNCHES if kv_dtype else pa.LAUNCHES
+    assert fa.LAUNCHES == 2 * sum(x["prefills"] for x in st)
+    assert decode == 2 * sum(x["iteration"] for x in st)
+    if kv_dtype is None:
+        assert outs == ref
+    else:   # the int8 rule of the card tests: first tokens equal
+        assert [o[0] for o in outs] == [r[0] for r in ref]
