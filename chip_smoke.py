@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi
+    python3 chip_smoke.py --phases build,hapi
     python3 chip_smoke.py --phases build,cluster,finetune
     python3 chip_smoke.py --phases build,numerics,multitenant
     python3 chip_smoke.py --phases build,programs
@@ -210,7 +211,23 @@ Phases, each printing one JSON line and then its seconds:
    Llama-3-8B-wide decoder layer's bf16 gradients bit-equal to the plain
    run's with K1 launched twice, and a GPT-base decoder layer's with
    dropout 0.1 (the plain attention, no K1) under one seed.
-19. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+19. ``hapi``   — the high-level API: the BERT fine-tune example's
+   recipe at its toy default (f32, every dropout 0) through ``Model.fit``
+   for 2 epochs on the card against the CPU (per-batch losses rtol 1e-4,
+   accuracy equal, ``predict`` within 1e-5, ``evaluate`` equal), then with
+   dropout 0.1 (the loss falls); ERNIE-3.0-base widths (vocab 40000, 768,
+   12 heads, FFN 3072, 2048 positions, 4 token types) at depth 2 in f32
+   against a CPU copy (``seq_out`` / ``pooled`` within 1e-4, B=4, S=128,
+   padded rows); BERT-base (bert-base-uncased's widths, full depth)
+   through ``Model.fit`` in bf16 O2 at the reference bench's recipe
+   (AdamW 2e-5, weight decay 0.01, B=64, S=128): step ms, samples/s, MFU
+   against 989 TFLOP/s (527 MFLOP a token), peak memory and the device's
+   idle share under the ``Profiler``; BERT's pad mask runs the plain
+   attention, so none of these launches a kernel; then an unmasked
+   ``TransformerEncoder`` classifier (768, 12 heads, 2 layers) trained 3
+   bf16 O2 steps by ``Model.fit`` with K1 = K2a = K2b = 2 per step, its
+   bf16 eval forward through K1 against the plain attention (2e-2).
+20. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
@@ -705,7 +722,8 @@ def phase_kernels():
                   (1, 513, 128, True),
                   (300, 300, 64, True, 1, "unaligned"),
                   (1024, 1024, 64, True, 2, "qkv"),
-                  (TRAIN_S, TRAIN_S, HEAD_DIM, True, TRAIN_B)]
+                  (TRAIN_S, TRAIN_S, HEAD_DIM, True, TRAIN_B),
+                  (ENC_S, ENC_S, HEAD_DIM, False, ENC_B)]
     k1 = [_k1_case(gen, dt, *sh)
           for dt in (torch.bfloat16, torch.float16, torch.float32)
           for sh in k1_shapes]
@@ -731,12 +749,14 @@ def phase_kernels():
                   (1024, 1024, 128, True, True)]
     # the tensor-core body's reach: head_dim 32 / 40 / 96 (zero-padded in
     # shared memory), rows that take no 16-byte copies (head_dim 17, a
-    # misaligned base), the model's strided qkv split, the training shape
+    # misaligned base), the model's strided qkv split, the training shape,
+    # the hapi phase's unmasked encoder (non-causal, B=8, S=128)
     k2_shapes += [(300, 300, 32, True, False), (200, 256, 40, True, True),
                   (129, 129, 96, False, True), (100, 100, 17, True, False),
                   (300, 300, 64, True, False, 1, "unaligned"),
                   (1024, 1024, 64, True, False, 2, "qkv"),
-                  (TRAIN_S, TRAIN_S, HEAD_DIM, True, False, TRAIN_B)]
+                  (TRAIN_S, TRAIN_S, HEAD_DIM, True, False, TRAIN_B),
+                  (ENC_S, ENC_S, HEAD_DIM, False, False, ENC_B)]
     # head_dim 129-256: the SIMT body with 32-row tiles in every dtype,
     # ragged lengths, sq < sk, a g_lse term
     k2_shapes += [(160, 160, 192, True, False), (129, 200, 192, False, True),
@@ -4765,6 +4785,382 @@ def phase_finetune():
     return {"launches": launches}
 
 
+# the hapi phase: the example's toy recipe (card vs CPU), ERNIE-3.0-base
+# widths at depth 2, BERT-base through Model.fit at the reference bench's
+# recipe, and an unmasked TransformerEncoder classifier (K1 / K2)
+HAPI_EPOCHS, HAPI_DROPOUT_EPOCHS = 2, 3
+ERNIE_LAYERS, ERNIE_B, ERNIE_S = 2, 4, 128
+BERT_B, BERT_S, BERT_WARM, BERT_TIMED, BERT_PROFILED = 64, 128, 3, 12, 3
+ENC_LAYERS, ENC_B, ENC_S, ENC_STEPS, ENC_VOCAB = 2, 8, 128, 3, 1000
+
+
+def bert_train_flops_per_token(seq_len, layers=12, hidden=768, ffn=3072):
+    """BERT-base's train-step operations per token, matmuls only, forward
+    x 3 (``benchmarks/raw_bert.py`` ``train_flops_per_token``): per layer
+    the q / k / v / out projections 8 H^2, the FFN 4 H F, the score and
+    value products 4 S H; plus the pooler's 2 H^2."""
+    per_layer = 8 * hidden * hidden + 4 * hidden * ffn + 4 * seq_len * hidden
+    return 3 * (layers * per_layer + 2 * hidden * hidden)
+
+
+def _hapi_recorder():
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Rec(Callback):
+        def __init__(self):
+            super().__init__()
+            self.batches, self.stamps = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            # train_batch read the loss back: the card is synced here
+            self.stamps.append(time.perf_counter())
+            self.batches.append(dict(logs))
+    return Rec()
+
+
+class _EncClassifier(torch.nn.Module):
+    """Embedding, an unmasked ``TransformerEncoder`` (dropout 0), the
+    mean over positions and a Linear head: the nn.Transformer* path that
+    runs the flash kernels."""
+
+    def __init__(self):
+        super().__init__()
+        from paddle_tpu_torch import nn as tnn
+
+        self.emb = tnn.Embedding(ENC_VOCAB, HIDDEN)
+        self.encoder = tnn.TransformerEncoder(
+            tnn.TransformerEncoderLayer(HIDDEN, HEADS, 4 * HIDDEN,
+                                        dropout=0.0), ENC_LAYERS)
+        self.head = tnn.Linear(HIDDEN, 2)
+
+    def forward(self, ids, mask=None):
+        return self.head(self.encoder(self.emb(ids), mask).mean(1))
+
+
+def _enc_kernels_vs_plain(net, ids):
+    """``net``'s (an ``_EncClassifier``) encoder, train mode (dropout 0),
+    on its embedding of ``ids``, with one random upstream gradient: once
+    unmasked (K1 forward, K2a / K2b backward), once with a zero mask (the
+    plain attention) and once as an f32 copy with the zero mask (the
+    yardstick).  ``layers``: each layer's K1 output and K2 dq / dk / dv
+    against an f32 autograd through the plain attention on that layer's
+    own q / k / v and upstream gradient, captured in the unmasked run
+    (the kernels' checks, at the network's activations).  ``end_to_end``:
+    the encoder's output and the gradients of its input and of each
+    layer's q / k / v projections, each bf16 path against the f32 copy
+    and the kernel path against the plain one (max error over max |ref|).
+    ``launches``: K1 / K2a / K2b of the unmasked run (the others: 0)."""
+    from paddle_tpu_torch.nn import functional as NF
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():
+        h0 = net.emb(ids)
+    g = torch.randn(h0.shape, generator=gen, device="cuda").to(h0.dtype)
+    f32 = copy.deepcopy(net).float()
+    sdpa = NF.scaled_dot_product_attention
+    cores = []
+
+    def recording_sdpa(q, k, v, *args, **kwargs):
+        for t in (q, k, v):
+            t.retain_grad()
+        o = sdpa(q, k, v, *args, **kwargs)
+        o.retain_grad()
+        cores.append((q, k, v, o))
+        return o
+
+    def run(model, h_in, mask, record=False):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        h = h_in.clone().requires_grad_()
+        k0 = (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
+        NF.scaled_dot_product_attention = recording_sdpa if record else sdpa
+        try:
+            y = model.encoder(h, mask)
+        finally:
+            NF.scaled_dot_product_attention = sdpa
+        y.backward(g.to(y.dtype))
+        torch.cuda.synchronize()
+        k1 = (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
+        grads = {"embedding_out": h.grad.float()}
+        for i, layer in enumerate(model.encoder.layers):
+            for p in ("q_proj", "k_proj", "v_proj"):
+                grads[f"{i}.{p}.weight"] = \
+                    getattr(layer.self_attn, p).weight.grad.float()
+        model.zero_grad(set_to_none=True)
+        return y.detach().float(), grads, [b - a for a, b in zip(k0, k1)]
+
+    def zero(dtype):
+        return torch.zeros(ids.shape[0], 1, 1, ids.shape[1], dtype=dtype,
+                           device="cuda")
+
+    was = net.training
+    y_k, g_k, launches = run(net, h0, None, record=True)
+    y_p, g_p, plain_launches = run(net, h0, zero(h0.dtype))
+    y_r, g_r, ref_launches = run(f32, h0.float(), zero(torch.float32))
+    net.train(was)
+    layers = []
+    for q, k, v, o in cores:
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        ref = fa.flash_attention_ref(*leaves, causal=False)
+        ref.backward(o.grad.float())
+        layers.append({
+            "out_max_abs_err": float((o.detach().float() - ref.detach())
+                                     .abs().max()),
+            "grad_rel_err": {n: _rel_err(t.grad, leaf.grad) for n, t, leaf
+                             in zip(("dq", "dk", "dv"), (q, k, v), leaves)}})
+    del cores, f32
+    return {"layers": layers,
+            "end_to_end": {
+                "out_rel_err": {"kernel_vs_plain": _rel_err(y_k, y_p),
+                                "kernel_vs_f32": _rel_err(y_k, y_r),
+                                "plain_vs_f32": _rel_err(y_p, y_r)},
+                "grad_rel_err": {n: {"kernel_vs_plain": _rel_err(g_k[n],
+                                                                 g_p[n]),
+                                     "kernel_vs_f32": _rel_err(g_k[n],
+                                                               g_r[n]),
+                                     "plain_vs_f32": _rel_err(g_p[n],
+                                                              g_r[n])}
+                                 for n in g_k}},
+            "launches": launches,
+            "other_launches": [a + b for a, b in zip(plain_launches,
+                                                     ref_launches)]}
+
+
+def phase_hapi():
+    """The high-level API on the card.  (a) The BERT fine-tune example's
+    recipe at its toy default, f32, every dropout 0: ``Model.fit`` for 2
+    epochs on the card and on the CPU (per-batch losses rtol 1e-4, the
+    running accuracy equal, ``predict`` within 1e-5, ``evaluate``'s logs
+    equal), then with dropout 0.1 on the card (the loss falls).  (b)
+    ERNIE-3.0-base widths at depth 2, f32: ``seq_out`` and ``pooled``
+    against a CPU copy within 1e-4 at B=4, S=128, padded rows in the
+    batch.  (c) BERT-base (bert-base-uncased's widths, 12 layers) through
+    ``Model.fit`` with ``amp_configs="O2"`` in bf16 at the reference
+    bench's recipe (AdamW 2e-5, weight decay 0.01, B=64, S=128, random ids
+    from ``RandomState(0)``): step ms, samples/s, MFU, peak memory, and
+    the idle share of 3 more steps under the ``Profiler``.  (d) An
+    unmasked ``TransformerEncoder`` classifier (768 wide, 12 heads, 2
+    layers, dropout 0) trained 3 bf16 O2 steps by ``Model.fit``: K1 = K2a
+    = K2b = one per layer per step; its bf16 eval forward through K1
+    against the plain attention's within 2e-2; at its own shape, per
+    token, each layer's K1 output (ATOL) and K2 dq / dk / dv (BWD_TOL) on
+    that layer's own inputs in the network against an f32 plain
+    attention, and the encoder's output against the plain attention's
+    (2e-2); its gradients end to end are recorded against an f32 copy.
+    BERT / ERNIE's pad mask
+    runs the plain attention: no kernel in (a)-(c)."""
+    from paddle_tpu_torch import Model, nn as tnn, optimizer as topt
+    from paddle_tpu_torch.examples import finetune_bert as fb
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+    from paddle_tpu_torch.text.models import (BertForSequenceClassification,
+                                              ErnieModel)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checks, out = {}, {}
+
+    def k_counts():
+        return (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
+
+    # (a) the example's toy recipe, f32, dropout 0: card against the CPU
+    ids, labels, vocab = fb.build_data()
+    cpu = fb.build_model("ernie", vocab, 32, dropout=0.0, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    runs, k0 = {}, k_counts()
+    for dev, net in (("cpu", cpu), ("cuda", card)):
+        rec = _hapi_recorder()
+        np.random.seed(0)
+        model, logs = fb.finetune(net, ids, labels, epochs=HAPI_EPOCHS,
+                                  verbose=0, callbacks=[rec], device=dev)
+        pred = model.predict(TensorDataset([ids, labels]), batch_size=16,
+                             stack_outputs=True)[0]
+        runs[dev] = {"batches": rec.batches, "eval": logs, "pred": pred}
+    toy_kernels = [a - b for a, b in zip(k_counts(), k0)]
+    tl = [b["loss"] for b in runs["cuda"]["batches"]]
+    cl = [b["loss"] for b in runs["cpu"]["batches"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tl, cl))
+    pred_err = float(np.abs(runs["cuda"]["pred"] - runs["cpu"]["pred"]).max())
+    ev_rel = abs(runs["cuda"]["eval"]["loss"] - runs["cpu"]["eval"]["loss"]) \
+        / abs(runs["cpu"]["eval"]["loss"])
+    checks["toy_losses_rtol_1e-4"] = len(tl) == len(cl) > 0 and rel <= 1e-4
+    checks["toy_accuracy_equal"] = \
+        [b["acc"] for b in runs["cuda"]["batches"]] == \
+        [b["acc"] for b in runs["cpu"]["batches"]]
+    checks["toy_predict_1e-5"] = pred_err <= 1e-5
+    checks["toy_evaluate_equal"] = ev_rel <= 1e-4 and \
+        runs["cuda"]["eval"]["acc"] == runs["cpu"]["eval"]["acc"]
+    checks["toy_no_kernel"] = toy_kernels == [0, 0, 0]
+    torch.manual_seed(1)
+    rec = _hapi_recorder()
+    np.random.seed(0)
+    _, drop_logs = fb.finetune(
+        fb.build_model("ernie", vocab, 32, dropout=0.1, device="cuda"),
+        ids, labels, epochs=HAPI_DROPOUT_EPOCHS, verbose=0, callbacks=[rec])
+    per_epoch = len(rec.batches) // HAPI_DROPOUT_EPOCHS
+    dl = [b["loss"] for b in rec.batches]
+    first, last = np.mean(dl[:per_epoch]), np.mean(dl[-per_epoch:])
+    checks["toy_dropout_0.1_loss_falls"] = bool(np.isfinite(dl).all()
+                                                 and last < first)
+    out["toy"] = {"epochs": HAPI_EPOCHS, "max_rel_loss": rel,
+                  "cuda_losses": tl, "cpu_losses": cl,
+                  "predict_max_abs_err": pred_err,
+                  "cuda_eval": runs["cuda"]["eval"],
+                  "cpu_eval": runs["cpu"]["eval"],
+                  "dropout_0.1": {"epochs": HAPI_DROPOUT_EPOCHS,
+                                  "first_epoch_mean_loss": float(first),
+                                  "last_epoch_mean_loss": float(last),
+                                  "eval": drop_logs}}
+    del cpu, card, runs
+
+    # (b) ERNIE-3.0-base widths at depth 2, f32: card against the CPU
+    torch.manual_seed(0)
+    cpu = ErnieModel(num_hidden_layers=ERNIE_LAYERS, device="cpu").eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    rs = np.random.RandomState(1)
+    e_ids = rs.randint(1, 40000, (ERNIE_B, ERNIE_S))
+    e_ids[1, 90:] = 0
+    e_ids[3, 40:] = 0
+    e_tt = rs.randint(0, 4, (ERNIE_B, ERNIE_S))
+    x, tt = torch.from_numpy(e_ids), torch.from_numpy(e_tt)
+    k0 = k_counts()
+    with torch.no_grad():
+        c_seq, c_pool = cpu(x, tt)
+        g_seq, g_pool = card(x.cuda(), tt.cuda())
+    seq_err = float((g_seq.cpu() - c_seq).abs().max())
+    pool_err = float((g_pool.cpu() - c_pool).abs().max())
+    checks["ernie_base_depth2_1e-4"] = seq_err <= 1e-4 and pool_err <= 1e-4
+    checks["ernie_no_kernel"] = k_counts() == k0
+    out["ernie_base"] = {
+        "layers": ERNIE_LAYERS, "B": ERNIE_B, "S": ERNIE_S,
+        "config": "ErnieModel defaults: vocab 40000, hidden 768, 12 heads, "
+                  "FFN 3072, 2048 positions, 4 token types",
+        "padded_rows": {"1": 90, "3": 40},
+        "seq_out_max_abs_err": seq_err, "pooled_max_abs_err": pool_err}
+    del cpu, card, c_seq, g_seq
+    _free_card()
+
+    # (c) BERT-base, bf16 O2, the reference bench's recipe
+    torch.manual_seed(0)
+    net = BertForSequenceClassification(num_classes=2, device="cuda")
+    model = Model(net)
+    model.prepare(topt.AdamW(learning_rate=2e-5, parameters=net.parameters(),
+                             weight_decay=0.01),
+                  tnn.CrossEntropyLoss(), amp_configs="O2")
+    rs = np.random.RandomState(0)
+    n = BERT_B * (BERT_WARM + BERT_TIMED)
+    b_ids = rs.randint(0, 30522, (n, BERT_S)).astype("int64")
+    b_y = rs.randint(0, 2, (n,)).astype("int64")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec, k0 = _hapi_recorder(), k_counts()
+    model.fit(TensorDataset([b_ids, b_y]), batch_size=BERT_B, epochs=1,
+              shuffle=False, verbose=0, callbacks=[rec])
+    peak = torch.cuda.max_memory_allocated()
+    step_s = (rec.stamps[-1] - rec.stamps[BERT_WARM - 1]) / BERT_TIMED
+    flops = bert_train_flops_per_token(BERT_S) * BERT_B * BERT_S
+    losses = [b["loss"] for b in rec.batches]
+    checks["bert_base_losses_finite"] = bool(np.isfinite(losses).all())
+    checks["bert_base_no_kernel"] = k_counts() == k0
+    prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU])
+    m = BERT_B * BERT_PROFILED
+    torch.cuda.synchronize()
+    with prof:
+        t0 = time.perf_counter()
+        model.fit(TensorDataset([b_ids[:m], b_y[:m]]), batch_size=BERT_B,
+                  epochs=1, shuffle=False, verbose=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    share = _device_share(prof, wall)
+    out["bert_base_bf16_O2"] = {
+        "config": "BertForSequenceClassification defaults (bert-base-"
+                  "uncased: vocab 30522, 12 x 768, 12 heads, FFN 3072, 512 "
+                  "positions), dropout 0.1",
+        "B": BERT_B, "S": BERT_S, "warm_steps": BERT_WARM,
+        "timed_steps": BERT_TIMED, "losses": losses,
+        "step_ms": step_s * 1e3, "samples_per_s": BERT_B / step_s,
+        "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_FLOPS,
+        "peak_memory_allocated_bytes": peak,
+        "profiled_steps": BERT_PROFILED, "profiled_wall_s": wall,
+        "device_busy_s": share["device_busy_s"],
+        "device_idle_share": share["device_idle_share"],
+        "nvidia_smi": smi_line()}
+    del model, net, prof
+    _free_card()
+
+    # (d) the unmasked TransformerEncoder classifier: K1 / K2 through fit
+    # (Model places the network on the card)
+    torch.manual_seed(0)
+    net = _EncClassifier()
+    model = Model(net)
+    model.prepare(topt.AdamW(learning_rate=1e-4, parameters=net.parameters()),
+                  tnn.CrossEntropyLoss(), amp_configs="O2")
+    rs = np.random.RandomState(2)
+    d_ids = rs.randint(0, ENC_VOCAB, (ENC_B * ENC_STEPS, ENC_S))
+    d_y = rs.randint(0, 2, (ENC_B * ENC_STEPS,))
+    _zero_bodies()
+    k0 = k_counts()
+    rec = _hapi_recorder()
+    model.fit(TensorDataset([d_ids, d_y]), batch_size=ENC_B, epochs=1,
+              shuffle=False, verbose=0, callbacks=[rec])
+    torch.cuda.synchronize()
+    enc = [a - b for a, b in zip(k_counts(), k0)]
+    want = ENC_LAYERS * ENC_STEPS
+    checks["encoder_fit_k1_k2_per_layer_step"] = enc == [want] * 3
+    checks["encoder_fit_tensor_core_bodies"] = \
+        _read_bodies() == _want_bodies(want, "tc16", "tc16")
+    bf = Model(copy.deepcopy(net).to(torch.bfloat16))
+    x = torch.from_numpy(d_ids[:ENC_B]).cuda()
+    k1 = fa.LAUNCHES
+    flash = torch.from_numpy(bf.predict_batch([x])[0])
+    eval_k1 = fa.LAUNCHES - k1
+    zero = torch.zeros(ENC_B, 1, 1, ENC_S, dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():      # a (zero) mask sends it to the plain attention
+        plain = bf.network.eval()(x, zero).float().cpu()
+    err = float((flash - plain).abs().max() / plain.abs().max())
+    checks["encoder_eval_k1_vs_plain_2e-2"] = err <= 2e-2 and \
+        eval_k1 == ENC_LAYERS and fa.LAUNCHES - k1 == ENC_LAYERS
+    # the kernels at the encoder's own shape, per token: the encoder's
+    # output [B, S, 768] and the gradients of a random upstream gradient
+    # (the embedding output's per token, each layer's q / k / v
+    # projections), through K1 / K2 against the plain attention
+    per_token = _enc_kernels_vs_plain(bf.network, x)
+    lay, e2e = per_token["layers"], per_token["end_to_end"]
+    checks["encoder_layers_k1_vs_plain_atol"] = len(lay) == ENC_LAYERS and \
+        max(r["out_max_abs_err"] for r in lay) <= ATOL[torch.bfloat16]
+    checks["encoder_layers_k2_vs_plain_bwd_tol"] = len(lay) == ENC_LAYERS \
+        and max(max(r["grad_rel_err"].values()) for r in lay) \
+        <= BWD_TOL[torch.bfloat16]
+    checks["encoder_per_token_out_vs_plain_2e-2"] = \
+        e2e["out_rel_err"]["kernel_vs_plain"] <= 2e-2
+    checks["encoder_grads_ran_k1_k2"] = \
+        per_token["launches"] == [ENC_LAYERS] * 3 and \
+        per_token["other_launches"] == [0, 0, 0]
+    out["encoder"] = {"layers": ENC_LAYERS, "d_model": HIDDEN,
+                      "heads": HEADS, "B": ENC_B, "S": ENC_S,
+                      "steps": ENC_STEPS,
+                      "losses": [b["loss"] for b in rec.batches],
+                      "fit_launches": dict(zip(("k1", "k2a", "k2b"), enc)),
+                      "eval_k1_launches": eval_k1,
+                      "eval_rel_err_vs_plain": err,
+                      "per_token_vs_plain": per_token}
+    launches = {"flash_attention_fwd": enc[0] + eval_k1,
+                "flash_attention_bwd_dkdv": enc[1],
+                "flash_attention_bwd_dq": enc[2]}
+    del model, bf, net
+    _free_card()
+    ok = all(checks.values())
+    emit({"phase": "hapi", "ok": ok, "checks": checks, **out,
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit(f"hapi phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": launches}
+
+
 def _profiled(fn):
     """``fn()`` under the port's ``Profiler`` (its device trace is a
     ``torch.profiler`` session over the CPU and the card): wall, device
@@ -4971,7 +5367,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
-                    "programs,llama,numerics,multitenant,cluster,finetune")
+                    "programs,llama,numerics,multitenant,cluster,finetune,"
+                    "hapi")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4995,7 +5392,7 @@ def main():
                      ("llama", phase_llama), ("numerics", phase_numerics),
                      ("multitenant", phase_multitenant),
                      ("cluster", phase_cluster), ("finetune", phase_finetune),
-                     ("profile", phase_profile)):
+                     ("hapi", phase_hapi), ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
@@ -5017,13 +5414,14 @@ def main():
         # K2, the multitenant phase's f32, k=4 and int8 mixed batches for
         # K1, K3 and K4, the cluster phase's f32 run for K1 and K3 and its
         # int8-pool run for K4, the finetune phase's Llama-3-8B-wide O2
-        # steps for K1 and K2 and its recompute check for K1); K5a / K5b:
-        # the kernels phase's checks
+        # steps for K1 and K2 and its recompute check for K1, the hapi
+        # phase's unmasked encoder's fit for K1 and K2 and its bf16 eval
+        # forward for K1); K5a / K5b: the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
                      "generate", "spec", "prefix", "resilience", "observe",
                      "programs", "llama", "numerics", "multitenant",
-                     "cluster", "finetune"):
+                     "cluster", "finetune", "hapi"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's

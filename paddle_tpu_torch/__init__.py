@@ -28,7 +28,10 @@ the roofline table), multi-tenant and cluster serving
 (``serving.multitenant``, ``serving.cluster``, the ``AutoScaler``), and
 the breadth of training (all fifteen optimizers, ``incubate``'s
 LookAhead / EMA / ModelAverage, ``nn.utils``, ``distributed.fleet
-.recompute``).
+.recompute``), and the high-level API (``hapi.Model`` fit / evaluate /
+predict with its callbacks and ``summary``, ``io``, ``metric``,
+``framework.io``'s ``save`` / ``load``, the tokenizers) over BERT / ERNIE
+and the ``nn.Transformer*`` layers.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -37,9 +40,13 @@ import importlib as _importlib
 __version__ = "0.1.0"
 
 # subpackages loaded on first attribute access, as the reference's are
-_LAZY = ("amp", "distributed", "framework", "incubate", "jit", "nn",
-         "observability", "ops", "optimizer", "profiler", "quantization",
-         "resilience", "serving", "text", "utils")
+_LAZY = ("amp", "callbacks", "distributed", "framework", "hapi", "incubate",
+         "io", "jit", "metric", "nn", "observability", "ops", "optimizer",
+         "profiler", "quantization", "resilience", "serving", "text", "utils")
+# top-level names of the reference: name -> (module, attribute)
+_NAMES = {"Model": ("hapi", "Model"), "summary": ("hapi", "summary"),
+          "flops": ("hapi", "flops"), "seed": ("framework.random", "seed"),
+          "save": ("framework.io", "save"), "load": ("framework.io", "load")}
 
 
 def __getattr__(name):
@@ -47,6 +54,11 @@ def __getattr__(name):
         mod = _importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod
+    if name in _NAMES:
+        mod, attr = _NAMES[name]
+        val = getattr(_importlib.import_module(f".{mod}", __name__), attr)
+        globals()[name] = val
+        return val
     # the custom-op plugin surface, as ``paddle_tpu.register_op``
     if name in ("register_op", "load_op_library"):
         from .framework import custom_op

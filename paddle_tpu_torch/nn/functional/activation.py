@@ -21,3 +21,15 @@ def swish(x):
 
 
 silu = swish
+
+
+def relu(x, name=None):
+    """``max(x, 0)``; under ``amp.auto_cast`` at O2 in the amp dtype."""
+    x, = amp.cast("relu", x)
+    return torch.relu(x)
+
+
+def tanh(x, name=None):
+    """``tanh(x)``; under ``amp.auto_cast`` at O2 in the amp dtype."""
+    x, = amp.cast("tanh", x)
+    return torch.tanh(x)

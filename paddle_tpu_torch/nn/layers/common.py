@@ -1,9 +1,10 @@
 """Common layers (counterpart of ``paddle_tpu/nn/layers/common.py``).
 
-``Dropout`` is ``torch.nn``'s own (paddle's defaults match it);
-``Embedding`` is ``torch.nn``'s with the amp cast of the lookup.
-``Linear`` keeps torch's ``[out, in]`` weight; paddle stores ``[in, out]``,
-and ``text.models.convert`` transposes on load.
+``Dropout`` takes paddle's ``axis`` and ``mode``; ``Embedding`` is
+``torch.nn``'s table looked up by ``functional.embedding`` (the amp cast
+and paddle's padding rule: the output is zero at ``padding_idx``).
+``Linear`` keeps torch's ``[out, in]`` weight; paddle stores ``[in,
+out]``, and ``text.models.convert`` transposes on load.
 """
 
 from __future__ import annotations
@@ -79,20 +80,61 @@ class Linear(torch.nn.Linear):
             "linear", x, self.weight, self.bias)))
 
     def reset_parameters(self):
-        torch.nn.init.xavier_uniform_(self.weight)
-        if self.bias is not None:
-            torch.nn.init.zeros_(self.bias)
+        from ..initializer import _global_default
+
+        w_init, b_init = _global_default(False), _global_default(True)
+        with torch.no_grad():
+            if w_init is None:
+                torch.nn.init.xavier_uniform_(self.weight)
+            else:   # drawn in paddle's [in, out] layout
+                self.weight.copy_(w_init(tuple(self.weight.shape[::-1]),
+                                         self.weight.dtype,
+                                         device=self.weight.device).T)
+            if self.bias is not None:
+                if b_init is None:
+                    torch.nn.init.zeros_(self.bias)
+                else:
+                    self.bias.copy_(b_init(tuple(self.bias.shape),
+                                           self.bias.dtype,
+                                           device=self.bias.device))
 
 
 class Embedding(torch.nn.Embedding):
-    """``torch.nn.Embedding`` whose table is cast for the ``"embedding"``
-    op under ``amp.auto_cast`` (O2: the amp dtype; O1 leaves it), as
-    paddle's lookup dispatches.  A module call, so the numerics layer tap
-    sees it as the reference's ``Embedding`` layer."""
+    """``torch.nn.Embedding`` looked up by :func:`..functional.embedding`:
+    the table cast for the ``"embedding"`` op under ``amp.auto_cast`` (O2:
+    the amp dtype; O1 leaves it), as paddle's lookup dispatches, and
+    paddle's padding rule: with ``padding_idx`` the row starts at zero and
+    the output is zero wherever ``ids == padding_idx``, whatever the row
+    holds later (a loaded state may hold anything there), so the row gets
+    no gradient (torch's own rule returns the row).  A module call, so the
+    numerics layer tap sees it as the reference's ``Embedding`` layer."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None):
+        super().__init__(num_embeddings, embedding_dim, padding_idx)
 
     def forward(self, ids):
-        w, = amp.cast("embedding", self.weight)
-        return torch.nn.functional.embedding(
-            ids, w, self.padding_idx, self.max_norm, self.norm_type,
-            self.scale_grad_by_freq, self.sparse)
+        from ..functional.common import embedding
+
+        return embedding(ids, self.weight, self.padding_idx)
+
+
+class Dropout(torch.nn.Module):
+    """Paddle's ``Dropout(p, axis, mode)`` over
+    :func:`..functional.common.dropout` (the mask from torch's default
+    generator of the input's device)."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        from ..functional.common import dropout
+
+        return dropout(x, self.p, axis=self.axis, training=self.training,
+                       mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
 

@@ -31,35 +31,52 @@ import torch
 
 
 def load_paddle_tpu_state_dict(model: torch.nn.Module, state: dict) -> None:
-    """Copy ``state`` (name -> numpy array) into ``model`` in place, cast
-    to each parameter's dtype and device.  Raises ``KeyError`` on a missing
-    or extra key and ``ValueError`` on a shape mismatch."""
+    """Copy ``state`` (name -> numpy array, or torch tensor in paddle's
+    layout, e.g. a bfloat16 one read by ``framework.io.load``) into
+    ``model`` in place, cast to each parameter's dtype and device.
+    Raises ``KeyError`` on a missing or extra key and ``ValueError`` on a
+    shape mismatch."""
     own = model.state_dict()
     _check_keys(own, state)
     linear_weights = _linear_weights(model)
     with torch.no_grad():
         for key, dst in own.items():
-            arr = np.asarray(state[key])
+            src = state[key]
+            src = src.detach() if isinstance(src, torch.Tensor) \
+                else torch.tensor(np.asarray(src))
             if key in linear_weights:
-                arr = arr.T
-            if tuple(arr.shape) != tuple(dst.shape):
-                raise ValueError(f"{key}: shape {tuple(arr.shape)} (after "
+                src = src.T
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: shape {tuple(src.shape)} (after "
                                  f"layout conversion) != {tuple(dst.shape)}")
-            dst.copy_(torch.tensor(arr))
+            dst.copy_(src)
+
+
+def export_paddle_tpu_tensors(model: torch.nn.Module) -> dict:
+    """``model``'s state as ``{paddle name: CPU tensor}`` in paddle's layout
+    (``Linear`` weights ``[in, out]``) and each tensor's own dtype
+    (bfloat16 stays bfloat16), every one a copy; parameters as
+    ``torch.nn.Parameter`` (``framework.io.save`` records which are)."""
+    linear_weights = _linear_weights(model)
+    params = {k for k, _ in model.named_parameters()}
+    out = {}
+    for key, t in model.state_dict().items():
+        arr = t.detach().cpu()
+        arr = (arr.T if key in linear_weights else arr).contiguous()
+        # a copy: on the CPU the tensor would alias the live weights
+        arr = arr.clone() if arr.data_ptr() == t.data_ptr() else arr
+        out[key] = torch.nn.Parameter(arr, requires_grad=False) \
+            if key in params else arr
+    return out
 
 
 def export_paddle_tpu_state_dict(model: torch.nn.Module, expected=None) -> dict:
     """``model``'s weights as ``{paddle name: numpy array}`` in paddle's
-    layout (``Linear`` weights ``[in, out]``), float32 for floating ones.
+    layout (:func:`export_paddle_tpu_tensors`), float32 for floating ones.
     With ``expected`` (name -> array, e.g. the JAX model's state) the keys
     and shapes must match: ``KeyError`` / ``ValueError`` otherwise."""
-    linear_weights = _linear_weights(model)
-    out = {}
-    for key, t in model.state_dict().items():
-        arr = t.detach().cpu()
-        # a copy: on the CPU .numpy() would alias the live weights
-        arr = (arr.float() if arr.is_floating_point() else arr).numpy().copy()
-        out[key] = arr.T if key in linear_weights else arr
+    out = {k: (t.float() if t.is_floating_point() else t).numpy()
+           for k, t in export_paddle_tpu_tensors(model).items()}
     if expected is not None:
         _check_keys(out, expected)
         for key, arr in out.items():

@@ -23,7 +23,10 @@ capturing a new replica's graphs while the others replay, with a
 replica stopped mid-decode (f32 ids equal the CPU's, memory back at its
 baseline) and one reaped after ``cluster.replica_preempt``; recompute's
 bit-equal gradients with K1 launched twice; the eleven optimizers on the
-card against the CPU.  Marked ``cuda``; every test
+card against the CPU; BERT-tiny through ``hapi.Model.fit`` against the
+CPU, an unmasked ``TransformerEncoder``'s K1 / K2 launches under
+``Model.fit``, a ``.pdparams`` written on the card loaded on the CPU, and
+``Embedding``'s padding rule on the card.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -2186,3 +2189,182 @@ def test_replicas_capture_their_first_dispatch_concurrently(cuda, kv_dtype):
         assert outs == ref
     else:   # the int8 rule of the card tests: first tokens equal
         assert [o[0] for o in outs] == [r[0] for r in ref]
+
+
+# ------------------------------------------------ slice 15: hapi and BERT
+BERT_TINY = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2,
+                 num_attention_heads=4, intermediate_size=64,
+                 max_position_embeddings=32, hidden_dropout_prob=0.0,
+                 attention_probs_dropout_prob=0.0)
+
+
+def _bert_tiny_data(n=12, s=16):
+    rs = np.random.RandomState(0)
+    ids = rs.randint(1, 96, (n, s)).astype("int64")
+    ids[0, 9:] = 0
+    ids[5, 3:] = 0
+    return ids, rs.randint(0, 3, (n,)).astype("int64")
+
+
+def _hapi_losses():
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Rec(Callback):
+        losses = None
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+    rec = Rec()
+    rec.losses = []
+    return rec
+
+
+def test_bert_tiny_card_matches_cpu_forward_and_fit(cuda):
+    """BERT-tiny (its pad mask: the plain attention, no kernel) on the
+    card against a CPU copy: the eval logits within 1e-5 and 3
+    ``Model.fit`` steps' losses within rtol 1e-4, f32."""
+    from paddle_tpu_torch import Model, nn as tnn, optimizer as topt
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    torch.manual_seed(0)
+    cpu = BertForSequenceClassification(num_classes=3, dropout=0.0,
+                                        device="cpu", **BERT_TINY)
+    card = copy.deepcopy(cpu).to("cuda")
+    ids, y = _bert_tiny_data()
+    logits = {}
+    losses = {}
+    k0 = (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES)
+    for dev, net in (("cpu", cpu), ("cuda", card)):
+        m = Model(net, device=dev)
+        m.prepare(topt.AdamW(learning_rate=1e-3, parameters=net.parameters()),
+                  tnn.CrossEntropyLoss())
+        logits[dev] = m.predict_batch([ids])[0]
+        rec = _hapi_losses()
+        m.fit(TensorDataset([ids, y]), batch_size=4, epochs=1, shuffle=False,
+              verbose=0, callbacks=[rec])
+        losses[dev] = rec.losses
+    assert len(losses["cuda"]) == 3
+    np.testing.assert_allclose(logits["cuda"], logits["cpu"], atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == k0
+
+
+def test_unmasked_encoder_fit_launches_k1_k2(cuda):
+    """An unmasked ``TransformerEncoder`` trained by ``Model.fit`` in bf16
+    O2 runs K1 forward and K2a / K2b backward once per layer per step
+    (``Model`` puts the CPU-built network on the card); its bf16 eval
+    forward (K1) equals the plain attention's (a zero mask) within 2e-2 of
+    its max; and each layer's K1 output and K2 dq / dk / dv, on that
+    layer's own inputs in the network, equal an f32 plain attention's."""
+    from paddle_tpu_torch import Model, nn as tnn, optimizer as topt
+    from paddle_tpu_torch.io import TensorDataset
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = tnn.Embedding(50, 64)
+            self.encoder = tnn.TransformerEncoder(
+                tnn.TransformerEncoderLayer(64, 4, 128, dropout=0.0), 2)
+            self.head = tnn.Linear(64, 2)
+
+        def forward(self, ids, mask=None):
+            return self.head(self.encoder(self.emb(ids), mask).mean(1))
+
+    torch.manual_seed(0)
+    net = Net()
+    m = Model(net)
+    assert next(net.parameters()).is_cuda
+    m.prepare(topt.AdamW(learning_rate=1e-3, parameters=net.parameters()),
+              tnn.CrossEntropyLoss(), amp_configs="O2")
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, 50, (12, 40)).astype("int64")
+    y = rs.randint(0, 2, (12,)).astype("int64")
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    m.fit(TensorDataset([ids, y]), batch_size=4, epochs=1, shuffle=False,
+          verbose=0)
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == (6, 6, 6)
+    bf = copy.deepcopy(net).to(torch.bfloat16).eval()
+    x = torch.from_numpy(ids[:4]).cuda()
+    with torch.no_grad():
+        flash = bf(x).float()
+        assert fa.LAUNCHES == 8
+        plain = bf(x, torch.zeros(4, 1, 1, 40, dtype=torch.bfloat16,
+                                  device="cuda")).float()
+    assert fa.LAUNCHES == 8
+    assert float((flash - plain).abs().max()) <= 2e-2 * float(
+        plain.abs().max())
+    # per layer, on the attention core's own inputs and upstream gradient
+    # in the network: K1's output within ATOL and K2's dq / dk / dv within
+    # 2e-2 of their max, against an f32 autograd through the plain attention
+    from paddle_tpu_torch.nn import functional as NF
+
+    sdpa, cores = NF.scaled_dot_product_attention, []
+
+    def recording_sdpa(q, k, v, *args, **kwargs):
+        for t in (q, k, v):
+            t.retain_grad()
+        o = sdpa(q, k, v, *args, **kwargs)
+        o.retain_grad()
+        cores.append((q, k, v, o))
+        return o
+
+    h = bf.emb(x).detach().requires_grad_()
+    bf.train()
+    NF.scaled_dot_product_attention = recording_sdpa
+    try:
+        y = bf.encoder(h)
+    finally:
+        NF.scaled_dot_product_attention = sdpa
+    y.backward(torch.randn(y.shape, generator=cuda, device="cuda").to(
+        torch.bfloat16))
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == \
+        (10, 8, 8) and len(cores) == 2
+    for q, k, v, o in cores:
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        ref = fa.flash_attention_ref(*leaves)
+        ref.backward(o.grad.float())
+        assert float((o.detach().float() - ref.detach()).abs().max()) <= 2e-2
+        for t, leaf in zip((q, k, v), leaves):
+            assert float((t.grad.float() - leaf.grad).abs().max()) <= \
+                2e-2 * float(leaf.grad.abs().max())
+
+
+def test_pdparams_written_on_card_loads_on_cpu(cuda, tmp_path):
+    """``Model.save`` of a card model (f32 and bf16) writes the
+    reference's schema; a CPU model loads it and gives the same logits."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    ids, _ = _bert_tiny_data()
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(0)
+        card = BertForSequenceClassification(num_classes=3, device="cuda",
+                                             dtype=dtype, **BERT_TINY)
+        Model(card).save(str(tmp_path / f"{dtype}"))
+        torch.manual_seed(1)
+        cpu = BertForSequenceClassification(num_classes=3, device="cpu",
+                                            dtype=dtype, **BERT_TINY)
+        Model(cpu, device="cpu").load(str(tmp_path / f"{dtype}"))
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            assert torch.equal(a.cpu(), b)
+        got = Model(cpu, device="cpu").predict_batch([ids])[0]
+        want = Model(card).predict_batch([ids])[0]
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+def test_embedding_pad_row_on_card(cuda):
+    """The reference's padding rule on the card: zero output at the pad
+    id whatever the row holds, and no gradient into the row."""
+    from paddle_tpu_torch import nn as tnn
+
+    e = tnn.Embedding(10, 8, padding_idx=2).to("cuda")
+    with torch.no_grad():
+        e.weight.normal_(generator=cuda)          # a nonzero pad row
+    ids = torch.tensor([[2, 1, 2, 7]], device="cuda")
+    out = e(ids)
+    assert not out[ids == 2].any() and out[ids != 2].abs().sum() > 0
+    out.square().sum().backward()
+    assert not e.weight.grad[2].any() and e.weight.grad[7].any()
