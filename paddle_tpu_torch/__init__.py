@@ -31,7 +31,11 @@ LookAhead / EMA / ModelAverage, ``nn.utils``, ``distributed.fleet
 .recompute``), and the high-level API (``hapi.Model`` fit / evaluate /
 predict with its callbacks and ``summary``, ``io``, ``metric``,
 ``framework.io``'s ``save`` / ``load``, the tokenizers) over BERT / ERNIE
-and the ``nn.Transformer*`` layers.
+and the ``nn.Transformer*`` layers, and vision (convolutions, pooling,
+the batch / group / instance norms, the activation layers, and the
+classification zoo: ResNet, ViT over the flash kernels, LeNet, AlexNet,
+VGG, MobileNet, SqueezeNet, ShuffleNetV2, DenseNet, GoogLeNet,
+InceptionV3).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -42,7 +46,8 @@ __version__ = "0.1.0"
 # subpackages loaded on first attribute access, as the reference's are
 _LAZY = ("amp", "callbacks", "distributed", "framework", "hapi", "incubate",
          "io", "jit", "metric", "nn", "observability", "ops", "optimizer",
-         "profiler", "quantization", "resilience", "serving", "text", "utils")
+         "profiler", "quantization", "resilience", "serving", "text", "utils",
+         "vision")
 # top-level names of the reference: name -> (module, attribute)
 _NAMES = {"Model": ("hapi", "Model"), "summary": ("hapi", "summary"),
           "flops": ("hapi", "flops"), "seed": ("framework.random", "seed"),

@@ -6,11 +6,22 @@ forward hook on every sub-module and prints the reference's table (name,
 type, first output shape, the module's own parameter count) and totals.
 :func:`flops` counts one forward at ``input_size`` by the rules of XLA's
 cost model, which the reference reads: a matrix product of ``[M, K]`` by
-``[K, N]`` is ``2 M N K``, an elementwise add, multiply, subtract,
-divide, max or min is one per output element, and transcendental ops
-(tanh, exp, erf, ...) are not counted.  For a network of ``Linear`` layers
-and such activations the total equals the reference's; where XLA
-rewrites a fused op (a norm, an erf polynomial) the two differ.
+``[K, N]`` is ``2 M N K``; a convolution is 2 x (input channels / groups)
+x output channels x batch x, per spatial dim, the count of (kernel tap,
+output position) pairs that read the input rather than its padding (so
+``2 * output elements * Cin / groups * prod(k)`` when nothing is padded),
+and its bias add one per output element; an elementwise add, multiply,
+subtract, divide, max or min is one per output element; transcendental
+ops (tanh, exp, erf, ...) are not counted.  For a network of ``Linear``
+and convolution layers and such activations the total equals the
+reference's.  Where XLA rewrites a fused op the two part: a batch norm
+(XLA counts about 8 operations per element of the eval-mode norm as it
+expands it, the port 2, its scale-and-shift, plus the per-channel
+statistics: a 3 -> 8 channel 3x3 conv, batch norm and ReLU on 2 x 3 x 16
+x 16 count 244,144 there and 219,552 here, 211,328 both without the
+norm), an erf polynomial, pooling (XLA counts window - 1 reductions per
+output element, the port none), and a convolution whose uneven padding
+the port applies with ``F.pad`` first (its padded taps count here).
 """
 
 from __future__ import annotations
@@ -121,9 +132,40 @@ class _FlopCounter(TorchDispatchMode):
             self.total += 2 * _numel(out.shape) * k
             if packet in (_aten.addmm, _aten.baddbmm):
                 self.total += _numel(out.shape)
+        elif packet is _aten.convolution:
+            self.total += _conv_flops(args[0], args[1], out, *args[2:9])
         elif func in _ELEMENTWISE and isinstance(out, torch.Tensor):
             self.total += _numel(out.shape)
         return out
+
+
+def _conv_flops(x, w, out, bias, stride, padding, dilation, transposed,
+                output_padding, groups):
+    """XLA's convolution count (``HloCostAnalysis``): 2 x features x the
+    valid (kernel tap, output position) pairs of each spatial dim, plus
+    the bias add.  A transposed convolution is counted as XLA sees it, an
+    input-dilated convolution."""
+    n = x.ndim - 2
+    taps = 1
+    for i in range(n):
+        L, k, s, d = x.shape[2 + i], w.shape[2 + i], stride[i], dilation[i]
+        o = out.shape[2 + i]
+        if transposed:     # stride -> input dilation, pads (eff - 1 - p)
+            eff = d * (k - 1) + 1
+            lo, base, step = eff - 1 - padding[i], s, 1
+        else:
+            lo, base, step = padding[i], 1, s
+        valid = 0
+        for kk in range(k):
+            for oo in range(o):
+                u = oo * step - lo + kk * d
+                if u % base == 0 and 0 <= u // base < L:
+                    valid += 1
+        taps *= valid
+    cin_per_group = w.shape[0] // groups if transposed else w.shape[1]
+    cout = w.shape[1] * groups if transposed else w.shape[0]
+    total = 2 * cin_per_group * cout * x.shape[0] * taps
+    return total + (_numel(out.shape) if bias is not None else 0)
 
 
 def flops(net, input_size, custom_ops=None, print_detail=False):

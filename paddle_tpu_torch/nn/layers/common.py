@@ -4,7 +4,10 @@
 ``torch.nn``'s table looked up by ``functional.embedding`` (the amp cast
 and paddle's padding rule: the output is zero at ``padding_idx``).
 ``Linear`` keeps torch's ``[out, in]`` weight; paddle stores ``[in,
-out]``, and ``text.models.convert`` transposes on load.
+out]``, and ``text.models.convert`` transposes on load.  ``Identity``,
+``Flatten`` (``start_axis`` / ``stop_axis``), the ``Pad*`` /
+``ZeroPad*`` layers (:func:`..functional.common.pad` with its
+``data_format``) and ``ChannelShuffle`` are the reference's.
 """
 
 from __future__ import annotations
@@ -52,6 +55,21 @@ def promote(first, *rest):
             dt = torch.promote_types(dt, t.dtype)
     return tuple(t if t is None or t.dtype == dt else t.to(dt)
                  for t in (first,) + rest)
+
+
+def make_parameter(shape, attr=None, default=0.0):
+    """A float32 parameter of paddle's ``shape`` for a layer's
+    ``weight_attr`` / ``bias_attr``: None when ``attr is False``; drawn by
+    ``attr.initializer`` when it has one (paddle's ``ParamAttr``), else by
+    ``default`` (an initializer, or a constant)."""
+    if attr is False:
+        return None
+    init = getattr(attr, "initializer", None) or default
+    if callable(init):
+        value = init(tuple(shape), torch.float32)
+    else:
+        value = torch.full(tuple(shape), float(init))
+    return torch.nn.Parameter(value.detach().clone())
 
 
 class Linear(torch.nn.Linear):
@@ -138,3 +156,74 @@ class Dropout(torch.nn.Module):
     def extra_repr(self):
         return f"p={self.p}"
 
+
+class Identity(torch.nn.Module):
+    def forward(self, x):
+        return x
+
+
+class Flatten(torch.nn.Module):
+    """Dims ``start_axis`` .. ``stop_axis`` merged into one."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class _PadNd(torch.nn.Module):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.padding, self.mode = padding, mode
+        self.value, self.data_format = value, data_format
+
+    def forward(self, x):
+        from ..functional.common import pad
+
+        return pad(x, self.padding, self.mode, self.value, self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL",
+                 name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    pass
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad1D(_PadNd):
+    def __init__(self, padding, data_format="NCL", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class ZeroPad2D(_PadNd):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class ZeroPad3D(_PadNd):
+    def __init__(self, padding, data_format="NCDHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class ChannelShuffle(torch.nn.Module):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+
+    def forward(self, x):
+        from ..functional.common import channel_shuffle
+
+        return channel_shuffle(x, self.groups)

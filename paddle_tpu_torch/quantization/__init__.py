@@ -6,13 +6,14 @@
   ``torch.autograd.Function``), so QAT trains through the rounding, and
   PTQ calibrates scales by observing absmax during forwards.
   :class:`QAT` / :class:`PTQ` wrap every quantable layer (the port's and
-  ``torch.nn``'s ``Linear``; the port has no Conv layers yet) in a
+  ``torch.nn``'s ``Linear``, the port's ``Conv1D`` / ``2D`` / ``3D``) in a
   :class:`_QuantedWrapper` with ``inner``, ``act_quanter`` and
   ``weight_quanter``, named as in the TPU package, so
   :func:`extract_scales` gives the same keys.
 - :func:`convert_to_int8` — the deploy conversion: every wrapped Linear
   becomes an :class:`Int8Linear` with the trained weight-quanter scale and
-  a STATIC activation scale.
+  a STATIC activation scale; a wrapped convolution keeps its fake-quant
+  numerics, as in the TPU package.
 - The public deploy-grid primitives :func:`absmax_scale`,
   :func:`quantize`, :func:`quantize_absmax` and :func:`dequantize`
   (``ops/quant.py``), shared by :class:`Int8Linear`, the serving engine's
@@ -176,7 +177,8 @@ class QuantConfig:
 
 
 class _QuantedWrapper(torch.nn.Module):
-    """Wraps a Linear: fake-quants its input and its weight.  The weight
+    """Wraps a Linear or a convolution: fake-quants its input and its
+    weight.  The weight
     is never written: the inner Linear is called with the fake-quantized
     weight bound in its place (``torch.func.functional_call``), so it keeps
     its own AMP cast and the STE gradient lands on ``inner.weight``."""
@@ -197,7 +199,9 @@ class _QuantedWrapper(torch.nn.Module):
 
 
 def _quantable(layer):
-    return isinstance(layer, torch.nn.Linear)
+    from ..nn import Conv1D, Conv2D, Conv3D
+
+    return isinstance(layer, (torch.nn.Linear, Conv1D, Conv2D, Conv3D))
 
 
 def _clone_quanter(proto, default_cls):

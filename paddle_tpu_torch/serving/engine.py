@@ -2689,6 +2689,13 @@ class ServingEngine:
         """The engine's SLO accountant (None unless ``slo=`` was set)."""
         return self._slo
 
+    @property
+    def acceptance_rate(self):
+        """Lifetime speculative acceptance (None before any proposal)."""
+        if not self._spec_proposed_total:
+            return None
+        return self._spec_accepted_total / self._spec_proposed_total
+
     def stats(self):
         def by_reason(counts):
             out = {}
@@ -2740,6 +2747,13 @@ class ServingEngine:
             if self._watchdog is not None else 0,
             "error": repr(self._error) if self._error is not None else None,
         }
+        if self._spec_k:
+            st["speculative"] = {
+                "k": self._spec_k,
+                "proposed": self._spec_proposed_total,
+                "accepted": self._spec_accepted_total,
+                "acceptance_rate": self.acceptance_rate,
+            }
         if self._prefix_cache is not None:
             st["prefix_cache"] = self._bm.stats()["prefix_cache"]
             summ = self.prefix_index_summary()

@@ -14,9 +14,10 @@ popped device page (in place, one copy per pool) and the page rejoins the
 resident tree as cached K/V, so the prompt tokens it covers skip prefill
 like a device hit, at one host-to-device copy instead of a forward pass.
 
-Budgeted and LRU within the tier: ``budget_bytes`` (256 MiB unless
-given) caps the host bytes; the least recently spilled entries drop when
-a new spill would overflow.
+Budgeted and LRU within the tier: ``budget_bytes`` (else the
+``PADDLE_KV_SPILL_BUDGET_BYTES`` environment variable, else 256 MiB; see
+:func:`spill_budget_bytes`) caps the host bytes; the least recently
+spilled entries drop when a new spill would overflow.
 
 The engine clears the tier in ``_recover``: a rebuilt BlockManager starts
 with an empty radix tree, and a coherent cold start is worth more than a
@@ -26,9 +27,26 @@ warm one that needs cross-checking.
 from __future__ import annotations
 
 import collections
+import os
 import threading
 
 _DEFAULT_BUDGET = 256 << 20  # 256 MiB of host memory unless told otherwise
+
+
+def spill_budget_bytes(budget_bytes=None):
+    """The host tier's budget: an explicit ``budget_bytes`` beats the
+    ``PADDLE_KV_SPILL_BUDGET_BYTES`` environment variable (the knob the
+    perf hint names when resurrections thrash), which beats 256 MiB; a
+    value that is not an integer is ignored."""
+    if budget_bytes is not None:
+        return int(budget_bytes)
+    v = os.environ.get("PADDLE_KV_SPILL_BUDGET_BYTES")
+    if v:
+        try:
+            return int(v)
+        except ValueError:
+            pass
+    return _DEFAULT_BUDGET
 
 
 class KVSpillTier:
@@ -43,8 +61,7 @@ class KVSpillTier:
 
     def __init__(self, replica="0", budget_bytes=None):
         self.replica = str(replica)
-        self.budget_bytes = _DEFAULT_BUDGET if budget_bytes is None \
-            else int(budget_bytes)
+        self.budget_bytes = spill_budget_bytes(budget_bytes)
         self._entries = collections.OrderedDict()  # key -> tuple of host tensors
         self._nbytes = 0
         self._snapshot = None

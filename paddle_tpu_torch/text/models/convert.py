@@ -10,7 +10,11 @@ are transposed, and so are ``Int8Linear``'s ``weight_int8`` buffers and
 a Linear's reparameterized weights (``weight_v`` / ``weight_orig`` and
 the computed ``weight`` of ``nn.utils.weight_norm`` / ``spectral_norm``;
 ``weight_g`` and the spectral ``weight_u`` / ``weight_v`` vectors pass as
-they are).
+they are).  A convolution's weight keeps paddle's layout (``[out, in /
+groups, *k]``, PyTorch's too) and passes as it is, as do the batch
+norms' ``_mean`` / ``_variance`` buffers and a vision model's
+``cls_token`` / ``pos_embed``; a vision net's ``fc`` / ``head`` / ViT
+``qkv`` Linears are transposed like any other.
 (``Int8Linear.w_scale`` is an attribute, not state: a converted model is
 made by converting the float model with
 ``serving.quant.quantize_model_weights``.)  :func:`export_paddle_tpu_state_dict` is the inverse, so

@@ -194,7 +194,10 @@ class GPTModel(torch.nn.Module):
     def __init__(self, vocab_size=50304, hidden_size=768, num_hidden_layers=12,
                  num_attention_heads=12, intermediate_size=None,
                  hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-                 max_position_embeddings=1024, hidden_act="gelu"):
+                 max_position_embeddings=1024, type_vocab_size=1,
+                 initializer_range=0.02, pad_token_id=0, hidden_act="gelu"):
+        # type_vocab_size, initializer_range and pad_token_id are the
+        # reference's parameters, accepted and not read, as there
         super().__init__()
         intermediate_size = intermediate_size or 4 * hidden_size
         self.hidden_size = hidden_size
@@ -216,10 +219,14 @@ class GPTModel(torch.nn.Module):
         return self.drop(self.word_embeddings(input_ids)
                          + self.position_embeddings(position_ids))
 
-    def forward(self, input_ids, position_ids=None, cache=None, lora=None):
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                use_cache=False, cache=None, lora=None):
         """``cache``: None, or one served cache tuple per layer; ``lora``:
         None, or the per-layer multi-tenant adapter slices; returns the
-        final hidden states (and the per-layer caches when given)."""
+        final hidden states (and the per-layer caches when given).
+        ``attention_mask`` and ``use_cache`` are the reference's
+        parameters, accepted and not read (attention is causal; ``cache``
+        decides)."""
         x = self.embed(input_ids, position_ids)
         new_cache = []
         for i, layer in enumerate(self.layers):

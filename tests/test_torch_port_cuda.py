@@ -25,8 +25,9 @@ baseline) and one reaped after ``cluster.replica_preempt``; recompute's
 bit-equal gradients with K1 launched twice; the eleven optimizers on the
 card against the CPU; BERT-tiny through ``hapi.Model.fit`` against the
 CPU, an unmasked ``TransformerEncoder``'s K1 / K2 launches under
-``Model.fit``, a ``.pdparams`` written on the card loaded on the CPU, and
-``Embedding``'s padding rule on the card.  Marked ``cuda``; every test
+``Model.fit``, a ``.pdparams`` written on the card loaded on the CPU,
+``Embedding``'s padding rule on the card; ResNet-18 on the card against
+the CPU and a ViT's K1 / K2 launches per block under an O2 step.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -2368,3 +2369,90 @@ def test_embedding_pad_row_on_card(cuda):
     assert not out[ids == 2].any() and out[ids != 2].abs().sum() > 0
     out.square().sum().backward()
     assert not e.weight.grad[2].any() and e.weight.grad[7].any()
+
+
+def test_resnet18_card_matches_cpu(cuda):
+    """ResNet-18 in f32 with TF32 off for cuBLAS and cuDNN: eval logits on
+    the card within 1e-4 of a CPU copy's max; then at seeds 0-4 one
+    Momentum ``TrainStep`` each on the card, on the CPU in f32 and on the
+    CPU in float64: the loss rtol 1e-4 against the f32 CPU's, and the
+    card's update within 0.1 (parameters) and 1e-4 (BN running
+    statistics) of the float64 update, over its norm.  Rounding moves
+    the parameters' update in discrete jumps, where a pre-activation
+    within rounding of 0 flips its ReLU: the f32 CPU reads 4e-6 at seeds
+    1-3 and 1.9e-3 / 6.3e-3 at seeds 0 / 4 (one flip each), an H100
+    5.6e-6 to 2.5e-2; the faults planted by
+    ``test_torch_port_vision.py::test_resnet18_card_gate_separates_faults``
+    read 1 and over (8 for the running statistics)."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.vision.models import resnet18
+
+    torch.backends.cudnn.allow_tf32 = False
+    for seed in range(5):
+        torch.manual_seed(seed)
+        cpu = resnet18(num_classes=10, device="cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        exact = copy.deepcopy(cpu).double()
+        init = {k: v.double() for k, v in cpu.state_dict().items()}
+        rs = np.random.RandomState(seed)
+        x = torch.from_numpy(rs.randn(4, 3, 64, 64).astype("float32"))
+        y = torch.from_numpy(rs.randint(0, 10, (4,)))
+        if seed == 0:
+            cpu.eval()
+            card.eval()
+            with torch.no_grad():
+                want = cpu(x)
+                got = card(x.cuda()).cpu()
+            assert float((got - want).abs().max()) \
+                <= 1e-4 * float(want.abs().max())
+        losses, states = [], []
+        for m, dev, dt in ((cpu, "cpu", torch.float32),
+                           (card, "cuda", torch.float32),
+                           (exact, "cpu", torch.float64)):
+            m.train()
+            step = jit.TrainStep(m, optimizer.Momentum(
+                learning_rate=0.1, momentum=0.9, parameters=m.parameters(),
+                weight_decay=1e-4), loss_fn=tnn.CrossEntropyLoss())
+            losses.append(float(step(x.to(device=dev, dtype=dt), y.to(dev))))
+            states.append({k: v.detach().cpu().double()
+                           for k, v in m.state_dict().items()})
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+        stats = [k for k in init if k.endswith(("_mean", "_variance"))]
+        for keys, limit in (([k for k in init if k not in stats], 0.1),
+                            (stats, 1e-4)):
+            def dist(a, b):
+                return sum(float(((a[k] - b[k]) ** 2).sum())
+                           for k in keys) ** 0.5
+            card_gap = dist(states[1], states[2]) / dist(states[2], init)
+            assert card_gap <= limit, (seed, card_gap)
+
+
+def test_vit_o2_step_runs_k1_k2_per_block(cuda):
+    """A ViT-S/16 (img 32, depth 2) trained one bf16 O2 ``TrainStep``
+    launches K1, K2a and K2b once per block on the 16-bit tensor-core
+    bodies; its bf16 eval forward runs K1 once per block and agrees with
+    the f32 model's within 5e-2 of the max."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.vision.models import vit_s_16
+
+    torch.manual_seed(0)
+    m = vit_s_16(img_size=32, depth=2, class_num=10, device="cuda")
+    step = jit.TrainStep(m, optimizer.AdamW(
+        learning_rate=1e-3, parameters=list(m.named_parameters())),
+        loss_fn=tnn.CrossEntropyLoss(), amp_level="O2")
+    x = torch.randn(4, 3, 32, 32, generator=cuda, device="cuda")
+    y = torch.randint(0, 10, (4,), device="cuda")
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    for d in (fa.FWD_BODY_LAUNCHES, fa.BWD_BODY_LAUNCHES):
+        d.update(dict.fromkeys(d, 0))
+    assert torch.isfinite(step(x, y))
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == (2, 2, 2)
+    assert fa.FWD_BODY_LAUNCHES["tc16"] == 2
+    assert fa.BWD_BODY_LAUNCHES["tc16"] == 4
+    m.eval()
+    bf = copy.deepcopy(m).to(torch.bfloat16)
+    with torch.no_grad():
+        want = m(x)
+        got = bf(x.to(torch.bfloat16)).float()
+    assert fa.LAUNCHES == 6
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())

@@ -78,6 +78,48 @@ def test_convert_checks_keys_and_shapes(models):
         state["gpt.layers.1.ffn1.weight"].T)
 
 
+def test_gpt_signatures_take_the_reference_arguments():
+    """Both packages' constructors and forwards called with the same
+    positional and keyword arguments: the reference's unread
+    ``type_vocab_size`` / ``initializer_range`` / ``pad_token_id`` before
+    ``hidden_act``, and ``attention_mask`` / ``use_cache`` before
+    ``cache`` in ``GPTModel.forward``."""
+    from paddle_tpu.text.models.gpt import GPTModel as JGPTModel
+    from paddle_tpu_torch.text.models.gpt import GPTModel
+
+    # vocab, hidden, layers, heads, ffn, dropouts, positions,
+    # type_vocab_size, initializer_range, pad_token_id, hidden_act
+    args = (96, 32, 2, 2, None, 0.0, 0.0, 64, 1, 0.02, 0, "relu")
+    paddle.seed(0)
+    jm = JGPT(gpt=JGPTModel(*args)).eval()
+    m = GPTForCausalLM(gpt=GPTModel(*args), device="cpu")
+    load_paddle_tpu_state_dict(m, jax_state(jm))
+    m.eval()
+    kw = dict(CFG, pad_token_id=0, type_vocab_size=1, initializer_range=0.02)
+    JGPT(**kw)
+    GPTForCausalLM(device="cpu", **kw)
+    ids = np.random.RandomState(4).randint(1, 96, (2, 9)).astype("int64")
+    pos = np.arange(9)[None].repeat(2, 0)
+    mask = np.ones((2, 9), "int64")
+    want = jm.gpt(paddle.to_tensor(ids), paddle.to_tensor(pos),
+                  paddle.to_tensor(mask), False).numpy()
+    with torch.no_grad():
+        got = m.gpt(torch.from_numpy(ids), torch.from_numpy(pos),
+                    torch.from_numpy(mask), False).numpy()
+        by_name = m.gpt(torch.from_numpy(ids),
+                        position_ids=torch.from_numpy(pos),
+                        attention_mask=torch.from_numpy(mask),
+                        use_cache=False).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(by_name, got)
+    # the relu of ``hidden_act`` took effect (a gelu model differs)
+    gelu = GPTForCausalLM(gpt=GPTModel(*args[:-1]), device="cpu")
+    load_paddle_tpu_state_dict(gelu, jax_state(jm))
+    with torch.no_grad():
+        other = gelu.gpt(torch.from_numpy(ids)).numpy()
+    assert np.abs(other - got).max() > 1e-3
+
+
 def test_no_cache_logits_match(models):
     j, t = models
     ids = np.random.RandomState(3).randint(1, 96, (2, 19)).astype("int64")

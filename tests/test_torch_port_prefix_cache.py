@@ -269,6 +269,29 @@ def test_spill_tier_budget_and_lru_match_jax():
     assert KVSpillTier(budget_bytes=10).spill((1,), 0) is False  # unattached
 
 
+def test_spill_budget_precedence_matches_jax(monkeypatch):
+    """The explicit budget beats ``PADDLE_KV_SPILL_BUDGET_BYTES``, which
+    beats 256 MiB; a malformed value is ignored (reference
+    ``spill_budget_bytes``); the tier reads the same rule."""
+    from paddle_tpu.serving.kv_spill import spill_budget_bytes as jbudget
+    from paddle_tpu_torch.serving.kv_spill import spill_budget_bytes
+
+    cases = []
+    for env in (None, "4096", "not-a-number", ""):
+        if env is None:
+            monkeypatch.delenv("PADDLE_KV_SPILL_BUDGET_BYTES", raising=False)
+        else:
+            monkeypatch.setenv("PADDLE_KV_SPILL_BUDGET_BYTES", env)
+        for arg in (None, 123):
+            got = (spill_budget_bytes(arg),
+                   KVSpillTier(budget_bytes=arg).budget_bytes)
+            want = (jbudget(arg), JKVSpillTier(budget_bytes=arg).budget_bytes)
+            assert got == want, (env, arg)
+            cases.append(got[0])
+    assert cases == [256 << 20, 123, 4096, 123, 256 << 20, 123,
+                     256 << 20, 123]
+
+
 # ==================================================== engine byte parity
 SHARED = _prompt(24, 42)                        # 3 pages
 PROMPTS = [SHARED + _prompt(6, s) for s in (1, 2, 3)] \

@@ -132,6 +132,34 @@ def test_engine_greedy_ids_equal_jax(jax_model, model, requests, name):
         assert st["prefill_chunks"] == 7 and st["prefills"] == 4
 
 
+def test_speculative_stats_section_and_acceptance_rate_equal_jax(
+        jax_model, model, requests):
+    """``stats()["speculative"]`` and ``acceptance_rate``, as the
+    reference reads them (tests/test_speculative.py): None before any
+    proposal, then the JAX engine's section on the same traffic; an
+    engine without ``speculative_k`` has no section."""
+    out = {}
+    for tag, cls, m, kw in (("jax", JServingEngine, jax_model, {}),
+                            ("port", ServingEngine, model,
+                             {"device": "cpu"})):
+        with cls(m, num_slots=2, page_size=PS, max_model_len=MAXLEN,
+                 speculative_k=4, **kw) as eng:
+            before = eng.acceptance_rate
+            hs = [eng.submit(p, max_new_tokens=n, eos_token_id=e)
+                  for p, n, e in requests]
+            [h.result(timeout=300) for h in hs]
+            out[tag] = (before, eng.acceptance_rate, eng.stats()["speculative"])
+    assert out["port"] == out["jax"]
+    before, rate, section = out["port"]
+    assert before is None and 0.0 < rate <= 1.0
+    assert section["k"] == 4 and section["acceptance_rate"] == rate
+    assert section["accepted"] / section["proposed"] == rate
+    with ServingEngine(model, num_slots=2, page_size=PS, max_model_len=MAXLEN,
+                       device="cpu") as eng:
+        assert "speculative" not in eng.stats()
+        assert eng.acceptance_rate is None
+
+
 class _WrongDrafter(NgramDrafter):
     """Proposes a fixed token absent from the greedy stream: every draft
     must be rejected and the ids stay exact."""
