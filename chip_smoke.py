@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection
+    python3 chip_smoke.py --phases build,kernels,detection
     python3 chip_smoke.py --phases build,hapi
     python3 chip_smoke.py --phases build,cluster,finetune
     python3 chip_smoke.py --phases build,numerics,multitenant
@@ -246,7 +247,29 @@ Phases, each printing one JSON line and then its seconds:
    ViT-S/16 (img 32, depth 2) f32 against the CPU; ViT-B/16 bf16 O2 with
    AdamW at B=64, K1 = K2a = K2b = 12 per step on the tensor-core bodies,
    images/s; the small zoo's eval forwards against CPU copies.
-21. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+21. ``detection`` — BASELINE.json's config #3, no kernel of the repo on
+   its path (the convolutions are cuDNN's, RoIAlign, NMS and the
+   resampling plain PyTorch): (a) YOLOv3-R18, PP-YOLOE-s and Faster
+   R-CNN-R18 (5 classes) at 2 x 3 x 128 x 128 in f32, TF32 off, the
+   loss dicts against the CPU (rtol 1e-4), one Adam step against an f64
+   CPU step (the parameters' distance over the f64 update within
+   ``DET_STEP_LIMIT``, the RPN's apart for Faster R-CNN; a skipped update
+   and roi_align's box gradient cut shown above it), the eval dicts equal
+   but for candidates within 1e-5 of a threshold (counted); (b)
+   PP-YOLOE-l (80 classes, ppyoloe_crn_l_300e_coco's widths) trained by
+   eager Adam 2e-4 at B=8, 640 x 640, default precision flags (printed):
+   2 warm and 5 timed steps (images/s, step ms, peak memory), the idle
+   share of 2 under the ``Profiler``, then the eval's dense forward and
+   NMS (8400 candidates an image) in ms an image; (c) Faster R-CNN
+   R50-FPN (80 classes, 512 proposals an image) at B=2, 800 x 1344, gt
+   padded to 50: 1 warm and 3 timed steps and the same numbers, the peak
+   beside the bytes a per-RoI copy of P3 would take; (d) the ResNet-50
+   example fed from a 3-class tree of 256 x 256 ``.npy`` images through
+   the transforms and 4 loader workers (B=32, 3 steps) beside its
+   synthetic input, and the ImageFolder example once; (e) the ops card
+   against CPU (interpolate in every mode, roi_align and deform_conv2d
+   with their gradients, NMS index lists on tied scores).
+22. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
@@ -5594,6 +5617,453 @@ def phase_vision():
             "vit_b16_launches": dict(zip(("k1", "k2a", "k2b"), vit_b_k))}
 
 
+# --------------------------------------------------------------- detection
+# the parity models (tests/test_detection_moe.py's sizes) and the timed
+# cells: PP-YOLOE-l (PaddleDetection ppyoloe_crn_l_300e_coco.yml's widths)
+# at 640, B=8; Faster R-CNN R50-FPN (faster_rcnn_r50_fpn_1x_coco.yml's
+# backbone and FPN, 512 RoIs an image) at 800 x 1344, B=2
+DET_PARITY = (("yolo", "yolov3", dict(num_classes=5, depth=18)),
+              ("ppyoloe", "ppyoloe", dict(num_classes=5, size="s")),
+              ("rcnn", "faster_rcnn", dict(num_classes=5, depth=18,
+                                           num_proposals=32)))
+PPYOLOE_B, PPYOLOE_HW, PPYOLOE_WARM, PPYOLOE_TIMED = 8, 640, 2, 5
+RCNN_B, RCNN_HW, RCNN_WARM, RCNN_TIMED = 2, (800, 1344), 1, 3
+DET_MAX_BOXES, DET_PROFILED = 50, 2
+# one Adam step, f32 card against f64 CPU: the parameters' distance over
+# the f64 update (all, and the RPN's, which the RoI head trains through
+# roi_align's box gradient).  On the CPU the f32 step's own gap is 0.023
+# (YOLOv3: Adam's first step is sign-like, so gradients within rounding
+# of 0 flip whole updates), 0.0045 (PP-YOLOE-s), 0.0068 / 0.0023 (Faster
+# R-CNN, all / RPN); a skipped update gives 1.0 and roi_align's box
+# gradient cut 0.60 / 0.73: the limit sits between
+DET_STEP_LIMIT = 0.1
+FOLDER_PER_CLASS, FOLDER_HW, FOLDER_B = 64, 256, 32
+
+
+def _det_gt(b=2):
+    """``tests/test_detection_moe.py``'s gt: one box on each of 2 images,
+    padded to 5 with label -1."""
+    gtb = np.zeros((b, 5, 4), dtype="float32")
+    gtl = np.full((b, 5), -1, dtype="int64")
+    gtb[0, 0], gtl[0, 0] = [10, 10, 60, 60], 3
+    gtb[1, 0], gtl[1, 0] = [30, 40, 100, 110], 1
+    return gtb, gtl
+
+
+def _det_candidates(model, img):
+    """Every candidate of the model's ``_postprocess`` per image: (boxes,
+    best score, label) as numpy."""
+    with torch.no_grad():
+        boxes, best, label = model._candidates(*model._dense_predictions(img))
+    return [(boxes[b].float().cpu().numpy(), best[b].float().cpu().numpy(),
+             label[b].cpu().numpy()) for b in range(img.shape[0])]
+
+
+def _det_differences(ca, cb, model):
+    """Two runs' detections of one image compared under the rule of
+    ``tests/_torch_port_detection_compare.py`` (numpy only), each run's
+    keep list from the port's ``nms_padded`` over its own candidates.
+    Returns (differing, unexplained)."""
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from _torch_port_detection_compare import eval_differences
+
+    from paddle_tpu_torch.vision import ops as vops
+
+    thr = model.nms_thresh
+
+    def keep(c):
+        idx, valid = vops.nms_padded(*[torch.from_numpy(v) for v in c[:2]],
+                                     thr, None, torch.from_numpy(c[2]))
+        return [int(i) for i in idx[valid]]
+
+    return eval_differences(ca, cb, keep(ca), keep(cb), thr,
+                            model.score_thresh, model.top_k)
+
+
+def _adam_step(model, img, gtb, gtl, device, dtype=torch.float32):
+    """One eager Adam(2e-4) step of ``model`` on ``device``: the losses
+    before it, and the parameters after it (float64 numpy)."""
+    from paddle_tpu_torch import optimizer as topt
+
+    model.to(device=device, dtype=dtype).train()
+    optim = topt.Adam(learning_rate=2e-4, parameters=model.parameters())
+    losses = model(torch.from_numpy(img).to(device, dtype),
+                   torch.from_numpy(gtb).to(device, dtype),
+                   torch.from_numpy(gtl).to(device))
+    losses["loss"].backward()
+    optim.step()
+    optim.clear_grad()
+    return ({k: float(v) for k, v in losses.items()},
+            {k: p.detach().double().cpu().numpy()
+             for k, p in model.named_parameters()})
+
+
+def _det_parity(arch, ctor, kw):
+    """(a) for one detector at 2 x 3 x 128 x 128, f32, TF32 off: the loss
+    dict on the card against the CPU (rtol 1e-4); one Adam step from a
+    common start, card f32 and CPU f32 against CPU f64, the distance over
+    the f64 update within ``DET_STEP_LIMIT`` for the card, with a skipped
+    update and (Faster R-CNN) roi_align's box gradient cut shown above
+    it; the eval dicts under ``_det_differences``."""
+    from paddle_tpu_torch.vision import models as vm
+    from paddle_tpu_torch.vision import ops as vops
+
+    torch.manual_seed(0)
+    cpu = getattr(vm, ctor)(device="cpu", **kw)
+    init = {k: p.detach().double().numpy().copy()
+            for k, p in cpu.named_parameters()}
+    img = np.random.RandomState(0).randn(2, 3, 128, 128).astype("float32")
+    gtb, gtl = _det_gt()
+    groups = {"all": list(init)}
+    if arch == "rcnn":
+        groups["rpn"] = [k for k in init if k.startswith("rpn.")]
+    runs = {}
+    for tag, dev, dt in (("f64", "cpu", torch.float64),
+                         ("cpu_f32", "cpu", torch.float32),
+                         ("card", "cuda", torch.float32)):
+        runs[tag] = _adam_step(copy.deepcopy(cpu), img, gtb, gtl, dev, dt)
+    planted = {"skipped_update": init}
+    if arch == "rcnn":
+        orig = vops.roi_align
+
+        def cut(x, boxes, *a, **k):
+            return orig(x, boxes.detach(), *a, **k)
+
+        vops.roi_align = cut
+        try:
+            planted["roi_align_box_grad_cut"] = _adam_step(
+                copy.deepcopy(cpu), img, gtb, gtl, "cuda")[1]
+        finally:
+            vops.roi_align = orig
+    exact = runs["f64"][1]
+    gaps = {}
+    for g, keys in groups.items():
+        upd = _dist(exact, init, keys)
+        gaps[g] = {tag: _dist(state, exact, keys) / upd for tag, state in
+                   [(t, runs[t][1]) for t in ("card", "cpu_f32")]
+                   + list(planted.items())}
+    card_l, cpu_l = runs["card"][0], runs["cpu_f32"][0]
+    loss_rel = max(abs(card_l[k] - cpu_l[k]) / max(abs(cpu_l[k]), 1e-12)
+                   for k in cpu_l)
+    # eval: card copies of the CPU model, at the initial weights and
+    # after the step (a stepped Faster R-CNN already scores every
+    # candidate as background at 5 classes), against the CPU
+    stepped = copy.deepcopy(cpu)
+    _adam_step(stepped, img, gtb, gtl, "cpu")
+    x = torch.from_numpy(img)
+    evals = {}
+    diffs, bad = 0, 0
+    for tag, cpu_m in (("init", cpu), ("after_step", stepped)):
+        card_m = copy.deepcopy(cpu_m).to("cuda")
+        cpu_m.eval(), card_m.eval()
+        with torch.no_grad():
+            got = card_m(x.cuda())
+            want = cpu_m(x)
+        for ca, cb in zip(_det_candidates(cpu_m, x),
+                          _det_candidates(card_m, x.cuda())):
+            d, u = _det_differences(ca, cb, cpu_m)
+            diffs, bad = diffs + len(d), bad + len(u)
+        evals[tag] = {"valid_cpu": [int(w["valid"].sum()) for w in want],
+                      "valid_card": [int(r["valid"].sum()) for r in got],
+                      "finite": all(bool(torch.isfinite(r["boxes"]).all())
+                                    for r in got)}
+    ok = (loss_rel <= 1e-4 and not bad
+          and all(gaps[g]["card"] <= DET_STEP_LIMIT for g in gaps)
+          and all(gaps[g][p] > DET_STEP_LIMIT for g in gaps for p in planted)
+          and all(e["finite"] for e in evals.values()))
+    return {"model": f"{ctor}({', '.join(f'{k}={v!r}' for k, v in kw.items())})",
+            "image": [2, 3, 128, 128], "card_losses": card_l,
+            "cpu_losses": cpu_l, "loss_max_rel": loss_rel,
+            "step_gap_over_f64_update": gaps, "limit": DET_STEP_LIMIT,
+            "eval": evals, "eval_differing": diffs, "eval_unexplained": bad,
+            "ok": bool(ok)}
+
+
+def _det_train_timed(model, size, B, warm, timed):
+    """Eager Adam(2e-4) on fresh synthetic batches from ``RandomState(0)``
+    (as the example): ``warm`` steps, ``timed`` timed, ``DET_PROFILED``
+    under the ``Profiler``; then one eval batch, its dense forward
+    (``_dense_predictions``) and its NMS and gather (``_postprocess``)
+    timed apart.  Returns the numbers."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.examples.train_detection import synth_batch
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+
+    optim = topt.Adam(learning_rate=2e-4, parameters=model.parameters())
+    rng = np.random.RandomState(0)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in synth_batch(
+        rng, B, size, DET_MAX_BOXES, model.num_classes))
+        for _ in range(warm + timed + DET_PROFILED + 1)]
+    history = []
+
+    def step(batch):
+        losses = model(*batch)
+        losses["loss"].backward()
+        optim.step()
+        optim.clear_grad()
+        history.append(losses["loss"].detach())
+
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[:warm]:
+        step(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + timed]:
+        step(b)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    peak = torch.cuda.max_memory_allocated()
+    prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU])
+    with prof:
+        t1 = time.perf_counter()
+        for b in batches[warm + timed:-1]:
+            step(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    share = _device_share(prof, wall)
+    losses = [float(v) for v in history]
+    model.eval()
+    img = batches[-1][0]
+    with torch.no_grad():
+        model._postprocess(*model._dense_predictions(img))   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = model._dense_predictions(img)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dets = model._postprocess(*dense)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out = {"B": B, "image": [3] + ([size, size] if isinstance(size, int)
+                                  else list(size)),
+           "warm_steps": warm, "timed_steps": timed, "losses": losses,
+           "step_ms": step_s * 1e3, "images_per_s": B / step_s,
+           "peak_memory_allocated_bytes": peak,
+           "profiled_steps": DET_PROFILED, "profiled_wall_s": wall,
+           "device_busy_s": share["device_busy_s"],
+           "device_idle_share": share["device_idle_share"],
+           "eval_dense_ms_per_image": (t1 - t0) * 1e3 / B,
+           "eval_nms_ms_per_image": (t2 - t1) * 1e3 / B,
+           "nms_candidates_per_image": int(dense[1].shape[1]),
+           "eval_detections": [int(d["valid"].sum()) for d in dets]}
+    model.train()
+    return out, losses
+
+
+def _det_ops_card_vs_cpu():
+    """(e) the ops, card against CPU in f32 (TF32 off): ``interpolate`` in
+    every mode up and down at 4-d and 5-d with ``align_corners`` both
+    ways, ``roi_align`` and its gradients to ``x`` and the boxes,
+    ``deform_conv2d`` v1 / v2 and its gradients, ``nms_padded`` on tied
+    scores (index lists equal)."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops as vops
+
+    rs = np.random.RandomState(7)
+    worst = {}
+
+    def both(fn, *arrays, grad=()):
+        """Card against CPU: the largest error of the output and of each
+        gradient over the larger of 1 and that tensor's max on the CPU."""
+        outs = []
+        for dev in ("cpu", "cuda"):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_(i in grad)
+                  for i, a in enumerate(arrays)]
+            o = fn(*ts)
+            res = [o.detach().cpu()]
+            if grad:
+                r = torch.from_numpy(np.random.RandomState(8).randn(
+                    *o.shape).astype("float32")).to(dev)
+                (o * r).sum().backward()
+                res += [ts[i].grad.cpu() for i in grad]
+            outs.append(res)
+        return max(float((a - b).abs().max()) / max(1.0, float(
+            a.abs().max())) for a, b in zip(*outs))
+
+    for nd, shape in ((4, (2, 3, 13, 11)), (5, (1, 2, 5, 13, 11))):
+        x = rs.randn(*shape).astype("float32")
+        for mode in ("nearest", "bilinear" if nd == 4 else "trilinear",
+                     "bicubic" if nd == 4 else "linear", "area"):
+            for size in ([25, 21], [6, 4]) if nd == 4 else ([9, 25, 21],
+                                                           [3, 6, 4]):
+                for ac in (False, True):
+                    worst[f"interpolate_{nd}d_{mode}_{size[-1]}_{ac}"] = both(
+                        lambda v: F.interpolate(v, size=size, mode=mode,
+                                                align_corners=ac), x,
+                        grad=(0,))
+    feat = rs.randn(2, 8, 25, 21).astype("float32")
+    xy = rs.uniform(-4, 150, (40, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(2, 90, (40, 2))], 1) \
+        .astype("float32")
+    num = np.array([25, 15], np.int32)
+    for aligned in (True, False):
+        worst[f"roi_align_aligned_{aligned}"] = both(
+            lambda a, b, n: vops.roi_align(a, b, n, 7, 1 / 8.0,
+                                           aligned=aligned),
+            feat, boxes, num, grad=(0, 1))
+    x = rs.randn(2, 6, 12, 10).astype("float32")
+    w = (rs.randn(8, 6, 3, 3) * 0.2).astype("float32")
+    off = (rs.randn(2, 18, 12, 10) * 1.5).astype("float32")
+    mask = rs.rand(2, 9, 12, 10).astype("float32")
+    worst["deform_v1"] = both(lambda a, o, ww: vops.deform_conv2d(
+        a, o, ww, padding=1), x, off, w, grad=(0, 1, 2))
+    worst["deform_v2"] = both(lambda a, o, ww, m: vops.deform_conv2d(
+        a, o, ww, padding=1, mask=m), x, off, w, mask, grad=(0, 1, 2, 3))
+    sc = np.round(rs.rand(400) * 4).astype("float32") / 4     # ties
+    cats = rs.randint(0, 3, 400)
+    bx = np.concatenate([rs.uniform(-10, 200, (400, 2))] * 2, 1) \
+        .astype("float32")
+    bx[:, 2:] += rs.uniform(5, 60, (400, 2)).astype("float32")
+    nms_equal = True
+    for top_k, c in ((None, None), (50, cats)):
+        res = [vops.nms_padded(torch.from_numpy(bx).to(dev),
+                               torch.from_numpy(sc).to(dev), 0.5, top_k,
+                               None if c is None else
+                               torch.from_numpy(c).to(dev))
+               for dev in ("cpu", "cuda")]
+        nms_equal = nms_equal and all(torch.equal(a.cpu(), b.cpu())
+                                      for a, b in zip(*res))
+    ok = max(worst.values()) <= 1e-5 and nms_equal
+    return {"max_err_over_max_1": max(worst.values()),
+            "worst_case": max(worst, key=worst.get),
+            "cases": len(worst), "nms_index_lists_equal": nms_equal,
+            "ok": bool(ok)}
+
+
+def phase_detection():
+    """Detection on the card (BASELINE.json's config #3).  (a) YOLOv3-R18,
+    PP-YOLOE-s and Faster R-CNN-R18 (5 classes, ``tests/test_detection_moe
+    .py``'s sizes) at 2 x 3 x 128 x 128 in f32 with TF32 off: loss dicts
+    against the CPU, one Adam step against an f64 CPU step (with planted
+    faults above the limit), the eval dicts under ``_det_differences``.
+    (b) PP-YOLOE-l (80 classes, width and depth 1.0) trained with eager
+    Adam 2e-4 at B=8, 640 x 640 under PyTorch's default precision flags:
+    images/s, step ms, peak memory, idle share, then the eval's dense
+    forward and NMS (8400 candidates an image) per image.  (c) Faster
+    R-CNN R50-FPN (80 classes, 512 proposals) at B=2, 800 x 1344, gt
+    padded to 50: the same numbers, the peak memory beside the ~19 GB
+    that a per-RoI copy of P3 would take.  (d) the ResNet-50 example fed
+    by an ``.npy`` class tree through the transforms and 4 loader workers
+    against its synthetic input; the ImageFolder example once.  (e) the
+    ops, card against CPU."""
+    import tempfile
+
+    from paddle_tpu_torch.examples import train_imagefolder, train_resnet50
+    from paddle_tpu_torch.vision import models as vm
+
+    t_phase = time.perf_counter()
+    checks, out = {}, {}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out["parity_f32"] = {}
+        for arch, ctor, kw in DET_PARITY:
+            t0 = time.perf_counter()
+            r = _det_parity(arch, ctor, kw)
+            r["seconds"] = time.perf_counter() - t0
+            out["parity_f32"][arch] = r
+            checks[f"{arch}_f32_parity"] = r["ok"]
+            _free_card()
+        t0 = time.perf_counter()
+        out["ops_card_vs_cpu"] = _det_ops_card_vs_cpu()
+        out["ops_card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+        checks["ops_card_vs_cpu"] = out["ops_card_vs_cpu"]["ok"]
+    finally:
+        # (b)-(d) under PyTorch's defaults, whatever an earlier phase set
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+    precision = {"cuda.matmul.allow_tf32":
+                 torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                 "float32_matmul_precision":
+                 torch.get_float32_matmul_precision()}
+
+    # (b) PP-YOLOE-l at full width
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = vm.ppyoloe(num_classes=80, size="l", device="cuda")
+    r, losses = _det_train_timed(model, PPYOLOE_HW, PPYOLOE_B, PPYOLOE_WARM,
+                                 PPYOLOE_TIMED)
+    r.update(config="ppyoloe(num_classes=80, size='l'): PaddleDetection "
+             "configs/ppyoloe/ppyoloe_crn_l_300e_coco.yml's width 1.00 / "
+             "depth 1.00", params=sum(p.numel() for p in model.parameters()),
+             precision_flags=precision,
+             seconds=time.perf_counter() - t0, nvidia_smi=smi_line())
+    out["ppyoloe_l"] = r
+    checks["ppyoloe_l_losses_finite_falling"] = bool(
+        np.isfinite(losses).all() and losses[-1] < losses[0])
+    del model
+    _free_card()
+
+    # (c) Faster R-CNN R50-FPN at full width
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = vm.faster_rcnn(num_classes=80, depth=50, num_proposals=512,
+                           device="cuda")
+    r, losses = _det_train_timed(model, RCNN_HW, RCNN_B, RCNN_WARM,
+                                 RCNN_TIMED)
+    rois = RCNN_B * (512 + DET_MAX_BOXES)
+    per_roi_copy = rois * 256 * (RCNN_HW[0] // 8) * (RCNN_HW[1] // 8) * 4
+    r.update(config="faster_rcnn(num_classes=80, depth=50, "
+             "num_proposals=512): PaddleDetection configs/faster_rcnn/"
+             "faster_rcnn_r50_fpn_1x_coco.yml's ResNet-50 + FPN and 512 "
+             "RoIs an image", precision_flags=precision,
+             rois_per_step=rois,
+             p3_per_roi_copy_bytes=per_roi_copy,
+             seconds=time.perf_counter() - t0, nvidia_smi=smi_line())
+    out["faster_rcnn_r50_fpn"] = r
+    checks["rcnn_losses_finite"] = bool(np.isfinite(losses).all())
+    checks["rcnn_peak_below_per_roi_copy"] = \
+        r["peak_memory_allocated_bytes"] < per_roi_copy
+    del model
+    _free_card()
+
+    # (d) the data path
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        train_imagefolder.synthesize_tree(root, FOLDER_PER_CLASS, FOLDER_HW)
+        loaded = train_resnet50.main(["--data", root, "--steps", "3",
+                                      "--batch-size", str(FOLDER_B)])
+        synth = train_resnet50.main(["--steps", "3", "--batch-size",
+                                     str(FOLDER_B)])
+        folder = train_imagefolder.main([root, "--epochs", "1"])
+    out["data_path"] = {
+        "tree": f"3 classes x {FOLDER_PER_CLASS} .npy images "
+                f"of {FOLDER_HW} x {FOLDER_HW}", "batch": FOLDER_B,
+        "workers": 4, "loader_images_per_s": loaded["images_per_s"],
+        "loader_step_ms": loaded["step_ms"],
+        "synthetic_images_per_s": synth["images_per_s"],
+        "synthetic_step_ms": synth["step_ms"],
+        "loader_losses": loaded["losses"],
+        "imagefolder_example": {"losses": folder["losses"],
+                                "eval": folder["eval"]},
+        "seconds": time.perf_counter() - t0}
+    checks["resnet50_from_folder_finite"] = bool(
+        np.isfinite(loaded["losses"]).all()) and loaded["device"].startswith(
+        "cuda")
+    checks["imagefolder_example_finite"] = bool(
+        np.isfinite(folder["losses"]).all())
+    _free_card()
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+    ok = all(checks.values())
+    emit({"phase": "detection", "ok": ok, "checks": checks, **out,
+          "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit(f"detection phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": {}}
+
+
 def _profiled(fn):
     """``fn()`` under the port's ``Profiler`` (its device trace is a
     ``torch.profiler`` session over the CPU and the card): wall, device
@@ -5802,7 +6272,7 @@ def main():
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
                     "programs,llama,numerics,multitenant,cluster,finetune,"
-                    "hapi,vision")
+                    "hapi,vision,detection")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -5827,6 +6297,7 @@ def main():
                      ("multitenant", phase_multitenant),
                      ("cluster", phase_cluster), ("finetune", phase_finetune),
                      ("hapi", phase_hapi), ("vision", phase_vision),
+                     ("detection", phase_detection),
                      ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()

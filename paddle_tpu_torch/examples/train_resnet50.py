@@ -7,11 +7,17 @@ card by default:
 
     python -m paddle_tpu_torch.examples.train_resnet50 [--batch-size 128]
         [--steps 50] [--amp O0|O1|O2] [--lr 0.1] [--device cpu]
+        [--data ROOT]
 
-``--data`` (an ImageFolder root in the reference) raises
-``NotImplementedError``: the transforms and ``ImageFolder`` are not
-ported yet (ROADMAP Queue 1 item 8).  :func:`main` returns the losses
-and the timing.
+``--data ROOT`` reads a class-per-folder image tree (``.npy`` arrays or
+images PIL opens) through the reference's pipeline: ``Resize(256)``,
+``RandomCrop(224)``, ``RandomHorizontalFlip``, ``ToTensor``,
+``Normalize`` (ImageNet's mean and std), shuffled by an
+``io.DataLoader`` with 4 workers, each batch moved to the card in one
+copy.  The tree is read by ``DatasetFolder``, which labels each image by
+its folder: the reference names ``ImageFolder``, whose samples carry no
+label for ``CrossEntropyLoss``.  :func:`main` returns the losses and
+the timing.
 """
 
 from __future__ import annotations
@@ -33,14 +39,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--amp", default="O2", choices=["O0", "O1", "O2"])
     ap.add_argument("--lr", type=float, default=0.1)
-    ap.add_argument("--data", default=None, help="ImageFolder root (optional)")
+    ap.add_argument("--data", default=None,
+                    help="class-per-folder image tree (optional)")
     ap.add_argument("--device", default=None,
                     help="the card unless given (e.g. cpu)")
     args = ap.parse_args(argv)
-    if args.data:
-        raise NotImplementedError(
-            "--data: vision.transforms and vision.datasets.ImageFolder are "
-            "not ported yet (ROADMAP Queue 1 item 8); run on synthetic data")
 
     torch.manual_seed(0)
     model = resnet50(num_classes=1000, device=args.device)
@@ -49,17 +52,14 @@ def main(argv=None):
                          parameters=model.parameters(), weight_decay=1e-4)
     step = jit.TrainStep(model, optim, loss_fn=nn.CrossEntropyLoss(),
                          amp_level=None if args.amp == "O0" else args.amp)
-    rng = np.random.RandomState(0)
-    x = torch.from_numpy(rng.randn(args.batch_size, 3, 224, 224)
-                         .astype("float32")).to(device)
-    y = torch.from_numpy(rng.randint(0, 1000, (args.batch_size,))
-                         .astype("int64")).to(device)
+    it = (_folder_batches(args.data, args.batch_size, device)
+          if args.data else _synthetic_batches(args.batch_size, device))
 
-    losses = [float(step(x, y))]        # the first step: warm-up
+    losses = [float(step(*next(it)))]   # the first step: warm-up
     t0 = time.perf_counter()
     last = None
     for i in range(args.steps):
-        last = step(x, y)
+        last = step(*next(it))
         if (i + 1) % 10 == 0:
             print(f"step {i + 1}: loss {float(last):.4f}")
     if last is not None:
@@ -67,7 +67,38 @@ def main(argv=None):
     dt = (time.perf_counter() - t0) / max(args.steps, 1)
     print(f"{args.batch_size / dt:.0f} imgs/sec ({dt * 1e3:.1f} ms/step)")
     return {"losses": losses, "step_ms": dt * 1e3,
-            "images_per_s": args.batch_size / dt, "device": str(device)}
+            "images_per_s": args.batch_size / dt, "device": str(device),
+            "data": args.data}
+
+
+def _synthetic_batches(batch_size, device):
+    """One batch from ``RandomState(0)``, again and again."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(batch_size, 3, 224, 224)
+                         .astype("float32")).to(device)
+    y = torch.from_numpy(rng.randint(0, 1000, (batch_size,))
+                         .astype("int64")).to(device)
+    while True:
+        yield x, y
+
+
+def _folder_batches(root, batch_size, device):
+    """Epoch after epoch of the tree under ``root`` through the
+    reference's transforms and a shuffling ``DataLoader``."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import DatasetFolder
+
+    tf = T.Compose([T.Resize(256), T.RandomCrop(224),
+                    T.RandomHorizontalFlip(), T.ToTensor(),
+                    T.Normalize([0.485, 0.456, 0.406], [0.229, 0.224, 0.225])])
+    loader = DataLoader(DatasetFolder(root, transform=tf),
+                        batch_size=batch_size, shuffle=True,
+                        num_workers=4, drop_last=True)
+    while True:
+        for x, y in loader:
+            yield (torch.as_tensor(x).to(device, non_blocking=True),
+                   torch.as_tensor(y).long().to(device, non_blocking=True))
 
 
 if __name__ == "__main__":

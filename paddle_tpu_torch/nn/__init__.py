@@ -1,7 +1,8 @@
 """paddle_tpu_torch.nn — the layers and functionals of the ported models
 (counterpart of ``paddle_tpu/nn``): the containers, linear / embedding /
 dropout, the transformer layers, and the vision half (convolutions,
-pooling, the norms and the activation layers)."""
+pooling, the norms, the activation layers, resampling and the other
+common layers), with ``ParamAttr``."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -13,9 +14,15 @@ from .layers.activation import (CELU, ELU, GELU, GLU, SELU,  # noqa: F401
                                 Silu, Softmax, Softmax2D, Softplus,
                                 Softshrink, Softsign, Swish, Tanh,
                                 Tanhshrink, ThresholdedReLU)
-from .layers.common import (ChannelShuffle, Dropout, Embedding,  # noqa: F401
-                            Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D,
-                            ZeroPad1D, ZeroPad2D, ZeroPad3D)
+from .layers.common import (AlphaDropout, Bilinear,  # noqa: F401
+                            ChannelShuffle, CosineSimilarity, Dropout,
+                            Dropout1D, Dropout2D, Dropout3D, Embedding,
+                            FeatureAlphaDropout, Flatten, Fold, Identity,
+                            Linear, Pad1D, Pad2D, Pad3D, PairwiseDistance,
+                            PixelShuffle, PixelUnshuffle, Unflatten, Unfold,
+                            Upsample, UpsamplingBilinear2D,
+                            UpsamplingNearest2D, ZeroPad1D, ZeroPad2D,
+                            ZeroPad3D)
 from .layers.conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
                           Conv2DTranspose, Conv3D, Conv3DTranspose)
 from .layers.loss import CrossEntropyLoss  # noqa: F401
@@ -34,4 +41,5 @@ from .layers.pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
 from .layers.transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                                  TransformerDecoder, TransformerDecoderLayer,
                                  TransformerEncoder, TransformerEncoderLayer)
+from .param_attr import L1Decay, L2Decay, ParamAttr  # noqa: F401
 from . import utils  # noqa: F401

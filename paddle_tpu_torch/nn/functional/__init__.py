@@ -8,8 +8,12 @@ from .activation import (celu, elu, gelu, glu, gumbel_softmax,  # noqa: F401
                          softmax, softmax_, softplus, softshrink, softsign,
                          swish, tanh, tanhshrink, thresholded_relu)
 from .attention import scaled_dot_product_attention  # noqa: F401
-from .common import (channel_shuffle, dropout, embedding, linear,  # noqa: F401
-                     one_hot, pad)
+from .common import (affine_grid, alpha_dropout, bilinear,  # noqa: F401
+                     channel_shuffle, cosine_similarity, dropout, dropout2d,
+                     dropout3d, embedding, fold, grid_sample, interpolate,
+                     label_smooth, linear, one_hot, pad, pairwise_distance,
+                     pixel_shuffle, pixel_unshuffle, sequence_mask, unfold,
+                     upsample)
 from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
                    conv2d_transpose, conv3d, conv3d_transpose)
 from .loss import cross_entropy  # noqa: F401

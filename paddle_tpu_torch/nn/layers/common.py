@@ -5,9 +5,15 @@
 and paddle's padding rule: the output is zero at ``padding_idx``).
 ``Linear`` keeps torch's ``[out, in]`` weight; paddle stores ``[in,
 out]``, and ``text.models.convert`` transposes on load.  ``Identity``,
-``Flatten`` (``start_axis`` / ``stop_axis``), the ``Pad*`` /
-``ZeroPad*`` layers (:func:`..functional.common.pad` with its
-``data_format``) and ``ChannelShuffle`` are the reference's.
+``Flatten`` (``start_axis`` / ``stop_axis``), ``Unflatten``, the
+``Pad*`` / ``ZeroPad*`` layers (:func:`..functional.common.pad` with its
+``data_format``), ``ChannelShuffle``, the ``Upsample`` family, pixel
+(un)shuffle, ``Unfold`` / ``Fold``, ``Bilinear`` (weight ``[out, in1,
+in2]``, Xavier-uniform over those fans, bias zero, as the reference),
+the distances and the dropout family (``Dropout1D/2D/3D``,
+``AlphaDropout``, ``FeatureAlphaDropout``; masks from ``generator``,
+torch's default generator of the input's device when None) are the
+reference's.
 """
 
 from __future__ import annotations
@@ -77,11 +83,28 @@ class Linear(torch.nn.Linear):
     defaults.  Under ``amp.auto_cast`` it runs in the amp dtype (white
     list).  Outside it, an input and a weight of different float dtypes
     meet in their promoted dtype, as ``jnp.matmul`` does (an f32 x times a
-    bf16 weight runs in f32, on an f32 copy of the weight)."""
+    bf16 weight runs in f32, on an f32 copy of the weight).  Paddle's
+    ``weight_attr`` / ``bias_attr`` are taken too: ``bias_attr=False``
+    drops the bias, an object with an ``initializer`` (``nn.ParamAttr``)
+    draws that tensor (the weight in paddle's ``[in, out]`` layout)."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, weight_attr=None, bias_attr=None, name=None,
+                 **kwargs):
+        if bias_attr is False:
+            kwargs["bias"] = False
         super().__init__(*args, **kwargs)
         self.weight.__class__ = TransposedParameter
+        w_init = getattr(weight_attr, "initializer", None)
+        b_init = getattr(bias_attr, "initializer", None)
+        with torch.no_grad():
+            if w_init is not None:
+                self.weight.copy_(w_init(tuple(self.weight.shape[::-1]),
+                                         self.weight.dtype,
+                                         device=self.weight.device).T)
+            if b_init is not None and self.bias is not None:
+                self.bias.copy_(b_init(tuple(self.bias.shape),
+                                       self.bias.dtype,
+                                       device=self.bias.device))
 
     def _apply(self, fn, recurse=True):
         # Module._apply re-makes a parameter it cannot convert in place
@@ -227,3 +250,203 @@ class ChannelShuffle(torch.nn.Module):
         from ..functional.common import channel_shuffle
 
         return channel_shuffle(x, self.groups)
+
+
+class Unflatten(torch.nn.Module):
+    """Dim ``axis`` expanded into ``shape``."""
+
+    def __init__(self, axis, shape, name=None):
+        super().__init__()
+        self.axis, self.shape = axis, shape
+
+    def forward(self, x):
+        return torch.unflatten(x, self.axis, tuple(self.shape))
+
+
+class Upsample(torch.nn.Module):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        from ..functional.common import interpolate
+
+        return interpolate(x, self.size, self.scale_factor, self.mode,
+                           self.align_corners, self.align_mode,
+                           self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class PixelShuffle(torch.nn.Module):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        from ..functional.common import pixel_shuffle
+
+        return pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(torch.nn.Module):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor, self.data_format = downscale_factor, data_format
+
+    def forward(self, x):
+        from ..functional.common import pixel_unshuffle
+
+        return pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class Unfold(torch.nn.Module):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        from ..functional.common import unfold
+
+        return unfold(x, *self.args)
+
+
+class Fold(torch.nn.Module):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        from ..functional.common import fold
+
+        return fold(x, self.output_sizes, *self.args)
+
+
+class Bilinear(torch.nn.Module):
+    """``out[b, o] = x1[b] @ weight[o] @ x2[b] + bias[o]``; ``weight``
+    ``[out, in1, in2]`` (the reference's layout, passed as it is by the
+    weight converter), Xavier-uniform over its fans (``in1 * in2`` in,
+    ``out * in2`` out, as the reference's ``_fans``), bias zero."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        from .. import initializer as I
+
+        self.weight = make_parameter([out_features, in1_features,
+                                      in2_features], weight_attr,
+                                     I.XavierUniform())
+        self.bias = make_parameter([out_features], bias_attr, 0.0)
+
+    def forward(self, x1, x2):
+        from ..functional.common import bilinear
+
+        return bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(torch.nn.Module):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        from ..functional.common import cosine_similarity
+
+        return cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class PairwiseDistance(torch.nn.Module):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        from ..functional.common import pairwise_distance
+
+        return pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class _DropoutNd(torch.nn.Module):
+    """A dropout layer whose mask shares one draw along the dims its
+    ``_axis`` leaves out; ``generator`` as in
+    :func:`..functional.common.dropout`."""
+
+    def __init__(self, p=0.5, data_format=None, name=None, generator=None):
+        super().__init__()
+        self.p, self.generator = p, generator
+        if data_format is not None:
+            self.data_format = data_format
+
+    def forward(self, x):
+        from ..functional.common import dropout
+
+        return dropout(x, self.p, axis=self._axis(), training=self.training,
+                       generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout1D(_DropoutNd):
+    """Whole length-L channels dropped (one draw per (N, C))."""
+
+    def __init__(self, p=0.5, data_format="NCL", name=None, generator=None):
+        super().__init__(p, data_format, name, generator)
+
+    def _axis(self):
+        return [0, 1] if self.data_format == "NCL" else [0, 2]
+
+
+class Dropout2D(_DropoutNd):
+    def __init__(self, p=0.5, data_format="NCHW", name=None, generator=None):
+        super().__init__(p, data_format, name, generator)
+
+    def _axis(self):
+        return [0, 1] if self.data_format == "NCHW" else [0, 3]
+
+
+class Dropout3D(_DropoutNd):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None, generator=None):
+        super().__init__(p, data_format, name, generator)
+
+    def _axis(self):
+        return [0, 1] if self.data_format == "NCDHW" else [0, 4]
+
+
+class AlphaDropout(torch.nn.Module):
+    def __init__(self, p=0.5, name=None, generator=None):
+        super().__init__()
+        self.p, self.generator = p, generator
+
+    def forward(self, x):
+        from ..functional.common import alpha_dropout
+
+        return alpha_dropout(x, self.p, training=self.training,
+                             generator=self.generator)
+
+
+class FeatureAlphaDropout(AlphaDropout):
+    """Alpha dropout of whole feature maps (one draw per (N, C))."""
+
+    def forward(self, x):
+        from ..functional.common import feature_alpha_dropout
+
+        return feature_alpha_dropout(x, self.p, training=self.training,
+                                     generator=self.generator)

@@ -14,7 +14,11 @@ they are).  A convolution's weight keeps paddle's layout (``[out, in /
 groups, *k]``, PyTorch's too) and passes as it is, as do the batch
 norms' ``_mean`` / ``_variance`` buffers and a vision model's
 ``cls_token`` / ``pos_embed``; a vision net's ``fc`` / ``head`` / ViT
-``qkv`` Linears are transposed like any other.
+``qkv`` Linears are transposed like any other.  The detectors carry
+across the same way: their convolutions and batch norms pass, Faster
+R-CNN's ``roi_head`` / ``cls_score`` / ``bbox_delta`` Linears are
+transposed, and a ``RepVggBlock`` holds the keys ``conv.weight`` /
+``conv.bias`` only after ``convert_to_deploy`` (in both packages).
 (``Int8Linear.w_scale`` is an attribute, not state: a converted model is
 made by converting the float model with
 ``serving.quant.quantize_model_weights``.)  :func:`export_paddle_tpu_state_dict` is the inverse, so

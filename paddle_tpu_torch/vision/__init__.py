@@ -1,9 +1,11 @@
 """paddle_tpu_torch.vision (counterpart of ``paddle_tpu/vision``): the
-classification zoo (``models``) and the image-backend switch.  The
-transforms, datasets, detection ops and detection models are not ported
-yet (ROADMAP Queue 1 item 8)."""
+model zoo with the detectors (``models``), the host-side ``transforms``
+and ``datasets``, the detection ``ops``, and the image-backend switch."""
 
 from . import models  # noqa: F401
+from . import transforms  # noqa: F401
+from . import datasets  # noqa: F401
+from . import ops  # noqa: F401
 from .models import *  # noqa: F401,F403
 
 _IMAGE_BACKEND = "pil"

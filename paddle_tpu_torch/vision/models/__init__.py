@@ -1,7 +1,8 @@
-"""The classification zoo (counterpart of
-``paddle_tpu/vision/models/__init__.py``): what is ported so far.  The
-detection models (``YOLOv3``, ``FasterRCNN``, ``ResNetBackbone``,
-``FPN``) wait for ``F.interpolate`` (ROADMAP Queue 1 item 8)."""
+"""The model zoo (counterpart of ``paddle_tpu/vision/models/__init__.py``):
+the classification nets and the detectors (``YOLOv3``, ``FasterRCNN``,
+``ResNetBackbone``, ``FPN`` and the ``yolov3`` / ``ppyoloe`` /
+``faster_rcnn`` constructors; ``PPYOLOE`` and the CSPRepResNet parts live
+in ``detection`` and ``cspresnet``)."""
 
 from .resnet import (  # noqa: F401
     ResNet, BasicBlock, BottleneckBlock,
@@ -29,6 +30,9 @@ from .vision_transformer import (  # noqa: F401
 )
 from .inception import (  # noqa: F401
     GoogLeNet, InceptionV3, googlenet, inception_v3,
+)
+from .detection import (  # noqa: F401
+    YOLOv3, FasterRCNN, ResNetBackbone, FPN, yolov3, ppyoloe, faster_rcnn,
 )
 
 __all__ = [n for n in dir() if not n.startswith("_")]
