@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection,recovery,walkthroughs
+    python3 chip_smoke.py --phases build,recovery,walkthroughs
     python3 chip_smoke.py --phases build,kernels,detection
     python3 chip_smoke.py --phases build,hapi
     python3 chip_smoke.py --phases build,cluster,finetune
@@ -269,7 +270,35 @@ Phases, each printing one JSON line and then its seconds:
    synthetic input, and the ImageFolder example once; (e) the ops card
    against CPU (interpolate in every mode, roi_align and deform_conv2d
    with their gradients, NMS index lists on tied scores).
-22. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+22. ``recovery`` — training resilience at GPT-base's full width (12 x
+   768, vocab 50304, dropout 0), the ``train`` phase's bf16 O2 recipe at
+   B=8, S=1024 on one fixed batch: six clean steps; the chaos run (an
+   ``AsyncCheckpointManager(max_to_keep=2)`` saving every step with
+   ``block=True``, trip 4 of ``chaos.train_step`` corrupting the newest
+   checkpoint and raising ``CollectiveTimeoutError``, a
+   ``RecoverySupervisor`` quarantining it and resuming one step back):
+   every step covered, one transient restart, one ``.corrupt-``
+   directory, the losses within relative 1e-5 of the clean run's (bit
+   equality printed), K1 = K2a = K2b = 12 x the steps run, replays
+   included; ``save(block=False)`` of the live state with the next step
+   run at once: the committed arrays equal a CPU copy taken at the save
+   byte for byte and differ from the live state, with the save's stall,
+   the snapshot-to-commit time, the bytes and the drops over four
+   back-to-back async saves; SIGTERM to a child training under
+   ``arm_emergency_checkpoint``: dead by ``-SIGTERM``, one checkpoint
+   that verifies, and one step from it gives the clean run's third loss
+   (relative 1e-5); ``run_smoke()`` on its default device, the card.
+   The disk's free bytes and file system first.
+23. ``walkthroughs`` — the seven walkthrough examples
+   (``paddle_tpu_torch.examples``: numerics_debugging,
+   serve_gpt_continuous, serve_gpt_speculative, serve_gpt_prefix_cache,
+   serve_gpt_quantized, observability_metrics, observability_perf)
+   through ``main(device="cuda")`` at the reference's widths, each held
+   to its own pass condition (the reference example's asserts; int8
+   top-1 agreement >= 0.8 for the quantized one) and its kernels'
+   launches counted (K1 / K3 for the serving examples, K4 for the
+   quantized one, K2 where an example trains a GPT).
+24. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
@@ -6064,6 +6093,528 @@ def phase_detection():
     return {"launches": {}}
 
 
+# ---------------------------------------------------------------- recovery
+RECOVERY_STEPS, RECOVERY_FAIL_AT, RECOVERY_ASYNC_SAVES = 6, 3, 4
+RECOVERY_RTOL = 1e-5
+# the SIGTERM child: GPT-base O2 steps on the card under
+# arm_emergency_checkpoint; it imports only the port, torch and numpy
+_SIGTERM_CHILD = r"""
+import os, sys, time
+import numpy as np
+import torch
+from paddle_tpu_torch import jit, optimizer
+from paddle_tpu_torch.resilience import (AsyncCheckpointManager,
+                                         arm_emergency_checkpoint)
+from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+B, S, V = (int(v) for v in os.environ["RECOVERY_SHAPE"].split(","))
+x = torch.from_numpy(np.random.RandomState(0).randint(0, V, (B, S))).cuda()
+torch.manual_seed(0)
+model = GPTForCausalLM(device="cuda")
+opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                      parameters=model.parameters(),
+                      grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+step = jit.TrainStep(model, opt, loss_fn=None, amp_level="O2")
+mgr = AsyncCheckpointManager(os.environ["CKPT_DIR"])
+done = [0]
+arm_emergency_checkpoint(mgr, lambda: (done[0], step.state_dict()),
+                         signals=("SIGTERM",))
+for i in range(2):
+    loss = step({"input_ids": x, "labels": x}).item()
+    done[0] = i + 1
+    print("LOSS", repr(loss), flush=True)
+print("READY", sorted({m.split(".")[0] for m in sys.modules}
+                      & {"jax", "paddle_tpu"}), flush=True)
+time.sleep(600)       # SIGTERM lands here; the handler saves, then dies
+"""
+
+
+def _recovery_batch():
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, VOCAB, (TRAIN_B, TRAIN_S))).to("cuda")
+    return {"input_ids": x, "labels": x}
+
+
+def _recovery_step():
+    """A fresh GPT-base (seed 0, drawn on the card) under the train
+    phase's bf16 O2 TrainStep."""
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.manual_seed(0)
+    return _trainer(GPTForCausalLM(device="cuda"), amp_level="O2")
+
+
+def _flat_tensors(tree, prefix=""):
+    """{path: leaf} over the tensors / arrays of a state tree."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flat_tensors(v, f"{prefix}/{i}"))
+    elif isinstance(tree, (torch.Tensor, np.ndarray)):
+        out[prefix] = tree
+    return out
+
+
+def _same_bytes(a, b):
+    a = np.ascontiguousarray(a).reshape(-1)
+    b = np.ascontiguousarray(b).reshape(-1)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def _fs_of(path):
+    """The file system type under ``path`` (read from /proc/self/mounts):
+    a tmpfs turns the fsyncs into no-ops, so the commit time is memory's."""
+    best, kind = "", None
+    try:
+        with open("/proc/self/mounts") as f:
+            for line in f:
+                parts = line.split()
+                mnt = parts[1]
+                if path.startswith(mnt) and len(mnt) > len(best):
+                    best, kind = mnt, parts[2]
+    except OSError:
+        pass
+    return {"mount": best or None, "fstype": kind}
+
+
+def _save_hist():
+    from paddle_tpu_torch.profiler import metrics
+
+    h = metrics.histogram("resilience.checkpoint_save_seconds").labels()
+    return h.count, h.sum
+
+
+def _recovery_chaos(root, batch, clean):
+    """``run_smoke``'s shape at full width: a save every step with
+    ``block=True``, trip 4 of ``chaos.train_step`` corrupts the newest
+    checkpoint and raises ``CollectiveTimeoutError``, the supervisor
+    quarantines it and resumes one step back."""
+    import os
+
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.resilience import (
+        AsyncCheckpointManager, CollectiveTimeoutError, RecoverySupervisor,
+        RetryPolicy, corrupt_checkpoint)
+
+    mgr = AsyncCheckpointManager(root, max_to_keep=2)
+    losses, runs, starts, save_s = {}, [], [], []
+
+    def train_fn(start, state):
+        starts.append(start)
+        step = _recovery_step()
+        if state is not None:
+            step.set_state_dict(state)
+        for s in range(start, RECOVERY_STEPS):
+            faults.maybe("chaos.train_step")
+            losses[s] = step(batch).item()
+            runs.append(s)
+            t0 = time.perf_counter()
+            mgr.save(s + 1, step.state_dict(), block=True)
+            save_s.append(time.perf_counter() - t0)
+        return losses
+
+    def sabotage():
+        corrupt_checkpoint(mgr)
+        raise CollectiveTimeoutError(
+            f"injected collective timeout at step {RECOVERY_FAIL_AT}")
+
+    sup = RecoverySupervisor(
+        mgr, policy=RetryPolicy(base_delay=0.01, max_delay=0.05, seed=0),
+        max_transient_restarts=2, device="cuda")
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    with faults.FaultPlan(seed=0).add("chaos.train_step", fn=sabotage,
+                                      at_trips={RECOVERY_FAIL_AT + 1}):
+        sup.run(train_fn)
+    counts = {"flash_attention_fwd": fa.LAUNCHES,
+              "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+              "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+    mgr.wait_until_finished()
+    step_dir = os.path.join(root, f"step_{RECOVERY_STEPS:08d}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, n))
+                     for n in os.listdir(step_dir))
+    quarantined = sorted(n for n in os.listdir(root) if ".corrupt-" in n)
+    mgr.close()
+    replay = [losses[s] for s in range(RECOVERY_STEPS)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(replay, clean))
+    want = LAYERS * len(runs)
+    checks = {
+        "every_step_covered": sorted(losses) == list(range(RECOVERY_STEPS)),
+        "one_transient_restart": sup.restarts == {"transient": 1, "fatal": 0},
+        "one_quarantined": len(quarantined) == 1 and quarantined[0]
+        .startswith(f"step_{RECOVERY_FAIL_AT:08d}.corrupt-"),
+        "resumed_one_step_back": starts == [0, RECOVERY_FAIL_AT - 1],
+        "replay_within_rtol": rel <= RECOVERY_RTOL,
+        "launches_12_per_step_run": counts == dict.fromkeys(counts, want)}
+    return {"steps_run": runs, "starts": starts, "losses": replay,
+            "restarts": sup.restarts, "quarantined": quarantined,
+            "max_rel_diff_vs_clean": rel, "rtol": RECOVERY_RTOL,
+            "bit_equal_to_clean": replay == clean, "launches": counts,
+            "want_launches_each": want, "checkpoint_bytes": ckpt_bytes,
+            "blocking_save_s": save_s, "checks": checks}
+
+
+def _recovery_async(root, batch):
+    """The async-safety boundary on the card: ``save(block=False)`` of
+    the live TrainStep state, then the next step at once, in place;
+    the committed arrays equal a CPU copy taken at the save, byte for
+    byte, and differ from the live state.  Then four back-to-back async
+    saves and the writer's drops."""
+    import os
+
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.resilience import AsyncCheckpointManager
+
+    step = _recovery_step()
+    for _ in range(2):
+        step(batch)
+    mgr = AsyncCheckpointManager(root, max_to_keep=2)
+    sd = step.state_dict()
+    torch.cuda.synchronize()
+    n0, s0 = _save_hist()
+    t0 = time.perf_counter()
+    mgr.save(100, sd, block=False)
+    stall = time.perf_counter() - t0
+    ref = {k: v.detach().to("cpu", copy=True).numpy()
+           for k, v in _flat_tensors(sd).items()}
+    step(batch)                                  # updates sd's tensors
+    torch.cuda.synchronize()
+    step_before_commit = 100 not in mgr.all_steps()
+    t_wait = time.perf_counter()
+    mgr.wait_until_finished()
+    wait_s = time.perf_counter() - t_wait
+    n1, s1 = _save_hist()
+    restored = _flat_tensors(mgr.restore(100, to_tensors=False))
+    live = {k: v.detach().cpu().numpy() for k, v in _flat_tensors(
+        step.state_dict()).items()}
+    same = sorted(restored) == sorted(ref) and all(
+        _same_bytes(restored[k], ref[k]) for k in ref)
+    moved = sum(not _same_bytes(restored[k], live[k]) for k in ref)
+    array_bytes = sum(int(a.nbytes) for a in ref.values())
+    step_dir = os.path.join(root, "step_00000100")
+    files = {n: os.path.getsize(os.path.join(step_dir, n))
+             for n in sorted(os.listdir(step_dir))}
+    # back to back: the writer falls behind and drops the oldest queued
+    dropped = metrics.counter("resilience.checkpoint_saves_dropped")
+    d0 = dropped.total()
+    stalls = []
+    for i in range(RECOVERY_ASYNC_SAVES):
+        t0 = time.perf_counter()
+        mgr.save(200 + i, step.state_dict())
+        stalls.append(time.perf_counter() - t0)
+    mgr.wait_until_finished()
+    drops = dropped.total() - d0
+    committed = mgr.all_steps()
+    mgr.close()
+    checks = {"restored_equals_copy_at_save": same,
+              "restored_differs_from_live": moved > 0,
+              "step_ran_before_commit": step_before_commit,
+              "one_commit_observed": n1 - n0 == 1,
+              "async_saves_committed_or_dropped":
+                  len([s for s in committed if s >= 200]) >= 1
+                  and committed[-1] == 200 + RECOVERY_ASYNC_SAVES - 1}
+    return {"save_stall_s": stall,
+            "snapshot_to_commit_s": (s1 - s0) if n1 - n0 == 1 else None,
+            "wait_after_step_s": wait_s, "array_bytes": array_bytes,
+            "checkpoint_files_bytes": files,
+            "checkpoint_bytes": sum(files.values()),
+            "leaves": len(ref), "leaves_moved_by_the_step": moved,
+            "back_to_back_stalls_s": stalls,
+            "back_to_back_saves": RECOVERY_ASYNC_SAVES,
+            "checkpoint_saves_dropped": drops, "committed": committed,
+            "checks": checks}
+
+
+def _recovery_sigterm(root, clean):
+    """A child process trains 2 steps with SIGTERM armed; the parent sends
+    SIGTERM after its step line.  The child dies by ``-SIGTERM`` leaving
+    one committed checkpoint that verifies; restored into a fresh
+    TrainStep, one more step gives the clean run's third loss."""
+    import os
+    import signal
+    import threading
+
+    from paddle_tpu_torch.resilience import AsyncCheckpointManager
+
+    script = os.path.join(root, "sigterm_child.py")
+    with open(script, "w") as f:
+        f.write(_SIGTERM_CHILD)
+    ckpt = os.path.join(root, "ckpt")
+    env = dict(os.environ, CKPT_DIR=ckpt,
+               RECOVERY_SHAPE=f"{TRAIN_B},{TRAIN_S},{VOCAB}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    with open(os.path.join(root, "child.err"), "w+") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, script], env=env, cwd=repo,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        killer = threading.Timer(300, proc.kill)
+        killer.start()
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.strip())
+                if line.startswith("READY"):
+                    t_sig = time.perf_counter()
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            rc = proc.wait(timeout=120)
+            died_s = time.perf_counter() - t_sig if lines and lines[-1] \
+                .startswith("READY") else None
+        finally:
+            killer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        tail = err.read()[-2000:]
+    child_s = time.perf_counter() - t0
+    mgr = AsyncCheckpointManager(ckpt)
+    steps = mgr.all_steps()
+    ok, problems = mgr.verify(steps[-1]) if steps else (False, ["none"])
+    resumed = None
+    if ok:
+        step = _recovery_step()
+        step.set_state_dict(mgr.restore(steps[-1], device="cuda"))
+        resumed = step(_recovery_batch()).item()
+    mgr.close()
+    child_losses = [float(l.split()[1]) for l in lines if l.startswith("LOSS")]
+    rel = abs(resumed - clean[2]) / abs(clean[2]) if resumed is not None \
+        else None
+    checks = {"died_by_sigterm": rc == -signal.SIGTERM,
+              "child_imports_port_only": bool(lines) and lines[-1] ==
+              "READY []",
+              "one_checkpoint_at_step_2": steps == [2],
+              "checkpoint_verifies": ok,
+              "resumed_third_loss": rel is not None and rel <= RECOVERY_RTOL}
+    return {"returncode": rc, "child_lines": lines, "child_losses":
+            child_losses, "child_seconds": child_s,
+            "sigterm_to_exit_s": died_s, "steps": steps,
+            "verify_problems": problems, "resumed_loss": resumed,
+            "clean_third_loss": clean[2], "rel_diff": rel,
+            "bit_equal": resumed == clean[2],
+            "child_stderr_tail": None if all(checks.values()) else tail,
+            "checks": checks}
+
+
+def phase_recovery():
+    """Training resilience at GPT-base's full width, bf16 O2 (the train
+    phase's ``_trainer``), B=8, S=1024, one fixed batch: a clean run of
+    six steps; the chaos run (a save every step with ``block=True``, trip
+    4 of ``chaos.train_step`` corrupting the newest checkpoint and
+    raising ``CollectiveTimeoutError``, ``RecoverySupervisor`` resuming
+    from the newest valid one) with K1 = K2a = K2b = 12 launches per step
+    run, replays included; the async snapshot under in-place updates;
+    SIGTERM to a child under ``arm_emergency_checkpoint``; then
+    ``run_smoke()`` with its default device, the card."""
+    import os
+    import shutil
+    import tempfile
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="paddle_recovery_")
+    try:
+        usage = shutil.disk_usage(root)
+        emit({"phase": "recovery", "disk": {
+            "dir": root, **_fs_of(os.path.realpath(root)),
+            "free_bytes": usage.free, "total_bytes": usage.total,
+            "note": "about 1.5 GB a checkpoint: f32 masters + 2 AdamW "
+                    "moments of GPT-base"}})
+        if usage.free < 8e9:
+            raise SystemExit(f"recovery phase: {usage.free} free bytes "
+                             f"under {root}; it needs ~8e9 (4 checkpoints "
+                             f"at once)")
+        batch = _recovery_batch()
+        step = _recovery_step()
+        t0 = time.perf_counter()
+        clean = [step(batch).item() for _ in range(RECOVERY_STEPS)]
+        clean_s = time.perf_counter() - t0
+        del step
+        _free_card()
+        chaos = _recovery_chaos(os.path.join(root, "chaos"), batch, clean)
+        shutil.rmtree(os.path.join(root, "chaos"), ignore_errors=True)
+        _free_card()
+        snap = _recovery_async(os.path.join(root, "async"), batch)
+        shutil.rmtree(os.path.join(root, "async"), ignore_errors=True)
+        _free_card()
+        sig = _recovery_sigterm(root, clean)
+        _free_card()
+        from paddle_tpu_torch.resilience import run_smoke
+
+        smoke = run_smoke(directory=os.path.join(root, "smoke"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    checks = {**{f"chaos.{k}": v for k, v in chaos["checks"].items()},
+              **{f"async.{k}": v for k, v in snap["checks"].items()},
+              **{f"sigterm.{k}": v for k, v in sig["checks"].items()},
+              "run_smoke_on_the_card": smoke["transient_restarts"] == 1
+              and smoke["corrupt_checkpoints_quarantined"] == 1}
+    ok = all(checks.values())
+    emit({"phase": "recovery", "ok": ok,
+          "model": "GPT-base 12x768 vocab 50304, dropout 0",
+          "recipe": "TrainStep bf16 O2, AdamW lr 1e-4 wd 0.01, "
+                    "ClipGradByGlobalNorm(1.0), B=8, S=1024, one batch "
+                    "from RandomState(0)",
+          "clean": {"losses": clean, "seconds": clean_s},
+          "chaos": chaos, "async_snapshot": snap, "sigterm": sig,
+          "run_smoke": smoke,
+          "checks": checks, "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit(f"recovery phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": chaos["launches"]}
+
+
+# ------------------------------------------------------------ walkthroughs
+def _walk_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return {"flash_attention_fwd": fa.LAUNCHES,
+            "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+            "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES,
+            "paged_flash_decode": pa.LAUNCHES,
+            "paged_flash_decode_q": pa.QUANT_LAUNCHES}
+
+
+def phase_walkthroughs():
+    """The seven walkthrough examples through ``main(device="cuda")`` at
+    the reference's widths, each with its own pass condition (the
+    reference example's asserts, or for the quantized one the repo's int8
+    rule, top-1 agreement >= 0.8); the K1 / K2 / K3 / K4 launches of each
+    counted."""
+    import importlib
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.observability import flight_recorder, numerics
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    saved_env = {k: os.environ.get(k) for k in ("PADDLE_METRICS_DIR",
+                                                "PADDLE_PROFILER_DIR")}
+    saved_flight = flight_recorder.get_flight_recorder().dir
+    tmp = tempfile.TemporaryDirectory(prefix="paddle_walkthroughs_")
+    os.environ["PADDLE_METRICS_DIR"] = os.path.join(tmp.name, "metrics")
+    os.environ["PADDLE_PROFILER_DIR"] = os.path.join(tmp.name, "trace")
+
+    def conditions(name, r):
+        if name == "numerics_debugging":
+            return {"numeric_restart": r["restarts"].get("numeric") == 1,
+                    "rolled_back": len(r["attempts"]) == 2
+                    and r["attempts"][1] >= 1,
+                    "clean_rerun": bool(np.isfinite(r["final_loss"]))}
+        if name == "serve_gpt_continuous":
+            return {"all_tokens": {n: c for n, (c, _) in r["results"]
+                                   .items()} == {"client0": 12, "client1": 48,
+                                                 "client2": 24, "client3": 96},
+                    "cancel_freed_pages": r["pages_free"] == r["num_pages"],
+                    "predictor_shape": tuple(r["predictor_shape"]) == (3, 24)}
+        if name == "serve_gpt_speculative":
+            return {"byte_identical": r["base"] == r["spec"],
+                    "accepted_some": r["speculative"]["accepted"] > 0}
+        if name == "serve_gpt_prefix_cache":
+            return {"byte_identical": r["legacy"] == r["radix"] == r["spill"],
+                    "radix_saved_tokens": r["saved_tokens"] > 0,
+                    "spilled_and_resurrected":
+                        r["prefix_cache"]["radix_spill"]["spill"]["spills"] > 0
+                        and r["prefix_cache"]["radix_spill"]["spill"][
+                            "resurrections"] > 0}
+        if name == "serve_gpt_quantized":
+            return {"int8_kv_agreement": r["agreement_kv"] >= 0.8,
+                    "int8_full_agreement": r["agreement_full"] >= 0.8,
+                    "calibration_agreement":
+                        r["calibration"]["top1_agreement"] >= 0.8}
+        if name == "observability_metrics":
+            return {"trace_events": r["profile"]["events"] > 0,
+                    "metrics_snapshot": r["metrics_dir"] is not None and all(
+                        os.path.isfile(os.path.join(r["metrics_dir"], n))
+                        for n in ("metrics.jsonl", "metrics.prom",
+                                  "train_metrics.jsonl"))}
+        return {"all_requests": [len(o) for o in r["outs"]] == [12, 8, 10],
+                "slo_evaluated": r["slo"]["evaluated"] == 3,
+                "card_ceilings": r["ridge"] is not None,
+                "roofline_report": "train_step/" in r["report"]}
+
+    needs = {"serve_gpt_continuous": ("flash_attention_fwd",
+                                      "paged_flash_decode"),
+             "serve_gpt_speculative": ("flash_attention_fwd",
+                                       "flash_attention_bwd_dkdv",
+                                       "paged_flash_decode"),
+             "serve_gpt_prefix_cache": ("flash_attention_fwd",
+                                        "paged_flash_decode"),
+             "serve_gpt_quantized": ("flash_attention_fwd",
+                                     "paged_flash_decode_q"),
+             "observability_perf": ("flash_attention_fwd",
+                                    "paged_flash_decode")}
+    out, checks = {}, {}
+    totals = dict.fromkeys(_walk_counts(), 0)
+    try:
+        for name in ("numerics_debugging", "serve_gpt_continuous",
+                     "serve_gpt_speculative", "serve_gpt_prefix_cache",
+                     "serve_gpt_quantized", "observability_metrics",
+                     "observability_perf"):
+            mod = importlib.import_module(f"paddle_tpu_torch.examples.{name}")
+            _zero_counts()
+            fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+            t0 = time.perf_counter()
+            r = mod.main(device="cuda")
+            secs = time.perf_counter() - t0
+            counts = _walk_counts()
+            for k, n in counts.items():
+                totals[k] += n
+            cond = conditions(name, r)
+            cond["kernels_launched"] = all(counts[k] > 0
+                                           for k in needs.get(name, ()))
+            checks.update({f"{name}.{k}": v for k, v in cond.items()})
+            out[name] = {"seconds": secs, "launches": counts,
+                         "conditions": cond}
+            if name == "serve_gpt_speculative":
+                out[name].update(base_tokens_per_s=r["base_tps"],
+                                 spec_tokens_per_s=r["spec_tps"],
+                                 acceptance_rate=r["acceptance_rate"])
+            if name == "serve_gpt_quantized":
+                out[name].update(agreement_kv=r["agreement_kv"],
+                                 agreement_full=r["agreement_full"],
+                                 untracked_frac=r["untracked_frac"])
+            if name == "numerics_debugging":
+                numerics.reset()
+                flight_recorder.get_flight_recorder().dir = saved_flight
+            del r
+            _free_card()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        flight_recorder.get_flight_recorder().dir = saved_flight
+        tmp.cleanup()
+    ok = all(checks.values())
+    emit({"phase": "walkthroughs", "ok": ok, "examples": out,
+          "launches": totals, "checks": checks,
+          "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi_line()})
+    if not ok:
+        raise SystemExit(f"walkthroughs phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": totals}
+
+
 def _profiled(fn):
     """``fn()`` under the port's ``Profiler`` (its device trace is a
     ``torch.profiler`` session over the CPU and the card): wall, device
@@ -6240,23 +6791,26 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
      "generate() (paged prefill, no cache, beam), multi-tenant prefill, "
      "embed and score, cluster replicas' prefill and re-prefill, the "
      "fine-tune recipe, recompute's replay, the hapi encoder, ViT "
-     "training and eval"),
+     "training and eval, resilient training (chaos replay), the "
+     "walkthrough examples"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:276",
-     "training (probed too), the fine-tune recipe, ViT training"),
+     "training (probed too), the fine-tune recipe, ViT training, "
+     "resilient training (chaos replay)"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:307",
-     "training (probed too), the fine-tune recipe, ViT training"),
+     "training (probed too), the fine-tune recipe, ViT training, "
+     "resilient training (chaos replay)"),
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:371",
      "serving decode, generate() paged decode, speculative verify, chunked "
      "prefill, the radix cache's cached-tail prefill, multi-tenant decode "
-     "and verify, cluster replicas' decode"),
+     "and verify, cluster replicas' decode, the serving walkthroughs"),
     ("k4", "paged_flash_decode_q", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
      "paddle_tpu/ops/paged_attention.py:870",
      "int8 serving decode, int8 speculative verify, chunked prefill and "
      "cached-tail prefill, multi-tenant decode over int8 pools, the "
-     "int8-pool cluster's decode"),
+     "int8-pool cluster's decode, the quantized walkthrough"),
     # the full-sweep twins have no path, in the TPU package either
     ("k5a", "paged_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:128", None),
@@ -6272,7 +6826,7 @@ def main():
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
                     "programs,llama,numerics,multitenant,cluster,finetune,"
-                    "hapi,vision,detection")
+                    "hapi,vision,detection,recovery,walkthroughs")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -6298,6 +6852,8 @@ def main():
                      ("cluster", phase_cluster), ("finetune", phase_finetune),
                      ("hapi", phase_hapi), ("vision", phase_vision),
                      ("detection", phase_detection),
+                     ("recovery", phase_recovery),
+                     ("walkthroughs", phase_walkthroughs),
                      ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
@@ -6323,13 +6879,16 @@ def main():
         # steps for K1 and K2 and its recompute check for K1, the hapi
         # phase's unmasked encoder's fit for K1 and K2 and its bf16 eval
         # forward for K1, the vision phase's ViT-S/16 f32 card runs and
-        # ViT-B/16 O2 steps for K1 and K2); K5a / K5b: the kernels
-        # phase's checks
+        # ViT-B/16 O2 steps for K1 and K2, the recovery phase's chaos run
+        # for K1 and K2 (replayed steps included), the walkthroughs
+        # phase's seven examples for K1, K2, K3 and K4); K5a / K5b: the
+        # kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
                      "generate", "spec", "prefix", "resilience", "observe",
                      "programs", "llama", "numerics", "multitenant",
-                     "cluster", "finetune", "hapi", "vision"):
+                     "cluster", "finetune", "hapi", "vision", "recovery",
+                     "walkthroughs"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's

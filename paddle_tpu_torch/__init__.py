@@ -35,7 +35,9 @@ and the ``nn.Transformer*`` layers, and vision (convolutions, pooling,
 the batch / group / instance norms, the activation layers, and the
 classification zoo: ResNet, ViT over the flash kernels, LeNet, AlexNet,
 VGG, MobileNet, SqueezeNet, ShuffleNetV2, DenseNet, GoogLeNet,
-InceptionV3).
+InceptionV3), the detectors, and training resilience (``resilience``:
+async checkpoints with checksum manifests, emergency saves, the recovery
+supervisor, the chaos harness).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

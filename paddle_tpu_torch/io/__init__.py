@@ -15,8 +15,9 @@ The samplers draw from numpy's global generator (``RandomSampler``,
 does, so under one ``np.random.seed`` a shuffled epoch visits the same
 indices in both packages.  ``DistributedBatchSampler`` takes its replica
 count and rank from ``torch.distributed`` when it is initialised, else 1
-and 0.  The sharded checkpoint module (``io/checkpoint.py``) is not
-ported yet.
+and 0.  Of ``io/checkpoint.py`` the checksum manifests are ported
+(:mod:`.checkpoint`: ``write_manifest`` / ``verify_manifest``); its
+sharded orbax checkpointing is not.
 """
 
 from __future__ import annotations
@@ -510,3 +511,6 @@ def get_worker_info():
     """Inside a process worker, its ``WorkerInfo(id, num_workers,
     dataset)``; None in the main process and in thread workers."""
     return _WORKER_INFO
+
+
+from . import checkpoint  # noqa: E402,F401 — the checksum manifests

@@ -29,6 +29,8 @@ Sites wired in this package:
   serving dispatch adds to one lane's logits;
 - ``memory.leak`` — each trip grows the memory ledger's synthetic
   ``fault.memory_leak`` owner (:class:`~.memory.MemoryWatchdog`);
+- ``chaos.train_step`` — the top of each training step of the chaos
+  harness (:func:`~..resilience.chaos.run_smoke`);
 - every engine also polls ``serving.scheduler_wedge@<replica>`` and
   ``serving.step_crash@<replica>``.
 """

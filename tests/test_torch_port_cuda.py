@@ -2456,3 +2456,81 @@ def test_vit_o2_step_runs_k1_k2_per_block(cuda):
         got = bf(x.to(torch.bfloat16)).float()
     assert fa.LAUNCHES == 6
     assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+
+
+def _tensor_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tensor_leaves(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return {prefix: tree}
+    return {}
+
+
+def test_async_snapshot_of_card_state_restores_pre_update_bytes(cuda,
+                                                                tmp_path):
+    """``save(block=False)`` of a card TrainStep's live state (bf16 O2:
+    f32 masters and AdamW moments updated in place), then the next step
+    before the write: the committed arrays equal a CPU copy taken at the
+    save, byte for byte, and differ from the live state."""
+    from paddle_tpu_torch.resilience import AsyncCheckpointManager
+
+    torch.manual_seed(0)
+    model = GPTForCausalLM(vocab_size=96, hidden_size=64,
+                           num_hidden_layers=2, num_attention_heads=2,
+                           max_position_embeddings=64, device="cuda")
+    step = jit.TrainStep(model, optimizer.AdamW(
+        learning_rate=1e-3, parameters=model.parameters()), loss_fn=None,
+        amp_level="O2")
+    ids = torch.randint(0, 96, (4, 48), generator=cuda, device="cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    step(batch)
+    sd = step.state_dict()
+    mgr = AsyncCheckpointManager(tmp_path)
+    mgr._write_lock.acquire()           # the write lands after the step
+    try:
+        mgr.save(1, sd)
+        ref = {k: v.detach().cpu().numpy().copy()
+               for k, v in _tensor_leaves(sd).items()}
+        step(batch)
+        torch.cuda.synchronize()
+    finally:
+        mgr._write_lock.release()
+    mgr.wait_until_finished()
+    got = _tensor_leaves(mgr.restore(1, to_tensors=False))
+    live = {k: v.detach().cpu().numpy()
+            for k, v in _tensor_leaves(step.state_dict()).items()}
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype
+        assert got[k].tobytes() == ref[k].tobytes(), k
+    assert any(got[k].tobytes() != live[k].tobytes() for k in ref)
+    mgr.close()
+
+
+def test_restore_to_device_none_lands_on_cuda(cuda, tmp_path):
+    """``restore``, ``restore_latest_valid`` and ``RecoverySupervisor``
+    with no ``device`` put tensors on the card; ``device="cpu"`` on the
+    CPU; a bf16 leaf survives as ``|V2`` bytes without tensors."""
+    from paddle_tpu_torch.resilience import (AsyncCheckpointManager,
+                                             RecoverySupervisor)
+
+    w = torch.randn(5, 3, generator=cuda, device="cuda")
+    h = w.to(torch.bfloat16)
+    mgr = AsyncCheckpointManager(tmp_path)
+    mgr.save(3, {"w": w, "n": 3}, block=True)
+    out = mgr.restore(3)
+    assert out["w"].device.type == "cuda" and torch.equal(out["w"], w)
+    step, out = mgr.restore_latest_valid()
+    assert step == 3 and out["w"].device.type == "cuda"
+    assert mgr.restore(3, device="cpu")["w"].device.type == "cpu"
+    seen = []
+    RecoverySupervisor(mgr).run(lambda s, st: seen.append(st["w"].device))
+    assert seen[0].type == "cuda"
+    mgr.save(4, {"h": h}, block=True)
+    raw = mgr.restore(4, to_tensors=False)["h"]
+    assert raw.dtype.str == "|V2"
+    assert raw.tobytes() == h.cpu().view(torch.int16).numpy().tobytes()
+    mgr.close()
