@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection,recovery,walkthroughs
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection,recovery,walkthroughs,dist
+    python3 chip_smoke.py --phases build,dist
     python3 chip_smoke.py --phases build,recovery,walkthroughs
     python3 chip_smoke.py --phases build,kernels,detection
     python3 chip_smoke.py --phases build,hapi
@@ -298,7 +299,21 @@ Phases, each printing one JSON line and then its seconds:
    top-1 agreement >= 0.8 for the quantized one) and its kernels'
    launches counted (K1 / K3 for the serving examples, K4 for the
    quantized one, K2 where an example trains a GPT).
-24. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+24. ``dist``   — distributed part one (``paddle_tpu_torch.distributed``):
+   a world of one over NCCL (every eager op on card tensors, each the
+   identity and counted once; GPT-base f32 depth 2 in ``DataParallel``
+   bit-equal to the plain step), then two rank processes on the one card
+   over gloo (``PADDLE_DISTRI_BACKEND``; NCCL refuses two ranks on one
+   device): GPT-base at mp = 2 from the parent's weights, f32 depth 2
+   against the unsharded run (rtol 1e-5) and bf16 O2 at depth 12, B=8,
+   S=1024 (rtol 2e-2; K1 / K2a / K2b 12 x 3 launches per rank over
+   ``[8, 1024, 6, 64]``; only all_reduce and broadcast), and at dp = 2
+   ResNet-18's first gradients and the ``train_resnet_dp`` /
+   ``resilient_training`` examples (the dp losses against one process at
+   every step: 1e-4, or 5x the largest gap so far of three one-process
+   runs in other summation orders).  Step times there are host-staged
+   gloo and say nothing of NCCL between cards.
+25. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
@@ -6784,6 +6799,466 @@ def phase_profile():
           "nvidia_smi": smi_line()})
 
 
+# --------------------------------------------------------------------- dist
+# the mp = 2 run: GPT-base's widths, f32 parity at depth 2, bf16 O2 at the
+# full depth; the dp = 2 examples; the rank processes' deadline
+DIST_F32 = dict(B=4, S=256, steps=3, layers=2)
+DIST_BF16 = dict(B=8, S=1024, steps=3, layers=LAYERS)
+DIST_RESNET_STEPS = 4          # + the first step: 5 losses
+# The train_resnet_dp losses: within DIST_RESNET_RTOL of one process at
+# every step, or within DIST_RESNET_K x the largest gap so far of three
+# controls, the same one-process run with other summation orders (cuDNN
+# autotuned, cuDNN's deterministic algorithms, a rerun): a from-scratch
+# ResNet at lr 0.1 grows rounding to ~1e-3 of a loss by step 5; a dp
+# fault moves the later losses by most of their size (PERF.md section 6,
+# PR 19).
+DIST_RESNET_RTOL = 1e-4
+DIST_RESNET_K = 5
+DIST_DEADLINE_S = 480
+
+
+def _collective_calls():
+    """``collective.calls`` of the port's registry by op."""
+    from paddle_tpu_torch.profiler import metrics
+
+    out = {}
+    for _, lab, v in metrics.get_registry().counter(
+            "collective.calls").samples():
+        out[lab["op"]] = out.get(lab["op"], 0) + int(v)
+    return out
+
+
+def _dist_ops_world_of_one():
+    """Every op of ``communication.py`` on card tensors in a world of one
+    over NCCL: each gives the identity (or the one-element list), stays on
+    the card, and counts once in ``collective.calls``."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import ReduceOp
+
+    calls = _collective_calls
+    g = torch.Generator(device="cuda").manual_seed(19)
+    t = torch.rand(4096, device="cuda", generator=g) + 0.5
+    before = calls()
+    res = {}
+    for name in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        got = dist.all_reduce(t.clone(), op=getattr(ReduceOp, name))
+        res[f"all_reduce_{name}"] = (got.is_cuda and float(
+            ((got - t).abs() / t).max()) <= (1e-6 if name == "PROD" else 0))
+    res["reduce"] = torch.equal(dist.reduce(t.clone(), dst=0), t)
+    lst = []
+    full = dist.all_gather(lst, t)
+    res["all_gather"] = (len(lst) == 1 and full.is_cuda
+                         and torch.equal(full[0], t))
+    res["all_gather_object"] = dist.all_gather_object([], {"a": 1}) == [{"a": 1}]
+    out = torch.empty_like(t)
+    res["reduce_scatter"] = torch.equal(dist.reduce_scatter(out, [t]), t)
+    res["broadcast"] = torch.equal(dist.broadcast(t.clone(), src=0), t)
+    out = torch.empty_like(t)
+    res["scatter"] = torch.equal(dist.scatter(out, [t], src=0), t)
+    lst = []
+    res["alltoall"] = torch.equal(dist.alltoall(lst, [t])[0], t)
+    res["alltoall_single"] = torch.equal(dist.alltoall_single(None, t), t)
+    dist.barrier()
+    res["barrier"] = True
+    try:                        # torch refuses a p2p to the rank itself
+        dist.send(t, dst=0)
+        res["send_to_self_refused"] = False
+    except ValueError:
+        res["send_to_self_refused"] = True
+    after = calls()
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v - before.get(k, 0)}
+    want = {"all_reduce": 5, "reduce": 1, "all_gather": 1,
+            "all_gather_object": 1, "reduce_scatter": 1, "broadcast": 1,
+            "scatter": 1, "alltoall": 1, "alltoall_single": 1, "barrier": 1}
+    res["calls_once_each"] = delta == want
+    return res, delta
+
+
+def _dist_dp_bit_equal():
+    """GPT-base (f32, depth 2) one TrainStep plain and wrapped in
+    ``DataParallel`` over NCCL (a world of one): loss and updated
+    weights bit-equal, one gradient reduction."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.manual_seed(0)
+    plain = GPTForCausalLM(num_hidden_layers=2, device="cuda")
+    wrapped = dist.DataParallel(copy.deepcopy(plain))
+    ids = torch.from_numpy(np.random.RandomState(19).randint(
+        0, VOCAB, (PARITY_B, PARITY_S))).to("cuda")
+    batch = {"input_ids": ids, "labels": ids}
+    losses = [_trainer(m)(batch) for m in (plain, wrapped)]
+    same = bool(torch.equal(losses[0], losses[1])) and all(
+        torch.equal(a, b) for a, b in zip(plain.parameters(),
+                                          wrapped.parameters()))
+    out = {"loss": float(losses[0]), "bit_equal": same,
+           "reductions": wrapped.reductions}
+    del plain, wrapped
+    _free_card()
+    return out
+
+
+def _dist_gpt_state():
+    """One full set of GPT-base weights from ``torch.manual_seed(0)`` in
+    the reference's names and layout (numpy)."""
+    from paddle_tpu_torch.text.models import export_paddle_tpu_state_dict
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.manual_seed(0)
+    return export_paddle_tpu_state_dict(GPTForCausalLM(device="cpu"))
+
+
+def _dist_subset(state, layers):
+    return {k: v for k, v in state.items()
+            if not k.startswith("gpt.layers.")
+            or int(k.split(".")[2]) < layers}
+
+
+def _dist_ids(cfg, seed):
+    return np.random.RandomState(seed).randint(
+        0, VOCAB, (cfg["B"], cfg["S"])).astype("int64")
+
+
+def _dist_gpt_run(state, cfg, ids, amp_level=None, timed=False):
+    """``cfg["steps"]`` TrainSteps (the train phase's recipe) of GPT-base
+    at ``cfg["layers"]`` from ``state``; losses, step ms, peak bytes."""
+    from paddle_tpu_torch.text.models import load_paddle_tpu_state_dict
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(num_hidden_layers=cfg["layers"], device="cuda")
+    load_paddle_tpu_state_dict(model, _dist_subset(state, cfg["layers"]))
+    step = _trainer(model, amp_level)
+    x = torch.from_numpy(ids).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(cfg["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(step({"input_ids": x, "labels": x})))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "step_ms": ms,
+           "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del model, step
+    _free_card()
+    return out
+
+
+def _dist_resnet_grads(x, y, dp=None):
+    """ResNet-18 (seed 0, SyncBatchNorm when ``dp``) gradients of one
+    backward of the CE loss, after the dp reduction, flattened."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.vision.models import resnet18
+
+    seed(0)
+    net = resnet18(num_classes=100, device="cpu")
+    if dp:
+        net = nn.SyncBatchNorm.convert_sync_batchnorm(net)
+    net.to("cuda")
+    model = dp(net) if dp else net
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+    if dp:
+        xs, ys = model.shard_input(xs), model.shard_input(ys)
+    nn.CrossEntropyLoss()(model(xs.to("cuda")), ys.to("cuda")).backward()
+    return torch.cat([p.grad.reshape(-1) for p in net.parameters()]).cpu()
+
+
+def _dist_example_one_process(name, argv):
+    """A port example's ``main(argv)`` in this process, a world of one
+    over NCCL, torn down after."""
+    import importlib
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import topology
+
+    mod = importlib.import_module(f"paddle_tpu_torch.examples.{name}")
+    try:
+        return mod.main(argv, log=lambda *a: None)
+    finally:
+        topology.set_hybrid_communicate_group(None)
+        dist.destroy_process_group()
+        _free_card()
+
+
+def _dist_rank(index, world, endpoints, work):
+    """One rank process of the ``dist`` phase (started by spawn): the
+    mp = 2 GPT-base runs, then the dp = 2 ResNet gradients and examples;
+    its results go to ``work/rank<r>.json``."""
+    import os
+
+    from paddle_tpu_torch.distributed.parallel import rank_env
+
+    os.environ.update(rank_env(index, world, endpoints))
+    os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout_s=DIST_DEADLINE_S)
+    out = {"rank": env.rank, "backend": dist.get_backend(),
+           "device": str(dist.env.device())}
+    calls = _collective_calls
+
+    # GPT-base at mp = 2 from the parent's weights
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"mp_degree": 2}
+    fleet.init(is_collective=True, strategy=s)
+    state = dict(np.load(os.path.join(work, "gpt.npz")))
+    before = calls()
+    out["f32"] = _dist_gpt_run(state, DIST_F32, np.load(
+        os.path.join(work, "ids_f32.npy")))
+    # the flash kernels' shapes, recorded at their wrappers
+    shapes = {"k1": set(), "k2a": set(), "k2b": set()}
+    orig = (fa._fwd_kernel, fa._bwd_dkdv_kernel, fa._bwd_dq_kernel)
+
+    def rec(key, fn):
+        def wrapped(q, *a, **k):
+            shapes[key].add(tuple(q.shape))
+            return fn(q, *a, **k)
+        return wrapped
+
+    fa._fwd_kernel, fa._bwd_dkdv_kernel, fa._bwd_dq_kernel = (
+        rec("k1", orig[0]), rec("k2a", orig[1]), rec("k2b", orig[2]))
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    try:
+        out["bf16"] = _dist_gpt_run(state, DIST_BF16, np.load(
+            os.path.join(work, "ids_bf16.npy")), "O2")
+    finally:
+        fa._fwd_kernel, fa._bwd_dkdv_kernel, fa._bwd_dq_kernel = orig
+    out["bf16"]["launches"] = {"flash_attention_fwd": fa.LAUNCHES,
+                               "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+                               "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+    out["bf16"]["shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    after = calls()
+    out["mp_calls"] = {k: v - before.get(k, 0) for k, v in after.items()
+                       if v - before.get(k, 0)}
+    del state
+    topology.set_hybrid_communicate_group(None)
+    # dp = 2: ResNet-18's first gradients, then the two examples
+    rd = np.load(os.path.join(work, "resnet_batch.npz"))
+    g = _dist_resnet_grads(rd["x"], rd["y"], dp=dist.DataParallel)
+    if env.rank == 0:
+        torch.save(g, os.path.join(work, "resnet_grads_dp.pt"))
+    from paddle_tpu_torch.examples import resilient_training, train_resnet_dp
+
+    quiet = lambda *a: None  # noqa: E731
+    out["resnet"] = train_resnet_dp.main(
+        ["--steps", str(DIST_RESNET_STEPS)], log=quiet)
+    topology.set_hybrid_communicate_group(None)
+    out["resilient_faulted"] = resilient_training.main(
+        ["--dir", os.path.join(work, "faulted")], log=quiet)
+    out["resilient_clean"] = resilient_training.main(
+        ["--dir", os.path.join(work, "clean"), "--clean"], log=quiet)
+    with open(os.path.join(work, f"rank{env.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _dist_spawn(world, work):
+    """Start ``world`` rank processes (spawn) and wait for them, up to the
+    deadline; a failed or late rank fails the phase, and every process is
+    stopped either way."""
+    import torch.multiprocessing as mp
+
+    from paddle_tpu_torch.distributed.parallel import _free_port
+
+    endpoints = [f"127.0.0.1:{_free_port()}" for _ in range(world)]
+    ctx = mp.start_processes(_dist_rank, args=(world, endpoints, work),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + DIST_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise SystemExit(f"dist phase: the rank processes did not "
+                                 f"finish in {DIST_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+
+
+def phase_dist():
+    """Distributed part one on the card.  (1) A world of one over NCCL:
+    every eager op on card tensors, each counted once, and GPT-base (f32,
+    depth 2) wrapped in ``DataParallel`` bit-equal to the plain step.
+    (2) Two rank processes on the one card over gloo
+    (``PADDLE_DISTRI_BACKEND=gloo``: NCCL refuses two ranks on one
+    device): GPT-base at mp = 2 from the parent's weights, f32 at depth 2
+    (losses within 1e-5 of the unsharded run) and bf16 O2 at the full
+    depth (2e-2; K1, K2a and K2b launched 12 x the steps per rank, each
+    over the rank's 6 heads), their collectives only all_reduce and
+    broadcast.  (3) The two examples at dp = 2: ResNet-18's first
+    gradients (SyncBatchNorm) against one process's, the
+    ``train_resnet_dp`` losses against one process's, and
+    ``resilient_training`` surviving its injected failure with a clean
+    run's losses."""
+    import os
+    import tempfile
+
+    import paddle_tpu_torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    for k in [k for k in os.environ if k.startswith("PADDLE_TRAINER")]:
+        del os.environ[k]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checks = {}
+    # (1) a world of one over NCCL
+    dist.init_parallel_env()
+    backend_one = dist.get_backend()
+    ops, op_calls = _dist_ops_world_of_one()
+    dp_one = _dist_dp_bit_equal()
+    dist.destroy_process_group()
+    checks["nccl_world_of_one"] = backend_one == "nccl"
+    checks.update({f"op_{k}": bool(v) for k, v in ops.items()})
+    checks["dp_bit_equal"] = dp_one["bit_equal"] and dp_one["reductions"] == 1
+
+    # (2) and (3): the references in this process, then the ranks
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    work = tmp.name
+    try:
+        state = _dist_gpt_state()
+        np.savez(os.path.join(work, "gpt.npz"), **state)
+        ids_f32, ids_bf16 = _dist_ids(DIST_F32, 5), _dist_ids(DIST_BF16, 6)
+        np.save(os.path.join(work, "ids_f32.npy"), ids_f32)
+        np.save(os.path.join(work, "ids_bf16.npy"), ids_bf16)
+        ref_f32 = _dist_gpt_run(state, DIST_F32, ids_f32)
+        ref_bf16 = _dist_gpt_run(state, DIST_BF16, ids_bf16, "O2")
+        del state
+        rs = np.random.RandomState(0)   # the example's batch
+        x = rs.randn(64, 3, 64, 64).astype("float32")
+        y = rs.randint(0, 100, (64,)).astype("int64")
+        np.savez(os.path.join(work, "resnet_batch.npz"), x=x, y=y)
+        ref_grads = _dist_resnet_grads(x, y)
+        argv = ["--steps", str(DIST_RESNET_STEPS)]
+        ref_resnet = _dist_example_one_process("train_resnet_dp", argv)
+        # controls: the same one-process run in other summation orders
+        # (the same math)
+        controls = {}
+        for name, flag in (("cudnn_autotuned", "benchmark"),
+                           ("cudnn_deterministic", "deterministic"),
+                           ("rerun", None)):
+            if flag:
+                setattr(torch.backends.cudnn, flag, True)
+            try:
+                controls[name] = _dist_example_one_process(
+                    "train_resnet_dp", argv)["losses"]
+            finally:
+                if flag:
+                    setattr(torch.backends.cudnn, flag, False)
+        _free_card()
+        t_ranks = time.perf_counter()
+        _dist_spawn(2, work)
+        ranks_s = time.perf_counter() - t_ranks
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(2)]
+        dp_grads = torch.load(os.path.join(work, "resnet_grads_dp.pt"))
+    finally:
+        tmp.cleanup()
+
+    def rel(a, b):
+        return max(abs(p - q) / abs(q) for p, q in zip(a, b))
+
+    f32_diff = max(rel(r["f32"]["losses"], ref_f32["losses"]) for r in ranks)
+    bf16_diff = max(rel(r["bf16"]["losses"], ref_bf16["losses"])
+                    for r in ranks)
+    want = LAYERS * DIST_BF16["steps"]
+    shape = [DIST_BF16["B"], DIST_BF16["S"], HEADS // 2, HEAD_DIM]
+    checks["ranks_backend_gloo"] = all(r["backend"] == "gloo" for r in ranks)
+    checks["mp_f32_losses_1e-5"] = f32_diff <= 1e-5
+    checks["mp_bf16_losses_2e-2"] = bf16_diff <= 2e-2
+    checks["mp_launches"] = all(
+        set(r["bf16"]["launches"].values()) == {want} for r in ranks)
+    checks["mp_kernel_shapes"] = all(
+        r["bf16"]["shapes"] == {k: [shape] for k in ("k1", "k2a", "k2b")}
+        for r in ranks)
+    checks["mp_collectives"] = all(
+        set(r["mp_calls"]) <= {"all_reduce", "broadcast"} for r in ranks)
+    grad_err = float((dp_grads - ref_grads).abs().max()
+                     / ref_grads.abs().max())
+    checks["resnet_dp_grads_1e-4"] = grad_err <= 1e-4
+    dp_mean = np.mean([r["resnet"]["losses"] for r in ranks], 0)
+    one = np.asarray(ref_resnet["losses"])
+    resnet_rel = (np.abs(dp_mean - one) / np.abs(one)).tolist()
+    ctl_rel = {k: (np.abs(np.asarray(v) - one) / np.abs(one)).tolist()
+               for k, v in controls.items()}
+    # each step: 1e-4, or K x the controls' largest gap up to that step
+    envelope = np.maximum.accumulate(np.max(list(ctl_rel.values()), 0))
+    resnet_limit = np.maximum(DIST_RESNET_RTOL,
+                              DIST_RESNET_K * envelope).tolist()
+    checks["resnet_dp_losses_every_step"] = bool(
+        np.isfinite(dp_mean).all()) and all(
+        d <= lim for d, lim in zip(resnet_rel, resnet_limit))
+    checks["resnet_dp_losses_1e-4_first_two"] = max(resnet_rel[:2]) <= \
+        DIST_RESNET_RTOL
+    checks["resilient_resumed"] = all(
+        r["resilient_faulted"]["restarts"] == 1
+        and r["resilient_faulted"]["quarantined"] == 1
+        and r["resilient_clean"]["restarts"] == 0
+        and r["resilient_faulted"]["losses"] == r["resilient_clean"]["losses"]
+        == ranks[0]["resilient_clean"]["losses"] for r in ranks)
+    launches = {k: sum(r["bf16"]["launches"][k] for r in ranks)
+                for k in ranks[0]["bf16"]["launches"]}
+    ok = all(checks.values())
+    smi = smi_line()
+    emit({"phase": "dist", "ok": ok, "nvidia_smi": smi,
+          "world_of_one": {"backend": backend_one, "ops": ops,
+                           "calls": op_calls, "dp_gpt_base_f32_depth2":
+                               dp_one},
+          "mp2": {"backend": "gloo (PADDLE_DISTRI_BACKEND), 2 rank "
+                             "processes on one card",
+                  "f32": {**DIST_F32, "unsharded_losses": ref_f32["losses"],
+                          "rank_losses": [r["f32"]["losses"] for r in ranks],
+                          "max_rel_diff": f32_diff, "rtol": 1e-5},
+                  "bf16_O2": {**DIST_BF16,
+                              "unsharded_losses": ref_bf16["losses"],
+                              "unsharded_step_ms": ref_bf16["step_ms"],
+                              "unsharded_peak_bytes":
+                                  ref_bf16["peak_memory_allocated_bytes"],
+                              "rank_losses": [r["bf16"]["losses"]
+                                              for r in ranks],
+                              "max_rel_diff": bf16_diff, "rtol": 2e-2,
+                              "rank_step_ms_host_staged_gloo":
+                                  [r["bf16"]["step_ms"] for r in ranks],
+                              "rank_peak_bytes":
+                                  [r["bf16"]["peak_memory_allocated_bytes"]
+                                   for r in ranks],
+                              "rank_launches": [r["bf16"]["launches"]
+                                                for r in ranks],
+                              "rank_kernel_shapes": [r["bf16"]["shapes"]
+                                                     for r in ranks]},
+                  "rank_collective_calls": [r["mp_calls"] for r in ranks]},
+          "dp2": {"resnet18_first_grads_max_err_over_max": grad_err,
+                  "train_resnet_dp_losses_one_process": one.tolist(),
+                  "train_resnet_dp_losses_dp_mean": dp_mean.tolist(),
+                  "rel_diff_by_step": resnet_rel,
+                  "control_rel_diff_by_step": ctl_rel,
+                  "limit_by_step": resnet_limit,
+                  "imgs_per_s_one_process": ref_resnet["imgs_per_s"],
+                  "imgs_per_s_rank0_host_staged_gloo":
+                      ranks[0]["resnet"]["imgs_per_s"],
+                  "resilient_faulted": [r["resilient_faulted"] for r in ranks],
+                  "resilient_clean_losses":
+                      ranks[0]["resilient_clean"]["losses"]},
+          "rank_processes_seconds": ranks_s,
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    print(f"dist: mp=2 bf16 O2 step ms per rank (host-staged gloo, says "
+          f"nothing of NCCL) {[r['bf16']['step_ms'] for r in ranks]} "
+          f"on {smi}", flush=True)
+    if not ok:
+        raise SystemExit(f"dist phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": launches}
+
+
 KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
     ("k1", "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
      "paddle_tpu/ops/flash_attention.py:112",
@@ -6792,15 +7267,18 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
      "embed and score, cluster replicas' prefill and re-prefill, the "
      "fine-tune recipe, recompute's replay, the hapi encoder, ViT "
      "training and eval, resilient training (chaos replay), the "
-     "walkthrough examples"),
+     "walkthrough examples, tensor-parallel GPT-base training (mp = 2, "
+     "each rank's heads)"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:276",
      "training (probed too), the fine-tune recipe, ViT training, "
-     "resilient training (chaos replay)"),
+     "resilient training (chaos replay), tensor-parallel GPT-base "
+     "training (mp = 2)"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:307",
      "training (probed too), the fine-tune recipe, ViT training, "
-     "resilient training (chaos replay)"),
+     "resilient training (chaos replay), tensor-parallel GPT-base "
+     "training (mp = 2)"),
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:371",
      "serving decode, generate() paged decode, speculative verify, chunked "
@@ -6826,7 +7304,7 @@ def main():
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
                     "programs,llama,numerics,multitenant,cluster,finetune,"
-                    "hapi,vision,detection,recovery,walkthroughs")
+                    "hapi,vision,detection,recovery,walkthroughs,dist")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -6854,7 +7332,7 @@ def main():
                      ("detection", phase_detection),
                      ("recovery", phase_recovery),
                      ("walkthroughs", phase_walkthroughs),
-                     ("profile", phase_profile)):
+                     ("dist", phase_dist), ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
@@ -6881,14 +7359,15 @@ def main():
         # forward for K1, the vision phase's ViT-S/16 f32 card runs and
         # ViT-B/16 O2 steps for K1 and K2, the recovery phase's chaos run
         # for K1 and K2 (replayed steps included), the walkthroughs
-        # phase's seven examples for K1, K2, K3 and K4); K5a / K5b: the
-        # kernels phase's checks
+        # phase's seven examples for K1, K2, K3 and K4, the dist phase's
+        # two mp = 2 rank processes' bf16 O2 steps for K1 and K2, counted
+        # in the ranks); K5a / K5b: the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
                      "generate", "spec", "prefix", "resilience", "observe",
                      "programs", "llama", "numerics", "multitenant",
                      "cluster", "finetune", "hapi", "vision", "recovery",
-                     "walkthroughs"):
+                     "walkthroughs", "dist"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's

@@ -37,7 +37,10 @@ classification zoo: ResNet, ViT over the flash kernels, LeNet, AlexNet,
 VGG, MobileNet, SqueezeNet, ShuffleNetV2, DenseNet, GoogLeNet,
 InceptionV3), the detectors, and training resilience (``resilience``:
 async checkpoints with checksum manifests, emergency saves, the recovery
-supervisor, the chaos harness).
+supervisor, the chaos harness), and distributed training's first part
+(``distributed``: process groups and the eager collectives, the hybrid
+topology, ``fleet``, ``DataParallel`` and the tensor-parallel layers,
+one process per rank).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -53,7 +56,8 @@ _LAZY = ("amp", "callbacks", "distributed", "framework", "hapi", "incubate",
 # top-level names of the reference: name -> (module, attribute)
 _NAMES = {"Model": ("hapi", "Model"), "summary": ("hapi", "summary"),
           "flops": ("hapi", "flops"), "seed": ("framework.random", "seed"),
-          "save": ("framework.io", "save"), "load": ("framework.io", "load")}
+          "save": ("framework.io", "save"), "load": ("framework.io", "load"),
+          "DataParallel": ("distributed.parallel", "DataParallel")}
 
 
 def __getattr__(name):

@@ -80,7 +80,8 @@ def recompute(function, *args, **kwargs):
     if policy is not None:
         raise NotImplementedError(
             "checkpoint_policy (a selective remat policy) is not ported: "
-            "pass None; policies wait for ROADMAP Queue 1 item 9")
+            "pass None; policies wait for the auto_parallel / elastic / "
+            "orbax part of ROADMAP Queue 1 item 9")
     gens = list(kwargs.pop("generators", None) or ())
     for g in _module_generators(function):
         if not any(g is h for h in gens):

@@ -153,10 +153,80 @@ class BatchNorm3D(_BatchNormBase):
                          bias_attr, data_format, use_global_stats)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """Sum over the ranks of ``group`` forward, and the gradient summed over
+    them backward (every rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ...distributed.communication import all_reduce
+
+        ctx.group = group
+        return all_reduce(x.clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...distributed.communication import all_reduce
+
+        return all_reduce(g.contiguous().clone(), group=ctx.group), None
+
+
+def _sync_group():
+    """The ranks a ``SyncBatchNorm`` takes its statistics over: the hybrid
+    topology's dp group, else every rank; None in a world of one."""
+    from ...distributed import is_initialized
+    from ...distributed.parallel import _dp_group
+
+    if not is_initialized():
+        return None
+    g = _dp_group()
+    return g if g.nranks > 1 else None
+
+
 class SyncBatchNorm(_BatchNormBase):
-    """Batch norm over the whole batch.  On one card it is
-    :class:`BatchNorm2D`; the cross-card statistics wait for the
-    distributed slice (ROADMAP Queue 1 item 9)."""
+    """Batch norm over the whole batch: in training, the statistics are
+    the global batch's over every data-parallel rank (``all_reduce`` of
+    the sum, then of the squared deviations, two passes as
+    ``var_mean``), as the reference's batch norm over a batch laid across
+    its mesh gets them.  In a world of one it is :class:`BatchNorm2D`."""
+
+    def forward(self, x):
+        group = _sync_group()
+        if group is None or not self.training or self._use_global_stats:
+            return super().forward(x)
+        from ... import amp
+        from ..functional.norm import _ch_axis
+
+        x, weight, bias = amp.cast("batch_norm", x, self.weight, self.bias)
+        ch = _ch_axis(x.ndim, self._data_format)
+        reduce = tuple(i for i in range(x.ndim) if i != ch)
+        shape = [1] * x.ndim
+        shape[ch] = -1
+        xf = x.float()
+        count = torch.tensor(float(xf.numel() // xf.shape[ch]),
+                             device=x.device)
+        from ...distributed.communication import all_reduce
+
+        count = all_reduce(count, group=group)
+        mean = _SumOverRanks.apply(xf.sum(dim=reduce), group) / count
+        var = _SumOverRanks.apply(
+            torch.square(xf - mean.reshape(shape)).sum(dim=reduce),
+            group) / count
+        scale = torch.rsqrt(var + self._epsilon)
+        if weight is not None:
+            scale = scale * weight.float()
+        offset = -mean * scale
+        if bias is not None:
+            offset = offset + bias.float()
+        out = x * scale.to(x.dtype).reshape(shape) \
+            + offset.to(x.dtype).reshape(shape)
+        with torch.no_grad():
+            m = self._momentum
+            self._mean.copy_(m * self._mean + (1 - m)
+                             * mean.detach().to(self._mean.dtype))
+            self._variance.copy_(m * self._variance + (1 - m)
+                                 * var.detach().to(self._variance.dtype))
+        return out
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

@@ -9,7 +9,9 @@ the metrics registry of :mod:`paddle_tpu_torch.profiler` (counterpart of
 - :mod:`.flight_recorder` + :mod:`.watchdog` — a fixed-size ring of
   recent spans/events that dumps to ``PADDLE_FLIGHT_DIR`` on
   SIGTERM/SIGABRT, unhandled exceptions, OOMs and watchdog fires; the
-  :class:`~.watchdog.ServingWatchdog` catches a wedged scheduler thread.
+  :class:`~.watchdog.CollectiveWatchdog` brackets every eager collective
+  and the :class:`~.watchdog.ServingWatchdog` catches a wedged scheduler
+  thread.
   :mod:`.faults` provides the injection hooks the tests use.
 - :mod:`.telemetry` — ``observability.serve(port)``: a stdlib HTTP thread
   exposing ``/metrics`` (Prometheus text), ``/healthz`` and ``/statusz``.
@@ -24,8 +26,6 @@ the metrics registry of :mod:`paddle_tpu_torch.profiler` (counterpart of
   mint of a serving, generate or TrainStep program, its first-dispatch
   stall and who paid it) and :class:`WarmupManifest`.
 - :mod:`.perf` — the per-program roofline table (:class:`ProgramTable`).
-
-The ``CollectiveWatchdog`` waits for the port's collectives.
 
 Env flags (README, the port's "Observability" part):
 ``PADDLE_FLIGHT_DIR``, ``PADDLE_TELEMETRY_PORT``,
@@ -58,7 +58,8 @@ from .tracing import (  # noqa: F401
     open_spans, span,
 )
 from .watchdog import (  # noqa: F401
-    ServingWatchdog, add_fire_listener, remove_fire_listener,
+    CollectiveWatchdog, ServingWatchdog, add_fire_listener,
+    remove_fire_listener,
 )
 
 __all__ = [
@@ -70,7 +71,8 @@ __all__ = [
     "MemoryWatchdog", "Span", "Tracer", "span", "event", "new_trace_id",
     "current_trace_id", "open_spans", "merge_rank_traces",
     "FlightRecorder", "get_flight_recorder", "install_crash_handlers",
-    "ServingWatchdog", "add_fire_listener", "remove_fire_listener",
+    "CollectiveWatchdog", "ServingWatchdog", "add_fire_listener",
+    "remove_fire_listener",
     "FaultPlan", "TelemetryServer", "serve", "add_status_provider",
     "add_health_provider",
 ]

@@ -1,28 +1,39 @@
-"""Watchdog over a wedged serving scheduler (counterpart of
-``paddle_tpu/observability/watchdog.py``: its :class:`ServingWatchdog`
-and fire listeners; the ``CollectiveWatchdog`` waits for the port's
-collectives).
+"""Watchdogs over hung collectives and a wedged serving scheduler
+(counterpart of ``paddle_tpu/observability/watchdog.py``).
 
-:class:`ServingWatchdog` monitors one :class:`ServingEngine`: if work is
-pending (queued requests or occupied slots) and the scheduler loop's
-heartbeat (``engine._progress_t``, stamped once per iteration and after
-every dispatch) has not advanced within the deadline, the scheduler is
-wedged.  The fire, once per wedge (re-arming when progress resumes): a
-loud log, a flight-recorder dump (``reason="serving_watchdog"``, the
-engine's stats attached), an ``observability.watchdog_fires{kind=
-"serving"}`` counter bump, a record appended to
-:attr:`ServingWatchdog.fired` and every fire listener called.  It stays
-quiet while the program ledger holds a compile window open for the
-engine (:meth:`~.programs.ProgramLedger.compiling`: a first dispatch
-building its kernels, running and capturing its program): slow, not
-stuck.
+- :class:`CollectiveWatchdog` — the eager collectives in
+  ``distributed.communication`` bracket every call with
+  :func:`collective_begin` / :func:`collective_end` (one global read when
+  no watchdog is armed).  A daemon monitor scans the in-flight table; an
+  op older than the deadline fires ONCE: a loud log naming the op, group,
+  ranks present / missing and age, a flight-record dump, an
+  ``observability.watchdog_fires{kind="collective"}`` counter bump, a
+  record appended to :attr:`CollectiveWatchdog.fired` and every fire
+  listener called.  Each rank is a process of its own here, so the rank
+  present is this process's global rank; the missing ones are the rest
+  of the group.
+- :class:`ServingWatchdog` monitors one :class:`ServingEngine`: if work is
+  pending (queued requests or occupied slots) and the scheduler loop's
+  heartbeat (``engine._progress_t``, stamped once per iteration and after
+  every dispatch) has not advanced within the deadline, the scheduler is
+  wedged.  The fire, once per wedge (re-arming when progress resumes): a
+  loud log, a flight-recorder dump (``reason="serving_watchdog"``, the
+  engine's stats attached), an ``observability.watchdog_fires{kind=
+  "serving"}`` counter bump, a record appended to
+  :attr:`ServingWatchdog.fired` and every fire listener called.  It stays
+  quiet while the program ledger holds a compile window open for the
+  engine (:meth:`~.programs.ProgramLedger.compiling`: a first dispatch
+  building its kernels, running and capturing its program): slow, not
+  stuck.  The engine starts one when it is given ``watchdog_s``.
 
-The engine starts one when it is given ``watchdog_s``.
+Env deadline: ``PADDLE_COLLECTIVE_TIMEOUT_S`` (default 300).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import os
 import threading
 from time import monotonic
 
@@ -31,6 +42,8 @@ from . import flight_recorder as _flight
 from . import programs as _programs
 
 logger = logging.getLogger("paddle_tpu_torch.observability")
+
+_COLLECTIVE_WD: "CollectiveWatchdog | None" = None
 
 
 def _fires_counter():
@@ -45,7 +58,7 @@ _FIRE_LISTENERS: list = []
 
 def add_fire_listener(fn):
     """Register ``fn(kind, record)`` called on every watchdog fire
-    (``kind`` is ``"serving"``)."""
+    (``kind`` is ``"collective"`` or ``"serving"``)."""
     if fn not in _FIRE_LISTENERS:
         _FIRE_LISTENERS.append(fn)
 
@@ -63,6 +76,124 @@ def _notify_fire(kind, record):
             fn(kind, record)
         except Exception:
             logger.exception("watchdog fire listener failed (kind=%s)", kind)
+
+
+class CollectiveWatchdog:
+    """Deadline monitor over in-flight eager collectives."""
+
+    def __init__(self, deadline_s=None, poll_s=None, recorder=None):
+        if deadline_s is None:
+            deadline_s = float(os.environ.get(
+                "PADDLE_COLLECTIVE_TIMEOUT_S", "300"))
+        self.deadline_s = float(deadline_s)
+        self.poll_s = float(poll_s) if poll_s is not None \
+            else max(min(self.deadline_s / 4, 5.0), 0.02)
+        self._recorder = recorder
+        self._inflight: dict[int, dict] = {}
+        self._lock = threading.Lock()
+        self._seq = itertools.count()
+        self._stop = threading.Event()
+        self._thread = None
+        self.fired: list[dict] = []
+        self._m_fires = _fires_counter()
+
+    # ------------------------------------------------------------ lifecycle
+    def start(self):
+        global _COLLECTIVE_WD
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._monitor, name="paddle-collective-watchdog",
+                daemon=True)
+            self._thread.start()
+        _COLLECTIVE_WD = self
+        return self
+
+    def stop(self):
+        global _COLLECTIVE_WD
+        if _COLLECTIVE_WD is self:
+            _COLLECTIVE_WD = None
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        return self
+
+    # ------------------------------------------------------------- bracket
+    def begin(self, op, group):
+        import torch.distributed as dist
+
+        me = dist.get_rank() if dist.is_initialized() else 0
+        token = {"id": next(self._seq), "op": op, "group_id": group.id,
+                 "nranks": group.nranks, "ranks": list(group.ranks),
+                 # one process per rank: this process can vouch only for
+                 # itself; the others are missing until the op returns
+                 "ranks_present": [me],
+                 "t0": monotonic(), "tid": threading.get_ident(),
+                 "fired": False}
+        with self._lock:
+            self._inflight[token["id"]] = token
+        return token
+
+    def end(self, token):
+        with self._lock:
+            self._inflight.pop(token["id"], None)
+
+    def inflight(self):
+        with self._lock:
+            return [{k: v for k, v in t.items() if not k.startswith("_")}
+                    for t in self._inflight.values()]
+
+    # ------------------------------------------------------------- monitor
+    def _monitor(self):
+        while not self._stop.wait(self.poll_s):
+            now = monotonic()
+            stuck = []
+            with self._lock:
+                for t in self._inflight.values():
+                    if not t["fired"] and now - t["t0"] > self.deadline_s:
+                        t["fired"] = True
+                        stuck.append(dict(t))
+            for t in stuck:
+                self._fire(t, now)
+
+    def _fire(self, t, now):
+        missing = [r for r in t["ranks"] if r not in t["ranks_present"]]
+        age = now - t["t0"]
+        record = {"op": t["op"], "group_id": t["group_id"],
+                  "nranks": t["nranks"], "ranks": t["ranks"],
+                  "ranks_present": t["ranks_present"],
+                  "ranks_missing": missing, "age_s": age, "tid": t["tid"]}
+        logger.error(
+            "COLLECTIVE WATCHDOG: op %r on group %d (%d ranks) stuck for "
+            "%.1fs (deadline %.1fs) — ranks present %s, missing %s; dumping "
+            "flight record", t["op"], t["group_id"], t["nranks"], age,
+            self.deadline_s, t["ranks_present"], missing)
+        rec = self._recorder or _flight.get_flight_recorder()
+        rec.record("watchdog", "collective_stuck", **record)
+        record["dump_path"] = rec.dump("collective_watchdog", extra=record)
+        self._m_fires.inc(kind="collective", op=t["op"])
+        self.fired.append(record)
+        _notify_fire("collective", record)
+
+
+# Module-level bracket: ONE global read when no watchdog is armed.
+def collective_begin(op, group):
+    wd = _COLLECTIVE_WD
+    if wd is None:
+        return None
+    token = wd.begin(op, group)
+    token["_wd"] = wd
+    return token
+
+
+def collective_end(token):
+    if token is not None:
+        token["_wd"].end(token)
+
+
+def get_collective_watchdog():
+    return _COLLECTIVE_WD
 
 
 class ServingWatchdog:

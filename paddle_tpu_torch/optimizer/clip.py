@@ -47,16 +47,47 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """Scale every gradient by ``min(clip_norm / (global_norm + 1e-6), 1)``,
-    the global norm taken in f32 over all clipped gradients."""
+    the global norm taken in f32 over all clipped gradients.
+
+    Under a hybrid topology with mp > 1 the norm is the full logical
+    model's, as the reference's (one program over the full parameters)
+    is: the squares of the mp-sharded gradients (``is_distributed``) are
+    summed over the mp group, and each replicated one (the LayerNorms,
+    the row-parallel biases, the position embedding) counts once.  The
+    dp gradients are already reduced, so no dp term is needed."""
 
     def __init__(self, clip_norm, group_name="default_group", auto_skip_clip=False):
         self.clip_norm = clip_norm
 
-    def __call__(self, params_grads):
-        gs = [g for p, g in params_grads if _clipped(p)]
+    def _global_norm(self, params_grads):
+        """The f32 norm over the clipped gradients of ``params_grads``
+        (None when there is none)."""
+        gs = [(p, g) for p, g in params_grads if _clipped(p)]
         if not gs:
+            return None
+        sq = [torch.sum(torch.square(g.float())) for _, g in gs]
+        from ..distributed.topology import model_parallel_group
+
+        group = model_parallel_group()
+        if group is None:
+            global_norm = torch.sqrt(sum(sq))
+        else:
+            from ..distributed.communication import all_reduce
+            from ..distributed.fleet.meta_parallel.mp_layers import is_sharded
+
+            zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+            sharded = sum((s for (p, _), s in zip(gs, sq)
+                           if is_sharded(p)), zero)
+            replicated = sum((s for (p, _), s in zip(gs, sq)
+                              if not is_sharded(p)), zero)
+            global_norm = torch.sqrt(replicated + all_reduce(sharded,
+                                                             group=group))
+        return global_norm
+
+    def __call__(self, params_grads):
+        global_norm = self._global_norm(params_grads)
+        if global_norm is None:
             return params_grads
-        global_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
         scale = torch.clamp(self.clip_norm / (global_norm + 1e-6), max=1.0)
         return [(p, (g.float() * scale).to(g.dtype) if _clipped(p) else g)
                 for p, g in params_grads]

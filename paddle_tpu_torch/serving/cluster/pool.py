@@ -30,8 +30,8 @@ import threading
 import torch
 
 _MP_PENDING = ("tensor-parallel replicas (mp= / submesh devices=) need the "
-               "engine's mesh=, which waits for ROADMAP Queue 1 item 9 "
-               "(distributed)")
+               "engine's mesh=, which waits for the serving-mesh part of "
+               "ROADMAP Queue 1 item 9 (distributed)")
 
 
 def _auto_devices():

@@ -30,6 +30,14 @@ package's names: ``<layer>.inner.weight`` is a Linear weight like any
 other (transposed), and the quanters' 0-d float32 buffers
 (``<layer>.act_quanter.scale``, ``.weight_quanter.scale``, an observer's
 ``.absmax``) pass as scalars.
+
+Tensor-parallel models (``distributed.fleet`` with ``mp_degree > 1``)
+carry their weights by shard: loading slices each of the reference's
+full arrays to this rank's part (a column-parallel weight and bias on
+the output dim, a row-parallel weight on the input dim, a vocab-parallel
+table on its rows; the reference's GPT ``_TP_DIM``), and the export
+gathers the shards of the mp group back into the full arrays (a
+collective: every rank of the group calls it).
 """
 
 from __future__ import annotations
@@ -38,15 +46,19 @@ import numpy as np
 import torch
 
 
-def load_paddle_tpu_state_dict(model: torch.nn.Module, state: dict) -> None:
+def load_paddle_tpu_state_dict(model: torch.nn.Module, state: dict,
+                              mp_rank=None, mp_degree=None) -> None:
     """Copy ``state`` (name -> numpy array, or torch tensor in paddle's
     layout, e.g. a bfloat16 one read by ``framework.io.load``) into
-    ``model`` in place, cast to each parameter's dtype and device.
+    ``model`` in place, cast to each parameter's dtype and device.  A
+    tensor-parallel layer's weights are sliced to shard ``mp_rank`` of
+    ``mp_degree`` (by default the layer's own mp group's rank and size).
     Raises ``KeyError`` on a missing or extra key and ``ValueError`` on a
     shape mismatch."""
     own = model.state_dict()
     _check_keys(own, state)
     linear_weights = _linear_weights(model)
+    shards = _tp_shards(model)
     with torch.no_grad():
         for key, dst in own.items():
             src = state[key]
@@ -54,6 +66,11 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state: dict) -> None:
                 else torch.tensor(np.asarray(src))
             if key in linear_weights:
                 src = src.T
+            if key in shards:
+                dim, group = shards[key]
+                n = mp_degree if mp_degree is not None else group.nranks
+                r = mp_rank if mp_rank is not None else group.rank
+                src = src.chunk(n, dim=dim)[r]
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{key}: shape {tuple(src.shape)} (after "
                                  f"layout conversion) != {tuple(dst.shape)}")
@@ -66,9 +83,16 @@ def export_paddle_tpu_tensors(model: torch.nn.Module) -> dict:
     (bfloat16 stays bfloat16), every one a copy; parameters as
     ``torch.nn.Parameter`` (``framework.io.save`` records which are)."""
     linear_weights = _linear_weights(model)
+    shards = _tp_shards(model)
     params = {k for k, _ in model.named_parameters()}
     out = {}
     for key, t in model.state_dict().items():
+        if key in shards:
+            from ...distributed.communication import all_gather
+
+            dim, group = shards[key]
+            t = torch.cat(all_gather(None, t.detach(), group=group).unbind(0),
+                          dim=dim)
         arr = t.detach().cpu()
         arr = (arr.T if key in linear_weights else arr).contiguous()
         # a copy: on the CPU the tensor would alias the live weights
@@ -101,6 +125,27 @@ def _check_keys(own, other):
     if missing or extra:
         raise KeyError(f"state dict keys differ: missing {missing}, "
                        f"unexpected {extra}")
+
+
+def _tp_shards(model):
+    """State-dict key -> (dim in the port's layout, mp group) of every
+    tensor-parallel shard of ``model``."""
+    from ...distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                                    RowParallelLinear,
+                                                    VocabParallelEmbedding)
+
+    dims = {ColumnParallelLinear: {"weight": 0, "bias": 0},
+            RowParallelLinear: {"weight": 1},
+            VocabParallelEmbedding: {"weight": 0}}
+    out = {}
+    for name, m in model.named_modules():
+        group = getattr(m, "group", None)
+        if group is None or type(m) not in dims:
+            continue
+        for attr, dim in dims[type(m)].items():
+            if getattr(m, attr, None) is not None:
+                out[f"{name}.{attr}" if name else attr] = (dim, group)
+    return out
 
 
 def _linear_weights(model):

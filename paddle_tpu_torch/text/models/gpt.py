@@ -41,6 +41,39 @@ from ...ops.paged_attention import (paged_attention, paged_attention_quantized,
                                     paged_token_write)
 
 
+def _mp_degree():
+    from ...distributed.topology import model_parallel_group
+
+    g = model_parallel_group()
+    return g.nranks if g is not None else 1
+
+
+def _col_linear(d_in, d_out, bias=True):
+    if _mp_degree() > 1:
+        from ...distributed.fleet.meta_parallel import ColumnParallelLinear
+
+        return ColumnParallelLinear(d_in, d_out, gather_output=False,
+                                    has_bias=bias)
+    return Linear(d_in, d_out, bias_attr=None if bias else False)
+
+
+def _row_linear(d_in, d_out, bias=True):
+    if _mp_degree() > 1:
+        from ...distributed.fleet.meta_parallel import RowParallelLinear
+
+        return RowParallelLinear(d_in, d_out, input_is_parallel=True,
+                                 has_bias=bias)
+    return Linear(d_in, d_out, bias_attr=None if bias else False)
+
+
+def _vocab_embedding(vocab, hidden):
+    if _mp_degree() > 1:
+        from ...distributed.fleet.meta_parallel import VocabParallelEmbedding
+
+        return VocabParallelEmbedding(vocab, hidden)
+    return Embedding(vocab, hidden)
+
+
 class GPTDecoderLayer(torch.nn.Module):
     """Pre-LN causal block: ln1 -> attn -> +res -> ln2 -> mlp -> +res."""
 
@@ -51,11 +84,11 @@ class GPTDecoderLayer(torch.nn.Module):
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.ln1 = LayerNorm(hidden_size, 1e-5)
-        self.qkv = Linear(hidden_size, 3 * hidden_size)
-        self.out_proj = Linear(hidden_size, hidden_size)
+        self.qkv = _col_linear(hidden_size, 3 * hidden_size)
+        self.out_proj = _row_linear(hidden_size, hidden_size)
         self.ln2 = LayerNorm(hidden_size, 1e-5)
-        self.ffn1 = Linear(hidden_size, intermediate_size)
-        self.ffn2 = Linear(intermediate_size, hidden_size)
+        self.ffn1 = _col_linear(hidden_size, intermediate_size)
+        self.ffn2 = _row_linear(intermediate_size, hidden_size)
         self.dropout = torch.nn.Dropout(dropout)
         self.attn_dropout = attn_dropout
         self.act = getattr(F, act)
@@ -201,7 +234,7 @@ class GPTModel(torch.nn.Module):
         super().__init__()
         intermediate_size = intermediate_size or 4 * hidden_size
         self.hidden_size = hidden_size
-        self.word_embeddings = Embedding(vocab_size, hidden_size)
+        self.word_embeddings = _vocab_embedding(vocab_size, hidden_size)
         self.position_embeddings = Embedding(max_position_embeddings,
                                              hidden_size)
         self.drop = torch.nn.Dropout(hidden_dropout_prob)
@@ -259,10 +292,31 @@ class GPTForCausalLM(torch.nn.Module):
         """Logits ``[B, S, vocab]``; with ``labels`` the mean next-token
         cross-entropy of ``logits[:, :-1]`` against ``labels[:, 1:]``
         instead.  ``attention_mask`` is accepted for the TPU package's
-        signature and, as there, not read: attention is causal."""
+        signature and, as there, not read: attention is causal.
+
+        Under tensor parallelism (mp > 1) each rank computes its vocab
+        slice of the logits against its embedding shard: the loss goes
+        through ``parallel_softmax_cross_entropy`` (the full logits never
+        exist), and without ``labels`` the slices are gathered, because
+        the reference returns the logits whole."""
         hidden = self.gpt(input_ids, position_ids)
+        group = getattr(self.gpt.word_embeddings, "group", None)
+        if group is not None:
+            from ...distributed.fleet.meta_parallel.mp_layers import copy_to_mp
+
+            hidden = copy_to_mp(hidden, group)
         h, w = amp.cast("matmul", hidden, self.gpt.word_embeddings.weight)
         logits = h @ w.T
+        if group is not None:
+            from ...distributed.fleet.meta_parallel.mp_layers import (
+                gather_from_mp, parallel_softmax_cross_entropy)
+
+            if labels is None:
+                return gather_from_mp(logits, group)
+            y = labels[:, 1:]
+            # the mean over the labels that count, as cross_entropy's
+            return (parallel_softmax_cross_entropy(logits[:, :-1], y, group)
+                    .sum() / (y != -100).sum())
         if labels is None:
             return logits
         return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
@@ -290,7 +344,13 @@ class GPTForCausalLM(torch.nn.Module):
         draws by Gumbel-max from a ``torch.Generator`` seeded with
         ``seed``.  ``use_cache=False``: the eager full-prefix loop, sampled
         on the host from ``np.random.RandomState(seed)``.
-        ``decode_strategy="beam_search"``: :func:`_decode.beam_search`."""
+        ``decode_strategy="beam_search"``: :func:`_decode.beam_search`.
+        Not under tensor parallelism: the serving mesh is a later part of
+        ROADMAP Queue 1 item 9."""
+        if getattr(self.gpt.word_embeddings, "group", None) is not None:
+            raise NotImplementedError(
+                "generate() under tensor parallelism (mp > 1) waits for the "
+                "serving mesh, a later part of ROADMAP Queue 1 item 9")
         if decode_strategy == "beam_search":
             from ._decode import beam_search
 

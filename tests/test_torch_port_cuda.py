@@ -27,7 +27,9 @@ card against the CPU; BERT-tiny through ``hapi.Model.fit`` against the
 CPU, an unmasked ``TransformerEncoder``'s K1 / K2 launches under
 ``Model.fit``, a ``.pdparams`` written on the card loaded on the CPU,
 ``Embedding``'s padding rule on the card; ResNet-18 on the card against
-the CPU and a ViT's K1 / K2 launches per block under an O2 step.  Marked ``cuda``; every test
+the CPU and a ViT's K1 / K2 launches per block under an O2 step;
+a world of one over NCCL and the mp = 2 layers in two gloo rank
+processes on the one card.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -2534,3 +2536,58 @@ def test_restore_to_device_none_lands_on_cuda(cuda, tmp_path):
     assert raw.dtype.str == "|V2"
     assert raw.tobytes() == h.cpu().view(torch.int16).numpy().tobytes()
     mgr.close()
+
+
+# ----------------------------------------------------- distributed part one
+def test_nccl_world_of_one_collectives_on_card(cuda):
+    """No env contract on the card: a world of one over NCCL; every eager
+    op returns the identity (or the one-element list) on the card."""
+    import os
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import ReduceOp
+
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("PADDLE_TRAINER") or k == "PADDLE_DISTRI_BACKEND"}
+    try:
+        dist.init_parallel_env()
+        assert dist.get_backend() == "nccl"
+        t = torch.rand(1000, device="cuda", generator=cuda) + 0.5
+        for op in (ReduceOp.SUM, ReduceOp.MAX, ReduceOp.MIN, ReduceOp.AVG):
+            got = dist.all_reduce(t.clone(), op=op)
+            assert got.is_cuda and torch.equal(got, t)
+        torch.testing.assert_close(dist.all_reduce(t.clone(), op=ReduceOp.PROD),
+                                   t, rtol=1e-6, atol=0)
+        assert torch.equal(dist.reduce(t.clone(), dst=0), t)
+        assert torch.equal(dist.all_gather([], t)[0], t)
+        assert torch.equal(dist.broadcast(t.clone(), src=0), t)
+        assert torch.equal(dist.reduce_scatter(torch.empty_like(t), [t]), t)
+        assert torch.equal(dist.scatter(torch.empty_like(t), [t], src=0), t)
+        assert torch.equal(dist.alltoall([], [t])[0], t)
+        assert torch.equal(dist.alltoall_single(None, t), t)
+        assert dist.all_gather_object([], (1, "a")) == [(1, "a")]
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        os.environ.update(saved)
+
+
+def test_tensor_parallel_layers_two_ranks_on_card(cuda, tmp_path):
+    """Two rank processes on the one card over gloo (``spawn``): the
+    mp = 2 column / row / vocab layers and the parallel cross-entropy on
+    card tensors match the plain math on the full weights on the card,
+    and gloo's all_gather on a card tensor raises instead of staging it
+    on the host."""
+    import json
+
+    import paddle_tpu_torch.distributed as dist
+    from _torch_port_dist_workers import card_tp_check
+
+    dist.spawn(card_tp_check, args=(str(tmp_path),), nprocs=2,
+               backend="gloo")
+    for r in range(2):
+        got = json.load(open(tmp_path / f"rank{r}.json"))
+        assert got["backend"] == "gloo" and got["on_card"]
+        assert max(got["err"].values()) <= 1e-4, got["err"]
+        assert "gloo backend cannot run it on a CUDA tensor" in \
+            got["gloo_card_all_gather"]
