@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection,recovery,walkthroughs,dist
+    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection,recovery,walkthroughs,dist,pipe
+    python3 chip_smoke.py --phases build,pipe
     python3 chip_smoke.py --phases build,dist
     python3 chip_smoke.py --phases build,recovery,walkthroughs
     python3 chip_smoke.py --phases build,kernels,detection
@@ -155,9 +156,10 @@ Phases, each printing one JSON line and then its seconds:
    in the output) against a CPU copy, greedy ids equal for the dense and
    paged caches (B=2, prompts of 64, 16 new tokens; dense equal to paged),
    ``use_cache=False`` and beam search (4 beams, 8 tokens), each
-   call's launches checked; bf16 weights at the full depth 32, B=8,
-   prompts of 512, 128 new tokens, paged and dense in turns (paged, dense,
-   dense, paged) with K1 = 32 per paged call and K3 = 32 x 127, f32 logits
+   call's launches checked; bf16 weights at depth 16 (of 32: the depth
+   cut since PR 20), B=8, prompts of 512, 128 new tokens, paged and dense
+   in turns (paged, dense, dense, paged) with K1 = 16 per paged call and
+   K3 = 16 x 127, f32 logits
    (a bf16 Llama computes in f32, as in the TPU package) and the first new
    token of each row equal between the caches, each cache once under
    ``torch.profiler`` (16 new tokens); 3 f32 TrainSteps of a narrow
@@ -271,8 +273,10 @@ Phases, each printing one JSON line and then its seconds:
    synthetic input, and the ImageFolder example once; (e) the ops card
    against CPU (interpolate in every mode, roi_align and deform_conv2d
    with their gradients, NMS index lists on tied scores).
-22. ``recovery`` — training resilience at GPT-base's full width (12 x
-   768, vocab 50304, dropout 0), the ``train`` phase's bf16 O2 recipe at
+22. ``recovery`` — training resilience at GPT-base's widths (768, vocab
+   50304, dropout 0; the depth cut to 6 of its 12 layers since PR 20, so
+   the default phases stay well inside the run's limit), the ``train``
+   phase's bf16 O2 recipe at
    B=8, S=1024 on one fixed batch: six clean steps; the chaos run (an
    ``AsyncCheckpointManager(max_to_keep=2)`` saving every step with
    ``block=True``, trip 4 of ``chaos.train_step`` corrupting the newest
@@ -280,7 +284,7 @@ Phases, each printing one JSON line and then its seconds:
    ``RecoverySupervisor`` quarantining it and resuming one step back):
    every step covered, one transient restart, one ``.corrupt-``
    directory, the losses within relative 1e-5 of the clean run's (bit
-   equality printed), K1 = K2a = K2b = 12 x the steps run, replays
+   equality printed), K1 = K2a = K2b = 6 x the steps run, replays
    included; ``save(block=False)`` of the live state with the next step
    run at once: the committed arrays equal a CPU copy taken at the save
    byte for byte and differ from the live state, with the save's stall,
@@ -313,7 +317,31 @@ Phases, each printing one JSON line and then its seconds:
    every step: 1e-4, or 5x the largest gap so far of three one-process
    runs in other summation orders).  Step times there are host-staged
    gloo and say nothing of NCCL between cards.
-25. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+25. ``pipe``   — distributed part two, the pipeline, in rank processes on
+   the one card over gloo: (a) GPT-3 1.3B's widths (BASELINE.json config
+   #5; PaddleNLP ``gpt3-1.3B-en``: 24 x 2048, 16 heads x 128, FFN 8192,
+   vocab 50304) at pp = 2, B=8, S=1024, 4 micro-batches, bf16 O2, AdamW,
+   clip 1.0, 3 steps under each of gpipe, 1f1b and interleaved (12
+   laps), every loss within 2e-2 of a one-process unpipelined run of the
+   same weights (drawn on the card from generators seeded by each
+   parameter's name) and the schedules within 2e-2 of each other, and
+   every block's update within 0.25 of the unpipelined run's (its error
+   on 8 random directions drawn by name, over the update's norm: a
+   stage that did not step, or stepped along a wrong gradient, gives
+   about 1); K1 /
+   K2a / K2b per rank over ``[2, 1024, 16, 128]`` (K1 48 a step plus the
+   recomputes), step ms, each rank's peak memory below the unpipelined
+   run's, ``pp_ppermute`` bytes by the reference's formula; (b) GPT-base
+   widths at depth 4, f32, pp = 2, B=4, S=256, 2 micro-batches: losses
+   and post-step weights (plain SGD: the update is the gradient's) within
+   1e-5 of the unpipelined run under each schedule; (c) the ``train_gpt_hybrid`` example at its defaults, dp 2 x
+   pp 2 x mp 2 in eight rank processes, its 11 losses within rtol 2e-4,
+   atol 2e-5 of one process training the unsharded GPT from the same
+   starting weights on the same 8-row batch.  Then K1, K2a and K2b at
+   the stages' shape against their plain and library versions.  A
+   collective watchdog in every rank ends a rank that stops.  Step times there are host-staged
+   gloo and say nothing of NCCL between cards.
+26. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
@@ -3162,8 +3190,10 @@ LL_HEADS, LL_KV_HEADS, LL_HEAD_DIM = 32, 8, 128
 # per token, on the CPU too, so it takes fewer)
 LL_PARITY_LAYERS, LL_B, LL_S, LL_NEW = 2, 2, 64, 16
 LL_EAGER_NEW, LL_BEAM_NEW, LL_BEAMS = 16, 8, 4
-# bf16 weights at the full depth: the timed generate() calls, and the new
-# tokens of the profiled ones
+# bf16 weights at 16 of the 32 layers (the depth cut of PR 20, so every
+# default phase fits the run's limit on a slow host; PERF.md section 4):
+# the timed generate() calls, and the new tokens of the profiled ones
+LL_BF16_LAYERS = 16
 LL_BF16_B, LL_BF16_S, LL_BF16_NEW, LL_PROFILE_NEW = 8, 512, 128, 16
 # training: 3 f32 steps of a narrow head_dim-128 GQA config against the CPU,
 # then bf16 O2 steps at the full width, the depth cut to 2
@@ -3230,16 +3260,16 @@ def _llama_parity():
 
 
 def _llama_generate_bf16():
-    """The full-depth bf16 model: generate() paged and dense in turns,
-    then each cache once under the profiler."""
+    """The bf16 model at ``LL_BF16_LAYERS``: generate() paged and dense in
+    turns, then each cache once under the profiler."""
     from paddle_tpu_torch.serving.quant import top1_agreement
 
     t0 = time.perf_counter()
-    model = _llama(LLAMA3_8B["num_hidden_layers"], torch.bfloat16)
+    model = _llama(LL_BF16_LAYERS, torch.bfloat16)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    L = LLAMA3_8B["num_hidden_layers"]
+    L = LL_BF16_LAYERS
     ids = _gen_ids(LL_BF16_B, LL_BF16_S, 7, LLAMA3_8B["vocab_size"])
     with torch.no_grad():
         logits_dtype = str(model(ids[:1, :16].to("cuda")).dtype)
@@ -3466,7 +3496,7 @@ def phase_llama():
     seeded with 0) through ``LlamaForCausalLM``: float32 at depth 2 (the
     cut) against a CPU copy, greedy ids equal for the dense and paged
     caches (dense equal to paged too), ``use_cache=False`` and beam search,
-    each call's launches checked; bf16 weights at the full depth 32,
+    each call's launches checked; bf16 weights at depth 16 (of 32),
     generate() B=8, prompts of 512, 128 new tokens, paged and dense in
     turns (its activations are f32, as in the TPU package: K1's f32 body,
     K3's f32-query entry over the bf16 pools), the first new token of each
@@ -3509,8 +3539,7 @@ def phase_llama():
                    "random weights",
           "config": LLAMA3_8B,
           "depth_cut": {"f32_parity_layers": LL_PARITY_LAYERS,
-                        "bf16_generate_layers":
-                            LLAMA3_8B["num_hidden_layers"],
+                        "bf16_generate_layers": LL_BF16_LAYERS,
                         "o2_train_layers": LL_TRAIN_LAYERS},
           "f32_vs_cpu": cases, "f32_dense_equal_paged": dense_eq_paged,
           "bf16": bf16, "train": train, "kernel_times": times,
@@ -6111,6 +6140,10 @@ def phase_detection():
 # ---------------------------------------------------------------- recovery
 RECOVERY_STEPS, RECOVERY_FAIL_AT, RECOVERY_ASYNC_SAVES = 6, 3, 4
 RECOVERY_RTOL = 1e-5
+# GPT-base's widths at 6 of its 12 layers (the depth cut of PR 20: each
+# checkpoint ~1.0 GB instead of 1.494, so every default phase fits the
+# run's limit on a slow host; PERF.md section 4)
+RECOVERY_LAYERS = 6
 # the SIGTERM child: GPT-base O2 steps on the card under
 # arm_emergency_checkpoint; it imports only the port, torch and numpy
 _SIGTERM_CHILD = r"""
@@ -6124,10 +6157,10 @@ from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-B, S, V = (int(v) for v in os.environ["RECOVERY_SHAPE"].split(","))
+B, S, V, L = (int(v) for v in os.environ["RECOVERY_SHAPE"].split(","))
 x = torch.from_numpy(np.random.RandomState(0).randint(0, V, (B, S))).cuda()
 torch.manual_seed(0)
-model = GPTForCausalLM(device="cuda")
+model = GPTForCausalLM(device="cuda", num_hidden_layers=L)
 opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
                       parameters=model.parameters(),
                       grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
@@ -6153,12 +6186,14 @@ def _recovery_batch():
 
 
 def _recovery_step():
-    """A fresh GPT-base (seed 0, drawn on the card) under the train
-    phase's bf16 O2 TrainStep."""
+    """A fresh GPT-base at ``RECOVERY_LAYERS`` deep (seed 0) under the
+    train phase's bf16 O2 TrainStep."""
     from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     torch.manual_seed(0)
-    return _trainer(GPTForCausalLM(device="cuda"), amp_level="O2")
+    return _trainer(GPTForCausalLM(device="cuda",
+                                   num_hidden_layers=RECOVERY_LAYERS),
+                    amp_level="O2")
 
 
 def _flat_tensors(tree, prefix=""):
@@ -6258,7 +6293,7 @@ def _recovery_chaos(root, batch, clean):
     mgr.close()
     replay = [losses[s] for s in range(RECOVERY_STEPS)]
     rel = max(abs(a - b) / abs(b) for a, b in zip(replay, clean))
-    want = LAYERS * len(runs)
+    want = RECOVERY_LAYERS * len(runs)
     checks = {
         "every_step_covered": sorted(losses) == list(range(RECOVERY_STEPS)),
         "one_transient_restart": sup.restarts == {"transient": 1, "fatal": 0},
@@ -6266,7 +6301,8 @@ def _recovery_chaos(root, batch, clean):
         .startswith(f"step_{RECOVERY_FAIL_AT:08d}.corrupt-"),
         "resumed_one_step_back": starts == [0, RECOVERY_FAIL_AT - 1],
         "replay_within_rtol": rel <= RECOVERY_RTOL,
-        "launches_12_per_step_run": counts == dict.fromkeys(counts, want)}
+        "launches_a_layer_per_step_run":
+            counts == dict.fromkeys(counts, want)}
     return {"steps_run": runs, "starts": starts, "losses": replay,
             "restarts": sup.restarts, "quarantined": quarantined,
             "max_rel_diff_vs_clean": rel, "rtol": RECOVERY_RTOL,
@@ -6362,7 +6398,8 @@ def _recovery_sigterm(root, clean):
         f.write(_SIGTERM_CHILD)
     ckpt = os.path.join(root, "ckpt")
     env = dict(os.environ, CKPT_DIR=ckpt,
-               RECOVERY_SHAPE=f"{TRAIN_B},{TRAIN_S},{VOCAB}")
+               RECOVERY_SHAPE=f"{TRAIN_B},{TRAIN_S},{VOCAB},"
+                              f"{RECOVERY_LAYERS}")
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     with open(os.path.join(root, "child.err"), "w+") as err:
@@ -7058,23 +7095,24 @@ def _dist_rank(index, world, endpoints, work):
     dist.destroy_process_group()
 
 
-def _dist_spawn(world, work):
-    """Start ``world`` rank processes (spawn) and wait for them, up to the
-    deadline; a failed or late rank fails the phase, and every process is
-    stopped either way."""
+def _dist_spawn(world, work, fn=None, deadline_s=DIST_DEADLINE_S,
+                phase="dist"):
+    """Start ``world`` rank processes of ``fn`` (spawn; the dist phase's
+    ranks by default) and wait for them, up to the deadline; a failed or
+    late rank fails the phase, and every process is stopped either way."""
     import torch.multiprocessing as mp
 
     from paddle_tpu_torch.distributed.parallel import _free_port
 
     endpoints = [f"127.0.0.1:{_free_port()}" for _ in range(world)]
-    ctx = mp.start_processes(_dist_rank, args=(world, endpoints, work),
+    ctx = mp.start_processes(fn or _dist_rank, args=(world, endpoints, work),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.perf_counter() + DIST_DEADLINE_S
+    deadline = time.perf_counter() + deadline_s
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() > deadline:
-                raise SystemExit(f"dist phase: the rank processes did not "
-                                 f"finish in {DIST_DEADLINE_S} s")
+                raise SystemExit(f"{phase} phase: the rank processes did not "
+                                 f"finish in {deadline_s} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -7259,6 +7297,529 @@ def phase_dist():
     return {"launches": launches}
 
 
+# --------------------------------------------------------------------- pipe
+# (a) GPT-3 1.3B's widths (BASELINE.json config #5, PaddleNLP
+# gpt3-1.3B-en, the GPT-3 paper's Table 2.1 1.3B row) at pp = 2, bf16 O2;
+# (b) GPT-base's widths at depth 4, f32; (c) the hybrid example at its
+# defaults (dp 2 x pp 2 x mp 2: eight rank processes)
+PIPE_13B = dict(vocab_size=50304, hidden_size=2048, num_hidden_layers=24,
+                num_attention_heads=16, intermediate_size=8192,
+                max_position_embeddings=1024)
+PIPE_BF16 = dict(B=8, S=1024, n_micro=4, steps=3)
+PIPE_BASE = dict(vocab_size=VOCAB, hidden_size=HIDDEN, num_hidden_layers=4,
+                 num_attention_heads=HEADS, max_position_embeddings=1024)
+PIPE_F32 = dict(B=4, S=256, n_micro=2, steps=3)
+PIPE_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+PIPE_BF16_RTOL, PIPE_F32_RTOL = 2e-2, 1e-5
+PIPE_EXAMPLE_TOL = dict(rtol=2e-4, atol=2e-5)
+PIPE_EXAMPLE_STEPS = 10        # + the untimed first: 11 losses
+# (b) trains by plain SGD: its update is the gradient's, so the weights'
+# gate holds the pipeline's gradients (Adam would turn a gradient of
+# summation-order size into an update of up to lr; PERF.md section 6, PR 20)
+PIPE_F32_SGD_LR = 0.5
+# (a)'s stage check: each block's update (from its drawn start) on
+# PIPE_PROBES fixed random directions, against the unpipelined run's;
+# the error's norm over the control's update norm at most this (a block
+# left unstepped or stepped along a wrong gradient gives about 1 or more)
+PIPE_PROBES = 8
+PIPE_UPDATE_RTOL = 0.25
+PIPE_DEADLINE_S = 600
+PIPE_WATCHDOG_S = 180
+
+
+def _pipe_key(name):
+    """A parameter's name in the unpipelined GPT (a stage's blocks keep
+    their global index)."""
+    return name[3:] if name.startswith("lm.") else name
+
+
+def _pipe_draw(key, p, salt=""):
+    """``p``'s shape of N(0, 1) on the card from a generator seeded by
+    ``salt + key``."""
+    import zlib
+
+    g = torch.Generator(device=p.device).manual_seed(
+        zlib.crc32((salt + key).encode()))
+    return torch.randn(p.shape, generator=g, device=p.device)
+
+
+def _pipe_start(key, p):
+    """The drawn starting value of parameter ``key``: LayerNorm weights
+    1 + 0.02 N(0, 1), the rest 0.02 N(0, 1)."""
+    v = _pipe_draw(key, p) * 0.02
+    if key.endswith(".weight") and ("_ln" in key or ".ln" in key):
+        v += 1.0
+    return v
+
+
+def _pipe_fill(model):
+    """Every parameter drawn on the card by its name (:func:`_pipe_start`),
+    so the control and each stage agree with no file."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(_pipe_start(_pipe_key(name), p))
+
+
+def _pipe_block_updates(model):
+    """For each decoder block held: the norm of its weights' update from
+    their drawn start, and the update's projections on ``PIPE_PROBES``
+    random directions drawn by each parameter's name, so a rank and the
+    unpipelined control compare each block's update without moving any
+    weights ({global index as str: {"norm", "proj"}})."""
+    acc = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key = _pipe_key(name)
+            if not key.startswith("gpt.layers."):
+                continue
+            d = p.detach().float() - _pipe_start(key, p).float()
+            proj = torch.stack([(_pipe_draw(key, p, f"probe{i}.") * d).sum()
+                                for i in range(PIPE_PROBES)])
+            j = key.split(".")[2]
+            sq, pr = acc.get(j, (0.0, 0.0))
+            acc[j] = (sq + float((d * d).sum()), pr + proj)
+    return {j: {"norm": sq ** 0.5, "proj": pr.tolist()}
+            for j, (sq, pr) in acc.items()}
+
+
+def _pipe_update_errs(got, want):
+    """Per block: ``|proj - proj_ref| / (sqrt(PIPE_PROBES) |update_ref|)``,
+    an estimate of ``|update - update_ref| / |update_ref|``."""
+    return {j: float(np.linalg.norm(np.subtract(u["proj"],
+                                                want[j]["proj"]))
+                     / (PIPE_PROBES ** 0.5 * want[j]["norm"]))
+            for j, u in got.items()}
+
+
+def _pipe_gpt(cfg, hcg=None, schedule=None, n_micro=1):
+    """The GPT of ``cfg`` on the card, built on the meta device and
+    filled by :func:`_pipe_fill`: unpipelined, or this rank's
+    ``GPTForCausalLMPipe`` (its stage's blocks only)."""
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              GPTForCausalLMPipe)
+
+    with torch.device("meta"):
+        model = GPTForCausalLM(device="meta", **cfg)
+        if hcg is not None:
+            model = GPTForCausalLMPipe(model, hcg, n_micro=n_micro,
+                                       schedule=schedule)
+    model.to_empty(device="cuda")
+    _pipe_fill(model)
+    return model
+
+
+def _pipe_ids(run, seed):
+    return np.random.RandomState(seed).randint(
+        0, VOCAB, (run["B"], run["S"])).astype("int64")
+
+
+def _pipe_train(model, ids, steps, amp_level=None, lr_sgd=None):
+    """``steps`` TrainSteps (the train phase's recipe, or plain SGD at
+    ``lr_sgd``): losses, step ms, the peak of allocated bytes."""
+    if lr_sgd is None:
+        step = _trainer(model, amp_level)
+    else:
+        from paddle_tpu_torch import jit, optimizer
+
+        step = jit.TrainStep(model, optimizer.SGD(
+            learning_rate=lr_sgd, parameters=model.parameters()))
+    x = torch.from_numpy(ids).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step({"input_ids": x, "labels": x})))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": ms,
+            "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _pipe_weight_gap(model, want):
+    """The largest, over tensors, of max |w - w_ref| / max |w_ref|
+    against the unpipelined run's final weights ``want``."""
+    worst = 0.0
+    for name, p in model.named_parameters():
+        ref = torch.from_numpy(want[name[3:]]).to(p.device)
+        worst = max(worst, float((p.detach() - ref).abs().max()
+                                 / ref.abs().max()))
+    return worst
+
+
+def _pipe_watchdog(work, rank):
+    """A collective watchdog whose fire writes its record and ends the
+    rank, so a stage that stops fails the phase instead of hanging it."""
+    import os
+
+    from paddle_tpu_torch.observability import watchdog
+
+    def fired(kind, record):
+        with open(os.path.join(work, f"watchdog{rank}.json"), "w") as f:
+            json.dump({"kind": kind, "record": str(record)}, f)
+        os._exit(3)
+
+    watchdog.add_fire_listener(fired)
+    return watchdog.CollectiveWatchdog(deadline_s=PIPE_WATCHDOG_S).start()
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.LAUNCHES,
+            "flash_attention_bwd_dkdv": fa.BWD_DKDV_LAUNCHES,
+            "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES}
+
+
+def _flash_zero():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+
+
+def _pipe_rank(index, world, endpoints, work):
+    """One pp rank of the pipe phase's (a) and (b) (started by spawn);
+    its results go to ``work/rank<r>.json``."""
+    import os
+
+    from paddle_tpu_torch.distributed.parallel import rank_env
+
+    os.environ.update(rank_env(index, world, endpoints))
+    os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout_s=PIPE_DEADLINE_S)
+    wd = _pipe_watchdog(work, env.rank)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": world}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    out = {"rank": env.rank, "stage": hcg.get_stage_id(),
+           "backend": dist.get_backend(), "f32": {}, "bf16": {}}
+    # (b) f32 parity at GPT-base's widths, depth 4
+    want = np.load(os.path.join(work, "f32_final.npz"))
+    ids = np.load(os.path.join(work, "ids_f32.npy"))
+    for sched in PIPE_SCHEDULES:
+        model = _pipe_gpt(PIPE_BASE, hcg, sched, PIPE_F32["n_micro"])
+        r = _pipe_train(model, ids, PIPE_F32["steps"],
+                        lr_sgd=PIPE_F32_SGD_LR)
+        r["weights_max_rel"] = _pipe_weight_gap(model, want)
+        r["blocks"] = sorted(int(j) for j in model.lm.gpt.layers.keys())
+        out["f32"][sched] = r
+        del model
+        _free_card()
+    del want
+    # (a) GPT-3 1.3B's widths, bf16 O2
+    ids = np.load(os.path.join(work, "ids_bf16.npy"))
+    shapes = {}
+    orig = (fa._fwd_kernel, fa._bwd_dkdv_kernel, fa._bwd_dq_kernel)
+
+    def rec(key, fn):
+        def wrapped(q, *a, **k):
+            shapes[key].add(tuple(q.shape))
+            return fn(q, *a, **k)
+        return wrapped
+
+    for sched in PIPE_SCHEDULES:
+        model = _pipe_gpt(PIPE_13B, hcg, sched, PIPE_BF16["n_micro"])
+        blocks = sorted(int(j) for j in model.lm.gpt.layers.keys())
+        shapes.update({"k1": set(), "k2a": set(), "k2b": set()})
+        fa._fwd_kernel, fa._bwd_dkdv_kernel, fa._bwd_dq_kernel = (
+            rec("k1", orig[0]), rec("k2a", orig[1]), rec("k2b", orig[2]))
+        pp0 = _collective_bytes()
+        _flash_zero()
+        try:
+            r = _pipe_train(model, ids, PIPE_BF16["steps"], "O2")
+        finally:
+            fa._fwd_kernel, fa._bwd_dkdv_kernel, fa._bwd_dq_kernel = orig
+        r["launches"] = _flash_counts()
+        r["block_updates"] = _pipe_block_updates(model)
+        r["shapes"] = {k: sorted(v) for k, v in shapes.items()}
+        pp1 = _collective_bytes()
+        r["bytes"] = {k: v - pp0.get(k, 0) for k, v in pp1.items()
+                      if v - pp0.get(k, 0)}
+        r["blocks"] = blocks
+        r["params"] = sum(p.numel() for p in model.parameters())
+        out["bf16"][sched] = r
+        del model
+        _free_card()
+    wd.stop()
+    with open(os.path.join(work, f"rank{env.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _collective_bytes():
+    """``collective.bytes`` of the port's registry by op."""
+    from paddle_tpu_torch.profiler import metrics
+
+    out = {}
+    for _, lab, v in metrics.get_registry().counter(
+            "collective.bytes").samples():
+        out[lab["op"]] = out.get(lab["op"], 0) + int(v)
+    return out
+
+
+def _pipe_example_rank(index, world, endpoints, work):
+    """One rank of the hybrid example (c): its starting weights gathered
+    (rank 0 writes them), then ``main()`` at the defaults on the card;
+    results to ``work/example<r>.json``."""
+    import os
+
+    from paddle_tpu_torch.distributed.parallel import rank_env
+
+    os.environ.update(rank_env(index, world, endpoints))
+    os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.examples import train_gpt_hybrid as ex
+    from paddle_tpu_torch.text.models import export_paddle_tpu_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = dist.init_parallel_env(timeout_s=PIPE_DEADLINE_S)
+    wd = _pipe_watchdog(work, env.rank)
+    argv = ["--steps", str(PIPE_EXAMPLE_STEPS)]
+    args = ex._parser().parse_args(argv)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": args.dp, "pp_degree": args.pp,
+                        "mp_degree": args.mp, "order": ["dp", "pp", "mp"]}
+    fleet.init(is_collective=True, strategy=s)
+    init = export_paddle_tpu_state_dict(
+        ex.build_model(args, fleet.get_hybrid_communicate_group()))
+    if env.rank == 0:
+        np.savez(os.path.join(work, "example_init.npz"),
+                 **{k[3:]: v for k, v in init.items()})
+    del init
+    _flash_zero()
+    res = ex.main(argv, log=lambda *a: None)
+    res["launches"] = _flash_counts()
+    res["device"] = str(dist.env.device())
+    wd.stop()
+    with open(os.path.join(work, f"example{env.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_pipe():
+    """Distributed part two on the card: the pipeline's (a), (b) and (c)
+    (the module docstring's phase 25)."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.examples import train_gpt_hybrid as ex
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              load_paddle_tpu_state_dict)
+
+    t_phase = time.perf_counter()
+    for k in [k for k in os.environ if k.startswith("PADDLE_TRAINER")]:
+        del os.environ[k]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_")
+    work = tmp.name
+    try:
+        # the unpipelined controls first, freed before the ranks start
+        ids_f32, ids_bf16 = _pipe_ids(PIPE_F32, 7), _pipe_ids(PIPE_BF16, 8)
+        np.save(os.path.join(work, "ids_f32.npy"), ids_f32)
+        np.save(os.path.join(work, "ids_bf16.npy"), ids_bf16)
+        model = _pipe_gpt(PIPE_BASE)
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        ref_f32 = _pipe_train(model, ids_f32, PIPE_F32["steps"],
+                              lr_sgd=PIPE_F32_SGD_LR)
+        # how far the control's weights moved: the gate is this much finer
+        ref_f32["update_max_rel"] = max(
+            float((p.detach() - init[k]).abs().max() / init[k].abs().max())
+            for k, p in model.named_parameters())
+        del init
+        np.savez(os.path.join(work, "f32_final.npz"),
+                 **{k: p.detach().cpu().numpy()
+                    for k, p in model.named_parameters()})
+        del model
+        _free_card()
+        model = _pipe_gpt(PIPE_13B)
+        params_13b = sum(p.numel() for p in model.parameters())
+        ref_bf16 = _pipe_train(model, ids_bf16, PIPE_BF16["steps"], "O2")
+        ref_bf16["block_updates"] = _pipe_block_updates(model)
+        del model
+        _free_card()
+        t0 = time.perf_counter()
+        _dist_spawn(2, work, _pipe_rank, PIPE_DEADLINE_S, "pipe")
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(2)]
+        # (c) the example, then its unsharded control on the card
+        t0 = time.perf_counter()
+        _dist_spawn(8, work, _pipe_example_rank, PIPE_DEADLINE_S, "pipe")
+        example_s = time.perf_counter() - t0
+        examples = [json.load(open(os.path.join(work, f"example{r}.json")))
+                    for r in range(8)]
+        init = dict(np.load(os.path.join(work, "example_init.npz")))
+    finally:
+        tmp.cleanup()
+    args = ex._parser().parse_args([])
+    torch.manual_seed(0)
+    lm = GPTForCausalLM(vocab_size=args.vocab, hidden_size=args.hidden,
+                        num_hidden_layers=args.layers,
+                        num_attention_heads=args.heads,
+                        max_position_embeddings=args.seq, device="cuda")
+    load_paddle_tpu_state_dict(lm, init)
+    from paddle_tpu_torch import jit, optimizer
+
+    step = jit.TrainStep(lm, optimizer.AdamW(learning_rate=3e-4,
+                                             parameters=lm.parameters()))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        1, args.vocab, (args.micro * args.dp, args.seq))).to("cuda")
+    ex_want = [float(step({"input_ids": ids, "labels": ids}))
+               for _ in range(PIPE_EXAMPLE_STEPS + 1)]
+    del lm, step
+    _free_card()
+
+    def rel(a, b):
+        return max(abs(p - q) / abs(q) for p, q in zip(a, b))
+
+    checks = {"ranks_backend_gloo": all(r["backend"] == "gloo"
+                                        for r in ranks)}
+    per = PIPE_13B["num_hidden_layers"] // 2
+    M, steps = PIPE_BF16["n_micro"], PIPE_BF16["steps"]
+    shape = [PIPE_BF16["B"] // M, PIPE_BF16["S"],
+             PIPE_13B["num_attention_heads"],
+             PIPE_13B["hidden_size"] // PIPE_13B["num_attention_heads"]]
+    mb_bytes = shape[0] * shape[1] * PIPE_13B["hidden_size"] * 2
+    summary = {}
+    for sched in PIPE_SCHEDULES:
+        b = [r["bf16"][sched] for r in ranks]
+        f = [r["f32"][sched] for r in ranks]
+        ticks = (per * M if sched == "interleaved" else M) + 1
+        k1 = [per * M * steps * (3 if sched == "1f1b" and r["stage"] == 0
+                                 else 2) for r in ranks]
+        checks[f"bf16_{sched}_losses_2e-2"] = max(
+            rel(x["losses"], ref_bf16["losses"]) for x in b) \
+            <= PIPE_BF16_RTOL
+        checks[f"bf16_{sched}_launches"] = all(
+            x["launches"] == {"flash_attention_fwd": want,
+                              "flash_attention_bwd_dkdv": per * M * steps,
+                              "flash_attention_bwd_dq": per * M * steps}
+            for x, want in zip(b, k1))
+        errs = {}
+        for x in b:
+            errs.update(_pipe_update_errs(x["block_updates"],
+                                          ref_bf16["block_updates"]))
+        checks[f"bf16_{sched}_block_updates_{PIPE_UPDATE_RTOL}"] = \
+            sorted(errs, key=int) == sorted(ref_bf16["block_updates"],
+                                            key=int) \
+            and max(errs.values()) <= PIPE_UPDATE_RTOL
+        checks[f"bf16_{sched}_kernel_shapes"] = all(
+            x["shapes"] == {k: [shape] for k in ("k1", "k2a", "k2b")}
+            for x in b)
+        checks[f"bf16_{sched}_peak_below_unpipelined"] = all(
+            x["peak_memory_allocated_bytes"]
+            < ref_bf16["peak_memory_allocated_bytes"] for x in b)
+        checks[f"bf16_{sched}_pp_ppermute_bytes"] = all(
+            x["bytes"].get("pp_ppermute") == mb_bytes * ticks * steps
+            for x in b)
+        checks[f"bf16_{sched}_stage_blocks"] = sorted(
+            j for x in b for j in x["blocks"]) == list(range(2 * per))
+        checks[f"f32_{sched}_losses_1e-5"] = max(
+            rel(x["losses"], ref_f32["losses"]) for x in f) <= PIPE_F32_RTOL
+        checks[f"f32_{sched}_weights_1e-5"] = all(
+            x["weights_max_rel"] <= PIPE_F32_RTOL for x in f)
+        summary[sched] = {
+            "bf16": {"rank_losses": [x["losses"] for x in b],
+                     "max_rel_diff": max(rel(x["losses"], ref_bf16["losses"])
+                                         for x in b),
+                     "block_update_rel_err": {j: errs[j] for j in
+                                              sorted(errs, key=int)},
+                     "rank_step_ms_host_staged_gloo": [x["step_ms"]
+                                                       for x in b],
+                     "rank_peak_bytes": [x["peak_memory_allocated_bytes"]
+                                         for x in b],
+                     "rank_params": [x["params"] for x in b],
+                     "rank_launches": [x["launches"] for x in b],
+                     "rank_kernel_shapes": [x["shapes"] for x in b],
+                     "rank_collective_bytes": [x["bytes"] for x in b],
+                     "rank_blocks": [x["blocks"] for x in b]},
+            "f32": {"rank_losses": [x["losses"] for x in f],
+                    "max_rel_diff": max(rel(x["losses"], ref_f32["losses"])
+                                        for x in f),
+                    "rank_weights_max_rel": [x["weights_max_rel"]
+                                             for x in f]}}
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        sa, sb = PIPE_SCHEDULES[a], PIPE_SCHEDULES[b]
+        checks[f"bf16_{sa}_vs_{sb}_2e-2"] = rel(
+            ranks[0]["bf16"][sa]["losses"],
+            ranks[0]["bf16"][sb]["losses"]) <= PIPE_BF16_RTOL
+    ex_ok = []
+    for r in examples:
+        ex_ok.append(len(r["losses"]) == len(ex_want) and bool(np.allclose(
+            r["losses"], ex_want, **PIPE_EXAMPLE_TOL)))
+    checks["example_losses_2e-4"] = all(ex_ok)
+    checks["example_on_card_launches"] = all(
+        r["device"].startswith("cuda") and r["launches"][
+            "flash_attention_fwd"] > 0 and r["launches"][
+            "flash_attention_bwd_dq"] > 0 for r in examples)
+    launches = {}
+    for r in ranks:
+        for sched in PIPE_SCHEDULES:
+            for k, n in r["bf16"][sched]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    # the kernels at the stages' shape, beside their plain and library
+    # versions (every pipe launch above ran at it)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    times = {"k1_gpt3_1.3b": _k1_timed(gen, shape[0], shape[1],
+                                       torch.bfloat16, shape[2], shape[3])}
+    k2 = _k2_timed(gen, shape[0], shape[1], shape[2], shape[3],
+                   tag="_gpt3_1.3b")
+    times.update({k: v for k, v in k2.items() if not k.endswith("_f32")})
+    for key, name in (("k1", "flash_attention_fwd"),
+                      ("k2a", "flash_attention_bwd_dkdv"),
+                      ("k2b", "flash_attention_bwd_dq")):
+        times[f"{key}_gpt3_1.3b"]["launches"] = launches[name]
+    checks["kernels_at_the_stage_shape"] = all(t["ok"]
+                                               for t in times.values())
+    ok = all(checks.values())
+    smi = smi_line()
+    emit({"phase": "pipe", "ok": ok, "nvidia_smi": smi,
+          "gpt3_1.3b_pp2_bf16_O2": {
+              **PIPE_BF16, "config": PIPE_13B, "params": params_13b,
+              "unpipelined_losses": ref_bf16["losses"],
+              "unpipelined_step_ms": ref_bf16["step_ms"],
+              "unpipelined_peak_bytes":
+                  ref_bf16["peak_memory_allocated_bytes"],
+              "rtol": PIPE_BF16_RTOL,
+              "unpipelined_block_update_norms": {
+                  j: u["norm"] for j, u in ref_bf16["block_updates"].items()},
+              "block_update_rtol": PIPE_UPDATE_RTOL,
+              "schedules": {k: v["bf16"] for k, v in summary.items()}},
+          "gpt_base_depth4_pp2_f32": {
+              **PIPE_F32, "optimizer": f"SGD lr {PIPE_F32_SGD_LR}",
+              "unpipelined_losses": ref_f32["losses"],
+              "unpipelined_update_max_rel": ref_f32["update_max_rel"],
+              "rtol": PIPE_F32_RTOL,
+              "schedules": {k: v["f32"] for k, v in summary.items()}},
+          "example_dp2_pp2_mp2": {
+              "unsharded_losses": ex_want,
+              "rank_losses": [r["losses"] for r in examples],
+              "rank_tokens_per_s_host_staged_gloo":
+                  [r["tokens_per_s"] for r in examples],
+              "rank_launches": [r["launches"] for r in examples],
+              "rank_coords": [(r["dp_rank"], r["stage"], r["mp_rank"])
+                              for r in examples]},
+          "kernels_at_the_stage_shape": times,
+          "rank_processes_seconds": ranks_s, "example_seconds": example_s,
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    print(f"pipe: GPT-3 1.3B pp=2 bf16 O2 step ms per rank (host-staged "
+          f"gloo, says nothing of NCCL) "
+          f"{ {k: v['bf16']['rank_step_ms_host_staged_gloo'] for k, v in summary.items()} } "
+          f"on {smi}", flush=True)
+    if not ok:
+        raise SystemExit(f"pipe phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": launches, "kernel_shapes": times}
+
+
 KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
     ("k1", "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
      "paddle_tpu/ops/flash_attention.py:112",
@@ -7268,17 +7829,18 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
      "fine-tune recipe, recompute's replay, the hapi encoder, ViT "
      "training and eval, resilient training (chaos replay), the "
      "walkthrough examples, tensor-parallel GPT-base training (mp = 2, "
-     "each rank's heads)"),
+     "each rank's heads), pipeline-parallel GPT-3 1.3B training (pp = 2, "
+     "each stage's blocks, forward and recompute)"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:276",
      "training (probed too), the fine-tune recipe, ViT training, "
      "resilient training (chaos replay), tensor-parallel GPT-base "
-     "training (mp = 2)"),
+     "training (mp = 2), pipeline-parallel GPT-3 1.3B training (pp = 2)"),
     ("k2b", "flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:307",
      "training (probed too), the fine-tune recipe, ViT training, "
      "resilient training (chaos replay), tensor-parallel GPT-base "
-     "training (mp = 2)"),
+     "training (mp = 2), pipeline-parallel GPT-3 1.3B training (pp = 2)"),
     ("k3", "paged_flash_decode", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:371",
      "serving decode, generate() paged decode, speculative verify, chunked "
@@ -7304,7 +7866,7 @@ def main():
     ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
                     "custom_op,qat,generate,spec,prefix,resilience,observe,"
                     "programs,llama,numerics,multitenant,cluster,finetune,"
-                    "hapi,vision,detection,recovery,walkthroughs,dist")
+                    "hapi,vision,detection,recovery,walkthroughs,dist,pipe")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -7332,7 +7894,8 @@ def main():
                      ("detection", phase_detection),
                      ("recovery", phase_recovery),
                      ("walkthroughs", phase_walkthroughs),
-                     ("dist", phase_dist), ("profile", phase_profile)):
+                     ("dist", phase_dist), ("pipe", phase_pipe),
+                     ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
@@ -7360,21 +7923,25 @@ def main():
         # ViT-B/16 O2 steps for K1 and K2, the recovery phase's chaos run
         # for K1 and K2 (replayed steps included), the walkthroughs
         # phase's seven examples for K1, K2, K3 and K4, the dist phase's
-        # two mp = 2 rank processes' bf16 O2 steps for K1 and K2, counted
-        # in the ranks); K5a / K5b: the kernels phase's checks
+        # two mp = 2 rank processes' bf16 O2 steps for K1 and K2, the pipe
+        # phase's two pp = 2 rank processes' GPT-3 1.3B bf16 O2 steps
+        # under the three schedules for K1 and K2, counted in the ranks);
+        # K5a / K5b: the kernels phase's checks
         launches = {}
         for name in ("slice", "train", "quant", "custom_op", "qat",
                      "generate", "spec", "prefix", "resilience", "observe",
                      "programs", "llama", "numerics", "multitenant",
                      "cluster", "finetune", "hapi", "vision", "recovery",
-                     "walkthroughs", "dist"):
+                     "walkthroughs", "dist", "pipe"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
-        # other shapes: the cached-tail prefill's (K3, K4) and Llama-3-8B's
-        # (K1, K2a, K2b, K3)
+        # other shapes: the cached-tail prefill's (K3, K4), Llama-3-8B's
+        # (K1, K2a, K2b, K3) and the pipeline stages' at GPT-3 1.3B's
+        # widths (K1, K2a, K2b)
         shapes = dict((results.get("prefix") or {}).get("cached_tail", {}))
         llama = results.get("llama") or {}
         shapes.update(llama.get("kernel_shapes", {}))
+        shapes.update((results.get("pipe") or {}).get("kernel_shapes", {}))
         if "k1_f32_prefill_launches" in llama:     # that run's K1 f32 body
             times["k1"]["other_shapes"]["k1_f32_llama_prefill"][
                 "launches"] = llama["k1_f32_prefill_launches"]

@@ -7,8 +7,8 @@ comm list of every axis); ``distributed_model`` wraps a model in
 ``DataParallel`` over the dp group when dp > 1 (tensor-parallel layers
 already hold their shards); ``distributed_optimizer`` returns the
 optimizer unchanged, as the reference's: the gradient reduction lives in
-``DataParallel``.  Pipeline models wait for the pipeline part of ROADMAP
-Queue 1 item 9.
+``DataParallel``; a ``PipelineLayer`` at pp > 1 becomes a
+``PipelineParallel`` that runs its stages one per rank.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from . import utils  # noqa: F401
 from .meta_parallel import (  # noqa: F401
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     ParallelCrossEntropy, get_rng_state_tracker, model_parallel_random_seed,
+    LayerDesc, SharedLayerDesc, PipelineLayer, PipelineParallel,
 )
 from .utils.recompute import recompute, recompute_sequential  # noqa: F401
 
@@ -86,21 +87,22 @@ fleet_strategy = get_strategy
 
 def distributed_model(model):
     """Wrap for the current parallel mode (reference
-    ``fleet.distributed_model``): ``DataParallel`` over the dp group when
-    dp > 1, else the model itself."""
+    ``fleet.distributed_model``, in its branch order): ``DataParallel``
+    over the dp group in data / sharding mode; a ``PipelineLayer`` at
+    pp > 1 in a ``PipelineParallel``; ``DataParallel`` when dp > 1; else
+    the model itself."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         init(is_collective=True)
         hcg = get_hybrid_communicate_group()
-    if hcg.get_pipe_parallel_world_size() > 1 \
-            and type(model).__name__ == "PipelineLayer":
-        raise NotImplementedError(
-            "pipeline models (PipelineLayer, pp_degree > 1) wait for the "
-            "pipeline part of ROADMAP Queue 1 item 9")
-    if hcg.get_parallel_mode() in ("data", "sharding") \
-            or hcg.get_data_parallel_world_size() > 1:
-        from ..parallel import DataParallel
+    from ..parallel import DataParallel
 
+    if hcg.get_parallel_mode() in ("data", "sharding"):
+        return DataParallel(model, group=hcg.get_data_parallel_group())
+    if hcg.get_pipe_parallel_world_size() > 1 \
+            and isinstance(model, PipelineLayer):
+        return PipelineParallel(model, hcg, _FLEET["strategy"])
+    if hcg.get_data_parallel_world_size() > 1:
         return DataParallel(model, group=hcg.get_data_parallel_group())
     return model
 

@@ -260,6 +260,50 @@ def parallel_softmax_cross_entropy(local_logits, labels, group=None,
     return loss
 
 
+class _MeanOver(torch.autograd.Function):
+    """The mean over a group forward (every rank's value the same); ``g``
+    backward, so each rank's gradient is its own value's, and averaging
+    the gradients over the group afterwards (as ``DataParallel`` does)
+    gives the mean's (the reference's ``pmean``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group=group) / group.nranks
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def mean_over(x, group):
+    """``x`` averaged over ``group`` (None: ``x``), differentiable."""
+    return _MeanOver.apply(x, group) if group is not None \
+        and group.nranks > 1 else x
+
+
+def sharded_vocab_head_loss(hidden, weight, labels, group=None, dp_group=None,
+                            shift=True):
+    """Tied-embedding LM head + cross-entropy with the vocab rows sharded
+    over the mp ``group`` (the hybrid topology's by default): each rank
+    computes only its ``[*, V/mp]`` slab of f32 logits and the loss comes
+    out of :func:`parallel_softmax_cross_entropy`, so no rank ever holds
+    the full ``[B, S, V]`` logits (reference: the GPT pipe head built on
+    ``c_softmax_with_cross_entropy``).
+
+    hidden: ``[B, S, H]`` (this rank's rows); weight: this rank's
+    ``[V/mp, H]`` rows; labels: ``[B, S]``.  Returns the scalar mean
+    next-token loss, then its mean over ``dp_group`` when given (the
+    reference's ``pmean``; each dp rank's gradient is its own rows'
+    loss's, to be averaged over dp)."""
+    group = _mp_group(group)
+    if shift:
+        hidden, labels = hidden[:, :-1], labels[:, 1:]
+    h = copy_to_mp(hidden, group).float()
+    logits = h @ weight.float().T
+    loss = parallel_softmax_cross_entropy(logits, labels, group).mean()
+    return mean_over(loss, dp_group)
+
+
 class ParallelCrossEntropy(torch.nn.Module):
     """Cross-entropy over mp-split logits (reference:
     ``c_softmax_with_cross_entropy``); the per-token loss.  Without tensor

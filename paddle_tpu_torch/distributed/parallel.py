@@ -74,6 +74,38 @@ def broadcast_(tensors, src, group):
                 t.copy_(part.view_as(t))
 
 
+class GradReducer:
+    """Reduce the gradients of ``params`` over ``group`` once per backward,
+    at its end (an autograd callback queued by the first gradient to
+    land), averaged; ``reductions`` counts them.  The queued
+    reduction is keyed by the backward's graph task, not a flag: a
+    backward that raises drops its queued callback, and the next one must
+    queue its own."""
+
+    def __init__(self, params, group):
+        self.group = group
+        self.reductions = 0
+        self._queued_task = None   # the backward whose reduction is queued
+        self._params = [p for p in params if p.requires_grad]
+        for p in self._params:
+            p.register_post_accumulate_grad_hook(self._grad_ready)
+
+    def _grad_ready(self, _param):
+        from ..observability import perf as _perf
+
+        task = torch._C._current_graph_task_id()
+        if task == self._queued_task or _perf.counting_kernels():
+            return
+        self._queued_task = task
+        torch.autograd.Variable._execution_engine.queue_callback(self._reduce)
+
+    def _reduce(self):
+        grads = [p.grad for p in self._params if p.grad is not None]
+        with torch.no_grad():
+            mean_reduce_(grads, self.group)
+        self.reductions += 1
+
+
 class DataParallel(torch.nn.Module):
     """``paddle.DataParallel``: ``model = DataParallel(model)``, then train
     as before (eager or ``TrainStep``) on each rank's part of the batch
@@ -91,14 +123,14 @@ class DataParallel(torch.nn.Module):
         super().__init__()
         self._layers = layers
         self.group = _dp_group(group)
-        self.reductions = 0
-        self._queued_task = None   # the backward whose reduction is queued
         state = [t for t in list(layers.parameters()) + list(layers.buffers())]
         if state:
             broadcast_(state, self.group.ranks[0], self.group)
-        self._grad_params = [p for p in layers.parameters() if p.requires_grad]
-        for p in self._grad_params:
-            p.register_post_accumulate_grad_hook(self._grad_ready)
+        self._reducer = GradReducer(layers.parameters(), self.group)
+
+    @property
+    def reductions(self):
+        return self._reducer.reductions
 
     def __getattr__(self, name):
         try:
@@ -108,26 +140,6 @@ class DataParallel(torch.nn.Module):
             if inner is None:
                 raise
             return getattr(inner, name)
-
-    # ---------------------------------------------------- gradient reduction
-    def _grad_ready(self, _param):
-        from ..observability import perf as _perf
-
-        # keyed by the backward's graph task, not a flag: a backward that
-        # raises drops its queued callback, and the next one must queue
-        # its own
-        task = torch._C._current_graph_task_id()
-        if task == self._queued_task or _perf.counting_kernels():
-            return
-        self._queued_task = task
-        torch.autograd.Variable._execution_engine.queue_callback(
-            self._reduce_grads)
-
-    def _reduce_grads(self):
-        grads = [p.grad for p in self._grad_params if p.grad is not None]
-        with torch.no_grad():
-            mean_reduce_(grads, self.group)
-        self.reductions += 1
 
     # ------------------------------------------------------------------ API
     def scale_loss(self, loss):

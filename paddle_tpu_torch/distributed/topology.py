@@ -7,6 +7,13 @@ reference's.  :class:`HybridCommunicateGroup` builds one
 in one fixed order (``torch.distributed.new_group`` is collective), and
 keeps the ones this process is in.  Each rank is a process of its own,
 so the rank getters return this process's real coordinate on each axis.
+
+At pp > 1 it also builds the pipeline's stage-pair groups: for every pp
+comm list, one two-rank group per pair of neighbouring stages (s, s + 1)
+and, beyond two stages, the wrap pair (S - 1, 0) that the interleaved
+schedule hops over between laps.  A hop between two stages is a
+``broadcast`` from the sender in their pair's group, so the same code
+path runs over gloo on the CPU, gloo on one card and NCCL between cards.
 """
 
 from __future__ import annotations
@@ -99,6 +106,23 @@ class HybridCommunicateGroup:
                 self._group_ids.append(g.id)
                 if self._rank in ranks:
                     self._groups[name] = g
+        # the stage-pair groups of every pp comm list, also collective
+        self._pp_pairs = {}
+        if dims.get("pp", 1) > 1:
+            for ranks in topology.get_comm_list("pp"):
+                S = len(ranks)
+                pairs = [(ranks[i], ranks[i + 1]) for i in range(S - 1)]
+                if S > 2:
+                    pairs.append((ranks[S - 1], ranks[0]))
+                mine = {}
+                for i, pair in enumerate(pairs):
+                    g = collective.new_group(list(pair), axis_name="pp_pair")
+                    self._group_ids.append(g.id)
+                    mine[i] = g
+                if S == 2:      # the wrap pair (1, 0) is the pair (0, 1)
+                    mine[1] = mine[0]
+                if self._rank in ranks:
+                    self._pp_pairs = mine
 
     # degrees
     def get_data_parallel_world_size(self):
@@ -128,6 +152,36 @@ class HybridCommunicateGroup:
 
     def get_stage_id(self):
         return self._axis_rank("pp")
+
+    # pipeline stages
+    def is_first_stage(self):
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self):
+        return self.get_stage_id() == self.get_pipe_parallel_world_size() - 1
+
+    def _stage_rank(self, stage):
+        g = self._groups.get("pp")
+        S = self.get_pipe_parallel_world_size()
+        return g.ranks[stage % S] if g is not None else self._rank
+
+    def get_prev_stage_rank(self):
+        """The global rank of the previous stage in this process's pp
+        group (stage S - 1 for stage 0, the interleaved schedule's wrap)."""
+        return self._stage_rank(self.get_stage_id() - 1)
+
+    def get_next_stage_rank(self):
+        """The global rank of the next stage in this process's pp group
+        (stage 0 for stage S - 1)."""
+        return self._stage_rank(self.get_stage_id() + 1)
+
+    def get_stage_pair_group(self, pair):
+        """The two-rank group of stages (``pair``, ``pair + 1``) of this
+        process's pp group; ``pair = S - 1`` is the wrap pair (S - 1, 0).
+        None outside the pair or at pp = 1."""
+        g = self._pp_pairs.get(pair % max(self.get_pipe_parallel_world_size(),
+                                          1))
+        return g if g is not None and g.is_member() else None
 
     def get_sharding_parallel_rank(self):
         return self._axis_rank("sharding")
@@ -194,6 +248,15 @@ def set_hybrid_communicate_group(hcg):
 
 def get_hybrid_communicate_group():
     return _HCG[0]
+
+
+def pipe_parallel_group():
+    """The hybrid topology's pp group when its degree is > 1, else None
+    (no pipeline)."""
+    hcg = _HCG[0]
+    if hcg is not None and hcg.get_pipe_parallel_world_size() > 1:
+        return hcg.get_pipe_parallel_group()
+    return None
 
 
 def model_parallel_group():

@@ -49,12 +49,17 @@ class ClipGradByGlobalNorm(ClipGradBase):
     """Scale every gradient by ``min(clip_norm / (global_norm + 1e-6), 1)``,
     the global norm taken in f32 over all clipped gradients.
 
-    Under a hybrid topology with mp > 1 the norm is the full logical
-    model's, as the reference's (one program over the full parameters)
-    is: the squares of the mp-sharded gradients (``is_distributed``) are
-    summed over the mp group, and each replicated one (the LayerNorms,
-    the row-parallel biases, the position embedding) counts once.  The
-    dp gradients are already reduced, so no dp term is needed."""
+    Under a hybrid topology with mp > 1 or pp > 1 the norm is the full
+    logical model's, as the reference's (one program over the full
+    parameters) is: the squares of the mp-sharded gradients
+    (``is_distributed``) are summed over the mp group, and each
+    replicated one (the LayerNorms, the row-parallel biases, the position
+    embedding) counts once; under pp the squares are summed over the pp
+    group, each parameter's divided by the number of stages holding a
+    copy (``pp_holders``: 1 for a stage's blocks, every stage for the
+    embeddings, the final LayerNorm and any unmarked parameter), so a
+    replica counts once.  The dp gradients are already reduced, so no dp
+    term is needed."""
 
     def __init__(self, clip_norm, group_name="default_group", auto_skip_clip=False):
         self.clip_norm = clip_norm
@@ -66,10 +71,27 @@ class ClipGradByGlobalNorm(ClipGradBase):
         if not gs:
             return None
         sq = [torch.sum(torch.square(g.float())) for _, g in gs]
-        from ..distributed.topology import model_parallel_group
+        from ..distributed.topology import (model_parallel_group,
+                                            pipe_parallel_group)
 
         group = model_parallel_group()
-        if group is None:
+        pp = pipe_parallel_group()
+        if pp is not None:
+            from ..distributed.communication import all_reduce
+            from ..distributed.fleet.meta_parallel.mp_layers import is_sharded
+
+            zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+            share = [s / vars(p).get("pp_holders", pp.nranks)
+                     for (p, _), s in zip(gs, sq)]
+            sharded = sum((s for (p, _), s in zip(gs, share)
+                           if is_sharded(p)), zero)
+            if group is not None:
+                sharded = all_reduce(sharded, group=group)
+            replicated = sum((s for (p, _), s in zip(gs, share)
+                              if not is_sharded(p)), zero)
+            global_norm = torch.sqrt(all_reduce(sharded + replicated,
+                                                group=pp))
+        elif group is None:
             global_norm = torch.sqrt(sum(sq))
         else:
             from ..distributed.communication import all_reduce

@@ -38,6 +38,13 @@ the output dim, a row-parallel weight on the input dim, a vocab-parallel
 table on its rows; the reference's GPT ``_TP_DIM``), and the export
 gathers the shards of the mp group back into the full arrays (a
 collective: every rank of the group calls it).
+
+Pipeline models (``GPTForCausalLMPipe``, ``PipelineLayer`` at pp > 1)
+carry their weights by stage: loading takes the reference's full state
+dict and keeps this rank's blocks (with their TP shard where mp > 1) and
+the replicas, skipping the keys of the layers other stages hold; the
+export gathers every stage's blocks over the pp group back into the
+reference's full dict (a collective: every pp rank calls it).
 """
 
 from __future__ import annotations
@@ -56,6 +63,9 @@ def load_paddle_tpu_state_dict(model: torch.nn.Module, state: dict,
     Raises ``KeyError`` on a missing or extra key and ``ValueError`` on a
     shape mismatch."""
     own = model.state_dict()
+    foreign = tuple(_pp_parts(model)[1])
+    if foreign:
+        state = {k: v for k, v in state.items() if not k.startswith(foreign)}
     _check_keys(own, state)
     linear_weights = _linear_weights(model)
     shards = _tp_shards(model)
@@ -99,6 +109,14 @@ def export_paddle_tpu_tensors(model: torch.nn.Module) -> dict:
         arr = arr.clone() if arr.data_ptr() == t.data_ptr() else arr
         out[key] = torch.nn.Parameter(arr, requires_grad=False) \
             if key in params else arr
+    own, _, group = _pp_parts(model)
+    if group is not None:
+        from ...distributed.communication import all_gather_object
+
+        mine = {k: v for k, v in out.items() if k.startswith(tuple(own))}
+        for stage in all_gather_object([], mine, group=group):
+            for k, v in stage.items():
+                out.setdefault(k, v)
     return out
 
 
@@ -117,6 +135,23 @@ def export_paddle_tpu_state_dict(model: torch.nn.Module, expected=None) -> dict:
                 raise ValueError(f"{key}: exported shape {tuple(arr.shape)} "
                                  f"!= expected {want}")
     return out
+
+
+def _pp_parts(model):
+    """(this rank's stage-held key prefixes, the other stages', the pp
+    group) over the pipeline containers in ``model``; the group is None
+    without a pipeline of more than one stage."""
+    own, other, group = [], [], None
+    for name, m in model.named_modules():
+        parts = getattr(m, "_pp_prefixes", None)
+        if parts is None or m._pp_group() is None:
+            continue
+        pre = f"{name}." if name else ""
+        mine, theirs = parts()
+        own += [pre + p for p in mine]
+        other += [pre + p for p in theirs]
+        group = m._pp_group()
+    return own, other, group
 
 
 def _check_keys(own, other):

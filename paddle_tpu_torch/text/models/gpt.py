@@ -434,3 +434,270 @@ class GPTForCausalLM(torch.nn.Module):
                                     for i in range(p.shape[0])])
             ids = np.concatenate([ids, nxt[:, None]], axis=1)
         return torch.as_tensor(ids, device=dev)
+
+
+# ---------------------------------------------------------------- pipeline
+def _hcg_of(hcg=None):
+    if hcg is None:
+        from ...distributed.topology import get_hybrid_communicate_group
+
+        hcg = get_hybrid_communicate_group()
+    return hcg
+
+
+def _pp_of(hcg):
+    return (hcg.get_pipe_parallel_world_size(), hcg.get_stage_id()) \
+        if hcg is not None else (1, 0)
+
+
+def _stage_layer_ids(n, pp, stage, order="stage"):
+    """The global indices of the blocks stage ``stage`` runs, in its
+    order: ``'stage'`` a contiguous chunk (gpipe, 1f1b), ``'lap'`` layer
+    ``j`` on stage ``j % pp``, lap-major (interleaved)."""
+    if n % pp:
+        raise ValueError(f"{n} layers not divisible by pp={pp}")
+    per = n // pp
+    if order == "lap":
+        return [lap * pp + stage for lap in range(per)]
+    return [stage * per + i for i in range(per)]
+
+
+def _held_blocks(model: GPTModel, pp, order, hcg=None):
+    """This rank's blocks of ``model`` in schedule order: those a pipe
+    model holds (``layers`` keyed by global index), else its stage's
+    slice of a whole model's."""
+    stage = _pp_of(_hcg_of(hcg))[1] if pp > 1 else 0
+    if isinstance(model.layers, torch.nn.ModuleDict):
+        n = int(getattr(model, "_pp_num_layers"))
+        return [model.layers[str(j)]
+                for j in _stage_layer_ids(n, pp, stage, order)]
+    return [model.layers[j]
+            for j in _stage_layer_ids(len(model.layers), pp, stage, order)]
+
+
+def _attr(module, name):
+    for part in name.split("."):
+        module = getattr(module, part)
+    return module
+
+
+def _block_params(model: GPTModel, pp: int, order="stage", hcg=None):
+    """This rank's blocks' parameters in schedule ``order``, one dict
+    ``{name: tensor}`` a block.  They are read by attribute, so under
+    ``TrainStep``'s O2 binding they are the bf16 copies."""
+    blocks = _held_blocks(model, pp, order, hcg)
+    names = [k for k, _ in blocks[0].named_parameters()]
+    return [{k: _attr(b, k) for k in names} for b in blocks]
+
+
+def stack_block_params(model: GPTModel, pp: int, order="stage", hcg=None):
+    """This rank's stage slice of the (structurally identical) decoder
+    blocks' parameters, stacked: ``{name: [layers_per_stage, ...]}``, the
+    form ``spmd_pipeline`` takes from the reference's callers.
+    ``order='stage'`` stacks the stage's contiguous chunk (the gpipe and
+    1f1b schedules); ``order='lap'`` stacks layers ``stage, stage + pp,
+    ...`` (the virtual stages the interleaved schedule runs lap-major).
+    The stack is a differentiable copy; :func:`pipeline_forward` passes
+    the blocks' own parameters instead."""
+    layers = _block_params(model, pp, order, hcg)
+    return {k: torch.stack([d[k] for d in layers]) for k in layers[0]}
+
+
+def block_fn_for(model: GPTModel):
+    """``(stage_params, x) -> x`` for ``spmd_pipeline``: runs the
+    stage's ``layers_per_stage`` blocks in turn, binding each slice of
+    the stacked ``stage_params`` into one held block's structure."""
+    one = single_block_fn_for(model)
+
+    def block_fn(stage_params, x):
+        per = next(iter(stage_params.values())).shape[0]
+        for i in range(per):
+            x = one({k: v[i] for k, v in stage_params.items()}, x)
+        return x
+
+    return block_fn
+
+
+def single_block_fn_for(model: GPTModel):
+    """``(one layer's params, x) -> x`` — the per-virtual-stage body the
+    interleaved schedule calls once per lap, binding the params into the
+    structure of a block this rank holds (the blocks are alike)."""
+    layers = model.layers
+    block = next(iter(layers.values())) \
+        if isinstance(layers, torch.nn.ModuleDict) else layers[0]
+
+    def block_fn(stage_params, x):
+        return torch.func.functional_call(block, stage_params, (x,))
+
+    return block_fn
+
+
+def _dp_rows(t, n_micro, batch_axis, hcg):
+    """The rows of ``t`` (``[B, ...]``) this dp rank runs: the reference
+    reshapes ``[B] -> [n_micro, micro]`` and shards ``micro`` over dp,
+    so dp rank ``r`` takes block ``r`` of every micro-batch."""
+    dp = hcg.get_data_parallel_world_size() if hcg is not None else 1
+    if batch_axis is None or dp == 1:
+        return t
+    B = t.shape[0]
+    micro = B // n_micro
+    if B % n_micro or micro % dp:
+        raise ValueError(f"batch {B} in {n_micro} micro-batches does not "
+                         f"split over dp={dp}")
+    r, ml = hcg.get_data_parallel_rank(), micro // dp
+    t = t.reshape((n_micro, micro) + tuple(t.shape[1:]))[:, r * ml:(r + 1) * ml]
+    return t.reshape((n_micro * ml,) + tuple(t.shape[2:]))
+
+
+def pipeline_forward(model: GPTModel, input_ids, hcg=None, n_micro=1,
+                     batch_axis=None, schedule="gpipe"):
+    """GPT forward with the decoder stack pipelined over the pp group:
+    embed (every stage, a replica) -> ``spmd_pipeline`` over this rank's
+    blocks -> final LayerNorm (every stage).  ``input_ids``: ``[B, S]``,
+    the whole batch; ``B`` splits into ``n_micro`` micro-batches, and
+    with ``batch_axis='dp'`` each dp rank runs its block of every
+    micro-batch (returned: its rows).  ``schedule='interleaved'`` runs the
+    circular virtual-stage schedule (layer ``j`` on stage ``j % pp``)."""
+    from ...distributed.fleet.meta_parallel.pipeline_schedule import (
+        _run_pipeline)
+
+    hcg = _hcg_of(hcg)
+    pp = _pp_of(hcg)[0]
+    interleaved = schedule == "interleaved"
+    # the held blocks' own parameters, one dict a block: a stage call
+    # runs its list in turn, an interleaved lap its one entry
+    layers = _block_params(model, pp, "lap" if interleaved else "stage", hcg)
+    one = single_block_fn_for(model)
+
+    def stage_fn(stage_layers, h):
+        for p in stage_layers:
+            h = one(p, h)
+        return h
+
+    x = model.embed(_dp_rows(input_ids, n_micro, batch_axis, hcg))
+    xm = x.reshape((n_micro, x.shape[0] // n_micro) + tuple(x.shape[1:]))
+    out = _run_pipeline(one if interleaved else stage_fn, layers, xm, hcg,
+                        schedule=schedule, per_lap=interleaved)
+    return model.final_ln(out.reshape(x.shape))
+
+
+_SCHEDULE_MODES = {"1f1b": "1f1b", "interleave": "interleaved",
+                   "interleaved": "interleaved", "f-then-b": "gpipe",
+                   "gpipe": "gpipe"}
+
+
+def _schedule_from_strategy():
+    """The reference's contract: with ``strategy.pipeline`` enabled,
+    ``pipeline_configs['schedule_mode']`` selects the schedule
+    (``'F-then-B'`` / ``'1F1B'`` / ``'Interleave'``); otherwise gpipe."""
+    from ...distributed import fleet as _fleet
+
+    st = _fleet.get_strategy()
+    if st is None or not getattr(st, "pipeline", False):
+        return "gpipe"
+    mode = str(st.pipeline_configs.get("schedule_mode", "1F1B")).strip().lower()
+    if mode not in _SCHEDULE_MODES:
+        import warnings
+
+        warnings.warn(f"unknown pipeline schedule_mode {mode!r}; "
+                      "falling back to gpipe (F-then-B)")
+    return _SCHEDULE_MODES.get(mode, "gpipe")
+
+
+class GPTForCausalLMPipe(torch.nn.Module):
+    """GPTForCausalLM with the decoder stack run through the pipeline
+    schedules (reference analog: PaddleNLP's ``GPTForCausalLMPipe`` built
+    on ``PipelineLayer``), one process per pp rank.
+
+    It takes over ``lm`` (``GPTForCausalLM(**kwargs)`` when None):
+    a rank keeps the embeddings, the final LayerNorm and the tied head as
+    replicas, and only its stage's blocks (``lm.gpt.layers`` becomes a
+    ``ModuleDict`` keyed by global layer index, so the state dict keys
+    are the reference's).  The schedule comes from
+    ``strategy.pipeline_configs['schedule_mode']`` when not given.  With
+    labels it returns the mean next-token loss (the vocab-sharded head
+    when mp > 1: no rank holds ``[B, S, V]`` logits); with
+    ``batch_axis='dp'`` each dp rank runs its rows, the loss is the mean
+    over dp and the gradients are averaged over the dp group after each
+    backward, as ``DataParallel`` averages them (no ``DataParallel``
+    needed)."""
+
+    def __init__(self, lm: "GPTForCausalLM" = None, hcg=None, n_micro=1,
+                 batch_axis=None, schedule=None, **kwargs):
+        super().__init__()
+        hcg = _hcg_of(hcg)
+        if hcg is None:
+            raise ValueError("GPTForCausalLMPipe needs a hybrid topology "
+                             "(fleet.init first)")
+        if schedule is None:
+            schedule = _schedule_from_strategy()
+        self.lm = lm if lm is not None else GPTForCausalLM(**kwargs)
+        self._hcg = hcg
+        self._n_micro = n_micro
+        self._batch_axis = batch_axis
+        self._schedule = schedule
+        gpt = self.lm.gpt
+        pp, stage = _pp_of(hcg)
+        n = len(gpt.layers)
+        order = "lap" if schedule == "interleaved" else "stage"
+        self._held = _stage_layer_ids(n, pp, stage, order)
+        gpt.layers = torch.nn.ModuleDict(
+            {str(j): gpt.layers[j] for j in self._held})
+        gpt._pp_num_layers = n
+        if pp > 1:
+            for p in gpt.layers.parameters():
+                p.pp_holders = 1
+        dp = hcg.get_data_parallel_world_size()
+        self._dp_group = hcg.get_data_parallel_group() \
+            if batch_axis is not None and dp > 1 else None
+        if self._dp_group is not None:
+            from ...distributed.parallel import GradReducer, broadcast_
+
+            broadcast_(list(self.parameters()), self._dp_group.ranks[0],
+                       self._dp_group)
+            # each dp rank's gradient is its own rows' loss's
+            self._reducer = GradReducer(self.parameters(), self._dp_group)
+
+    def _pp_prefixes(self):
+        """(this rank's block key prefixes, the other stages')."""
+        n = self.lm.gpt._pp_num_layers
+        own = [f"lm.gpt.layers.{j}." for j in self._held]
+        other = [f"lm.gpt.layers.{j}." for j in range(n)
+                 if j not in self._held]
+        return own, other
+
+    def _pp_group(self):
+        return self._hcg.get_pipe_parallel_group() \
+            if _pp_of(self._hcg)[0] > 1 else None
+
+    def forward(self, input_ids, labels=None):
+        gpt = self.lm.gpt
+        hidden = pipeline_forward(gpt, input_ids, self._hcg, self._n_micro,
+                                  batch_axis=self._batch_axis,
+                                  schedule=self._schedule)
+        w = gpt.word_embeddings.weight
+        group = getattr(gpt.word_embeddings, "group", None)
+        if labels is not None:
+            labels = _dp_rows(labels, self._n_micro, self._batch_axis,
+                              self._hcg)
+        if labels is not None and group is not None:
+            from ...distributed.fleet.meta_parallel.mp_layers import (
+                sharded_vocab_head_loss)
+
+            return sharded_vocab_head_loss(hidden, w, labels, group,
+                                           self._dp_group)
+        if group is not None:
+            from ...distributed.fleet.meta_parallel.mp_layers import (
+                copy_to_mp, gather_from_mp)
+
+            h, wc = amp.cast("matmul", copy_to_mp(hidden, group), w)
+            return gather_from_mp(h @ wc.T, group)
+        h, wc = amp.cast("matmul", hidden, w)
+        logits = h @ wc.T
+        if labels is None:
+            return logits
+        from ...distributed.fleet.meta_parallel.mp_layers import mean_over
+
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               labels[:, 1:].reshape(-1), reduction="mean")
+        return mean_over(loss, self._dp_group)

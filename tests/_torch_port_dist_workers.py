@@ -38,7 +38,7 @@ class RankPool:
     def __init__(self, n=4, start_timeout=120.0):
         self.n = n
         key = secrets.token_bytes(16)
-        self._listener = Listener(("127.0.0.1", 0), authkey=key)
+        self._listener = Listener(("127.0.0.1", 0), authkey=key, backlog=n)
         store = f"127.0.0.1:{_free_port()}"
         self._procs = []
         for r in range(n):
@@ -74,8 +74,16 @@ class RankPool:
         self._conns = [conns[r] for r in range(n)]
 
     def run(self, job, *args, timeout=120.0, **kw):
+        self.submit(job, *args, **kw)
+        return self.collect(job, timeout)
+
+    def submit(self, job, *args, **kw):
+        """Start ``job`` on every rank (:meth:`collect` its results), so
+        the caller can work meanwhile."""
         for c in self._conns:
             c.send((job, args, kw))
+
+    def collect(self, job, timeout=120.0):
         out, errs = [], []
         for r, c in enumerate(self._conns):
             if not c.poll(timeout):
@@ -551,6 +559,20 @@ def example(name, argv):
     return mod.main(argv, log=lambda *a: None)
 
 
+def gpt_hybrid_example_init(argv):
+    """The ``train_gpt_hybrid`` example's starting weights, built on the
+    ranks as the example builds them and gathered by stage and shard
+    into the reference's full dict (``lm.`` dropped)."""
+    from paddle_tpu_torch.examples import train_gpt_hybrid as ex
+    from paddle_tpu_torch.text.models import export_paddle_tpu_state_dict
+
+    args = ex._parser().parse_args(argv)
+    hcg = _pp_fleet(dp=args.dp, pp=args.pp, mp=args.mp)
+    state = export_paddle_tpu_state_dict(ex.build_model(args, hcg))
+    _unfleet()
+    return {k[3:] if k.startswith("lm.") else k: v for k, v in state.items()}
+
+
 def card_tp_check(out_dir):
     """One rank of a 2-rank gloo job on the one card (started by
     ``paddle_tpu_torch.distributed.spawn``): the mp = 2 layers on card
@@ -619,6 +641,61 @@ def card_tp_check(out_dir):
     dist.destroy_process_group()
 
 
+def card_pp_check(out_dir):
+    """One pp rank of a 2-rank gloo job on the one card (started by
+    ``paddle_tpu_torch.distributed.spawn``): a stage hop of card tensors
+    (plain and with the shape header), then GPT-tiny's pp = 2 pipe from
+    ``out_dir/gpt.npz`` trained 2 SGD steps on the card; writes
+    ``rank<r>.json``."""
+    import json
+
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.pipeline_schedule \
+        import _Hops
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              GPTForCausalLMPipe,
+                                              load_paddle_tpu_state_dict)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env()
+    hcg = _pp_fleet(pp=2)
+    s = hcg.get_stage_id()
+    dev = torch.device("cuda")
+    sent = torch.arange(4096, dtype=torch.float32, device=dev)
+    odd = torch.randn(3, 5, device=dev).to(torch.bfloat16)
+    before = _bytes("broadcast")
+    got = _Hops(hcg).exchange([(0, 0, sent if s == 0 else None)], like=sent)
+    hdr = _Hops(hcg, header=True).exchange([(0, 0, odd if s == 1 else None)],
+                                           like=sent)
+    out = {"rank": dist.get_rank(), "stage": s,
+           "hop_bytes": _bytes("broadcast") - before}
+    if s == 1:
+        out["hop_ok"] = bool(got[0].is_cuda and torch.equal(got[0], sent))
+    else:
+        out["hop_ok"] = bool(hdr[0].is_cuda and hdr[0].dtype == torch.bfloat16
+                             and tuple(hdr[0].shape) == (3, 5))
+    state = dict(np.load(os.path.join(out_dir, "gpt.npz")))
+    cfg = json.load(open(os.path.join(out_dir, "cfg.json")))
+    ids = torch.from_numpy(np.load(os.path.join(out_dir, "ids.npy"))).to(dev)
+    pipe = GPTForCausalLMPipe(GPTForCausalLM(device="cuda", **cfg), hcg,
+                              n_micro=2, schedule="1f1b")
+    load_paddle_tpu_state_dict(pipe, {"lm." + k: v for k, v in state.items()})
+    step = jit.TrainStep(pipe, optimizer.SGD(learning_rate=0.5,
+                                             parameters=pipe.parameters()))
+    fa.LAUNCHES = fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
+    out["losses"] = [float(step({"input_ids": ids, "labels": ids}))
+                     for _ in range(2)]
+    out["launches"] = [fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES]
+    _unfleet()
+    with open(os.path.join(out_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
 def spawn_probe(out_dir):
     """A rank started by ``paddle_tpu_torch.distributed.spawn`` on the
     CPU: its env contract and a real all_reduce, to ``rank<r>.json``."""
@@ -637,3 +714,403 @@ def spawn_probe(out_dir):
     with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+# --------------------------------------------------------------- pipeline
+def _pp_fleet(dp=1, pp=1, mp=1, pipeline=None):
+    import paddle_tpu_torch.distributed.fleet as fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "pp_degree": pp, "mp_degree": mp,
+                        "order": ["dp", "pp", "mp"]}
+    if pipeline is not None:
+        s.pipeline = True
+        s.pipeline_configs = pipeline
+    fleet.init(is_collective=True, strategy=s)
+    return fleet.get_hybrid_communicate_group()
+
+
+def _replica(world_per_replica):
+    """The topology of a job that needs ``world_per_replica`` ranks: the
+    rest of the world are dp replicas, which would only repeat the first
+    one's work; they build the topology (its groups are collective) and
+    then stay idle (None), keeping the pool's CPU load to one replica."""
+    return int(os.environ["PADDLE_TRAINERS_NUM"]) // world_per_replica
+
+
+def _idle(hcg):
+    if hcg.get_data_parallel_rank() == 0:
+        return False
+    _unfleet()
+    return True
+
+
+def _bytes(op):
+    from paddle_tpu_torch.profiler import metrics
+
+    fam = metrics.get_registry().counter("collective.bytes")
+    return sum(v for _, lab, v in fam.samples() if lab["op"] == op)
+
+
+def pp_toy(a, pp, schedule, remat=True):
+    """The toy ``tanh(h @ W + b)`` block through ``spmd_pipeline`` at
+    ``pp`` stages (dp = world / pp replicas, each the whole batch): the
+    output, the gradients of this stage's W and b and of x for the
+    cotangent ``a["dy"]``, and the ``pp_ppermute`` bytes recorded."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline)
+
+    hcg = _pp_fleet(dp=_replica(pp), pp=pp)
+    if _idle(hcg):
+        return None
+    s = hcg.get_stage_id()
+    W = torch.from_numpy(a["W"][s].copy()).requires_grad_()
+    b = torch.from_numpy(a["b"][s].copy()).requires_grad_()
+    x = torch.from_numpy(a["x"].copy()).requires_grad_()
+
+    def block(p, h):
+        return torch.tanh(h @ p[0] + p[1])
+
+    before = _bytes("pp_ppermute")
+    hops0 = _calls().get("broadcast", 0)
+    out = spmd_pipeline(block, (W, b), x, schedule=schedule, remat=remat)
+    pp_bytes = _bytes("pp_ppermute") - before
+    (out * torch.from_numpy(a["dy"])).sum().backward()
+    res = {"stage": s, "out": _np(out), "dW": _np(W.grad), "db": _np(b.grad),
+           "dx": _np(x.grad), "pp_bytes": pp_bytes,
+           "broadcasts": _calls().get("broadcast", 0) - hops0}
+    _unfleet()
+    return res
+
+
+def pp_stalled_stage(a, deadline_s, hang_s, dump_dir):
+    """Stage 0 stalls ``hang_s`` in its first hop (the ``collective_hang``
+    fault at its second collective, after the per-call stage check): the
+    other stages' collective watchdogs report the stuck hop; the
+    pipeline's output once the stage resumes."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline)
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.observability.flight_recorder import FlightRecorder
+    from paddle_tpu_torch.observability.watchdog import CollectiveWatchdog
+
+    hcg = _pp_fleet(dp=_replica(4), pp=4)
+    if _idle(hcg):
+        return None
+    s = hcg.get_stage_id()
+    rec = FlightRecorder(dir=os.path.join(
+        dump_dir, f"rank{os.environ['PADDLE_TRAINER_ID']}"))
+    wd = CollectiveWatchdog(deadline_s=deadline_s, poll_s=0.02,
+                            recorder=rec).start()
+    try:
+        if s == 0:
+            faults.inject("collective_hang", seconds=hang_s, at_trips={2})
+        out = spmd_pipeline(lambda p, h: torch.tanh(h @ p[0] + p[1]),
+                            (torch.from_numpy(a["W"][s].copy()),
+                             torch.from_numpy(a["b"][s].copy())),
+                            torch.from_numpy(a["x"].copy()))
+    finally:
+        wd.stop()
+        faults.clear()
+    _unfleet()
+    return {"stage": s, "out": _np(out),
+            "fired": [{k: r[k] for k in ("op", "nranks", "ranks_missing")}
+                      for r in wd.fired]}
+
+
+def pp_errors(a):
+    """The reference's errors, raised on every stage alike."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline, spmd_pipeline_1f1b)
+
+    hcg = _pp_fleet(dp=_replica(2), pp=2)
+    if _idle(hcg):
+        return None
+    s = hcg.get_stage_id()
+    W = torch.from_numpy(a["W"][s].copy())
+    b = torch.from_numpy(a["b"][s].copy())
+    x = torch.from_numpy(a["x"].copy())
+    fn = lambda p, h: torch.tanh(h @ p[0] + p[1])  # noqa: E731
+    out = {}
+
+    def err(name, call):
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+
+    err("m_lt_s", lambda: spmd_pipeline(fn, (W, b), x[:1]))
+    err("m_lt_s_1f1b", lambda: spmd_pipeline_1f1b(fn, (W, b), x[:1]))
+    err("schedule", lambda: spmd_pipeline(fn, (W, b), x, schedule="zb"))
+    err("interleaved_m", lambda: spmd_pipeline(fn, (W, b), x[:3],
+                                               schedule="interleaved"))
+    # stage 1 is handed two layers, stage 0 one
+    err("stage_dim", lambda: spmd_pipeline(
+        fn, (W.repeat(s + 1, 1), b.repeat(s + 1)), x))
+    _unfleet()
+    return out
+
+
+def _gpt_pipe(state, cfg, schedule, n_micro, batch_axis=None, **kw):
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              GPTForCausalLMPipe,
+                                              load_paddle_tpu_state_dict)
+
+    seed(0)
+    pipe = GPTForCausalLMPipe(GPTForCausalLM(device="cpu", **cfg),
+                              n_micro=n_micro, batch_axis=batch_axis,
+                              schedule=schedule, **kw)
+    load_paddle_tpu_state_dict(pipe, state)
+    return pipe
+
+
+def pp_gpt_forward(state, ids, cfg, pp, mp, schedule):
+    """``pipeline_forward``'s eval hidden at pp x mp from the reference's
+    weights (the rest of the world dp replicas), and the same through
+    ``stack_block_params`` and ``spmd_pipeline``."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        spmd_pipeline)
+    from paddle_tpu_torch.text.models import (block_fn_for, pipeline_forward,
+                                              stack_block_params)
+    from paddle_tpu_torch.text.models.gpt import single_block_fn_for
+
+    hcg = _pp_fleet(dp=_replica(pp * mp), pp=pp, mp=mp)
+    if _idle(hcg):
+        return None
+    pipe = _gpt_pipe(state, cfg, schedule, 4).eval()
+    gpt = pipe.lm.gpt
+    with torch.no_grad():
+        h = pipeline_forward(gpt, torch.from_numpy(ids), hcg,
+                             n_micro=4, schedule=schedule)
+        # the reference callers' form: the stage's blocks stacked
+        order = "lap" if schedule == "interleaved" else "stage"
+        fn = single_block_fn_for(gpt) if order == "lap" else block_fn_for(gpt)
+        x = gpt.embed(torch.from_numpy(ids))
+        y = spmd_pipeline(fn, stack_block_params(gpt, pp, order),
+                          x.reshape((4, -1) + tuple(x.shape[1:])),
+                          schedule=schedule)
+        h_stacked = gpt.final_ln(y.reshape(x.shape))
+    blocks = sorted(int(k.split(".")[3]) for k, _ in pipe.named_parameters()
+                    if k.startswith("lm.gpt.layers."))
+    out = {"hidden": _np(h), "hidden_stacked": _np(h_stacked),
+           "stage": hcg.get_stage_id(), "blocks": sorted(set(blocks))}
+    _unfleet()
+    return out
+
+
+def pp_gpt_train(state, ids, cfg, steps, lr, schedule, dp=1, pp=2, mp=1,
+                 amp_level=None, accumulate_steps=1, n_micro=4):
+    """``GPTForCausalLMPipe`` trained through ``TrainStep`` (AdamW,
+    ClipGradByGlobalNorm(1.0)) at dp x pp x mp (dp with
+    ``batch_axis='dp'``; the rest of the world plain replicas): the
+    losses, the weights gathered back into the reference's dict, what
+    the rank holds, and the dtypes its blocks' qkv projection gave (every
+    block call binds into one held block's structure, recomputes too)."""
+    import torch
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.text.models import export_paddle_tpu_state_dict
+
+    hcg = _pp_fleet(dp=_replica(pp * mp), pp=pp, mp=mp)
+    if dp == 1 and _idle(hcg):
+        return None
+    pipe = _gpt_pipe(state, cfg, schedule, n_micro,
+                     batch_axis="dp" if dp > 1 else None)
+    dtypes = set()
+    next(iter(pipe.lm.gpt.layers.values())).qkv.register_forward_hook(
+        lambda m, i, o: dtypes.add(str(o.dtype)))
+    o = opt.AdamW(learning_rate=lr, weight_decay=0.01,
+                  parameters=pipe.parameters(),
+                  grad_clip=opt.ClipGradByGlobalNorm(1.0))
+    step = jit.TrainStep(pipe, o, loss_fn=None, amp_level=amp_level,
+                         accumulate_steps=accumulate_steps)
+    x = torch.from_numpy(ids)
+    before = _calls()
+    losses = [float(step({"input_ids": x, "labels": x}))
+              for _ in range(steps)]
+    after = _calls()
+    held = sorted({int(k.split(".")[3]) for k in pipe.state_dict()
+                   if k.startswith("lm.gpt.layers.")})
+    out = {"losses": losses, "stage": hcg.get_stage_id(),
+           "dp_rank": hcg.get_data_parallel_rank(),
+           "mp_rank": hcg.get_model_parallel_rank(), "held": held,
+           "n_moments": sum(len(o._state_of(p)) > 0
+                            for p in pipe.parameters()),
+           "n_params": len(list(pipe.parameters())),
+           "qkv_dtypes": sorted(dtypes),
+           "calls": {k: v - before.get(k, 0) for k, v in after.items()
+                     if v - before.get(k, 0)},
+           "final": export_paddle_tpu_state_dict(pipe)}
+    _unfleet()
+    return out
+
+
+def pp_convert(state, cfg):
+    """The reference pipe's dict loaded by stage at pp2 x mp2 and
+    exported back."""
+    from paddle_tpu_torch.text.models import export_paddle_tpu_state_dict
+
+    if _idle(_pp_fleet(dp=_replica(4), pp=2, mp=2)):
+        return None
+    pipe = _gpt_pipe(state, cfg, "gpipe", 4)
+    own = sorted(pipe.state_dict())
+    back = export_paddle_tpu_state_dict(pipe, expected=state)
+    _unfleet()
+    return {"own": own, "same": all(np.array_equal(back[k], state[k])
+                                    for k in state)}
+
+
+def pp_head_loss(h, w, labels):
+    """``sharded_vocab_head_loss`` at mp = 2 (the rest dp replicas, no
+    dp mean): the loss, the hidden's gradient and this rank's rows of the
+    weight's gradient."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        sharded_vocab_head_loss)
+
+    hcg = _pp_fleet(dp=_replica(2), mp=2)
+    if _idle(hcg):
+        return None
+    r = hcg.get_model_parallel_rank()
+    ht = torch.from_numpy(h.copy()).requires_grad_()
+    wt = torch.from_numpy(np.split(w, 2)[r].copy()).requires_grad_()
+    loss = sharded_vocab_head_loss(ht, wt, torch.from_numpy(labels))
+    loss.backward()
+    out = {"mp_rank": r, "loss": float(loss), "dh": _np(ht.grad),
+           "dw": _np(wt.grad)}
+    _unfleet()
+    return out
+
+
+def pp_norm(state, ids, cfg):
+    """ClipGradByGlobalNorm's norm at pp2 x mp2 after one backward of
+    the pipe's loss."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as opt
+
+    if _idle(_pp_fleet(dp=_replica(4), pp=2, mp=2)):
+        return None
+    pipe = _gpt_pipe(state, cfg, "1f1b", 4)
+    x = torch.from_numpy(ids)
+    loss = pipe(x, labels=x)
+    loss.backward()
+    norm = opt.ClipGradByGlobalNorm(1.0)._global_norm(
+        [(p, p.grad) for p in pipe.parameters()])
+    _unfleet()
+    return float(loss), float(norm)
+
+
+def pp_strategy():
+    """The schedule from ``strategy.pipeline_configs['schedule_mode']``
+    at pp = 2, as ``tests/test_gpt_hybrid.py`` asserts it."""
+    import warnings
+
+    import torch
+
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch.text.models import GPTForCausalLMPipe
+
+    if _idle(_pp_fleet(dp=_replica(2), pp=2,
+                       pipeline={"schedule_mode": "1F1B"})):
+        fleet._FLEET["strategy"] = None
+        return None
+    strategy = fleet.get_strategy()
+    # defaults-merge: a partial update keeps schedule_mode
+    strategy.pipeline_configs = {"accumulate_steps": 4}
+    out = {"kept": strategy.pipeline_configs["schedule_mode"]}
+    cfg = dict(vocab_size=64, hidden_size=32, num_attention_heads=2,
+               max_position_embeddings=32, device="cpu")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        1, 64, (4, 8)).astype("int64"))
+    torch.manual_seed(0)
+    pipe = GPTForCausalLMPipe(num_hidden_layers=2, n_micro=2, **cfg)
+    out["mode_1f1b"] = pipe._schedule
+    with torch.no_grad():
+        out["loss_1f1b"] = float(pipe(ids, labels=ids))
+    # 1F1B is an execution order: the gpipe schedule's numerics
+    torch.manual_seed(0)
+    ref = GPTForCausalLMPipe(num_hidden_layers=2, n_micro=2,
+                             schedule="gpipe", **cfg)
+    with torch.no_grad():
+        out["loss_gpipe"] = float(ref(ids, labels=ids))
+    strategy.pipeline_configs = {"schedule_mode": "Interleave"}
+    pipe2 = GPTForCausalLMPipe(num_hidden_layers=4, n_micro=2, **cfg)
+    out["mode_interleave"] = pipe2._schedule
+    with torch.no_grad():
+        out["loss_interleave"] = float(pipe2(ids, labels=ids))
+    pipe3 = GPTForCausalLMPipe(num_hidden_layers=2, n_micro=2,
+                               schedule="gpipe", **cfg)
+    out["mode_explicit"] = pipe3._schedule
+    strategy.pipeline_configs = {"schedule_mode": "VPP"}
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        pipe4 = GPTForCausalLMPipe(num_hidden_layers=2, n_micro=2, **cfg)
+    out["mode_unknown"] = pipe4._schedule
+    out["warned"] = [str(w.message) for w in rec
+                     if "schedule_mode" in str(w.message)]
+    _unfleet()
+    fleet._FLEET["strategy"] = None
+    return out
+
+
+def _pl_descs(d, n_out):
+    """Embedding -> 3 x (Linear, Tanh) -> the tied head (a
+    SharedLayerDesc pair)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, SharedLayerDesc)
+
+    def head(layer, x):
+        return x @ layer.weight.T
+
+    return ([SharedLayerDesc("emb", nn.Embedding, None, "weight", n_out, d)]
+            + [LayerDesc(nn.Linear, d, d), nn.Tanh()] * 3
+            + [SharedLayerDesc("emb", nn.Embedding, head, "weight", n_out,
+                               d)])
+
+
+def pp_layer_train(state, x, y, steps, lr, acc, pp=2):
+    """A ``PipelineLayer`` (embedding, three Linear + Tanh, the tied head)
+    through ``fleet.distributed_model`` and ``train_batch`` (SGD):
+    ``segment_parts``, the losses, and the weights gathered back."""
+    import torch
+
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer, PipelineParallel)
+    from paddle_tpu_torch.text.models import (export_paddle_tpu_state_dict,
+                                              load_paddle_tpu_state_dict)
+
+    # every dp replica runs: PipelineParallel mean-reduces over dp
+    hcg = _pp_fleet(dp=_replica(pp), pp=pp,
+                    pipeline={"accumulate_steps": acc})
+    d, n_out = state["1.weight"].shape[0], state["0.weight"].shape[0]
+    torch.manual_seed(0)
+    pl = PipelineLayer(_pl_descs(d, n_out), num_stages=pp, topology=hcg,
+                       loss_fn=nn.CrossEntropyLoss())
+    load_paddle_tpu_state_dict(pl, state)
+    model = fleet.distributed_model(pl)
+    o = opt.SGD(learning_rate=lr, parameters=model.parameters())
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    losses = [float(model.train_batch((xt, yt), o)) for _ in range(steps)]
+    out = {"wrapped": type(model) is PipelineParallel,
+           "segment_parts": pl.segment_parts, "stage": hcg.get_stage_id(),
+           "own": sorted(pl.state_dict()), "losses": losses,
+           "final": export_paddle_tpu_state_dict(pl)}
+    _unfleet()
+    return out

@@ -29,7 +29,8 @@ CPU, an unmasked ``TransformerEncoder``'s K1 / K2 launches under
 ``Embedding``'s padding rule on the card; ResNet-18 on the card against
 the CPU and a ViT's K1 / K2 launches per block under an O2 step;
 a world of one over NCCL and the mp = 2 layers in two gloo rank
-processes on the one card.  Marked ``cuda``; every test
+processes on the one card; a stage hop of card tensors and GPT-tiny's
+pp = 2 pipe in two gloo rank processes against one process.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -2591,3 +2592,39 @@ def test_tensor_parallel_layers_two_ranks_on_card(cuda, tmp_path):
         assert max(got["err"].values()) <= 1e-4, got["err"]
         assert "gloo backend cannot run it on a CUDA tensor" in \
             got["gloo_card_all_gather"]
+
+
+def test_pipeline_two_stages_on_card(cuda, tmp_path):
+    """Two pp ranks on the one card over gloo (``spawn``): a stage hop
+    carries card tensors (with and without the shape header, counted as
+    broadcasts), and GPT-tiny's pp = 2 pipe (1f1b) trained 2 SGD steps on
+    the card gives the one-process run's losses (rtol 1e-5), K1 / K2
+    launched on each stage (each its 1 block: 2 micro-batches a step, K1
+    also in the recompute)."""
+    import json
+
+    import paddle_tpu_torch.distributed as dist
+    from _torch_port_dist_workers import card_pp_check
+    from paddle_tpu_torch.text.models import export_paddle_tpu_state_dict
+
+    cfg = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+               num_attention_heads=2, max_position_embeddings=64)
+    torch.manual_seed(0)
+    one = GPTForCausalLM(device="cuda", **cfg)
+    np.savez(tmp_path / "gpt.npz", **export_paddle_tpu_state_dict(one))
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    ids = np.random.RandomState(0).randint(0, 96, (4, 64)).astype("int64")
+    np.save(tmp_path / "ids.npy", ids)
+    dist.spawn(card_pp_check, args=(str(tmp_path),), nprocs=2,
+               backend="gloo")
+    step = jit.TrainStep(one, optimizer.SGD(learning_rate=0.5,
+                                            parameters=one.parameters()))
+    x = torch.from_numpy(ids).to("cuda")
+    want = [float(step({"input_ids": x, "labels": x})) for _ in range(2)]
+    for r in range(2):
+        got = json.load(open(tmp_path / f"rank{r}.json"))
+        assert got["hop_ok"] and got["hop_bytes"] > 4096 * 4
+        np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+        k1 = 2 * 2 * (3 if got["stage"] == 0 else 2)
+        assert got["launches"] == [k1, 4, 4], got["launches"]
+
