@@ -48,7 +48,8 @@ Phases, each printing one JSON line and then its seconds:
    step (K1, K3-K6 and the library calls by CUDA-graph replay, with the
    eager time beside K1, K3, K4 and K6: eagerly a launch can take longer
    on the host than the kernel on the card), K2 at the training shape
-   (bf16, and the f32 body) and at head_dim 256 (bf16 and f32), K6 at
+   (bf16, and the f32 body) and K1 and K2 at head_dim 256 (bf16 and f32;
+   f32 bounds by the 3xTF32 rule), K6 at
    ``[8192, 3072]`` beside ``F.gelu(x + b)``; K1 and K2 at ViT-B/16's
    attention (B=64, S=197, 12 x 64, non-causal) beside SDPA and its
    backward; K3 / K4 through the chunk attend at the speculative
@@ -63,7 +64,7 @@ Phases, each printing one JSON line and then its seconds:
    clip 1.0): 3 steps in f32 on the card must give the CPU's losses; then
    12 bf16 O2 steps at B=8, S=1024 are timed, with K1 = K2a = K2b =
    12 launches per step checked, and every flash launch on its dtype's
-   body (f32: 3xTF32 forward, SIMT backward; bf16: the 16-bit tensor
+   body (f32: 3xTF32 forward and backward; bf16: the 16-bit tensor
    cores); then GPT-tiny with attention dropout 0.1 trains 8 steps on the
    card (the plain attention with dropout, no flash launch; finite,
    falling losses) and its eval forward equals dropout 0's bit for bit.
@@ -358,6 +359,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -376,6 +378,10 @@ ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
 K1_F32_TC_ATOL = 2e-5
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3,      # max err / max |ref|
            torch.float32: 1e-4}
+# K2's f32 body (3xTF32, every head_dim), max err / max |ref| beside
+# BWD_TOL: a one-pass TF32 body errs 7e-4 to 1e-3 there and fails it
+# (the same test file, test_flash_bwd_f32_one_pass_tf32_fails_the_tight_check)
+K2_F32_TC_TOL = 5e-5
 
 # the served model (GPT-base, the JAX package's GPTForCausalLM defaults)
 LAYERS, HEADS, HEAD_DIM, PAGE, MAXLEN, SLOTS = 12, 12, 64, 16, 1024, 8
@@ -447,11 +453,12 @@ def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k1_bounds(dtype, ops, nbytes):
-    """K1's bound for ``ops`` operations and ``nbytes`` moved: bf16 / f16
-    at the 16-bit tensor-core rate; f32 runs three TF32 products for each
-    product (3xTF32), so 3 x ``ops`` at the TF32 rate, with the f32 SIMT
-    rate's figure beside it (labelled: a 3xTF32 kernel may beat it)."""
+def tc_bounds(dtype, ops, nbytes):
+    """K1's and K2's bound for ``ops`` operations and ``nbytes`` moved:
+    bf16 / f16 at the 16-bit tensor-core rate; f32 runs three TF32
+    products for each product (3xTF32), so 3 x ``ops`` at the TF32 rate,
+    with the f32 SIMT rate's figure beside it (labelled: a 3xTF32 kernel
+    may beat it)."""
     if dtype != torch.float32:
         ms, by = bound(ops, nbytes)
         return {"bound_ms": ms, "bound_by": by}
@@ -523,7 +530,7 @@ def _k1_timed(gen, b, S=1024, dtype=torch.bfloat16, heads=HEADS,
               d=HEAD_DIM, causal=True):
     """K1, its plain version and ``F.scaled_dot_product_attention`` at
     ``[b, S, heads, d]`` (causal unless told), by CUDA-graph replay (and
-    K1 eagerly).  Bound (``k1_bounds``): 4 D operations per visible
+    K1 eagerly).  Bound (``tc_bounds``): 4 D operations per visible
     (query, key) pair against q, k, v read and o written once."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -548,7 +555,7 @@ def _k1_timed(gen, b, S=1024, dtype=torch.bfloat16, heads=HEADS,
                                  .scaled_dot_product_attention(
                                      qt, kt, vt, is_causal=causal),
                                  graph=True),
-           **k1_bounds(dtype, 4 * heads * d * pairs,
+           **tc_bounds(dtype, 4 * heads * d * pairs,
                        4 * q.numel() * q.element_size()),
            "max_abs_err": err, "ok": err <= ATOL[dtype]}
     del q, k, v, qt, kt, vt, o
@@ -607,7 +614,13 @@ def _k2_case(gen, dtype, sq, sk, d, causal, g_lse, b=1, layout="contiguous"):
             "g_lse": g_lse, "layout": layout,
             "dtype": str(dtype).split(".")[-1], "rel_err": errs,
             "bit_equal_relaunch": same,
-            "ok": finite and same and max(errs.values()) <= BWD_TOL[dtype]}
+            "ok": finite and same and max(errs.values()) <= _k2_tol(dtype)}
+
+
+def _k2_tol(dtype):
+    """K2's gate, max error over max |ref|: BWD_TOL, and for f32 the
+    3xTF32 body's tighter K2_F32_TC_TOL."""
+    return K2_F32_TC_TOL if dtype == torch.float32 else BWD_TOL[dtype]
 
 
 def _k2_autograd_case(gen):
@@ -655,9 +668,9 @@ def _k2_timed(gen, B=TRAIN_B, S=TRAIN_S, H=HEADS, D=HEAD_DIM, tag="",
     """K2a, K2b, the plain backward and the library backward
     (``_library_bwd``) at ``[B, S, H, D]`` (causal unless told), in bf16
     (keys ``k2a<tag>``, ``k2b<tag>``) and f32 (``*_f32``); by default the
-    training shape.  Bound: 8 D (K2a) and 6 D
-    (K2b) operations per visible (query, key) pair at the input dtype's
-    rate (f32: the SIMT rate), q, k, v, g, lse, r read and the outputs
+    training shape.  Bound (``tc_bounds``: f32 as 3xTF32, the f32 SIMT
+    rate's figure beside it): 8 D (K2a) and 6 D (K2b) operations per
+    visible (query, key) pair, q, k, v, g, lse, r read and the outputs
     written once."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -674,9 +687,6 @@ def _k2_timed(gen, B=TRAIN_B, S=TRAIN_S, H=HEADS, D=HEAD_DIM, tag="",
         es = q.element_size()
         elems = q.numel()                               # B*S*H*D
         reads = 4 * elems * es + 2 * B * H * S * 4      # q,k,v,g + lse,r
-        peak = PEAK_FLOPS if es == 2 else PEAK_F32_FLOPS
-        a_bound, a_by = bound(8 * D * pairs, reads + 2 * elems * es, peak)
-        b_bound, b_by = bound(6 * D * pairs, reads + elems * es, peak)
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(
             q, k, v, g, lse, r, scale, causal), iters=5)
         library_ms = cuda_ms(_library_bwd(q, k, v, g, causal))
@@ -687,22 +697,23 @@ def _k2_timed(gen, B=TRAIN_B, S=TRAIN_S, H=HEADS, D=HEAD_DIM, tag="",
         out["k2a" + tag + suffix] = {
             **shape, "kernel_ms": cuda_ms(lambda: fa._bwd_dkdv_kernel(
                 q, k, v, g, lse, r, scale, causal)),
-            "bound_ms": a_bound, "bound_by": a_by,
+            **tc_bounds(dtype, 8 * D * pairs, reads + 2 * elems * es),
             "max_abs_err": max((dk.float() - rk.float()).abs().max().item(),
                                (dv.float() - rv.float()).abs().max().item()),
-            "ok": max(_rel_err(dk, rk), _rel_err(dv, rv)) <= BWD_TOL[dtype]}
+            "ok": max(_rel_err(dk, rk), _rel_err(dv, rv)) <= _k2_tol(dtype)}
         out["k2b" + tag + suffix] = {
             **shape, "kernel_ms": cuda_ms(lambda: fa._bwd_dq_kernel(
                 q, k, v, g, lse, r, scale, causal)),
-            "bound_ms": b_bound, "bound_by": b_by,
+            **tc_bounds(dtype, 6 * D * pairs, reads + elems * es),
             "max_abs_err": (dq.float() - rq.float()).abs().max().item(),
-            "ok": _rel_err(dq, rq) <= BWD_TOL[dtype]}
+            "ok": _rel_err(dq, rq) <= _k2_tol(dtype)}
         del q, k, v, g, lse, r, dk, dv, dq, rq, rk, rv
     return out
 
 
-# K2 at head_dim 256: the SIMT body with 32-row tiles (no model of the
-# repository trains there; the TPU package's limit)
+# K2 at head_dim 256, on the tensor cores in every dtype (8-warp K2a, its
+# head_dim split in two; no model of the repository trains there: the TPU
+# package's limit)
 K2_WIDE_B, K2_WIDE_S, K2_WIDE_H, K2_WIDE_D = 2, 1024, 8, 256
 
 
@@ -878,8 +889,9 @@ def phase_kernels():
                   (TRAIN_S, TRAIN_S, HEAD_DIM, True, False, TRAIN_B),
                   (ENC_S, ENC_S, HEAD_DIM, False, False, ENC_B),
                   (VIT_S, VIT_S, HEAD_DIM, False, False, VIT_B)]
-    # head_dim 129-256: the SIMT body with 32-row tiles in every dtype,
-    # ragged lengths, sq < sk, a g_lse term
+    # head_dim 129-256: DP = 256 on the tensor cores in every dtype (K2a's
+    # 8 warps split head_dim in two), ragged lengths, sq < sk, a g_lse
+    # term, a misaligned layout
     k2_shapes += [(160, 160, 192, True, False), (129, 200, 192, False, True),
                   (300, 300, 256, True, True), (64, 257, 256, True, False),
                   (200, 200, 256, False, False, 1, "unaligned")]
@@ -895,12 +907,21 @@ def phase_kernels():
     # 32 heads of 128: its rotated q / k are f32)
     k1_time = _k1_timed(gen, 1)
     k1_train_time = _k1_timed(gen, TRAIN_B)
+    t_d256 = time.perf_counter()
+    # head_dim 256 (the SIMT forward), at K2_WIDE's shape; the seconds they
+    # add to this phase beside them
+    k1_d256 = {
+        "k1_d256": _k1_timed(gen, K2_WIDE_B, K2_WIDE_S, torch.bfloat16,
+                             K2_WIDE_H, K2_WIDE_D),
+        "k1_d256_f32": _k1_timed(gen, K2_WIDE_B, K2_WIDE_S, torch.float32,
+                                 K2_WIDE_H, K2_WIDE_D)}
+    k1_time["k1_d256_seconds"] = time.perf_counter() - t_d256
     k1_time["other_shapes"] = {
         "k1_train_shape": k1_train_time,
         "k1_f32_gpt": _k1_timed(gen, 1, dtype=torch.float32),
         "k1_f32_llama_prefill": _k1_timed(
             gen, LL_BF16_B, LL_BF16_S, torch.float32, LL_HEADS, LL_HEAD_DIM),
-        "k1_vit": _k1_timed(gen, VIT_B, VIT_S, causal=False)}
+        "k1_vit": _k1_timed(gen, VIT_B, VIT_S, causal=False), **k1_d256}
 
     prompts, _ = slice_requests()
     dlens = [len(p) + 16 for p in prompts[:SLOTS]]
@@ -1440,8 +1461,8 @@ def phase_train():
     torch.backends.cudnn.allow_tf32 = False
     rs = np.random.RandomState(0)
 
-    # parity: f32 on the card against a CPU copy of the same model; K1 runs
-    # its 3xTF32 body, K2 its f32 SIMT body
+    # parity: f32 on the card against a CPU copy of the same model; K1 and
+    # K2 run their 3xTF32 bodies
     ids = torch.from_numpy(rs.randint(0, VOCAB, (PARITY_B, PARITY_S)))
     torch.manual_seed(0)
     cpu_model = GPTForCausalLM(device="cpu")
@@ -1456,7 +1477,7 @@ def phase_train():
     del cpu_model, card_model
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     parity_ok = rel <= 1e-4 and f32_bodies == _want_bodies(
-        LAYERS * PARITY_STEPS, fwd="3xtf32", bwd="simt")
+        LAYERS * PARITY_STEPS, fwd="3xtf32", bwd="3xtf32")
 
     # timed: bf16 O2 at the full training shape, one fixed batch
     torch.manual_seed(0)
@@ -3407,7 +3428,7 @@ def _llama_kernel_times(gen, launches):
     and its backward, and K3's f32-query entry
     over bf16 pools at a decode step of the bf16 run (B=8, 8 kv heads,
     lengths 512-639), by CUDA-graph replay.  Bounds: K1 4 D operations per
-    visible (query, key) pair (``k1_bounds``: f32 as 3xTF32), K2a 8 D, K2b
+    visible (query, key) pair (``tc_bounds``: f32 as 3xTF32), K2a 8 D, K2b
     6 D, K3 4 D per (head, valid key), other f32 work at the f32 rate;
     bytes each input read and each output written once.  (K1 f32 at the
     bf16 model's prefill, B=8, S=512, is timed in the kernels phase.)"""
@@ -3612,7 +3633,7 @@ def _train_syncs(step, batch):
 
 
 # probe rows, card against CPU: the activation / gradient absmax and rms
-# of two f32 runs (K1 3xTF32 and K2's SIMT body against the plain CPU
+# of two f32 runs (K1's and K2's 3xTF32 bodies against the plain CPU
 # attention) within rtol 1e-3; the fractions within 1e-3 (the qkv bias
 # gradients' zero fraction excepted: their key slice is zero in exact
 # arithmetic and rounding noise on either device)

@@ -20,55 +20,88 @@
 // dq: 6*D) against a few bytes per row, so at the training shape (S =
 // 1024, D = 64) both are far above the H100's ~295 operations per byte: a
 // good kernel is bound by operations, at the 989 TFLOP/s bf16 / f16
-// tensor-core rate.
+// tensor-core rate, and in f32 by three TF32 products per product at the
+// 495 TFLOP/s TF32 rate.
 //
-// bf16 / f16 design (the training path's bf16 under AMP O2), after
-// FlashAttention-2's backward.  Every product runs on the tensor cores as
-// mma.sync.m16n8k16 (16-bit inputs, f32 accumulators) fed by ldmatrix out
-// of shared memory.  A block is 4 warps; each warp owns 16 rows of the
-// block's resident 64-row tile and sweeps the streamed tiles:
+// Every dtype and head_dim 1-256 runs on the tensor cores, after
+// FlashAttention-2's backward (one body per dtype class; head_dim is
+// zero-padded to DP = 64, 128 or 256).  A block keeps a 64-row tile
+// resident; each 16-row group of it belongs to one warp (two in K2a at
+// DP = 256 and in the f32 K2a at DP = 128, see below), which sweeps the
+// streamed tiles:
 //   K2a: grid (batch * head, 64-key tile).  K and V stay in shared
 //        memory; the loop streams the visible query tiles (q, g, lse, r).
 //        With keys as the M dimension the warp computes S^T = K.Q^T and
-//        dP^T = V.G^T, so the P^T and dS^T accumulator fragments convert
-//        to 16-bit in registers and serve directly as the A operand of
-//        dV += P^T.G and dK += dS^T.Q (G and Q read by ldmatrix.trans):
-//        no score round-trips through shared memory.
+//        dP^T = V.G^T, and the P^T and dS^T accumulator fragments serve
+//        directly as the A operand of dV += P^T.G and dK += dS^T.Q: no
+//        score round-trips through shared memory.
 //   K2b: grid (batch * head, 64-query tile).  Q, G, and the warp's lse /
-//        r rows stay resident; the loop streams 64-key tiles of K and V
-//        up to the causal bound.  dS goes from registers into
-//        dQ += dS.K, with K read by ldmatrix.trans.
-// p and ds are rounded to the input dtype before their second product, as
-// PyTorch's flash backward does.  Tiles are staged in the input dtype with
-// 16-byte cp.async.cg into a double-buffered ring (the next streamed tile
-// loads while the current one is computed); each row is padded by 16
-// bytes so ldmatrix's eight row reads hit distinct banks, and head_dim is
-// zero-padded to 64 or 128.  Rows that cannot take 16-byte copies (D*2 not
-// a multiple of 16, or a misaligned base or stride) are staged by a
-// scalar loop inside the same kernel.  q/k/v/g are read in the public
-// [B, S, H, D] layout from their strides (unit stride in head_dim), so the
-// model's head-major qkv split needs no copy; ragged tiles are zero-filled
-// and masked, and the element mask runs only on tiles that the causal
-// diagonal or a ragged edge crosses (tiles wholly above the diagonal are
-// never visited).  The tile with the most work goes out first: the first
-// key tile in K2a, the last query tile in K2b, with batch * head as the
-// fast grid axis so each wave takes the heaviest tiles of every head.
-// head_dim <= 128.
+//        r rows stay resident; the loop streams key tiles of K and V up
+//        to the causal bound.  dS goes from registers into dQ += dS.K.
+// Streamed tiles come through a double-buffered ring of cp.async copies
+// (the next tile loads while the current one is computed), 16 bytes a
+// copy where a tensor allows (vec_mask), else a scalar loop in the same
+// kernel.  q/k/v/g are read in the public [B, S, H, D] layout from their
+// strides (unit stride in head_dim), so the model's head-major qkv split
+// needs no copy; ragged tiles are zero-filled and masked, and the element
+// mask runs only on tiles that the causal diagonal or a ragged edge
+// crosses (tiles wholly above the diagonal are never visited).  The tile
+// with the most work goes out first: the first key tile in K2a, the last
+// query tile in K2b, with batch * head as the fast grid axis so each wave
+// takes the heaviest tiles of every head.
 //
-// f32 design, and every dtype at 128 < head_dim <= 256: the exact SIMT
-// body (plain f32 FMAs out of shared memory).  f32 callers (the f32
-// card-vs-CPU training parity, rtol 1e-4) need full f32 products, which
-// one-pass TF32 tensor cores would not give, so f32 stays bounded by the
-// 67 TFLOP/s f32 rate.  One block of 256 threads per (KB-row tile, batch *
-// head), KB = 64 at head_dim <= 128 and 32 at 129-256 (at 64 rows a
-// 256-wide K2a would need 297 KB of shared memory, over the 227 KB a block
-// may have); 256 / KB threads own one key (K2a) or query (K2b) row and
-// accumulate DP * KB / 256 output columns in registers; tiles are staged
-// as f32 with a +1 row pad (K2a 100 / 166 / 137 KB and K2b 83 / 149 / 133
-// KB of shared memory at head_dim 64 / 128 / 256, opted in per launch).
-// No model of the repository trains above head_dim 128, so the 256-wide
-// body is the simple one; bf16 / f16 at head_dim <= 128 keep the tensor
-// cores.
+// bf16 / f16 (the training path's bf16 under AMP O2): mma.sync.m16n8k16
+// (16-bit inputs, f32 accumulators) fed by ldmatrix (.trans for the
+// second products' B) out of tiles in the input dtype, rows padded by 16
+// bytes so ldmatrix's eight row reads hit distinct banks; p and ds are
+// rounded to the input dtype before their second product, as PyTorch's
+// flash backward does.
+//
+// f32 (paddle's default dtype: every f32 training step and the f32
+// card-vs-CPU parity gates): 3xTF32 (mma.cuh), each f32 operand split into
+// a TF32 big part and a TF32 small remainder and every product a_small.
+// b_big + a_big.b_small + a_big.b_big, three mma.sync.m16n8k8 TF32
+// products accumulated in f32: about 2^-21 relative per product, where one
+// TF32 pass keeps 2^-11.  p and ds stay f32.  TF32 fragments are 32-bit,
+// so there is no ldmatrix: fragments are plain shared loads out of f32
+// tiles whose rows are padded to DP + 4 floats.  The first products (S^T
+// and dP^T, K2b's S and dP) reduce over head_dim in its natural order:
+// lane (g, t) reads column t and t + 4 of rows g and g + 8, on 32 distinct
+// banks.  The second products reduce over the query (K2a) or key (K2b)
+// index and take each 8-wide k step in the order (0, 2, 4, 6, 1, 3, 5, 7),
+// as K1's f32 body does: fragment columns t and t + 4 are then the
+// indices 2t and 2t + 1 that the first product's accumulator already
+// holds in the lane, so it is the A operand as it stands, and the B
+// fragment is two row reads (rows 2t, 2t + 1, column g), again on
+// distinct banks with the DP + 4 pad.
+//
+// Tiles, chosen so ptxas keeps every accumulator in registers (the build
+// line of chip_smoke.py lists each instantiation's registers and spills;
+// H100, nvcc 12.8):
+//             K2a: query rows, warps,   K2b: key rows,   shared memory
+//                  registers            registers        K2a / K2b
+//   16-bit 64      64, 4, 236           64, 128 (4 B     55.0 / 54.0 KB
+//                                       spilled)
+//   16-bit 128     32, 4, 253           64, 168          68.5 / 102.0 KB
+//   16-bit 256     32, 8, 246           32, 250          164.5 / 132.0 KB
+//   f32 64         64, 4, 237           64, 168          103.0 / 102.0 KB
+//   f32 128        32, 8, 209           32, 167          164.5 / 132.0 KB
+//   f32 256         8, 8, 252           16, 248          170.6 / 195.0 KB
+// A warp that owned 16 keys x 256 columns of both dK and dV would hold
+// 256 f32 accumulators a thread, past the 255 registers a thread may
+// have, and the f32 K2a at DP = 128 with one warp per group spilled 72
+// bytes at 255 registers.  So there K2a runs 8 warps, two per 16-key
+// group (warps w and w ^ 4), each owning half of head_dim of dK and dV.
+// S^T and dP^T need the full head_dim reduction: each warp of a pair sums
+// its own half and adds its partner's partial through shared memory (one
+// more __syncthreads a tile).  The other way, each warp recomputing the
+// whole reduction (with 16-query tiles in f32 at DP = 256), ran 11-12%
+// slower at head_dim 256 and was taken out (K2a at [2, 1024, 8, 256]
+// causal: bf16 0.1554-0.1559 against 0.1393-0.1399 ms, f32 0.5599-0.5604
+// against 0.4981-0.5001; H100 80GB HBM3, 700 W).  K2b keeps 4 warps at
+// DP = 256 with 16- or 32-key tiles (dQ is 128 accumulators a thread):
+// the same split on 8 warps moved its time by no more than the spread
+// between runs.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -83,275 +116,176 @@ struct Ptrs {
   long long sb, ss, sh;                 // element strides: batch, seq, head
 };
 
-// ------------------------------------------------------- f32: SIMT body
-constexpr int kThreads = 256;
-
-// KB rows (queries or keys) per tile: 64 at head_dim <= 128, 32 above
-template <int KB>
-struct Simt {
-  static constexpr int kTPR = kThreads / KB;   // threads per owned row
-  static constexpr int kCols = KB / kTPR;      // scores per thread per tile
-  static constexpr int kPS = KB + 1;           // padded row of a [KB][KB] tile
+// Tiling by dtype class and padded head_dim: NQ queries per streamed tile
+// of K2a, NK keys per streamed tile of K2b, DS warps per 16-key group of
+// K2a (each owning DP / DS columns of dK and dV).
+template <bool F32, int DP>
+struct Tiles {
+  static constexpr int NQ = DP == 64 ? 64 : (F32 && DP == 256 ? 8 : 32);
+  static constexpr int NK = DP == 64 ? 64 : (DP == 128 ? (F32 ? 32 : 64)
+                                                       : (F32 ? 16 : 32));
+  static constexpr int DS = DP == 256 || (F32 && DP == 128) ? 2 : 1;
 };
 
-template <int DP, int KB>
+// ------------------------------------------------ shared by both bodies
+// K2a's P^T (into s) and dS^T (into dp) in place of S^T and dP^T on a
+// warp's [16 keys][NT x 8 queries] accumulator tiles: this lane holds keys
+// kj0 and kj0 + 8 and query columns gc, gc + 1 of each 8-tile.  The
+// element mask runs only where `full` is false.
+template <int NT>
+__device__ __forceinline__ void dkdv_probs(float (&s)[NT][4],
+                                           float (&dp)[NT][4],
+                                           const float* Lc, const float* Rc,
+                                           int q0, int kj0, int gc, bool full,
+                                           int Sq, int Sk, int offset,
+                                           int causal, float scale) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ci = n * 8 + gc + (e & 1);
+      float p = exp2f((s[n][e] * scale - Lc[ci]) * kLog2e);
+      if (!full) {
+        const int qi = q0 + ci;
+        const int kj = kj0 + (e >> 1) * 8;
+        if (!(qi < Sq && kj < Sk && (!causal || kj <= qi + offset))) p = 0.f;
+      }
+      s[n][e] = p;
+      dp[n][e] = p * (dp[n][e] - Rc[ci]) * scale;
+    }
+  }
+}
+
+// K2b's dS in place of dP on a warp's [16 queries][NT x 8 keys] tiles:
+// this lane holds queries qi0 and qi0 + 8 (their lse in base-2 units and
+// their r in lrow / rrow) and key columns gc, gc + 1 of each 8-tile.
+template <int NT>
+__device__ __forceinline__ void dq_scores(const float (&s)[NT][4],
+                                          float (&dp)[NT][4],
+                                          const float (&lrow)[2],
+                                          const float (&rrow)[2], int qi0,
+                                          int k0, int gc, bool full, int Sq,
+                                          int Sk, int offset, int causal,
+                                          float scale) {
+  const float scale_log2 = scale * kLog2e;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = e >> 1;
+      float p = exp2f(s[n][e] * scale_log2 - lrow[x]);
+      if (!full) {
+        const int qi = qi0 + x * 8;
+        const int kj = k0 + n * 8 + gc + (e & 1);
+        if (!(qi < Sq && kj < Sk && (!causal || kj <= qi + offset))) p = 0.f;
+      }
+      dp[n][e] = p * (dp[n][e] - rrow[x]) * scale;
+    }
+  }
+}
+
+// The D split of K2a (8 warps, warp w and w ^ 4 on one 16-key group): each
+// warp holds a partial S^T / dP^T over its half of head_dim and adds its
+// partner's, read through shared memory laid out lane-major (each access
+// one bank a lane).  a + b == b + a, so both warps hold the same bits.
+template <int NT>
+__device__ __forceinline__ void add_partner(float (&s)[NT][4],
+                                            float (&dp)[NT][4], float* xs,
+                                            int warp, int lane) {
+  constexpr int W = 2 * NT * 4;         // floats per lane
+  float* mine = xs + warp * W * 32 + lane;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(n * 4 + e) * 32] = s[n][e];
+      mine[((NT + n) * 4 + e) * 32] = dp[n][e];
+    }
+  }
+  __syncthreads();
+  const float* other = xs + (warp ^ kTcWarps) * W * 32 + lane;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] += other[(n * 4 + e) * 32];
+      dp[n][e] += other[((NT + n) * 4 + e) * 32];
+    }
+  }
+}
+
+// Write a warp's [16 rows][DT x 8 columns] f32 accumulator tiles (rows r0
+// and r0 + 8 in this lane, columns c0 + 8 n + gc and + 1) into rows of a
+// contiguous [B, S, H, D] output in T.
+template <typename T, int DT>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[DT][4],
+                                           int b, int h, int H, int S, int D,
+                                           int r0, int c0, int gc) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = r0 + x * 8;
+    if (row >= S) continue;
+    T* orow = out + (static_cast<long long>(b) * S + row) * H * D +
+              static_cast<long long>(h) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int d = c0 + n * 8 + gc;
+      if (d < D) orow[d] = ptt::from_f32<T>(acc[n][2 * x]);
+      if (d + 1 < D) orow[d + 1] = ptt::from_f32<T>(acc[n][2 * x + 1]);
+    }
+  }
+}
+
+// K2a's streamed tile: queries q0 .. q0 + NQ of q and g, with their lse
+// and r, into ring slot `buf` (helpers, not lambdas: a lambda that ptxas
+// did not inline spilled its captures at the call)
+template <typename T, int NQ, int DP, int RS, int NTH>
+__device__ __forceinline__ void stage_queries(T* Qs, T* Gs, float* Ls,
+                                              float* Rs, const T* qb,
+                                              const T* gb, const float* lb,
+                                              const float* rb, long long qss,
+                                              long long gss, int q0, int buf,
+                                              int Sq, int D, int vec) {
+  stage_tc<T, NQ, DP, RS, NTH>(Qs + buf * NQ * RS, qb, qss, q0, Sq, D, vec & 1);
+  stage_tc<T, NQ, DP, RS, NTH>(Gs + buf * NQ * RS, gb, gss, q0, Sq, D, vec & 8);
+  for (int i = threadIdx.x; i < NQ; i += NTH) {
+    const bool ok = q0 + i < Sq;
+    cp_async4(Ls + buf * NQ + i, ok ? lb + q0 + i : lb, ok);
+    cp_async4(Rs + buf * NQ + i, ok ? rb + q0 + i : rb, ok);
+  }
+}
+
+// K2b's streamed tile `it`: keys it * NK .. (it + 1) * NK of k and v into
+// ring slot it & 1
+template <typename T, int NK, int DP, int RS>
+__device__ __forceinline__ void stage_keys(T* Ks, T* Vs, const T* kb,
+                                           const T* vb, long long kss,
+                                           long long vss, int it, int Sk,
+                                           int D, int vec) {
+  const int buf = it & 1;
+  stage_tc<T, NK, DP, RS>(Ks + buf * NK * RS, kb, kss, it * NK, Sk, D, vec & 2);
+  stage_tc<T, NK, DP, RS>(Vs + buf * NK * RS, vb, vss, it * NK, Sk, D, vec & 4);
+}
+
+// Shared memory of K2a: K and V [64][RS] resident, Q and G [2][NQ][RS]
+// streamed, lse and r [2][NQ] f32, and the D split's exchange.
+template <typename T, int RS, int NQ, int DS>
 constexpr size_t dkdv_smem_bytes() {
-  // K, V, Q, G [KB][DP+1]; P^T, dS^T [KB][KB+1]; lse, r [KB]
-  return sizeof(float) * (4 * KB * (DP + 1) + 2 * KB * (KB + 1) + 2 * KB);
+  return sizeof(T) * (2 * kTcM + 4 * NQ) * RS + sizeof(float) * 4 * NQ +
+         (DS > 1 ? sizeof(float) * DS * kTcWarps * 2 * NQ * 4 * 4 : 0);
 }
 
-template <int DP, int KB>
+// Shared memory of K2b: Q and G [64][RS] resident, K and V [2][NK][RS].
+template <typename T, int RS, int NK>
 constexpr size_t dq_smem_bytes() {
-  // Q, G, K, V [KB][DP+1]; dS [KB][KB+1]
-  return sizeof(float) * (4 * KB * (DP + 1) + KB * (KB + 1));
+  return sizeof(T) * (2 * kTcM + 4 * NK) * RS;
 }
 
-// Stage rows [row0, row0 + KB) of one (batch, head) slice as f32 into a
-// [KB][DP+1] tile; rows past n and columns past D are zero.
-template <typename T, int DP, int KB>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
-                                      int row0, int n, int D) {
-  for (int idx = threadIdx.x; idx < KB * DP; idx += kThreads) {
-    const int rr = idx / DP;
-    const int d = idx % DP;
-    const int row = row0 + rr;
-    dst[rr * (DP + 1) + d] =
-        (row < n && d < D) ? ptt::to_f32(src[row * ss + d]) : 0.f;
-  }
-}
-
-template <typename T, int DP, int KB>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ g,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ rc, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int Sq, int Sk, int D,
-                      Ptrs qs, Ptrs ks, Ptrs vs, Ptrs gs, float scale,
-                      int causal) {
-  constexpr int kTPR = Simt<KB>::kTPR;
-  constexpr int kCols = Simt<KB>::kCols;
-  constexpr int kPS = Simt<KB>::kPS;
-  constexpr int RS = DP + 1;
-  constexpr int DPT = DP / kTPR;        // dk / dv columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + KB * RS;
-  float* Qs = Vs + KB * RS;
-  float* Gs = Qs + KB * RS;
-  float* Pt = Gs + KB * RS;             // p^T  [key][query]
-  float* Dt = Pt + KB * kPS;            // ds^T [key][query]
-  float* Ls = Dt + KB * kPS;
-  float* Rs = Ls + KB;
-
-  const int tid = threadIdx.x;
-  const int j = tid / kTPR;             // this thread's key row in the tile
-  const int sub = tid % kTPR;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = blockIdx.x * KB;
-  const int kj = k0 + j;
-  const int offset = Sk - Sq;
-
-  const T* qb = q + b * qs.sb + h * qs.sh;
-  const T* kb = k + b * ks.sb + h * ks.sh;
-  const T* vb = v + b * vs.sb + h * vs.sh;
-  const T* gb = g + b * gs.sb + h * gs.sh;
-  const float* lb = lse + static_cast<long long>(bh) * Sq;
-  const float* rb = rc + static_cast<long long>(bh) * Sq;
-
-  stage<T, DP, KB>(Ks, kb, ks.ss, k0, Sk, D);
-  stage<T, DP, KB>(Vs, vb, vs.ss, k0, Sk, D);
-
-  float dk_acc[DPT], dv_acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  // causal: query i sees this tile's first key k0 once i >= k0 - offset
-  int qstart = 0;
-  if (causal) qstart = (max(0, k0 - offset) / KB) * KB;
-
-  const float* krow = Ks + j * RS;
-  const float* vrow = Vs + j * RS;
-  float* prow = Pt + j * kPS;
-  float* drow = Dt + j * kPS;
-  for (int q0 = qstart; q0 < Sq; q0 += KB) {
-    __syncthreads();                    // K/V staged / last tile consumed
-    stage<T, DP, KB>(Qs, qb, qs.ss, q0, Sq, D);
-    stage<T, DP, KB>(Gs, gb, gs.ss, q0, Sq, D);
-    if (tid < KB) {
-      const int row = q0 + tid;
-      Ls[tid] = row < Sq ? lb[row] : 0.f;
-      Rs[tid] = row < Sq ? rb[row] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kCols], dp[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) s[c] = dp[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float kd = krow[d];
-      const float vd = vrow[d];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int i = sub + c * kTPR;
-        s[c] += Qs[i * RS + d] * kd;
-        dp[c] += Gs[i * RS + d] * vd;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int i = sub + c * kTPR;
-      const int qi = q0 + i;
-      const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi + offset);
-      const float p = ok ? __expf(s[c] * scale - Ls[i]) : 0.f;
-      prow[i] = p;
-      drow[i] = p * (dp[c] - Rs[i]) * scale;
-    }
-    __syncwarp();                       // the row's threads share a warp
-#pragma unroll 4
-    for (int i = 0; i < KB; ++i) {
-      const float p = prow[i];
-      const float ds = drow[i];
-      const float* grow = Gs + i * RS;
-      const float* qrow = Qs + i * RS;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int d = sub + c * kTPR;
-        dv_acc[c] += p * grow[d];
-        dk_acc[c] += ds * qrow[d];
-      }
-    }
-  }
-
-  if (kj < Sk) {
-    const long long o = (static_cast<long long>(b) * Sk + kj) * H * D +
-                        static_cast<long long>(h) * D;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int d = sub + c * kTPR;
-      if (d < D) {
-        dk[o + d] = ptt::from_f32<T>(dk_acc[c]);
-        dv[o + d] = ptt::from_f32<T>(dv_acc[c]);
-      }
-    }
-  }
-}
-
-template <typename T, int DP, int KB>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ g,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ rc, T* __restrict__ dq, int H,
-                    int Sq, int Sk, int D, Ptrs qs, Ptrs ks, Ptrs vs,
-                    Ptrs gs, float scale, int causal) {
-  constexpr int kTPR = Simt<KB>::kTPR;
-  constexpr int kCols = Simt<KB>::kCols;
-  constexpr int kPS = Simt<KB>::kPS;
-  constexpr int RS = DP + 1;
-  constexpr int DPT = DP / kTPR;        // dq columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + KB * RS;
-  float* Ks = Gs + KB * RS;
-  float* Vs = Ks + KB * RS;
-  float* Ds = Vs + KB * RS;             // ds [query][key]
-
-  const int tid = threadIdx.x;
-  const int i = tid / kTPR;             // this thread's query row in the tile
-  const int sub = tid % kTPR;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * KB;
-  const int qi = q0 + i;
-  const int offset = Sk - Sq;
-
-  const T* qb = q + b * qs.sb + h * qs.sh;
-  const T* kb = k + b * ks.sb + h * ks.sh;
-  const T* vb = v + b * vs.sb + h * vs.sh;
-  const T* gb = g + b * gs.sb + h * gs.sh;
-  const float l_i = qi < Sq ? lse[static_cast<long long>(bh) * Sq + qi] : 0.f;
-  const float r_i = qi < Sq ? rc[static_cast<long long>(bh) * Sq + qi] : 0.f;
-
-  stage<T, DP, KB>(Qs, qb, qs.ss, q0, Sq, D);
-  stage<T, DP, KB>(Gs, gb, gs.ss, q0, Sq, D);
-
-  float dq_acc[DPT];
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) dq_acc[c] = 0.f;
-
-  // causal: the tile's last valid query sees keys up to q_last + offset
-  int kend = Sk;
-  if (causal) kend = min(Sk, min(q0 + KB, Sq) - 1 + offset + 1);
-
-  const float* qrow = Qs + i * RS;
-  const float* grow = Gs + i * RS;
-  float* drow = Ds + i * kPS;
-  for (int k0 = 0; k0 < kend; k0 += KB) {
-    __syncthreads();                    // Q/G staged / last tile consumed
-    stage<T, DP, KB>(Ks, kb, ks.ss, k0, Sk, D);
-    stage<T, DP, KB>(Vs, vb, vs.ss, k0, Sk, D);
-    __syncthreads();
-
-    float s[kCols], dp[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) s[c] = dp[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float qd = qrow[d];
-      const float gd = grow[d];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int j = sub + c * kTPR;
-        s[c] += qd * Ks[j * RS + d];
-        dp[c] += gd * Vs[j * RS + d];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int j = sub + c * kTPR;
-      const int kj = k0 + j;
-      const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi + offset);
-      const float p = ok ? __expf(s[c] * scale - l_i) : 0.f;
-      drow[j] = p * (dp[c] - r_i) * scale;
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < KB; ++j) {
-      const float ds = drow[j];
-      const float* krow = Ks + j * RS;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) dq_acc[c] += ds * krow[sub + c * kTPR];
-    }
-  }
-
-  if (qi < Sq) {
-    const long long o = (static_cast<long long>(b) * Sq + qi) * H * D +
-                        static_cast<long long>(h) * D;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int d = sub + c * kTPR;
-      if (d < D) dq[o + d] = ptt::from_f32<T>(dq_acc[c]);
-    }
-  }
-}
-
-// ------------------------------------- bf16 / f16: tensor-core body
-// (mma.sync, ldmatrix and cp.async helpers: mma.cuh)
-template <int DP, int NS>
-constexpr size_t tc_smem_bytes(size_t elem, int row_vecs) {
-  // resident [64][DP+8] x 2, streamed [2][NS][DP+8] x 2, row_vecs f32 [2][NS]
-  return elem * (2 * kTcM + 4 * NS) * (DP + 8) + sizeof(float) * row_vecs * 2 * NS;
-}
-
-// K2a.  NQ: queries per streamed tile.  vec: bit i set when tensor i of
-// (q, k, v, g) takes 16-byte copies.
-template <typename T, int DP, int NQ>
-__global__ void __launch_bounds__(kTcThreads)
+// ------------------------------------- bf16 / f16: 16-bit tensor cores
+// K2a.  NQ: queries per streamed tile; DS: warps per 16-key group.  vec:
+// bit i set when tensor i of (q, k, v, g) takes 16-byte copies.
+template <typename T, int DP, int NQ, int DS>
+__global__ void __launch_bounds__(kTcThreads * DS)
 flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ lse,
@@ -359,9 +293,12 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          T* __restrict__ dv, int H, int Sq, int Sk, int D,
                          Ptrs qs, Ptrs ks, Ptrs vs, Ptrs gs, float scale,
                          int causal, int vec) {
+  constexpr int NTH = kTcThreads * DS;
   constexpr int RS = DP + 8;
   constexpr int NT = NQ / 8;            // 8-query column tiles of S^T
-  constexpr int DT = DP / 8;            // 8-wide column tiles of dk / dv
+  constexpr int DW = DP / DS;           // head dims of dk / dv per warp
+  constexpr int DT = DW / 8;            // 8-wide column tiles of them
+  constexpr int KK = DW / 16;           // 16-deep steps of S^T / dP^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + kTcM * RS;
@@ -369,9 +306,12 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* Gs = Qs + 2 * NQ * RS;             // [2][NQ][RS]
   float* Ls = reinterpret_cast<float*>(Gs + 2 * NQ * RS);   // [2][NQ]
   float* Rs = Ls + 2 * NQ;              // [2][NQ]
+  float* Xs = Rs + 2 * NQ;              // the D split's exchange
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int rg = warp % kTcWarps;       // 16-key group
+  const int dh = warp / kTcWarps;       // which DW columns of dk / dv
   const int gr = lane / 4;              // accumulator row in the warp's 16
   const int gc = 2 * (lane % 4);        // accumulator column in an 8-tile
   const int lm = lane / 8;              // ldmatrix: which 8x8 matrix
@@ -394,20 +334,10 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qstart = causal ? (max(0, k0 - offset) / NQ) * NQ : 0;
   const int ntiles = (Sq - qstart + NQ - 1) / NQ;
 
-  auto load_tile = [&](int it) {
-    const int q0 = qstart + it * NQ;
-    const int buf = it & 1;
-    stage_tc<T, NQ, DP>(Qs + buf * NQ * RS, qb, qs.ss, q0, Sq, D, vec & 1);
-    stage_tc<T, NQ, DP>(Gs + buf * NQ * RS, gb, gs.ss, q0, Sq, D, vec & 8);
-    for (int i = threadIdx.x; i < NQ; i += kTcThreads) {
-      const bool ok = q0 + i < Sq;
-      cp_async4(Ls + buf * NQ + i, ok ? lb + q0 + i : lb, ok);
-      cp_async4(Rs + buf * NQ + i, ok ? rb + q0 + i : rb, ok);
-    }
-  };
-  stage_tc<T, kTcM, DP>(Ks, kb, ks.ss, k0, Sk, D, vec & 2);
-  stage_tc<T, kTcM, DP>(Vs, vb, vs.ss, k0, Sk, D, vec & 4);
-  load_tile(0);
+  stage_tc<T, kTcM, DP, RS, NTH>(Ks, kb, ks.ss, k0, Sk, D, vec & 2);
+  stage_tc<T, kTcM, DP, RS, NTH>(Vs, vb, vs.ss, k0, Sk, D, vec & 4);
+  stage_queries<T, NQ, DP, RS, NTH>(Qs, Gs, Ls, Rs, qb, gb, lb, rb, qs.ss,
+                                     gs.ss, qstart, 0, Sq, D, vec);
   cp_async_commit();
 
   float dk_acc[DT][4], dv_acc[DT][4];
@@ -416,16 +346,20 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
-  // this lane's ldmatrix rows: A over the warp's 16 keys, B over 16 queries
-  const T* ka = Ks + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
-  const T* va = Vs + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
-  const int b_off = ((lm >> 1) * 8 + lr) * RS + (lm & 1) * 8;   // [n][k]
-  const int bt_off = ((lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;  // [k][n]
-  const int kj0 = k0 + warp * 16 + gr;  // this lane's two keys: kj0, kj0 + 8
+  // this lane's ldmatrix rows: A over the group's 16 keys, B over 16
+  // queries, from the first head dim of this warp's reduction
+  const int kbase = dh * DW;
+  const T* ka = Ks + (rg * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8 + kbase;
+  const T* va = Vs + (rg * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8 + kbase;
+  const int b_off = ((lm >> 1) * 8 + lr) * RS + (lm & 1) * 8 + kbase;  // [n][k]
+  const int bt_off = ((lm & 1) * 8 + lr) * RS + (lm >> 1) * 8 + kbase;  // [k][n]
+  const int kj0 = k0 + rg * 16 + gr;    // this lane's two keys: kj0, kj0 + 8
 
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {
-      load_tile(it + 1);
+      stage_queries<T, NQ, DP, RS, NTH>(
+          Qs, Gs, Ls, Rs, qb, gb, lb, rb, qs.ss, gs.ss,
+          qstart + (it + 1) * NQ, (it + 1) & 1, Sq, D, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -435,17 +369,15 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q0 = qstart + it * NQ;
     const T* Qc = Qs + (it & 1) * NQ * RS;
     const T* Gc = Gs + (it & 1) * NQ * RS;
-    const float* Lc = Ls + (it & 1) * NQ;
-    const float* Rc = Rs + (it & 1) * NQ;
 
-    // S^T = K.Q^T and dP^T = V.G^T over the warp's 16 keys x NQ queries
+    // S^T = K.Q^T and dP^T = V.G^T over the group's 16 keys x NQ queries
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < KK; ++kk) {
       uint32_t ak[4], av[4];
       ldsm_x4(ak, ka + kk * 16);
       ldsm_x4(av, va + kk * 16);
@@ -460,35 +392,22 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mma16816<T>(dp[2 * np + 1], av, bg[2], bg[3]);
       }
     }
+    if constexpr (DS > 1) add_partner<NT>(s, dp, Xs, warp, lane);
 
-    // P^T and dS^T in place; the element mask only where the diagonal or
-    // a ragged edge crosses the tile
     const bool full = !(causal && k0 + kTcM - 1 > q0 + offset) &&
                       q0 + NQ <= Sq && k0 + kTcM <= Sk;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ci = n * 8 + gc + (e & 1);
-        float p = exp2f((s[n][e] * scale - Lc[ci]) * kLog2e);
-        if (!full) {
-          const int qi = q0 + ci;
-          const int kj = kj0 + (e >> 1) * 8;
-          if (!(qi < Sq && kj < Sk && (!causal || kj <= qi + offset))) p = 0.f;
-        }
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - Rc[ci]) * scale;
-      }
-    }
+    dkdv_probs<NT>(s, dp, Ls + (it & 1) * NQ, Rs + (it & 1) * NQ, q0, kj0,
+                   gc, full, Sq, Sk, offset, causal, scale);
 
-    // dV += P^T.G and dK += dS^T.Q, P^T / dS^T straight from registers
+    // dV += P^T.G and dK += dS^T.Q over this warp's DW head dims,
+    // P^T / dS^T rounded to T straight from registers
 #pragma unroll
     for (int kq = 0; kq < NQ / 16; ++kq) {
       uint32_t ap[4], ads[4];
       acc_to_a<T>(ap, s[2 * kq], s[2 * kq + 1]);
       acc_to_a<T>(ads, dp[2 * kq], dp[2 * kq + 1]);
 #pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
+      for (int np = 0; np < DW / 16; ++np) {
         uint32_t bg[4], bq[4];
         ldsm_x4_t(bg, Gc + kq * 16 * RS + np * 16 + bt_off);
         ldsm_x4_t(bq, Qc + kq * 16 * RS + np * 16 + bt_off);
@@ -501,20 +420,8 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                    // this buffer is free to refill
   }
 
-#pragma unroll
-  for (int n = 0; n < DT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kj = kj0 + (e >> 1) * 8;
-      const int d = n * 8 + gc + (e & 1);
-      if (kj < Sk && d < D) {
-        const long long o = (static_cast<long long>(b) * Sk + kj) * H * D +
-                            static_cast<long long>(h) * D + d;
-        dk[o] = ptt::from_f32<T>(dk_acc[n][e]);
-        dv[o] = ptt::from_f32<T>(dv_acc[n][e]);
-      }
-    }
-  }
+  store_rows<T, DT>(dk, dk_acc, b, h, H, Sk, D, kj0, dh * DW, gc);
+  store_rows<T, DT>(dv, dv_acc, b, h, H, Sk, D, kj0, dh * DW, gc);
 }
 
 // K2b.  NK: keys per streamed tile.
@@ -558,14 +465,9 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(Sk, min(q0 + kTcM, Sq) + offset) : Sk;
   const int ntiles = (kend + NK - 1) / NK;
 
-  auto load_tile = [&](int it) {
-    const int buf = it & 1;
-    stage_tc<T, NK, DP>(Ks + buf * NK * RS, kb, ks.ss, it * NK, Sk, D, vec & 2);
-    stage_tc<T, NK, DP>(Vs + buf * NK * RS, vb, vs.ss, it * NK, Sk, D, vec & 4);
-  };
   stage_tc<T, kTcM, DP>(Qs, qb, qs.ss, q0, Sq, D, vec & 1);
   stage_tc<T, kTcM, DP>(Gs, gb, gs.ss, q0, Sq, D, vec & 8);
-  load_tile(0);
+  stage_keys<T, NK, DP, RS>(Ks, Vs, kb, vb, ks.ss, vs.ss, 0, Sk, D, vec);
   cp_async_commit();
 
   // this lane's two query rows
@@ -589,11 +491,11 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* ga = Gs + (warp * 16 + (lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;
   const int b_off = ((lm >> 1) * 8 + lr) * RS + (lm & 1) * 8;   // [n][k]
   const int bt_off = ((lm & 1) * 8 + lr) * RS + (lm >> 1) * 8;  // [k][n]
-  const float scale_log2 = scale * kLog2e;
 
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {
-      load_tile(it + 1);
+      stage_keys<T, NK, DP, RS>(Ks, Vs, kb, vb, ks.ss, vs.ss, it + 1, Sk, D,
+                                vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -627,23 +529,10 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // dS in place of dP
     const bool full = !(causal && k0 + NK - 1 > q0 + offset) &&
                       q0 + kTcM <= Sq && k0 + NK <= Sk;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = e >> 1;
-        float p = exp2f(s[n][e] * scale_log2 - lrow[x]);
-        if (!full) {
-          const int qi = qi0 + x * 8;
-          const int kj = k0 + n * 8 + gc + (e & 1);
-          if (!(qi < Sq && kj < Sk && (!causal || kj <= qi + offset))) p = 0.f;
-        }
-        dp[n][e] = p * (dp[n][e] - rrow[x]) * scale;
-      }
-    }
+    dq_scores<NT>(s, dp, lrow, rrow, qi0, k0, gc, full, Sq, Sk, offset,
+                  causal, scale);
 
     // dQ += dS.K, dS straight from registers, K by ldmatrix.trans
 #pragma unroll
@@ -661,19 +550,268 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                    // this buffer is free to refill
   }
 
+  store_rows<T, DT>(dq, dq_acc, b, h, H, Sq, D, qi0, 0, gc);
+}
+
+// ------------------------------------------- f32: 3xTF32 tensor cores
+// K2a, the 16-bit K2a's structure with TF32 fragments from plain shared
+// loads (rows DP + 4 floats; see the header for the two k orders).
+template <int DP, int NQ, int DS>
+__global__ void __launch_bounds__(kTcThreads * DS)
+flash_bwd_dkdv_f32_tc_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ rc,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int H, int Sq, int Sk, int D, Ptrs qs, Ptrs ks,
+                             Ptrs vs, Ptrs gs, float scale, int causal,
+                             int vec) {
+  constexpr int NTH = kTcThreads * DS;
+  constexpr int RS = DP + 4;
+  constexpr int NT = NQ / 8;            // 8-query tiles of S^T (k steps of
+                                        // the second products)
+  constexpr int DW = DP / DS;           // head dims of dk / dv per warp
+  constexpr int DT = DW / 8;
+  constexpr int KK = DW / 8;            // 8-deep steps of S^T / dP^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);    // [64][RS]
+  float* Vs = Ks + kTcM * RS;                        // [64][RS]
+  float* Qs = Vs + kTcM * RS;                        // [2][NQ][RS]
+  float* Gs = Qs + 2 * NQ * RS;                      // [2][NQ][RS]
+  float* Ls = Gs + 2 * NQ * RS;                      // [2][NQ]
+  float* Rs = Ls + 2 * NQ;                           // [2][NQ]
+  float* Xs = Rs + 2 * NQ;                           // the D split's exchange
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rg = warp % kTcWarps;
+  const int dh = warp / kTcWarps;
+  const int gq = lane / 4;              // fragment row (and B column)
+  const int t = lane % 4;               // fragment column
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = static_cast<int>(blockIdx.y) * kTcM;
+  const int offset = Sk - Sq;
+
+  const float* qb = q + b * qs.sb + h * qs.sh;
+  const float* kb = k + b * ks.sb + h * ks.sh;
+  const float* vb = v + b * vs.sb + h * vs.sh;
+  const float* gb = g + b * gs.sb + h * gs.sh;
+  const float* lb = lse + static_cast<long long>(bh) * Sq;
+  const float* rb = rc + static_cast<long long>(bh) * Sq;
+
+  const int qstart = causal ? (max(0, k0 - offset) / NQ) * NQ : 0;
+  const int ntiles = (Sq - qstart + NQ - 1) / NQ;
+
+  stage_tc<float, kTcM, DP, RS, NTH>(Ks, kb, ks.ss, k0, Sk, D, vec & 2);
+  stage_tc<float, kTcM, DP, RS, NTH>(Vs, vb, vs.ss, k0, Sk, D, vec & 4);
+  stage_queries<float, NQ, DP, RS, NTH>(Qs, Gs, Ls, Rs, qb, gb, lb, rb,
+                                        qs.ss, gs.ss, qstart, 0, Sq, D, vec);
+  cp_async_commit();
+
+  float dk_acc[DT][4], dv_acc[DT][4];
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qi = qi0 + (e >> 1) * 8;
-      const int d = n * 8 + gc + (e & 1);
-      if (qi < Sq && d < D) {
-        const long long o = (static_cast<long long>(b) * Sq + qi) * H * D +
-                            static_cast<long long>(h) * D + d;
-        dq[o] = ptt::from_f32<T>(dq_acc[n][e]);
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  // A rows of the first products: keys gq and gq + 8 of the group, from
+  // the first head dim of this warp's reduction
+  const int kbase = dh * DW;
+  const float* kr = Ks + (rg * 16 + gq) * RS + kbase + t;
+  const float* vr = Vs + (rg * 16 + gq) * RS + kbase + t;
+  const int kj0 = k0 + rg * 16 + gq;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      stage_queries<float, NQ, DP, RS, NTH>(
+          Qs, Gs, Ls, Rs, qb, gb, lb, rb, qs.ss, gs.ss,
+          qstart + (it + 1) * NQ, (it + 1) & 1, Sq, D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qstart + it * NQ;
+    const float* Qc = Qs + (it & 1) * NQ * RS;
+    const float* Gc = Gs + (it & 1) * NQ * RS;
+
+    // S^T = K.Q^T and dP^T = V.G^T, head_dim in its natural order: A
+    // (keys gq, gq + 8; dims t, t + 4), B (query 8 n + gq; dims t, t + 4)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const float* kx = kr + kk * 8;
+      const float* vx = vr + kk * 8;
+      const Tf32Frag ak = split_frag(kx[0], kx[8 * RS], kx[4], kx[8 * RS + 4]);
+      const Tf32Frag av = split_frag(vx[0], vx[8 * RS], vx[4], vx[8 * RS + 4]);
+      const float* qn = Qc + gq * RS + kbase + kk * 8 + t;
+      const float* gn = Gc + gq * RS + kbase + kk * 8 + t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma1688_3xtf32(s[n], ak, qn[n * 8 * RS], qn[n * 8 * RS + 4]);
+        mma1688_3xtf32(dp[n], av, gn[n * 8 * RS], gn[n * 8 * RS + 4]);
       }
     }
+    if constexpr (DS > 1) add_partner<NT>(s, dp, Xs, warp, lane);
+
+    const bool full = !(causal && k0 + kTcM - 1 > q0 + offset) &&
+                      q0 + NQ <= Sq && k0 + kTcM <= Sk;
+    dkdv_probs<NT>(s, dp, Ls + (it & 1) * NQ, Rs + (it & 1) * NQ, q0, kj0,
+                   2 * t, full, Sq, Sk, offset, causal, scale);
+
+    // dV += P^T.G and dK += dS^T.Q over this warp's DW head dims; k step
+    // kq takes queries 8 kq + (0, 2, 4, 6, 1, 3, 5, 7), so the P^T / dS^T
+    // accumulators are the A fragments as they stand, and B is rows
+    // 8 kq + 2t and + 1 at column 8 n + gq
+#pragma unroll
+    for (int kq = 0; kq < NT; ++kq) {
+      const Tf32Frag ap = split_frag(s[kq][0], s[kq][2], s[kq][1], s[kq][3]);
+      const Tf32Frag ads =
+          split_frag(dp[kq][0], dp[kq][2], dp[kq][1], dp[kq][3]);
+      const float* gx = Gc + (kq * 8 + 2 * t) * RS + kbase + gq;
+      const float* qx = Qc + (kq * 8 + 2 * t) * RS + kbase + gq;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        mma1688_3xtf32(dv_acc[n], ap, gx[n * 8], gx[RS + n * 8]);
+        mma1688_3xtf32(dk_acc[n], ads, qx[n * 8], qx[RS + n * 8]);
+      }
+    }
+    __syncthreads();                    // this buffer is free to refill
   }
+
+  store_rows<float, DT>(dk, dk_acc, b, h, H, Sk, D, kj0, dh * DW, 2 * t);
+  store_rows<float, DT>(dv, dv_acc, b, h, H, Sk, D, kj0, dh * DW, 2 * t);
+}
+
+// K2b, the 16-bit K2b's structure with TF32 fragments.
+template <int DP, int NK>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_f32_tc_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ g,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ rc,
+                           float* __restrict__ dq, int H, int Sq, int Sk,
+                           int D, Ptrs qs, Ptrs ks, Ptrs vs, Ptrs gs,
+                           float scale, int causal, int vec) {
+  constexpr int RS = DP + 4;
+  constexpr int NT = NK / 8;            // 8-key tiles of S (k steps of dQ)
+  constexpr int DT = DP / 8;            // 8-wide tiles of dq (k steps of S)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);    // [64][RS]
+  float* Gs = Qs + kTcM * RS;                        // [64][RS]
+  float* Ks = Gs + kTcM * RS;                        // [2][NK][RS]
+  float* Vs = Ks + 2 * NK * RS;                      // [2][NK][RS]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4;
+  const int t = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 =
+      ((Sq + kTcM - 1) / kTcM - 1 - static_cast<int>(blockIdx.y)) * kTcM;
+  const int offset = Sk - Sq;
+
+  const float* qb = q + b * qs.sb + h * qs.sh;
+  const float* kb = k + b * ks.sb + h * ks.sh;
+  const float* vb = v + b * vs.sb + h * vs.sh;
+  const float* gb = g + b * gs.sb + h * gs.sh;
+
+  const int kend = causal ? min(Sk, min(q0 + kTcM, Sq) + offset) : Sk;
+  const int ntiles = (kend + NK - 1) / NK;
+
+  stage_tc<float, kTcM, DP, RS>(Qs, qb, qs.ss, q0, Sq, D, vec & 1);
+  stage_tc<float, kTcM, DP, RS>(Gs, gb, gs.ss, q0, Sq, D, vec & 8);
+  stage_keys<float, NK, DP, RS>(Ks, Vs, kb, vb, ks.ss, vs.ss, 0, Sk, D,
+                                vec);
+  cp_async_commit();
+
+  const int qi0 = q0 + warp * 16 + gq;
+  float lrow[2], rrow[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int qi = qi0 + x * 8;
+    const long long o = static_cast<long long>(bh) * Sq + qi;
+    lrow[x] = qi < Sq ? lse[o] * kLog2e : 0.f;
+    rrow[x] = qi < Sq ? rc[o] : 0.f;
+  }
+
+  float dq_acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  const float* qr = Qs + (warp * 16 + gq) * RS + t;
+  const float* gr = Gs + (warp * 16 + gq) * RS + t;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      stage_keys<float, NK, DP, RS>(Ks, Vs, kb, vb, ks.ss, vs.ss, it + 1,
+                                    Sk, D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = it * NK;
+    const float* Kc = Ks + (it & 1) * NK * RS;
+    const float* Vc = Vs + (it & 1) * NK * RS;
+
+    // S = Q.K^T and dP = G.V^T, head_dim in its natural order
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      const float* qx = qr + kk * 8;
+      const float* gx = gr + kk * 8;
+      const Tf32Frag aq = split_frag(qx[0], qx[8 * RS], qx[4], qx[8 * RS + 4]);
+      const Tf32Frag ag = split_frag(gx[0], gx[8 * RS], gx[4], gx[8 * RS + 4]);
+      const float* kn = Kc + gq * RS + kk * 8 + t;
+      const float* vn = Vc + gq * RS + kk * 8 + t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma1688_3xtf32(s[n], aq, kn[n * 8 * RS], kn[n * 8 * RS + 4]);
+        mma1688_3xtf32(dp[n], ag, vn[n * 8 * RS], vn[n * 8 * RS + 4]);
+      }
+    }
+
+    const bool full = !(causal && k0 + NK - 1 > q0 + offset) &&
+                      q0 + kTcM <= Sq && k0 + NK <= Sk;
+    dq_scores<NT>(s, dp, lrow, rrow, qi0, k0, 2 * t, full, Sq, Sk, offset,
+                  causal, scale);
+
+    // dQ += dS.K; k step kq takes keys 8 kq + (0, 2, 4, 6, 1, 3, 5, 7):
+    // dS is the A fragment as it stands, B is K rows 8 kq + 2t and + 1
+#pragma unroll
+    for (int kq = 0; kq < NT; ++kq) {
+      const Tf32Frag ads =
+          split_frag(dp[kq][0], dp[kq][2], dp[kq][1], dp[kq][3]);
+      const float* kx = Kc + (kq * 8 + 2 * t) * RS + gq;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        mma1688_3xtf32(dq_acc[n], ads, kx[n * 8], kx[RS + n * 8]);
+    }
+    __syncthreads();                    // this buffer is free to refill
+  }
+
+  store_rows<float, DT>(dq, dq_acc, b, h, H, Sq, D, qi0, 0, 2 * t);
 }
 
 // ------------------------------------------------------------- launches
@@ -681,157 +819,81 @@ Ptrs ptrs(const long long* st, int which) {
   return Ptrs{st[3 * which], st[3 * which + 1], st[3 * which + 2]};
 }
 
-template <typename T, int DP, int KB>
+// One kernel launch on (batch * head, 64-row tile): shared memory opted
+// into, 16-byte staging per tensor, the launch's own error.
+template <typename T, typename Kernel, typename... Out>
+cudaError_t launch(Kernel kernel, int threads, size_t smem, const void* q,
+                   const void* k, const void* v, const void* g,
+                   const float* lse, const float* r, int B, int H, int Sq,
+                   int Sk, int D, int rows, const long long* st, float scale,
+                   int causal, cudaStream_t stream, Out*... out) {
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const void* x[4] = {q, k, v, g};
+  const int vec = vec_mask(x, 4, st, D, sizeof(T));
+  dim3 grid(B * H, (rows + kTcM - 1) / kTcM);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
+      static_cast<T*>(out)..., H, Sq, Sk, D, ptrs(st, 0), ptrs(st, 1),
+      ptrs(st, 2), ptrs(st, 3), scale, causal, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* g, const float* lse, const float* r,
                         void* dk, void* dv, int B, int H, int Sq, int Sk,
                         int D, const long long* st, float scale, int causal,
-                        cudaStream_t stream) {
-  auto kernel = flash_bwd_dkdv_kernel<T, DP, KB>;
-  const size_t smem = dkdv_smem_bytes<DP, KB>();
-  cudaError_t err = ptt::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sk + KB - 1) / KB, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, D, ptrs(st, 0),
-      ptrs(st, 1), ptrs(st, 2), ptrs(st, 3), scale, causal);
-  return cudaGetLastError();
+                        cudaStream_t s) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  using C = Tiles<F32, DP>;
+  constexpr int RS = F32 ? DP + 4 : DP + 8;
+  constexpr size_t smem =
+      dkdv_smem_bytes<T, RS, C::NQ, C::DS>();
+  if constexpr (F32)
+    return launch<T>(flash_bwd_dkdv_f32_tc_kernel<DP, C::NQ, C::DS>,
+                     kTcThreads * C::DS, smem, q, k, v, g, lse, r, B, H, Sq,
+                     Sk, D, Sk, st, scale, causal, s, dk, dv);
+  else
+    return launch<T>(flash_bwd_dkdv_tc_kernel<T, DP, C::NQ, C::DS>,
+                     kTcThreads * C::DS, smem, q, k, v, g, lse, r, B, H, Sq,
+                     Sk, D, Sk, st, scale, causal, s, dk, dv);
 }
 
-template <typename T, int DP, int KB>
+template <typename T, int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* g, const float* lse, const float* r,
                       void* dq, int B, int H, int Sq, int Sk, int D,
                       const long long* st, float scale, int causal,
-                      cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, DP, KB>;
-  const size_t smem = dq_smem_bytes<DP, KB>();
-  cudaError_t err = ptt::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + KB - 1) / KB, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
-      static_cast<T*>(dq), H, Sq, Sk, D, ptrs(st, 0), ptrs(st, 1),
-      ptrs(st, 2), ptrs(st, 3), scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int DP>
-cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v,
-                           const void* g, const float* lse, const float* r,
-                           void* dk, void* dv, int B, int H, int Sq, int Sk,
-                           int D, const long long* st, float scale,
-                           int causal, cudaStream_t stream) {
-  // at head_dim 128 the streamed query tile is 32 rows, which keeps dk,
-  // dv, S^T and dP^T in registers without spilling
-  constexpr int NQ = DP == 64 ? 64 : 32;
-  auto kernel = flash_bwd_dkdv_tc_kernel<T, DP, NQ>;
-  const size_t smem = tc_smem_bytes<DP, NQ>(sizeof(T), 2);
-  cudaError_t err = ptt::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const void* x[4] = {q, k, v, g};
-  const int vec = vec_mask(x, 4, st, D, sizeof(T));
-  dim3 grid(B * H, (Sk + kTcM - 1) / kTcM);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, D, ptrs(st, 0),
-      ptrs(st, 1), ptrs(st, 2), ptrs(st, 3), scale, causal, vec);
-  return cudaGetLastError();
-}
-
-template <typename T, int DP>
-cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
-                         const void* g, const float* lse, const float* r,
-                         void* dq, int B, int H, int Sq, int Sk, int D,
-                         const long long* st, float scale, int causal,
-                         cudaStream_t stream) {
-  constexpr int NK = 64;
-  auto kernel = flash_bwd_dq_tc_kernel<T, DP, NK>;
-  const size_t smem = tc_smem_bytes<DP, NK>(sizeof(T), 0);
-  cudaError_t err = ptt::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const void* x[4] = {q, k, v, g};
-  const int vec = vec_mask(x, 4, st, D, sizeof(T));
-  dim3 grid(B * H, (Sq + kTcM - 1) / kTcM);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, r,
-      static_cast<T*>(dq), H, Sq, Sk, D, ptrs(st, 0), ptrs(st, 1),
-      ptrs(st, 2), ptrs(st, 3), scale, causal, vec);
-  return cudaGetLastError();
+                      cudaStream_t s) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int NK = Tiles<F32, DP>::NK;
+  constexpr int RS = F32 ? DP + 4 : DP + 8;
+  constexpr size_t smem = dq_smem_bytes<T, RS, NK>();
+  if constexpr (F32)
+    return launch<T>(flash_bwd_dq_f32_tc_kernel<DP, NK>, kTcThreads, smem, q,
+                     k, v, g, lse, r, B, H, Sq, Sk, D, Sq, st, scale, causal,
+                     s, dq);
+  else
+    return launch<T>(flash_bwd_dq_tc_kernel<T, DP, NK>, kTcThreads, smem, q,
+                     k, v, g, lse, r, B, H, Sq, Sk, D, Sq, st, scale, causal,
+                     s, dq);
 }
 
 bool bad_shape(int B, int H, int Sq, int Sk, int D) {
   return D < 1 || D > 256 || B < 1 || H < 1 || Sq < 1 || Sk < 1;
 }
 
-// The body that takes a call: bf16 / f16 at head_dim <= 128 the tensor
-// cores (head_dim padded to 64 or 128); f32 at head_dim <= 128 the SIMT
-// body with 64-row tiles (padded to 64 or 128); every dtype at 128 <
-// head_dim <= 256 the SIMT body with 32-row tiles (padded to 256).
-// run_dkdv / run_dq launch the body this rule names, and the wrapper
-// counts launches by it.
-enum BwdBody : int { kBwdSimt = 0, kBwdTc16 = 1 };
+// The body that takes a call: every head_dim (padded to 64, 128 or 256)
+// runs on the tensor cores, bf16 / f16 by 16-bit products, f32 by 3xTF32
+// (the forward's names and numbers, csrc/flash_attention_fwd.cu FwdBody,
+// whose 0 is its SIMT body: the backward has none, so it starts at 1).
+// The wrapper counts launches by it.
+enum BwdBody : int { kBwdTc16 = 1, kBwd3xTf32 = 2 };
 
-int bwd_body(int dtype, int D) {
-  return D <= 128 && dtype != ptt::kF32 ? kBwdTc16 : kBwdSimt;
-}
-
-// T is the C++ type of dtype code `dtype`.
-template <typename T>
-cudaError_t run_dkdv(int dtype, const void* q, const void* k, const void* v,
-                     const void* g, const float* lse, const float* r,
-                     void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
-                     const long long* st, float scale, int causal,
-                     cudaStream_t s) {
-  // each branch builds only the instantiations the rule names for T; a
-  // rule that named another would get cudaErrorInvalidValue, not a
-  // miscounted launch
-  if (bwd_body(dtype, D) == kBwdSimt) {
-    if (D > 128)
-      return launch_dkdv<T, 256, 32>(q, k, v, g, lse, r, dk, dv, B, H, Sq,
-                                     Sk, D, st, scale, causal, s);
-    if constexpr (std::is_same<T, float>::value)
-      return D <= 64 ? launch_dkdv<T, 64, 64>(q, k, v, g, lse, r, dk, dv, B,
-                                              H, Sq, Sk, D, st, scale, causal,
-                                              s)
-                     : launch_dkdv<T, 128, 64>(q, k, v, g, lse, r, dk, dv, B,
-                                               H, Sq, Sk, D, st, scale,
-                                               causal, s);
-  } else if constexpr (!std::is_same<T, float>::value) {
-    return D <= 64 ? launch_dkdv_tc<T, 64>(q, k, v, g, lse, r, dk, dv, B, H,
-                                           Sq, Sk, D, st, scale, causal, s)
-                   : launch_dkdv_tc<T, 128>(q, k, v, g, lse, r, dk, dv, B, H,
-                                            Sq, Sk, D, st, scale, causal, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t run_dq(int dtype, const void* q, const void* k, const void* v,
-                   const void* g, const float* lse, const float* r, void* dq,
-                   int B, int H, int Sq, int Sk, int D, const long long* st,
-                   float scale, int causal, cudaStream_t s) {
-  if (bwd_body(dtype, D) == kBwdSimt) {   // as run_dkdv
-    if (D > 128)
-      return launch_dq<T, 256, 32>(q, k, v, g, lse, r, dq, B, H, Sq, Sk, D,
-                                   st, scale, causal, s);
-    if constexpr (std::is_same<T, float>::value)
-      return D <= 64 ? launch_dq<T, 64, 64>(q, k, v, g, lse, r, dq, B, H, Sq,
-                                            Sk, D, st, scale, causal, s)
-                     : launch_dq<T, 128, 64>(q, k, v, g, lse, r, dq, B, H,
-                                             Sq, Sk, D, st, scale, causal, s);
-  } else if constexpr (!std::is_same<T, float>::value) {
-    return D <= 64 ? launch_dq_tc<T, 64>(q, k, v, g, lse, r, dq, B, H, Sq,
-                                         Sk, D, st, scale, causal, s)
-                   : launch_dq_tc<T, 128>(q, k, v, g, lse, r, dq, B, H, Sq,
-                                          Sk, D, st, scale, causal, s);
-  }
-  return cudaErrorInvalidValue;
+int bwd_body(int dtype) {
+  return dtype == ptt::kF32 ? kBwd3xTf32 : kBwdTc16;
 }
 
 }  // namespace
@@ -851,8 +913,15 @@ extern "C" int ptt_flash_attention_bwd_dkdv(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = run_dkdv<scalar_t>(dtype, q, k, v, g, l, rr, dk, dv, B, H, Sq,
-                             Sk, D, strides, scale, causal, s);
+    err = D <= 64 ? launch_dkdv<scalar_t, 64>(q, k, v, g, l, rr, dk, dv, B, H,
+                                              Sq, Sk, D, strides, scale,
+                                              causal, s)
+        : D <= 128 ? launch_dkdv<scalar_t, 128>(q, k, v, g, l, rr, dk, dv, B,
+                                                H, Sq, Sk, D, strides, scale,
+                                                causal, s)
+                   : launch_dkdv<scalar_t, 256>(q, k, v, g, l, rr, dk, dv, B,
+                                                H, Sq, Sk, D, strides, scale,
+                                                causal, s);
   });
   return static_cast<int>(err);
 }
@@ -869,14 +938,19 @@ extern "C" int ptt_flash_attention_bwd_dq(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = run_dq<scalar_t>(dtype, q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
-                           strides, scale, causal, s);
+    err = D <= 64 ? launch_dq<scalar_t, 64>(q, k, v, g, l, rr, dq, B, H, Sq,
+                                            Sk, D, strides, scale, causal, s)
+        : D <= 128 ? launch_dq<scalar_t, 128>(q, k, v, g, l, rr, dq, B, H, Sq,
+                                              Sk, D, strides, scale, causal, s)
+                   : launch_dq<scalar_t, 256>(q, k, v, g, l, rr, dq, B, H, Sq,
+                                              Sk, D, strides, scale, causal, s);
   });
   return static_cast<int>(err);
 }
 
-// The body both backward entries launch for (dtype, D): 0 SIMT, 1 the
-// 16-bit tensor cores (the wrapper counts launches per body).
+// The body both backward entries launch for (dtype, D): 1 the 16-bit
+// tensor cores, 2 3xTF32 (the wrapper counts launches per body).
 extern "C" int ptt_flash_attention_bwd_body(int dtype, int D) {
-  return bwd_body(dtype, D);
+  (void)D;
+  return bwd_body(dtype);
 }

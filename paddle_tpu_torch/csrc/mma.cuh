@@ -7,7 +7,8 @@
 // resident tile.  16-bit products are mma.sync.m16n8k16 (f32 accumulators)
 // fed by ldmatrix out of shared memory, whose tiles are [rows][DP + 8] in
 // the input dtype: the 16-byte row pad puts ldmatrix's eight row reads on
-// distinct banks.  f32 products are three mma.sync.m16n8k8 TF32 products
+// distinct banks (K2a at head_dim 256, and in f32 at 128, runs 8 warps:
+// two per 16-row group, each owning half of head_dim).  f32 products are three mma.sync.m16n8k8 TF32 products
 // (3xTF32: each operand split into a TF32 "big" part and a TF32 "small"
 // remainder, the small x small term dropped), about 2^-21 relative per
 // product.  Tiles are filled by 16-byte cp.async.cg copies when a tensor
@@ -177,14 +178,15 @@ __device__ __forceinline__ void mma1688_3xtf32(float (&c)[4],
 // Stage rows [row0, row0 + R) of one (batch, head) slice into an [R][RS]
 // tile in T (RS >= DP; DP + 8 for the 16-bit tiles); rows past n and
 // columns past D are zero.  `vec`: 16-byte cp.async (whole 16-byte chunks
-// per row, base and strides 16-byte aligned), else a scalar loop.
-template <typename T, int R, int DP, int RS = DP + 8>
+// per row, base and strides 16-byte aligned), else a scalar loop.  NTH:
+// the block's threads, which share the copies.
+template <typename T, int R, int DP, int RS = DP + 8, int NTH = kTcThreads>
 __device__ __forceinline__ void stage_tc(T* dst, const T* src, long long ss,
                                          int row0, int n, int D, bool vec) {
   if (vec) {
     constexpr int EPC = 16 / sizeof(T); // elements per 16-byte chunk
     constexpr int CH = DP / EPC;        // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < R * CH; idx += kTcThreads) {
+    for (int idx = threadIdx.x; idx < R * CH; idx += NTH) {
       const int rr = idx / CH;
       const int c = idx % CH;
       const int row = row0 + rr;
@@ -193,7 +195,7 @@ __device__ __forceinline__ void stage_tc(T* dst, const T* src, long long ss,
                  ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < R * DP; idx += kTcThreads) {
+    for (int idx = threadIdx.x; idx < R * DP; idx += NTH) {
       const int rr = idx / DP;
       const int d = idx % DP;
       const int row = row0 + rr;

@@ -45,7 +45,8 @@ first call is its "compile": ``train_step.compiles`` counts it,
 is refreshed (the parameters, optimizer state, buffers and scaler state
 the step updates in place) and a lazy cost thunk is registered (one
 forward + backward of the signature's shapes, counted; the update's
-elementwise passes are not).  A second input signature also counts
+elementwise passes are not), resolved at once when
+``PADDLE_TRAINSTEP_COST`` is set, as in the reference.  A second input signature also counts
 ``train_step.retraces`` and warns, as the reference does; a probe toggle
 over an existing signature stays quiet.  Every later call observes the
 interval since the previous call in ``train_step.step_seconds``, records
@@ -75,6 +76,7 @@ effect: updates are in place already).
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import warnings
 import weakref
@@ -253,6 +255,9 @@ class TrainStep:
             if _perf.needs_cost(family):
                 _perf.register_cost_thunk(family,
                                           self._cost_thunk(batch))
+            if os.environ.get("PADDLE_TRAINSTEP_COST", "0").lower() \
+                    not in ("", "0", "false", "no"):
+                self.cost_analysis()        # resolved now, as the reference
             # the next interval would include this first call
             self._last_call_t = None
         if stats is not None:

@@ -6,6 +6,9 @@ common layers), with ``ParamAttr``."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
+# the grad-clip classes, importable from paddle.nn as in the reference
+from ..optimizer.clip import (ClipGradByGlobalNorm,  # noqa: F401
+                              ClipGradByNorm, ClipGradByValue)
 from .layer import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .layers.activation import (CELU, ELU, GELU, GLU, SELU,  # noqa: F401
                                 Hardshrink, Hardsigmoid, Hardswish, Hardtanh,

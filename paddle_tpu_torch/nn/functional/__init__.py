@@ -7,7 +7,8 @@ from .activation import (celu, elu, gelu, glu, gumbel_softmax,  # noqa: F401
                          prelu, relu, relu6, relu_, rrelu, selu, sigmoid, silu,
                          softmax, softmax_, softplus, softshrink, softsign,
                          swish, tanh, tanhshrink, thresholded_relu)
-from .attention import scaled_dot_product_attention  # noqa: F401
+from .attention import (flash_attention,  # noqa: F401
+                        scaled_dot_product_attention)
 from .common import (affine_grid, alpha_dropout, bilinear,  # noqa: F401
                      channel_shuffle, cosine_similarity, dropout, dropout2d,
                      dropout3d, embedding, fold, grid_sample, interpolate,

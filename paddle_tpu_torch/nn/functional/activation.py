@@ -22,7 +22,7 @@ def _cast(name, x):
     return amp.cast(name, x)[0]
 
 
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """GELU; the exact erf form unless ``approximate`` (then tanh), as
     ``jax.nn.gelu(approximate=...)``."""
     return torch.nn.functional.gelu(x, approximate="tanh" if approximate else "none")

@@ -24,6 +24,9 @@
   first), and a causal call with more queries than keys, raise
   ``NotImplementedError``.
 
+``flash_attention`` is paddle's public flash call: the same kernels, no
+mask, no dropout while training.
+
 Tensors on any other device (``meta``) raise ``NotImplementedError``; CPU
 tensors take :func:`_sdpa_ref`.  Under ``amp.auto_cast`` the inputs are
 cast to the amp dtype (white list).  q, k and v of different float dtypes
@@ -38,7 +41,7 @@ import torch
 from ... import amp
 from ...ops import _build
 from ...ops.flash_attention import (MAX_HEAD_DIM, flash_attention_bshd,
-                                   supported)
+                                   flash_attention_fn, supported)
 from ..layers.common import promote
 
 
@@ -71,7 +74,7 @@ def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale, training):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, scale=None):
+                                 training=True, scale=None, name=None):
     """paddle layout: (batch, seq, num_heads, head_dim)."""
     query, key, value, attn_mask = amp.cast(
         "scaled_dot_product_attention", query, key, value, attn_mask)
@@ -100,3 +103,22 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         f"attention (got q {tuple(query.shape)}, k {tuple(key.shape)}, "
         f"mask={attn_mask is not None}, dropout_p={dropout_p}, "
         f"training={training}, needs_grad={grad})")
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """paddle's ``F.flash_attention``: ``[B, S, H, D]`` in and out, the
+    softmax's scale ``1 / sqrt(D)``.  On the card it runs K1 forward and
+    K2a / K2b backward (``ops.flash_attention.flash_attention_fn``), on
+    CPU tensors their plain versions.  ``return_softmax`` gives ``(out,
+    None)``, as in the reference: the softmax matrix never exists.
+    Dropout inside the kernel is not taken while training
+    (``NotImplementedError``, as there); use
+    :func:`scaled_dot_product_attention` for dropout."""
+    if dropout and training:
+        raise NotImplementedError(
+            "flash_attention dropout inside the kernel is not supported; "
+            "use nn.functional.scaled_dot_product_attention for dropout")
+    out = flash_attention_fn(query, key, value, causal=causal)
+    return (out, None) if return_softmax else out

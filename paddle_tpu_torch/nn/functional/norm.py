@@ -140,7 +140,7 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
     return x / torch.pow(k + alpha * win, beta)
 
 
-def rms_norm(x, weight=None, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """RMSNorm over the last dim: the mean square in f32, the normalised
     value cast back to x's dtype, then times ``weight`` under the usual
     type promotion (a bf16 weight times an f32 x gives f32, as in jnp).

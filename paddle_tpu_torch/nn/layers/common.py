@@ -148,10 +148,20 @@ class Embedding(torch.nn.Embedding):
     the output is zero wherever ``ids == padding_idx``, whatever the row
     holds later (a loaded state may hold anything there), so the row gets
     no gradient (torch's own rule returns the row).  A module call, so the
-    numerics layer tap sees it as the reference's ``Embedding`` layer."""
+    numerics layer tap sees it as the reference's ``Embedding`` layer.
+    ``weight_attr`` with an initializer draws the table (the padding row
+    then zeroed, as there); ``sparse`` is accepted as the reference
+    accepts it, and the gradient stays dense."""
 
-    def __init__(self, num_embeddings, embedding_dim, padding_idx=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
         super().__init__(num_embeddings, embedding_dim, padding_idx)
+        if getattr(weight_attr, "initializer", None) is not None:
+            with torch.no_grad():
+                self.weight.copy_(make_parameter(self.weight.shape,
+                                                 weight_attr))
+                if self.padding_idx is not None:
+                    self.weight[self.padding_idx].zero_()
 
     def forward(self, ids):
         from ..functional.common import embedding

@@ -23,16 +23,19 @@ class LayerNorm(torch.nn.Module):
     """Layer norm over the last dims with the TPU package's numerics:
     statistics in f32, the normalised value cast back to the input dtype
     before the affine, which runs in the input dtype.  Under
-    ``amp.auto_cast`` at O2 it runs in the amp dtype (O1 leaves it)."""
+    ``amp.auto_cast`` at O2 it runs in the amp dtype (O1 leaves it).
+    ``weight_attr`` / ``bias_attr`` as the module says (``False``: that
+    half of the affine is dropped)."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.weight = torch.nn.Parameter(torch.ones(self.normalized_shape))
-        self.bias = torch.nn.Parameter(torch.zeros(self.normalized_shape))
+        self.weight = make_parameter(self.normalized_shape, weight_attr, 1.0)
+        self.bias = make_parameter(self.normalized_shape, bias_attr, 0.0)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
@@ -41,12 +44,13 @@ class LayerNorm(torch.nn.Module):
 
 class RMSNorm(torch.nn.Module):
     """RMSNorm over the last dim (:func:`..functional.norm.rms_norm`), its
-    weight all ones."""
+    weight all ones unless ``weight_attr`` draws it."""
 
-    def __init__(self, hidden_size, epsilon=1e-6):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = torch.nn.Parameter(torch.ones(hidden_size))
+        self.weight = make_parameter((hidden_size,), weight_attr, 1.0)
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)

@@ -46,7 +46,7 @@ from .memory import MemoryLedger, MemoryWatchdog  # noqa: F401
 from .perf import ProgramTable  # noqa: F401
 from .numerics import (  # noqa: F401
     NumericsMonitor, TensorCheckerConfig, check_numerics,
-    disable_tensor_checker, enable_tensor_checker,
+    collect_operator_stats, disable_tensor_checker, enable_tensor_checker,
 )
 from .programs import ProgramLedger, WarmupManifest  # noqa: F401
 from .slo import RequestTimeline, SLOAccountant, SLOPolicy  # noqa: F401
@@ -67,7 +67,7 @@ __all__ = [
     "slo", "memory", "numerics", "perf", "programs", "ProgramLedger",
     "WarmupManifest", "ProgramTable", "NumericsMonitor", "TensorCheckerConfig",
     "enable_tensor_checker", "disable_tensor_checker", "check_numerics",
-    "SLOPolicy", "SLOAccountant", "RequestTimeline", "MemoryLedger",
+    "collect_operator_stats", "SLOPolicy", "SLOAccountant", "RequestTimeline", "MemoryLedger",
     "MemoryWatchdog", "Span", "Tracer", "span", "event", "new_trace_id",
     "current_trace_id", "open_spans", "merge_rank_traces",
     "FlightRecorder", "get_flight_recorder", "install_crash_handlers",

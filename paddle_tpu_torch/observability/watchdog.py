@@ -201,9 +201,13 @@ class ServingWatchdog:
 
     Fires when the engine has pending work but its heartbeat is older
     than the deadline.  Re-arms after progress resumes, so a second wedge
-    fires again."""
+    fires again.  ``deadline_s`` defaults to ``PADDLE_SERVING_WATCHDOG_S``,
+    else 60 s, as in the reference."""
 
-    def __init__(self, engine, deadline_s, poll_s=None, recorder=None):
+    def __init__(self, engine, deadline_s=None, poll_s=None, recorder=None):
+        if deadline_s is None:
+            deadline_s = float(os.environ.get(
+                "PADDLE_SERVING_WATCHDOG_S", "60"))
         self.engine = engine
         self.deadline_s = float(deadline_s)
         self.poll_s = float(poll_s) if poll_s is not None \

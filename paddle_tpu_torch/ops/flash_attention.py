@@ -25,7 +25,8 @@ is differentiable in both of its outputs at no extra cost.
 launches, so a run can show that its attention went through the kernels;
 ``FWD_BODY_LAUNCHES`` / ``BWD_BODY_LAUNCHES`` split them by the body the C
 entry chose (``"tc16"``: bf16 / f16 on the tensor cores, ``"3xtf32"``: f32
-on the tensor cores, ``"simt"``: f32 backward and head_dim 129-256).
+on the tensor cores, ``"simt"``: the forward at head_dim 129-256; the
+backward runs on the tensor cores at every head_dim).
 """
 
 from __future__ import annotations
@@ -49,9 +50,10 @@ BWD_DQ_LAUNCHES = 0         # K2b, dq
 #: the same launches by body (K2a and K2b together), as the C entries'
 #: ``*_body`` functions name it
 FWD_BODY_LAUNCHES = {"simt": 0, "tc16": 0, "3xtf32": 0}
-BWD_BODY_LAUNCHES = {"simt": 0, "tc16": 0}
+BWD_BODY_LAUNCHES = {"tc16": 0, "3xtf32": 0}
 _FWD_BODIES = ("simt", "tc16", "3xtf32")     # csrc enum FwdBody
-_BWD_BODIES = ("simt", "tc16")               # csrc enum BwdBody
+# csrc enum BwdBody: the forward's numbers, without its SIMT body (0)
+_BWD_BODIES = {1: "tc16", 2: "3xtf32"}
 
 
 def _scores(q, k, scale, causal):

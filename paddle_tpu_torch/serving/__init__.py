@@ -23,6 +23,11 @@ paged KV cache (counterpart of ``paddle_tpu/serving``).
 - :mod:`.quant` — int8 serving: ``ServingEngine(kv_dtype="int8",
   weight_dtype="int8")``'s adapter, weight conversion and the calibration
   harness.
+- :mod:`.multitenant` — :class:`MultiTenantEngine` over a
+  :class:`LoRAStore`, with grammar-constrained rows.
+
+The package exports the names the reference's exports (``Request``,
+``prefix_digest``, ``make_verifier``, the int8 and multi-tenant names).
 
 The engine's ``serving.*`` metric families, spans, telemetry providers,
 memory ledger rows and numerics stream come from
@@ -34,12 +39,17 @@ from ..resilience.retry import EngineStoppedError, NumericFault  # noqa: F401
 from .adapter import GPTAdapter  # noqa: F401
 from .api import ContinuousBatchingPredictor  # noqa: F401
 from .block_manager import BlockManager, PageAllocation  # noqa: F401
-from .engine import (RequestHandle, RequestRejectedError,  # noqa: F401
-                     SamplingParams, ServingEngine)
+from .engine import (Request, RequestHandle,  # noqa: F401
+                     RequestRejectedError, SamplingParams, ServingEngine)
 from .kv_spill import KVSpillTier  # noqa: F401
-from .prefix_index import RadixPrefixIndex  # noqa: F401
+from .prefix_index import RadixPrefixIndex, prefix_digest  # noqa: F401
 from .qos import (AutoScaler, QoSConfig, TieredQueue,  # noqa: F401
                   TierPolicy, brownout)
 from .cluster import (ClusterHandle, PrefixAffinityRouter,  # noqa: F401
                       ReplicaPool, RouteDecision, ServingCluster)
-from .speculative import NgramDrafter  # noqa: F401
+from .speculative import NgramDrafter, make_verifier  # noqa: F401
+from .quant import (QuantizedGPTAdapter, calibrate,  # noqa: F401
+                    quantize_model_weights)
+from .multitenant import (CompiledGrammar, LoRAAdapter,  # noqa: F401
+                          LoRAStore, MultiTenantEngine, compile_json_schema,
+                          compile_regex)

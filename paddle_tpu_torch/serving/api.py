@@ -57,12 +57,17 @@ class ContinuousBatchingPredictor:
     ``pad_token_id``.  Output handle ``output_0``: int64
     ``[B, S + max_new_tokens]`` — prompt + generated ids, right-padded.
     ``engine_kwargs`` (``device=``, ``num_slots=``, ...) build the engine;
-    like it, the predictor runs on the card unless ``device="cpu"``.
+    like it, the predictor runs on the card unless ``device="cpu"``.  A
+    given ``engine`` is used as is.  ``config`` (an inference ``Config``)
+    is recorded, as the reference records it.
     """
 
-    def __init__(self, model, max_new_tokens=32, temperature=0.0,
-                 eos_token_id=None, pad_token_id=0, **engine_kwargs):
-        self._engine = ServingEngine(model, **engine_kwargs)
+    def __init__(self, model, config=None, max_new_tokens=32,
+                 temperature=0.0, eos_token_id=None, pad_token_id=0,
+                 engine=None, **engine_kwargs):
+        self._engine = engine if engine is not None \
+            else ServingEngine(model, **engine_kwargs)
+        self._config = config
         self._max_new_tokens = int(max_new_tokens)
         self._temperature = float(temperature)
         self._eos = eos_token_id

@@ -193,9 +193,11 @@ class RequestRejectedError(RuntimeError):
 @dataclasses.dataclass
 class SamplingParams:
     """Per-request sampling.  ``temperature <= 0`` is greedy; top_k/top_p
-    are engine-level."""
+    are engine-level.  ``seed`` is reserved, as in the reference: draws
+    come from the engine's generator."""
 
     temperature: float = 0.0
+    seed: int | None = None
 
 
 @dataclasses.dataclass
@@ -1103,7 +1105,10 @@ class ServingEngine:
                 "telemetry endpoint not started (%r); serving continues "
                 "without /metrics|/statusz", e)
         wd = self._watchdog_s
-        if wd and wd > 0 and self._watchdog is None:
+        if wd is None:      # armed from the environment, as the reference
+            env = os.environ.get("PADDLE_SERVING_WATCHDOG_S")
+            wd = float(env) if env else None
+        if wd and wd > 0 and self._watchdog is None:    # 0 means off
             self._watchdog = ServingWatchdog(self, deadline_s=wd)
         if self._watchdog is not None:
             self._watchdog.start()

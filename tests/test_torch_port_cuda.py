@@ -2,7 +2,8 @@
 plain PyTorch version on CUDA tensors (K1 over both of its bodies, the
 split-K decode also bit for bit against a second launch, and the
 full-sweep K5a / K5b bit for bit against K3 / K4; K2 to head_dim 256; each
-dtype's flash body by the per-body counters), attention with dropout
+dtype's flash body by the per-body counters; paddle's public
+``F.flash_attention`` through K1 / K2 with gradients), attention with dropout
 (eval mode is K1, training mode the plain attention's keep rate and
 scale, masked, GPT-tiny training), Int8Linear's torch._int_mm against the CPU, the
 tiny-GPT serving engine on the card (native and int8 pools) against the
@@ -185,14 +186,17 @@ def test_kernels_refuse_calls_that_need_a_gradient(cuda):
 
 @pytest.mark.parametrize("dtype,d,fwd_body,bwd_body", [
     (torch.bfloat16, 64, "tc16", "tc16"), (torch.float16, 128, "tc16", "tc16"),
-    (torch.float32, 64, "3xtf32", "simt"), (torch.float32, 128, "3xtf32", "simt"),
-    (torch.bfloat16, 192, "simt", "simt"), (torch.float32, 256, "simt", "simt")])
+    (torch.float32, 64, "3xtf32", "3xtf32"),
+    (torch.float32, 128, "3xtf32", "3xtf32"),
+    (torch.bfloat16, 192, "simt", "tc16"), (torch.float16, 256, "simt", "tc16"),
+    (torch.float32, 256, "simt", "3xtf32")])
 def test_flash_calls_reach_their_dtypes_bodies(cuda, dtype, d, fwd_body,
                                                bwd_body):
     """The C entries' body rule, by the per-body launch counters: bf16 /
     f16 at head_dim <= 128 stay on the 16-bit tensor cores forward and
-    backward, f32 takes 3xTF32 forward and the SIMT backward, head_dim
-    129-256 the SIMT bodies; one forward and one K2a + K2b per call."""
+    backward, f32 takes 3xTF32 forward and backward, head_dim 129-256
+    the SIMT forward and the dtype's tensor-core backward; one forward and
+    one K2a + K2b per call."""
     q, k, v = _fwd_inputs(cuda, dtype, 2, 3, 100, 100, d, "contiguous")
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     fwd0, bwd0 = dict(fa.FWD_BODY_LAUNCHES), dict(fa.BWD_BODY_LAUNCHES)
@@ -264,6 +268,11 @@ def _rel_err(a, b):
 
 
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+#: K2's f32 body (3xTF32, every head_dim) against its plain version, max
+#: error over max |ref|, beside BWD_TOL: a body that dropped the split's
+#: cross terms fails it, see
+#: test_flash_bwd_f32_one_pass_tf32_fails_the_tight_check
+K2_F32_TC_TOL = 5e-5
 
 
 def _bwd_inputs(gen, dtype, b, h, sq, sk, d, causal, g_lse, layout):
@@ -308,17 +317,25 @@ def _bwd_inputs(gen, dtype, b, h, sq, sk, d, causal, g_lse, layout):
     (2, 3, 300, 300, 64, True, False, "unaligned"),
     # the model's strided head-major qkv split, read in place
     (2, 12, 512, 512, 64, True, False, "qkv"),
-    # head_dim 129-256: the SIMT body with 32-row tiles in every dtype,
-    # causal and not, ragged lengths, sq < sk
+    # head_dim 129-256: the tensor cores in every dtype (head_dim padded
+    # to 256, K2a's 8 warps splitting it in two), causal and not, ragged
+    # lengths, sq < sk, widths 130 / 200 / 255, a misaligned base, the
+    # strided qkv split, S = 1024
     (2, 2, 160, 160, 192, True, False, "contiguous"),
     (2, 2, 129, 200, 192, False, True, "contiguous"),
     (2, 2, 160, 160, 256, False, False, "contiguous"),
     (1, 3, 77, 300, 256, True, True, "contiguous"),
-    (1, 2, 100, 100, 256, True, False, "unaligned")])
+    (1, 2, 100, 100, 256, True, False, "unaligned"),
+    (1, 2, 70, 70, 130, False, True, "contiguous"),
+    (1, 3, 200, 200, 200, True, False, "contiguous"),
+    (1, 2, 150, 150, 255, True, True, "contiguous"),
+    (1, 2, 300, 300, 192, True, False, "qkv"),
+    (2, 2, 1024, 1024, 256, True, False, "contiguous")])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, b, h, sq, sk, d, causal,
                                        g_lse, layout):
     """K2a (dk, dv) and K2b (dq) against flash_attention_bwd_ref on the
-    same inputs and the kernel forward's lse; error over max |ref|."""
+    same inputs and the kernel forward's lse; error over max |ref| within
+    BWD_TOL, and for f32 (3xTF32) within K2_F32_TC_TOL."""
     q, k, v, g, lse, r = _bwd_inputs(cuda, dtype, b, h, sq, sk, d, causal,
                                      g_lse, layout)
     scale = d ** -0.5
@@ -329,16 +346,89 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, h, sq, sk, d, causal,
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape and a.is_contiguous()
         assert _rel_err(a, b) <= BWD_TOL[dtype]
+        if dtype == torch.float32:
+            assert _rel_err(a, b) <= K2_F32_TC_TOL
+
+
+def test_flash_bwd_f32_keys_are_not_symmetric(cuda):
+    """K2's 3xTF32 body takes the queries (K2a) and keys (K2b) of each
+    8-wide step of its second products in a permuted order (2t, 2t + 1 per
+    lane): G and K that rise with the row index, and a q.k that favours
+    late keys, would show any mismatch between the score fragments and
+    the rows they meet, at K2_F32_TC_TOL; head_dim 96 and 256."""
+    for d in (96, 256):
+        b, h, s = 2, 3, 200
+        ramp = torch.linspace(0, 1, s, device="cuda")[None, :, None, None]
+        q = torch.randn(b, s, h, d, generator=cuda, device="cuda")
+        k = torch.randn(b, s, h, d, generator=cuda, device="cuda") + ramp
+        v = torch.randn(b, s, h, d, generator=cuda, device="cuda")
+        g = torch.arange(s * d, dtype=torch.float32, device="cuda").reshape(
+            1, s, 1, d).expand(b, s, h, d).contiguous() / (s * d)
+        for causal in (True, False):
+            o, lse = fa.flash_attention_fn(q, k, v, causal=causal,
+                                           return_lse=True)
+            r = (g * o).sum(-1).transpose(1, 2).reshape(-1, s).contiguous()
+            got = fa._bwd_kernels(q, k, v, g, lse, r, d ** -0.5, causal)
+            want = fa.flash_attention_bwd_ref(q, k, v, g, lse, r, d ** -0.5,
+                                              causal)
+            for a, w in zip(got, want):
+                assert _rel_err(a, w) <= K2_F32_TC_TOL
+
+
+def test_flash_bwd_f32_one_pass_tf32_fails_the_tight_check(cuda, tmp_path,
+                                                           monkeypatch):
+    """The control for K2_F32_TC_TOL: K2 built from a copy of the sources
+    whose TF32 product lacks the 3xTF32 split's two cross terms errs past
+    K2_F32_TC_TOL on f32 cases (head_dim 40 to 256) where the committed
+    body stays within it.  The copy is built into this test's own
+    directory and unloaded after."""
+    from paddle_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    cross = ("  mma1688_tf32(c, a.small, p0.big, p1.big);\n"
+             "  mma1688_tf32(c, a.big, p0.small, p1.small);\n")
+    text = (src / "mma.cuh").read_text()
+    assert text.count(cross) == 1
+    (src / "mma.cuh").write_text(text.replace(cross, ""))
+    cases = [_bwd_inputs(cuda, torch.float32, b, h, sq, sk, d, causal, g_lse,
+                         "contiguous") + (d, causal)
+             for b, h, sq, sk, d, causal, g_lse in (
+                 (2, 3, 300, 300, 64, True, False),
+                 (2, 3, 256, 256, 128, True, False),
+                 (1, 4, 512, 512, 128, False, True),
+                 (2, 3, 200, 256, 40, True, True),
+                 (1, 2, 300, 300, 256, True, True))]
+
+    def errs():
+        return [max(_rel_err(a, w) for a, w in zip(
+                    fa._bwd_kernels(q, k, v, g, lse, r, d ** -0.5, c),
+                    fa.flash_attention_bwd_ref(q, k, v, g, lse, r, d ** -0.5,
+                                               c)))
+                for q, k, v, g, lse, r, d, c in cases]
+
+    three = errs()
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_SECONDS", _build.BUILD_SECONDS)
+    monkeypatch.setenv("PADDLE_TPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.delitem(_build._libs, "flash_attention_bwd", raising=False)
+    one = errs()
+    print(f"K2 f32 max err / max |ref| per case: 3xTF32 {three}; one-pass "
+          f"TF32 {one} (BWD_TOL {BWD_TOL[torch.float32]}, K2_F32_TC_TOL "
+          f"{K2_F32_TC_TOL})")
+    assert max(three) <= K2_F32_TC_TOL < min(one)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
-def test_flash_bwd_kernels_are_deterministic(cuda, dtype, layout):
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_bwd_kernels_are_deterministic(cuda, dtype, layout, d):
     """Two launches of K2a + K2b on the same inputs give bit-equal dq, dk
-    and dv: no atomics, every sum in a fixed order."""
-    args = _bwd_inputs(cuda, dtype, 2, 4, 700, 700, 64, True, True, layout)
-    first = fa._bwd_kernels(*args, 0.125, True)
-    second = fa._bwd_kernels(*args, 0.125, True)
+    and dv: no atomics, every sum in a fixed order (at head_dim 256 too,
+    where K2a's two warps of a group exchange partial scores)."""
+    args = _bwd_inputs(cuda, dtype, 2, 4, 700, 700, d, True, True, layout)
+    first = fa._bwd_kernels(*args, d ** -0.5, True)
+    second = fa._bwd_kernels(*args, d ** -0.5, True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -357,6 +447,38 @@ def test_flash_autograd_matches_torch_autograd(cuda):
         (n[0] + 1, n[1] + 1, n[2] + 1)
     fa.flash_attention_ref(*b.unbind(3), causal=True).backward(g)
     assert _rel_err(a.grad, b.grad) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_public_flash_attention_runs_k1_and_k2(cuda, dtype, causal):
+    """paddle's ``F.flash_attention`` on card tensors launches K1 once
+    forward and K2a / K2b once each backward, and holds its output (ATOL)
+    and the gradients of q, k and v (BWD_TOL, error over max |ref|) to
+    torch autograd through flash_attention_ref on the same inputs."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    b, s, h, d = 2, 150, 3, 64
+    x = [torch.randn(b, s, h, d, generator=cuda, device="cuda").to(dtype)
+         for _ in range(3)]
+    g = torch.randn(b, s, h, d, generator=cuda, device="cuda").to(dtype)
+    mine = [t.clone().requires_grad_() for t in x]
+    ref = [t.clone().requires_grad_() for t in x]
+    n = fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES
+    out, softmax = PF.flash_attention(*mine, causal=causal,
+                                      return_softmax=True)
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == \
+        (n[0] + 1, n[1], n[2])
+    out.backward(g)
+    assert (fa.LAUNCHES, fa.BWD_DKDV_LAUNCHES, fa.BWD_DQ_LAUNCHES) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1)
+    want = fa.flash_attention_ref(*ref, causal=causal)
+    want.backward(g)
+    assert softmax is None and out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), atol=ATOL[dtype],
+                               rtol=0)
+    for a, w in zip(mine, ref):
+        assert _rel_err(a.grad, w.grad) <= BWD_TOL[dtype]
 
 
 def test_gpt_tiny_trains_on_card_through_the_kernels(cuda):
