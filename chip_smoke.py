@@ -24,8 +24,8 @@ Phases, each printing one JSON line and then its seconds:
    / f32, lse within 1e-3; the backward's max error over max |ref| within
    2e-2 / 5e-3 / 1e-4), the K1, K2 and paged-decode cases also bit-equal
    on a second launch: K1
-   in bf16, f16 and f32 (its three bodies: 16-bit tensor cores, f32 on
-   the tensor cores by 3xTF32, and the SIMT body above head_dim 128) over
+   in bf16, f16 and f32 (its two bodies, each on the tensor cores at every
+   head_dim: bf16 / f16 by 16-bit products, f32 by 3xTF32) over
    lengths 17-1024, causal and full, sq < sk, head_dim 17 / 32 / 40 / 64
    / 96 / 128 / 192 / 256, a misaligned layout (scalar staging), the
    model's strided qkv split, the training shape and ViT-B/16's (B=64,
@@ -372,7 +372,7 @@ PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
-# K1's f32 body on the tensor cores (3xTF32, head_dim <= 128), beside
+# K1's f32 body on the tensor cores (3xTF32, every head_dim), beside
 # ATOL: a one-pass TF32 body fails it (tests/test_torch_port_cuda.py,
 # test_flash_f32_one_pass_tf32_fails_the_tight_check)
 K1_F32_TC_ATOL = 2e-5
@@ -494,8 +494,9 @@ def phase_build():
 # ----------------------------------------------------------------- kernels
 def _k1_case(gen, dtype, sq, sk, d, causal, b=1, layout="contiguous"):
     """K1 against its plain version (o within ATOL, the 3xTF32 body within
-    K1_F32_TC_ATOL; lse within 1e-3) and a second launch bit-equal to the
-    first.  ``layout``: "contiguous";
+    K1_F32_TC_ATOL; lse within 1e-3), a second launch bit-equal to the
+    first, and both launches on the dtype's body ("3xtf32" for f32, else
+    "tc16") by the per-body counters.  ``layout``: "contiguous";
     "unaligned", each tensor a view one element into rows of d + 1 (the
     scalar staging); "qkv", the model's head-major split of one
     ``[b, S, HEADS, 3, d]`` tensor."""
@@ -508,22 +509,25 @@ def _k1_case(gen, dtype, sq, sk, d, causal, b=1, layout="contiguous"):
         w = d + 1 if layout == "unaligned" else d
         q, k, v = (torch.randn(b, s, HEADS, w, generator=gen, device="cuda")
                    .to(dtype)[..., w - d:] for s in (sq, sk, sk))
+    bodies0 = dict(fa.FWD_BODY_LAUNCHES)
     o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
     o2, lse2 = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
+    bodies = {n: c - bodies0[n] for n, c in fa.FWD_BODY_LAUNCHES.items()}
+    body = "3xtf32" if dtype == torch.float32 else "tc16"
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
     err = (o.float() - ref.float()).abs().max().item()
     lse_ref = fa.flash_attention_lse_ref(q, k, causal=causal)
     lse_err = (lse - lse_ref).abs().max().item()
     same = torch.equal(o, o2) and torch.equal(lse, lse2)
-    tol = K1_F32_TC_ATOL if dtype == torch.float32 and d <= 128 \
-        else ATOL[dtype]
-    ok = (err <= tol and lse_err <= 1e-3 and same
+    tol = K1_F32_TC_ATOL if dtype == torch.float32 else ATOL[dtype]
+    on_body = bodies == {n: 2 * int(n == body) for n in bodies}
+    ok = (err <= tol and lse_err <= 1e-3 and same and on_body
           and bool(torch.isfinite(o).all()))
     return {"b": b, "sq": sq, "sk": sk, "d": d, "causal": causal,
             "layout": layout, "dtype": str(dtype).split(".")[-1],
             "max_abs_err": err, "lse_max_abs_err": lse_err,
-            "bit_equal_relaunch": same, "ok": ok}
+            "bit_equal_relaunch": same, "bodies": bodies, "ok": ok}
 
 
 def _k1_timed(gen, b, S=1024, dtype=torch.bfloat16, heads=HEADS,
@@ -838,16 +842,20 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # K1 on its three bodies: head_dim 17-128 on the tensor cores, bf16 /
-    # f16 by 16-bit products and f32 by 3xTF32 (zero-padded to 64 / 128;
-    # 17 and a misaligned base take the scalar staging), 192 and 256 on the
-    # SIMT body
+    # K1 on its two bodies, every head_dim on the tensor cores: bf16 / f16
+    # by 16-bit products, f32 by 3xTF32 (zero-padded to 64 / 128 / 256; 17
+    # and a misaligned base take the scalar staging); at 192 / 256 (DP =
+    # 256: 16-bit 64-key tiles with Q read by ldmatrix in the key loop; f32
+    # 8 warps splitting head_dim, 32-key tiles) ragged lengths, sq < sk
+    # across the ragged key edge, and a misaligned base
     k1_shapes = [(s, s, 64, True) for s in (17, 256, 300, 512, 1024)]
     k1_shapes += [(64, 320, 64, True), (300, 300, 64, False),
                   (1024, 1024, 64, False), (256, 256, 128, True),
                   (300, 300, 32, True), (200, 256, 40, True),
                   (129, 129, 96, False), (100, 100, 17, True),
                   (70, 70, 256, True), (160, 200, 192, True),
+                  (64, 257, 256, True),
+                  (200, 200, 256, False, 1, "unaligned"),
                   (1, 513, 128, True),
                   (300, 300, 64, True, 1, "unaligned"),
                   (1024, 1024, 64, True, 2, "qkv"),
@@ -908,8 +916,9 @@ def phase_kernels():
     k1_time = _k1_timed(gen, 1)
     k1_train_time = _k1_timed(gen, TRAIN_B)
     t_d256 = time.perf_counter()
-    # head_dim 256 (the SIMT forward), at K2_WIDE's shape; the seconds they
-    # add to this phase beside them
+    # head_dim 256 (DP = 256: the 16-bit body's 64-key tiles, the f32
+    # body's 8 warps splitting head_dim over 32-key tiles), at K2_WIDE's
+    # shape; the seconds they add to this phase beside them
     k1_d256 = {
         "k1_d256": _k1_timed(gen, K2_WIDE_B, K2_WIDE_S, torch.bfloat16,
                              K2_WIDE_H, K2_WIDE_D),
@@ -3584,7 +3593,8 @@ def phase_llama():
 
 
 PROFILE_CATEGORIES = (   # device kernel name fragments, first match wins
-    # K1: the tensor-core body (flash_fwd_tc_kernel) and the SIMT body
+    # K1: the 16-bit body (flash_fwd_tc_kernel) and the f32 body
+    # (flash_fwd_f32_tc_kernel)
     ("K1 flash_fwd", ("flash_fwd_",)),
     ("K2a flash_bwd_dkdv", ("flash_bwd_dkdv_",)),
     ("K2b flash_bwd_dq", ("flash_bwd_dq_",)),

@@ -887,8 +887,7 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D) {
 
 // The body that takes a call: every head_dim (padded to 64, 128 or 256)
 // runs on the tensor cores, bf16 / f16 by 16-bit products, f32 by 3xTF32
-// (the forward's names and numbers, csrc/flash_attention_fwd.cu FwdBody,
-// whose 0 is its SIMT body: the backward has none, so it starts at 1).
+// (the forward's names and numbers, csrc/flash_attention_fwd.cu FwdBody).
 // The wrapper counts launches by it.
 enum BwdBody : int { kBwdTc16 = 1, kBwd3xTf32 = 2 };
 

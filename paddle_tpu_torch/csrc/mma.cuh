@@ -7,8 +7,9 @@
 // resident tile.  16-bit products are mma.sync.m16n8k16 (f32 accumulators)
 // fed by ldmatrix out of shared memory, whose tiles are [rows][DP + 8] in
 // the input dtype: the 16-byte row pad puts ldmatrix's eight row reads on
-// distinct banks (K2a at head_dim 256, and in f32 at 128, runs 8 warps:
-// two per 16-row group, each owning half of head_dim).  f32 products are three mma.sync.m16n8k8 TF32 products
+// distinct banks (K2a at head_dim 256, and in f32 at 128, and K1's f32
+// body at 256 run 8 warps: two per 16-row group, each owning half of
+// head_dim).  f32 products are three mma.sync.m16n8k8 TF32 products
 // (3xTF32: each operand split into a TF32 "big" part and a TF32 "small"
 // remainder, the small x small term dropped), about 2^-21 relative per
 // product.  Tiles are filled by 16-byte cp.async.cg copies when a tensor

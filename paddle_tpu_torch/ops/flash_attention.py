@@ -24,9 +24,9 @@ is differentiable in both of its outputs at no extra cost.
 ``LAUNCHES``, ``BWD_DKDV_LAUNCHES`` and ``BWD_DQ_LAUNCHES`` count kernel
 launches, so a run can show that its attention went through the kernels;
 ``FWD_BODY_LAUNCHES`` / ``BWD_BODY_LAUNCHES`` split them by the body the C
-entry chose (``"tc16"``: bf16 / f16 on the tensor cores, ``"3xtf32"``: f32
-on the tensor cores, ``"simt"``: the forward at head_dim 129-256; the
-backward runs on the tensor cores at every head_dim).
+entry chose: ``"tc16"``, bf16 / f16 by 16-bit tensor-core products, and
+``"3xtf32"``, f32 by 3xTF32 tensor-core products.  Forward and backward
+run on the tensor cores at every head_dim (1-256).
 """
 
 from __future__ import annotations
@@ -49,11 +49,10 @@ BWD_DKDV_LAUNCHES = 0       # K2a, dk / dv
 BWD_DQ_LAUNCHES = 0         # K2b, dq
 #: the same launches by body (K2a and K2b together), as the C entries'
 #: ``*_body`` functions name it
-FWD_BODY_LAUNCHES = {"simt": 0, "tc16": 0, "3xtf32": 0}
+FWD_BODY_LAUNCHES = {"tc16": 0, "3xtf32": 0}
 BWD_BODY_LAUNCHES = {"tc16": 0, "3xtf32": 0}
-_FWD_BODIES = ("simt", "tc16", "3xtf32")     # csrc enum FwdBody
-# csrc enum BwdBody: the forward's numbers, without its SIMT body (0)
-_BWD_BODIES = {1: "tc16", 2: "3xtf32"}
+# csrc enums FwdBody and BwdBody, which share their numbers
+_BODIES = {1: "tc16", 2: "3xtf32"}
 
 
 def _scores(q, k, scale, causal):
@@ -256,7 +255,7 @@ def _fwd_kernel(q, k, v, scale, causal, return_lse):
     _build.check(err, "flash_attention_fwd")
     _report_cost(q, k, causal, return_lse)
     _build.count_launch(globals(), "LAUNCHES")
-    _build.count_launch(globals(), "FWD_BODY_LAUNCHES", _FWD_BODIES[
+    _build.count_launch(globals(), "FWD_BODY_LAUNCHES", _BODIES[
         lib.ptt_flash_attention_fwd_body(_build.dtype_code(q), d)])
     return o, lse
 
@@ -323,7 +322,7 @@ def _bwd_dq_kernel(q, k, v, g, lse, r, scale, causal):
 
 
 def _count_bwd_body(lib, q):
-    _build.count_launch(globals(), "BWD_BODY_LAUNCHES", _BWD_BODIES[
+    _build.count_launch(globals(), "BWD_BODY_LAUNCHES", _BODIES[
         lib.ptt_flash_attention_bwd_body(_build.dtype_code(q), q.shape[-1])])
 
 

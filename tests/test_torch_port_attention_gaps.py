@@ -12,7 +12,8 @@ call bit for bit on the CPU, in both packages, and the two packages agree.
 The CUDA dispatch (K1 when dropout is inactive, the plain attention with
 dropout when it is active) is held on the card by
 ``tests/test_torch_port_cuda.py``; here the non-CUDA devices that still
-raise."""
+raise.  The per-body launch counters name only the two tensor-core
+bodies, numbered as the C entries number them."""
 
 import functools
 import importlib
@@ -127,6 +128,25 @@ def test_wide_head_gradient_is_refused_only_past_256():
     wide = torch.empty(1, 8, 2, 257, device="meta", requires_grad=True)
     with pytest.raises(NotImplementedError, match="head_dim <= 256"):
         tfa.flash_attention_fn(wide, wide, wide, causal=True)
+
+
+def test_flash_bodies_are_the_tensor_core_bodies_only():
+    """Every head_dim runs on the tensor cores forward and backward: the
+    two per-body launch counters have the same keys, the 16-bit and the
+    3xTF32 body, and the wrapper's numbering of them is the C entries'
+    (enums FwdBody and BwdBody, read from the sources)."""
+    import re
+
+    from paddle_tpu_torch.ops import _build
+
+    assert set(tfa.FWD_BODY_LAUNCHES) == set(tfa.BWD_BODY_LAUNCHES) == \
+        {"tc16", "3xtf32"}
+    for src, enum in (("flash_attention_fwd.cu", "FwdBody"),
+                      ("flash_attention_bwd.cu", "BwdBody")):
+        text = (_build.CSRC / src).read_text()
+        body = re.search(r"enum %s : int \{([^}]*)\}" % enum, text).group(1)
+        numbers = sorted(int(n) for n in re.findall(r"= (\d+)", body))
+        assert {n: tfa._BODIES[n] for n in numbers} == tfa._BODIES
 
 
 # ------------------------------------------------------------ dropout rule

@@ -58,7 +58,7 @@ from paddle_tpu_torch.text.models import GPTForCausalLM
 pytestmark = pytest.mark.cuda
 
 ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-4}
-#: K1's f32 body on the tensor cores (3xTF32, head_dim <= 128) against its
+#: K1's f32 body on the tensor cores (3xTF32, every head_dim) against its
 #: plain version, beside ATOL: a body that dropped the split's cross terms
 #: (one TF32 product per product) fails it, see
 #: test_flash_f32_one_pass_tf32_fails_the_tight_check
@@ -99,8 +99,10 @@ def _fwd_inputs(gen, dtype, b, h, sq, sk, d, layout):
     (2, 3, 300, 300, 64, False, "contiguous"),
     (2, 3, 256, 256, 128, True, "contiguous"),
     (2, 3, 33, 33, 256, False, "contiguous"),
-    # head_dim 17 / 32 / 40 / 96 (tensor cores in bf16 / f16, zero-padded
-    # to 64 or 128) and 256 (the SIMT body in every dtype)
+    # head_dim 17 / 32 / 40 / 96 (zero-padded to 64 or 128) and 192 / 256
+    # (padded to 256: the 16-bit body's 64-key tiles, Q read by ldmatrix
+    # in the key loop; the f32 body's 8 warps splitting head_dim, 32-key
+    # tiles)
     (2, 3, 100, 100, 17, True, "contiguous"),
     (2, 3, 300, 300, 32, True, "contiguous"),
     (2, 3, 200, 256, 40, True, "contiguous"),
@@ -120,8 +122,8 @@ def _fwd_inputs(gen, dtype, b, h, sq, sk, d, layout):
 def test_flash_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d, causal,
                                     layout):
     """K1 against its plain version (o within ATOL, lse within 1e-3) over
-    the reach of its three bodies (f32 at head_dim <= 128 on the tensor
-    cores by 3xTF32); a second launch is bit-equal to the first."""
+    the reach of its two bodies (the f32 one, 3xTF32, also within
+    F32_TC_ATOL); a second launch is bit-equal to the first."""
     q, k, v = _fwd_inputs(cuda, dtype, b, h, sq, sk, d, layout)
     n0 = fa.LAUNCHES
     o, lse = fa.flash_attention_fn(q, k, v, causal=causal, return_lse=True)
@@ -131,7 +133,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d, causal,
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(o.float(), ref.float(), atol=ATOL[dtype], rtol=0)
-    if dtype == torch.float32 and d <= 128:         # the 3xTF32 body
+    if dtype == torch.float32:                      # the 3xTF32 body
         torch.testing.assert_close(o, ref, atol=F32_TC_ATOL, rtol=0)
     torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k, causal=causal),
                                atol=1e-3, rtol=0)
@@ -188,15 +190,14 @@ def test_kernels_refuse_calls_that_need_a_gradient(cuda):
     (torch.bfloat16, 64, "tc16", "tc16"), (torch.float16, 128, "tc16", "tc16"),
     (torch.float32, 64, "3xtf32", "3xtf32"),
     (torch.float32, 128, "3xtf32", "3xtf32"),
-    (torch.bfloat16, 192, "simt", "tc16"), (torch.float16, 256, "simt", "tc16"),
-    (torch.float32, 256, "simt", "3xtf32")])
+    (torch.bfloat16, 192, "tc16", "tc16"), (torch.float16, 256, "tc16", "tc16"),
+    (torch.float32, 256, "3xtf32", "3xtf32")])
 def test_flash_calls_reach_their_dtypes_bodies(cuda, dtype, d, fwd_body,
                                                bwd_body):
     """The C entries' body rule, by the per-body launch counters: bf16 /
-    f16 at head_dim <= 128 stay on the 16-bit tensor cores forward and
-    backward, f32 takes 3xTF32 forward and backward, head_dim 129-256
-    the SIMT forward and the dtype's tensor-core backward; one forward and
-    one K2a + K2b per call."""
+    f16 stay on the 16-bit tensor cores forward and backward, f32 takes
+    3xTF32 forward and backward, at every head_dim (192 and 256 too); one
+    forward and one K2a + K2b per call."""
     q, k, v = _fwd_inputs(cuda, dtype, 2, 3, 100, 100, d, "contiguous")
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     fwd0, bwd0 = dict(fa.FWD_BODY_LAUNCHES), dict(fa.BWD_BODY_LAUNCHES)
@@ -211,18 +212,20 @@ def test_flash_f32_keys_are_not_symmetric(cuda):
     """K1's 3xTF32 body takes the keys of each 8-wide step in a permuted
     order (2t, 2t + 1 per lane): V that rises with the key index and a q.k
     that favours late keys would show any mismatch between the P and V
-    fragments, at the f32 tolerance."""
-    b, h, s, d = 2, 4, 200, 96
-    q = torch.randn(b, s, h, d, generator=cuda, device="cuda")
-    k = torch.randn(b, s, h, d, generator=cuda, device="cuda") \
-        + torch.linspace(0, 1, s, device="cuda")[None, :, None, None]
-    v = torch.arange(s * d, dtype=torch.float32, device="cuda").reshape(
-        1, s, 1, d).expand(b, s, h, d).contiguous() / (s * d)
-    for causal in (True, False):
-        o = fa.flash_attention_fn(q, k, v, causal=causal)
-        torch.testing.assert_close(
-            o, fa.flash_attention_ref(q, k, v, causal=causal),
-            atol=ATOL[torch.float32], rtol=0)
+    fragments, at the f32 tolerance; at DP = 128 (head_dim 96) and DP =
+    256 (head_dim 256: 8 warps splitting head_dim, 32-key tiles)."""
+    b, h, s = 2, 4, 200
+    for d in (96, 256):
+        q = torch.randn(b, s, h, d, generator=cuda, device="cuda")
+        k = torch.randn(b, s, h, d, generator=cuda, device="cuda") \
+            + torch.linspace(0, 1, s, device="cuda")[None, :, None, None]
+        v = torch.arange(s * d, dtype=torch.float32, device="cuda").reshape(
+            1, s, 1, d).expand(b, s, h, d).contiguous() / (s * d)
+        for causal in (True, False):
+            o = fa.flash_attention_fn(q, k, v, causal=causal)
+            torch.testing.assert_close(
+                o, fa.flash_attention_ref(q, k, v, causal=causal),
+                atol=ATOL[torch.float32], rtol=0)
 
 
 def test_flash_f32_one_pass_tf32_fails_the_tight_check(cuda, tmp_path,
@@ -244,7 +247,8 @@ def test_flash_f32_one_pass_tf32_fails_the_tight_check(cuda, tmp_path,
     cases = [_fwd_inputs(cuda, torch.float32, b, h, sq, sk, d, "contiguous")
              + (causal,) for b, h, sq, sk, d, causal in (
                  (2, 3, 300, 300, 64, True), (2, 3, 256, 256, 128, True),
-                 (1, 4, 512, 512, 128, False), (2, 3, 200, 256, 40, True))]
+                 (1, 4, 512, 512, 128, False), (2, 3, 200, 256, 40, True),
+                 (2, 2, 300, 300, 256, True))]
 
     def errs():
         return [(fa.flash_attention_fn(q, k, v, causal=c)
@@ -1397,10 +1401,15 @@ def test_generate_replays_its_captured_step(cuda):
 def test_generate_returns_the_card_memory_it_took(cuda):
     """generate() over several prompt lengths, dense and paged: after each
     call the allocated device memory is back at its baseline (the cache,
-    the captured step and its pool go with the call)."""
+    the captured step and its pool go with the call).  Garbage of earlier
+    tests (a card model in a reference cycle) is collected before the
+    baseline, so a collection inside a call cannot lower the count."""
+    import gc
+
     _, card = _tiny_pair()
     card.generate(np.ones((2, 4), np.int64), max_new_tokens=3,
                   temperature=0.0)
+    gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     for impl in ("dense", "paged"):
