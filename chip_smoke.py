@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py          # build,kernels,slice,train,quant,custom_op,qat,generate,spec,prefix,resilience,observe,programs,llama,numerics,multitenant,cluster,finetune,hapi,vision,detection,recovery,walkthroughs,dist,pipe
+    python3 chip_smoke.py          # build,kernels,custom_op,resilience,llama,slice,train,quant,qat,generate,observe,programs,spec,prefix,numerics,multitenant,cluster,finetune,hapi,vision,detection,recovery,walkthroughs,mesh,dist,pipe
     python3 chip_smoke.py --phases build,pipe
     python3 chip_smoke.py --phases build,dist
+    python3 chip_smoke.py --phases build,kernels,mesh
     python3 chip_smoke.py --phases build,recovery,walkthroughs
     python3 chip_smoke.py --phases build,kernels,detection
     python3 chip_smoke.py --phases build,hapi
@@ -55,102 +56,18 @@ Phases, each printing one JSON line and then its seconds:
    backward; K3 / K4 through the chunk attend at the speculative
    verify shape (8 slots x 5 positions) and K3 at one 128-token prefill
    chunk, against the chunk attend's plain version.
-3. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
-   ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
-   of 17-900 tokens, 32 new tokens each.  float32 on the card must give
-   the CPU engine's greedy ids; bf16 on the card is timed.  The kernels'
-   launch counters are zeroed before each run and checked after it.
-4. ``train``   — train GPT-base with ``jit.TrainStep`` (AdamW, global-norm
-   clip 1.0): 3 steps in f32 on the card must give the CPU's losses; then
-   12 bf16 O2 steps at B=8, S=1024 are timed, with K1 = K2a = K2b =
-   12 launches per step checked, and every flash launch on its dtype's
-   body (f32: 3xTF32 forward and backward; bf16: the 16-bit tensor
-   cores); then GPT-tiny with attention dropout 0.1 trains 8 steps on the
-   card (the plain attention with dropout, no flash launch; finite,
-   falling losses) and its eval forward equals dropout 0's bit for bit.
-5. ``quant``   — the slice's requests through
-   ``ServingEngine(kv_dtype="int8")``: float32 on the card against the
-   CPU int8 engine (the first 6 requests; greedy top-1 agreement >= 0.8,
-   first tokens equal), then bf16 timed beside the native bf16 slice and
-   beside ``weight_dtype="int8"``, with the pool bytes of both layouts and
-   the launch counts (K4 = 12 x decode steps, K1 = 12 x prefills, K3 = 0).
-6. ``custom_op`` — the custom-op + QAT example
+3. ``custom_op`` — the custom-op + QAT example
    (``paddle_tpu_torch.examples.custom_op_and_quant``) on the card and on
    the CPU from the same seeded weights, float32: losses and scales rtol
    1e-4, and K6 launched exactly once per step (30).
-7. ``qat``     — GPT-base wrapped by ``QAT(QuantConfig())``: 3 f32
-   ``TrainStep``s on the card against the CPU (losses rtol 1e-3, the same
-   scale keys; a CPU control run shows the fake-quant rounding's own
-   spread); ``convert_to_int8`` into 48 ``Int8Linear``s with static
-   activation scales, served with ``kv_dtype="int8"`` in f32 against the
-   CPU (first 6 requests, top-1 agreement >= 0.8, K1 / K4 counts); the
-   converted model in bf16 timed on the 12 requests in turns with the
-   quant phase's dynamic-scale ``weight_dtype="int8"`` run (static,
-   dynamic, dynamic, static); 12 bf16 O2 QAT training steps timed beside
-   the ``train`` phase's plain step.
-8. ``generate`` — GPT-base through ``model.generate()``: float32 greedy
-   ids on the card equal the CPU's for the dense and paged caches (B=4,
-   prompts of 64 and 256 tokens, 32 new tokens; dense equal to paged),
-   ``use_cache=False`` and beam search, each call's launches checked (the
-   paged cache: K1 per layer once, K3 through ``paged_decode_attend`` per
-   layer per step; the dense cache: no kernel, its masked attention is the
-   plain one, as in the TPU package); bf16 at B=8, prompts of 512, 128
-   new tokens, dense and paged timed in turns.
-9. ``spec``    — GPT-base through ``ServingEngine(speculative_k=4)`` on six
-   motif-repeating prompts and ``ServingEngine(prefill_chunk_tokens=128)``
-   on six prompts of 17-900 tokens: float32 ids equal the plain card
-   engine's and the CPU engine's with native pools, and meet the int8
-   rule against the CPU int8 engine with ``kv_dtype="int8"``, K3 / K4
-   launched through ``paged_chunk_attend(_quant)``; bf16 tokens/s and
-   acceptance in turns with the plain engine; bf16 TTFT of seven short
-   requests behind a 900-token prompt, with and without chunking.
-10. ``prefix``  — GPT-base through the hierarchical KV cache on the
-   reference's Zipfian shared-prefix traffic (24 prompts of 512 tokens,
-   4 shared 480-token prefixes at Zipf 1.2, 20% one-off prompts, seed 0;
-   ``num_slots=4``, page 32, ``num_pages=72``, 16 new tokens, waves of
-   4): float32 ids equal across the ``lru``, ``radix`` and
-   ``radix_spill`` arms and equal the CPU ``lru`` engine's on the first 8
-   requests, whose ``saved_tokens`` equal the CPU radix engine's; the
-   spill tier spills and resurrects; K3 through ``paged_chunk_attend``
-   once per layer per cached prefill; ``kv_dtype="int8"`` radix_spill
-   under the int8 rule with K4 counted; bf16 TTFT p50 and tokens/s of the
-   three arms in turns; K3 / K4 at the cached-tail shape (32 rows behind
-   480 cached tokens).
-11. ``resilience`` — GPT-base float32 on the card: a transient step
+4. ``resilience`` — GPT-base float32 on the card: a transient step
    crash restarts the engine (ids equal an uninterrupted run, the pools
    rebuilt on the card), a fatal one aborts, a NaN decode lane fails only
    its request under ``numeric_guard``, a realtime request preempts a
    batch one (ids unchanged), a 2 s wedge sheds ``deadline_unmeetable``
    and ``queue_full`` and fires the watchdog once; the host syncs of one
    decode step with the guard off and on.
-12. ``observe`` — GPT-base through the engine's observability layer: the
-   slice's requests in float32 with the sinks on (span tracer, flight
-   recorder, telemetry on an ephemeral port, the numerics stream) give
-   the ids of the sinks-off engine and the CPU engine, with /metrics,
-   /healthz and /statusz scraped over localhost while they run and K1 /
-   K3 (K4 with int8 pools) counted; ``PADDLE_HBM_BUDGET_BYTES`` at half
-   the pages sheds requests without changing the admitted ids; the
-   memory ledger against the pools and the CUDA allocator, a forced OOM
-   recognized and dumped; 1 host sync per decode step with the sinks on;
-   the sinks' cost in bf16 tokens/s, TTFT and ITL, in 3 rounds of turns.
-   (Since the program layer, a decode step syncs once: its tokens'
-   transfer; the eager step synced 4 times.)
-13. ``programs`` — GPT-base through the program layer: every engine
-   program (``serve_step``, ``serve_prefill/<bucket>``,
-   ``serve_prefill_chunk/<c>``, ``verify/k4``) a CUDA graph captured at
-   its first dispatch and replayed after.  A cold f32 engine on the
-   slice's 12 requests (greedy ids equal the CPU engine's) captures its
-   manifest; an engine over a fresh copy of the weights replays it with
-   ``warmup()`` and serves the requests again: the same ids, 0 new mints,
-   ``compile_s == 0``, every key a replayed graph, K1 / K3 counted per
-   layer per prefill / step; the same with int8 pools (K4), with
-   ``speculative_k=4`` (verify) and with ``prefill_chunk_tokens=128``
-   (chunks); paged ``generate()`` replaying its captured step; the perf
-   table's rows (share of peak <= 1.05); one sync per decode step; a
-   warmed bf16 engine's wall, TTFT, inter-token p50 / p99, and under the
-   port's ``Profiler`` the device trace's K1 and K3 and the card's idle
-   share, beside PERF.md's eager figures (different calls, no A/B).
-14. ``llama``  — Llama-3-8B (meta-llama/Meta-Llama-3-8B's config: vocab
+5. ``llama``  — Llama-3-8B (meta-llama/Meta-Llama-3-8B's config: vocab
    128256, 4096 wide, SwiGLU 14336, 32 heads over 8 kv heads of 128,
    rope_theta 500000; random weights from a card generator seeded with 0)
    through ``LlamaForCausalLM``: float32 at depth 2 (the depth cut, named
@@ -169,6 +86,90 @@ Phases, each printing one JSON line and then its seconds:
    step; MFU against 989 TFLOP/s), two more under the profiler; then K1
    (f32 and bf16), K2a / K2b and K3's f32-query entry over bf16 pools at
    those shapes beside their plain versions and PyTorch's calls.
+6. ``slice``   — serve GPT-base (vocab 50304, 12 x 768, random weights from
+   ``torch.manual_seed(0)``) through ``ServingEngine``: 12 requests, prompts
+   of 17-900 tokens, 32 new tokens each.  float32 on the card must give
+   the CPU engine's greedy ids; bf16 on the card is timed.  The kernels'
+   launch counters are zeroed before each run and checked after it.
+7. ``train``   — train GPT-base with ``jit.TrainStep`` (AdamW, global-norm
+   clip 1.0): 3 steps in f32 on the card must give the CPU's losses; then
+   12 bf16 O2 steps at B=8, S=1024 are timed, with K1 = K2a = K2b =
+   12 launches per step checked, and every flash launch on its dtype's
+   body (f32: 3xTF32 forward and backward; bf16: the 16-bit tensor
+   cores); then GPT-tiny with attention dropout 0.1 trains 8 steps on the
+   card (the plain attention with dropout, no flash launch; finite,
+   falling losses) and its eval forward equals dropout 0's bit for bit.
+8. ``quant``   — the slice's requests through
+   ``ServingEngine(kv_dtype="int8")``: float32 on the card against the
+   CPU int8 engine (the first 6 requests; greedy top-1 agreement >= 0.8,
+   first tokens equal), then bf16 timed beside the native bf16 slice and
+   beside ``weight_dtype="int8"``, with the pool bytes of both layouts and
+   the launch counts (K4 = 12 x decode steps, K1 = 12 x prefills, K3 = 0).
+9. ``qat``     — GPT-base wrapped by ``QAT(QuantConfig())``: 3 f32
+   ``TrainStep``s on the card against the CPU (losses rtol 1e-3, the same
+   scale keys; a CPU control run shows the fake-quant rounding's own
+   spread); ``convert_to_int8`` into 48 ``Int8Linear``s with static
+   activation scales, served with ``kv_dtype="int8"`` in f32 against the
+   CPU (first 6 requests, top-1 agreement >= 0.8, K1 / K4 counts); the
+   converted model in bf16 timed on the 12 requests in turns with the
+   quant phase's dynamic-scale ``weight_dtype="int8"`` run (static,
+   dynamic, dynamic, static); 12 bf16 O2 QAT training steps timed beside
+   the ``train`` phase's plain step.
+10. ``generate`` — GPT-base through ``model.generate()``: float32 greedy
+   ids on the card equal the CPU's for the dense and paged caches (B=4,
+   prompts of 64 and 256 tokens, 32 new tokens; dense equal to paged),
+   ``use_cache=False`` and beam search, each call's launches checked (the
+   paged cache: K1 per layer once, K3 through ``paged_decode_attend`` per
+   layer per step; the dense cache: no kernel, its masked attention is the
+   plain one, as in the TPU package); bf16 at B=8, prompts of 512, 128
+   new tokens, dense and paged timed in turns.
+11. ``observe`` — GPT-base through the engine's observability layer: the
+   slice's requests in float32 with the sinks on (span tracer, flight
+   recorder, telemetry on an ephemeral port, the numerics stream) give
+   the ids of the sinks-off engine and the CPU engine, with /metrics,
+   /healthz and /statusz scraped over localhost while they run and K1 /
+   K3 (K4 with int8 pools) counted; ``PADDLE_HBM_BUDGET_BYTES`` at half
+   the pages sheds requests without changing the admitted ids; the
+   memory ledger against the pools and the CUDA allocator, a forced OOM
+   recognized and dumped; 1 host sync per decode step with the sinks on;
+   the sinks' cost in bf16 tokens/s, TTFT and ITL, in 3 rounds of turns.
+   (Since the program layer, a decode step syncs once: its tokens'
+   transfer; the eager step synced 4 times.)
+12. ``programs`` — GPT-base through the program layer: every engine
+   program (``serve_step``, ``serve_prefill/<bucket>``,
+   ``serve_prefill_chunk/<c>``, ``verify/k4``) a CUDA graph captured at
+   its first dispatch and replayed after.  A cold f32 engine on the
+   slice's 12 requests (greedy ids equal the CPU engine's) captures its
+   manifest; an engine over a fresh copy of the weights replays it with
+   ``warmup()`` and serves the requests again: the same ids, 0 new mints,
+   ``compile_s == 0``, every key a replayed graph, K1 / K3 counted per
+   layer per prefill / step; the same with int8 pools (K4), with
+   ``speculative_k=4`` (verify) and with ``prefill_chunk_tokens=128``
+   (chunks); paged ``generate()`` replaying its captured step; the perf
+   table's rows (share of peak <= 1.05); one sync per decode step; a
+   warmed bf16 engine's wall, TTFT, inter-token p50 / p99, and under the
+   port's ``Profiler`` the device trace's K1 and K3 and the card's idle
+   share, beside PERF.md's eager figures (different calls, no A/B).
+13. ``spec``    — GPT-base through ``ServingEngine(speculative_k=4)`` on six
+   motif-repeating prompts and ``ServingEngine(prefill_chunk_tokens=128)``
+   on six prompts of 17-900 tokens: float32 ids equal the plain card
+   engine's and the CPU engine's with native pools, and meet the int8
+   rule against the CPU int8 engine with ``kv_dtype="int8"``, K3 / K4
+   launched through ``paged_chunk_attend(_quant)``; bf16 tokens/s and
+   acceptance in turns with the plain engine; bf16 TTFT of seven short
+   requests behind a 900-token prompt, with and without chunking.
+14. ``prefix``  — GPT-base through the hierarchical KV cache on the
+   reference's Zipfian shared-prefix traffic (24 prompts of 512 tokens,
+   4 shared 480-token prefixes at Zipf 1.2, 20% one-off prompts, seed 0;
+   ``num_slots=4``, page 32, ``num_pages=72``, 16 new tokens, waves of
+   4): float32 ids equal across the ``lru``, ``radix`` and
+   ``radix_spill`` arms and equal the CPU ``lru`` engine's on the first 8
+   requests, whose ``saved_tokens`` equal the CPU radix engine's; the
+   spill tier spills and resurrects; K3 through ``paged_chunk_attend``
+   once per layer per cached prefill; ``kv_dtype="int8"`` radix_spill
+   under the int8 rule with K4 counted; bf16 TTFT p50 and tokens/s of the
+   three arms in turns; K3 / K4 at the cached-tail shape (32 rows behind
+   480 cached tokens).
 15. ``numerics`` — GPT-base numerics capture and TrainStep observability:
    3 f32 TrainSteps (B=2, S=256) with probes off and on from one init,
    losses byte-identical and K1 = K2a = K2b = 12 per step either way; the
@@ -295,16 +296,33 @@ Phases, each printing one JSON line and then its seconds:
    that verifies, and one step from it gives the clean run's third loss
    (relative 1e-5); ``run_smoke()`` on its default device, the card.
    The disk's free bytes and file system first.
-23. ``walkthroughs`` — the seven walkthrough examples
+23. ``walkthroughs`` — the nine walkthrough examples
    (``paddle_tpu_torch.examples``: numerics_debugging,
    serve_gpt_continuous, serve_gpt_speculative, serve_gpt_prefix_cache,
-   serve_gpt_quantized, observability_metrics, observability_perf)
+   serve_gpt_quantized, observability_metrics, observability_perf,
+   serve_gpt_mp, observability_tracing)
    through ``main(device="cuda")`` at the reference's widths, each held
    to its own pass condition (the reference example's asserts; int8
    top-1 agreement >= 0.8 for the quantized one) and its kernels'
    launches counted (K1 / K3 for the serving examples, K4 for the
    quantized one, K2 where an example trains a GPT).
-24. ``dist``   — distributed part one (``paddle_tpu_torch.distributed``):
+24. ``mesh``   — the serving mesh: ``ServingEngine(mesh=["cuda:0",
+   "cuda:0"])``, a leader and a follower process on the one card over
+   gloo, at GPT-base's widths and depth.  f32 (TF32 off): the plain,
+   int8-KV, chunked (128) and speculative (k=4) engines on 8 greedy
+   requests of 17-512 prompt tokens, 32 new each, give the mp = 1
+   engine's ids; both ranks launch K1 / K3 / K4 alike over 6 heads (once a
+   layer a prefill / decode step for the plain and int8 engines); a
+   ``serving.step_crash`` restart gives the same ids.  bf16: agreement
+   with mp = 1 and the first diverging positions, tokens/s and median
+   ITL at mp = 2 (eager on both ranks) against mp = 1 (CUDA graphs),
+   each rank's peak memory and pool bytes, 2 all-reduces a layer a
+   dispatch, and the leader's wall inside the gloo hops and waiting for
+   its own kernels before them.  Then ``ReplicaPool(devices=["cuda:0"] *
+   4, mp=2)`` at depth 2 against mp = 1, and K1 / K3 / K4 at six heads
+   against their plain versions.  Host-staged gloo on one card: says
+   nothing of NCCL between cards.
+25. ``dist``   — distributed part one (``paddle_tpu_torch.distributed``):
    a world of one over NCCL (every eager op on card tensors, each the
    identity and counted once; GPT-base f32 depth 2 in ``DataParallel``
    bit-equal to the plain step), then two rank processes on the one card
@@ -316,9 +334,11 @@ Phases, each printing one JSON line and then its seconds:
    ResNet-18's first gradients and the ``train_resnet_dp`` /
    ``resilient_training`` examples (the dp losses against one process at
    every step: 1e-4, or 5x the largest gap so far of three one-process
-   runs in other summation orders).  Step times there are host-staged
-   gloo and say nothing of NCCL between cards.
-25. ``pipe``   — distributed part two, the pipeline, in rank processes on
+   runs in other summation orders); after training, each rank's greedy
+   paged ``generate()`` of GPT-base f32 (B=2, S=64, 16 new) equals the
+   unsharded one, K1 / K3 over each rank's heads.  Step times there are
+   host-staged gloo and say nothing of NCCL between cards.
+26. ``pipe``   — distributed part two, the pipeline, in rank processes on
    the one card over gloo: (a) GPT-3 1.3B's widths (BASELINE.json config
    #5; PaddleNLP ``gpt3-1.3B-en``: 24 x 2048, 16 heads x 128, FFN 8192,
    vocab 50304) at pp = 2, B=8, S=1024, 4 micro-batches, bf16 O2, AdamW,
@@ -342,14 +362,21 @@ Phases, each printing one JSON line and then its seconds:
    the stages' shape against their plain and library versions.  A
    collective watchdog in every rank ends a rank that stops.  Step times there are host-staged
    gloo and say nothing of NCCL between cards.
-26. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
+27. ``profile`` (only when asked for) — the bf16 slice, the bf16 int8 slice
    (native, dynamic and static int8 weights) and bf16 training steps
    (plain and QAT) under the port's ``Profiler`` (a ``torch.profiler``
    device trace): device time by kernel and the device's idle share.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name / power-limit
-line, and as the last line ``{"ok": true, "device": {...}}``.  Each phase
-prints its wall seconds on a line of its own.  Any failure
+The CPU references of ``slice``, ``train``,
+``quant``, ``qat``, ``generate``, ``spec``, ``prefix`` and ``cluster``
+(GPT-base from seed 0 on the CPU) are computed from the start of the run
+in worker processes (``CpuRefs``); each phase waits for its own and holds
+it to the digest of its own copy of the weights.
+
+Then the ``{"cpu_references": ...}`` line (each job's seconds and each
+phase's wait), the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name /
+power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
+Each phase prints its wall seconds on a line of its own.  Any failure
 raises, so the exit code is non-zero.  Without a card the script exits 2
 and prints no result.
 """
@@ -406,6 +433,9 @@ COST_ROUNDS = 3
 # by ~1e-4 where a plain run agrees to ~1e-7 (the phase's control run
 # measures this on the CPU alone)
 QAT_RTOL = 1e-3
+# the int8 f32 checks of the quant and qat phases serve the slice's first
+# 6 requests (the CPU engine's GPT-base run bounds the count)
+QUANT_PARITY_REQUESTS = 6
 
 
 def emit(obj):
@@ -469,6 +499,249 @@ def tc_bounds(dtype, ops, nbytes):
             "bound_f32_rate_ms": f32_ms, "bound_f32_rate_by": f32_by}
 
 
+# ---------------------------------------------------------- CPU references
+# The CPU references of the early phases (GPT-base from seed 0 served or
+# trained on the CPU) take minutes and need nothing from the card, so
+# worker processes compute them from the start of the run, beside the
+# build and the card work.  A job builds its model as the phase does and
+# returns the digest of its weights beside its result: the phase holds it
+# to the digest of its own copy, so both sides start from the same
+# weights.  Each job runs the same helpers as the phase would.
+CPU_REF_WORKERS = 3
+
+
+def _digest(model):
+    """A fingerprint of a CPU model's weights: the SHA-256 of their
+    bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _seed_gpt():
+    """GPT-base from ``torch.manual_seed(0)`` on the CPU (every phase's
+    f32 reference model)."""
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    torch.manual_seed(0)
+    return GPTForCausalLM(device="cpu")
+
+
+def _train_parity_ids(rs=None):
+    """The f32 parity batch of the train and qat phases: the first draw of
+    ``RandomState(0)`` (the phases draw their timed batch from ``rs``
+    next)."""
+    rs = rs or np.random.RandomState(0)
+    return torch.from_numpy(rs.randint(0, VOCAB, (PARITY_B, PARITY_S)))
+
+
+def _ref_slice():
+    model = _seed_gpt()
+    prompts, temps = slice_requests()
+    ref, wall, _ = _serve(model, "cpu", prompts, temps)
+    return {"digest": _digest(model), "ref": ref, "wall_s": wall}
+
+
+def _ref_train():
+    model = _seed_gpt()
+    digest = _digest(model)
+    ids = _train_parity_ids()
+    step = _trainer(model)
+    return {"digest": digest,
+            "losses": [step({"input_ids": ids, "labels": ids}).item()
+                       for _ in range(PARITY_STEPS)]}
+
+
+def _ref_quant():
+    model = _seed_gpt()
+    prompts, temps = slice_requests()
+    n = QUANT_PARITY_REQUESTS
+    ref, wall, _ = _serve(model, "cpu", prompts[:n], temps[:n],
+                          kv_dtype="int8")
+    return {"digest": _digest(model), "ref": ref, "wall_s": wall}
+
+
+def _ref_qat():
+    """The qat phase's CPU side: 3 f32 QAT steps, the control run from a
+    rounding-sized perturbation of the init, the scales, then the
+    converted model served on the first requests with int8 pools."""
+    from paddle_tpu_torch.quantization import convert_to_int8, extract_scales
+
+    model = _qat_gpt("cpu")
+    digest = _digest(model)
+    control = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in control.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+    ids = _train_parity_ids()
+    losses = {}
+    for tag, m in (("cpu", model), ("cpu_control", control)):
+        step = _trainer(m)
+        losses[tag] = [step({"input_ids": ids, "labels": ids}).item()
+                       for _ in range(PARITY_STEPS)]
+    del control
+    scales = extract_scales(model)
+    convert_to_int8(model.eval())
+    prompts, temps = slice_requests()
+    n = QUANT_PARITY_REQUESTS
+    ref, wall, _ = _serve(model, "cpu", prompts[:n], temps[:n],
+                          kv_dtype="int8")
+    return {"digest": digest, "losses": losses, "scales": scales,
+            "ref": ref, "wall_s": wall}
+
+
+def _ref_generate():
+    model = _seed_gpt()
+    out = {"digest": _digest(model)}
+    for kind, S, B, n, kw in GEN_F32_CASES:
+        t0 = time.perf_counter()
+        want = model.generate(_gen_ids(B, S, S + B), max_new_tokens=n,
+                              temperature=0.0, **kw)
+        out[(kind, S)] = {"ids": want.numpy(),
+                          "cpu_s": time.perf_counter() - t0}
+    return out
+
+
+def _ref_spec(label, kv):
+    model = _seed_gpt()
+    prompts, kw = SPEC_F32_CASES[label]
+    ref, wall, st = _serve(model, "cpu", prompts(), [0.0] * len(prompts()),
+                           kv_dtype=kv, **kw)
+    return {"digest": _digest(model), "ref": ref, "wall_s": wall,
+            "spec_accepted": st["spec_accepted"]}
+
+
+def _ref_prefix():
+    model = _seed_gpt()
+    prompts = prefix_requests()[:PFX_CPU_REQUESTS]
+    t0 = time.perf_counter()
+    lru = _prefix_serve(model, "cpu", prompts, **PFX_ARMS["lru"])[0]
+    radix, _, st, _, _ = _prefix_serve(model, "cpu", prompts,
+                                       **PFX_ARMS["radix"])
+    ref8 = _prefix_serve(model, "cpu", prompts, kv_dtype="int8",
+                         **PFX_ARMS["radix_spill"])[0]
+    return {"digest": _digest(model), "lru": lru, "radix": radix,
+            "radix_saved_tokens": st["prefix_cache"]["saved_tokens"],
+            "int8": ref8, "cpu_s": time.perf_counter() - t0}
+
+
+def _ref_cluster():
+    """The cluster phase's traffic through a CPU ``ServingCluster``."""
+    model = _seed_gpt()
+    cl = _cluster(model, "cl-cpu", device="cpu", saturation_queue=32)
+    with cl:
+        ref = _cluster_serve(cl, [p for _, p in cluster_requests()])
+    return {"digest": _digest(model), **ref}
+
+
+# job -> (the phase that reads it, its function, its arguments, its
+# seconds in a worker (PR 23's card runs): the jobs are dealt to the
+# workers in this order, each to the one with the least work so far, so
+# the order follows the phases' (qat's, the longest, goes first)
+CPU_REF_JOBS = {
+    "qat": ("qat", _ref_qat, (), 116),
+    "slice": ("slice", _ref_slice, (), 89),
+    "train": ("train", _ref_train, (), 42),
+    "quant": ("quant", _ref_quant, (), 54),
+    "generate": ("generate", _ref_generate, (), 31),
+    "spec_spec_native": ("spec", _ref_spec, ("spec", "native"), 20),
+    "spec_spec_int8": ("spec", _ref_spec, ("spec", "int8"), 30),
+    "spec_chunk_native": ("spec", _ref_spec, ("chunk", "native"), 45),
+    "spec_chunk_int8": ("spec", _ref_spec, ("chunk", "int8"), 64),
+    "prefix": ("prefix", _ref_prefix, (), 43),
+    "cluster": ("cluster", _ref_cluster, (), 24),
+}
+
+
+def _cpu_ref_worker(jobs, conn, threads):
+    os.nice(10)         # the build and the card's process come first
+    torch.set_num_threads(threads)
+    for name in jobs:
+        _, fn, args, _ = CPU_REF_JOBS[name]
+        t0 = time.perf_counter()
+        try:
+            res = (True, fn(*args))
+        except BaseException:           # the phase that reads it fails
+            import traceback
+            res = (False, traceback.format_exc())
+        conn.send((name, *res, time.perf_counter() - t0))
+    conn.close()
+
+
+class CpuRefs:
+    """Worker processes (spawn) computing the CPU references of the
+    selected phases; ``get(name, digest)`` waits for a job's result and
+    checks that it was computed from the weights of that ``_digest``."""
+
+    def __init__(self, phases):
+        import multiprocessing as mp
+
+        names = [n for n, (ph, _, _, _) in CPU_REF_JOBS.items()
+                 if ph in phases]
+        workers = max(1, min(CPU_REF_WORKERS, len(names)))
+        # niced: the card's process and the build's nvcc take a core
+        # before a worker does
+        self.threads = max(1, len(os.sched_getaffinity(0)) // workers)
+        plan, load = [[] for _ in range(workers)], [0] * workers
+        for n in names:
+            w = load.index(min(load))
+            plan[w].append(n)
+            load[w] += CPU_REF_JOBS[n][3]
+        ctx = mp.get_context("spawn")
+        self.results, self.owner, self.procs, self.conns = {}, {}, [], []
+        for jobs in plan:
+            if not jobs:
+                continue
+            parent, child = ctx.Pipe(duplex=False)
+            p = ctx.Process(target=_cpu_ref_worker,
+                            args=(jobs, child, self.threads), daemon=True)
+            p.start()
+            child.close()
+            self.procs.append(p)
+            self.conns.append(parent)
+            for n in jobs:
+                self.owner[n] = parent
+        self.plan = plan
+        self.wait_s, self.job_s = {}, {}
+
+    def get(self, name, digest):
+        t0 = time.perf_counter()
+        while name not in self.results:
+            conn = self.owner[name]
+            try:
+                got, ok, res, secs = conn.recv()
+            except EOFError:
+                raise SystemExit(f"the CPU reference worker of {name!r} "
+                                 f"died before sending it")
+            self.results[got] = (ok, res)
+            self.job_s[got] = secs
+        self.wait_s[name] = time.perf_counter() - t0
+        ok, res = self.results[name]
+        if not ok:
+            raise SystemExit(f"CPU reference {name!r} failed:\n{res}")
+        if res["digest"] != digest:
+            raise SystemExit(f"CPU reference {name!r} was computed from "
+                             f"other weights than the card's model")
+        return res
+
+    def close(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+REFS = None       # the run's CpuRefs (main)
+
+
 # ------------------------------------------------------------------- build
 def phase_build():
     from paddle_tpu_torch.ops import _build
@@ -485,6 +758,7 @@ def phase_build():
                      "registers" in ln or "Compiling entry" in ln))]
              for n in paths}
     emit({"phase": "build", "seconds": secs,
+          "nvcc_seconds": dict(_build.NVCC_SECONDS),
           "libraries": {n: str(p) for n, p in paths.items()},
           "ptxas": ptxas, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi_line(), "torch": torch.__version__,
@@ -1210,18 +1484,17 @@ def _counted_run(model, prompts, temps, **engine_kw):
 
 
 def phase_slice():
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prompts, temps = slice_requests()
     greedy = [i for i, t in enumerate(temps) if t == 0.0]
-    torch.manual_seed(0)
-    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
-    ref, cpu_wall, _ = _serve(cpu_model, "cpu", prompts, temps)
-
-    model = copy.deepcopy(cpu_model).to("cuda")
+    cpu_model = _seed_gpt()                         # GPT-base defaults
+    digest = _digest(cpu_model)
+    model = cpu_model.to("cuda")
     outs32, wall32, st32, counts32 = _counted_run(model, prompts, temps)
+    cpu = REFS.get("slice", digest)
+    ref, cpu_wall = cpu["ref"], cpu["wall_s"]
     mismatches = []
     for i in greedy:
         a, b = outs32[i], ref[i]
@@ -1274,21 +1547,19 @@ def phase_quant():
     (int8, native, native, int8), and once more with
     ``weight_dtype="int8"``."""
     from paddle_tpu_torch.serving.quant import top1_agreement
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prompts, temps = slice_requests()
-    n_par = 6
+    n_par = QUANT_PARITY_REQUESTS
     greedy = [i for i, t in enumerate(temps[:n_par]) if t == 0.0]
-    torch.manual_seed(0)
-    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
-    ref, cpu_wall, _ = _serve(cpu_model, "cpu", prompts[:n_par],
-                              temps[:n_par], kv_dtype="int8")
-    model = copy.deepcopy(cpu_model).to("cuda")
-    del cpu_model
+    cpu_model = _seed_gpt()                         # GPT-base defaults
+    digest = _digest(cpu_model)
+    model = cpu_model.to("cuda")
     outs32, wall32, st32, counts32 = _counted_run(
         model, prompts[:n_par], temps[:n_par], kv_dtype="int8")
+    cpu = REFS.get("quant", digest)
+    ref, cpu_wall = cpu["ref"], cpu["wall_s"]
     divergence = {i: _first_divergence(outs32[i], ref[i]) for i in greedy}
     first_ok = all(outs32[i][0] == ref[i][0] for i in greedy)
     agree32 = top1_agreement([ref[i] for i in greedy],
@@ -1472,18 +1743,17 @@ def phase_train():
 
     # parity: f32 on the card against a CPU copy of the same model; K1 and
     # K2 run their 3xTF32 bodies
-    ids = torch.from_numpy(rs.randint(0, VOCAB, (PARITY_B, PARITY_S)))
-    torch.manual_seed(0)
-    cpu_model = GPTForCausalLM(device="cpu")
-    card_model = copy.deepcopy(cpu_model).to("cuda")
-    losses = {}
-    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
-        step, x = _trainer(model), ids.to(dev)
-        _zero_bodies()
-        losses[dev] = [step({"input_ids": x, "labels": x}).item()
-                       for _ in range(PARITY_STEPS)]
+    ids = _train_parity_ids(rs)
+    cpu_model = _seed_gpt()
+    digest = _digest(cpu_model)
+    card_model = cpu_model.to("cuda")
+    step, x = _trainer(card_model), ids.to("cuda")
+    _zero_bodies()
+    losses = {"cuda": [step({"input_ids": x, "labels": x}).item()
+                       for _ in range(PARITY_STEPS)]}
     f32_bodies = _read_bodies()
-    del cpu_model, card_model
+    del cpu_model, card_model, step
+    losses["cpu"] = REFS.get("train", digest)["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     parity_ok = rel <= 1e-4 and f32_bodies == _want_bodies(
         LAYERS * PARITY_STEPS, fwd="3xtf32", bwd="3xtf32")
@@ -1632,26 +1902,20 @@ def phase_qat(train_step_ms=None):
     # 1. parity, with a control: the CPU run again from the init perturbed
     # by 1e-7 relative (rounding-sized noise), which shows how far the
     # fake-quant rounding ties alone move the losses
-    ids = torch.from_numpy(rs.randint(0, VOCAB, (PARITY_B, PARITY_S)))
-    cpu_model = _qat_gpt("cpu")
-    card_model = copy.deepcopy(cpu_model).to("cuda")
-    control = copy.deepcopy(cpu_model)
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for p in control.parameters():
-            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
-    losses = {}
-    for dev, model in (("cpu", cpu_model), ("cuda", card_model),
-                       ("cpu_control", control)):
-        step, x = _trainer(model), ids.to(model.gpt.word_embeddings.weight.device)
-        losses[dev] = [step({"input_ids": x, "labels": x}).item()
-                       for _ in range(PARITY_STEPS)]
-    del control
+    ids = _train_parity_ids(rs)
+    card_model = _qat_gpt("cpu")
+    digest = _digest(card_model)
+    card_model = card_model.to("cuda")
+    step, x = _trainer(card_model), ids.to("cuda")
+    cuda_losses = [step({"input_ids": x, "labels": x}).item()
+                   for _ in range(PARITY_STEPS)]
+    del step
+    cpu = REFS.get("qat", digest)
+    losses = {**cpu["losses"], "cuda": cuda_losses}
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     rel_control = max(abs(a - b) / abs(b)
                       for a, b in zip(losses["cpu_control"], losses["cpu"]))
-    scales = {d: extract_scales(m) for d, m in (("cpu", cpu_model),
-                                                ("cuda", card_model))}
+    scales = {"cpu": cpu["scales"], "cuda": extract_scales(card_model)}
     keys_ok = (set(scales["cpu"]) == set(scales["cuda"])
                and len(scales["cpu"]) == 8 * LAYERS)
     scale_rel = max(abs(scales["cuda"][k] - v) / abs(v)
@@ -1659,15 +1923,12 @@ def phase_qat(train_step_ms=None):
     parity_ok = rel <= QAT_RTOL and keys_ok
 
     # 2. deploy: static-scale int8 in f32, card against the CPU
-    for m in (cpu_model, card_model):
-        convert_to_int8(m.eval())
+    convert_to_int8(card_model.eval())
     n_int8 = sum(isinstance(m, Int8Linear) for m in card_model.modules())
     prompts, temps = slice_requests()
-    n_par = 6
+    n_par = QUANT_PARITY_REQUESTS
     greedy = [i for i, t in enumerate(temps[:n_par]) if t == 0.0]
-    ref, cpu_wall, _ = _serve(cpu_model, "cpu", prompts[:n_par], temps[:n_par],
-                              kv_dtype="int8")
-    del cpu_model
+    ref, cpu_wall = cpu["ref"], cpu["wall_s"]
     outs32, wall32, st32, counts32 = _counted_run(
         card_model, prompts[:n_par], temps[:n_par], kv_dtype="int8")
     divergence = {i: _first_divergence(outs32[i], ref[i]) for i in greedy}
@@ -1820,6 +2081,17 @@ def _gen_want(kind, n, layers=LAYERS):
     return want
 
 
+# the f32 generate() cases held to the CPU: kind, prompt, batch, new
+# tokens, keywords
+GEN_F32_CASES = (
+    ("dense", 64, GEN_B, GEN_NEW, {}),
+    ("paged", 64, GEN_B, GEN_NEW, {"cache_impl": "paged", "page_size": PAGE}),
+    ("dense", 256, GEN_B, GEN_NEW, {}),
+    ("paged", 256, GEN_B, GEN_NEW, {"cache_impl": "paged", "page_size": PAGE}),
+    ("no_cache", 64, 1, 8, {"use_cache": False}),
+    ("beam", 32, 1, 8, {"decode_strategy": "beam_search", "num_beams": 4}))
+
+
 def phase_generate():
     """GPT-base through ``model.generate()``: float32 on the card against
     the same model on the CPU, greedy ids equal for the dense and paged
@@ -1830,31 +2102,21 @@ def phase_generate():
     (dense, paged, paged, dense) after an untimed warm-up: tokens/s, peak
     memory and launches."""
     from paddle_tpu_torch.serving.quant import top1_agreement
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.manual_seed(0)
-    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
-    model = copy.deepcopy(cpu_model).to("cuda")
-    cases, outs = [], {}
-    for kind, S, B, n, kw in (
-            ("dense", 64, GEN_B, GEN_NEW, {}),
-            ("paged", 64, GEN_B, GEN_NEW, dict(cache_impl="paged",
-                                               page_size=PAGE)),
-            ("dense", 256, GEN_B, GEN_NEW, {}),
-            ("paged", 256, GEN_B, GEN_NEW, dict(cache_impl="paged",
-                                                page_size=PAGE)),
-            ("no_cache", 64, 1, 8, dict(use_cache=False)),
-            ("beam", 32, 1, 8, dict(decode_strategy="beam_search",
-                                    num_beams=4))):
+    cpu_model = _seed_gpt()                         # GPT-base defaults
+    digest = _digest(cpu_model)
+    model = cpu_model.to("cuda")
+    cases, outs, cpu = [], {}, None
+    for kind, S, B, n, kw in GEN_F32_CASES:
         ids = _gen_ids(B, S, S + B)
         _zero_counts()
         got = model.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
         counts = _read_counts()
         got = got.cpu()
-        t0 = time.perf_counter()
-        want = cpu_model.generate(ids, max_new_tokens=n, temperature=0.0, **kw)
+        cpu = cpu or REFS.get("generate", digest)
+        want = torch.from_numpy(cpu[(kind, S)]["ids"])
         outs[(kind, S)] = got
         cases.append({
             "case": kind, "B": B, "prompt": S, "new_tokens": n,
@@ -1862,10 +2124,9 @@ def phase_generate():
             "first_divergence": [_first_divergence(a.tolist(), b.tolist())
                                  for a, b in zip(got, want)],
             "launches": counts, "launches_ok": counts == _gen_want(kind, n),
-            "cpu_s": time.perf_counter() - t0})
+            "cpu_s": cpu[(kind, S)]["cpu_s"]})
     dense_eq_paged = all(torch.equal(outs[("dense", S)], outs[("paged", S)])
                          for S in (64, 256))
-    del cpu_model
 
     model = model.to(torch.bfloat16)
     ids = _gen_ids(GEN_BF16_B, GEN_BF16_S, 7)
@@ -1968,6 +2229,12 @@ def _ttft_summary(st):
             "short_ttft_max_s": max(t[1:])}
 
 
+# the spec phase's f32 engines: requests and engine keywords
+SPEC_F32_CASES = {
+    "spec": (spec_requests, {"speculative_k": SPEC_K}),
+    "chunk": (chunk_requests, {"prefill_chunk_tokens": CHUNK_TOKENS})}
+
+
 def phase_spec():
     """GPT-base through ``ServingEngine(num_slots=8, page_size=16,
     max_model_len=1024)`` with ``speculative_k=4`` (six greedy requests
@@ -1986,19 +2253,16 @@ def phase_spec():
        queued behind a 900-token prompt, without and with chunked prefill
        in turns (plain, chunked, chunked, plain)."""
     from paddle_tpu_torch.serving.quant import top1_agreement
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.manual_seed(0)
-    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
-    model = copy.deepcopy(cpu_model).to("cuda")
+    cpu_model = _seed_gpt()                         # GPT-base defaults
+    digest = _digest(cpu_model)
+    model = cpu_model.to("cuda")
     launches = dict.fromkeys(KERNEL_COUNTERS, 0)   # the f32 card runs
     f32, ok = {}, True
-    for label, prompts, kw in (
-            ("spec", spec_requests(), {"speculative_k": SPEC_K}),
-            ("chunk", chunk_requests(),
-             {"prefill_chunk_tokens": CHUNK_TOKENS})):
+    for label, (requests, kw) in SPEC_F32_CASES.items():
+        prompts = requests()
         zeros = [0.0] * len(prompts)
         plain, _, _ = _serve(model, "cuda", prompts, zeros)
         for kv in ("native", "int8"):
@@ -2006,8 +2270,8 @@ def phase_spec():
                                                       kv_dtype=kv, **kw)
             for k in KERNEL_COUNTERS:
                 launches[k] += counts[k]
-            ref, cpu_wall, cpu_st = _serve(cpu_model, "cpu", prompts, zeros,
-                                           kv_dtype=kv, **kw)
+            cpu = REFS.get(f"spec_{label}_{kv}", digest)
+            ref, cpu_wall = cpu["ref"], cpu["wall_s"]
             agree = top1_agreement(ref, got)
             case = {"prompt_lens": [len(p) for p in prompts],
                     "card_wall_s": wall, "cpu_wall_s": cpu_wall,
@@ -2022,7 +2286,7 @@ def phase_spec():
                     "prefill_chunks": st["prefill_chunks"],
                     "spec_proposed": st["spec_proposed"],
                     "spec_accepted": st["spec_accepted"],
-                    "cpu_spec_accepted": cpu_st["spec_accepted"],
+                    "cpu_spec_accepted": cpu["spec_accepted"],
                     "launches": counts}
             if kv == "native":
                 case["gate"] = "ids equal the CPU engine's and the plain card engine's"
@@ -2032,7 +2296,6 @@ def phase_spec():
                 case["ok"] = case["first_tokens_equal"] and agree >= 0.8
             ok = ok and case["ok"]
             f32[f"{label}_{kv}"] = case
-    del cpu_model
 
     model = model.to(torch.bfloat16)
     prompts = spec_requests()
@@ -2191,15 +2454,14 @@ def phase_prefix():
     3. K3 and K4 at the cached-tail shape (one slot, a 32-row tail behind
        480 cached tokens, page 32) against their plain versions."""
     from paddle_tpu_torch.serving.quant import top1_agreement
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prompts = prefix_requests()
     n_cpu = PFX_CPU_REQUESTS
-    torch.manual_seed(0)
-    cpu_model = GPTForCausalLM(device="cpu")       # GPT-base defaults
-    model = copy.deepcopy(cpu_model).to("cuda")
+    cpu_model = _seed_gpt()                         # GPT-base defaults
+    digest = _digest(cpu_model)
+    model = cpu_model.to("cuda")
     launches = dict.fromkeys(KERNEL_COUNTERS, 0)   # the f32 card runs
     f32, ok = {}, True
     for arm, kw in PFX_ARMS.items():
@@ -2218,12 +2480,8 @@ def phase_prefix():
                     "launches": counts,
                     "launches_ok": counts == _prefix_want(st, False)}
         ok = ok and f32[arm]["launches_ok"]
-    t0 = time.perf_counter()
-    cpu_lru, _, _, _, _ = _prefix_serve(cpu_model, "cpu", prompts[:n_cpu],
-                                        **PFX_ARMS["lru"])
-    cpu_radix, _, cpu_st, _, _ = _prefix_serve(
-        cpu_model, "cpu", prompts[:n_cpu], **PFX_ARMS["radix"])
-    cpu_s = time.perf_counter() - t0
+    cpu = REFS.get("prefix", digest)
+    cpu_lru, cpu_radix, cpu_s = cpu["lru"], cpu["radix"], cpu["cpu_s"]
     ids = {arm: r.pop("ids") for arm, r in f32.items()}
     spill = f32["radix_spill"]["prefix_cache"]
     checks = {
@@ -2231,9 +2489,8 @@ def phase_prefix():
         "equal_cpu_lru_first_8": ids["lru"][:n_cpu] == cpu_lru,
         "cpu_radix_equal_cpu_lru": cpu_radix == cpu_lru,
         "saved_tokens_first_8_equal_cpu_radix":
-            f32["radix"]["saved_tokens_first_8"]
-            == cpu_st["prefix_cache"]["saved_tokens"],
-        "cpu_radix_saved_tokens": cpu_st["prefix_cache"]["saved_tokens"],
+            f32["radix"]["saved_tokens_first_8"] == cpu["radix_saved_tokens"],
+        "cpu_radix_saved_tokens": cpu["radix_saved_tokens"],
         "spills_and_resurrections":
             spill["spill"]["spills"] > 0 and spill["resurrections"] > 0,
         "cached_prefills": f32["radix"]["cached_prefills"] > 0}
@@ -2248,11 +2505,7 @@ def phase_prefix():
     counts8 = _read_counts()
     for k in KERNEL_COUNTERS:
         launches[k] += counts8[k]
-    t0 = time.perf_counter()
-    ref8, _, _, _, _ = _prefix_serve(cpu_model, "cpu", prompts[:n_cpu],
-                                     kv_dtype="int8",
-                                     **PFX_ARMS["radix_spill"])
-    cpu_s += time.perf_counter() - t0
+    ref8 = cpu["int8"]
     int8 = {"wall_s": wall8, "cached_prefills": st8["cached_prefills"],
             "prefix_cache": {k: v for k, v in st8["prefix_cache"].items()
                              if k != "index"},
@@ -2267,7 +2520,6 @@ def phase_prefix():
     ok = ok and int8["first_tokens_equal_cpu"] \
         and int8["top1_agreement_cpu"] >= 0.8 and int8["launches_ok"] \
         and st8["cached_prefills"] > 0
-    del cpu_model
 
     model = model.to(torch.bfloat16)
     _prefix_serve(model, "cuda", prompts[:PFX_SLOTS],       # warm-up
@@ -4492,22 +4744,18 @@ def phase_cluster():
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving.multitenant import (LoRAAdapter, LoRAStore,
                                                       MultiTenantEngine)
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     reqs = cluster_requests()
     prompts = [p for _, p in reqs]
-    torch.manual_seed(0)
-    cpu_model = GPTForCausalLM(device="cpu")
-    model = copy.deepcopy(cpu_model).to("cuda")
+    model = _seed_gpt()
+    digest = _digest(model)
+    model = model.to("cuda")
     base_bytes = _card_bytes()
     checks, out = {}, {}
 
     # 1. the traffic, CPU cluster against the card's
-    cpu_cl = _cluster(cpu_model, "cl-cpu", device="cpu", saturation_queue=32)
-    with cpu_cl:
-        ref = _cluster_serve(cpu_cl, prompts)
-    del cpu_cl
+    ref = REFS.get("cluster", digest)
     cl = _cluster(model, "cl-f32", saturation_queue=32)
     _zero_counts()
     with cl:
@@ -4756,7 +5004,7 @@ def phase_cluster():
     if not ok:
         raise SystemExit(f"cluster phase failed: "
                          f"{[k for k, v in checks.items() if not v]}")
-    del model, cpu_model
+    del model
     _free_card()
     return {"launches": launches}
 
@@ -6575,7 +6823,7 @@ def _walk_counts():
 
 
 def phase_walkthroughs():
-    """The seven walkthrough examples through ``main(device="cuda")`` at
+    """The nine walkthrough examples through ``main(device="cuda")`` at
     the reference's widths, each with its own pass condition (the
     reference example's asserts, or for the quantized one the repo's int8
     rule, top-1 agreement >= 0.8); the K1 / K2 / K3 / K4 launches of each
@@ -6628,6 +6876,25 @@ def phase_walkthroughs():
                         os.path.isfile(os.path.join(r["metrics_dir"], n))
                         for n in ("metrics.jsonl", "metrics.prom",
                                   "train_metrics.jsonl"))}
+        if name == "serve_gpt_mp":
+            bpp1, bpp2 = r["bytes_per_page"]
+            return {"byte_identical": r["out"] == r["ref"],
+                    "bytes_per_page_halved": bpp1 == 2 * bpp2,
+                    "shards": r["shards"] == 2 and r["mp"] == 2,
+                    "one_decode_mint": r["step_traces"] == 1,
+                    "pool_byte_identical": r["pool"] == (1, 2)
+                    and r["pool_out"] == r["ref"][0]}
+        if name == "observability_tracing":
+            return {"request_spans": all(
+                        v == ["serving.submit", "serving.prefill"]
+                        for v in r["spans"].values()),
+                    "merged_events": r["merged_events"]
+                    == 2 * len(r["spans"]) + r["decode_steps"] + 1,
+                    "watchdog_fired": r["watchdog"]["op"] == "all_reduce",
+                    "open_span_recorded":
+                        r["open_spans"] == ["collective.all_reduce"],
+                    "world_of_one_all_reduce": r["all_reduce"]
+                    == [[1.0] * 4] * 8}
         return {"all_requests": [len(o) for o in r["outs"]] == [12, 8, 10],
                 "slo_evaluated": r["slo"]["evaluated"] == 3,
                 "card_ceilings": r["ridge"] is not None,
@@ -6643,19 +6910,25 @@ def phase_walkthroughs():
              "serve_gpt_quantized": ("flash_attention_fwd",
                                      "paged_flash_decode_q"),
              "observability_perf": ("flash_attention_fwd",
-                                    "paged_flash_decode")}
+                                    "paged_flash_decode"),
+             "serve_gpt_mp": ("flash_attention_fwd", "paged_flash_decode"),
+             "observability_tracing": ("flash_attention_fwd",
+                                       "paged_flash_decode")}
     out, checks = {}, {}
     totals = dict.fromkeys(_walk_counts(), 0)
     try:
         for name in ("numerics_debugging", "serve_gpt_continuous",
                      "serve_gpt_speculative", "serve_gpt_prefix_cache",
                      "serve_gpt_quantized", "observability_metrics",
-                     "observability_perf"):
+                     "observability_perf", "serve_gpt_mp",
+                     "observability_tracing"):
             mod = importlib.import_module(f"paddle_tpu_torch.examples.{name}")
             _zero_counts()
             fa.BWD_DKDV_LAUNCHES = fa.BWD_DQ_LAUNCHES = 0
             t0 = time.perf_counter()
-            r = mod.main(device="cuda")
+            r = mod.main(device="cuda") if name != "observability_tracing" \
+                else mod.main(device="cuda", out_dir=os.path.join(
+                    tmp.name, "tracing"))
             secs = time.perf_counter() - t0
             counts = _walk_counts()
             for k, n in counts.items():
@@ -6871,6 +7144,8 @@ def phase_profile():
 # the mp = 2 run: GPT-base's widths, f32 parity at depth 2, bf16 O2 at the
 # full depth; the dp = 2 examples; the rank processes' deadline
 DIST_F32 = dict(B=4, S=256, steps=3, layers=2)
+# generate() at mp = 2 after training: greedy, paged, f32, GPT-base
+DIST_GEN = dict(B=2, S=64, new=16, layers=LAYERS)
 DIST_BF16 = dict(B=8, S=1024, steps=3, layers=LAYERS)
 DIST_RESNET_STEPS = 4          # + the first step: 5 losses
 # The train_resnet_dp losses: within DIST_RESNET_RTOL of one process at
@@ -7012,6 +7287,29 @@ def _dist_gpt_run(state, cfg, ids, amp_level=None, timed=False):
     return out
 
 
+def _dist_generate(state, ids):
+    """Greedy paged ``generate()`` of GPT-base (f32) from ``state``, and
+    its K1 / K3 launches: unsharded in the parent, each rank's shard under
+    fleet mp = 2 in the rank processes."""
+    from paddle_tpu_torch.text.models import load_paddle_tpu_state_dict
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(num_hidden_layers=DIST_GEN["layers"],
+                           device="cuda").eval()
+    load_paddle_tpu_state_dict(model, _dist_subset(state, DIST_GEN["layers"]))
+    _zero_counts()
+    got = model.generate(torch.from_numpy(ids).to("cuda"),
+                         max_new_tokens=DIST_GEN["new"], temperature=0.0,
+                         cache_impl="paged", page_size=PAGE)
+    counts = _read_counts()
+    out = {"ids": got.cpu().numpy().tolist(),
+           "launches": {k: counts[k] for k in ("flash_attention_fwd",
+                                               "paged_flash_decode")}}
+    del model
+    _free_card()
+    return out
+
+
 def _dist_resnet_grads(x, y, dp=None):
     """ResNet-18 (seed 0, SyncBatchNorm when ``dp``) gradients of one
     backward of the CE loss, after the dp reduction, flattened."""
@@ -7104,6 +7402,9 @@ def _dist_rank(index, world, endpoints, work):
     after = calls()
     out["mp_calls"] = {k: v - before.get(k, 0) for k, v in after.items()
                        if v - before.get(k, 0)}
+    # generate() at mp = 2: each rank's heads, the logits gathered
+    out["generate"] = _dist_generate(state, np.load(
+        os.path.join(work, "ids_gen.npy")))
     del state
     topology.set_hybrid_communicate_group(None)
     # dp = 2: ResNet-18's first gradients, then the two examples
@@ -7201,6 +7502,9 @@ def phase_dist():
         np.save(os.path.join(work, "ids_bf16.npy"), ids_bf16)
         ref_f32 = _dist_gpt_run(state, DIST_F32, ids_f32)
         ref_bf16 = _dist_gpt_run(state, DIST_BF16, ids_bf16, "O2")
+        ids_gen = _dist_ids(DIST_GEN, 7)
+        np.save(os.path.join(work, "ids_gen.npy"), ids_gen)
+        ref_gen = _dist_generate(state, ids_gen)
         del state
         rs = np.random.RandomState(0)   # the example's batch
         x = rs.randn(64, 3, 64, 64).astype("float32")
@@ -7251,6 +7555,14 @@ def phase_dist():
         for r in ranks)
     checks["mp_collectives"] = all(
         set(r["mp_calls"]) <= {"all_reduce", "broadcast"} for r in ranks)
+    gen_want = {"flash_attention_fwd": DIST_GEN["layers"],
+                "paged_flash_decode": DIST_GEN["layers"]
+                * (DIST_GEN["new"] - 1)}
+    checks["mp_generate_ids_equal_unsharded"] = all(
+        r["generate"]["ids"] == ref_gen["ids"] for r in ranks)
+    checks["mp_generate_launches"] = all(
+        r["generate"]["launches"] == gen_want for r in ranks) \
+        and ref_gen["launches"] == gen_want
     grad_err = float((dp_grads - ref_grads).abs().max()
                      / ref_grads.abs().max())
     checks["resnet_dp_grads_1e-4"] = grad_err <= 1e-4
@@ -7276,6 +7588,9 @@ def phase_dist():
         == ranks[0]["resilient_clean"]["losses"] for r in ranks)
     launches = {k: sum(r["bf16"]["launches"][k] for r in ranks)
                 for k in ranks[0]["bf16"]["launches"]}
+    for r in ranks:
+        for k, n in r["generate"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
     ok = all(checks.values())
     smi = smi_line()
     emit({"phase": "dist", "ok": ok, "nvidia_smi": smi,
@@ -7304,7 +7619,14 @@ def phase_dist():
                                                 for r in ranks],
                               "rank_kernel_shapes": [r["bf16"]["shapes"]
                                                      for r in ranks]},
-                  "rank_collective_calls": [r["mp_calls"] for r in ranks]},
+                  "rank_collective_calls": [r["mp_calls"] for r in ranks],
+                  "generate_f32_paged": {
+                      **DIST_GEN, "rank_launches":
+                          [r["generate"]["launches"] for r in ranks],
+                      "unsharded_launches": ref_gen["launches"],
+                      "ids_equal_unsharded": [
+                          r["generate"]["ids"] == ref_gen["ids"]
+                          for r in ranks]}},
           "dp2": {"resnet18_first_grads_max_err_over_max": grad_err,
                   "train_resnet_dp_losses_one_process": one.tolist(),
                   "train_resnet_dp_losses_dp_mean": dp_mean.tolist(),
@@ -7326,6 +7648,337 @@ def phase_dist():
         raise SystemExit(f"dist phase failed: "
                          f"{[k for k, v in checks.items() if not v]}")
     return {"launches": launches}
+
+
+# --------------------------------------------------------------------- mesh
+# the serving mesh on the one card: two shards (a leader and a follower
+# process) over gloo, GPT-base's widths and depth
+MESH_DEV = ["cuda:0", "cuda:0"]
+MESH_NEW = 32
+MESH_CHUNK, MESH_SPEC = 128, 4
+MESH_POOL_LAYERS = 2      # the dp 2 x mp 2 pool's model depth
+MESH_KINDS = {"plain": {}, "int8": {"kv_dtype": "int8"},
+              "chunked": {"prefill_chunk_tokens": MESH_CHUNK},
+              "spec": {"speculative_k": MESH_SPEC}}
+
+
+def mesh_requests():
+    """The mesh phase's 8 greedy requests: prompts of 17-512 tokens,
+    random ids from a seed."""
+    rs = np.random.RandomState(23)
+    return [rs.randint(1, VOCAB, (n,)).tolist()
+            for n in (17, 64, 100, 200, 256, 300, 400, 512)]
+
+
+def _mesh_engine(model, mesh=None, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+
+    place = {"mesh": mesh} if mesh else {"device": "cuda"}
+    return ServingEngine(model, num_slots=SLOTS, page_size=PAGE,
+                         max_model_len=MAXLEN, **place, **kw)
+
+
+def _mesh_run(eng, prompts):
+    """Serve ``prompts`` greedy on a started engine: ids, wall seconds,
+    tokens/s, the median inter-token latency, the engine's stats and, on
+    a mesh engine, each rank's counters (zeroed just before, read just
+    after: launches, all-reduces, peak memory)."""
+    mesh = eng._mesh is not None
+    if mesh:
+        eng.mesh_stats(reset=True)
+    else:
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=MESH_NEW) for p in prompts]
+    outs = [h.result(timeout=600) for h in hs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    itl = [b - a for h in hs for a, b in zip(h.token_times,
+                                              h.token_times[1:])]
+    out = {"ids": outs, "wall_s": wall,
+           "tokens_per_s": sum(len(o) for o in outs) / wall,
+           "itl_median_s": float(np.median(itl)), "stats": eng.stats(),
+           # this engine's own card bytes (the leader's shard under the
+           # mesh): weights and pools
+           "resident_bytes": eng._weights_bytes + sum(
+               p.numel() * p.element_size() for p in eng._pools)}
+    if mesh:
+        out["ranks"] = eng.mesh_stats()
+    else:
+        out["launches"] = _read_counts()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["pool_bytes"] = sum(p.numel() * p.element_size()
+                                for p in eng._pools)
+    return out
+
+
+def _mesh_want(st):
+    """Each rank's K1 / K3 / K4 launches for a plain or int8 engine's
+    run: K1 once a layer a prefill, the pools' decode kernel once a layer
+    a decode step, the other never."""
+    decode = "k4" if st["kv_dtype"] == "int8" else "k3"
+    want = {"k1": LAYERS * st["prefills"], "k3": 0, "k4": 0}
+    want[decode] = LAYERS * st["iteration"]
+    return want
+
+
+def _mesh_kernel_times(gen, launches, dlens, S):
+    """K1, K3 and K4 at a mesh rank's six heads (bf16): K1 at the longest
+    prefill ``[1, S, 6, 64]``, K3 / K4 at a decode step of the 8 requests
+    (lengths ``dlens``), against their plain versions, by CUDA-graph
+    replay; bounds as the kernels phase's, at six heads."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    H = HEADS // 2
+    out = {"k1_mesh_6heads": _k1_timed(gen, 1, S, torch.bfloat16, H)}
+    out["k1_mesh_6heads"]["launches"] = launches["k1"]
+    qd, kp, vp, table, ln = _k3_inputs(gen, torch.bfloat16, dlens, H, H)
+    err = (pa.paged_attention(qd, kp, vp, table, ln).float()
+           - pa.paged_attention_ref(qd, kp, vp, table, ln).float()
+           ).abs().max().item()
+    valid_pages = sum(-(-n // PAGE) for n in dlens)
+    k3_ms, k3_by = bound(4 * sum(dlens) * H * HEAD_DIM,
+                         2 * valid_pages * PAGE * H * HEAD_DIM * 2
+                         + 2 * qd.numel() * 2 + table.numel() * 4
+                         + ln.numel() * 4)
+    out["k3_mesh_6heads"] = {
+        "B": len(dlens), "heads": H, "kv_heads": H, "head_dim": HEAD_DIM,
+        "dtype": "bfloat16", "lens": dlens, "rows": len(dlens),
+        "kernel_ms": cuda_ms(lambda: pa.paged_attention(qd, kp, vp, table,
+                                                        ln), graph=True),
+        "eager_ms": cuda_ms(lambda: pa.paged_attention(qd, kp, vp, table,
+                                                       ln)),
+        "plain_ms": cuda_ms(lambda: pa.paged_attention_ref(qd, kp, vp, table,
+                                                           ln)),
+        "library_ms": None, "bound_ms": k3_ms, "bound_by": k3_by,
+        "max_abs_err": err, "launches": launches["k3"],
+        "ok": err <= ATOL[torch.bfloat16]}
+    args = _k4_inputs(gen, torch.bfloat16, dlens, H, H)
+    err = (pa.paged_attention_quantized(*args).float()
+           - pa.paged_attention_quantized_ref(*args).float()
+           ).abs().max().item()
+    k4_ms, k4_by = bound(4 * sum(dlens) * H * HEAD_DIM,
+                         2 * valid_pages * PAGE * H * (HEAD_DIM + 4)
+                         + 2 * args[0].numel() * 2 + table.numel() * 4
+                         + ln.numel() * 4)
+    out["k4_mesh_6heads"] = {
+        "B": len(dlens), "heads": H, "kv_heads": H, "head_dim": HEAD_DIM,
+        "q_dtype": "bfloat16", "pools": "int8 + float32 scales",
+        "lens": dlens, "rows": len(dlens),
+        "kernel_ms": cuda_ms(lambda: pa.paged_attention_quantized(*args),
+                             graph=True),
+        "eager_ms": cuda_ms(lambda: pa.paged_attention_quantized(*args)),
+        "plain_ms": cuda_ms(lambda: pa.paged_attention_quantized_ref(*args)),
+        "library_ms": None, "bound_ms": k4_ms, "bound_by": k4_by,
+        "max_abs_err": err, "launches": launches["k4"],
+        "ok": err <= ATOL[torch.bfloat16]}
+    return out
+
+
+def phase_mesh():
+    """The serving mesh: ``ServingEngine(model, mesh=["cuda:0",
+    "cuda:0"])`` (a leader and a follower process, one card, gloo) at
+    GPT-base's widths and depth, against the mp = 1 engine on the card.
+    f32, TF32 off: the plain, int8-KV, chunked (128) and speculative (k=4)
+    engines on 8 greedy requests of 17-512 prompt tokens, 32 new each,
+    give the mp = 1 ids; each rank launches K1 / K3 / K4 over its 6 heads
+    (the plain and int8 runs: exactly once a layer a prefill / decode
+    step, on both ranks); a ``serving.step_crash`` restart of the plain
+    mesh engine gives the same ids.  bf16: agreement with mp = 1 and the
+    first diverging position, tokens/s and ITL at mp = 2 (eager, every
+    rank) against mp = 1 (CUDA graphs), each rank's peak memory and pool
+    bytes, the all-reduces per dispatch, and the leader's wall inside
+    the gloo hops and waiting for its own kernels before them.  Then
+    ``ReplicaPool(devices=["cuda:0"] * 4, mp=2)`` (dp 2 x mp 2) at depth
+    2 against mp = 1, and K1 / K3 / K4 at six heads against their plain
+    versions."""
+    from paddle_tpu_torch.observability import faults
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.resilience.retry import TransientError
+    from paddle_tpu_torch.serving.cluster import ReplicaPool
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts = mesh_requests()
+    torch.manual_seed(0)
+    cpu = GPTForCausalLM(device="cpu")        # GPT-base defaults, f32
+    cpu16 = copy.deepcopy(cpu).to(torch.bfloat16)
+    # every follower starts at once; the models stay on the CPU (each rank
+    # holds its shard on the card, never the whole model)
+    engines = {k: _mesh_engine(cpu, MESH_DEV, **kw)
+               for k, kw in MESH_KINDS.items()}
+    engines["bf16"] = _mesh_engine(cpu16, MESH_DEV)
+    # and the dp 2 x mp 2 pool's, at depth 2
+    torch.manual_seed(1)
+    small = GPTForCausalLM(num_hidden_layers=MESH_POOL_LAYERS, device="cpu")
+    pool = ReplicaPool(small, devices=["cuda:0"] * 4, mp=2, num_slots=SLOTS,
+                       page_size=PAGE, max_model_len=MAXLEN,
+                       replica_prefix="mesh-dpmp/")
+    spawn_s = time.perf_counter() - t_phase
+
+    # the leader's kernel shapes: heads of q at K1 and at K3 / K4
+    shapes = {"k1": set(), "paged": set()}
+    orig = (fa._fwd_kernel, pa._launch)
+
+    def rec_k1(q, *a, **k):
+        shapes["k1"].add(int(q.shape[2]))
+        return orig[0](q, *a, **k)
+
+    def rec_paged(q, k_pages, *a, **k):
+        shapes["paged"].add((int(q.shape[1]), int(k_pages.shape[2])))
+        return orig[1](q, k_pages, *a, **k)
+
+    res, checks, launches = {}, {}, {"k1": 0, "k3": 0, "k4": 0}
+    for kind, kw in MESH_KINDS.items():
+        ref_eng = _mesh_engine(copy.deepcopy(cpu), **kw)
+        with ref_eng:
+            ref = _mesh_run(ref_eng, prompts)
+        del ref_eng
+        _free_card()
+        eng = engines[kind]
+        t0 = time.perf_counter()
+        eng.start()                 # the group forms: the follower is up
+        connect_s = time.perf_counter() - t0
+        fa._fwd_kernel, pa._launch = rec_k1, rec_paged
+        try:
+            got = _mesh_run(eng, prompts)
+        finally:
+            fa._fwd_kernel, pa._launch = orig
+        r = {"ids_equal_mp1": got["ids"] == ref["ids"],
+             "first_divergence": [_first_divergence(a, b) if a != b else None
+                                  for a, b in zip(got["ids"], ref["ids"])],
+             "connect_s": connect_s, "mp1": {k: ref[k] for k in (
+                 "wall_s", "tokens_per_s", "itl_median_s", "launches")},
+             "mp2": {k: got[k] for k in ("wall_s", "tokens_per_s",
+                                         "itl_median_s")},
+             "ranks": got["ranks"],
+             "dispatches": {k: got["stats"][k] for k in (
+                 "prefills", "iteration", "prefill_chunks", "verify_steps")}}
+        counts = [row["launches"] for row in got["ranks"]]
+        checks[f"{kind}_f32_ids_equal_mp1"] = r["ids_equal_mp1"]
+        checks[f"{kind}_ranks_launch_alike"] = all(
+            c == counts[0] for c in counts) and counts[0]["k1"] > 0 \
+            and counts[0]["k3"] + counts[0]["k4"] > 0
+        if kind in ("plain", "int8"):
+            want = _mesh_want(got["stats"])
+            checks[f"{kind}_launches_per_layer"] = all(
+                {k: c[k] for k in want} == want for c in counts)
+            r["want_launches_per_rank"] = want
+        checks[f"{kind}_six_head_pools"] = all(
+            [p[3] for p in row["pool_shapes"]] == [HEADS // 2]
+            * len(row["pool_shapes"]) for row in got["ranks"])
+        for c in counts:
+            for k in launches:
+                launches[k] += c[k]
+        if kind == "plain":
+            # a restart on every rank: the requeued requests end alike
+            def boom():
+                raise TransientError("injected decode crash")
+
+            faults.inject("serving.step_crash", fn=boom, at_trips={4})
+            try:
+                again = _mesh_run(eng, prompts)
+            finally:
+                faults.clear()
+            r["restart"] = {"engine_restarts":
+                            again["stats"]["engine_restarts"],
+                            "requests_requeued":
+                            again["stats"]["requests_requeued"]}
+            checks["restart_ids_equal_mp1"] = again["ids"] == ref["ids"] \
+                and again["stats"]["engine_restarts"] == 1
+        eng.close()
+        del engines[kind], eng
+        res[kind] = r
+        _free_card()
+    checks["leader_k1_six_heads"] = shapes["k1"] == {HEADS // 2}
+    checks["leader_paged_six_heads"] = shapes["paged"] == {
+        (HEADS // 2, HEADS // 2)}
+
+    # bf16, timed: mp = 2 (eager on both ranks) against mp = 1 (graphs)
+    ref_eng = _mesh_engine(copy.deepcopy(cpu16))
+    with ref_eng:
+        ref16 = _mesh_run(ref_eng, prompts)
+    del ref_eng
+    _free_card()
+    eng = engines.pop("bf16")
+    eng.start()
+    got16 = _mesh_run(eng, prompts)
+    eng.close()
+    del eng
+    lead = got16["ranks"][0]["mesh"]
+    st = got16["stats"]
+    dispatches = st["prefills"] + st["iteration"]
+    same = [a == b for a, b in zip(got16["ids"], ref16["ids"])]
+    res["bf16"] = {
+        "requests_identical": sum(same), "requests": len(same),
+        "first_divergence": [_first_divergence(a, b) if a != b else None
+                             for a, b in zip(got16["ids"], ref16["ids"])],
+        "mp1": {k: ref16[k] for k in ("wall_s", "tokens_per_s",
+                                      "itl_median_s", "peak_bytes",
+                                      "pool_bytes", "resident_bytes")},
+        "mp2": {"wall_s": got16["wall_s"],
+                "tokens_per_s": got16["tokens_per_s"],
+                "itl_median_s": got16["itl_median_s"],
+                "rank_peak_bytes": [r["peak_bytes"] for r in got16["ranks"]],
+                "leader_resident_bytes": got16["resident_bytes"],
+                "rank_pool_bytes": [r["pool_bytes"] for r in got16["ranks"]],
+                "allreduces_per_dispatch": lead["calls"] / dispatches,
+                "allreduce_bytes": lead["bytes"],
+                "leader_share_in_gloo_hops": lead["hop_s"] / got16["wall_s"],
+                "leader_share_waiting_own_kernels":
+                    lead["compute_s"] / got16["wall_s"],
+                "dispatches": dispatches},
+        "mp2_over_mp1_tokens_per_s":
+            got16["tokens_per_s"] / ref16["tokens_per_s"]}
+    checks["bf16_allreduces_2_per_layer"] = \
+        lead["calls"] == 2 * LAYERS * dispatches
+    _free_card()
+
+    # dp 2 x mp 2 on the one card, at depth 2
+    ref_eng = _mesh_engine(copy.deepcopy(small))
+    with ref_eng:
+        ref_pool = _mesh_run(ref_eng, prompts)["ids"]
+    del ref_eng
+    with pool:
+        hs = [pool.engines[i % 2].submit(p, max_new_tokens=MESH_NEW)
+              for i, p in enumerate(prompts)]
+        pool_ids = [h.result(timeout=600) for h in hs]
+        pool_mp = [e.stats()["mp"] for e in pool.engines]
+    checks["dp2_mp2_ids_equal_mp1"] = pool_ids == ref_pool \
+        and pool_mp == [2, 2]
+    _free_card()
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    dlens = [len(p) + MESH_NEW // 2 for p in prompts]
+    kernels = _mesh_kernel_times(gen, launches, dlens, max(map(len, prompts)))
+    checks.update({f"{k}_agrees": v["ok"] for k, v in kernels.items()})
+    ok = all(checks.values())
+    smi = smi_line()
+    emit({"phase": "mesh", "ok": ok, "nvidia_smi": smi,
+          "model": "GPT-base 12x768 vocab 50304, mp = 2 on one card (gloo)",
+          "prompt_lens": [len(p) for p in prompts],
+          "max_new_tokens": MESH_NEW, "engines": res,
+          "dp2_mp2": {"layers": MESH_POOL_LAYERS, "mp": pool_mp},
+          "kernels_at_six_heads": kernels, "launches_both_ranks": launches,
+          "follower_spawn_s": spawn_s, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    b = res["bf16"]
+    print(f"mesh: bf16 mp=2 {b['mp2']['tokens_per_s']:.1f} tok/s "
+          f"(mp=1 {b['mp1']['tokens_per_s']:.1f}), ITL "
+          f"{b['mp2']['itl_median_s'] * 1e3:.2f} ms (mp=1 "
+          f"{b['mp1']['itl_median_s'] * 1e3:.2f} ms) on {smi}", flush=True)
+    if not ok:
+        raise SystemExit(f"mesh phase failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": {"flash_attention_fwd": launches["k1"],
+                         "paged_flash_decode": launches["k3"],
+                         "paged_flash_decode_q": launches["k4"]},
+            "kernel_shapes": kernels}
 
 
 # --------------------------------------------------------------------- pipe
@@ -7861,7 +8514,8 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
      "training and eval, resilient training (chaos replay), the "
      "walkthrough examples, tensor-parallel GPT-base training (mp = 2, "
      "each rank's heads), pipeline-parallel GPT-3 1.3B training (pp = 2, "
-     "each stage's blocks, forward and recompute)"),
+     "each stage's blocks, forward and recompute), the serving mesh's "
+     "prefill and generate() under mp = 2 (each rank's heads)"),
     ("k2a", "flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/flash_attention.py:276",
      "training (probed too), the fine-tune recipe, ViT training, "
@@ -7876,12 +8530,15 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
      "paddle_tpu/ops/paged_attention.py:371",
      "serving decode, generate() paged decode, speculative verify, chunked "
      "prefill, the radix cache's cached-tail prefill, multi-tenant decode "
-     "and verify, cluster replicas' decode, the serving walkthroughs"),
+     "and verify, cluster replicas' decode, the serving walkthroughs, the "
+     "serving mesh's decode, verify and chunks and generate() under mp = 2 "
+     "(each rank's heads)"),
     ("k4", "paged_flash_decode_q", "paddle_tpu_torch/csrc/paged_flash_decode_q.cu",
      "paddle_tpu/ops/paged_attention.py:870",
      "int8 serving decode, int8 speculative verify, chunked prefill and "
      "cached-tail prefill, multi-tenant decode over int8 pools, the "
-     "int8-pool cluster's decode, the quantized walkthrough"),
+     "int8-pool cluster's decode, the quantized walkthrough, the int8 "
+     "serving mesh's decode (each rank's heads)"),
     # the full-sweep twins have no path, in the TPU package either
     ("k5a", "paged_full_sweep", "paddle_tpu_torch/csrc/paged_flash_decode.cu",
      "paddle_tpu/ops/paged_attention.py:128", None),
@@ -7894,10 +8551,11 @@ KERNELS = (  # key, name, source, TPU kernel it replaces, path that runs it
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice,train,quant,"
-                    "custom_op,qat,generate,spec,prefix,resilience,observe,"
-                    "programs,llama,numerics,multitenant,cluster,finetune,"
-                    "hapi,vision,detection,recovery,walkthroughs,dist,pipe")
+    ap.add_argument("--phases", default="build,kernels,custom_op,resilience,"
+                    "llama,slice,train,quant,qat,generate,observe,programs,"
+                    "spec,prefix,numerics,multitenant,cluster,finetune,"
+                    "hapi,vision,detection,recovery,walkthroughs,mesh,"
+                    "dist,pipe")
     phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -7905,32 +8563,56 @@ def main():
         sys.exit(2)
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    global REFS
+    REFS = CpuRefs(phases)
+    try:
+        results = _run_phases(phases)
+    finally:
+        REFS.close()
+    emit({"cpu_references": {"workers": REFS.plan, "threads": REFS.threads,
+                             "job_s": REFS.job_s,
+                             "phase_wait_s": REFS.wait_s}})
+    _report(results)
+
+
+def _run_phases(phases):
+    """Run the selected phases in order; each returns what later phases
+    and the kernels line read."""
     results = {}
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
+                     # the phases with no CPU reference first, while the
+                     # workers compute the others' (CpuRefs)
+                     ("custom_op", phase_custom_op),
+                     ("resilience", phase_resilience),
+                     ("llama", phase_llama),
                      ("slice", phase_slice), ("train", phase_train),
-                     ("quant", phase_quant), ("custom_op", phase_custom_op),
+                     ("quant", phase_quant),
                      ("qat", lambda: phase_qat(
                          (results.get("train") or {}).get("step_ms"))),
-                     ("generate", phase_generate), ("spec", phase_spec),
-                     ("prefix", phase_prefix),
-                     ("resilience", phase_resilience),
+                     ("generate", phase_generate),
                      ("observe", lambda: phase_observe(
                          (results.get("slice") or {}).get("cpu_ref"))),
                      ("programs", lambda: phase_programs(
                          (results.get("slice") or {}).get("cpu_ref"))),
-                     ("llama", phase_llama), ("numerics", phase_numerics),
+                     ("spec", phase_spec), ("prefix", phase_prefix),
+                     ("numerics", phase_numerics),
                      ("multitenant", phase_multitenant),
                      ("cluster", phase_cluster), ("finetune", phase_finetune),
                      ("hapi", phase_hapi), ("vision", phase_vision),
                      ("detection", phase_detection),
                      ("recovery", phase_recovery),
                      ("walkthroughs", phase_walkthroughs),
+                     ("mesh", phase_mesh),
                      ("dist", phase_dist), ("pipe", phase_pipe),
                      ("profile", phase_profile)):
         if name in phases:
             t0 = time.perf_counter()
             results[name] = fn()
             emit({"phase_seconds": {name: time.perf_counter() - t0}})
+    return results
+
+
+def _report(results):
     times = results.get("kernels")
     if times is not None:
         # launches: each counted run of the path that uses the kernel (the
@@ -7953,8 +8635,11 @@ def main():
         # forward for K1, the vision phase's ViT-S/16 f32 card runs and
         # ViT-B/16 O2 steps for K1 and K2, the recovery phase's chaos run
         # for K1 and K2 (replayed steps included), the walkthroughs
-        # phase's seven examples for K1, K2, K3 and K4, the dist phase's
-        # two mp = 2 rank processes' bf16 O2 steps for K1 and K2, the pipe
+        # phase's nine examples for K1, K2, K3 and K4, the mesh phase's f32
+        # plain, int8, chunked and speculative mesh engines for K1, K3 and
+        # K4 (both ranks' counts), the dist phase's
+        # two mp = 2 rank processes' bf16 O2 steps for K1 and K2 and their
+        # paged generate() for K1 and K3, the pipe
         # phase's two pp = 2 rank processes' GPT-3 1.3B bf16 O2 steps
         # under the three schedules for K1 and K2, counted in the ranks);
         # K5a / K5b: the kernels phase's checks
@@ -7963,16 +8648,17 @@ def main():
                      "generate", "spec", "prefix", "resilience", "observe",
                      "programs", "llama", "numerics", "multitenant",
                      "cluster", "finetune", "hapi", "vision", "recovery",
-                     "walkthroughs", "dist", "pipe"):
+                     "walkthroughs", "mesh", "dist", "pipe"):
             for k, n in (results.get(name) or {}).get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         # other shapes: the cached-tail prefill's (K3, K4), Llama-3-8B's
-        # (K1, K2a, K2b, K3) and the pipeline stages' at GPT-3 1.3B's
-        # widths (K1, K2a, K2b)
+        # (K1, K2a, K2b, K3), the pipeline stages' at GPT-3 1.3B's
+        # widths (K1, K2a, K2b) and a mesh rank's six heads (K1, K3, K4)
         shapes = dict((results.get("prefix") or {}).get("cached_tail", {}))
         llama = results.get("llama") or {}
         shapes.update(llama.get("kernel_shapes", {}))
         shapes.update((results.get("pipe") or {}).get("kernel_shapes", {}))
+        shapes.update((results.get("mesh") or {}).get("kernel_shapes", {}))
         if "k1_f32_prefill_launches" in llama:     # that run's K1 f32 body
             times["k1"]["other_shapes"]["k1_f32_llama_prefill"][
                 "launches"] = llama["k1_f32_prefill_launches"]

@@ -8,6 +8,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// A source that paddle_tpu_torch/ops/_build.py builds in parts (PARTS) is
+// compiled once per part with -DPTT_PART=p, each part instantiating its
+// share of the kernels, and the parts are linked into one library; built
+// whole, PTT_PART is -1.
+#ifndef PTT_PART
+#define PTT_PART -1
+#endif
+
 namespace ptt {
 
 // dtype codes; keep in step with _DTYPE_CODES in paddle_tpu_torch/ops/_build.py

@@ -897,6 +897,71 @@ int bwd_body(int dtype) {
 
 }  // namespace
 
+namespace ptt {
+namespace fa_bwd {
+
+// T is the C++ type of the inputs' dtype; head_dim D is padded to DP =
+// 64, 128 or 256.
+template <typename T>
+cudaError_t run_dkdv(const void* q, const void* k, const void* v,
+                     const void* g, const float* l, const float* rr, void* dk,
+                     void* dv, int B, int H, int Sq, int Sk, int D,
+                     const long long* strides, float scale, int causal,
+                     cudaStream_t s) {
+  return D <= 64 ? launch_dkdv<T, 64>(q, k, v, g, l, rr, dk, dv, B, H, Sq, Sk,
+                                      D, strides, scale, causal, s)
+       : D <= 128 ? launch_dkdv<T, 128>(q, k, v, g, l, rr, dk, dv, B, H, Sq,
+                                        Sk, D, strides, scale, causal, s)
+                  : launch_dkdv<T, 256>(q, k, v, g, l, rr, dk, dv, B, H, Sq,
+                                        Sk, D, strides, scale, causal, s);
+}
+
+template <typename T>
+cudaError_t run_dq(const void* q, const void* k, const void* v,
+                   const void* g, const float* l, const float* rr, void* dq,
+                   int B, int H, int Sq, int Sk, int D,
+                   const long long* strides, float scale, int causal,
+                   cudaStream_t s) {
+  return D <= 64 ? launch_dq<T, 64>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
+                                    strides, scale, causal, s)
+       : D <= 128 ? launch_dq<T, 128>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
+                                      strides, scale, causal, s)
+                  : launch_dq<T, 256>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
+                                      strides, scale, causal, s);
+}
+
+}  // namespace fa_bwd
+}  // namespace ptt
+
+// Built in three parts (ops/_build.py): part p instantiates the dtype of
+// code p (common.cuh DType); part 0 also holds the entries.
+#define PTT_FA_BWD_RUN(EXTERN, T)                                            \
+  EXTERN template cudaError_t ptt::fa_bwd::run_dkdv<T>(                      \
+      const void*, const void*, const void*, const void*, const float*,      \
+      const float*, void*, void*, int, int, int, int, int, const long long*, \
+      float, int, cudaStream_t);                                             \
+  EXTERN template cudaError_t ptt::fa_bwd::run_dq<T>(                        \
+      const void*, const void*, const void*, const void*, const float*,      \
+      const float*, void*, int, int, int, int, int, const long long*, float, \
+      int, cudaStream_t);
+#if PTT_PART == 0
+PTT_FA_BWD_RUN(, float)
+#elif PTT_PART > 0
+PTT_FA_BWD_RUN(extern, float)
+#endif
+#if PTT_PART == 1
+PTT_FA_BWD_RUN(, __half)
+#elif PTT_PART >= 0
+PTT_FA_BWD_RUN(extern, __half)
+#endif
+#if PTT_PART == 2
+PTT_FA_BWD_RUN(, __nv_bfloat16)
+#elif PTT_PART >= 0
+PTT_FA_BWD_RUN(extern, __nv_bfloat16)
+#endif
+
+#if PTT_PART <= 0
+
 // q/g: [B, Sq, H, D], k/v: [B, Sk, H, D], with element strides (batch,
 // seq, head) in `strides` (q, k, v, g in that order; the head dim is
 // unit-stride).  lse, r: [B * H, Sq] f32.  dk, dv: contiguous
@@ -912,15 +977,8 @@ extern "C" int ptt_flash_attention_bwd_dkdv(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = D <= 64 ? launch_dkdv<scalar_t, 64>(q, k, v, g, l, rr, dk, dv, B, H,
-                                              Sq, Sk, D, strides, scale,
-                                              causal, s)
-        : D <= 128 ? launch_dkdv<scalar_t, 128>(q, k, v, g, l, rr, dk, dv, B,
-                                                H, Sq, Sk, D, strides, scale,
-                                                causal, s)
-                   : launch_dkdv<scalar_t, 256>(q, k, v, g, l, rr, dk, dv, B,
-                                                H, Sq, Sk, D, strides, scale,
-                                                causal, s);
+    err = ptt::fa_bwd::run_dkdv<scalar_t>(q, k, v, g, l, rr, dk, dv, B, H, Sq,
+                                          Sk, D, strides, scale, causal, s);
   });
   return static_cast<int>(err);
 }
@@ -937,12 +995,8 @@ extern "C" int ptt_flash_attention_bwd_dq(
   const float* rr = static_cast<const float*>(r);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = D <= 64 ? launch_dq<scalar_t, 64>(q, k, v, g, l, rr, dq, B, H, Sq,
-                                            Sk, D, strides, scale, causal, s)
-        : D <= 128 ? launch_dq<scalar_t, 128>(q, k, v, g, l, rr, dq, B, H, Sq,
-                                              Sk, D, strides, scale, causal, s)
-                   : launch_dq<scalar_t, 256>(q, k, v, g, l, rr, dq, B, H, Sq,
-                                              Sk, D, strides, scale, causal, s);
+    err = ptt::fa_bwd::run_dq<scalar_t>(q, k, v, g, l, rr, dq, B, H, Sq, Sk, D,
+                                        strides, scale, causal, s);
   });
   return static_cast<int>(err);
 }
@@ -953,3 +1007,4 @@ extern "C" int ptt_flash_attention_bwd_body(int dtype, int D) {
   (void)D;
   return bwd_body(dtype);
 }
+#endif  // PTT_PART <= 0

@@ -618,6 +618,11 @@ int fwd_body(int dtype) {
   return dtype == ptt::kF32 ? kFwdTf32 : kFwdTc16;
 }
 
+}  // namespace
+
+namespace ptt {
+namespace fa_fwd {
+
 // T is the C++ type of dtype code `dtype`; head_dim D is padded to DP =
 // 64, 128 or 256.
 template <typename T>
@@ -638,7 +643,32 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
   return launch(std::integral_constant<int, 256>());
 }
 
-}  // namespace
+}  // namespace fa_fwd
+}  // namespace ptt
+
+// Built in three parts (ops/_build.py): part p instantiates the dtype of
+// code p (common.cuh DType); part 0 also holds the entries.
+#define PTT_FA_FWD_RUN(EXTERN, T)                                            \
+  EXTERN template cudaError_t ptt::fa_fwd::run<T>(                           \
+      const void*, const void*, const void*, void*, float*, int, int, int,   \
+      int, int, const long long*, float, int, cudaStream_t);
+#if PTT_PART == 0
+PTT_FA_FWD_RUN(, float)
+#elif PTT_PART > 0
+PTT_FA_FWD_RUN(extern, float)
+#endif
+#if PTT_PART == 1
+PTT_FA_FWD_RUN(, __half)
+#elif PTT_PART >= 0
+PTT_FA_FWD_RUN(extern, __half)
+#endif
+#if PTT_PART == 2
+PTT_FA_FWD_RUN(, __nv_bfloat16)
+#elif PTT_PART >= 0
+PTT_FA_FWD_RUN(extern, __nv_bfloat16)
+#endif
+
+#if PTT_PART <= 0
 
 // q/k/v: [B, S, H, D] with element strides (batch, seq, head) in `strides`
 // (q, k, v in that order; the head dim is unit-stride).  o: contiguous
@@ -655,8 +685,8 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err = cudaSuccess;
   PTT_DISPATCH_DTYPE(dtype, {
-    err = run<scalar_t>(q, k, v, o, lse_f, B, H, Sq, Sk, D, strides, scale,
-                        causal, s);
+    err = ptt::fa_fwd::run<scalar_t>(q, k, v, o, lse_f, B, H, Sq, Sk, D,
+                                     strides, scale, causal, s);
   });
   return static_cast<int>(err);
 }
@@ -667,3 +697,4 @@ extern "C" int ptt_flash_attention_fwd_body(int dtype, int D) {
   (void)D;
   return fwd_body(dtype);
 }
+#endif  // PTT_PART <= 0

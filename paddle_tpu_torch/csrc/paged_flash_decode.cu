@@ -13,6 +13,35 @@
 // paged_flash_decode_q.cu.
 #include "paged_flash_decode.cuh"
 
+// Built in five parts (ops/_build.py): part p instantiates the p-th
+// (q, pool) dtype pair below; part 0 also holds the entry.
+#if PTT_PART == 0
+PTT_PAGED_DISPATCH(, float, float)
+#elif PTT_PART > 0
+PTT_PAGED_DISPATCH(extern, float, float)
+#endif
+#if PTT_PART == 1
+PTT_PAGED_DISPATCH(, __half, __half)
+#elif PTT_PART >= 0
+PTT_PAGED_DISPATCH(extern, __half, __half)
+#endif
+#if PTT_PART == 2
+PTT_PAGED_DISPATCH(, __nv_bfloat16, __nv_bfloat16)
+#elif PTT_PART >= 0
+PTT_PAGED_DISPATCH(extern, __nv_bfloat16, __nv_bfloat16)
+#endif
+#if PTT_PART == 3
+PTT_PAGED_DISPATCH(, float, __nv_bfloat16)
+#elif PTT_PART >= 0
+PTT_PAGED_DISPATCH(extern, float, __nv_bfloat16)
+#endif
+#if PTT_PART == 4
+PTT_PAGED_DISPATCH(, float, __half)
+#elif PTT_PART >= 0
+PTT_PAGED_DISPATCH(extern, float, __half)
+#endif
+
+#if PTT_PART <= 0
 namespace {
 
 template <typename T, typename KV>
@@ -64,3 +93,4 @@ extern "C" int ptt_paged_flash_decode(const void* q, const void* k_pages,
   }
   return static_cast<int>(err);
 }
+#endif  // PTT_PART <= 0

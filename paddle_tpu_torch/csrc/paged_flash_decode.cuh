@@ -461,3 +461,12 @@ cudaError_t dispatch(const void* q, const void* kp, const void* vp,
 
 }  // namespace paged
 }  // namespace ptt
+
+// The explicit instantiation of dispatch<T, KV> (EXTERN: extern), for a
+// source built in parts: the part that owns a dtype pair instantiates it,
+// the others declare it extern.
+#define PTT_PAGED_DISPATCH(EXTERN, T, KV)                                     \
+  EXTERN template cudaError_t ptt::paged::dispatch<T, KV>(                    \
+      const void*, const void*, const void*, const float*, const float*,      \
+      const void*, const void*, void*, void*, int, int, int, int, int, int,   \
+      int, long long, long long, float, int, void*);

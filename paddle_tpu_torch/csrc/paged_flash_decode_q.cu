@@ -18,6 +18,25 @@
 // int8 V row.
 #include "paged_flash_decode.cuh"
 
+// Built in three parts (ops/_build.py): part p instantiates q's dtype of
+// code p (common.cuh DType); part 0 also holds the entry.
+#if PTT_PART == 0
+PTT_PAGED_DISPATCH(, float, int8_t)
+#elif PTT_PART > 0
+PTT_PAGED_DISPATCH(extern, float, int8_t)
+#endif
+#if PTT_PART == 1
+PTT_PAGED_DISPATCH(, __half, int8_t)
+#elif PTT_PART >= 0
+PTT_PAGED_DISPATCH(extern, __half, int8_t)
+#endif
+#if PTT_PART == 2
+PTT_PAGED_DISPATCH(, __nv_bfloat16, int8_t)
+#elif PTT_PART >= 0
+PTT_PAGED_DISPATCH(extern, __nv_bfloat16, int8_t)
+#endif
+
+#if PTT_PART <= 0
 // q: [B, H, D] in f32 / f16 / bf16 with element strides (qsb, qsh), head
 // dim unit-stride.  k_pages / v_pages: contiguous int8 [P, ps, HKV, D];
 // k_scales / v_scales: contiguous float32 [P, ps, HKV]; table: contiguous
@@ -40,3 +59,4 @@ extern "C" int ptt_paged_flash_decode_q(
   });
   return static_cast<int>(err);
 }
+#endif  // PTT_PART <= 0

@@ -4,7 +4,8 @@ process environment, ``DataParallel`` and ``spawn``, the hybrid topology,
 ``fleet`` with the tensor-parallel layers and the pipeline, and the
 launcher.  One process per rank (NCCL between cards, gloo on the CPU), as
 upstream Paddle runs on GPUs; the reference is single-controller.  The
-serving mesh, ZeRO, sequence and sep parallelism, MoE, ring attention,
+serving mesh is ``serving.ServingEngine(mesh=...)`` (``serving/mesh.py``).
+ZeRO, sequence and sep parallelism, MoE, ring attention,
 ``auto_parallel``, ``elastic`` and the orbax checkpoints are later parts
 of ROADMAP Queue 1 item 9.
 """

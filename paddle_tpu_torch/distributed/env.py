@@ -40,13 +40,14 @@ def _local_rank():
 
 
 def _rank_device(device):
-    """The rank's device: ``device`` as given, else the card of its local
-    rank (``FLAGS_selected_gpus`` first), through ``resolve_device``."""
+    """The rank's device: ``device`` as given, else (None, or ``"cuda"``
+    without an index) the card of its local rank (``FLAGS_selected_gpus``
+    first), through ``resolve_device``."""
     from ..device import resolve_device
 
-    if device is not None:
-        return resolve_device(device)
-    dev = resolve_device(None)
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
     sel = os.environ.get("FLAGS_selected_gpus", "")
     idx = int(sel.split(",")[0]) if sel else _local_rank()
     return torch.device(dev.type, idx % max(torch.cuda.device_count(), 1))

@@ -82,6 +82,14 @@ class _ReduceFromMP(torch.autograd.Function):
 
 
 def _gather_last(x, group):
+    if x.is_cuda and torch.distributed.get_backend(group.pg) == "gloo":
+        # gloo carries no all_gather on a card's tensors: each rank writes
+        # its slice into zeros and the ranks sum them (exact: x + 0 == x)
+        n, r = _degree(group)
+        w = x.shape[-1]
+        full = x.new_zeros(*x.shape[:-1], n * w)
+        full[..., r * w:(r + 1) * w] = x
+        return all_reduce(full, group=group)
     return torch.cat(all_gather(None, x.contiguous(), group=group).unbind(0),
                      dim=-1)
 

@@ -119,12 +119,15 @@ class Program:
     the dispatch path).  ``build_s`` / ``run_s`` / ``capture_s`` /
     ``pool_bytes`` describe the first run: the ``nvcc`` wall it waited
     out, the eager run (less that build) and the capture, and the bytes
-    the capture reserved in the pool."""
+    the capture reserved in the pool.  ``eager=True`` never captures:
+    every run on the card is the eager step (a step whose collectives go
+    through the host, which a graph cannot hold)."""
 
     def __init__(self, fn, specs, device, pool=None, generator=None,
-                 cost_fn=None):
+                 cost_fn=None, eager=False):
         self.fn = fn
         self.device = torch.device(device)
+        self.eager = bool(eager)
         self.graph = None
         self.outputs = None
         self.runs = 0
@@ -175,6 +178,8 @@ class Program:
             REPLAYS += 1
             _build.add_launches(self._deltas)
             return self.outputs
+        if self.eager and self.runs > 1:
+            return self.fn(*self.inputs)
         b0, t0 = _build.BUILD_SECONDS, time.perf_counter()
         out = self.fn(*self.inputs)
         # this stream only: a device-wide sync is illegal while another
@@ -182,7 +187,8 @@ class Program:
         torch.cuda.current_stream(self.device).synchronize()
         self.build_s = _build.BUILD_SECONDS - b0
         self.run_s = time.perf_counter() - t0 - self.build_s
-        self._capture()
+        if not self.eager:
+            self._capture()
         return out
 
     def _capture(self):

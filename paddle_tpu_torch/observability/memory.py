@@ -354,6 +354,10 @@ class MemoryLedger:
                 "max_model_len": meta.get("max_model_len"),
                 "max_resident_slots": meta.get("max_resident_slots"),
             }
+            # serving-mesh pools: bytes_per_page above is ONE shard's (the
+            # per-card cost admission runs on); the split is named
+            if meta.get("shard"):
+                cap["shard"] = meta["shard"]
             capacity.append(cap)
         rep["budget_bytes"] = budget
         if budget:

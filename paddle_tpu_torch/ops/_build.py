@@ -31,6 +31,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: sources compiled as several translation units at once (``-c
+#: -DPTT_PART=p`` for each part p, csrc/common.cuh) and linked into one
+#: library, so their build takes the wall of their longest part: the
+#: paged decode sources, one part a (q, pool) dtype pair (80 and 48 kernel
+#: instantiations, the longest nvcc runs whole), and the flash sources,
+#: one part an input dtype
+PARTS = {"paged_flash_decode": 5, "paged_flash_decode_q": 3,
+         "flash_attention_fwd": 3, "flash_attention_bwd": 3}
+
 # dtype codes of csrc/common.cuh (enum DType)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -40,6 +49,10 @@ _lock = threading.Lock()
 #: nvcc's output (ptxas registers / shared memory / spills) of the last
 #: build of each library in this process, or of the cached build it loaded
 BUILD_LOGS: dict[str, str] = {}
+
+#: wall seconds of each library's last ``nvcc`` in this process, from the
+#: start of the build that ran it
+NVCC_SECONDS: dict[str, float] = {}
 
 #: wall seconds this process spent in builds that ran ``nvcc`` (a kernel's
 #: first use with no cached library): the serving engine bills the growth
@@ -78,6 +91,7 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(f"parts={PARTS.get(name, 1)}".encode())
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -86,7 +100,8 @@ def _target(name: str) -> Path:
 
 def build(*names: str) -> dict[str, Path]:
     """Compile every named source that has no up-to-date library yet, all
-    ``nvcc`` processes at once, and return ``{name: library path}``.
+    ``nvcc`` processes at once (one a part of a source in :data:`PARTS`),
+    and return ``{name: library path}``.
     Raises ``RuntimeError`` with the compiler's output if a build fails."""
     global BUILD_SECONDS
     t0 = time.perf_counter()
@@ -105,16 +120,49 @@ def build(*names: str) -> dict[str, Path]:
                 BUILD_LOGS[n] = log.read_text() if log.exists() else ""
                 continue
             tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp)
+            src = str(CSRC / f"{n}.cu")
+            if n in PARTS:
+                objs = [tmp.with_suffix(f".part{i}.o")
+                        for i in range(PARTS[n])]
+                cmds = [[_nvcc(), *(f for f in NVCC_FLAGS if f != "-shared"),
+                         "-c", f"-DPTT_PART={i}", "-o", str(o), src]
+                        for i, o in enumerate(objs)]
+                link = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                        *map(str, objs)]
+            else:
+                objs, link = [], None
+                cmds = [[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]]
+            procs[n] = ([subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+                         for c in cmds], link, objs, tmp)
+        results = {}
+
+        def finish(n, ps, link, objs):
+            outs = [p.communicate()[0] for p in ps]
+            rc = next((p.returncode for p in ps if p.returncode), 0)
+            if rc == 0 and link is not None:
+                p = subprocess.run(link, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+                outs.append(p.stdout)
+                rc = p.returncode
+            for o in objs:
+                with contextlib.suppress(FileNotFoundError):
+                    o.unlink()
+            results[n] = ("".join(outs), rc)
+            NVCC_SECONDS[n] = time.perf_counter() - t0
+
+        waits = [threading.Thread(target=finish, args=(n, *job[:3]))
+                 for n, job in procs.items()]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         failed = []
-        for n, (p, tmp) in procs.items():
-            log, _ = p.communicate()
+        for n, (_, _, _, tmp) in procs.items():
+            log, rc = results[n]
             BUILD_LOGS[n] = log
-            if p.returncode != 0:
-                failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{log}")
+            if rc != 0:
+                failed.append(f"{n}.cu (nvcc exit {rc}):\n{log}")
                 continue
             targets[n].with_suffix(".log").write_text(log)
             os.replace(tmp, targets[n])

@@ -73,6 +73,33 @@ CHUNK_LAUNCHES = 0
 QUANT_CHUNK_LAUNCHES = 0
 
 
+# ------------------------------------------------- tensor-parallel serving
+# The reference shards q and the pools on the head dim under a jax mesh,
+# and wraps each Pallas flash entry in shard_map so each shard's kernel
+# sweeps its local heads.  The port's serving mesh is one process per
+# shard: each rank's q and pools already hold only its heads, so the
+# kernels run on them as they are.  The two names stay, as what they
+# become per rank.
+def mp_shard_scope(mesh=None, axis="model"):
+    """The reference's head-sharded dispatch scope.  Per rank there is
+    nothing to scope — every call already sees this rank's heads — so this
+    is a no-op context for any ``mesh``."""
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def _flash_sharded(kernel_fn, q, pools, scales, page_table, seq_lens,
+                   scale=None):
+    """The reference's ``shard_map`` wrapper of a flash entry.  Per rank
+    it is the direct call ``kernel_fn(q, *pools, *scales, page_table,
+    seq_lens, scale)`` on this rank's q ``[B, h/mp, d]`` and pools ``[P,
+    ps, h/mp, d]`` (scale pools ``[P, ps, h/mp]``): attention per head
+    needs no collective, and the contiguous head split keeps GQA groups
+    whole on each shard."""
+    return kernel_fn(q, *pools, *scales, page_table, seq_lens, scale)
+
+
 def _last_page(seq_len, page_size):
     """Index of the last page a row's sweep must visit (>= 0, so empty
     rows still have a step to finalize on)."""

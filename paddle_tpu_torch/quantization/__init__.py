@@ -350,9 +350,15 @@ class Int8Linear(_F32Buffers):
     activations with that static scale; ``act_scale=None`` quantizes them
     dynamically with ONE absmax scale over the whole input — so every row
     of a batch moves the scale of every other row, as in the TPU package.
+
+    ``absmax_group`` (None by default) is set on a row-parallel shard of
+    the serving mesh, whose input is this rank's columns only: the local
+    absmax is max-reduced over the group first, so the scale is the one
+    the whole input would give (the reference's, under GSPMD).
     """
 
     _f32_buffers = ("_w_scale", "_act_scale")
+    absmax_group = None
 
     def __init__(self, linear, w_scale, act_scale=None, bits=8):
         super().__init__()
@@ -379,8 +385,13 @@ class Int8Linear(_F32Buffers):
         if self._act_scale is not None:
             s_a = self._act_scale
             xq = quantize(x, s_a, bits=self._bits)
-        else:
+        elif self.absmax_group is None:
             xq, s_a = quantize_absmax(x, bits=self._bits)
+        else:
+            m = self.absmax_group.all_reduce(
+                torch.clamp(x.float().abs().amax(), min=1e-8), op="max")
+            s_a = over_qmax(m, self._bits)
+            xq = quantize(x, s_a, bits=self._bits)
         y = _int8_matmul(xq.reshape(-1, xq.shape[-1]), self.weight_int8.t())
         y = y.reshape(*x.shape[:-1], y.shape[-1])
         out = y.float() * (s_a * self._w_scale)

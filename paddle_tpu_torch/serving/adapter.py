@@ -42,6 +42,8 @@ from __future__ import annotations
 
 import torch
 
+from ..text.models.gpt import local_heads, mp_param_specs
+
 
 class GPTAdapter:
     """Adapter for :class:`paddle_tpu_torch.text.models.GPTForCausalLM`
@@ -53,6 +55,9 @@ class GPTAdapter:
     #: pool tensors per layer stack, and what they hold
     n_pools = 2
     kv_dtype = "native"
+    #: the serving mesh's degree when the model is one shard of it (its
+    #: pools then hold num_kv_heads = the shard's heads)
+    mp = 1
 
     def __init__(self, model, page_size=16):
         self.model = model
@@ -60,11 +65,8 @@ class GPTAdapter:
         blk = self.gpt.layers[0]
         self.num_layers = len(self.gpt.layers)
         self.head_dim = blk.head_dim
-        # an Int8Linear (weight_dtype="int8") keeps its weight as weight_int8
-        qkv_w = getattr(blk.qkv, "weight", None)
-        if qkv_w is None:
-            qkv_w = blk.qkv.weight_int8
-        self.num_kv_heads = qkv_w.shape[0] // (3 * blk.head_dim)
+        # the heads the qkv projection makes: a mesh shard's own
+        self.num_kv_heads = local_heads(blk)
         wte = self.gpt.word_embeddings.weight
         self.dtype = wte.dtype
         self.device = wte.device
@@ -80,11 +82,42 @@ class GPTAdapter:
                 "kv_dtype": self.kv_dtype,
                 "n_pools": int(self.n_pools),
                 "num_layers": int(self.num_layers),
-                "num_kv_heads": int(self.num_kv_heads),
+                "num_kv_heads": int(self.num_kv_heads * self.mp),
                 "head_dim": int(self.head_dim),
                 "page_size": int(self.page_size),
                 "max_model_len": int(self.max_model_len),
                 "dtype": str(self.dtype).removeprefix("torch.")}
+
+    # ------------------------------------------------------ the serving mesh
+    def validate_mp(self, mp):
+        """Divisibility check for ``ServingEngine(mesh=...)``: the pools
+        split on the KV-head dim and the qkv split is head-granular, so
+        every shard must own a whole number of heads."""
+        mp = int(mp)
+        if self.num_kv_heads % mp:
+            raise ValueError(
+                f"tensor-parallel serving needs num_kv_heads divisible by "
+                f"the mesh's model axis: {self.num_kv_heads} heads % "
+                f"mp={mp} != 0")
+
+    def pool_pspecs(self, axis="model"):
+        """Per pool tensor, which dim the mesh splits: a tuple naming
+        ``axis`` at the KV-head dim of ``[L, P, ps, h, d]`` (the
+        reference's ``PartitionSpec`` as a plain tuple).  The page table
+        is the same on every shard: each addresses the same page slots,
+        each holding its own heads.  Each rank's pools are ``[L, P, ps,
+        h/mp, d]``."""
+        return ((None, None, None, axis, None),) * self.n_pools
+
+    def param_pspec(self, name, axis="model"):
+        """The split of one named parameter / buffer under the serving
+        mesh, in torch's layout: the Megatron column / row split of
+        :func:`~..text.models.gpt.mp_param_specs`, else replicated
+        (``()``)."""
+        for suf, spec in mp_param_specs(axis).items():
+            if name.endswith(suf):
+                return spec
+        return ()
 
     # ----------------------------------------------------------- pool hooks
     def init_pools(self, num_pages):

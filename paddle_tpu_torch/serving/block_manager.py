@@ -67,7 +67,7 @@ class PageAllocation:
 class BlockManager:
     def __init__(self, num_pages, page_size, prefix_sharing=False,
                  replica="0", bytes_per_page=None, pool_dtype=None,
-                 radix=False, spill=None):
+                 shards=1, radix=False, spill=None):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         if page_size < 1:
@@ -83,6 +83,10 @@ class BlockManager:
         self.bytes_per_page = int(bytes_per_page) \
             if bytes_per_page is not None else None
         self.pool_dtype = str(pool_dtype) if pool_dtype is not None else None
+        # the serving mesh splits the pools over ``shards`` ranks by KV
+        # head; bytes_per_page is then ONE shard's (one card's) cost, so
+        # the same per-card budget holds ``shards`` x the sequences
+        self.shards = int(shards)
         self._free = collections.deque(range(self.num_pages))
         self._active = {}                       # prefix key -> [page, refs]
         self._idle = collections.OrderedDict()  # prefix key -> page (refs 0)
@@ -162,7 +166,7 @@ class BlockManager:
               "utilization": self.utilization(),
               "prefix_sharing": self.prefix_sharing,
               "bytes_per_page": self.bytes_per_page,
-              "pool_dtype": self.pool_dtype}
+              "pool_dtype": self.pool_dtype, "shards": self.shards}
         if self.bytes_per_page is not None:
             st["pool_bytes"] = self.num_pages * self.bytes_per_page
             st["used_bytes"] = self.used_pages * self.bytes_per_page
@@ -191,7 +195,9 @@ class BlockManager:
     def max_resident_sequences(self, tokens_per_seq, budget_bytes=None):
         """How many sequences of ``tokens_per_seq`` worst case fit — in this
         pool, or in a pool of ``budget_bytes`` device memory at this
-        manager's ``bytes_per_page``."""
+        manager's ``bytes_per_page`` (a shard's under the serving mesh, so
+        the same per-card budget admits ``shards`` x the sequences of the
+        unsharded engine)."""
         per_seq = self.pages_for(tokens_per_seq)
         pages = self.num_pages
         if budget_bytes is not None:

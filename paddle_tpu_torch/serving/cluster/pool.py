@@ -16,9 +16,12 @@ as given (``["cpu", "cpu"]`` on a machine without a card); the default
 unless ``device="cpu"`` is passed).  A replica on another device than the
 model's serves a copy of the model made for that device, one per device.
 
-Tensor-parallel replicas (``mp=`` or a list of submeshes) need the
-engine's ``mesh=``, which the port does not have yet: they raise
-``NotImplementedError``.
+Tensor-parallel replicas (dp x mp behind one router): ``mp=N`` carves
+the device list (the visible cards by default) into contiguous N-sized
+groups, one mesh engine each (``ServingEngine(mesh=...)``, one process per
+shard); or ``devices=`` is a list of submeshes, each a device list.  On one
+card, dp 2 x mp 2 is ``devices=["cuda:0"] * 4, mp=2``.  The divisibility
+and the mixed forms raise ``ValueError``, as the reference's do.
 """
 
 from __future__ import annotations
@@ -29,17 +32,17 @@ import threading
 
 import torch
 
-_MP_PENDING = ("tensor-parallel replicas (mp= / submesh devices=) need the "
-               "engine's mesh=, which waits for the serving-mesh part of "
-               "ROADMAP Queue 1 item 9 (distributed)")
-
-
 def _auto_devices():
     if not torch.cuda.is_available():
         raise RuntimeError(
             "devices='auto' found no CUDA device; pass devices=['cpu', ...] "
             "or device='cpu' to run the port's plain paths on the CPU")
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _is_device(d):
+    """A single device (vs a submesh list)."""
+    return not isinstance(d, (list, tuple))
 
 
 def _same_device(a, b):
@@ -50,8 +53,8 @@ def _same_device(a, b):
 class ReplicaPool:
     """Build and own N serving-engine replicas.
 
-    ``replicas=None`` defaults to one per device when ``devices`` is set,
-    else 1.  ``replica_prefix`` namespaces the replica ids (metric labels,
+    ``replicas=None`` defaults to one per device (or per submesh) when
+    ``devices`` / ``mp`` select placement, else 1.  ``replica_prefix`` namespaces the replica ids (metric labels,
     provider keys) when several pools share a process.  ``lora_store=``
     (in ``engine_kwargs``) picks the
     :class:`~..multitenant.MultiTenantEngine`; an explicit ``engine_cls``
@@ -73,24 +76,65 @@ class ReplicaPool:
                 engine_cls = MultiTenantEngine
             else:
                 engine_cls = ServingEngine
-        if mp:
-            raise NotImplementedError(_MP_PENDING)
+        mp = int(mp) if mp else None
+        if mp is not None and mp < 1:
+            raise ValueError(f"mp must be >= 1, got {mp}")
         if devices == "auto":
             devices = _auto_devices()
         elif devices is not None:
             devices = list(devices)
             if not devices:
                 raise ValueError("devices must be non-empty (or None/'auto')")
-            if any(isinstance(d, (list, tuple)) for d in devices):
-                raise NotImplementedError(_MP_PENDING)
+        # submesh placement: the caller's explicit submeshes (entries that
+        # are device lists), or mp= carving a flat list into contiguous
+        # mp-sized groups
+        meshes = None
+        if devices is not None and not all(_is_device(d) for d in devices):
+            if mp is not None:
+                raise ValueError(
+                    "pass EITHER mp=N (carve a flat device list) OR "
+                    "devices= as explicit submeshes, not both")
+            if any(_is_device(d) for d in devices):
+                raise ValueError(
+                    "devices= mixes single devices and submeshes — use "
+                    "1-element lists for single-device replicas")
+            meshes = [[torch.device(d) for d in m] for m in devices]
+            sizes = {len(m) for m in meshes}
+            if len(sizes) > 1:
+                raise ValueError(
+                    f"submeshes must be same-sized (one program per family "
+                    f"across replicas), got sizes {sorted(sizes)}")
+        elif mp is not None and mp > 1:
+            if devices is None:
+                devices = _auto_devices()
+            if len(devices) % mp:
+                raise ValueError(
+                    f"{len(devices)} devices not divisible by mp={mp}: a "
+                    f"dp x mp pool needs len(devices) == replicas * mp "
+                    f"(on one card repeat it: devices=['cuda:0'] * 4)")
             devices = [torch.device(d) for d in devices]
-        if replicas is None:
-            replicas = len(devices) if devices is not None else 1
-        replicas = int(replicas)
-        if replicas < 1:
-            raise ValueError(f"replicas must be >= 1, got {replicas}")
+            meshes = [devices[i:i + mp] for i in range(0, len(devices), mp)]
+        elif devices is not None:
+            devices = [torch.device(d) for d in devices]
+        if meshes is not None:
+            if replicas is None:
+                replicas = len(meshes)
+            replicas = int(replicas)
+            if replicas < 1:
+                raise ValueError(f"replicas must be >= 1, got {replicas}")
+            if replicas > len(meshes):
+                raise ValueError(
+                    f"replicas={replicas} exceeds the {len(meshes)} "
+                    f"available submeshes (need replicas * mp devices)")
+        else:
+            if replicas is None:
+                replicas = len(devices) if devices is not None else 1
+            replicas = int(replicas)
+            if replicas < 1:
+                raise ValueError(f"replicas must be >= 1, got {replicas}")
         self.model = model
         self.devices = devices
+        self.meshes = meshes
         if isinstance(warmup, (str, os.PathLike)):
             from ...observability.programs import WarmupManifest
 
@@ -125,7 +169,11 @@ class ReplicaPool:
     def _build_engine(self, i):
         kw = dict(self._engine_kwargs)
         model = self.model
-        if self.devices is not None:
+        if self.meshes is not None:
+            # a mesh engine shards the shared model itself, which stays
+            # where it is
+            kw["mesh"] = self.meshes[i % len(self.meshes)]
+        elif self.devices is not None:
             kw["device"] = self.devices[i % len(self.devices)]
             model = self._model_for(kw["device"])
         return self._engine_cls(model, replica=f"{self._replica_prefix}{i}",
@@ -154,6 +202,8 @@ class ReplicaPool:
         for e in list(self.engines):
             try:
                 e.stop(drain=drain, drain_timeout=drain_timeout)
+                if getattr(e, "_mesh", None) is not None:
+                    e.close()   # joins its followers: none outlives it
             except Exception as exc:  # stop the rest before surfacing
                 errors.append(exc)
         if errors:
@@ -195,6 +245,8 @@ class ReplicaPool:
         first)."""
         with self._mut:
             self.engines = [e for e in self.engines if e is not engine]
+        if getattr(engine, "_mesh", None) is not None:
+            engine.close()
 
     def snapshot_states(self):
         """One atomic ``(engines, states)`` pair: row ``i`` of ``states``

@@ -107,7 +107,9 @@ class ServingCluster:
     :class:`~...observability.programs.WarmupManifest` or saved
     path), which the pool replays on every replica before its scheduler
     starts so the cluster's first request on any replica mints zero
-    traces.  Pass a prebuilt ``pool=`` / ``router=`` to override
+    traces; ``mp=N`` goes to the pool, which carves ``devices`` into
+    N-sized meshes, one tensor-parallel engine each (dp x mp behind the
+    router).  Pass a prebuilt ``pool=`` / ``router=`` to override
     construction; ``policy`` picks the routing policy (``affinity``
     default, ``random`` / ``round_robin`` / ``least_loaded`` as
     controls).  With ``prefix_cache="radix"`` replicas the affinity

@@ -87,6 +87,22 @@ the resident sequences per pool byte at head_dim 64;
 ``weight_dtype="int8"`` converts the model's Linears to ``Int8Linear`` in
 place (:func:`~.quant.quantize_model_weights`, idempotent).
 
+Tensor-parallel serving (``mesh=["cuda:0", "cuda:1"]``, or
+``["cuda:0", "cuda:0"]`` on one card, ``["cpu", "cpu"]`` on the CPU):
+one process per shard (:mod:`.mesh`).  This engine's process is shard 0,
+the leader, and keeps every host-side part; ``mp - 1`` follower
+processes each hold their shard of the model (qkv / ffn1
+column-parallel, out_proj / ffn2 row-parallel, the rest replicated:
+:func:`~..text.models.gpt.mp_shard`) and their KV heads of the pools,
+and mirror every dispatch the leader runs.  The row-parallel products
+are summed over an engine-private group.  Greedy ids are the unsharded
+engine's; ``bytes_per_page`` is one shard's, so the same per-card
+budget holds ``mp`` x the sequences; program keys carry ``("mp", N)``
+and families ``@mp<N>``; the programs run eagerly (no CUDA graph can hold
+the group's host hops).  :meth:`ServingEngine.close` (or leaving a
+``with`` block) joins the followers; a follower that dies or fails makes
+the engine fail, never restart.
+
 Observability: every ``serving.*`` family of the reference engine, in
 the port's metrics registry (:mod:`..profiler.metrics`), each series
 labelled ``replica=<id>`` — the ``serving.ttft_seconds``,
@@ -166,6 +182,7 @@ from ..resilience.retry import (EngineStoppedError, NumericFault,
 from ..text.models._decode import make_batched_sampler, nonfinite_rows
 from .adapter import GPTAdapter
 from .block_manager import BlockManager
+from .mesh import _MP_AXIS, MeshError, normalize_mesh
 
 _logger = logging.getLogger("paddle_tpu_torch.serving")
 
@@ -175,6 +192,11 @@ _HEALTH_CODE = {"healthy": 0, "degraded": 1, "draining": 2, "stopped": 3,
 # prefill bucketing: prompts up to this many pages pad to their own page
 # count; above it, page counts round up to the next power of two
 _PREFILL_POW2_PAGES = 4
+
+# the adapter closure each engine program runs, by its step function: what
+# a serving-mesh follower runs on its shard for the same dispatch
+_MIRRORED = {"_step_fn": "step", "_prefill_fn": "prefill",
+             "_chunk_fn": "prefill_chunk", "_verify_fn": "verify"}
 
 
 class RequestRejectedError(RuntimeError):
@@ -397,7 +419,7 @@ class ServingEngine:
                  health_gating=True, slo=None, kv_dtype=None,
                  weight_dtype=None, numeric_guard=None,
                  prefill_chunk_tokens=None, qos=None, prefix_cache=None,
-                 kv_spill=False, kv_spill_budget_bytes=None):
+                 kv_spill=False, kv_spill_budget_bytes=None, mesh=None):
         if prefill_chunk_tokens:
             prefill_chunk_tokens = int(prefill_chunk_tokens)
             if prefill_chunk_tokens < 1:
@@ -453,12 +475,39 @@ class ServingEngine:
 
             self._spill = KVSpillTier(replica=self.replica,
                                       budget_bytes=kv_spill_budget_bytes)
-        self.device = resolve_device(device)
-        self._model = model.to(self.device)
+        # tensor-parallel serving: mesh= is a flat device list, one
+        # process per shard; a 1-long list is plain device= placement
+        devices, self._mp, solo = normalize_mesh(mesh)
+        if mesh is not None and device is not None:
+            raise ValueError(
+                "device= and mesh= are mutually exclusive: a dp replica "
+                "commits to ONE device, an mp engine to a mesh (compose "
+                "them via ReplicaPool(devices=..., mp=...))")
+        if solo is not None:
+            device = solo
+        self._mesh = None
+        # mp program families and keys get their own suffix / component,
+        # so an mp = 1 engine's stay the reference's byte for byte
+        self._mp_suffix = f"@mp{self._mp}" if self._mp > 1 else ""
+        self.device = resolve_device(devices[0] if devices else device)
+        if self._mp > 1 and adapter is not None:
+            raise NotImplementedError(
+                "mesh= builds each shard's adapter itself; a caller-built "
+                "adapter (the multi-tenant engine's) is not sharded")
+        # under the mesh the full model stays where it is (each rank's card
+        # holds its shard only), and int8 weights are quantized on it (the
+        # full tensors' scales) before it is split
+        self._model = model if self._mp > 1 else model.to(self.device)
         if self.weight_dtype == "int8":
             from .quant.weights import quantize_model_weights
 
             quantize_model_weights(model)
+        self._net = self._model
+        if self._mp > 1:
+            from ..text.models.gpt import mp_shard
+
+            GPTAdapter(model, page_size).validate_mp(self._mp)
+            self._net = mp_shard(model, self._mp, 0, self.device).eval()
         if adapter is not None:
             # a caller-built adapter (the multi-tenant engine's LoRA ones);
             # its pools must land on this engine's device
@@ -470,9 +519,10 @@ class ServingEngine:
         elif kv_dtype == "int8":
             from .quant.adapter import QuantizedGPTAdapter
 
-            self._adapter = QuantizedGPTAdapter(model, page_size)
+            self._adapter = QuantizedGPTAdapter(self._net, page_size)
         else:
-            self._adapter = GPTAdapter(model, page_size)
+            self._adapter = GPTAdapter(self._net, page_size)
+        self._adapter.mp = self._mp
         self.page_size = int(page_size)
         self.num_slots = int(num_slots)
         cap = self._adapter.max_model_len
@@ -482,6 +532,8 @@ class ServingEngine:
         if num_pages is None:
             num_pages = self.num_slots * self.table_width  # full residency
         self._num_pages = int(num_pages)
+        # one shard's bytes under the mesh (the adapter runs on the
+        # leader's shard): the per-card unit of the capacity math
         self._bytes_per_page = int(self._adapter.page_bytes())
         self._pool_dtype = "int8" if kv_dtype == "int8" \
             else str(self._adapter.dtype).removeprefix("torch.")
@@ -491,6 +543,18 @@ class ServingEngine:
         # pool row; junk written there is never attended)
         self._scratch = int(num_pages)
         self._pools = tuple(self._adapter.init_pools(num_pages + 1))
+        if self._mp > 1:
+            from ..text.models.gpt import attach_mesh_group, mp_shard
+            from .mesh import ServingMesh
+
+            # the followers start now, side by side with the rest of the
+            # set-up; the group forms at start() / warmup()
+            self._mesh = ServingMesh(
+                devices, [mp_shard(model, self._mp, r, "cpu")
+                          for r in range(1, self._mp)],
+                {"kv_dtype": kv_dtype, "page_size": self.page_size,
+                 "num_pages": self._num_pages + 1})
+            attach_mesh_group(self._net, self._mesh.group)
         if self._spill is not None:
             # the callables read the CURRENT pool tuple, so a rebuild after
             # a crash needs no re-attachment
@@ -523,10 +587,11 @@ class ServingEngine:
         self._fam_suffix = "@int8" if kv_dtype == "int8" else ""
         self._flash_tag = "@flash" if self.device.type == "cuda" else ""
         # this engine's programs by key (on the card: its CUDA graphs, over
-        # its pools), sharing one graph memory pool
+        # its pools), sharing one graph memory pool; a mesh engine's run
+        # eagerly
         self._graphs = {}
         self._graph_pool = torch.cuda.graph_pool_handle() \
-            if self.device.type == "cuda" else None
+            if self.device.type == "cuda" and self._mesh is None else None
         self._warmed = None
 
         # QoS tiers: a per-tier queue with weighted head selection, a
@@ -750,21 +815,23 @@ class ServingEngine:
 
     def pool_bytes_by_dtype(self):
         """Actual pool-tuple device bytes, keyed by dtype (payload AND
-        scale pools — what /statusz reconciles against the ledger)."""
+        scale pools — what /statusz reconciles against the ledger); over
+        every shard under the mesh (each rank holds ``1/mp`` of them), as
+        the reference counts its global arrays."""
         out = {}
         for p in self._pools:
             dt = str(p.dtype).removeprefix("torch.")
-            out[dt] = out.get(dt, 0) + p.numel() * p.element_size()
+            out[dt] = out.get(dt, 0) + p.numel() * p.element_size() * self._mp
         return out
 
     def _params_and_buffers(self):
         """``({name: parameter}, {name: buffer})``: the model's
-        device-resident weights.  Non-persistent buffers are left out —
+        device-resident weights (the leader's shard under the mesh).  Non-persistent buffers are left out —
         ``Int8Linear``'s float32 scale scalars, which the reference keeps
         as plain attributes."""
-        params = dict(self._model.named_parameters())
+        params = dict(self._net.named_parameters())
         bufs = {}
-        for mname, m in self._model.named_modules():
+        for mname, m in self._net.named_modules():
             skip = m._non_persistent_buffers_set
             for bname, b in m.named_buffers(recurse=False):
                 if b is not None and bname not in skip:
@@ -818,6 +885,10 @@ class ServingEngine:
                 }
             elif owner == "kv.scales":
                 meta = {"kind": "kv_scales"}
+            if meta is not None and self._mp > 1:
+                # the leader's rows hold its shard of the pools (what its
+                # allocator holds); the label says how they split
+                meta["shard"] = f"{_MP_AXIS}:{self._mp}"
             led.register(owner, _pools_src(idx), replica=self.replica,
                          meta=meta)
 
@@ -871,7 +942,7 @@ class ServingEngine:
                             prefix_sharing=self._prefix_cache is not None,
                             replica=self.replica,
                             bytes_per_page=self._bytes_per_page,
-                            pool_dtype=self._pool_dtype,
+                            pool_dtype=self._pool_dtype, shards=self._mp,
                             radix=self._radix, spill=self._spill)
 
     # ------------------------------------------------- hierarchical KV cache
@@ -880,14 +951,32 @@ class ServingEngine:
         tier's snapshot.  Walking the whole tuple keeps an int8 payload
         and its scales together.  A copy even on the CPU (``.cpu()`` of a
         CPU tensor would alias the pool, and the page is about to be
-        reused)."""
-        return tuple(p[:, page].to("cpu", copy=True) for p in self._pools)
+        reused).  Under the mesh every shard's heads are joined, so the
+        entry is the whole page, as the reference's."""
+        local = tuple(p[:, page].to("cpu", copy=True) for p in self._pools)
+        if self._mesh is None:
+            return local
+        parts = [local, *self._mesh.snapshot(page)]
+        return tuple(torch.cat([part[i] for part in parts], dim=d)
+                     for i, d in enumerate(self._page_head_dims()))
 
     def _spill_restore(self, page, payload):
         """Copy a resurrected entry back into device page ``page``, in
-        place in every pool (the layers' caches are views of the pools)."""
+        place in every pool (the layers' caches are views of the pools);
+        under the mesh each shard takes its heads."""
+        if self._mesh is not None:
+            split = [a.chunk(self._mp, dim=d) for a, d in
+                     zip(payload, self._page_head_dims())]
+            self._mesh.restore(page, [tuple(s[r].clone() for s in split)
+                                      for r in range(1, self._mp)])
+            payload = tuple(s[0] for s in split)
         for p, a in zip(self._pools, payload):
             p[:, page].copy_(a)
+
+    def _page_head_dims(self):
+        """Per pool, the KV-head dim of one page row ``pool[:, page]``."""
+        return [spec.index(_MP_AXIS) - 1
+                for spec in self._adapter.pool_pspecs(_MP_AXIS)]
 
     def prefix_index_summary(self):
         """Resident-prefix digests (None outside radix mode)."""
@@ -899,8 +988,10 @@ class ServingEngine:
             raise RuntimeError("engine previously failed") from self._error
         if self._started:
             return self
-        self._modes = [(m, m.training) for m in self._model.modules()]
-        self._model.eval()
+        if self._mesh is not None:
+            self._mesh.connect()   # raises MeshError once closed or lost
+        self._modes = [(m, m.training) for m in self._net.modules()]
+        self._net.eval()
         self._stop_evt.clear()
         self._draining = False
         self._engine_restarts = 0   # a fresh start() is a fresh budget
@@ -944,9 +1035,11 @@ class ServingEngine:
             raise ValueError(
                 f"manifest captured for adapter {want}, this engine is "
                 f"{have} — replaying would mint useless programs")
+        if self._mesh is not None:
+            self._mesh.connect()
         # replay runs in eval mode, exactly like the scheduler
-        modes = [(m, m.training) for m in self._model.modules()]
-        self._model.eval()
+        modes = [(m, m.training) for m in self._net.modules()]
+        self._net.eval()
         t0 = time.perf_counter()
         warmed, skipped = 0, []
         try:
@@ -1220,11 +1313,50 @@ class ServingEngine:
             "engine stopped; use stop(drain=True) to finish in-flight work")
         self._finish(handle, "stopped")
 
+    def close(self):
+        """:meth:`stop`, then join the mesh's follower processes (an
+        engine without a mesh just stops).  A closed mesh engine cannot
+        start again."""
+        try:
+            self.stop()
+        finally:
+            if self._mesh is not None:
+                self._mesh.close()
+
+    def mesh_stats(self, reset=False):
+        """Per rank, the serving mesh's counters (None without a mesh):
+        the all-reduces (calls, bytes, ``hop_s`` inside the hops and
+        ``compute_s`` waiting for the rank's own kernels first), the
+        kernel launch counters, and on the card the peak and current
+        allocation, with each rank's pools' bytes and shapes.  ``reset``
+        zeroes the counts (and the peaks) after reading."""
+        if self._mesh is None:
+            return None
+        from .mesh import launch_counts, zero_launch_counts
+
+        cuda = self.device.type == "cuda"
+        lead = {"rank": 0, "launches": launch_counts(),
+                "mesh": self._mesh.group.counts(),
+                "peak_bytes": torch.cuda.max_memory_allocated(self.device)
+                if cuda else None,
+                "allocated_bytes": torch.cuda.memory_allocated(self.device)
+                if cuda else None,
+                "pool_bytes": sum(p.numel() * p.element_size()
+                                  for p in self._pools),
+                "pool_shapes": [list(p.shape) for p in self._pools]}
+        rows = [lead, *self._mesh.query(reset)]
+        if reset:
+            zero_launch_counts()
+            self._mesh.group.reset_counts()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.device)
+        return rows
+
     def __enter__(self):
         return self.start()
 
     def __exit__(self, *exc):
-        self.stop()
+        self.close()
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
@@ -1526,7 +1658,9 @@ class ServingEngine:
                     # sampler) hold the old pools and logits: drop their
                     # locals, or a rebuild would hold two pool sets
                     traceback.clear_frames(e.__traceback__)
-                    if classify_failure(e) == "transient" \
+                    # a mesh failure is fatal: the group is unusable
+                    if not isinstance(e, MeshError) \
+                            and classify_failure(e) == "transient" \
                             and self._engine_restarts \
                             < self._max_engine_restarts:
                         try:
@@ -1604,6 +1738,8 @@ class ServingEngine:
             with torch.inference_mode(False):
                 self._pools = tuple(
                     self._adapter.init_pools(self._num_pages + 1))
+        if self._mesh is not None:
+            self._mesh.reset_pools()    # every shard's pools, the same way
         self._set_pool_gauges()
 
     def _requeue(self, req, h, produced, remaining):
@@ -1901,6 +2037,8 @@ class ServingEngine:
         return program_store(self._model)
 
     def _device_label(self):
+        if self._mp > 1:
+            return f"mesh[{self._mp}]:{_MP_AXIS}"
         return str(self.device)
 
     def _guard_key(self):
@@ -1909,47 +2047,62 @@ class ServingEngine:
         byte for byte."""
         return ("nguard",) if self._numeric_guard else ()
 
+    def _mp_key(self):
+        """Program-store key component of the serving mesh: empty at
+        mp = 1, so the unsharded keys stay the reference's byte for byte,
+        and an mp engine sharing the model with an unsharded one never
+        meets its keys."""
+        return ("mp", self._mp) if self._mp > 1 else ()
+
     def _pool_key(self):
         """The pools' static axes in a key: shape and dtype as the
-        reference spells them (``(L, P, ps, h, d)``, ``"bfloat16"``)."""
+        reference spells them (``(L, P, ps, h, d)``, ``"bfloat16"``; the
+        whole head count under the mesh, as the reference's global
+        arrays)."""
         p = self._pools[0]
-        return tuple(int(n) for n in p.shape), \
-            str(p.dtype).removeprefix("torch.")
+        shape = [int(n) for n in p.shape]
+        shape[3] *= self._mp
+        return tuple(shape), str(p.dtype).removeprefix("torch.")
 
     # program-store key builders — shared by the mint sites, the dispatch
     # sites' compile windows and warmup() replay
     def _step_store_key(self):
         return ("serve_step", self.num_slots, self.table_width,
-                *self._pool_key(), self._top) + self._guard_key()
+                *self._pool_key(), self._top) + self._guard_key() \
+            + self._mp_key()
 
     def _verify_store_key(self, k_pad):
         return ("verify", k_pad, self.num_slots, self.table_width,
-                *self._pool_key(), self._top) + self._guard_key()
+                *self._pool_key(), self._top) + self._guard_key() \
+            + self._mp_key()
 
     def _prefill_store_key(self, s_pad):
         return ("serve_prefill", s_pad, self.table_width,
-                *self._pool_key(), self._top) + self._guard_key()
+                *self._pool_key(), self._top) + self._guard_key() \
+            + self._mp_key()
 
     def _prefill_chunk_store_key(self, c_pad):
         return ("serve_prefill_chunk", c_pad, self.table_width,
-                *self._pool_key(), self._top) + self._guard_key()
+                *self._pool_key(), self._top) + self._guard_key() \
+            + self._mp_key()
 
     def _prefill_family(self, s_pad):
-        return f"prefill/{s_pad}{self._fam_suffix}"
+        return f"prefill/{s_pad}{self._fam_suffix}{self._mp_suffix}"
 
     def _prefill_chunk_family(self, c):
-        return f"prefill_chunk/{c}{self._fam_suffix}"
+        return f"prefill_chunk/{c}{self._fam_suffix}{self._mp_suffix}"
 
     def _prefill_cached_family(self, c, cached_pages):
         """A radix cached-tail dispatch: the chunk program at width ``c``,
         attributed to its own family (tail-only compute)."""
-        return f"prefill/{c}@cached{cached_pages}{self._fam_suffix}"
+        return (f"prefill/{c}@cached{cached_pages}{self._fam_suffix}"
+                f"{self._mp_suffix}")
 
     def _decode_family(self):
-        return f"decode{self._flash_tag}{self._fam_suffix}"
+        return f"decode{self._flash_tag}{self._fam_suffix}{self._mp_suffix}"
 
     def _verify_family(self):
-        return f"verify/k{self._spec_k}{self._fam_suffix}"
+        return f"verify/k{self._spec_k}{self._fam_suffix}{self._mp_suffix}"
 
     def _program(self, key, family):
         """The store entry of ``key`` — ``(kind, [mints])`` — minting it
@@ -1992,6 +2145,7 @@ class ServingEngine:
         dispatches record their wall in the perf table."""
         _, traces = self._program(key, mint_family)
         n0 = traces[0]
+        mirrored = _MIRRORED[fn.__name__] if self._mesh is not None else None
         prog = self._graphs.get(key)
         if prog is None:
             arrays = (*host, inject) if inject is not None else host
@@ -2004,11 +2158,12 @@ class ServingEngine:
                 [(a.shape, torch.from_numpy(np.asarray(a)).dtype)
                  for a in arrays], self.device, pool=self._graph_pool,
                 generator=self._gen,
-                cost_fn=lambda: ref()._program_cost(key))
+                cost_fn=lambda: ref()._program_cost(key),
+                eager=self._mesh is not None)
         first = prog.runs == 0
         # this engine's first dispatch of the key captures it on the card,
         # whoever minted it (on the CPU only a mint is a first dispatch)
-        capture = first and prog.device.type == "cuda"
+        capture = first and prog.device.type == "cuda" and not prog.eager
         if first and _perf.needs_cost(family):
             _perf.register_cost_thunk(family, _perf.jit_cost_thunk(prog))
         win = _programs.ledger().compile_window(
@@ -2019,7 +2174,20 @@ class ServingEngine:
         t0 = time.perf_counter()
         try:
             prog.feed(*host, *(() if inject is None else (inject,)))
-            packed, stats = prog()
+            if self._mesh is None:
+                packed, stats = prog()
+            else:
+                # every follower runs the same closure on its shard first
+                self._mesh.mirror(mirrored, host, inject)
+                try:
+                    packed, stats = prog()
+                except MeshError:
+                    raise
+                except Exception as e:
+                    # the followers are inside the dispatch: the group
+                    # cannot be trusted past this point
+                    raise MeshError(f"mirrored dispatch {family} failed on "
+                                    f"the leader: {e!r}") from e
             out = packed.cpu().numpy()
             if stats is not None:
                 stats = stats.clone()   # a replay rewrites the static row
@@ -2727,7 +2895,9 @@ class ServingEngine:
             "num_pages": self._bm.num_pages,
             "page_utilization": self._bm.utilization(),
             "step_traces": self.step_traces,
+            # one shard's under the mesh (the per-card capacity unit)
             "bytes_per_page": self._bytes_per_page,
+            "mp": self._mp,
             # what the pools are made of and what a token costs in them
             # (scale pools included)
             "kv_dtype": self.kv_dtype,
@@ -2793,13 +2963,14 @@ class ServingEngine:
         st = self.stats()
         st["kv_cache"] = self._bm.stats()
         # this replica's ledger owner rows, the pool tuple's per-dtype
-        # residency and the admission pre-flight state.  (The reference
-        # also reports pool_shard_bytes_by_dtype, the per-chip share under
-        # a tensor-parallel mesh; the port has no mesh=, so every pool is
-        # whole on one card.)
+        # residency (over every shard, and per card) and the admission
+        # pre-flight state
         st["memory"] = {
             "owners": _obs_memory.ledger().owner_rows(replica=self.replica),
             "pool_bytes_by_dtype": self.pool_bytes_by_dtype(),
+            "pool_shard_bytes_by_dtype": {
+                dt: b // self._mp
+                for dt, b in self.pool_bytes_by_dtype().items()},
             "fixed_bytes": self._fixed_bytes,
             "committed_pages": self._committed_pages,
             "hbm_budget_bytes": _obs_memory.hbm_budget_bytes(),

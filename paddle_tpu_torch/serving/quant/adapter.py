@@ -51,6 +51,15 @@ class QuantizedGPTAdapter(GPTAdapter):
         return (2 * self.num_layers * self.page_size * self.num_kv_heads
                 * (self.head_dim + 4))
 
+    def pool_pspecs(self, axis="model"):
+        """The payload pools ``[L, P, ps, h, d]`` and the scale pools
+        ``[L, P, ps, h]`` both split on the KV-head dim: a shard
+        dequantizes its heads with its own scales, no traffic between
+        shards."""
+        payload = (None, None, None, axis, None)
+        scales = (None, None, None, axis)
+        return (payload, payload, scales, scales)
+
     def pool_owners(self):
         """int8 payload pools and float32 scale pools get separate ledger
         owners: the scale pools are real device residency."""

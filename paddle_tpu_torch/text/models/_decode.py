@@ -173,9 +173,10 @@ class _GenerateKey:
     build_s = run_s = capture_s = 0.0
     pool_bytes = None
 
-    def __init__(self, fwd, init_cache, sample, B, S0, device):
+    def __init__(self, fwd, init_cache, sample, B, S0, device, eager=False):
         self.fwd, self.init_cache, self.sample = fwd, init_cache, sample
         self.B, self.S0, self.device = B, S0, device
+        self.eager = eager
 
     def step_program(self, cache, gen):
         """The decode step over ``cache`` as a
@@ -183,7 +184,8 @@ class _GenerateKey:
         [B, 1]`` and ``pos`` (a 0-d int64): it writes its token back into
         ``last`` and advances ``pos``, so consecutive runs need no host
         input.  On the card its first run is eager and captures a CUDA
-        graph in a pool of its own; the later runs replay it."""
+        graph in a pool of its own; the later runs replay it (every run is
+        eager with ``eager``: a step with collectives)."""
         from ...jit.graphs import Program
 
         fwd, sample = self.fwd, self.sample
@@ -196,7 +198,7 @@ class _GenerateKey:
             return (tok,)
 
         return Program(step, [((self.B, 1), torch.int64), ((), torch.int64)],
-                       self.device, generator=gen)
+                       self.device, generator=gen, eager=self.eager)
 
     def cost(self):
         """One decode step's ``(flops, bytes)``, counted over a fresh zero
@@ -214,7 +216,7 @@ class _GenerateKey:
 
 def decode_loop(model, fwd, ids0, max_new_tokens, init_cache,
                 temperature=1.0, top_k=0, top_p=1.0, seed=None,
-                program_key=None):
+                program_key=None, eager=False):
     """Prefill + one step per new token over a cache of this call's.
 
     ``fwd(ids [B, S] int64, cache, pos) -> (last-token logits f32 [B, V],
@@ -227,7 +229,8 @@ def decode_loop(model, fwd, ids0, max_new_tokens, init_cache,
     The prefill runs eagerly; the step is a
     :class:`~paddle_tpu_torch.jit.graphs.Program` over the cache (on the
     card: the first step eager and captured as a CUDA graph, every later
-    step a replay).  Cache, graph and its pool are freed on return.
+    step a replay; ``eager=True``, a step with collectives, runs every
+    step eagerly).  Cache, graph and its pool are freed on return.
 
     ``program_key`` names everything the step is specialized on
     (``generate()``'s ``(cache_impl, B, S0, T, ..., sampling, training)``):
@@ -248,7 +251,8 @@ def decode_loop(model, fwd, ids0, max_new_tokens, init_cache,
     store = program_store(model) if program_key is not None else None
     warm = store is not None and program_key in store
     ent = _GenerateKey(fwd, init_cache,
-                       make_sampler(temperature, top_k, top_p), B, S0, device)
+                       make_sampler(temperature, top_k, top_p), B, S0, device,
+                       eager)
     if store is not None:
         if warm:
             # keep the mint's walls; the closures are this call's
@@ -307,7 +311,7 @@ def decode_loop(model, fwd, ids0, max_new_tokens, init_cache,
 
 def jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape, cache_dtype,
                   temperature=1.0, top_k=0, top_p=1.0, seed=None,
-                  program_key=None):
+                  program_key=None, eager=False):
     """Dense-cache decode: zeroed K/V buffers ``cache_shape`` ``[L, B, T,
     h, d]`` on the model's device; ``fwd(ids, ks, vs, pos) -> (logits, ks,
     vs)``.  The name is the TPU package's; nothing is compiled here."""
@@ -324,7 +328,7 @@ def jitted_decode(model, fwd, ids0, max_new_tokens, cache_shape, cache_dtype,
 
     return decode_loop(model, fwd_cache, ids0, max_new_tokens, init_cache,
                        temperature=temperature, top_k=top_k, top_p=top_p,
-                       seed=seed, program_key=program_key)
+                       seed=seed, program_key=program_key, eager=eager)
 
 
 def cached_decode(model, run, ids0, max_new_tokens, cache_shape, cache_dtype,

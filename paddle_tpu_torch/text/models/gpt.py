@@ -345,12 +345,13 @@ class GPTForCausalLM(torch.nn.Module):
         ``seed``.  ``use_cache=False``: the eager full-prefix loop, sampled
         on the host from ``np.random.RandomState(seed)``.
         ``decode_strategy="beam_search"``: :func:`_decode.beam_search`.
-        Not under tensor parallelism: the serving mesh is a later part of
-        ROADMAP Queue 1 item 9."""
-        if getattr(self.gpt.word_embeddings, "group", None) is not None:
-            raise NotImplementedError(
-                "generate() under tensor parallelism (mp > 1) waits for the "
-                "serving mesh, a later part of ROADMAP Queue 1 item 9")
+
+        Under tensor parallelism (``fleet`` with mp > 1) every rank of the
+        mp group calls it with the same ids: the caches hold the rank's
+        heads (K1 / K3 on them), the vocab-parallel head's logits are
+        gathered, so each rank samples the same tokens from its generator
+        seeded alike; the decode step runs eagerly (a collective cannot be
+        captured in a CUDA graph)."""
         if decode_strategy == "beam_search":
             from ._decode import beam_search
 
@@ -376,18 +377,25 @@ class GPTForCausalLM(torch.nn.Module):
         gpt = self.gpt
         blk = gpt.layers[0]
         w = gpt.word_embeddings.weight
+        group = getattr(gpt.word_embeddings, "group", None)
 
         def run(ids, cache, pos):
             S = ids.shape[1]
             pos_ids = pos + torch.arange(S, device=ids.device)[None, :]
             x, _ = gpt(ids, position_ids=pos_ids, cache=cache)
-            return x[:, -1].float() @ w.float().T
+            logits = x[:, -1].float() @ w.float().T
+            if group is not None:
+                from ...distributed.fleet.meta_parallel.mp_layers import \
+                    gather_from_mp
+
+                logits = gather_from_mp(logits, group)
+            return logits
 
         return cached_decode(
             self, run, ids0, max_new_tokens,
-            (len(gpt.layers), B, T, blk.num_heads, blk.head_dim), w.dtype,
+            (len(gpt.layers), B, T, local_heads(blk), blk.head_dim), w.dtype,
             cache_impl, page_size, temperature=temperature, top_k=top_k,
-            top_p=top_p, seed=seed)
+            top_p=top_p, seed=seed, eager=group is not None)
 
     def _generate_eager(self, input_ids, max_new_tokens=32, temperature=1.0,
                         top_k=0, top_p=1.0, seed=None):
@@ -434,6 +442,117 @@ class GPTForCausalLM(torch.nn.Module):
                                     for i in range(p.shape[0])])
             ids = np.concatenate([ids, nxt[:, None]], axis=1)
         return torch.as_tensor(ids, device=dev)
+
+
+def local_heads(blk):
+    """The heads a decoder block computes: all of them, or this rank's
+    under tensor parallelism (its qkv holds whole head triples)."""
+    w = getattr(blk.qkv, "weight", None)
+    if w is None:
+        w = blk.qkv.weight_int8
+    return w.shape[0] // (3 * blk.head_dim)
+
+
+# ------------------------------------------------------- the serving mesh
+# Megatron placement of each block parameter: which dim of the RAW weight
+# is split over the model axis, in the reference's paddle [in, out] layout
+# (None = replicated).  The port's Linear stores torch's [out, in], so
+# mp_param_specs flips every weight's dim.
+_TP_DIM = {
+    "qkv.weight": 1, "qkv.bias": 0,
+    "ffn1.weight": 1, "ffn1.bias": 0,
+    "out_proj.weight": 0, "ffn2.weight": 0,
+}
+
+
+def mp_param_specs(axis="model"):
+    """Suffix -> per-dim spec (a tuple naming ``axis`` at the split dim,
+    None elsewhere: the reference's ``PartitionSpec`` as a plain tuple) for
+    Megatron tensor parallelism of a decoder block, in torch's layout:
+    qkv / ffn1 column-parallel (``[out, in]`` split on dim 0, bias on 0),
+    out_proj / ffn2 row-parallel (split on dim 1).  The qkv projection is
+    head-major, so a contiguous split hands each shard whole (q, k, v)
+    head triples, which the per-shard KV pools line up with.
+    ``weight_int8`` buffers (``Int8Linear``) split like the weights they
+    replace; anything unmatched (embeddings, LayerNorms, the row-parallel
+    biases, the tied head) is replicated."""
+    specs = {}
+    for name, dim in _TP_DIM.items():
+        if name.endswith(".weight"):
+            entries = [None, None]
+            entries[1 - dim] = axis
+            specs["." + name] = specs["." + name + "_int8"] = tuple(entries)
+        else:
+            specs["." + name] = (axis,)
+    return specs
+
+
+class RowParallelShard(torch.nn.Module):
+    """A row-parallel projection of a serving shard: this rank's input
+    columns (``inner``, a ``Linear`` or ``Int8Linear`` without its bias),
+    the partial products summed over the mesh's group, then the
+    replicated ``bias``.  ``group`` (a :class:`~...serving.mesh.MeshGroup`)
+    is attached in each rank's process; without one the layer is its
+    shard's plain product."""
+
+    def __init__(self, inner, bias):
+        super().__init__()
+        self.inner = inner
+        self.bias = bias
+        self.group = None
+
+    def forward(self, x):
+        y = self.inner(x)
+        if self.group is not None:
+            y = self.group.all_reduce(y)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def mp_shard(model, mp, rank, device=None, axis="model"):
+    """Shard ``rank`` of ``mp`` of a :class:`GPTForCausalLM`, for the
+    serving mesh: a copy of the model holding only its slice of every
+    split tensor (:func:`mp_param_specs`) and the replicated rest, made on
+    ``device`` (default: the model's), the row-parallel projections in
+    :class:`RowParallelShard`.  An ``Int8Linear``'s payload is sliced, its
+    per-tensor scale kept: the full weight is quantized once, never a
+    shard on its own.  The full model is read, never changed."""
+    import copy
+    import itertools
+
+    specs = mp_param_specs(axis)
+    memo = {}
+    for name, t in itertools.chain(model.named_parameters(),
+                                   model.named_buffers()):
+        if id(t) in memo:
+            continue
+        spec = next((sp for suf, sp in specs.items() if name.endswith(suf)),
+                    None)
+        part = t.detach()
+        if spec is not None:
+            part = part.chunk(mp, dim=spec.index(axis))[rank]
+        part = part.to(device).clone() if device is not None \
+            else part.clone()
+        if isinstance(t, torch.nn.Parameter):
+            part = type(t)(part, requires_grad=t.requires_grad)
+        memo[id(t)] = part
+    shard = copy.deepcopy(model, memo)
+    for blk in shard.gpt.layers:
+        for name in ("out_proj", "ffn2"):
+            lin = getattr(blk, name)
+            bias = lin.bias
+            lin.bias = None
+            setattr(blk, name, RowParallelShard(lin, bias))
+    return shard
+
+
+def attach_mesh_group(shard, group):
+    """Give a shard's row-parallel projections (and their ``Int8Linear``'s
+    dynamic activation absmax) the rank's mesh group."""
+    for m in shard.modules():
+        if isinstance(m, RowParallelShard):
+            m.group = group
+            if hasattr(m.inner, "absmax_group"):
+                m.inner.absmax_group = group
 
 
 # ---------------------------------------------------------------- pipeline

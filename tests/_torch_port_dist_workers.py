@@ -469,6 +469,36 @@ def gpt_hybrid(state, ids, cfg, steps, lr):
     return out
 
 
+def gpt_generate_mp(state, ids, cfg, new, page_size):
+    """``generate()`` on this rank of an mp = 2 fleet world: greedy dense,
+    paged and no-cache ids, a sampled paged run and beam search, and the
+    heads this rank's caches hold."""
+    import torch
+
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              load_paddle_tpu_state_dict)
+    from paddle_tpu_torch.text.models.gpt import local_heads
+
+    hcg = _fleet(mp=2)
+    model = GPTForCausalLM(device="cpu", **cfg).eval()
+    load_paddle_tpu_state_dict(model, state)
+    x = torch.from_numpy(ids)
+    kw = dict(max_new_tokens=new, page_size=page_size)
+    out = {"mp_rank": hcg.get_model_parallel_rank(),
+           "heads": local_heads(model.gpt.layers[0]),
+           "dense": model.generate(x, temperature=0.0, **kw),
+           "paged": model.generate(x, temperature=0.0, cache_impl="paged",
+                                   **kw),
+           "sampled": model.generate(x, temperature=0.8, top_k=8, seed=3,
+                                     cache_impl="paged", **kw),
+           "no_cache": model.generate(x, temperature=0.0, use_cache=False,
+                                      max_new_tokens=new),
+           "beam": model.generate(x, decode_strategy="beam_search",
+                                  num_beams=2, max_new_tokens=new)}
+    _unfleet()
+    return {k: _np(v) if torch.is_tensor(v) else v for k, v in out.items()}
+
+
 def gpt_norm(state, ids, cfg, dp=2, mp=2):
     """The loss and the global gradient norm that ClipGradByGlobalNorm
     takes at ``dp`` x ``mp`` after one backward of the mean next-token

@@ -297,16 +297,19 @@ def test_router_adapter_affinity():
 # =================================================================== pool
 def test_pool_placement():
     """``devices="auto"`` is every visible card (raises without one), an
-    explicit list is taken as given, ``mp=`` / submeshes wait for the
-    engine's ``mesh=``; ids are monotonic under add / remove."""
+    explicit list is taken as given, ``mp=`` carves the visible cards
+    (raises without one) and 1-device submeshes are plain replicas (the
+    mesh engines themselves: ``test_torch_port_serving_mp.py``); ids are
+    monotonic under add / remove."""
     mdl = GPTForCausalLM(device="cpu", **CFG)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            ReplicaPool(mdl, devices="auto", page_size=PS,
-                        max_model_len=MAXLEN)
-    for kw in ({"mp": 2}, {"devices": [["cpu"], ["cpu"]]}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ReplicaPool(mdl, page_size=PS, max_model_len=MAXLEN, **kw)
+        for kw in ({"devices": "auto"}, {"mp": 2}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                ReplicaPool(mdl, page_size=PS, max_model_len=MAXLEN, **kw)
+    subs = ReplicaPool(mdl, devices=[["cpu"], ["cpu"]], page_size=PS,
+                       max_model_len=MAXLEN, replica_prefix="sub/")
+    assert subs.meshes == [[torch.device("cpu")]] * 2
+    assert [e.stats()["mp"] for e in subs.engines] == [1, 1]
     pool = ReplicaPool(mdl, devices=["cpu", "cpu"], page_size=PS,
                        max_model_len=MAXLEN, replica_prefix="pp/")
     assert len(pool) == 2 and pool.replica_ids == ["pp/0", "pp/1"]

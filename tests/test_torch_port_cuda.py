@@ -31,7 +31,9 @@ CPU, an unmasked ``TransformerEncoder``'s K1 / K2 launches under
 the CPU and a ViT's K1 / K2 launches per block under an O2 step;
 a world of one over NCCL and the mp = 2 layers in two gloo rank
 processes on the one card; a stage hop of card tensors and GPT-tiny's
-pp = 2 pipe in two gloo rank processes against one process.  Marked ``cuda``; every test
+pp = 2 pipe in two gloo rank processes against one process; the serving
+mesh (a leader and a follower process on the one card) against the
+mp = 1 engine.  Marked ``cuda``; every test
 skips (from the ``cuda`` fixture) where no card is present.  Run on a
 machine with an NVIDIA Hopper card (``--noconftest``: these tests need no
 JAX, and that machine may have none):
@@ -2759,3 +2761,62 @@ def test_pipeline_two_stages_on_card(cuda, tmp_path):
         k1 = 2 * 2 * (3 if got["stage"] == 0 else 2)
         assert got["launches"] == [k1, 4, 4], got["launches"]
 
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_mesh_engine_two_ranks_on_card(cuda, kv_dtype):
+    """``ServingEngine(mesh=["cuda:0"] * 2)``: a leader and a follower
+    process on the one card over gloo.  A tiny GPT's greedy ids equal the
+    mp = 1 card engine's and the CPU's; both ranks launch K1 and the
+    pools' decode kernel (K3, or K4 over int8 pools) alike, each over its
+    one head; no follower outlives the engine."""
+    import multiprocessing
+
+    torch.manual_seed(0)
+    model = GPTForCausalLM(device="cpu", vocab_size=96, hidden_size=32,
+                           num_hidden_layers=2, num_attention_heads=2,
+                           max_position_embeddings=64).eval()
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(1, 96, (n,)).tolist() for n in (3, 8, 13, 16)]
+
+    def serve(**kw):
+        m = model if "mesh" in kw else copy.deepcopy(model)
+        with ServingEngine(m, num_slots=3, page_size=8, max_model_len=64,
+                           kv_dtype=kv_dtype, **kw) as eng:
+            rows = eng.mesh_stats(reset=True)
+            hs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            out = [h.result(timeout=300) for h in hs]
+            if rows is not None:
+                rows = eng.mesh_stats()
+                pids = [p.pid for p in eng._mesh.procs]
+        if rows is not None:
+            live = {p.pid for p in multiprocessing.active_children()}
+            assert not set(pids) & live
+        return out, rows
+
+    cpu, _ = serve(device="cpu")
+    card, _ = serve(device="cuda")
+    mesh, rows = serve(mesh=["cuda:0", "cuda:0"])
+    assert mesh == card == cpu
+    decode = "k4" if kv_dtype else "k3"
+    assert rows[0]["launches"] == rows[1]["launches"]
+    assert rows[0]["launches"]["k1"] > 0 and rows[0]["launches"][decode] > 0
+    assert all(s[3] == 1 for r in rows for s in r["pool_shapes"])
+    assert rows[1]["mesh"]["calls"] == rows[0]["mesh"]["calls"] > 0
+
+
+def test_init_parallel_env_takes_cuda_without_an_index(cuda):
+    """``init_parallel_env(device="cuda")`` (what the examples pass on the
+    card) joins a world of one on the rank's card, as ``device=None``
+    does, instead of handing ``set_device`` a device without an index."""
+    import paddle_tpu_torch.distributed as dist
+
+    made = not torch.distributed.is_initialized()
+    dist.init_parallel_env(device="cuda")
+    try:
+        assert dist.env.device() == torch.device("cuda", 0)
+        x = torch.ones(4, device="cuda")
+        assert dist.all_reduce(x).tolist() == [1.0] * 4
+    finally:
+        if made:
+            dist.destroy_process_group()

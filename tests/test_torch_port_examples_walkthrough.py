@@ -1,8 +1,9 @@
 """PyTorch port, the walkthrough examples (``paddle_tpu_torch/examples/``:
 numerics_debugging, serve_gpt_continuous, serve_gpt_speculative,
 serve_gpt_prefix_cache, serve_gpt_quantized, observability_metrics,
-observability_perf), each run through ``main(device="cpu")`` and held to
-the reference example's own asserts.
+observability_perf, serve_gpt_mp, observability_tracing), each run
+through ``main(device="cpu")`` and held to the reference example's own
+asserts.
 
 Held against the JAX example (imported by path, ``examples/`` is not a
 package) where that example runs in seconds on the CPU and its outputs
@@ -12,7 +13,15 @@ do not depend on weights the two packages draw differently:
   offending layer, the supervisor's attempts and restart counts;
 - ``serve_gpt_prefix_cache``: each arm's prefix-cache accounting (hits,
   misses, evictions, saved tokens) and the spill tier's counters, the JAX
-  engines on replicas of their own.
+  engines on replicas of their own;
+- ``observability_tracing``: each request's spans, the decode iterations,
+  the merged trace's events and the watchdog's flight record, against
+  the reference script's printed results (run in a subprocess: it runs at
+  import, on engine replica "0").
+
+``serve_gpt_mp`` is held to what its reference prints (byte-identity,
+the bytes-per-page ratio, ``shards``, one decode mint): the two packages
+draw random weights differently.
 
 The others are held to the port's invariants: greedy byte-identity
 across arms (speculative, prefix cache), int8 top-1 agreement and pool
@@ -197,3 +206,78 @@ def test_observability_perf():
     assert "Per-program roofline attribution" in got["report"]
     assert "train_step/" in got["report"]
     assert telemetry.get_server() is before         # stopped what it started
+
+
+def test_serve_gpt_mp_matches_the_reference_claims():
+    """What the reference example prints on its two forced host devices:
+    greedy ids byte-identical to the unsharded engine, half the bytes per
+    page (twice the pages at one budget), ``shards=2``, one decode mint,
+    and a pool of one mp = 2 replica giving the same ids."""
+    from paddle_tpu_torch.examples import serve_gpt_mp as ex
+
+    got = ex.main(device="cpu")
+    assert got["out"] == got["ref"] and got["mp"] == 2
+    assert len({tuple(o) for o in got["ref"]}) > 1
+    bpp1, bpp2 = got["bytes_per_page"]
+    assert bpp1 == 2 * bpp2
+    # a budget of 64 unsharded pages: 4 sequences of 16 pages unsharded
+    assert got["shards"] == 2 and got["resident"] == 2 * (64 // 16)
+    assert got["step_traces"] == 1
+    assert got["pool"] == (1, 2) and got["pool_out"] == got["ref"][0]
+
+
+def _reference_tracing_output(tmp_path):
+    """The reference example's printed results (run as a script: it runs
+    at import and forces its own host devices)."""
+    import os
+    import re
+    import subprocess
+    import sys
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", TMPDIR=str(tmp_path),
+               PYTHONPATH=os.pathsep.join([str(ROOT),
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "observability_tracing.py")],
+        capture_output=True, text=True, timeout=600, env=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+
+    def one(pattern):
+        return re.search(pattern, out).group(1)
+
+    return {
+        "spans": {int(m.group(1)): eval(m.group(2)) for m in re.finditer(
+            r"request (\d+): trace \S+ (\[.*\])", out)},
+        "decode_steps": int(one(r"(\d+) decode iterations")),
+        "merged_events": int(one(r"merged timeline events: (\d+)")),
+        "op": one(r"watchdog fired: op=(\w+)"),
+        "open_spans": eval(one(r"open spans at dump: (\[.*\])"))}
+
+
+def test_observability_tracing_matches_reference(tmp_path):
+    """The merged trace's events, each request's spans and the decode
+    iterations equal the reference example's; the watchdog fires on the
+    hung ``all_reduce`` (a world of one here: no rank is missing; the
+    reference's single-controller world has 8) and the flight record
+    holds the collective's open span, as there."""
+    from paddle_tpu_torch.examples import observability_tracing as ex
+
+    rec = flight_recorder.get_flight_recorder()
+    saved, before = rec.dir, telemetry.get_server()
+    try:
+        got = ex.main(device="cpu", out_dir=str(tmp_path / "port"))
+    finally:
+        rec.dir = saved
+    want = _reference_tracing_output(tmp_path)
+    assert got["spans"] == want["spans"]
+    assert got["decode_steps"] == want["decode_steps"]
+    assert got["merged_events"] == want["merged_events"]
+    assert got["watchdog"]["op"] == want["op"] == "all_reduce"
+    assert got["watchdog"]["ranks_missing"] == []
+    assert got["open_spans"] == want["open_spans"] \
+        == ["collective.all_reduce"]
+    assert got["routes"] == {"/healthz": 200, "/statusz": 200}
+    assert got["all_reduce"] == [[1.0] * 4] * 8       # a world of one
+    assert telemetry.get_server() is before
+    assert not torch.distributed.is_initialized()

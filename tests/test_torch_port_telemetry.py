@@ -7,10 +7,9 @@ JAX engine's endpoint on the same traffic.
 - ``/healthz`` answers the JAX server's codes through healthy, degraded
   and draining, with ``health_gating`` on and off;
 - ``/statusz`` has the reference's top-level keys and the engine
-  section's, except the keys the port leaves out by design:
-  ``step_traces`` (a JAX program-trace count), ``mp`` and
-  ``pool_shard_bytes_by_dtype`` (the tensor-parallel mesh; the port has
-  no ``mesh=``);
+  section's (``mp`` and ``pool_shard_bytes_by_dtype`` included), except
+  the key the port leaves out by design: ``step_traces`` (a JAX
+  program-trace count);
 - the server starts from ``telemetry_port`` or ``PADDLE_TELEMETRY_PORT``,
   stops with the engine that started it, and a port already in use is
   logged while the engine serves on.
@@ -48,7 +47,7 @@ PS = 8
 MAXLEN = 64
 
 # engine-section keys of the reference's /statusz the port leaves out
-_LEFT_OUT = {"step_traces", "mp"}
+_LEFT_OUT = {"step_traces"}
 
 
 def tiny_jax_gpt(train_steps=5, seed=0):
@@ -215,8 +214,10 @@ def test_statusz_keys_match_the_reference(scraped):
     assert t["collective_watchdog"] is None
     js, ts = j["serving/j-tel"], t["serving/t-tel"]
     assert js.keys() - ts.keys() <= _LEFT_OUT, js.keys() - ts.keys()
-    assert js["memory"].keys() - ts["memory"].keys() \
-        == {"pool_shard_bytes_by_dtype"}
+    assert js["memory"].keys() - ts["memory"].keys() == set()
+    assert ts["mp"] == js["mp"] == 1
+    assert ts["memory"]["pool_shard_bytes_by_dtype"] \
+        == js["memory"]["pool_shard_bytes_by_dtype"]
     for k in ("num_slots", "num_pages", "bytes_per_page", "kv_dtype",
               "pool_dtype", "started"):
         assert ts[k] == js[k], k
